@@ -1,0 +1,305 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (duckdb_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the result lines):
+1. the card's name and power limit, torch/CUDA versions; build every
+   kernel from csrc/ and print nvcc's -Xptxas -v report;
+2. generate TPC-H lineitem at SF1 from a fixed seed (data/, ignored by
+   git) and load it with duckdb_tpu_torch.connect().load_tpch();
+3. the main path: TPC-H Q1 (bench.py's text) once through the port's
+   entry points with every kernel launch count reset just before and read
+   just after; its rows are checked against an independent numpy group-by
+   of the generated files (DECIMAL exact, DOUBLE within 1e-9 relative);
+4. each kernel against its plain PyTorch version on the card, exactly
+   equal, on the inputs the main path gave it and on edge cases (one and
+   256 slots, 1 to 40 vectors, negatives, dead ids, sums that wrap);
+5. timings with CUDA events at the main path's shapes (kernel, plain
+   version, one library call, and the least time the card could take),
+   and Q1's median of 5 warm runs after 1 warm-up, as rows/s.
+
+The last two lines are the kernels JSON and {"ok": true, "device": ...}.
+Imports nothing of JAX or duckdb_tpu.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SF = 1.0
+SEED = 0
+DATA = os.path.join(ROOT, "data", f"tpch_gen_sf{SF:g}_seed{SEED}")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet), the
+# data sheet's only CUDA-core rate; int64 adds issue no faster, so it
+# gives a lower bound on their time
+CUDA_CORE_OPS_PER_S = 67e12
+
+# bench.py's Q1 text
+Q1 = """
+SELECT l_returnflag, l_linestatus, sum(l_quantity) AS sum_qty,
+  sum(l_extendedprice) AS sum_base_price,
+  sum(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
+  sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
+  avg(l_quantity) AS avg_qty, avg(l_extendedprice) AS avg_price,
+  avg(l_discount) AS avg_disc, count(*) AS count_order
+FROM lineitem
+WHERE l_shipdate <= CAST('1998-09-02' AS date)
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus
+"""
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    return 1
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def numpy_q1(data_dir: str):
+    """Q1 over the generated files with numpy alone → rows as Q1 returns them."""
+    import datetime
+    import decimal
+
+    import numpy as np
+
+    t = os.path.join(data_dir, "lineitem")
+
+    def i64(name):
+        return np.fromfile(os.path.join(t, name + ".i64"), dtype=np.int64)
+
+    def flag(name):  # one-character VARCHAR → its characters
+        return np.fromfile(os.path.join(t, name + ".bytes"), dtype="S1")
+
+    qty, price = i64("l_quantity"), i64("l_extendedprice")
+    disc, tax = i64("l_discount"), i64("l_tax")
+    ship = np.fromfile(os.path.join(t, "l_shipdate.i32"), dtype=np.int32)
+    rf, ls = flag("l_returnflag"), flag("l_linestatus")
+    keep = ship <= (datetime.date(1998, 9, 2) - datetime.date(1970, 1, 1)).days
+    rows = []
+    for r in sorted(set(rf[keep].tolist())):
+        for s in sorted(set(ls[keep].tolist())):
+            m = keep & (rf == r) & (ls == s)
+            cnt = int(m.sum())
+            if not cnt:
+                continue
+            sq, sp = int(qty[m].sum()), int(price[m].sum())
+            sd = int((price[m] * (100 - disc[m])).sum())
+            sc = int((price[m] * (100 - disc[m]) * (100 + tax[m])).sum())
+            dec = decimal.Decimal
+            rows.append((r.decode(), s.decode(), dec(sq).scaleb(-2), dec(sp).scaleb(-2),
+                         dec(sd).scaleb(-4), dec(sc).scaleb(-6),
+                         float(sq) / (cnt * 100.0), float(sp) / (cnt * 100.0),
+                         float(int(disc[m].sum())) / (cnt * 100.0), cnt))
+    return rows
+
+
+def rows_match(got, want) -> str:
+    """'' when the rows agree (DECIMAL/str/int exact, float 1e-9 relative)."""
+    if len(got) != len(want):
+        return f"{len(got)} rows, expected {len(want)}"
+    for i, (g, w) in enumerate(zip(got, want)):
+        for j, (a, b) in enumerate(zip(g, w)):
+            if isinstance(b, float):
+                ok = abs(a - b) <= 1e-9 * max(abs(b), 1e-300)
+            else:
+                ok = a == b and type(a) is type(b)
+            if not ok:
+                return f"row {i} column {j}: {a!r} != {b!r}"
+    return ""
+
+
+def cuda_ms(fn, reps: int) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(got, want) -> int:
+    """Largest |difference| over the K result vectors (0 when all equal)."""
+    import torch
+
+    errs = [0]
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            errs.append(max(1, abs(int((g - w).abs().max()))))
+    return max(errs)
+
+
+def edge_cases(device):
+    """(name, dense, vectors, nseg) inputs that stress the kernel's contract."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    cases = []
+    for n, nseg, k in ((1 << 20, 1, 1), (1 << 20, 1, 24), (1 << 20, 256, 1),
+                       (1 << 20, 256, 24), (1 << 20, 256, 40), (1000, 20, 15)):
+        dense = torch.randint(-1, nseg + 2, (n,), generator=gen, dtype=torch.int32)
+        dead = (dense < 0) | (dense >= nseg)
+        vecs = []
+        for j in range(k):
+            # full-range values wrap; small negatives stay exact
+            hi = 2**63 - 1 if j % 2 == 0 else 2**20
+            v = torch.randint(-hi, hi, (n,), generator=gen, dtype=torch.int64)
+            vecs.append(torch.where(dead, 0, v).to(device))
+        cases.append((f"n={n} nseg={nseg} K={k}", dense.to(device), vecs, nseg))
+    return cases
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        return fail("torch is not installed")
+    if not torch.cuda.is_available():
+        return fail("no CUDA device: this script runs only on a GPU host")
+    sys.path.insert(0, ROOT)
+    try:
+        import duckdb_tpu_torch
+        from duckdb_tpu_torch.ops import grouped as grouped_mod
+        from duckdb_tpu_torch.ops import grouped_sum as GS
+        from duckdb_tpu_torch.testing.tpch_gen import write_lineitem
+    except ImportError as err:
+        return fail(f"the port is not beside this script ({err})")
+    device = torch.device("cuda")
+
+    # 1. card, versions, build
+    card = card_line()
+    print(card)
+    print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    GS.build(force=True)
+    print(f"built {GS.LIBRARY} in {time.perf_counter() - t0:.1f} s; nvcc -Xptxas -v:")
+    print(GS.build_log.strip())
+
+    # 2. data
+    t0 = time.perf_counter()
+    if not os.path.exists(os.path.join(DATA, "lineitem", "meta.json")):
+        write_lineitem(DATA, SF, SEED)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(DATA)
+    nrows = con.catalog.get_table("lineitem").nrows
+    print(f"data: lineitem SF{SF:g} seed {SEED}, {nrows} rows, "
+          f"{time.perf_counter() - t0:.1f} s to generate and register")
+
+    # 3. the main path, with the kernel's inputs recorded for phase 4
+    recorded = []
+
+    def recording(dense, vectors, nseg):
+        recorded.append((dense, list(vectors), nseg))
+        return GS.grouped_sum_i64(dense, vectors, nseg)
+
+    grouped_mod.grouped_sum_i64 = recording
+    GS.grouped_sum_i64.launches = 0
+    t0 = time.perf_counter()
+    got = con.sql(Q1).rows()
+    torch.cuda.synchronize()
+    launches = GS.grouped_sum_i64.launches
+    first_s = time.perf_counter() - t0
+    grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    if launches < 1:
+        return fail("Q1 did not launch the grouped_sum_i64 kernel")
+    if any(d.device.type != "cuda" for d, _, _ in recorded):
+        return fail("the grouped sum ran on a tensor off the card")
+    want = numpy_q1(DATA)
+    bad = rows_match(got, want)
+    if bad:
+        return fail(f"Q1 rows differ from the numpy reference: {bad}")
+    dense_q1, vecs_q1, nseg_q1 = recorded[-1]
+    n_q1, k_q1 = dense_q1.shape[0], len(vecs_q1)
+    print(f"Q1 (first run, columns load to the card): {first_s:.3f} s, {len(got)} rows "
+          f"match numpy; grouped_sum_i64 launches {launches}, shape N={n_q1} "
+          f"K={k_q1} nseg={nseg_q1}")
+    for r in got:
+        print("  ", r)
+
+    # 4. kernel against its plain version, exactly
+    worst = 0
+    for name, dense, vecs, nseg in [("Q1 inputs", dense_q1, vecs_q1, nseg_q1)] \
+            + edge_cases(device):
+        err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
+                          GS.grouped_sum_i64_plain(dense, vecs, nseg))
+        torch.cuda.synchronize()
+        print(f"kernel vs plain, {name}: max abs err {err}")
+        if err:
+            return fail(f"grouped_sum_i64 disagrees with its plain version on {name}")
+        worst = max(worst, err)
+
+    # 5. timings at the Q1 shape
+    d64 = dense_q1.to(torch.int64)
+    d64 = torch.where((d64 < 0) | (d64 >= nseg_q1), nseg_q1, d64)
+    mat = torch.stack(vecs_q1, dim=1)
+    acc = torch.zeros((nseg_q1 + 1, k_q1), dtype=torch.int64, device=device)
+    reps = 50
+    kernel_ms = cuda_ms(lambda: GS.grouped_sum_i64(dense_q1, vecs_q1, nseg_q1), reps)
+    plain_ms = cuda_ms(lambda: GS.grouped_sum_i64_plain(dense_q1, vecs_q1, nseg_q1), reps)
+    library_ms = cuda_ms(lambda: acc.index_add_(0, d64, mat), reps)
+    kernel_ms2 = cuda_ms(lambda: GS.grouped_sum_i64(dense_q1, vecs_q1, nseg_q1), reps)
+    # what this run's data needs: every slot id, the K values of live rows
+    # only (dead rows contribute nothing), the (nseg, K) output once; one
+    # int64 add per live value
+    n_live = int(((dense_q1 >= 0) & (dense_q1 < nseg_q1)).sum())
+    bytes_moved = n_q1 * 4 + n_live * 8 * k_q1 + nseg_q1 * k_q1 * 8
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_live * k_q1 / CUDA_CORE_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"grouped_sum_i64 at N={n_q1} ({n_live} live) K={k_q1} nseg={nseg_q1} on "
+          f"{card}: kernel {kernel_ms:.4f} ms (again {kernel_ms2:.4f}), plain "
+          f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"by {bound_by} ({bytes_moved} bytes at 3.35 TB/s = {bytes_ms:.4f} ms; "
+          f"{n_live * k_q1} int64 adds at 67 T/s = {ops_ms:.4f} ms)")
+
+    times = []
+    for i in range(6):
+        t0 = time.perf_counter()
+        rows = con.sql(Q1).rows()
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+        if rows != got:
+            return fail("Q1 rows changed between runs")
+    med = statistics.median(times)
+    print(f"Q1 SF{SF:g} on {card}: median of 5 warm runs {med * 1e3:.3f} ms "
+          f"(runs {', '.join(f'{t * 1e3:.3f}' for t in times)} ms), "
+          f"{nrows / med:.0f} rows/s")
+
+    print(json.dumps({"kernels": [{
+        "name": "grouped_sum_i64", "route": "cuda",
+        "source": "duckdb_tpu_torch/csrc/grouped_sum.cu",
+        "replaces": "duckdb_tpu/ops/pallas_agg.py:182",
+        "launches": launches, "launches_per_q1": launches,
+        "max_abs_err": worst, "ms": kernel_ms, "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

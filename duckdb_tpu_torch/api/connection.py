@@ -1,0 +1,62 @@
+"""Connection: the entry point of the port.
+
+`connect(database=":memory:", device=None)` opens an in-memory database
+whose columns and intermediates all live on `device` (default "cuda").
+This slice runs SELECT statements over tables registered with
+`load_tpch`; DDL, DML, persistence and the rest of the JAX package's
+Connection surface come with later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from duckdb_tpu_torch.catalog.catalog import Catalog
+from duckdb_tpu_torch.execution.executor import Executor, Result
+from duckdb_tpu_torch.planner.bound import not_ported
+from duckdb_tpu_torch.planner.planner import Planner
+from duckdb_tpu_torch.sql import nodes as N
+from duckdb_tpu_torch.sql.parser import Parser
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "duckdb_tpu_torch.connect(): no CUDA device is available; pass "
+            "device=\"cpu\" to run on the CPU")
+    return dev
+
+
+class Connection:
+    def __init__(self, database: str = ":memory:", device=None):
+        if database not in (":memory:", ""):
+            raise not_ported("persistent databases")
+        self.database = database
+        self.device = _resolve_device(device)
+        self.catalog = Catalog(device=self.device)
+        # plan cache: SQL text → (plan, output)
+        self._plan_cache = {}
+
+    def sql(self, query: str) -> Result:
+        """Execute one SELECT statement and return its Result."""
+        stmts = Parser(query).parse_statements()
+        if len(stmts) != 1 or not isinstance(stmts[0], N.SelectStatement):
+            raise not_ported("statements other than a single SELECT")
+        cached = self._plan_cache.get(query)
+        if cached is None:
+            cached = Planner(self.catalog).plan_select(stmts[0])
+            self._plan_cache[query] = cached
+        plan, output = cached
+        return Executor(self.catalog).run(plan, output)
+
+    def load_tpch(self, data_dir: str):
+        """Register the TPC-H tables of a dbgen_tbl directory (lazy columns)."""
+        from duckdb_tpu_torch.catalog.tpch import register_tpch
+
+        register_tpch(self.catalog, data_dir)
+        self._plan_cache.clear()
+
+
+def connect(database: str = ":memory:", device=None) -> Connection:
+    return Connection(database, device=device)

@@ -1,0 +1,104 @@
+"""Columnar device blocks: duckdb's Vector/DataChunk as padded torch tensors.
+
+duckdb flows 2048-row DataChunks between interpreted operators
+(duckdb/src/include/duckdb/common/types/data_chunk.hpp:44). Here, as in the
+JAX package, a Column is a whole table column as one padded tensor on the
+connection's device, and a Batch is a set of equal-length Columns plus one
+shared row mask: the (data, validity, selection) triple of duckdb's
+UnifiedVectorFormat, with selection kept as a mask.
+
+Padding: lengths round up to the JAX package's size buckets (`pad_bucket`)
+so that padded lengths, and with them dense slot counts and output
+capacities, match the reference row for row.
+
+VARCHAR columns are dictionary-encoded: `data` holds int32 codes into the
+host-side `dict_values` (a sorted np.ndarray of unique strings), so string
+ORDER BY and range predicates are code comparisons on the device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from duckdb_tpu_torch.types import LogicalType, torch_dtype_of
+
+
+def pad_bucket(n: int) -> int:
+    """Round n up to a padded capacity: multiple of 128, ~1/8 granularity."""
+    if n <= 128:
+        return 128
+    e = max(0, (n - 1).bit_length() - 3)  # granularity 2^e gives <= 12.5% waste
+    step = 1 << e
+    b = ((n + step - 1) // step) * step
+    return ((b + 127) // 128) * 128
+
+
+@dataclass
+class Column:
+    """One column: padded device tensor + optional validity plane.
+
+    data_hi: optional high-64-bit plane for values wider than int64
+    (HUGEINT / DECIMAL(>18) sums): value = data_hi·2⁶⁴ + uint64(data).
+    """
+
+    data: torch.Tensor  # shape (P,) padded physical values
+    ltype: LogicalType
+    validity: Optional[torch.Tensor] = None  # bool (P,); None = all valid
+    dict_values: Optional[np.ndarray] = None  # VARCHAR: sorted unique strings
+    data_hi: Optional[torch.Tensor] = None  # int64 (P,) high plane (wide values)
+
+    @property
+    def padded_len(self) -> int:
+        return self.data.shape[0]
+
+    @staticmethod
+    def from_numpy(
+        values: np.ndarray,
+        ltype: LogicalType,
+        validity: Optional[np.ndarray] = None,
+        dict_values: Optional[np.ndarray] = None,
+        pad_to: Optional[int] = None,
+        device="cpu",
+        dtype_override=None,
+    ) -> "Column":
+        n = len(values)
+        p = pad_to if pad_to is not None else pad_bucket(n)
+        np_dtype = dtype_override or ltype.np_dtype
+        data = torch.zeros(p, dtype=torch_dtype_of(np_dtype), device=device)
+        data[:n] = torch.from_numpy(np.ascontiguousarray(values, dtype=np_dtype)).to(device)
+        vmask = None
+        if validity is not None:
+            vmask = torch.zeros(p, dtype=torch.bool, device=device)
+            vmask[:n] = torch.from_numpy(np.ascontiguousarray(validity, dtype=np.bool_)).to(device)
+        return Column(data=data, ltype=ltype, validity=vmask, dict_values=dict_values)
+
+
+@dataclass
+class Batch:
+    """Equal-length columns + one shared row mask (the selection vector analog)."""
+
+    columns: Dict[str, Column]
+    nrows: int  # logical row count (<= padded_len)
+    mask: Optional[torch.Tensor] = None  # bool (P,); None = all first-nrows rows live
+
+    @property
+    def padded_len(self) -> int:
+        for c in self.columns.values():
+            return c.padded_len
+        return 0
+
+    def row_mask(self) -> torch.Tensor:
+        """Mask of live rows, always accounting for padding."""
+        p = self.padded_len
+        device = next(iter(self.columns.values())).data.device
+        base = torch.arange(p, device=device) < self.nrows
+        if self.mask is not None:
+            return base & self.mask
+        return base
+
+    def column(self, name: str) -> Column:
+        return self.columns[name]

@@ -1,0 +1,138 @@
+"""Catalog: tables, column metadata, and device residency.
+
+As in the JAX package, column data is host-resident numpy (the "disk
+tier") and is promoted lazily to padded tensors on the catalog's device
+(the device tier) on first query touch. This slice keeps no buffer-pool
+limit: a promoted column stays on the device until its table is replaced.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from duckdb_tpu_torch.blocks import Column, pad_bucket
+from duckdb_tpu_torch.types import LogicalType, TypeId
+
+
+@dataclass
+class ColumnStats:
+    min_val: Optional[object] = None
+    max_val: Optional[object] = None
+    n_unique: Optional[int] = None
+    has_nulls: bool = False
+
+
+@dataclass
+class ColumnDef:
+    name: str
+    ltype: LogicalType
+
+
+class TableEntry:
+    def __init__(self, name: str, columns: List[ColumnDef]):
+        self.name = name
+        self.columns = columns
+        self.col_types: Dict[str, LogicalType] = {c.name: c.ltype for c in columns}
+        self.nrows: int = 0
+        self.device = "cpu"  # set by Catalog.create_table
+        # host tier: name -> (np values, np validity|None, dict_values|None)
+        self._host: Dict[str, Tuple] = {}
+        self._loaders: Dict[str, Callable[[], Tuple]] = {}
+        # device tier
+        self._device: Dict[str, Column] = {}
+        self.stats: Dict[str, ColumnStats] = {}
+
+    # -- population -----------------------------------------------------------
+    def set_host_column(self, name, values, validity=None, dict_values=None):
+        self._host[name] = (values, validity, dict_values)
+        self._device.pop(name, None)
+        self._compute_stats(name)
+
+    def set_lazy_column(self, name, loader: Callable[[], Tuple]):
+        """loader() -> (values, validity, dict_values)"""
+        self._loaders[name] = loader
+
+    def host_column(self, name):
+        if name not in self._host and name in self._loaders:
+            values, validity, dict_values = self._loaders.pop(name)()
+            self._host[name] = (values, validity, dict_values)
+            self._compute_stats(name)
+        return self._host[name]
+
+    def device_column(self, name) -> Column:
+        if name not in self._device:
+            values, validity, dict_values = self.host_column(name)
+            ltype = self.col_types[name]
+            # width narrowing: store int64-typed columns as int32 planes when
+            # the zone-map range fits — halves device residency and the bytes
+            # every scan reads (compute still widens to int64)
+            if np.dtype(ltype.np_dtype) == np.int64 and len(values):
+                st = self.stats_for(name)
+                if (st.min_val is not None and st.max_val is not None
+                        and -2**31 < int(st.min_val)
+                        and int(st.max_val) < 2**31 - 1):
+                    values = values.astype(np.int32)
+            self._device[name] = Column.from_numpy(
+                values, ltype, validity=validity, dict_values=dict_values,
+                pad_to=pad_bucket(self.nrows), device=self.device,
+                dtype_override=values.dtype,
+            )
+        return self._device[name]
+
+    def _compute_stats(self, name):
+        values, validity, dict_values = self._host[name]
+        st = ColumnStats()
+        ltype = self.col_types[name]
+        if len(values):
+            if validity is not None:
+                st.has_nulls = bool(np.any(~validity))
+                live = values[validity] if st.has_nulls else values
+            else:
+                live = values
+            if len(live):
+                if ltype.id is TypeId.VARCHAR:
+                    st.n_unique = len(dict_values) if dict_values is not None else None
+                mn, mx = live.min(), live.max()
+                st.min_val = mn.item() if hasattr(mn, "item") else mn
+                st.max_val = mx.item() if hasattr(mx, "item") else mx
+        self.stats[name] = st
+
+    def stats_for(self, name) -> ColumnStats:
+        if name not in self.stats:
+            self.host_column(name)  # force load to compute
+        return self.stats.get(name, ColumnStats())
+
+
+def qualify(name: str) -> str:
+    """Catalog key for a (possibly schema-qualified) object name: lowered,
+    with the default schema prefix stripped ("main.t" ≡ "t")."""
+    key = name.lower()
+    if key.startswith("main."):
+        key = key[5:]
+    return key.replace("\x02", ".")
+
+
+class Catalog:
+    def __init__(self, device="cpu"):
+        self.device = device
+        self.tables: Dict[str, TableEntry] = {}
+
+    def create_table(self, entry: TableEntry, or_replace: bool = False):
+        key = qualify(entry.name)
+        entry.name = key
+        entry.device = self.device
+        if key in self.tables and not or_replace:
+            raise ValueError(f'table "{entry.name}" already exists')
+        self.tables[key] = entry
+
+    def get_table(self, name: str) -> TableEntry:
+        key = qualify(name)
+        if key not in self.tables:
+            raise ValueError(f'Table with name {name} does not exist!')
+        return self.tables[key]
+
+    def has_table(self, name: str) -> bool:
+        return qualify(name) in self.tables

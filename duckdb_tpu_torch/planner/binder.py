@@ -1,0 +1,492 @@
+"""Expression binder: parsed AST → typed BoundExpr against a name scope.
+
+Parallels the reference's ExpressionBinder family
+(duckdb/src/planner/expression_binder/) collapsed into one dispatcher, as
+in the JAX package. Aggregate calls are intercepted via a collector
+callback so the select/having binder can split pre- and post-aggregation
+computation. This slice binds what the TPC-H Q1 shape needs and the plain
+scalar core around it; an expression form or function the JAX package
+binds but this port does not yet raises a BindError saying so.
+"""
+
+from __future__ import annotations
+
+import datetime
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from duckdb_tpu_torch.blocks import Column
+from duckdb_tpu_torch.sql import nodes as N
+from duckdb_tpu_torch.planner import bound as B
+from duckdb_tpu_torch.planner import functions as F
+from duckdb_tpu_torch.planner.bound import not_ported
+from duckdb_tpu_torch.types import (
+    BIGINT,
+    BOOLEAN,
+    DATE,
+    DOUBLE,
+    HUGEINT,
+    INTEGER,
+    INTERVAL,
+    SMALLINT,
+    SQLNULL,
+    TIME,
+    TIMESTAMP,
+    TINYINT,
+    VARCHAR,
+    LogicalType,
+    TypeId,
+    decimal,
+    max_logical_type,
+)
+
+# every aggregate name the JAX package knows: the parser and the planner
+# use it to tell aggregate calls from scalar calls
+AGGREGATE_NAMES = {
+    "sum", "count", "avg", "mean", "min", "max", "first", "last", "any_value",
+    "stddev", "stddev_samp", "stddev_pop", "var_samp", "var_pop", "variance",
+    "string_agg", "bool_and", "bool_or", "product", "bit_and", "bit_or", "bit_xor",
+    "count_star", "arg_min", "arg_max", "median", "mode", "approx_count_distinct",
+    "quantile", "quantile_cont", "quantile_disc", "approx_quantile",
+    "group_concat", "listagg", "list", "array_agg", "histogram",
+    "corr", "covar_pop", "covar_samp", "regr_slope", "regr_intercept",
+    "regr_r2", "regr_count", "regr_avgx", "regr_avgy", "regr_sxx",
+    "regr_syy", "regr_sxy", "skewness", "kurtosis", "kurtosis_pop",
+    "entropy", "sem", "mad", "count_if", "countif", "arbitrary",
+    "argmax", "argmin", "max_by", "min_by", "favg", "fsum", "sumkahan",
+    "kahan_sum", "sum_no_overflow", "reservoir_quantile",
+    "arg_min_null", "arg_max_null", "arg_min_nulls_last",
+    "arg_max_nulls_last", "approx_top_k", "bitstring_agg",
+    "histogram_exact", "lttb",
+}
+
+
+class BindError(B.BindError):
+    pass
+
+
+@dataclass
+class Binding:
+    key: str
+    ltype: LogicalType
+
+
+class Scope:
+    """Column name resolution: alias.col and unqualified col → binding."""
+
+    def __init__(self, parent: Optional["Scope"] = None):
+        self.parent = parent
+        self.by_qual: Dict[Tuple[str, str], Binding] = {}
+        self.by_name: Dict[str, List[Binding]] = {}
+        self.order: List[Tuple[str, str, Binding]] = []  # (alias, col, binding)
+
+    def add(self, alias: str, col: str, key: str, ltype: LogicalType):
+        b = Binding(key, ltype)
+        self.by_qual[(alias.lower(), col.lower())] = b
+        self.by_name.setdefault(col.lower(), []).append(b)
+        self.order.append((alias, col, b))
+        return b
+
+    def resolve(self, parts: Tuple[str, ...]) -> Binding:
+        if len(parts) == 1:
+            cands = self.by_name.get(parts[0].lower(), [])
+            if len(cands) == 1:
+                return cands[0]
+            if len(cands) > 1:
+                raise BindError(f'ambiguous column name "{parts[0]}"')
+        elif len(parts) >= 2:
+            b = self.by_qual.get((parts[-2].lower(), parts[-1].lower()))
+            if b:
+                return b
+        if self.parent is not None:
+            return self.parent.resolve(parts)
+        raise BindError(f'Binder Error: column "{".".join(parts)}" not found')
+
+    def try_resolve(self, parts) -> Optional[Binding]:
+        try:
+            return self.resolve(parts)
+        except BindError:
+            return None
+
+    def columns_of(self, alias: str):
+        return [(a, c, b) for (a, c, b) in self.order if a.lower() == alias.lower()]
+
+    def all_columns(self):
+        return list(self.order)
+
+
+def _parse_date(s: str) -> int:
+    d = datetime.date.fromisoformat(s.strip())
+    return (d - datetime.date(1970, 1, 1)).days
+
+
+def _parse_timestamptz(s: str) -> int:
+    """Text → UTC micros. Accepts an optional ±HH[:MM] offset or Z;
+    offset-less text is interpreted in the session TimeZone (UTC)."""
+    s = s.strip()
+    if s.endswith(("Z", "z")):
+        s = s[:-1]
+    dt = datetime.datetime.fromisoformat(s)
+    if dt.tzinfo is not None:
+        dt = dt.astimezone(datetime.timezone.utc).replace(tzinfo=None)
+    return int((dt - datetime.datetime(1970, 1, 1)).total_seconds() * 1_000_000)
+
+
+def _parse_timestamp(s: str) -> int:
+    s = s.strip()
+    # duckdb rejects a time part with only an hour ('1111-11-11 11');
+    # python's fromisoformat accepts it — pre-check the shape
+    if len(s) > 10:
+        time_part = s[11:]
+        if time_part and ":" not in time_part \
+                and not time_part.startswith(("+", "-")) \
+                and time_part not in ("", "Z"):
+            raise ValueError(f"invalid timestamp: {s!r}")
+    dt = datetime.datetime.fromisoformat(s)
+    return int((dt - datetime.datetime(1970, 1, 1)).total_seconds() * 1_000_000)
+
+
+def _parse_time_micros(v: str) -> int:
+    """'HH:MM:SS[.ffffff]' → microseconds since midnight."""
+    hh, mm, rest = v.split(":")
+    if "." in rest:
+        ss, frac = rest.split(".")
+        us = int((frac + "000000")[:6])
+    else:
+        ss, us = rest, 0
+    return (int(hh) * 3600 + int(mm) * 60 + int(ss)) * 1_000_000 + us
+
+
+_INTERVAL_MULT = {
+    "year": ("months", 12), "years": ("months", 12), "y": ("months", 12),
+    "month": ("months", 1), "months": ("months", 1), "mon": ("months", 1),
+    "day": ("days", 1), "days": ("days", 1), "d": ("days", 1),
+    "week": ("days", 7), "weeks": ("days", 7),
+    "hour": ("micros", 3600_000_000), "hours": ("micros", 3600_000_000),
+    "minute": ("micros", 60_000_000), "minutes": ("micros", 60_000_000),
+    "second": ("micros", 1_000_000), "seconds": ("micros", 1_000_000),
+}
+
+
+def bind_interval(val: str, unit: Optional[str]) -> Tuple[int, int, int]:
+    parts = {"months": 0, "days": 0, "micros": 0}
+    if unit is not None:
+        pairs = [(val, unit)]
+    else:
+        toks = val.split()
+        pairs = [(toks[i], toks[i + 1]) for i in range(0, len(toks) - 1, 2)]
+    for n, u in pairs:
+        field_, mult = _INTERVAL_MULT[u.lower()]
+        parts[field_] += int(n) * mult
+    return (parts["months"], parts["days"], parts["micros"])
+
+
+_TYPE_NAMES = {
+    "boolean": BOOLEAN, "bool": BOOLEAN, "logical": BOOLEAN,
+    "tinyint": TINYINT, "int1": TINYINT,
+    "smallint": SMALLINT, "int2": SMALLINT, "short": SMALLINT,
+    "integer": INTEGER, "int": INTEGER, "int4": INTEGER, "signed": INTEGER,
+    "bigint": BIGINT, "int8": BIGINT, "long": BIGINT,
+    "hugeint": HUGEINT, "int128": HUGEINT,
+    "real": LogicalType(TypeId.FLOAT), "float4": LogicalType(TypeId.FLOAT),
+    "float": DOUBLE, "double": DOUBLE, "float8": DOUBLE,
+    "varchar": VARCHAR, "text": VARCHAR, "string": VARCHAR, "char": VARCHAR,
+    "bpchar": VARCHAR,
+    "date": DATE, "timestamp": TIMESTAMP, "datetime": TIMESTAMP,
+    "time": TIME,
+}
+
+
+def resolve_type_name(name: str, mods: Tuple[int, ...]) -> LogicalType:
+    n = name.lower()
+    if n in ("decimal", "numeric"):
+        w = mods[0] if mods else 18
+        s = mods[1] if len(mods) > 1 else 3
+        return decimal(w, s)
+    if n in _TYPE_NAMES:
+        return _TYPE_NAMES[n]
+    raise not_ported(f"the type {name}")
+
+
+def bind_literal(lit: N.Literal) -> B.BoundExpr:
+    v, hint = lit.value, lit.type_hint
+    if v is None:
+        return B.BoundLiteral(None, SQLNULL)
+    if hint == "decimal":
+        s = str(v)
+        neg = s.startswith("-")
+        body = s.lstrip("+-")
+        ip, _, fp = body.partition(".")
+        scale = len(fp)
+        width = max(1, len(ip.lstrip("0")) + scale)
+        iv = int(ip + fp) if ip + fp else 0
+        return B.BoundLiteral(-iv if neg else iv, decimal(min(width, 38), scale))
+    if hint == "date":
+        return B.BoundLiteral(_parse_date(v), DATE)
+    if hint == "timestamp":
+        return B.BoundLiteral(_parse_timestamp(v), TIMESTAMP)
+    if hint == "time":
+        return B.BoundLiteral(_parse_time_micros(v), TIME)
+    if isinstance(v, bool):
+        return B.BoundLiteral(v, BOOLEAN)
+    if isinstance(v, int):
+        if -(2**31) <= v < 2**31:
+            t = INTEGER
+        elif -(2**63) <= v < 2**63:
+            t = BIGINT
+        elif -(2**127) <= v < 2**127:
+            t = HUGEINT  # reference promotes oversized literals to HUGEINT
+        else:
+            raise BindError(f"integer literal {v} out of range")
+        return B.BoundLiteral(v, t)
+    if isinstance(v, float):
+        return B.BoundLiteral(v, DOUBLE)
+    if isinstance(v, str):
+        return B.BoundLiteral(v, VARCHAR)
+    raise BindError(f"unsupported literal {v!r}")
+
+
+def _int_width(t: LogicalType) -> int:
+    return {TypeId.TINYINT: 3, TypeId.SMALLINT: 5, TypeId.INTEGER: 10,
+            TypeId.BIGINT: 19, TypeId.HUGEINT: 38, TypeId.BOOLEAN: 1}[t.id]
+
+
+def _arith_result_type(op: str, lt: LogicalType, rt: LogicalType) -> LogicalType:
+    if TypeId.SQLNULL in (lt.id, rt.id):
+        # NULL op x → typed NULL of the other side
+        other = rt if lt.id is TypeId.SQLNULL else lt
+        return other if other.id is not TypeId.SQLNULL else lt
+    if TypeId.INTERVAL in (lt.id, rt.id):
+        return rt if lt.id is TypeId.INTERVAL else lt  # date ± interval → date (folded)
+    if lt.id is TypeId.DATE and rt.id is TypeId.DATE and op == "-":
+        return BIGINT
+    if lt.id is TypeId.DATE and rt.is_integer:
+        return DATE
+    if rt.id is TypeId.DATE and lt.is_integer and op == "+":
+        return DATE
+    _temporal = (TypeId.DATE, TypeId.TIME, TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ)
+    if lt.id in _temporal and rt.id in _temporal and op == "-":
+        return INTERVAL  # timestamp difference
+    if not (lt.is_numeric or lt.id is TypeId.BOOLEAN) \
+            or not (rt.is_numeric or rt.id is TypeId.BOOLEAN):
+        raise BindError(
+            f"Binder Error: No function matches '{op}({lt!r}, {rt!r})'. You "
+            "might need to add explicit type casts.")
+    if lt.is_float or rt.is_float:
+        return DOUBLE
+    if TypeId.DECIMAL in (lt.id, rt.id):
+        dl = lt if lt.id is TypeId.DECIMAL else decimal(_int_width(lt), 0)
+        dr = rt if rt.id is TypeId.DECIMAL else decimal(_int_width(rt), 0)
+        if op in ("+", "-"):
+            s = max(dl.scale, dr.scale)
+            intp = max(dl.width - dl.scale, dr.width - dr.scale) + 1
+            return decimal(min(38, intp + s), s)
+        if op == "*":
+            return decimal(min(38, dl.width + dr.width), dl.scale + dr.scale)
+        if op == "/":
+            # duckdb's decimal division falls back to DOUBLE when the width
+            # is unbounded (decimal_division.cpp); bind DOUBLE as the JAX
+            # package does
+            return DOUBLE
+        raise BindError(f"unsupported decimal op {op}")
+    if op == "/":
+        return DOUBLE
+    if lt.is_integer and rt.is_integer:
+        order = [TypeId.TINYINT, TypeId.SMALLINT, TypeId.INTEGER, TypeId.BIGINT,
+                 TypeId.HUGEINT]
+        return LogicalType(max(lt.id, rt.id, key=order.index))
+    raise BindError(f"cannot apply {op} to {lt} and {rt}")
+
+
+class ExprBinder:
+    """Binds AST expressions in a scope.
+
+    agg_collector: callable(FunctionCall ast, binder) → BoundAggregateRef,
+    set when binding select/having/order lists of an aggregating query.
+    """
+
+    def __init__(self, scope: Scope, agg_collector=None):
+        self.scope = scope
+        self.agg_collector = agg_collector
+
+    def bind(self, e: N.Expr) -> B.BoundExpr:
+        m = getattr(self, "_bind_" + type(e).__name__, None)
+        if m is None:
+            raise not_ported(f"the expression form {type(e).__name__}")
+        return m(e)
+
+    # -- leaves --------------------------------------------------------------
+    def _bind_Literal(self, e: N.Literal):
+        return bind_literal(e)
+
+    def _bind_IntervalLiteral(self, e: N.IntervalLiteral):
+        return B.BoundLiteral(bind_interval(e.value, e.unit), INTERVAL)
+
+    def _bind_ColumnRef(self, e: N.ColumnRef):
+        b = self.scope.resolve(e.parts)
+        return B.BoundColumnRef(b.key, b.ltype)
+
+    # -- operators -----------------------------------------------------------
+    def _bind_BinaryOp(self, e: N.BinaryOp):
+        if e.op in B._CMP_OPS:
+            left, right = self._align_comparison(self.bind(e.left),
+                                                 self.bind(e.right))
+            return B.BoundComparison(e.op, left, right)
+        if e.op == "||":
+            raise not_ported("string concatenation (||)")
+        left = self.bind(e.left)
+        right = self.bind(e.right)
+        t = _arith_result_type(e.op, left.ltype, right.ltype)
+        node = B.BoundArithmetic(e.op, left, right, t)
+        if node.is_const():
+            try:
+                return B.BoundLiteral(node.const_value(), t)
+            except (ValueError, BindError):
+                pass
+        if TypeId.INTERVAL in (left.ltype.id, right.ltype.id):
+            return self._bind_interval_arith(e.op, left, right)
+        return node
+
+    def _bind_interval_arith(self, op: str, left: B.BoundExpr,
+                             right: B.BoundExpr) -> B.BoundExpr:
+        """Runtime temporal ± interval (device intervals are int64 micros):
+        DATE ± INTERVAL and TIMESTAMP ± INTERVAL → TIMESTAMP, TIME wraps
+        mod 24h, INTERVAL ± INTERVAL → INTERVAL (duckdb/src/common/operator/
+        add.cpp). Month-granularity intervals stay bind-time constants."""
+        if op not in ("+", "-"):
+            raise BindError(f"cannot apply {op} to interval operands")
+        if left.ltype.id is TypeId.INTERVAL and right.ltype.id is not TypeId.INTERVAL:
+            if op != "+":
+                raise BindError("cannot subtract temporal from interval")
+            left, right = right, left  # interval + temporal → temporal + interval
+
+        def norm(x: B.BoundExpr) -> B.BoundExpr:
+            # constant (months, days, micros) literals flatten to pure micros
+            if x.ltype.id is TypeId.INTERVAL and x.is_const():
+                v = x.const_value()
+                if isinstance(v, tuple):
+                    months, days, micros = v
+                    if months:
+                        raise BindError(
+                            "month-granularity interval with non-constant "
+                            "operand not supported")
+                    return B.BoundLiteral(days * 86_400_000_000 + micros, INTERVAL)
+            return x
+
+        left, right = norm(left), norm(right)
+        base = left.ltype.id
+        out_t = {TypeId.DATE: TIMESTAMP, TypeId.TIMESTAMP: TIMESTAMP,
+                 TypeId.TIME: TIME, TypeId.INTERVAL: INTERVAL}.get(base)
+        if out_t is None:
+            raise BindError(f"cannot apply interval arithmetic to {left.ltype}")
+        us_day = 86_400_000_000
+
+        def impl(env, cols, node):
+            a, b = cols
+            x = a.data.to(torch.int64)
+            y = b.data.to(torch.int64)
+            if base is TypeId.DATE:
+                x = x * us_day
+            d = x + y if op == "+" else x - y
+            if base is TypeId.TIME:
+                d = torch.remainder(d, us_day)
+            return Column(data=d, ltype=out_t,
+                          validity=B._and_validity(a.validity, b.validity))
+
+        return B.BoundFunction(f"__interval_{op}", [left, right], out_t, impl)
+
+    def _align_comparison(self, left: B.BoundExpr, right: B.BoundExpr):
+        """Parse a VARCHAR literal compared with a temporal column at bind time."""
+        for a, b, swap in ((left, right, False), (right, left, True)):
+            if (a.ltype.id is TypeId.VARCHAR and a.is_const()
+                    and b.ltype.id in (TypeId.DATE, TypeId.TIMESTAMP)):
+                v = a.const_value()
+                lit = B.BoundLiteral(
+                    _parse_date(v) if b.ltype.id is TypeId.DATE else _parse_timestamp(v),
+                    b.ltype)
+                return (b, lit) if swap else (lit, b)
+        if (left.ltype.id is TypeId.VARCHAR) != (right.ltype.id is TypeId.VARCHAR):
+            raise BindError(f"cannot compare {left.ltype} and {right.ltype}")
+        return left, right
+
+    def _bind_UnaryOp(self, e: N.UnaryOp):
+        c = self.bind(e.child)
+        if e.op == "-":
+            node = B.BoundNegate(c, c.ltype)
+            if node.is_const():
+                return B.BoundLiteral(node.const_value(), c.ltype)
+            return node
+        if e.op == "+":
+            return c
+        raise BindError(f"unary {e.op}")
+
+    def _bind_Conjunction(self, e: N.Conjunction):
+        return B.BoundConjunction(e.op, [self.bind(c) for c in e.children])
+
+    def _bind_NotExpr(self, e: N.NotExpr):
+        return B.BoundNot(self.bind(e.child))
+
+    def _bind_IsNull(self, e: N.IsNull):
+        return B.BoundIsNull(self.bind(e.child), e.negated)
+
+    def _bind_Between(self, e: N.Between):
+        x = self.bind(e.expr)
+        a, lo = self._align_comparison(x, self.bind(e.low))
+        a2, hi = self._align_comparison(x, self.bind(e.high))
+        node = B.BoundConjunction(
+            "and", [B.BoundComparison(">=", a, lo), B.BoundComparison("<=", a2, hi)])
+        return B.BoundNot(node) if e.negated else node
+
+    def _bind_InList(self, e: N.InList):
+        return B.BoundInList(self.bind(e.expr), [self.bind(i) for i in e.items],
+                             e.negated)
+
+    def _bind_CaseExpr(self, e: N.CaseExpr):
+        whens = []
+        for cond, res in e.whens:
+            if e.operand is not None:
+                cond = N.BinaryOp("=", e.operand, cond)
+            whens.append((self.bind(cond), self.bind(res)))
+        else_b = self.bind(e.else_expr) if e.else_expr is not None else None
+        t = None
+        for r in [r for _, r in whens] + ([else_b] if else_b is not None else []):
+            if r.ltype.id is not TypeId.SQLNULL:
+                t = r.ltype if t is None else max_logical_type(t, r.ltype)
+        return B.BoundCase(whens, else_b, t or SQLNULL)
+
+    def _bind_CastExpr(self, e: N.CastExpr):
+        c = self.bind(e.child)
+        t = resolve_type_name(e.type_name, e.type_mods)
+        node = B.BoundCast(c, t, e.try_cast)
+        if c.is_const():
+            try:
+                return B.BoundLiteral(node.const_value(), t)
+            except (ValueError, BindError, KeyError):
+                pass
+        return node
+
+    def _bind_ExtractExpr(self, e: N.ExtractExpr):
+        child = self.bind(e.child)
+        name = e.field.lower()
+        if name not in F.REGISTRY:
+            raise not_ported(f"extract({name})")
+        rt, impl, args = F.REGISTRY[name]([child])
+        return B.BoundFunction("extract_" + name, args, rt, impl)
+
+    def _bind_FunctionCall(self, e: N.FunctionCall):
+        name = e.name.lower()
+        if name in AGGREGATE_NAMES or (name == "count" and e.is_star):
+            if self.agg_collector is None:
+                raise BindError(f"aggregate {name}() not allowed here")
+            return self.agg_collector(e, self)
+        if name in F.REGISTRY:
+            args = [self.bind(a) for a in e.args]
+            try:
+                rt, impl, args2 = F.REGISTRY[name](args)
+            except (IndexError, KeyError) as err:
+                raise BindError(
+                    f"Binder Error: invalid arguments to {name} ({err!r})")
+            return B.BoundFunction(name, args2, rt, impl)
+        raise not_ported(f"the function {name}()")

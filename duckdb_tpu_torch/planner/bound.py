@@ -1,0 +1,804 @@
+"""Bound (typed, resolved) expressions and their device evaluation.
+
+The reference splits ParsedExpression → BoundExpression → ExpressionExecutor
+(duckdb/src/planner/expression/, src/execution/expression_executor.cpp).
+As in the JAX package, bound nodes carry their own vectorized evaluation:
+``eval(env)`` returns a Column of torch tensors over the padded block, with
+SQL three-valued NULL semantics via validity planes. Evaluation is eager:
+each node is a handful of torch ops on the env's device.
+
+VARCHAR columns are dictionary codes (sorted dict). String predicates are
+evaluated once per distinct value on the host dictionary and become a
+device LUT gather.
+
+DECIMAL is scaled int64; arithmetic follows duckdb's bind rules
+(duckdb/src/function/scalar/operator/arithmetic.cpp): add/sub rescale to
+the max scale, mul adds scales, division binds to DOUBLE.
+"""
+
+from __future__ import annotations
+
+import datetime
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from duckdb_tpu_torch.blocks import Column
+from duckdb_tpu_torch.types import (
+    BOOLEAN,
+    DOUBLE,
+    VARCHAR,
+    LogicalType,
+    TypeId,
+)
+
+
+class BindError(ValueError):
+    pass
+
+
+def not_ported(what: str) -> BindError:
+    """The error for SQL the JAX package supports but this port does not yet."""
+    return BindError(f"Binder Error: {what} is not yet ported to duckdb_tpu_torch")
+
+
+@dataclass
+class EvalEnv:
+    """Evaluation environment: bound column key → Column, over one padded block."""
+
+    cols: dict
+    plen: int
+    live: torch.Tensor  # (P,) bool — rows alive (not padding / not filtered out)
+
+
+def _and_validity(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return a & b
+
+
+def bcast(x: torch.Tensor, plen: int) -> torch.Tensor:
+    """View a scalar (0-d or (1,)) or block-length tensor at block length."""
+    return x.expand(plen)
+
+
+def _const(env, value, dtype: torch.dtype) -> torch.Tensor:
+    """A constant at block length on the env's device (a stride-0 view)."""
+    return torch.full((), value, dtype=dtype, device=env.live.device).expand(env.plen)
+
+
+def _valid_or_ones(c: Column, plen: int, device) -> torch.Tensor:
+    if c.validity is None:
+        return torch.ones(plen, dtype=torch.bool, device=device)
+    return bcast(c.validity, plen)
+
+
+# ---------------------------------------------------------------------------
+# date math on device (days since 1970-01-01 → civil fields)
+# Branchless civil-from-days (Howard Hinnant's algorithm); `//` on integer
+# tensors floors, as the algorithm needs.
+def civil_from_days(days: torch.Tensor):
+    z = days.to(torch.int64) + 719468
+    era = torch.where(z >= 0, z, z - 146096) // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y, m, d
+
+
+def days_from_civil(y: int, m: int, d: int) -> int:
+    y -= m <= 2
+    era = (y if y >= 0 else y - 399) // 400
+    yoe = y - era * 400
+    doy = (153 * (m + (-3 if m > 2 else 9)) + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+# ---------------------------------------------------------------------------
+# bound expression nodes
+class BoundExpr:
+    ltype: LogicalType
+
+    def eval(self, env: EvalEnv) -> Column:
+        raise NotImplementedError
+
+    def is_const(self) -> bool:
+        return False
+
+    def const_value(self):
+        """Python-level value for constant subtrees (folded at bind time).
+
+        DECIMAL → scaled int, DATE → days, VARCHAR → str, NULL → None.
+        """
+        raise BindError("not a constant expression")
+
+    def children(self) -> List["BoundExpr"]:
+        return []
+
+
+@dataclass
+class BoundColumnRef(BoundExpr):
+    key: str
+    ltype: LogicalType
+
+    def eval(self, env: EvalEnv) -> Column:
+        return env.cols[self.key]
+
+
+@dataclass
+class BoundLiteral(BoundExpr):
+    value: object  # physical value: scaled int for DECIMAL, days for DATE, str for VARCHAR
+    ltype: LogicalType
+
+    def eval(self, env: EvalEnv) -> Column:
+        if self.value is None:
+            return Column(data=_const(env, 0, torch.int32), ltype=self.ltype,
+                          validity=_const(env, False, torch.bool))
+        if self.ltype.id is TypeId.VARCHAR:
+            # constant string → single-entry dictionary, code 0
+            return Column(data=_const(env, 0, torch.int32), ltype=VARCHAR,
+                          dict_values=np.array([self.value], dtype=object))
+        if self.ltype.id is TypeId.INTERVAL and isinstance(self.value, (tuple, list)):
+            # (months, days, micros) → int64 micros; months use the
+            # reference's 30-day comparison convention
+            # (duckdb/src/common/types/interval.cpp Interval::GetMicro)
+            mo, dd, us = self.value
+            return Column(data=_const(env, (mo * 30 + dd) * 86_400_000_000 + us,
+                                      torch.int64), ltype=self.ltype)
+        if self.ltype.id is TypeId.HUGEINT and not -(2**63) <= int(self.value) < 2**63:
+            # oversized literal: (lo, hi) wide planes (int128 carrier)
+            v = int(self.value)
+            lo = int(np.uint64(v & ((1 << 64) - 1)).astype(np.int64))
+            return Column(data=_const(env, lo, torch.int64),
+                          data_hi=_const(env, v >> 64, torch.int64),
+                          ltype=self.ltype)
+        if self.ltype.id in (TypeId.LIST, TypeId.STRUCT, TypeId.MAP,
+                             TypeId.ARRAY, TypeId.UNION, TypeId.BIT):
+            raise not_ported(f"a {self.ltype!r} literal")
+        return Column(data=_const(env, self.value, self.ltype.torch_dtype),
+                      ltype=self.ltype)
+
+    def is_const(self):
+        return True
+
+    def const_value(self):
+        return self.value
+
+
+_CMP_OPS = {"=", "==", "<>", "!=", "<", "<=", ">", ">="}
+
+
+def _varchar_rank_luts(a: Column, b: Column, device):
+    """Device LUTs mapping each side's codes to ranks in the merged dictionary."""
+    if a.dict_values is b.dict_values:
+        lut = torch.arange(len(a.dict_values), dtype=torch.int32, device=device)
+        return lut, lut
+    merged = np.union1d(a.dict_values, b.dict_values)
+    ra = np.searchsorted(merged, a.dict_values).astype(np.int32)
+    rb = np.searchsorted(merged, b.dict_values).astype(np.int32)
+    return torch.from_numpy(ra).to(device), torch.from_numpy(rb).to(device)
+
+
+def _cmp(op: str, x, y):
+    if op in ("=", "=="):
+        return x == y
+    if op in ("<>", "!="):
+        return x != y
+    if op == "<":
+        return x < y
+    if op == "<=":
+        return x <= y
+    if op == ">":
+        return x > y
+    return x >= y
+
+
+def _from_lt_eq(op: str, lt, eq):
+    """Comparison result from the (less-than, equal) pair."""
+    if op in ("=", "=="):
+        return eq
+    if op in ("<>", "!="):
+        return ~eq
+    if op == "<":
+        return lt
+    if op == "<=":
+        return lt | eq
+    if op == ">":
+        return ~(lt | eq)
+    return ~lt  # >=
+
+
+@dataclass
+class BoundComparison(BoundExpr):
+    op: str
+    left: BoundExpr
+    right: BoundExpr
+    ltype: LogicalType = BOOLEAN
+
+    def children(self):
+        return [self.left, self.right]
+
+    def eval(self, env: EvalEnv) -> Column:
+        lc = self.left.eval(env)
+        rc = self.right.eval(env)
+        if lc.ltype.id is TypeId.VARCHAR or rc.ltype.id is TypeId.VARCHAR:
+            la, lb = _varchar_rank_luts(lc, rc, env.live.device)
+            data = _cmp(self.op, la[lc.data.long()], lb[rc.data.long()])
+        elif (lc.data_hi is not None or rc.data_hi is not None) \
+                and not (lc.ltype.is_float or rc.ltype.is_float):
+            data = _wide_compare(self.op, lc, rc, env.plen)
+        elif (TypeId.DECIMAL in (lc.ltype.id, rc.ltype.id)
+              and not (lc.ltype.is_float or rc.ltype.is_float)
+              and lc.ltype.scale != rc.ltype.scale):
+            data = _decimal_compare(self.op, lc, rc)
+        else:
+            x, y = _common_numeric(lc, rc)
+            data = _cmp(self.op, x, y)
+        return Column(data=data, ltype=BOOLEAN,
+                      validity=_and_validity(lc.validity, rc.validity))
+
+
+def varchar_where(take, a: Column, b: Column, plen):
+    """Elementwise select over two VARCHAR columns with dictionary union."""
+    da, db = bcast(a.data, plen), bcast(b.data, plen)
+    if a.dict_values is b.dict_values:
+        return torch.where(take, da, db), a.dict_values
+    merged = np.union1d(a.dict_values, b.dict_values).astype(object)
+    device = da.device
+    ra = torch.from_numpy(np.searchsorted(merged, a.dict_values).astype(np.int32)).to(device)
+    rb = torch.from_numpy(np.searchsorted(merged, b.dict_values).astype(np.int32)).to(device)
+    data = torch.where(take,
+                       ra[da.long().clamp(0, len(a.dict_values) - 1)],
+                       rb[db.long().clamp(0, len(b.dict_values) - 1)])
+    return data, merged
+
+
+def _decimal_compare(op: str, lc: Column, rc: Column):
+    """Exact mixed-scale decimal comparison without rescale overflow.
+
+    x·10^d ⋛ y is decided via q = ⌊y/10^d⌋, r = y mod 10^d (both exact in
+    int64): x>q ⇒ gt; x==q ⇒ (r==0 ? eq : lt-for-x).
+    """
+    sl = lc.ltype.scale if lc.ltype.id is TypeId.DECIMAL else 0
+    sr = rc.ltype.scale if rc.ltype.id is TypeId.DECIMAL else 0
+    x = lc.data.to(torch.int64)
+    y = rc.data.to(torch.int64)
+    flip = sl > sr
+    if flip:
+        x, y, sl, sr = y, x, sr, sl
+    d = 10 ** (sr - sl)
+    q = torch.div(y, d, rounding_mode="floor")
+    r = y - q * d  # 0 <= r < d (floor semantics hold for negatives)
+    lt = (x < q) | ((x == q) & (r > 0))
+    eq = (x == q) & (r == 0)
+    if flip:
+        lt = ~(lt | eq)  # y·10^d < x ⇔ not (x<=y)
+    return _from_lt_eq(op, lt, eq)
+
+
+def _decimal_align(lc: Column, rc: Column):
+    """Rescale two decimal/integer columns to a common scale (int64)."""
+    sl = lc.ltype.scale if lc.ltype.id is TypeId.DECIMAL else 0
+    sr = rc.ltype.scale if rc.ltype.id is TypeId.DECIMAL else 0
+    s = max(sl, sr)
+    x = lc.data.to(torch.int64) * (10 ** (s - sl))
+    y = rc.data.to(torch.int64) * (10 ** (s - sr))
+    return x, y, s
+
+
+def _wide_compare(op: str, lc: Column, rc: Column, plen: int):
+    """int128 comparison via (hi, lo) limbs: hi compares signed, lo
+    unsigned (two's complement lexicographic)."""
+    def limbs(c):
+        lo = bcast(c.data, plen).to(torch.int64)
+        hi = (bcast(c.data_hi, plen).to(torch.int64)
+              if c.data_hi is not None else lo >> 63)
+        return hi, lo ^ -(2**63)  # unsigned ordering key for the low limb
+
+    ha, ua = limbs(lc)
+    hb, ub = limbs(rc)
+    eq = (ha == hb) & (ua == ub)
+    lt = (ha < hb) | ((ha == hb) & (ua < ub))
+    return _from_lt_eq(op, lt, eq)
+
+
+def _common_numeric(lc: Column, rc: Column):
+    """Coerce two non-varchar columns to comparable device tensors."""
+    if lc.ltype.is_float or rc.ltype.is_float:
+        return _to_double(lc), _to_double(rc)
+    if TypeId.DECIMAL in (lc.ltype.id, rc.ltype.id):
+        x, y, _ = _decimal_align(lc, rc)
+        return x, y
+    x = lc.data.to(torch.int64)
+    y = rc.data.to(torch.int64)
+    # DATE (days) vs TIMESTAMP (micros): promote the DATE side, matching
+    # the reference's implicit date→timestamp cast in comparisons
+    lt, rt = lc.ltype.id, rc.ltype.id
+    _ts = (TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ)
+    if (lt in _ts or rt in _ts) and TypeId.DATE in (lt, rt):
+        if lt is TypeId.DATE:
+            x = x * 86_400_000_000
+        else:
+            y = y * 86_400_000_000
+    return x, y
+
+
+def _to_double(c: Column) -> torch.Tensor:
+    if c.ltype.id is TypeId.DECIMAL:
+        d = c.data.to(torch.float64) / float(10**c.ltype.scale)
+    else:
+        d = c.data.to(torch.float64)
+    if c.data_hi is not None:
+        # wide value = hi·2^64 + uint64(lo): lift the low limb to its
+        # unsigned magnitude, then add the high limb's contribution
+        scale = float(10**c.ltype.scale if c.ltype.id is TypeId.DECIMAL else 1)
+        ulo = d + torch.where(c.data < 0, 2.0**64 / scale, 0.0)
+        d = c.data_hi.to(torch.float64) * (2.0**64 / scale) + ulo
+    return d
+
+
+@dataclass
+class BoundConjunction(BoundExpr):
+    op: str  # 'and' | 'or'
+    exprs: List[BoundExpr]
+    ltype: LogicalType = BOOLEAN
+
+    def children(self):
+        return self.exprs
+
+    def eval(self, env: EvalEnv) -> Column:
+        # SQL three-valued logic: NULL and false = false; NULL or true = true
+        data = valid = None
+        for e in self.exprs:
+            c = e.eval(env)
+            d = bcast(c.data.to(torch.bool), env.plen)
+            cv = _valid_or_ones(c, env.plen, d.device)
+            if data is None:
+                data, valid = d, cv
+            elif self.op == "and":
+                valid = (valid & cv) | (valid & ~data) | (cv & ~d)
+                data = data & d
+            else:
+                valid = (valid & cv) | (valid & data) | (cv & d)
+                data = data | d
+        return Column(data=data, ltype=BOOLEAN, validity=valid)
+
+
+@dataclass
+class BoundNot(BoundExpr):
+    child: BoundExpr
+    ltype: LogicalType = BOOLEAN
+
+    def children(self):
+        return [self.child]
+
+    def eval(self, env):
+        c = self.child.eval(env)
+        return Column(data=~c.data.to(torch.bool), ltype=BOOLEAN,
+                      validity=c.validity)
+
+
+@dataclass
+class BoundIsNull(BoundExpr):
+    child: BoundExpr
+    negated: bool = False
+    ltype: LogicalType = BOOLEAN
+
+    def children(self):
+        return [self.child]
+
+    def eval(self, env):
+        c = self.child.eval(env)
+        if c.validity is None:
+            d = _const(env, self.negated, torch.bool)
+        else:
+            v = bcast(c.validity, env.plen)
+            d = v if self.negated else ~v
+        return Column(data=d, ltype=BOOLEAN)
+
+
+@dataclass
+class BoundArithmetic(BoundExpr):
+    op: str  # + - * / % //
+    left: BoundExpr
+    right: BoundExpr
+    ltype: LogicalType = DOUBLE
+
+    def children(self):
+        return [self.left, self.right]
+
+    def eval(self, env: EvalEnv) -> Column:
+        lc = self.left.eval(env)
+        rc = self.right.eval(env)
+        v = _and_validity(lc.validity, rc.validity)
+        t = self.ltype
+        if t.is_float:
+            x, y = _to_double(lc), _to_double(rc)
+            if self.op == "+":
+                d = x + y
+            elif self.op == "-":
+                d = x - y
+            elif self.op == "*":
+                d = x * y
+            elif self.op == "/":
+                d = x / y
+            elif self.op == "%":
+                d = torch.remainder(x, y)  # floor mod, as jnp.mod
+            else:
+                d = torch.floor_divide(x, y)
+            return Column(data=d, ltype=t, validity=v)
+        if t.id is TypeId.DECIMAL:
+            if self.op in ("+", "-"):
+                x, y, _ = _decimal_align(lc, rc)
+                d = x + y if self.op == "+" else x - y
+            elif self.op == "*":
+                d = lc.data.to(torch.int64) * rc.data.to(torch.int64)
+            else:
+                raise BindError(f"decimal op {self.op} should have bound to DOUBLE")
+            return Column(data=d, ltype=t, validity=v)
+        if t.id is TypeId.INTERVAL or not t.is_integer and t.id is not TypeId.DATE:
+            raise not_ported(f"{self.op} over {lc.ltype!r} and {rc.ltype!r}")
+        # integer arithmetic (DATE ± integer days stays int32 days)
+        dt = t.torch_dtype
+        x = lc.data.to(dt)
+        y = rc.data.to(dt)
+        if self.op == "+":
+            d = x + y
+        elif self.op == "-":
+            d = x - y
+        elif self.op == "*":
+            d = x * y
+        elif self.op in ("%", "//"):
+            # x % 0 and x // 0 are NULL; mask the divisor first (torch
+            # raises on integer division by zero where jnp does not)
+            zero = y == 0
+            safe = torch.where(zero, torch.ones_like(y), y)
+            d = (torch.remainder(x, safe) if self.op == "%"
+                 else torch.div(x, safe, rounding_mode="floor"))
+            v = ~zero if v is None else v & ~zero
+        else:
+            raise BindError("integer / binds to DOUBLE")
+        return Column(data=d, ltype=t, validity=v)
+
+    def is_const(self):
+        return self.left.is_const() and self.right.is_const()
+
+    def const_value(self):
+        from duckdb_tpu_torch.planner.fold import fold_arithmetic
+
+        return fold_arithmetic(self)
+
+
+@dataclass
+class BoundNegate(BoundExpr):
+    child: BoundExpr
+    ltype: LogicalType = DOUBLE
+
+    def children(self):
+        return [self.child]
+
+    def eval(self, env):
+        c = self.child.eval(env)
+        return Column(data=-c.data, ltype=self.ltype, validity=c.validity)
+
+    def is_const(self):
+        return self.child.is_const()
+
+    def const_value(self):
+        v = self.child.const_value()
+        return None if v is None else -v
+
+
+@dataclass
+class BoundCase(BoundExpr):
+    whens: List[Tuple[BoundExpr, BoundExpr]]
+    else_expr: Optional[BoundExpr]
+    ltype: LogicalType = DOUBLE
+
+    def children(self):
+        out = []
+        for c, r in self.whens:
+            out += [c, r]
+        if self.else_expr:
+            out.append(self.else_expr)
+        return out
+
+    def eval(self, env: EvalEnv) -> Column:
+        # evaluate all branches, select backwards (first-match-wins)
+        device = env.live.device
+        if self.else_expr is not None:
+            acc = _coerce_to(self.else_expr.eval(env), self.ltype, env)
+        else:
+            acc = Column(
+                data=_const(env, 0, self.ltype.torch_dtype), ltype=self.ltype,
+                validity=_const(env, False, torch.bool),
+                dict_values=(np.array([""], dtype=object)
+                             if self.ltype.id is TypeId.VARCHAR else None))
+        acc_data = bcast(acc.data, env.plen)
+        acc_dict = acc.dict_values
+        acc_valid = _valid_or_ones(acc, env.plen, device)
+        for cond, res in reversed(self.whens):
+            cc = cond.eval(env)
+            take = bcast(cc.data.to(torch.bool), env.plen)
+            if cc.validity is not None:
+                take = take & cc.validity
+            rc = _coerce_to(res.eval(env), self.ltype, env)
+            rv = _valid_or_ones(rc, env.plen, device)
+            if self.ltype.id is TypeId.VARCHAR:
+                acc_col = Column(data=acc_data, ltype=self.ltype, dict_values=acc_dict)
+                acc_data, acc_dict = varchar_where(take, rc, acc_col, env.plen)
+            else:
+                acc_data = torch.where(take, bcast(rc.data, env.plen), acc_data)
+            acc_valid = torch.where(take, rv, acc_valid)
+        return Column(data=acc_data, ltype=self.ltype, validity=acc_valid,
+                      dict_values=acc_dict)
+
+
+def _round_div(x: torch.Tensor, m: int) -> torch.Tensor:
+    """x / m rounded half away from zero (integer tensors, m > 0)."""
+    half = m // 2
+    return torch.where(x >= 0, (x + half) // m, -((-x + half) // m))
+
+
+def _coerce_to(c: Column, t: LogicalType, env: EvalEnv,
+               try_cast: bool = False) -> Column:
+    """Cast an evaluated column to the target logical type's physical form."""
+    if c.ltype == t:
+        return c
+    if c.ltype.id is TypeId.SQLNULL:
+        # NULL literal → all-null column of the target type
+        return Column(data=_const(env, 0, t.torch_dtype), ltype=t,
+                      validity=_const(env, False, torch.bool),
+                      dict_values=(np.array([""], dtype=object)
+                                   if t.id is TypeId.VARCHAR else None))
+    if c.ltype.id is TypeId.VARCHAR and t.id is not TypeId.VARCHAR:
+        # string source: parse per distinct value (must run before the
+        # numeric branches, which would otherwise cast the dict CODES)
+        return _cast_from_varchar(c, t, try_cast=try_cast)
+    if t.id is TypeId.DOUBLE:
+        return Column(data=_to_double(c), ltype=t, validity=c.validity)
+    if t.id is TypeId.DECIMAL:
+        if c.ltype.id is TypeId.DECIMAL:
+            shift = t.scale - c.ltype.scale
+            x = c.data.to(torch.int64)
+            # a smaller scale rounds half away from zero, as duckdb's
+            # decimal casts do
+            d = x * (10**shift) if shift >= 0 else _round_div(x, 10**-shift)
+        elif c.ltype.is_integer or c.ltype.id is TypeId.BOOLEAN:
+            d = c.data.to(torch.int64) * (10**t.scale)
+        else:  # float → decimal: round
+            d = torch.round(c.data.to(torch.float64) * (10**t.scale)).to(torch.int64)
+        return Column(data=d, ltype=t, validity=c.validity)
+    if t.is_integer:
+        if c.ltype.id is TypeId.DECIMAL:
+            # duckdb decimal→int casts round half away from zero
+            d = _round_div(c.data.to(torch.int64), 10**c.ltype.scale).to(t.torch_dtype)
+        elif c.ltype.is_float:
+            d = torch.round(c.data).to(t.torch_dtype)
+        else:
+            d = c.data.to(t.torch_dtype)
+        return Column(data=d, ltype=t, validity=c.validity)
+    if t.id in (TypeId.DATE, TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ) \
+            and c.ltype.id in (TypeId.DATE, TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ):
+        if t.id in (TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ):
+            if c.ltype.id is TypeId.DATE:
+                return Column(data=c.data.to(torch.int64) * 86400_000_000,
+                              ltype=t, validity=c.validity)
+            return Column(data=c.data, ltype=t, validity=c.validity)
+        return Column(data=torch.div(c.data, 86400_000_000,
+                                     rounding_mode="floor").to(torch.int32),
+                      ltype=t, validity=c.validity)
+    if t.id is TypeId.VARCHAR:
+        return _cast_to_varchar(c, env)
+    if t.id is TypeId.BOOLEAN:
+        return Column(data=c.data != 0, ltype=t, validity=c.validity)
+    if t.is_float:  # FLOAT target
+        return Column(data=_to_double(c).to(t.torch_dtype), ltype=t,
+                      validity=c.validity)
+    raise not_ported(f"the cast {c.ltype!r} → {t!r}")
+
+
+def format_varchar(v, t: LogicalType) -> str:
+    """Render one non-NULL value as duckdb's VARCHAR cast does
+    (duckdb/src/common/operator/string_cast.cpp)."""
+    import decimal as pydec
+
+    if t.id is TypeId.BOOLEAN:
+        return "true" if v else "false"
+    if t.id is TypeId.DECIMAL:
+        return str(pydec.Decimal(int(v)).scaleb(-t.scale)) if t.scale else str(int(v))
+    if t.id is TypeId.DATE:
+        return (datetime.date(1970, 1, 1) + datetime.timedelta(days=int(v))).isoformat()
+    if t.is_float:
+        f = float(v)
+        if f != f or f in (float("inf"), float("-inf")):
+            return {float("inf"): "inf", float("-inf"): "-inf"}.get(f, "nan")
+        if f == int(f) and abs(f) < 1e15:
+            return f"{f:.1f}"
+        return repr(f)
+    if t.is_integer:
+        return str(int(v))
+    raise not_ported(f"the cast {t!r} → VARCHAR")
+
+
+def _cast_to_varchar(c: Column, env) -> Column:
+    """Non-VARCHAR → VARCHAR: host-side formatting + sorted dict encode."""
+    data = bcast(c.data, env.plen).cpu().numpy()
+    valid = bcast(c.validity, env.plen).cpu().numpy() if c.validity is not None else None
+    strs = np.array([format_varchar(v, c.ltype) if valid is None or valid[i] else ""
+                     for i, v in enumerate(data)], dtype=object)
+    uniq, codes = np.unique(strs.astype(str), return_inverse=True)
+    return Column(data=torch.from_numpy(codes.astype(np.int32)).to(env.live.device),
+                  ltype=VARCHAR, validity=c.validity,
+                  dict_values=uniq.astype(object))
+
+
+def parse_decimal_text(c: str, scale: int) -> int:
+    """Exact decimal text → scaled int (integer arithmetic, round-half-up)."""
+    c = c.strip()
+    neg = c.startswith("-")
+    if c and c[0] in "+-":
+        c = c[1:]
+    if "e" in c or "E" in c:  # scientific notation: exact via Decimal
+        import decimal as pydec
+
+        v = int(pydec.Decimal(c).scaleb(scale).to_integral_value(
+            rounding=pydec.ROUND_HALF_UP))
+        return -v if neg else v
+    whole, _, frac = c.partition(".")
+    v = int((whole or "0") + (frac + "0" * scale)[:scale])
+    if len(frac) > scale and frac[scale] >= "5":
+        v += 1
+    return -v if neg else v
+
+
+def _cast_from_varchar(c: Column, t: LogicalType, try_cast: bool = False) -> Column:
+    """VARCHAR → numeric/date/boolean: parse each DISTINCT value once into a
+    LUT, gather by code."""
+    def parse(s):
+        s = str(s).strip()
+        if t.id is TypeId.DATE:
+            return (datetime.date.fromisoformat(s) - datetime.date(1970, 1, 1)).days
+        if t.id is TypeId.DECIMAL:
+            return parse_decimal_text(s, t.scale)
+        if t.id is TypeId.BOOLEAN:
+            if s.lower() in ("true", "t", "1"):
+                return 1
+            if s.lower() in ("false", "f", "0"):
+                return 0
+            raise ValueError(s)
+        if t.is_float:
+            return float(s)
+        if t.is_integer:
+            if s.lstrip("+-").isdigit():
+                return int(s)
+            f = float(s)  # duckdb accepts '1.5'::INT, rounding half away from 0
+            r = int(abs(f) + 0.5)
+            return r if f >= 0 else -r
+        raise not_ported(f"the cast VARCHAR → {t!r}")
+
+    dv = c.dict_values if c.dict_values is not None else []
+    ok = np.ones(max(1, len(dv)), dtype=bool)
+    vals = np.zeros(max(1, len(dv)), dtype=t.np_dtype)
+    bad = None
+    for i, s_ in enumerate(dv):
+        try:
+            vals[i] = parse(s_)
+        except (ValueError, OverflowError):
+            ok[i] = False
+            bad = str(s_)
+    if bad is not None and not try_cast:
+        raise BindError(
+            f"Conversion Error: Could not convert string '{bad}' to {t.id.name}")
+    device = c.data.device
+    idx = c.data.long().clamp(0, len(vals) - 1)
+    validity = c.validity
+    if bad is not None:  # TRY_CAST: unparseable values become NULL
+        okv = torch.from_numpy(ok).to(device)[idx]
+        validity = okv if validity is None else validity & okv
+    return Column(data=torch.from_numpy(vals).to(device)[idx], ltype=t,
+                  validity=validity)
+
+
+@dataclass
+class BoundCast(BoundExpr):
+    child: BoundExpr
+    ltype: LogicalType = DOUBLE
+    try_cast: bool = False
+
+    def children(self):
+        return [self.child]
+
+    def eval(self, env):
+        return _coerce_to(self.child.eval(env), self.ltype, env, try_cast=self.try_cast)
+
+    def is_const(self):
+        return self.child.is_const()
+
+    def const_value(self):
+        from duckdb_tpu_torch.planner.fold import fold_cast
+
+        return fold_cast(self)
+
+
+@dataclass
+class BoundInList(BoundExpr):
+    child: BoundExpr
+    items: List[BoundExpr]
+    negated: bool = False
+    ltype: LogicalType = BOOLEAN
+
+    def children(self):
+        return [self.child] + self.items
+
+    def eval(self, env: EvalEnv) -> Column:
+        c = self.child.eval(env)
+        if c.ltype.id is TypeId.VARCHAR:
+            vals = {it.const_value() for it in self.items} - {None}
+            lut = np.isin(c.dict_values, np.array(sorted(vals), dtype=object))
+            if self.negated:
+                lut = ~lut
+            d = torch.from_numpy(lut).to(c.data.device)[
+                c.data.long().clamp(0, len(lut) - 1)]
+            return Column(data=d, ltype=BOOLEAN, validity=c.validity)
+        d = _const(env, False, torch.bool)
+        for it in self.items:
+            x, y = _common_numeric(c, it.eval(env))
+            d = d | (x == y)
+        if self.negated:
+            d = ~d
+        return Column(data=d, ltype=BOOLEAN, validity=c.validity)
+
+
+@dataclass
+class BoundFunction(BoundExpr):
+    name: str
+    args: List[BoundExpr]
+    ltype: LogicalType = DOUBLE
+    impl: Optional[Callable] = None  # (env, arg_columns, node) -> Column
+
+    def children(self):
+        return self.args
+
+    def eval(self, env: EvalEnv) -> Column:
+        return self.impl(env, [a.eval(env) for a in self.args], self)
+
+
+@dataclass
+class BoundAggregateRef(BoundExpr):
+    """Reference to an aggregate's output slot (post-grouping column)."""
+
+    key: str
+    ltype: LogicalType = DOUBLE
+
+    def eval(self, env: EvalEnv) -> Column:
+        return env.cols[self.key]
+
+
+@dataclass
+class BoundAggregate:
+    """One aggregate to compute: func over arg expressions (pre-grouping)."""
+
+    func: str  # sum/count/avg/min/max/count_star
+    args: List[BoundExpr]
+    distinct: bool
+    ltype: LogicalType  # result type
+    key: str  # output binding
+    order_by: List = field(default_factory=list)  # (BoundExpr, desc, nf)
+
+
+def walk(expr: BoundExpr):
+    yield expr
+    for c in expr.children():
+        yield from walk(c)
+

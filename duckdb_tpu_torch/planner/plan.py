@@ -1,0 +1,58 @@
+"""Plan operator tree (the node kinds this slice executes).
+
+The reference lowers LogicalOperator → PhysicalOperator
+(duckdb/src/execution/physical_plan_generator.cpp). As in the JAX package,
+one tree serves both roles: execution/executor.py runs each node as eager
+torch ops over whole padded blocks.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+from duckdb_tpu_torch.planner.bound import BoundAggregate, BoundExpr
+from duckdb_tpu_torch.types import LogicalType
+
+
+class PlanNode:
+    pass
+
+
+@dataclass
+class Scan(PlanNode):
+    table: str
+    alias: str
+    cols: List[Tuple[str, str, LogicalType]]  # (colname, key, type)
+
+
+@dataclass
+class Filter(PlanNode):
+    child: PlanNode
+    expr: BoundExpr
+
+
+@dataclass
+class Project(PlanNode):
+    child: PlanNode
+    items: List[Tuple[str, BoundExpr]]  # (output key, expr)
+
+
+@dataclass
+class Aggregate(PlanNode):
+    child: PlanNode
+    groups: List[Tuple[str, BoundExpr]]  # (output key, expr)
+    aggs: List[BoundAggregate]
+
+
+@dataclass
+class Order(PlanNode):
+    child: PlanNode
+    items: List[Tuple[BoundExpr, bool, Optional[bool]]]  # (expr, desc, nulls_first)
+
+
+@dataclass
+class Limit(PlanNode):
+    child: PlanNode
+    n: Optional[int]
+    offset: int = 0

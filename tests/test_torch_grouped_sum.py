@@ -1,0 +1,85 @@
+"""Grouped int64 sum: the port against the JAX package's Pallas kernel.
+
+The port's `grouped_sum_i64` (duckdb_tpu_torch/ops/grouped_sum.py) takes
+its plain PyTorch version for CPU tensors; the JAX side is
+`duckdb_tpu.ops.pallas_agg.grouped_sum_i64`, which runs the Pallas kernel
+in interpret mode on the CPU, as tests/test_pallas_agg.py runs it. The two
+must agree bit for bit, including sums that wrap mod 2^64. The CUDA kernel
+itself is held against the plain version in tests/test_torch_gpu.py and
+in chip_smoke.py on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from duckdb_tpu.ops import pallas_agg
+from duckdb_tpu_torch.ops import grouped_sum as GS
+
+torch.set_num_threads(1)
+
+
+def _inputs(n, k, nseg, seed, value_bits):
+    rng = np.random.default_rng(seed)
+    dense = rng.integers(-1, nseg + 2, n).astype(np.int32)  # -1, nseg, nseg+1 dead
+    dead = (dense < 0) | (dense >= nseg)
+    vecs = []
+    for j in range(k):
+        hi = 2**value_bits if value_bits < 63 else 2**63 - 1
+        v = rng.integers(-hi, hi, n, dtype=np.int64)
+        v[dead] = 0  # the contract: dead rows hold 0
+        vecs.append(v)
+    return dense, vecs
+
+
+@pytest.mark.parametrize("n,k,nseg,value_bits", [
+    (1000, 1, 1, 40),          # one slot, one vector
+    (5000, 3, 7, 55),          # mixed signs
+    (20000, 12, 20, 30),       # Q1-like slot count, K > 10 (JAX splits)
+    (70000, 2, 256, 63),       # max domain, full-range values that wrap
+    (100000, 5, 12, 63),       # crosses two Pallas tiles, wrapping sums
+    (4096, 9, 256, 20),        # many slots, few rows each
+])
+def test_plain_matches_pallas(n, k, nseg, value_bits):
+    dense, vecs = _inputs(n, k, nseg, seed=n + k + nseg, value_bits=value_bits)
+    want = pallas_agg.grouped_sum_i64(jnp.asarray(dense),
+                                      [jnp.asarray(v) for v in vecs], nseg)
+    GS.grouped_sum_i64.launches = 0
+    got = GS.grouped_sum_i64(torch.from_numpy(dense),
+                             [torch.from_numpy(v) for v in vecs], nseg)
+    assert GS.grouped_sum_i64.launches == 0  # CPU tensors: plain version
+    assert len(got) == k
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64 and g.shape == (nseg,)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_wrapping_sum_is_mod_2_64():
+    """Four rows of 2^62 sum to 2^64, which wraps to 0 exactly, as int64 adds do."""
+    dense = torch.zeros(4, dtype=torch.int32)
+    v = torch.full((4,), 2**62, dtype=torch.int64)
+    (got,) = GS.grouped_sum_i64(dense, [v], 1)
+    assert int(got[0]) == 0
+    want = pallas_agg.grouped_sum_i64(jnp.zeros(4, jnp.int32),
+                                      [jnp.full((4,), 2**62, jnp.int64)], 1)
+    assert int(want[0][0]) == 0
+
+
+@pytest.mark.parametrize("nseg", [1, 20, 255, 256, 257, 1000, 3072, GS.MAX_CELLS])
+def test_launch_split_fits_shared_memory(nseg):
+    """The CUDA wrapper's vectors per launch keep the kernel's table of
+    nseg rows × (K | 1) words inside its 48 KiB of shared memory."""
+    per = GS.vectors_per_launch(nseg)
+    assert 1 <= per <= GS.MAX_K
+    assert nseg * (per | 1) * 8 <= 48 * 1024
+    assert per == GS.MAX_K or nseg * ((per + 1) | 1) * 8 > 48 * 1024
+
+
+def test_rejects_mismatched_vectors():
+    dense = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        GS.grouped_sum_i64(dense, [torch.zeros(8, dtype=torch.int32)], 2)
+    with pytest.raises(ValueError):
+        GS.grouped_sum_i64(dense, [torch.zeros(9, dtype=torch.int64)], 2)
