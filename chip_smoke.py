@@ -11,13 +11,17 @@ Phases (any failure exits non-zero before the result lines):
 3. the main path: TPC-H Q1 (bench.py's text) once through the port's
    entry points with every kernel launch count reset just before and read
    just after; its rows are checked against an independent numpy group-by
-   of the generated files (DECIMAL exact, DOUBLE within 1e-9 relative);
+   of the generated files (DECIMAL exact, DOUBLE within 1e-9 relative),
+   and its grouped sum must have taken the small-domain regime;
 4. each kernel against its plain PyTorch version on the card, exactly
    equal, on the inputs the main path gave it and on edge cases (one and
-   256 slots, 1 to 40 vectors, negatives, dead ids, sums that wrap);
+   256 slots, both sides of the regime threshold, 1 to 40 vectors,
+   negatives, dead ids holding values, sums that wrap, every row in one
+   slot, 4 live slots of 20, a ragged tail);
 5. timings with CUDA events at the main path's shapes (kernel, plain
    version, one library call, and the least time the card could take),
-   and Q1's median of 5 warm runs after 1 warm-up, as rows/s.
+   the grouped sum over a sweep of shapes at N = 6,291,456, and Q1's
+   median of 5 warm runs after 1 warm-up, as rows/s.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -37,6 +41,12 @@ SF = 1.0
 SEED = 0
 DATA = os.path.join(ROOT, "data", f"tpch_gen_sf{SF:g}_seed{SEED}")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# about 200 µs of the card's clock: more than the host takes to enqueue one
+# wrapper call, so cuda_ms measures the card and not the host
+SPIN_CYCLES_PER_CALL = 400_000
+# the grouped sum's sweep: (K vectors, nseg slots, live slots) at Q1's N
+SWEEP_N = 6_291_456
+SWEEP = ((16, 20, 4), (16, 20, 20), (1, 1, 1), (24, 1, 1), (9, 216, 216), (24, 256, 256))
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet), the
 # data sheet's only CUDA-core rate; int64 adds issue no faster, so it
 # gives a lower bound on their time
@@ -123,12 +133,18 @@ def rows_match(got, want) -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Device ms per call of fn: reps calls between two CUDA events. A spin
+    of the card (torch.cuda._sleep, SPIN_CYCLES_PER_CALL a call) goes first,
+    so the host enqueues every call before the card reaches them and a call
+    that is shorter on the card than its Python on the host is timed on the
+    card."""
     import torch
 
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -148,24 +164,73 @@ def max_abs_err(got, want) -> int:
     return max(errs)
 
 
-def edge_cases(device):
-    """(name, dense, vectors, nseg) inputs that stress the kernel's contract."""
+def edge_cases(device, small_max_nseg: int):
+    """(name, dense, vectors, nseg) inputs that stress the kernel's contract.
+
+    Ids are uniform over [-1, nseg + 2) (dead ones included) or drawn from a
+    few given ids; in the second kind dead rows keep their values, which the
+    kernel must ignore."""
     import torch
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
+    big = 1 << 20
     cases = []
-    for n, nseg, k in ((1 << 20, 1, 1), (1 << 20, 1, 24), (1 << 20, 256, 1),
-                       (1 << 20, 256, 24), (1 << 20, 256, 40), (1000, 20, 15)):
-        dense = torch.randint(-1, nseg + 2, (n,), generator=gen, dtype=torch.int32)
+    for n, nseg, k, ids in (
+            (big, 1, 1, None), (big, 1, 24, None), (big, 256, 1, None),
+            (big, 256, 24, None), (big, 256, 40, None), (1000, 20, 15, None),
+            (big + 77, 20, 16, (7,)),               # every row in one slot
+            (big + 77, 20, 16, (0, 1, 4, 5, -1)),   # 4 live of 20, as Q1
+            (big, small_max_nseg, 16, None),        # last small-regime nseg
+            (big, small_max_nseg + 1, 16, None),    # first large-regime nseg
+            (big, 216, 9, (100,)),                  # large regime, one slot
+            (big, 20, 25, (3, 9, 21))):             # 2 launches, 21 is dead
+        if ids is None:
+            dense = torch.randint(-1, nseg + 2, (n,), generator=gen, dtype=torch.int32)
+        else:
+            pick = torch.randint(0, len(ids), (n,), generator=gen)
+            dense = torch.tensor(ids, dtype=torch.int32)[pick]
         dead = (dense < 0) | (dense >= nseg)
         vecs = []
         for j in range(k):
             # full-range values wrap; small negatives stay exact
             hi = 2**63 - 1 if j % 2 == 0 else 2**20
             v = torch.randint(-hi, hi, (n,), generator=gen, dtype=torch.int64)
-            vecs.append(torch.where(dead, 0, v).to(device))
-        cases.append((f"n={n} nseg={nseg} K={k}", dense.to(device), vecs, nseg))
+            vecs.append((torch.where(dead, 0, v) if ids is None else v).to(device))
+        name = f"n={n} nseg={nseg} K={k}" + ("" if ids is None else f" ids {ids}")
+        cases.append((name, dense.to(device), vecs, nseg))
     return cases
+
+
+def sweep(GS, card: str):
+    """Time GS.grouped_sum_i64 at N = SWEEP_N over SWEEP's (K, nseg, live
+    slots) shapes, every row live: kernel ms beside the bytes bound (ids
+    read once, values read once, sums written once, at 3.35 TB/s), the
+    roofline share, and one index_add_ of the same sums. Returns the rows."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = []
+    for k, nseg, live in SWEEP:
+        slots = torch.randperm(nseg, generator=gen, device="cuda")[:live]
+        pick = torch.randint(0, live, (SWEEP_N,), generator=gen, device="cuda")
+        dense = slots[pick].to(torch.int32)
+        vecs = [torch.randint(-2**40, 2**40, (SWEEP_N,), generator=gen, device="cuda",
+                              dtype=torch.int64) for _ in range(k)]
+        kernel_ms = cuda_ms(lambda: GS.grouped_sum_i64(dense, vecs, nseg), 20)
+        d64, mat = dense.to(torch.int64), torch.stack(vecs, dim=1)
+        acc = torch.zeros((nseg, k), dtype=torch.int64, device="cuda")
+        library_ms = cuda_ms(lambda: acc.index_add_(0, d64, mat), 5)
+        bytes_moved = SWEEP_N * (4 + 8 * k) + nseg * k * 8
+        bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        row = {"k": k, "nseg": nseg, "live": live, "kernel_ms": kernel_ms,
+               "bound_ms": bound_ms, "roofline": bound_ms / kernel_ms,
+               "index_add_ms": library_ms}
+        print(f"sweep N={SWEEP_N} K={k} nseg={nseg} live={live} on {card}: kernel "
+              f"{kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({bytes_moved} bytes), "
+              f"roofline {100 * row['roofline']:.1f}%, index_add_ {library_ms:.4f} ms")
+        out.append(row)
+        del vecs, mat, d64
+    return out
 
 
 def main() -> int:
@@ -214,14 +279,18 @@ def main() -> int:
 
     grouped_mod.grouped_sum_i64 = recording
     GS.grouped_sum_i64.launches = 0
+    GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
     t0 = time.perf_counter()
     got = con.sql(Q1).rows()
     torch.cuda.synchronize()
     launches = GS.grouped_sum_i64.launches
+    regime_launches = dict(GS.grouped_sum_i64.regime_launches)
     first_s = time.perf_counter() - t0
     grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
     if launches < 1:
         return fail("Q1 did not launch the grouped_sum_i64 kernel")
+    if regime_launches["small"] < 1:
+        return fail(f"Q1's grouped sum missed the small-domain regime: {regime_launches}")
     if any(d.device.type != "cuda" for d, _, _ in recorded):
         return fail("the grouped sum ran on a tensor off the card")
     want = numpy_q1(DATA)
@@ -230,16 +299,17 @@ def main() -> int:
         return fail(f"Q1 rows differ from the numpy reference: {bad}")
     dense_q1, vecs_q1, nseg_q1 = recorded[-1]
     n_q1, k_q1 = dense_q1.shape[0], len(vecs_q1)
+    plan_q1 = GS.launch_plan(nseg_q1, k_q1)
     print(f"Q1 (first run, columns load to the card): {first_s:.3f} s, {len(got)} rows "
-          f"match numpy; grouped_sum_i64 launches {launches}, shape N={n_q1} "
-          f"K={k_q1} nseg={nseg_q1}")
+          f"match numpy; grouped_sum_i64 launches {launches} by regime "
+          f"{regime_launches}, shape N={n_q1} K={k_q1} nseg={nseg_q1}, plan {plan_q1}")
     for r in got:
         print("  ", r)
 
     # 4. kernel against its plain version, exactly
     worst = 0
     for name, dense, vecs, nseg in [("Q1 inputs", dense_q1, vecs_q1, nseg_q1)] \
-            + edge_cases(device):
+            + edge_cases(device, GS.SMALL_MAX_NSEG):
         err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
                           GS.grouped_sum_i64_plain(dense, vecs, nseg))
         torch.cuda.synchronize()
@@ -273,6 +343,8 @@ def main() -> int:
           f"by {bound_by} ({bytes_moved} bytes at 3.35 TB/s = {bytes_ms:.4f} ms; "
           f"{n_live * k_q1} int64 adds at 67 T/s = {ops_ms:.4f} ms)")
 
+    swept = sweep(GS, card)
+
     times = []
     for i in range(6):
         t0 = time.perf_counter()
@@ -292,9 +364,12 @@ def main() -> int:
         "source": "duckdb_tpu_torch/csrc/grouped_sum.cu",
         "replaces": "duckdb_tpu/ops/pallas_agg.py:182",
         "launches": launches, "launches_per_q1": launches,
+        "regime": plan_q1.regime, "regime_launches": regime_launches,
         "max_abs_err": worst, "ms": kernel_ms, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}]}))
+        "library_ms": library_ms,
+        "sweep": [{key: r[key] for key in ("k", "nseg", "live", "kernel_ms", "index_add_ms")}
+                  for r in swept]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,17 +3,28 @@
 Replaces the Pallas kernel `duckdb_tpu/ops/pallas_agg.py:grouped_sum_i64`
 (body `_kernel`), which computes the same sums with 8-bit limbs on the TPU's
 matrix unit because the v5e has no 64-bit datapath. On Hopper int64 adds
-are native, so the kernel (`csrc/grouped_sum.cu`) keeps an (nseg, K) table
-of sums in each block's shared memory (rows padded to an odd word count
-so that slots fall on different banks), adds every live row into it with
-shared-memory atomics and flushes each block's table with global atomics.
+are native, so the kernel (`csrc/grouped_sum.cu`) adds the values into
+per-slot tables in shared memory and flushes them with global atomics.
 Wrapping unsigned adds are associative, so the sums are bit-identical to a
 sequential int64 sum in any order.
 
 What bounds it on the H100: memory. It reads N x (4 + 8K) bytes (int32 slot
-ids plus K int64 vectors) once; at 3.35 TB/s that is the least time. Few
-live slots make the lanes of a warp collide on a handful of shared
-addresses, which serialises the atomics; making that fast is later work.
+ids plus K int64 vectors) once; at 3.35 TB/s that is the least time. What
+kept the first design off it was same-address shared atomics when a warp's
+lanes fall in a few slots (TPC-H Q1: 4 live of 20). `launch_plan` picks one
+of two regimes by nseg:
+
+- small (nseg <= SMALL_MAX_NSEG): each warp keeps a lane-private table of
+  G vectors, so the row loop has no atomics and no bank conflicts; the
+  grid's y dimension walks K in groups of G;
+- large: one table per block, shared atomics, with the lanes of a warp
+  that share a slot summed first (`__match_any_sync` and a shuffle tree);
+  each 64-bit add is two native 32-bit atomics with a carry, because the
+  64-bit shared atomicAdd is a compare-and-swap loop on this card.
+
+Neither the tensor cores nor Triton are used: the work is one int64 add
+per value, and the lane-private tables and warp intrinsics need per-lane
+addressing of shared memory that Triton does not give.
 
 The kernel is built from the repository's source with nvcc at first use
 into build/torch_kernels/ and loaded with ctypes. The wrapper takes the
@@ -28,7 +39,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence
 
 import torch
 
@@ -38,9 +49,24 @@ LIBRARY = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels",
                        "libgrouped_sum.so")
 
 MAX_K = 24  # vector pointers one launch takes (csrc: GS_MAX_K)
-MAX_CELLS = 6144  # nseg·(K | 1) words in 48 KiB of shared memory
-THREADS = 256  # csrc: GS_THREADS
-BLOCKS_PER_SM = 8
+WARPS = 8  # warps per block (csrc: GS_WARPS)
+SMEM_BLOCK_MAX = 232_448  # shared bytes one block may opt into (csrc: GS_SMEM_MAX)
+SMEM_SM = 233_472  # shared bytes of one SM
+SMEM_BLOCK_RESERVED = 1_024  # shared bytes the runtime keeps for each block
+GROUPS = (4, 2, 1)  # vectors per lane-private table (csrc: launch_small<G>)
+# one slot row of one vector across a block's lane-private tables
+_SMALL_ROW_BYTES = WARPS * 32 * 8
+# the small regime holds two blocks on an SM even with one vector per table
+SMALL_MAX_NSEG = (SMEM_SM // 2 - SMEM_BLOCK_RESERVED) // _SMALL_ROW_BYTES - 1
+MAX_NSEG = SMEM_BLOCK_MAX // 8  # one vector's (nseg, 1) table in the large regime
+
+
+class LaunchPlan(NamedTuple):
+    regime: str  # "small" (lane-private tables) or "large" (shared atomics)
+    vectors: int  # vectors one launch sums
+    group: int  # vectors per lane-private table (small); 0 for large
+    smem: int  # dynamic shared bytes per block
+
 
 _lock = threading.Lock()
 _lib = None
@@ -78,11 +104,33 @@ def build(force: bool = False) -> ctypes.CDLL:
         return lib
 
 
-def vectors_per_launch(nseg: int) -> int:
-    """Most vectors one launch sums: its shared table holds nseg rows of
-    (K | 1) words."""
-    per = min(MAX_K, MAX_CELLS // nseg)
-    return per - 1 if nseg * (per | 1) > MAX_CELLS else per
+def launch_plan(nseg: int, k: int) -> LaunchPlan:
+    """How the kernel sums the first of k vectors over nseg slots.
+
+    Small domains take the lane-private tables: (nseg + 1) rows (one spare
+    for dead ids) of G vectors × 32 lanes × 8 warps, with the largest G of
+    GROUPS, at most k, that still lets two blocks share an SM. Larger
+    domains take one (nseg, K | 1) table per block, with as many vectors as
+    fit one block's shared memory. The launch takes up to MAX_K vectors;
+    the wrapper plans the rest anew.
+    """
+    if not 1 <= nseg <= MAX_NSEG:
+        raise ValueError(f"grouped_sum_i64: nseg {nseg} outside [1, {MAX_NSEG}]")
+    per = min(k, MAX_K)
+    if nseg <= SMALL_MAX_NSEG:
+        for group in GROUPS:
+            smem = _SMALL_ROW_BYTES * (nseg + 1) * group
+            if group <= per and 2 * (smem + SMEM_BLOCK_RESERVED) <= SMEM_SM:
+                return LaunchPlan("small", per, group, smem)
+    while nseg * (per | 1) * 8 > SMEM_BLOCK_MAX:
+        per -= 1
+    return LaunchPlan("large", per, 0, nseg * (per | 1) * 8)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t as a contiguous tensor on a 16-byte boundary (the kernel's loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def grouped_sum_i64_plain(dense: torch.Tensor, vectors: Sequence[torch.Tensor],
@@ -102,9 +150,10 @@ def grouped_sum_i64(dense: torch.Tensor, vectors: Sequence[torch.Tensor],
     """Exact per-slot int64 sums of K pre-masked vectors.
 
     dense: (N,) integer slot ids; rows with an id outside [0, nseg) are dead
-    (their vector entries must already hold 0, as ops.grouped guarantees).
-    vectors: K tensors (N,) int64 on dense's device. Returns K tensors
-    (nseg,) int64; sums wrap mod 2^64 like the reference's.
+    and add nothing, whatever their vector entries hold (ops.grouped also
+    masks them to 0). vectors: K tensors (N,) int64 on dense's device.
+    Returns K tensors (nseg,) int64; sums wrap mod 2^64 like the
+    reference's.
     """
     if not vectors:
         return []
@@ -118,21 +167,19 @@ def grouped_sum_i64(dense: torch.Tensor, vectors: Sequence[torch.Tensor],
         return grouped_sum_i64_plain(dense, vectors, nseg)
     if dense.device.type != "cuda":
         raise ValueError(f"grouped_sum_i64: unsupported device {dense.device}")
-    if not 1 <= nseg <= MAX_CELLS:
-        raise ValueError(f"grouped_sum_i64: nseg {nseg} outside [1, {MAX_CELLS}]")
     lib = build()
     if dense.dtype != torch.int32:
         dense = dense.clamp(-1, nseg).to(torch.int32)
-    dense = dense.contiguous()
-    vecs = [v.contiguous() for v in vectors]
-    per = vectors_per_launch(nseg)
-    props = torch.cuda.get_device_properties(dense.device)
-    grid = max(1, min(-(-n // THREADS), props.multi_processor_count * BLOCKS_PER_SM))
+    dense = _aligned(dense)
+    vecs = [_aligned(v) for v in vectors]
     results = []
     with torch.cuda.device(dense.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for start in range(0, len(vecs), per):
-            chunk = vecs[start:start + per]
+        start = 0
+        while start < len(vecs):
+            plan = launch_plan(nseg, len(vecs) - start)
+            chunk = vecs[start:start + plan.vectors]
+            start += plan.vectors
             out = torch.zeros((nseg, len(chunk)), dtype=torch.int64,
                               device=dense.device)
             if n:
@@ -140,13 +187,15 @@ def grouped_sum_i64(dense: torch.Tensor, vectors: Sequence[torch.Tensor],
                     *[v.data_ptr() for v in chunk])
                 err = lib.grouped_sum_i64(
                     dense.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p), n,
-                    len(chunk), nseg, out.data_ptr(), grid, stream)
+                    len(chunk), nseg, out.data_ptr(), plan.group, stream)
                 if err != 0:
                     raise RuntimeError(
                         f"grouped_sum_i64 kernel launch failed: CUDA error {err}")
                 grouped_sum_i64.launches += 1
+                grouped_sum_i64.regime_launches[plan.regime] += 1
             results.extend(out[:, j] for j in range(len(chunk)))
     return results
 
 
 grouped_sum_i64.launches = 0  # kernel launches since the last reset
+grouped_sum_i64.regime_launches = {"small": 0, "large": 0}  # the same, by regime

@@ -67,14 +67,37 @@ def test_wrapping_sum_is_mod_2_64():
     assert int(want[0][0]) == 0
 
 
-@pytest.mark.parametrize("nseg", [1, 20, 255, 256, 257, 1000, 3072, GS.MAX_CELLS])
-def test_launch_split_fits_shared_memory(nseg):
-    """The CUDA wrapper's vectors per launch keep the kernel's table of
-    nseg rows × (K | 1) words inside its 48 KiB of shared memory."""
-    per = GS.vectors_per_launch(nseg)
-    assert 1 <= per <= GS.MAX_K
-    assert nseg * (per | 1) * 8 <= 48 * 1024
-    assert per == GS.MAX_K or nseg * ((per + 1) | 1) * 8 > 48 * 1024
+@pytest.mark.parametrize("nseg,k", [
+    (1, 1), (1, 24), (20, 16), (20, 3), (20, 40),
+    (GS.SMALL_MAX_NSEG, 16), (GS.SMALL_MAX_NSEG + 1, 16),
+    (216, 9), (256, 24), (257, 24), (1000, 24), (GS.MAX_NSEG, 1),
+])
+def test_launch_plan(nseg, k):
+    """The regime follows nseg, a launch takes at most MAX_K vectors, and
+    every block's tables fit its shared memory: the small regime's with two
+    blocks on an SM, the large regime's with as many vectors as fit."""
+    plan = GS.launch_plan(nseg, k)
+    assert plan.regime == ("small" if nseg <= GS.SMALL_MAX_NSEG else "large")
+    assert 1 <= plan.vectors <= min(k, GS.MAX_K)
+    assert plan.smem <= GS.SMEM_BLOCK_MAX
+    if plan.regime == "small":
+        assert plan.vectors == min(k, GS.MAX_K)
+        assert plan.group in GS.GROUPS and plan.group <= plan.vectors
+        assert plan.smem == GS.WARPS * 32 * 8 * (nseg + 1) * plan.group
+        assert 2 * (plan.smem + GS.SMEM_BLOCK_RESERVED) <= GS.SMEM_SM
+    else:
+        assert plan.group == 0
+        assert plan.smem == nseg * (plan.vectors | 1) * 8
+        assert (plan.vectors == min(k, GS.MAX_K)
+                or nseg * ((plan.vectors + 1) | 1) * 8 > GS.SMEM_BLOCK_MAX)
+
+
+def test_small_regime_covers_q1():
+    """Q1's 16 vectors over 20 slots take the lane-private tables in one launch."""
+    assert GS.SMALL_MAX_NSEG >= 20
+    assert GS.launch_plan(20, 16) == GS.LaunchPlan("small", 16, 2, 86_016)
+    with pytest.raises(ValueError):
+        GS.launch_plan(GS.MAX_NSEG + 1, 1)
 
 
 def test_rejects_mismatched_vectors():
