@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero before the result lines):
 1. the card's name and power limit, torch/CUDA versions; build every
    kernel from csrc/ and print nvcc's -Xptxas -v report;
-2. generate TPC-H lineitem at SF1 from a fixed seed (data/, ignored by
-   git) and load it with duckdb_tpu_torch.connect().load_tpch();
+2. generate all eight TPC-H tables at SF1 from a fixed seed (data/,
+   ignored by git) and load them with duckdb_tpu_torch.connect().load_tpch();
 3. the main path: TPC-H Q1 (bench.py's text) once through the port's
    entry points with every kernel launch count reset just before and read
    just after; its rows are checked against an independent numpy group-by
@@ -21,7 +21,15 @@ Phases (any failure exits non-zero before the result lines):
 5. timings with CUDA events at the main path's shapes (kernel, plain
    version, one library call, and the least time the card could take),
    the grouped sum over a sweep of shapes at N = 6,291,456, and Q1's
-   median of 5 warm runs after 1 warm-up, as rows/s.
+   median of 5 warm runs after 1 warm-up, as rows/s;
+6. the join path: TPC-H Q3, Q5, Q10 and Q12, each once with the counts
+   reset just before and read just after, its rows checked against the
+   numpy oracle (testing/tpch_oracle.py), its route asserted (Q5 and Q12
+   group into dense slots through the grouped sum's small regime, Q3 and
+   Q10 through the sort-group mode), the kernel checked against its plain
+   version on the inputs Q5 and Q12 gave it and timed at their shapes,
+   and each query's median of 5 warm runs after 1 warm-up, with the
+   device-to-host synchronizations of one warm run.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -201,6 +209,69 @@ def edge_cases(device, small_max_nseg: int):
     return cases
 
 
+def bound_of(dense, vecs, nseg):
+    """(least ms, what bounds it, bytes, adds) for grouped_sum_i64 on these
+    inputs: every slot id read, the K values of live rows only (dead rows
+    contribute nothing), the (nseg, K) output written once; one int64 add
+    per live value."""
+    n, k = dense.shape[0], len(vecs)
+    n_live = int(((dense >= 0) & (dense < nseg)).sum())
+    bytes_moved = n * 4 + n_live * 8 * k + nseg * k * 8
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_live * k / CUDA_CORE_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), \
+        bytes_moved, n_live * k
+
+
+def time_kernel(GS, dense, vecs, nseg, reps):
+    """(kernel ms, plain ms, index_add_ ms) on these inputs."""
+    import torch
+
+    d64 = dense.to(torch.int64)
+    d64 = torch.where((d64 < 0) | (d64 >= nseg), nseg, d64)
+    mat = torch.stack(vecs, dim=1)
+    acc = torch.zeros((nseg + 1, len(vecs)), dtype=torch.int64, device=dense.device)
+    kernel_ms = cuda_ms(lambda: GS.grouped_sum_i64(dense, vecs, nseg), reps)
+    plain_ms = cuda_ms(lambda: GS.grouped_sum_i64_plain(dense, vecs, nseg), reps)
+    library_ms = cuda_ms(lambda: acc.index_add_(0, d64, mat), reps)
+    return kernel_ms, plain_ms, library_ms
+
+
+def count_syncs(fn) -> int:
+    """Device-to-host synchronizations while fn runs, as CUDA's sync debug
+    mode reports them (each .item(), nonzero, device-to-host copy, ...)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def warm_median(con, sql, want, runs=5):
+    """Median host seconds of `runs` warm runs after 1 warm-up; each run
+    ends in a synchronize and must give `want`. → (median, times) or a
+    failure message."""
+    import torch
+
+    times = []
+    for i in range(runs + 1):
+        t0 = time.perf_counter()
+        rows = con.sql(sql).rows()
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+        if rows != want:
+            return None, "rows changed between runs"
+    return statistics.median(times), times
+
+
 def sweep(GS, card: str):
     """Time GS.grouped_sum_i64 at N = SWEEP_N over SWEEP's (K, nseg, live
     slots) shapes, every row live: kernel ms beside the bytes bound (ids
@@ -245,7 +316,8 @@ def main() -> int:
         import duckdb_tpu_torch
         from duckdb_tpu_torch.ops import grouped as grouped_mod
         from duckdb_tpu_torch.ops import grouped_sum as GS
-        from duckdb_tpu_torch.testing.tpch_gen import write_lineitem
+        from duckdb_tpu_torch.testing import tpch_oracle
+        from duckdb_tpu_torch.testing.tpch_gen import TABLE_COLUMNS, write_tables
     except ImportError as err:
         return fail(f"the port is not beside this script ({err})")
     device = torch.device("cuda")
@@ -262,12 +334,13 @@ def main() -> int:
 
     # 2. data
     t0 = time.perf_counter()
-    if not os.path.exists(os.path.join(DATA, "lineitem", "meta.json")):
-        write_lineitem(DATA, SF, SEED)
+    if not all(os.path.exists(os.path.join(DATA, t, "meta.json")) for t in TABLE_COLUMNS):
+        write_tables(DATA, SF, SEED)
     con = duckdb_tpu_torch.connect()
     con.load_tpch(DATA)
     nrows = con.catalog.get_table("lineitem").nrows
-    print(f"data: lineitem SF{SF:g} seed {SEED}, {nrows} rows, "
+    sizes = {t: con.catalog.get_table(t).nrows for t in TABLE_COLUMNS}
+    print(f"data: TPC-H SF{SF:g} seed {SEED}, rows {sizes}, "
           f"{time.perf_counter() - t0:.1f} s to generate and register")
 
     # 3. the main path, with the kernel's inputs recorded for phase 4
@@ -319,55 +392,98 @@ def main() -> int:
         worst = max(worst, err)
 
     # 5. timings at the Q1 shape
-    d64 = dense_q1.to(torch.int64)
-    d64 = torch.where((d64 < 0) | (d64 >= nseg_q1), nseg_q1, d64)
-    mat = torch.stack(vecs_q1, dim=1)
-    acc = torch.zeros((nseg_q1 + 1, k_q1), dtype=torch.int64, device=device)
     reps = 50
-    kernel_ms = cuda_ms(lambda: GS.grouped_sum_i64(dense_q1, vecs_q1, nseg_q1), reps)
-    plain_ms = cuda_ms(lambda: GS.grouped_sum_i64_plain(dense_q1, vecs_q1, nseg_q1), reps)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, d64, mat), reps)
+    kernel_ms, plain_ms, library_ms = time_kernel(GS, dense_q1, vecs_q1, nseg_q1, reps)
     kernel_ms2 = cuda_ms(lambda: GS.grouped_sum_i64(dense_q1, vecs_q1, nseg_q1), reps)
-    # what this run's data needs: every slot id, the K values of live rows
-    # only (dead rows contribute nothing), the (nseg, K) output once; one
-    # int64 add per live value
-    n_live = int(((dense_q1 >= 0) & (dense_q1 < nseg_q1)).sum())
-    bytes_moved = n_q1 * 4 + n_live * 8 * k_q1 + nseg_q1 * k_q1 * 8
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_live * k_q1 / CUDA_CORE_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"grouped_sum_i64 at N={n_q1} ({n_live} live) K={k_q1} nseg={nseg_q1} on "
-          f"{card}: kernel {kernel_ms:.4f} ms (again {kernel_ms2:.4f}), plain "
-          f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"by {bound_by} ({bytes_moved} bytes at 3.35 TB/s = {bytes_ms:.4f} ms; "
-          f"{n_live * k_q1} int64 adds at 67 T/s = {ops_ms:.4f} ms)")
+    bound_ms, bound_by, bytes_moved, adds = bound_of(dense_q1, vecs_q1, nseg_q1)
+    print(f"grouped_sum_i64 at N={n_q1} K={k_q1} nseg={nseg_q1} on {card}: kernel "
+          f"{kernel_ms:.4f} ms (again {kernel_ms2:.4f}), plain {plain_ms:.4f} ms, "
+          f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({bytes_moved} bytes at 3.35 TB/s = {bytes_moved / HBM_BYTES_PER_S * 1e3:.4f} "
+          f"ms; {adds} int64 adds at 67 T/s = {adds / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms)")
 
     swept = sweep(GS, card)
 
-    times = []
-    for i in range(6):
-        t0 = time.perf_counter()
-        rows = con.sql(Q1).rows()
-        torch.cuda.synchronize()
-        if i:
-            times.append(time.perf_counter() - t0)
-        if rows != got:
-            return fail("Q1 rows changed between runs")
-    med = statistics.median(times)
+    med, times = warm_median(con, Q1, got)
+    if med is None:
+        return fail(f"Q1: {times}")
+    syncs = count_syncs(lambda: con.sql(Q1).rows())
     print(f"Q1 SF{SF:g} on {card}: median of 5 warm runs {med * 1e3:.3f} ms "
           f"(runs {', '.join(f'{t * 1e3:.3f}' for t in times)} ms), "
-          f"{nrows / med:.0f} rows/s")
+          f"{nrows / med:.0f} rows/s, {syncs} host syncs per run")
+
+    # 6. the join path: Q3, Q5, Q10, Q12
+    launches_by_query = {"q01": launches}
+    shapes = []
+    for name, sql in tpch_oracle.QUERIES.items():
+        recorded.clear()
+        grouped_mod.grouped_sum_i64 = recording
+        GS.grouped_sum_i64.launches = 0
+        GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
+        con.routes.clear()
+        t0 = time.perf_counter()
+        got = con.sql(sql).rows()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        q_launches = GS.grouped_sum_i64.launches
+        q_regimes = dict(GS.grouped_sum_i64.regime_launches)
+        routes = dict(con.routes)
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+        launches_by_query[name] = q_launches
+        want = tpch_oracle.answer(name, DATA)
+        bad = rows_match(got, want)
+        if bad or not want:
+            return fail(f"{name} rows differ from the numpy oracle: {bad or 'no rows'}")
+        if name in ("q05", "q12"):
+            if routes.get("dense") != 1 or q_launches < 1 or q_regimes["small"] < 1:
+                return fail(f"{name} missed the grouped sum's small regime: routes "
+                            f"{routes}, launches {q_launches} {q_regimes}")
+            if any(d.device.type != "cuda" for d, _, _ in recorded):
+                return fail(f"{name}: the grouped sum ran on a tensor off the card")
+        elif routes.get("sort_group") != 1:
+            return fail(f"{name} did not take the sort-group mode: routes {routes}")
+        print(f"{name} (first run, columns load to the card): {first_s:.3f} s, {len(got)} "
+              f"rows match the numpy oracle; routes {routes}; grouped_sum_i64 launches "
+              f"{q_launches} by regime {q_regimes}")
+        for r in got[:3]:
+            print("  ", r)
+        for dense, vecs, nseg in recorded:
+            err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
+                              GS.grouped_sum_i64_plain(dense, vecs, nseg))
+            torch.cuda.synchronize()
+            n_q, k_q = dense.shape[0], len(vecs)
+            print(f"kernel vs plain, {name} inputs N={n_q} K={k_q} nseg={nseg}: "
+                  f"max abs err {err}")
+            if err:
+                return fail(f"grouped_sum_i64 disagrees with its plain version on {name}")
+            worst = max(worst, err)
+            k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+            b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
+            print(f"grouped_sum_i64 at {name}'s shape N={n_q} K={k_q} nseg={nseg} on "
+                  f"{card}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ "
+                  f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, "
+                  f"{b_adds} adds), regime {GS.launch_plan(nseg, k_q).regime}")
+            shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg,
+                           "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+        med, times = warm_median(con, sql, got)
+        if med is None:
+            return fail(f"{name}: {times}")
+        syncs = count_syncs(lambda: con.sql(sql).rows())
+        print(f"{name} SF{SF:g} on {card}: median of 5 warm runs {med * 1e3:.3f} ms "
+              f"(runs {', '.join(f'{t * 1e3:.3f}' for t in times)} ms), "
+              f"{nrows / med:.0f} lineitem rows/s, {syncs} host syncs per run")
 
     print(json.dumps({"kernels": [{
         "name": "grouped_sum_i64", "route": "cuda",
         "source": "duckdb_tpu_torch/csrc/grouped_sum.cu",
         "replaces": "duckdb_tpu/ops/pallas_agg.py:182",
-        "launches": launches, "launches_per_q1": launches,
+        "launches": sum(launches_by_query.values()),
+        "launches_by_query": launches_by_query,
         "regime": plan_q1.regime, "regime_launches": regime_launches,
         "max_abs_err": worst, "ms": kernel_ms, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+        "library_ms": library_ms, "join_shapes": shapes,
         "sweep": [{key: r[key] for key in ("k", "nseg", "live", "kernel_ms", "index_add_ms")}
                   for r in swept]}]}))
     print(json.dumps({"ok": True, "device": {

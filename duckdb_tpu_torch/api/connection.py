@@ -9,6 +9,8 @@ Connection surface come with later slices.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from duckdb_tpu_torch.catalog.catalog import Catalog
@@ -37,6 +39,9 @@ class Connection:
         self.catalog = Catalog(device=self.device)
         # plan cache: SQL text → (plan, output)
         self._plan_cache = {}
+        # the routes the fused aggregates of this connection's queries took
+        # (execution/executor.Executor.routes); callers may clear it
+        self.routes = collections.Counter()
 
     def sql(self, query: str) -> Result:
         """Execute one SELECT statement and return its Result."""
@@ -48,7 +53,7 @@ class Connection:
             cached = Planner(self.catalog).plan_select(stmts[0])
             self._plan_cache[query] = cached
         plan, output = cached
-        return Executor(self.catalog).run(plan, output)
+        return Executor(self.catalog, self.routes).run(plan, output)
 
     def load_tpch(self, data_dir: str):
         """Register the TPC-H tables of a dbgen_tbl directory (lazy columns)."""

@@ -44,12 +44,15 @@ class TableEntry:
         # device tier
         self._device: Dict[str, Column] = {}
         self.stats: Dict[str, ColumnStats] = {}
+        # mutation counter: caches of join build state key on it
+        self.version: int = 0
 
     # -- population -----------------------------------------------------------
     def set_host_column(self, name, values, validity=None, dict_values=None):
         self._host[name] = (values, validity, dict_values)
         self._device.pop(name, None)
         self._compute_stats(name)
+        self.version += 1
 
     def set_lazy_column(self, name, loader: Callable[[], Tuple]):
         """loader() -> (values, validity, dict_values)"""
@@ -104,6 +107,27 @@ class TableEntry:
         if name not in self.stats:
             self.host_column(name)  # force load to compute
         return self.stats.get(name, ColumnStats())
+
+    def distinct_count(self, name) -> int:
+        """Exact distinct count, computed lazily on the host and cached in
+        the column's stats (the reference keeps HLL estimates; exact lets a
+        primary key skip runtime uniqueness checks in joins)."""
+        st = self.stats_for(name)
+        if st.n_unique is None:
+            values, validity, _ = self.host_column(name)
+            live = values if validity is None else values[validity]
+            st.n_unique = int(len(np.unique(live)))
+        return st.n_unique
+
+    def composite_unique(self, names: Tuple[str, ...]) -> bool:
+        """True if the column tuple is row-unique (a composite primary key),
+        computed on the host once per (columns, rows, version)."""
+        key = (tuple(sorted(names)), self.nrows, self.version)
+        cache = self.__dict__.setdefault("_composite_unique", {})
+        if key not in cache:
+            cols = [self.host_column(n)[0][:self.nrows] for n in names]
+            cache[key] = bool(cols) and len(np.unique(np.rec.fromarrays(cols))) == self.nrows
+        return cache[key]
 
 
 def qualify(name: str) -> str:

@@ -4,14 +4,18 @@ Replaces the reference's pull/push pipeline interpreter
 (duckdb/src/parallel/pipeline_executor.cpp) with host-driven execution of
 plan nodes, each a handful of torch ops over an entire padded block on the
 connection's device. As in the JAX package, a Batch's columns are lazy:
-an ORDER BY or LIMIT stores gather indices and only materializes the
-planes downstream operators touch. Host syncs happen where a size is
-needed (group count, live count); PyTorch runs eagerly, so a size is read
-when it is needed instead of learned across runs.
+a join, ORDER BY or LIMIT stores gather indices and only materializes the
+planes downstream operators touch. Inner equi-joins pack their keys into
+one int64 per row and take a direct-address table when the build keys are
+unique (the output keeps the probe's shape), else a sorted build with pair
+expansion. Host syncs happen where a size is needed (group count, live
+count, pair count); PyTorch runs eagerly, so a size is read when it is
+needed instead of learned across runs.
 """
 
 from __future__ import annotations
 
+import collections
 import datetime
 import decimal as pydec
 from dataclasses import dataclass
@@ -22,13 +26,16 @@ import torch
 
 from duckdb_tpu_torch.blocks import Column, pad_bucket
 from duckdb_tpu_torch.catalog.catalog import Catalog, TableEntry
+from duckdb_tpu_torch.ops import join as J
 from duckdb_tpu_torch.ops import sort as S
 from duckdb_tpu_torch.ops.compact import compact_indices
 from duckdb_tpu_torch.planner import plan as P
+from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner.bound import EvalEnv, bcast, not_ported
 from duckdb_tpu_torch.types import LogicalType, TypeId
 
 _I64_MIN = torch.iinfo(torch.int64).min
+_I64_MAX = torch.iinfo(torch.int64).max
 
 
 # ---------------------------------------------------------------------------
@@ -112,9 +119,11 @@ class ChainCols(ColSource):
 class GatherCols(ColSource):
     """Late materialization: parent columns gathered by row indices on access."""
 
-    def __init__(self, parent: ColSource, rows: torch.Tensor):
+    def __init__(self, parent: ColSource, rows: torch.Tensor,
+                 null_rows: Optional[torch.Tensor] = None):
         self.parent = parent
-        self.rows = rows  # (P',) int64 indices into the parent block
+        self.rows = rows  # (P',) int64 indices into the parent block; may be -1
+        self.null_rows = null_rows  # bool (P',): True → the row is NULL (outer joins)
         self._cache: Dict[str, Column] = {}
 
     def __getitem__(self, key: str) -> Column:
@@ -126,7 +135,10 @@ class GatherCols(ColSource):
         def take(x):
             return None if x is None else x[idx]
 
-        out = Column(data=take(col.data), ltype=col.ltype, validity=take(col.validity),
+        validity = take(col.validity)
+        if self.null_rows is not None:
+            validity = ~self.null_rows if validity is None else validity & ~self.null_rows
+        out = Column(data=take(col.data), ltype=col.ltype, validity=validity,
                      dict_values=col.dict_values, data_hi=take(col.data_hi))
         self._cache[key] = out
         return out
@@ -206,9 +218,12 @@ class Result:
 
 
 class Executor:
-    def __init__(self, catalog: Catalog):
+    def __init__(self, catalog: Catalog, routes: Optional[collections.Counter] = None):
         self.catalog = catalog
         self._batch_memo = {}
+        # what the fused aggregates did: "dense" / "sort_group" grouping,
+        # "probe_dense" / "probe_sorted" join-step probes
+        self.routes = collections.Counter() if routes is None else routes
 
     # -- entry ---------------------------------------------------------------
     def run(self, plan: P.PlanNode, output: List[Tuple[str, str, LogicalType]]) -> Result:
@@ -279,9 +294,219 @@ class Executor:
 
         fused = try_fused_aggregate(self, node)
         if fused is None:
-            raise not_ported("this aggregate shape (joins, unbounded group keys, "
-                             "or a grouped subquery input)")
+            raise not_ported("this aggregate shape (DISTINCT, holistic or string "
+                             "min/max aggregates, or computed string group keys)")
         return fused
+
+    # -- joins ---------------------------------------------------------------
+    def _join_keys(self, batch: Batch, key_exprs):
+        """Evaluate equi-key exprs → (per-key Columns, key_valid mask)."""
+        env = batch.env()
+        cols, valid = [], torch.ones(batch.plen, dtype=torch.bool, device=batch.live.device)
+        for e in key_exprs:
+            c = e.eval(env)
+            cols.append(c)
+            valid = valid & _full_valid(c, batch.plen)
+        return cols, valid
+
+    def _key_bounds(self, batch: Batch, expr) -> Optional[Tuple[int, int]]:
+        """Static value bounds for a join-key expr, from table stats."""
+        if isinstance(expr, B.BoundColumnRef):
+            try:
+                return batch.src.stats_range(expr.key)
+            except KeyError:
+                return None
+        return None
+
+    def _pack_keys(self, probe_b: Batch, build_b: Batch, probe_keys, build_keys):
+        """Pack multi-column equi-keys into one int64 per side.
+
+        Per-key value ranges come from table stats when available (the
+        zone-map analog of duckdb sizing its perfect-hash join from stats,
+        perfect_hash_join_executor.cpp), else one device min/max read over
+        the build side. → (packed probe, probe key valid, packed build,
+        build key valid, dense size Π(range + 1)).
+        """
+        p_cols, p_valid = self._join_keys(probe_b, probe_keys)
+        b_cols, b_valid = self._join_keys(build_b, build_keys)
+        device = probe_b.live.device
+        packed_p = torch.zeros(probe_b.plen, dtype=torch.int64, device=device)
+        packed_b = torch.zeros(build_b.plen, dtype=torch.int64, device=device)
+        dense_size = 1
+        for i, (pc, bc) in enumerate(zip(p_cols, b_cols)):
+            if pc.ltype.id is TypeId.VARCHAR:
+                lp, lb = B._varchar_rank_luts(pc, bc, device)
+                pd = lp[bcast(pc.data, probe_b.plen).long().clamp(0, len(lp) - 1)].long()
+                bd = lb[bcast(bc.data, build_b.plen).long().clamp(0, len(lb) - 1)].long()
+                lo, hi = 0, max(int(lp.shape[0]), int(lb.shape[0]))
+            else:
+                pd = bcast(pc.data, probe_b.plen).to(torch.int64)
+                bd = bcast(bc.data, build_b.plen).to(torch.int64)
+                bounds = self._key_bounds(build_b, build_keys[i])
+                if bounds is None:
+                    blive = build_b.live & b_valid
+                    if not bool(blive.any()):
+                        bounds = (0, 0)
+                    else:
+                        bounds = (int(torch.where(blive, bd, _I64_MAX).min()),
+                                  int(torch.where(blive, bd, _I64_MIN).max()))
+                lo, hi = bounds
+            rng = hi - lo + 1
+            # probe values outside [lo, hi] clip to the -1 / rng sentinels of
+            # their digit, which no in-range packed build key can equal
+            packed_p = packed_p * (rng + 1) + (pd - lo).clamp(-1, rng)
+            packed_b = packed_b * (rng + 1) + (bd - lo).clamp(-1, rng)
+            dense_size *= rng + 1
+        return packed_p, p_valid, packed_b, b_valid, dense_size
+
+    # direct-address join table cap (int64 slots: 1 GiB)
+    DENSE_JOIN_LIMIT = 1 << 27
+
+    # eager-join build cache row cap: cached Batches pin device planes
+    EAGER_BUILD_CACHE_MAX = 1 << 25
+
+    def _exec_Join(self, node: P.Join) -> Batch:
+        if node.jtype != "inner" or node.extra is not None or node.null_aware:
+            raise not_ported(f"{node.jtype} joins and join residuals")
+        if not node.probe_keys:
+            raise not_ported("joins without an equi-join condition")
+        probe_b = self.execute(node.probe)
+        build_b = self._exec_build_cached(node)
+        pk, p_valid, bk, b_valid, dense_size = self._pack_keys(
+            probe_b, build_b, node.probe_keys, node.build_keys)
+        build_live = build_b.live & b_valid
+        probe_live = probe_b.live & p_valid
+        # runtime join-filter pushdown (BuildPrefixRangeFilter analog,
+        # reference join_hashtable.cpp:1011): tighten the probe mask by the
+        # build's actual packed-key range, on the device
+        blo = torch.where(build_live, bk, _I64_MAX).min()
+        bhi = torch.where(build_live, bk, _I64_MIN).max()
+        probe_live = probe_live & (pk >= blo) & (pk <= bhi)
+        unique = self._build_known_unique(node, build_b)
+        if dense_size <= self.DENSE_JOIN_LIMIT:
+            out = self._dense_join(probe_b, build_b, pk, bk, probe_live, build_live,
+                                   dense_size, known_unique=unique)
+            if out is not None:
+                return out
+        return self._sorted_join(probe_b, build_b, pk, bk, probe_live, build_live)
+
+    def _exec_build_cached(self, node: P.Join) -> Batch:
+        """Execute the build side with a batch cache on the join node, keyed
+        by every scanned (table, rows, version) under the build: a warm query
+        skips the whole build subtree."""
+        from duckdb_tpu_torch.execution.fused_agg import _cache_store, _scan_versions
+
+        vkey = _scan_versions(self, node.build)
+        cache = _cache_store(node, "_eager_build_cache")
+        hit = cache.get(vkey)
+        if hit is not None:
+            return hit
+        build_b = self.execute(node.build)
+        if build_b.plen <= self.EAGER_BUILD_CACHE_MAX:
+            cache.clear()
+            cache[vkey] = build_b
+        return build_b
+
+    def _build_known_unique(self, node, build_b) -> bool:
+        """True if catalog stats prove the build key is row-unique, which
+        skips runtime duplicate checks (host syncs). A composite key is
+        unique if the subset owned by ANY single table is already unique."""
+        if not node.build_keys or not all(
+                isinstance(e, (B.BoundColumnRef, B.BoundAggregateRef))
+                for e in node.build_keys):
+            return False
+        keys = [e.key for e in node.build_keys]
+
+        # GROUP BY outputs are unique by construction: a build side that is
+        # (Filter/Project)*(Aggregate) with the join keys covering the
+        # aggregate's full group-key set has one row per key tuple
+        b = node.build
+        akeys = list(keys)
+        while isinstance(b, (P.Project, P.Filter)):
+            if isinstance(b, P.Project):
+                remap = dict(b.items)
+                akeys = [remap[k].key if isinstance(
+                    remap.get(k), (B.BoundColumnRef, B.BoundAggregateRef)) else k
+                    for k in akeys]
+            b = b.child
+        if isinstance(b, P.Aggregate) and b.groups:
+            if set(akeys) >= {gk for gk, _ in b.groups}:
+                return True
+        if not all(isinstance(e, B.BoundColumnRef) for e in node.build_keys):
+            return False
+        # walk chain sources to the TableCols owning each key. GatherCols is
+        # opaque: a gather may duplicate rows (join expansion), which
+        # destroys key uniqueness even when the table column is unique.
+        per_entry: Dict[int, Tuple[TableEntry, list]] = {}
+        stack = [build_b.src]
+        n_found = 0
+        while stack and n_found < len(keys):
+            s_ = stack.pop()
+            if isinstance(s_, ChainCols):
+                stack.extend(s_.sources)
+            elif isinstance(s_, TableCols):
+                owned = [k for k in keys if k in s_.keymap]
+                if owned:
+                    ent, cols = per_entry.setdefault(id(s_.entry), (s_.entry, []))
+                    cols.extend(s_.keymap[k] for k in owned)
+                    n_found += len(owned)
+        for ent, cols in per_entry.values():
+            if len(cols) == 1:
+                if ent.distinct_count(cols[0]) == ent.nrows:
+                    return True
+            elif ent.composite_unique(tuple(cols)):
+                return True
+        return False
+
+    def _dense_join(self, probe_b, build_b, pk, bk, probe_live, build_live, size,
+                    known_unique=False) -> Optional[Batch]:
+        """Perfect direct-address join (unique build keys): probe = 1 gather.
+
+        The duckdb PerfectHashJoinExecutor analog
+        (duckdb/src/execution/operator/join/perfect_hash_join_executor.cpp).
+        The output keeps the PROBE block shape (mask, no expansion). Dead
+        build rows land in a spare slot past the table; an unproven build
+        is checked for duplicate keys first (one host read) and goes to
+        the sorted path if it has any.
+        """
+        device = bk.device
+        slot = torch.where(build_live, bk.clamp(0, size), size)
+        if not known_unique:
+            occ = torch.zeros(size + 1, dtype=torch.int64, device=device)
+            occ.index_add_(0, slot, torch.ones_like(slot))
+            if int(occ[:size].max()) > 1:
+                return None  # duplicate build keys → sorted path
+        slots = torch.full((size + 1,), -1, dtype=torch.int64, device=device)
+        slots[slot] = torch.where(build_live, torch.arange(build_b.plen, device=device), -1)
+        brow, matched = self._probe_dense(slots, size, pk, probe_live)
+        return self._one_match_tail(probe_b, build_b, brow, matched)
+
+    def _probe_dense(self, slots, size, pk, probe_live):
+        """Dense-table probe → (build row or -1, matched)."""
+        in_range = (pk >= 0) & (pk < size)
+        brow = torch.where(in_range, slots[pk.clamp(0, size - 1)], -1)
+        return brow, probe_live & (brow >= 0)
+
+    def _one_match_tail(self, probe_b, build_b, brow, matched) -> Batch:
+        """Inner join result when each probe row has ≤1 build match: the
+        output keeps the PROBE block shape (mask + gather, no expansion)."""
+        src = ChainCols([probe_b.src, GatherCols(build_b.src, brow.clamp(0, build_b.plen - 1))])
+        return Batch(src=src, plen=probe_b.plen, live=matched)
+
+    def _sorted_join(self, probe_b, build_b, pk, bk, probe_live, build_live) -> Batch:
+        table = J.build_sorted(bk, build_live)
+        counts, lo, _ = J.probe_counts(table, pk, probe_live)
+        return self._expand_tail(probe_b, build_b, counts, lo, table.perm)
+
+    def _expand_tail(self, probe_b, build_b, counts, lo, perm) -> Batch:
+        """Inner join result via pair expansion: candidate position
+        lo[row] + k (k < counts[row]) maps through `perm` to a build row.
+        The pair count is read once from the device."""
+        total = int(counts.sum())
+        cap = max(128, pad_bucket(total))
+        pr, br, out_live = J.expand_matches(counts, lo, perm, cap)
+        src = ChainCols([GatherCols(probe_b.src, pr), GatherCols(build_b.src, br)])
+        return Batch(src=src, plen=cap, live=out_live)
 
     # -- order / limit --------------------------------------------------------
     def _order_norm_keys(self, node: P.Order, b: Batch):

@@ -46,6 +46,21 @@ class Aggregate(PlanNode):
 
 
 @dataclass
+class Join(PlanNode):
+    """Equi-join; this slice plans and executes jtype "inner" only."""
+
+    probe: PlanNode  # "left" side of SQL semantics after planner normalization
+    build: PlanNode
+    jtype: str  # inner (left / full / semi / anti / single: later slices)
+    probe_keys: List[BoundExpr]
+    build_keys: List[BoundExpr]
+    # residual ON predicate over combined (probe ∪ build) columns
+    extra: Optional[BoundExpr] = None
+    # NOT IN semantics (anti joins, a later slice)
+    null_aware: bool = False
+
+
+@dataclass
 class Order(PlanNode):
     child: PlanNode
     items: List[Tuple[BoundExpr, bool, Optional[bool]]]  # (expr, desc, nulls_first)

@@ -1,18 +1,22 @@
-"""Statement planner: parsed AST → plan tree (single-table SELECT).
+"""Statement planner: parsed AST → plan tree.
 
-The JAX package's planner (duckdb_tpu/planner/planner.py) flattens FROM
-trees into an atom pool, orders joins and flattens subqueries. This slice
-plans the TPC-H Q1 shape: one base table, WHERE conjuncts as filters,
-GROUP BY with aggregates, HAVING, the projection, DISTINCT, ORDER BY and
-LIMIT/OFFSET. It builds the same plan nodes, keys and output names as the
-reference for that shape. Joins, subqueries, CTEs, set operations and
-windows are not yet ported and say so.
+As in the JAX package (duckdb_tpu/planner/planner.py), FROM flattens into
+a pool of atoms (base tables, comma lists, [INNER] JOIN … ON); WHERE and ON
+conjuncts over one atom become filters on it; the joins are ordered by the
+DP of planner/join_order.py for three or more atoms, else by the greedy
+probe spine with its snowflake collapse, and become inner equi-Join nodes.
+On top come GROUP BY with aggregates, HAVING, the projection, DISTINCT,
+ORDER BY and LIMIT/OFFSET. Keys, output names and join orders match the
+reference's for these shapes. Subqueries, outer/semi/anti joins, USING and
+NATURAL joins, table functions, joins without an equi-join condition,
+CTEs, set operations and windows are not yet ported and say so.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Set, Tuple
 
 from duckdb_tpu_torch.sql import nodes as N
 from duckdb_tpu_torch.planner import bound as B
@@ -49,6 +53,25 @@ def split_conjuncts(e: Optional[N.Expr]) -> List[N.Expr]:
     return [e]
 
 
+@dataclass
+class Atom:
+    id: int
+    plan: P.PlanNode
+    rows: int  # cardinality estimate (table rows, scaled by pushed filters)
+    keys: Set[str]  # binding keys this atom provides
+    # key → (catalog table, column) for base-scan atoms; drives the
+    # fanout estimate in the greedy join order (PK edge ⇒ fanout 1)
+    col_of: Dict[str, Tuple[str, str]] = field(default_factory=dict)
+    # UNFILTERED base-table rows: pushed filters scale `rows` down, but
+    # probe-spine orientation follows the base table size (a filtered fact
+    # side as BUILD = duplicate keys = no fused pipeline)
+    base_rows: int = 0
+
+    def __post_init__(self):
+        if not self.base_rows:
+            self.base_rows = self.rows
+
+
 class Planner:
     def __init__(self, catalog):
         self.catalog = catalog
@@ -76,10 +99,8 @@ class Planner:
             plan = P.Limit(plan, n, off)
         return plan, output
 
-    def _plan_base_table(self, ref, scope: Scope) -> P.Scan:
-        if not isinstance(ref, N.BaseTableRef):
-            raise not_ported(f"FROM {type(ref).__name__} (joins, subqueries, "
-                             "table functions)")
+    def _plan_base_table(self, ref: N.BaseTableRef):
+        """→ (Scan, scope additions [(alias, col, key, type)], table rows)."""
         if ref.sample is not None or ref.column_aliases:
             raise not_ported("table samples and column alias lists")
         name = (f"{ref.schema}.{ref.name}" if ref.schema else ref.name).lower()
@@ -88,11 +109,207 @@ class Planner:
         entry = self.catalog.get_table(name)
         alias = (ref.alias or ref.name).lower()
         cols = []
+        scope_adds = []
         for cd in entry.columns:
             key = self.fresh(f"{alias}.{cd.name}")
             cols.append((cd.name, key, cd.ltype))
-            scope.add(alias, cd.name, key, cd.ltype)
-        return P.Scan(entry.name, alias, cols)
+            scope_adds.append((alias, cd.name, key, cd.ltype))
+        return P.Scan(entry.name, alias, cols), scope_adds, entry.nrows
+
+    def collect_atoms(self, ref: N.TableRef, scope: Scope, atoms: List[Atom],
+                      pred_asts: List[N.Expr]):
+        """Flatten a FROM tree into atoms + predicate ASTs (inner joins only)."""
+        if isinstance(ref, N.BaseTableRef):
+            plan, scope_adds, nrows = self._plan_base_table(ref)
+            self._add_atom(plan, scope_adds, nrows, scope, atoms, plan.table)
+            return
+        if isinstance(ref, N.JoinRef) and ref.join_type in ("inner", "cross"):
+            if ref.using or ref.natural:
+                raise not_ported("JOIN … USING and NATURAL JOIN")
+            self.collect_atoms(ref.left, scope, atoms, pred_asts)
+            self.collect_atoms(ref.right, scope, atoms, pred_asts)
+            if ref.condition is not None:
+                pred_asts.extend(split_conjuncts(ref.condition))
+            return
+        if isinstance(ref, N.JoinRef):
+            raise not_ported(f"{ref.join_type.upper()} JOIN")
+        raise not_ported(f"FROM {type(ref).__name__} (subqueries, table functions)")
+
+    def _add_atom(self, plan, scope_adds, nrows, scope: Scope, atoms: List[Atom],
+                  table: str):
+        keys = set()
+        col_of = {}
+        for alias, col, key, t in scope_adds:
+            scope.add(alias, col, key, t)
+            keys.add(key)
+            col_of[key] = (table, col)
+        atoms.append(Atom(len(atoms), plan, nrows, keys, col_of))
+
+    def _keys_of(self, e: B.BoundExpr) -> Set[str]:
+        return {n.key for n in B.walk(e) if isinstance(n, B.BoundColumnRef)}
+
+    def _atoms_of(self, e: B.BoundExpr, key2atom) -> Set[int]:
+        return {key2atom[k] for k in self._keys_of(e) if k in key2atom}
+
+    # -- pool join ordering ---------------------------------------------------
+    def plan_pool(self, atoms: List[Atom], preds: List[B.BoundExpr]) -> P.PlanNode:
+        """Join all atoms; apply predicates as soon as their support is joined."""
+        key2atom = {}
+        for a in atoms:
+            for k in a.keys:
+                key2atom[k] = a.id
+        by_id = {a.id: a for a in atoms}
+
+        # push single-atom predicates (scaling the atom's row estimate —
+        # feeds both the DP cost model and the greedy spine choice)
+        from duckdb_tpu_torch.planner.join_order import (dp_join_order,
+                                                         estimate_selectivity)
+
+        multi = []
+        for p in preds:
+            sup = self._atoms_of(p, key2atom)
+            if len(sup) <= 1:
+                aid = next(iter(sup)) if sup else atoms[0].id
+                a = by_id[aid]
+                a.plan = P.Filter(a.plan, p)
+                a.rows = max(1, int(a.rows * estimate_selectivity(self, p, a)))
+            else:
+                multi.append(p)
+
+        # DP join ordering over the query graph (reference:
+        # duckdb/src/optimizer/join_order/); the JAX package's default, which
+        # this port has no setting to turn off. Greedy below takes oversized
+        # and disconnected graphs.
+        if len(by_id) >= 3:
+            dp_plan = dp_join_order(self, by_id, multi)
+            if dp_plan is not None:
+                return dp_plan
+
+        # snowflake collapse: pre-join fanout-1 dimension chains into their
+        # parent atom, bottom-up, so the fact spine probes each chain ONCE
+        # (joining customer into orders first costs O(orders) instead of
+        # O(lineitem)); the bushy special case that matters for
+        # star/snowflake schemas (TPC-H Q3/Q5/Q7-Q10).
+        if len(by_id) > 2:
+            spine_id = max(by_id.values(),
+                           key=lambda a: (a.base_rows or a.rows, a.rows)).id
+            changed = True
+            while changed and len(by_id) > 2:
+                changed = False
+                for a in sorted(by_id.values(), key=lambda x: x.rows):
+                    if a.id == spine_id:
+                        continue
+                    for b in sorted(by_id.values(), key=lambda x: x.rows):
+                        if b.id in (a.id, spine_id) or b.rows > a.rows:
+                            continue
+                        edges = self._edges_between(multi, a.keys, b.keys)
+                        if not edges or self._fanout_estimate(b, edges) > 1.01:
+                            continue
+                        pk = [e[1] for e in edges]
+                        bk = [e[2] for e in edges]
+                        used = [e[0] for e in edges]
+                        multi = [p for p in multi
+                                 if not any(p is u for u in used)]
+                        a.plan = P.Join(a.plan, b.plan, "inner", pk, bk, None)
+                        a.keys = set(a.keys) | set(b.keys)
+                        a.col_of.update(b.col_of)
+                        del by_id[b.id]
+                        for k in b.keys:
+                            key2atom[k] = a.id
+                        # predicates now fully inside the merged atom
+                        rest = []
+                        for p in multi:
+                            if self._keys_of(p) <= a.keys:
+                                a.plan = P.Filter(a.plan, p)
+                            else:
+                                rest.append(p)
+                        multi = rest
+                        changed = True
+                        break
+                    if changed:
+                        break
+
+        remaining = dict(by_id)
+        # start from the largest atom (fact-table probe spine) by BASE
+        # table size: filtered estimates can flip a fact below a dimension,
+        # making the fact the duplicate-key BUILD
+        cur = max(remaining.values(), key=lambda a: (a.base_rows or a.rows, a.rows))
+        del remaining[cur.id]
+        joined_keys = set(cur.keys)
+        plan = cur.plan
+        pending = list(multi)
+
+        def try_apply_pending(plan):
+            nonlocal pending
+            rest = []
+            for p in pending:
+                if self._keys_of(p) <= joined_keys:
+                    plan = P.Filter(plan, p)
+                else:
+                    rest.append(p)
+            pending = rest
+            return plan
+
+        while remaining:
+            # candidate atoms connected by at least one equi edge, scored by
+            # estimated join fanout (PK-range edge ⇒ 1) then size
+            best = None
+            best_score = None
+            for a in remaining.values():
+                edges = self._edges_between(pending, joined_keys, a.keys)
+                if edges:
+                    score = (self._fanout_estimate(a, edges), a.rows)
+                    if best is None or score < best_score:
+                        best = (a, edges)
+                        best_score = score
+            if best is None:
+                # the JAX package plans a keyless Join (its IEJoin path) or a
+                # CrossJoin here
+                raise not_ported("joins without an equi-join condition")
+            a, edges = best
+            del remaining[a.id]
+            pk, bk, used = [], [], []
+            for p, probe_side, build_side in edges:
+                pk.append(probe_side)
+                bk.append(build_side)
+                used.append(p)
+            pending = [p for p in pending if not any(p is u for u in used)]
+            plan = P.Join(plan, a.plan, "inner", pk, bk, None)
+            joined_keys |= a.keys
+            plan = try_apply_pending(plan)
+        for p in pending:
+            plan = P.Filter(plan, p)
+        return plan
+
+    def _fanout_estimate(self, atom: Atom, edges) -> float:
+        """Rows matched per probe row: build_rows / Π per-edge key ranges."""
+        denom = 1.0
+        for _, probe_side, build_side in edges:
+            rng = None
+            if isinstance(build_side, B.BoundColumnRef):
+                tc = atom.col_of.get(build_side.key)
+                if tc is not None:
+                    st = self.catalog.get_table(tc[0]).stats_for(tc[1])
+                    if st.min_val is not None and st.max_val is not None:
+                        rng = max(1, int(st.max_val) - int(st.min_val) + 1)
+                    if st.n_unique is not None:
+                        rng = max(rng or 1, st.n_unique)
+            if rng is not None:
+                denom *= rng
+        return max(1.0, atom.rows / denom)
+
+    def _edges_between(self, preds, joined_keys: Set[str], atom_keys: Set[str]):
+        out = []
+        for p in preds:
+            if not isinstance(p, B.BoundComparison) or p.op not in ("=", "=="):
+                continue
+            kl, kr = self._keys_of(p.left), self._keys_of(p.right)
+            if kl and kr:
+                if kl <= joined_keys and kr <= atom_keys:
+                    out.append((p, p.left, p.right))
+                elif kr <= joined_keys and kl <= atom_keys:
+                    out.append((p, p.right, p.left))
+        return out
 
     def plan_select_node(self, sel: N.SelectNode):
         if sel.from_table is None:
@@ -100,12 +317,12 @@ class Planner:
         if sel.sample is not None or sel.qualify is not None or sel.distinct_on:
             raise not_ported("SAMPLE, QUALIFY and DISTINCT ON")
         scope = Scope()
-        plan: P.PlanNode = self._plan_base_table(sel.from_table, scope)
+        atoms: List[Atom] = []
+        pred_asts: List[N.Expr] = []
+        self.collect_atoms(sel.from_table, scope, atoms, pred_asts)
         binder = ExprBinder(scope)
-        # single-atom pool: each WHERE conjunct becomes a filter on the scan,
-        # in order, as the JAX planner's plan_pool pushes them
-        for ast in split_conjuncts(sel.where):
-            plan = P.Filter(plan, binder.bind(ast))
+        plan = self.plan_pool(atoms, [binder.bind(ast) for ast in
+                                      pred_asts + split_conjuncts(sel.where)])
 
         # -- aggregation ------------------------------------------------------
         has_agg = (bool(sel.group_by) or sel.group_by_all or sel.having is not None

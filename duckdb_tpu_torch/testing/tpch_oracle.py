@@ -1,0 +1,219 @@
+"""TPC-H Q3, Q5, Q10 and Q12 answered with numpy alone.
+
+An independent implementation of the four queries over a directory that
+testing/tpch_gen.py wrote: money in int64 cents with exact DECIMAL
+scaling, joins through np.searchsorted on primary keys, groups through
+np.unique(..., return_inverse=True) and np.add.at. It reads the files
+directly and shares no code with the engine, so the chip's smoke run
+(which has no JAX) and the CPU tests can hold the port against it.
+
+QUERIES holds the specification's texts with its validation parameters.
+`answer(name, data_dir)` returns the rows as `Result.rows()` gives them
+(DECIMAL → decimal.Decimal, DATE → datetime.date, VARCHAR → str), in the
+order ORDER BY fixes, LIMIT applied.
+"""
+
+from __future__ import annotations
+
+import datetime
+import decimal
+import os
+
+import numpy as np
+
+QUERIES = {
+    "q03": """
+SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue,
+  o_orderdate, o_shippriority
+FROM customer, orders, lineitem
+WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey
+  AND l_orderkey = o_orderkey AND o_orderdate < CAST('1995-03-15' AS date)
+  AND l_shipdate > CAST('1995-03-15' AS date)
+GROUP BY l_orderkey, o_orderdate, o_shippriority
+ORDER BY revenue DESC, o_orderdate
+LIMIT 10
+""",
+    "q05": """
+SELECT n_name, sum(l_extendedprice * (1 - l_discount)) AS revenue
+FROM customer, orders, lineitem, supplier, nation, region
+WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
+  AND l_suppkey = s_suppkey AND c_nationkey = s_nationkey
+  AND s_nationkey = n_nationkey AND n_regionkey = r_regionkey
+  AND r_name = 'ASIA' AND o_orderdate >= CAST('1994-01-01' AS date)
+  AND o_orderdate < CAST('1995-01-01' AS date)
+GROUP BY n_name
+ORDER BY revenue DESC
+""",
+    "q10": """
+SELECT c_custkey, c_name, sum(l_extendedprice * (1 - l_discount)) AS revenue,
+  c_acctbal, n_name, c_address, c_phone, c_comment
+FROM customer, orders, lineitem, nation
+WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
+  AND o_orderdate >= CAST('1993-10-01' AS date)
+  AND o_orderdate < CAST('1994-01-01' AS date)
+  AND l_returnflag = 'R' AND c_nationkey = n_nationkey
+GROUP BY c_custkey, c_name, c_acctbal, c_phone, n_name, c_address, c_comment
+ORDER BY revenue DESC
+LIMIT 20
+""",
+    "q12": """
+SELECT l_shipmode,
+  sum(CASE WHEN o_orderpriority = '1-URGENT' OR o_orderpriority = '2-HIGH'
+      THEN 1 ELSE 0 END) AS high_line_count,
+  sum(CASE WHEN o_orderpriority <> '1-URGENT' AND o_orderpriority <> '2-HIGH'
+      THEN 1 ELSE 0 END) AS low_line_count
+FROM orders, lineitem
+WHERE o_orderkey = l_orderkey AND l_shipmode IN ('MAIL', 'SHIP')
+  AND l_commitdate < l_receiptdate AND l_shipdate < l_commitdate
+  AND l_receiptdate >= CAST('1994-01-01' AS date)
+  AND l_receiptdate < CAST('1995-01-01' AS date)
+GROUP BY l_shipmode
+ORDER BY l_shipmode
+""",
+}
+
+_EPOCH = datetime.date(1970, 1, 1)
+
+
+def _day(text: str) -> int:
+    return (datetime.date.fromisoformat(text) - _EPOCH).days
+
+
+def _date(days) -> datetime.date:
+    return _EPOCH + datetime.timedelta(days=int(days))
+
+
+def _dec(cents, scale: int) -> decimal.Decimal:
+    return decimal.Decimal(int(cents)).scaleb(-scale)
+
+
+class _Tables:
+    """Lazy column reader over a generated directory."""
+
+    def __init__(self, data_dir: str):
+        self.dir = data_dir
+        self._cache = {}
+
+    def __call__(self, table: str, col: str) -> np.ndarray:
+        key = (table, col)
+        if key not in self._cache:
+            base = os.path.join(self.dir, table, col)
+            if os.path.exists(base + ".i64"):
+                v = np.fromfile(base + ".i64", dtype=np.int64)
+            elif os.path.exists(base + ".i32"):
+                v = np.fromfile(base + ".i32", dtype=np.int32).astype(np.int64)
+            else:  # VARCHAR → fixed-width bytes
+                lens = np.fromfile(base + ".len", dtype=np.uint32).astype(np.int64)
+                blob = np.fromfile(base + ".bytes", dtype=np.uint8)
+                width = max(1, int(lens.max()) if len(lens) else 1)
+                starts = np.cumsum(lens) - lens
+                pos = starts[:, None] + np.arange(width)[None, :]
+                keep = np.arange(width)[None, :] < lens[:, None]
+                mat = np.where(keep, blob[np.minimum(pos, max(len(blob) - 1, 0))], 0)
+                v = mat.astype(np.uint8).view(f"S{width}").reshape(len(lens))
+            self._cache[key] = v
+        return self._cache[key]
+
+
+def _lookup(keys: np.ndarray, probe: np.ndarray) -> np.ndarray:
+    """Row of each probe value in the sorted unique `keys` (-1 when absent)."""
+    pos = np.clip(np.searchsorted(keys, probe), 0, len(keys) - 1)
+    return np.where(keys[pos] == probe, pos, -1)
+
+
+def _group_sum(keys, values):
+    """→ (unique key tuples' row representatives, per-group int64 sums)."""
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    sums = np.zeros(len(uniq), dtype=np.int64)
+    np.add.at(sums, inv.reshape(-1), values)
+    return uniq, sums
+
+
+def _revenue(t, rows):
+    return t("lineitem", "l_extendedprice")[rows] * (100 - t("lineitem", "l_discount")[rows])
+
+
+def q03(t):
+    cust_ok = t("customer", "c_mktsegment") == b"BUILDING"
+    ckey = t("customer", "c_custkey")
+    crow = _lookup(ckey, t("orders", "o_custkey"))
+    o_ok = (t("orders", "o_orderdate") < _day("1995-03-15")) & (crow >= 0) & cust_ok[crow]
+    orow = _lookup(t("orders", "o_orderkey"), t("lineitem", "l_orderkey"))
+    l_ok = (t("lineitem", "l_shipdate") > _day("1995-03-15")) & (orow >= 0) & o_ok[orow]
+    rows = np.flatnonzero(l_ok)
+    orows, sums = _group_sum(orow[rows], _revenue(t, rows))
+    odate = t("orders", "o_orderdate")[orows]
+    order = np.lexsort((odate, -sums))[:10]
+    return [(int(t("orders", "o_orderkey")[r]), _dec(s, 4), _date(d),
+             int(t("orders", "o_shippriority")[r]))
+            for r, s, d in zip(orows[order], sums[order], odate[order])]
+
+
+def q05(t):
+    r_ok = t("region", "r_name") == b"ASIA"
+    n_reg = _lookup(t("region", "r_regionkey"), t("nation", "n_regionkey"))
+    n_ok = (n_reg >= 0) & r_ok[n_reg]
+    orow = _lookup(t("orders", "o_orderkey"), t("lineitem", "l_orderkey"))
+    odate = t("orders", "o_orderdate")
+    o_ok = (odate >= _day("1994-01-01")) & (odate < _day("1995-01-01"))
+    crow = _lookup(t("customer", "c_custkey"), t("orders", "o_custkey"))
+    srow = _lookup(t("supplier", "s_suppkey"), t("lineitem", "l_suppkey"))
+    s_nat = t("supplier", "s_nationkey")[srow]
+    c_nat = t("customer", "c_nationkey")[crow[orow]]
+    nrow = _lookup(t("nation", "n_nationkey"), s_nat)
+    ok = ((orow >= 0) & o_ok[orow] & (crow[orow] >= 0) & (srow >= 0)
+          & (c_nat == s_nat) & (nrow >= 0) & n_ok[nrow])
+    rows = np.flatnonzero(ok)
+    nrows, sums = _group_sum(nrow[rows], _revenue(t, rows))
+    names = t("nation", "n_name")[nrows]
+    order = np.lexsort((names, -sums))  # ties in revenue: any order is valid
+    return [(names[i].decode(), _dec(sums[i], 4)) for i in order]
+
+
+def q10(t):
+    odate = t("orders", "o_orderdate")
+    o_ok = (odate >= _day("1993-10-01")) & (odate < _day("1994-01-01"))
+    orow = _lookup(t("orders", "o_orderkey"), t("lineitem", "l_orderkey"))
+    crow = _lookup(t("customer", "c_custkey"), t("orders", "o_custkey"))
+    c_nrow = _lookup(t("nation", "n_nationkey"), t("customer", "c_nationkey"))
+    lcrow = crow[orow]
+    ok = ((orow >= 0) & o_ok[orow] & (t("lineitem", "l_returnflag") == b"R")
+          & (lcrow >= 0) & (c_nrow[lcrow] >= 0))
+    rows = np.flatnonzero(ok)
+    # the group key is the customer row (the other six columns depend on it)
+    crows, sums = _group_sum(lcrow[rows], _revenue(t, rows))
+    order = np.lexsort((t("customer", "c_custkey")[crows], -sums))[:20]
+    out = []
+    for r, s in zip(crows[order], sums[order]):
+        out.append((int(t("customer", "c_custkey")[r]),
+                    t("customer", "c_name")[r].decode(), _dec(s, 4),
+                    _dec(t("customer", "c_acctbal")[r], 2),
+                    t("nation", "n_name")[c_nrow[r]].decode(),
+                    t("customer", "c_address")[r].decode(),
+                    t("customer", "c_phone")[r].decode(),
+                    t("customer", "c_comment")[r].decode()))
+    return out
+
+
+def q12(t):
+    mode = t("lineitem", "l_shipmode")
+    ship, commit, receipt = (t("lineitem", c) for c in
+                             ("l_shipdate", "l_commitdate", "l_receiptdate"))
+    orow = _lookup(t("orders", "o_orderkey"), t("lineitem", "l_orderkey"))
+    ok = (((mode == b"MAIL") | (mode == b"SHIP")) & (commit < receipt)
+          & (ship < commit) & (receipt >= _day("1994-01-01"))
+          & (receipt < _day("1995-01-01")) & (orow >= 0))
+    rows = np.flatnonzero(ok)
+    prio = t("orders", "o_orderpriority")[orow[rows]]
+    high = ((prio == b"1-URGENT") | (prio == b"2-HIGH")).astype(np.int64)
+    modes, highs = _group_sum(mode[rows], high)
+    _, lows = _group_sum(mode[rows], 1 - high)
+    return [(m.decode(), int(h), int(lo)) for m, h, lo in zip(modes, highs, lows)]
+
+
+_ANSWERS = {"q03": q03, "q05": q05, "q10": q10, "q12": q12}
+
+
+def answer(name: str, data_dir: str):
+    """Rows of query `name` (a key of QUERIES) over data_dir."""
+    return _ANSWERS[name](_Tables(data_dir))
