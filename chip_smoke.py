@@ -29,7 +29,15 @@ Phases (any failure exits non-zero before the result lines):
    Q10 through the sort-group mode), the kernel checked against its plain
    version on the inputs Q5 and Q12 gave it and timed at their shapes,
    and each query's median of 5 warm runs after 1 warm-up, with the
-   device-to-host synchronizations of one warm run.
+   device-to-host synchronizations of one warm run;
+7. the subquery path: TPC-H Q4, Q11, Q17, Q18 and Q21 (the specification's
+   texts and values), the same way: rows against the numpy oracle, the
+   route asserted (Q4, Q18 and Q21 fuse their semi/anti joins as
+   membership steps and run no semi/anti join eagerly; Q11's HAVING
+   scalar subquery and Q17's correlated average each add a dense
+   aggregate), the grouped sum against its plain version on every input
+   the five gave it (Q4's five priorities, Q11's and Q17's ungrouped sums)
+   and timed there, and each query's warm median and host syncs.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -412,10 +420,14 @@ def main() -> int:
           f"(runs {', '.join(f'{t * 1e3:.3f}' for t in times)} ms), "
           f"{nrows / med:.0f} rows/s, {syncs} host syncs per run")
 
-    # 6. the join path: Q3, Q5, Q10, Q12
+    # 6. the join path: Q3, Q5, Q10, Q12; 7. the subquery path: Q4, Q11,
+    # Q17, Q18, Q21
     launches_by_query = {"q01": launches}
     shapes = []
-    for name, sql in tpch_oracle.QUERIES.items():
+    subquery_routes = {"q04": {"fused_semi": 1}, "q11": {"dense": 2},
+                       "q17": {"dense": 2}, "q18": {"fused_semi": 1, "sort_group": 1},
+                       "q21": {"fused_semi": 1, "fused_anti": 1}}
+    for name, sql in {**tpch_oracle.QUERIES, **tpch_oracle.SUBQUERY_QUERIES}.items():
         recorded.clear()
         grouped_mod.grouped_sum_i64 = recording
         GS.grouped_sum_i64.launches = 0
@@ -440,6 +452,15 @@ def main() -> int:
                             f"{routes}, launches {q_launches} {q_regimes}")
             if any(d.device.type != "cuda" for d, _, _ in recorded):
                 return fail(f"{name}: the grouped sum ran on a tensor off the card")
+        elif name in subquery_routes:
+            want_routes = subquery_routes[name]
+            if any(routes.get(k) != n for k, n in want_routes.items()) \
+                    or any(k.startswith("eager_") for k in routes):
+                return fail(f"{name} missed its route {want_routes}: routes {routes}")
+            if name in ("q04", "q11", "q17") and (q_launches < 1 or any(
+                    d.device.type != "cuda" for d, _, _ in recorded)):
+                return fail(f"{name} did not launch the grouped sum on the card: "
+                            f"launches {q_launches} {q_regimes}")
         elif routes.get("sort_group") != 1:
             return fail(f"{name} did not take the sort-group mode: routes {routes}")
         print(f"{name} (first run, columns load to the card): {first_s:.3f} s, {len(got)} "
@@ -483,7 +504,7 @@ def main() -> int:
         "regime": plan_q1.regime, "regime_launches": regime_launches,
         "max_abs_err": worst, "ms": kernel_ms, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "join_shapes": shapes,
+        "library_ms": library_ms, "query_shapes": shapes,
         "sweep": [{key: r[key] for key in ("k", "nseg", "live", "kernel_ms", "index_add_ms")}
                   for r in swept]}]}))
     print(json.dumps({"ok": True, "device": {

@@ -50,7 +50,7 @@ class Connection:
             raise not_ported("statements other than a single SELECT")
         cached = self._plan_cache.get(query)
         if cached is None:
-            cached = Planner(self.catalog).plan_select(stmts[0])
+            cached = Planner(self.catalog, self.routes).plan_select(stmts[0])
             self._plan_cache[query] = cached
         plan, output = cached
         return Executor(self.catalog, self.routes).run(plan, output)

@@ -20,6 +20,15 @@ at the compacted length. A join whose build is not proven unique (and
 everything below it) executes eagerly, and the pipeline runs over its
 output (where the JAX package takes aggregate_exec's general path).
 
+Semi and anti joins (flattened EXISTS, IN and NOT EXISTS) fuse as
+membership steps: their probe keeps (semi) or drops (anti) the rows whose
+key is in the build, and no build column reaches the pipeline. Without a
+residual, duplicate build keys are fine, since only membership is read.
+With one, the build must be proven unique, and the residual is evaluated
+on the matched build row and folded into the membership (`_extra_found`).
+A NULL or out-of-range probe key is never found, so an anti step keeps
+its row. NOT IN (null-aware) does not fuse: it runs eagerly.
+
 Grouping:
 - dense mixed-radix slot ids when every group key has a statically bounded
   domain (zone-map stats, dictionary length, date parts) — the
@@ -210,8 +219,10 @@ class _JoinStep:
     """
 
     def __init__(self, mode, probe_keys, los, rngs, strides, size, build_plen,
-                 build_src, lut=None, sk=None, sp=None):
+                 build_src, lut=None, sk=None, sp=None, jtype="inner", extra=None):
         self.mode = mode
+        self.jtype = jtype  # inner | semi | anti
+        self.extra = extra  # semi/anti residual over probe ∪ build columns
         self.probe_keys = probe_keys
         self.los = los
         self.rngs = rngs
@@ -232,11 +243,11 @@ class _JoinStep:
             return False
         return True
 
-    def probe(self, env, p, live):
-        """→ (bidx int64 (p,), live ∧ found): the matched build row (-1 or
-        a clipped row where not found) and the rows that stay live, those
-        whose key is in range, non-NULL and present in the build."""
-        device = live.device
+    def probe(self, env, p):
+        """→ (bidx int64 (p,), found bool (p,)): the matched build row (-1
+        or a clipped row where not found) and whether the row's key is in
+        range, non-NULL and present in the build."""
+        device = env.live.device
         packed = torch.zeros(p, dtype=torch.int64, device=device)
         ok = torch.ones(p, dtype=torch.bool, device=device)
         for e, lo, rng, st in zip(self.probe_keys, self.los, self.rngs, self.strides):
@@ -253,13 +264,26 @@ class _JoinStep:
         else:
             pos = torch.searchsorted(self.sk, packed).clamp(max=self.sk.shape[0] - 1)
             bidx = torch.where(self.sk[pos] == packed, self.sp[pos], -1)
-        return bidx, live & ok & (bidx >= 0)
+        return bidx, ok & (bidx >= 0)
 
     def register_lazy(self, env, bidx):
         """Register this step's build columns into env as lazy providers:
         a column is gathered at probe length only if something reads it."""
         for k in self.build_cols:
             env._overlay[k] = _LazyGatherCol(self, k, bidx)
+
+
+def _extra_found(step, env, p, bidx, found):
+    """Fold a semi/anti residual into the membership mask: gather the
+    (unique) matched build row's columns, evaluate the predicate, AND it
+    with `found`. A NULL result is never TRUE (SQL three-valued semi-join
+    semantics, the reference's ScanKeyMatches)."""
+    step.register_lazy(env, bidx)
+    c = step.extra.eval(env)
+    ok = B.bcast(c.data.to(torch.bool), p)
+    if c.validity is not None:
+        ok = ok & B.bcast(c.validity, p)
+    return found & ok
 
 
 class _LazyGatherCol:
@@ -327,8 +351,10 @@ def _prep_join_step(executor, j: P.Join) -> Optional[_JoinStep]:
     skips the build side entirely. The reference's hash table lives for one
     query (join_hashtable.cpp); this persists like an index until the data
     changes. None (also cached) when the join cannot fuse."""
-    if j.jtype != "inner" or j.extra is not None or j.null_aware:
+    if j.jtype not in ("inner", "semi", "anti") or j.null_aware:
         return None
+    if j.extra is not None and j.jtype == "inner":
+        return None  # an inner residual changes the match itself: eager path
     vkey = _scan_versions(executor, j.build)
     cache = _cache_store(j, "_prep_cache")
     if vkey in cache:
@@ -342,8 +368,12 @@ def _prep_join_step(executor, j: P.Join) -> Optional[_JoinStep]:
 
 def _prep_join_step_fresh(executor, j: P.Join) -> Optional[_JoinStep]:
     bb = executor.execute(j.build)
-    if not executor._build_known_unique(j, bb):
-        return None  # an inner probe needs ≤1 match per row: eager path
+    if not executor._build_known_unique(j, bb) and (j.jtype == "inner"
+                                                    or j.extra is not None):
+        # an inner probe needs ≤1 match per row, and a residual must be
+        # evaluated on THE matched row; semi/anti membership alone takes
+        # duplicate keys (the LUT keeps any one of their rows)
+        return None
     env_b = bb.env()
     key_cols = []
     for e in j.build_keys:
@@ -389,19 +419,26 @@ def _prep_join_step_fresh(executor, j: P.Join) -> Optional[_JoinStep]:
         packed = packed + (d - lo).clamp(0, rng - 1) * st_
     rows = torch.arange(bb.plen, device=device)
     if size <= DENSE_LUT_LIMIT:
-        # unique live keys → one row per slot; dead rows land in a spare
-        # slot that is cut off
+        # one live row per slot (any one of a duplicate key's rows, which
+        # only a membership step allows); dead rows land in a spare slot
+        # that is cut off
         lut = torch.full((size + 1,), -1, dtype=torch.int64, device=device)
         lut[torch.where(build_live, packed, size)] = rows
         step = _JoinStep("dense", list(j.probe_keys), los, rngs, strides, size,
-                         bb.plen, bb.src, lut=lut[:size])
+                         bb.plen, bb.src, lut=lut[:size], jtype=j.jtype, extra=j.extra)
     else:
         # the JAX package's bucket mode exists for the TPU's serial gathers;
         # here a wide domain takes the sorted table
         sk, sp = torch.sort(torch.where(build_live, packed, _I64_MAX))
         step = _JoinStep("sorted", list(j.probe_keys), los, rngs, strides, size,
-                         bb.plen, bb.src, sk=sk.contiguous(), sp=sp)
+                         bb.plen, bb.src, sk=sk.contiguous(), sp=sp, jtype=j.jtype,
+                         extra=j.extra)
     step.phase1 = _subtree_filters(j.build)
+    if j.extra is not None:
+        # the residual's build-side refs are the step's only build columns
+        for nn in B.walk(j.extra):
+            if isinstance(nn, B.BoundColumnRef):
+                step.register_build_col(nn.key)
     return step
 
 
@@ -415,6 +452,8 @@ def _plan_keys(node) -> set:
         return _plan_keys(node.child) | {k for k, _ in node.items}
     if isinstance(node, P.Filter):
         return _plan_keys(node.child)
+    if isinstance(node, P.Aggregate):
+        return {k for k, _ in node.groups} | {a.key for a in node.aggs}
     return set()
 
 
@@ -425,11 +464,11 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         if agg.ltype.id is TypeId.VARCHAR:
             return None  # min/max over strings: not yet ported
 
-    # 1. peel the Filter/Project/inner-Join chain. Each join whose build
-    #    can be prepared becomes a probe step (outermost first); the first
-    #    that cannot is the base, executed eagerly with everything below.
-    #    Filters commute with inner joins; the body applies probes and
-    #    filters in dependency order.
+    # 1. peel the Filter/Project/Join chain. Each inner, semi or anti join
+    #    whose build can be prepared becomes a probe step (outermost first);
+    #    the first that cannot is the base, executed eagerly with everything
+    #    below. Filters commute with these joins; the body applies probes
+    #    and filters in dependency order.
     chain = []
     join_steps: List[_JoinStep] = []
     base = node.child
@@ -443,7 +482,7 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         else:
             chain.append(base)
             base = base.child
-    if not isinstance(base, (P.Scan, P.Join)):
+    if not isinstance(base, (P.Scan, P.Join, P.Aggregate)):
         return None
     chain.reverse()
     join_steps.reverse()  # innermost (closest to the base) first
@@ -476,7 +515,8 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
 
     def collect(e):
         for nn in B.walk(e):
-            if isinstance(nn, B.BoundColumnRef):
+            # an aggregate ref is a column of an Aggregate base
+            if isinstance(nn, (B.BoundColumnRef, B.BoundAggregateRef)):
                 if nn.key in key2col:
                     if nn.key not in needed:
                         needed.append(nn.key)
@@ -484,7 +524,7 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
                     continue  # overlay expr, its refs collected separately
                 else:
                     for step in join_steps:
-                        if step.register_build_col(nn.key):
+                        if step.jtype == "inner" and step.register_build_col(nn.key):
                             break
 
     for nd in chain:
@@ -498,8 +538,8 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         for a in agg.args:
             collect(a)
     for step in join_steps:
-        for e in step.probe_keys:
-            collect(e)
+        for e in step.probe_keys + ([step.extra] if step.extra is not None else []):
+            collect(e)  # a residual's probe-side refs
     base_cols = {k: base_batch.src[k] for k in needed}
 
     def col_lookup(key):
@@ -601,7 +641,7 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         while pending:
             x = pending.pop()
             for nn in B.walk(x):
-                if isinstance(nn, B.BoundColumnRef):
+                if isinstance(nn, (B.BoundColumnRef, B.BoundAggregateRef)):
                     if nn.key in project_items and nn.key not in seen:
                         seen.add(nn.key)
                         pending.append(project_items[nn.key])
@@ -609,10 +649,11 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
                         acc.add(nn.key)
 
     def step_refs(step):
+        """Probe-side columns the step reads (keys, residual)."""
         refs = set()
-        for e in step.probe_keys:
+        for e in step.probe_keys + ([step.extra] if step.extra is not None else []):
             _all_refs(e, refs)
-        return refs
+        return refs - set(step.build_cols) if step.jtype != "inner" else refs
 
     phase1_steps: List[_JoinStep] = []
     phase2_steps: List[_JoinStep] = []
@@ -620,7 +661,8 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
     for step in join_steps:
         if step.phase1 and step_refs(step) <= avail:
             phase1_steps.append(step)
-            avail |= set(step.build_cols)
+            if step.jtype == "inner":
+                avail |= set(step.build_cols)
         else:
             phase2_steps.append(step)
 
@@ -666,12 +708,21 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         return live
 
     def apply_probes(steps, env2, p, live, bidx_map):
+        """Inner steps keep the matched rows and register their build
+        columns; semi steps keep the rows found, anti steps those not
+        found, and neither registers a column for the pipeline."""
         for step in steps:
             executor.routes["probe_" + step.mode] += 1
-            bidx, live = step.probe(env2, p, live)
+            bidx, found = step.probe(env2, p)
+            if step.extra is not None:
+                found = _extra_found(step, env2, p, bidx, found)
+            live = live & ~found if step.jtype == "anti" else live & found
             env2.live = live
-            bidx_map[step] = bidx
-            step.register_lazy(env2, bidx)
+            if step.jtype == "inner":
+                bidx_map[step] = bidx
+                step.register_lazy(env2, bidx)
+            else:
+                executor.routes["fused_" + step.jtype] += 1
         return live
 
     def run_pipeline(env):

@@ -305,11 +305,14 @@ class ExprBinder:
 
     agg_collector: callable(FunctionCall ast, binder) → BoundAggregateRef,
     set when binding select/having/order lists of an aggregating query.
+    subquery_binder: callable(ast node, binder) → BoundExpr for Scalar/In/
+    Exists subqueries (installed by the planner).
     """
 
-    def __init__(self, scope: Scope, agg_collector=None):
+    def __init__(self, scope: Scope, agg_collector=None, subquery_binder=None):
         self.scope = scope
         self.agg_collector = agg_collector
+        self.subquery_binder = subquery_binder
 
     def bind(self, e: N.Expr) -> B.BoundExpr:
         m = getattr(self, "_bind_" + type(e).__name__, None)
@@ -490,3 +493,13 @@ class ExprBinder:
                     f"Binder Error: invalid arguments to {name} ({err!r})")
             return B.BoundFunction(name, args2, rt, impl)
         raise not_ported(f"the function {name}()")
+
+    # -- subqueries (the planner flattens or evaluates them) -------------------
+    def _bind_subquery(self, e):
+        if self.subquery_binder is None:
+            raise BindError("subqueries not supported in this context")
+        return self.subquery_binder(e, self)
+
+    _bind_ScalarSubquery = _bind_subquery
+    _bind_InSubquery = _bind_subquery
+    _bind_Exists = _bind_subquery

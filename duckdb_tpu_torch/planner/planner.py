@@ -5,15 +5,22 @@ a pool of atoms (base tables, comma lists, [INNER] JOIN … ON); WHERE and ON
 conjuncts over one atom become filters on it; the joins are ordered by the
 DP of planner/join_order.py for three or more atoms, else by the greedy
 probe spine with its snowflake collapse, and become inner equi-Join nodes.
-On top come GROUP BY with aggregates, HAVING, the projection, DISTINCT,
-ORDER BY and LIMIT/OFFSET. Keys, output names and join orders match the
-reference's for these shapes. Subqueries, outer/semi/anti joins, USING and
-NATURAL joins, table functions, joins without an equi-join condition,
-CTEs, set operations and windows are not yet ported and say so.
+WHERE-level subqueries are flattened (`_flatten_conjunct`): EXISTS, NOT
+EXISTS, IN and NOT IN become semi/anti (null-aware for NOT IN) Join nodes
+stacked on the pool, a correlated scalar aggregate becomes a grouped
+aggregate atom joined on its correlation keys, and an uncorrelated scalar
+subquery becomes a constant computed once (`BoundScalarSubquery`). On top
+come GROUP BY with aggregates, HAVING, the projection, DISTINCT, ORDER BY
+and LIMIT/OFFSET. Keys, output names and join orders match the reference's
+for these shapes. IN/EXISTS outside a WHERE conjunct (MARK joins),
+subqueries in FROM, outer joins, USING and NATURAL joins, table functions,
+joins without an equi-join condition, CTEs, set operations and windows are
+not yet ported and say so.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
@@ -36,10 +43,58 @@ from duckdb_tpu_torch.types import (
     LogicalType,
     TypeId,
     decimal,
+    max_logical_type,
 )
 
 # aggregates the fused pipeline computes (execution/fused_agg.py)
 _PORTED_AGGS = {"sum", "count", "count_star", "avg", "min", "max"}
+
+
+@dataclass
+class BoundScalarSubquery(B.BoundExpr):
+    """Uncorrelated scalar subquery: executed once, on first eval, by a
+    nested executor on the catalog's device. The value stays on the bound
+    node, so a plan served from the plan cache reuses it."""
+
+    planner: "Planner"
+    plan: P.PlanNode
+    out_key: str
+    ltype: LogicalType
+
+    def eval(self, env):
+        return B.BoundLiteral(self.const_value(), self.ltype).eval(env)
+
+    def is_const(self):
+        return True
+
+    def const_value(self):
+        if not hasattr(self, "_value"):
+            from duckdb_tpu_torch.execution.executor import Executor
+
+            ex = Executor(self.planner.catalog, self.planner.routes)
+            res = ex.run(self.plan, [("v", self.out_key, self.ltype)])
+            self._value = None
+            if res.nrows:
+                vals, valid, dvals = res.columns[0]
+                if valid is not None and not valid[0]:
+                    self._value = None
+                elif self.ltype.id is TypeId.VARCHAR:
+                    self._value = str(dvals[vals[0]])
+                elif self.ltype.is_float:
+                    self._value = float(vals[0])
+                else:
+                    self._value = int(vals[0])
+        return self._value
+
+
+@dataclass
+class SemiSpec:
+    jtype: str  # semi | anti
+    build_plan: P.PlanNode
+    probe_keys: List[B.BoundExpr]  # over outer columns
+    build_keys: List[B.BoundExpr]  # over subquery columns
+    extra: Optional[B.BoundExpr]  # residual over combined columns
+    null_aware: bool = False  # NOT IN semantics
 
 
 def split_conjuncts(e: Optional[N.Expr]) -> List[N.Expr]:
@@ -73,21 +128,24 @@ class Atom:
 
 
 class Planner:
-    def __init__(self, catalog):
+    def __init__(self, catalog, routes=None):
         self.catalog = catalog
+        # the Counter the executors of scalar subqueries report routes to
+        # (the connection's); None gives each its own
+        self.routes = routes
         self._key_counter = itertools.count()
 
     def fresh(self, name: str) -> str:
         return f"{name}#{next(self._key_counter)}"
 
     # -- entry ---------------------------------------------------------------
-    def plan_select(self, stmt: N.SelectStatement):
+    def plan_select(self, stmt: N.SelectStatement, outer_scope=None):
         """→ (plan, output [(name, key, ltype)])."""
         if stmt.ctes:
             raise not_ported("WITH (common table expressions)")
         if not isinstance(stmt.node, N.SelectNode):
             raise not_ported(f"the query form {type(stmt.node).__name__}")
-        plan, output, scope = self.plan_select_node(stmt.node)
+        plan, output, scope = self.plan_select_node(stmt.node, outer_scope)
         if stmt.order_by:
             plan = self._plan_order(plan, stmt.order_by, output, scope)
         if stmt.limit is not None or stmt.offset is not None:
@@ -311,18 +369,24 @@ class Planner:
                     out.append((p, p.right, p.left))
         return out
 
-    def plan_select_node(self, sel: N.SelectNode):
+    def plan_select_node(self, sel: N.SelectNode, outer_scope=None):
         if sel.from_table is None:
             raise not_ported("SELECT without FROM")
         if sel.sample is not None or sel.qualify is not None or sel.distinct_on:
             raise not_ported("SAMPLE, QUALIFY and DISTINCT ON")
-        scope = Scope()
+        scope = Scope(parent=outer_scope)
         atoms: List[Atom] = []
         pred_asts: List[N.Expr] = []
         self.collect_atoms(sel.from_table, scope, atoms, pred_asts)
-        binder = ExprBinder(scope)
-        plan = self.plan_pool(atoms, [binder.bind(ast) for ast in
-                                      pred_asts + split_conjuncts(sel.where)])
+        binder = self._pred_binder(scope)
+        bound_preds: List[B.BoundExpr] = []
+        semis: List[SemiSpec] = []
+        local_keys = set().union(*[a.keys for a in atoms])
+        for ast in pred_asts + split_conjuncts(sel.where):
+            if not self._flatten_conjunct(ast, scope, local_keys, bound_preds,
+                                          semis, atoms):
+                bound_preds.append(binder.bind(ast))
+        plan = self._stack_semis(self.plan_pool(atoms, bound_preds), semis)
 
         # -- aggregation ------------------------------------------------------
         has_agg = (bool(sel.group_by) or sel.group_by_all or sel.having is not None
@@ -389,7 +453,7 @@ class Planner:
         def collector(fc: N.FunctionCall, b):
             return self._bind_aggregate_call(fc, binder, aggs)
 
-        post = _PostAggBinder(scope, group_lookup, collector)
+        post = _PostAggBinder(scope, group_lookup, collector, self._bind_subquery_expr)
         return P.Aggregate(plan, groups, aggs), post
 
     def _resolve_group_ast(self, g, sel, select_aliases):
@@ -425,6 +489,258 @@ class Planner:
         aggs.append(B.BoundAggregate(func, args, False, t, key))
         return B.BoundAggregateRef(key, t)
 
+    # -- subqueries -------------------------------------------------------------
+    def _pred_binder(self, scope: Scope) -> ExprBinder:
+        return ExprBinder(scope, subquery_binder=self._bind_subquery_expr)
+
+    def _bind_subquery_expr(self, e, binder: ExprBinder):
+        """A subquery that no WHERE conjunct flattened: an uncorrelated
+        scalar subquery becomes a lazy constant. IN and EXISTS here need
+        the reference's MARK join (BoundMarkSubquery), not yet ported."""
+        if isinstance(e, N.ScalarSubquery):
+            plan, output = self.plan_select(e.subquery)
+            _, key, t = output[0]
+            return BoundScalarSubquery(self, plan, key, t)
+        raise not_ported(f"{type(e).__name__} outside a WHERE conjunct (MARK joins)")
+
+    @staticmethod
+    def _stack_semis(plan, semis: List[SemiSpec]):
+        for s in semis:
+            plan = P.Join(plan, s.build_plan, s.jtype, s.probe_keys, s.build_keys,
+                          s.extra, null_aware=s.null_aware)
+        return plan
+
+    def _flatten_conjunct(self, ast, scope, local_keys, bound_preds, semis,
+                          atoms) -> bool:
+        """Handle EXISTS / IN-subquery / correlated scalar-agg conjuncts."""
+        neg = False
+        inner = ast
+        if isinstance(inner, N.NotExpr):
+            neg = True
+            inner = inner.child
+        if isinstance(inner, N.Exists):
+            self._plan_semijoin_exists(inner.subquery, None, neg != inner.negated,
+                                       scope, local_keys, semis)
+            return True
+        if isinstance(inner, N.InSubquery):
+            self._plan_semijoin_exists(inner.subquery, inner.expr,
+                                       neg != inner.negated, scope, local_keys, semis)
+            return True
+        if isinstance(inner, N.BinaryOp) and inner.op in B._CMP_OPS and not neg:
+            for e_side, other, flip in ((inner.right, inner.left, False),
+                                        (inner.left, inner.right, True)):
+                subs = _find_scalar_subqueries(e_side)
+                if len(subs) == 1 and not _find_scalar_subqueries(other):
+                    sq = subs[0]
+                    sub_ref = self._correlated_scalar_ref(
+                        sq.subquery, scope, local_keys, bound_preds, atoms)
+                    if sub_ref is None:
+                        return False  # uncorrelated → normal binding path
+
+                    # bind the containing expression with the subquery node
+                    # replaced by the grouped-aggregate output column (e.g.
+                    # `price > 1.2 * (SELECT avg(...) WHERE corr)`)
+                    def sq_binder(e, b, _sq=sq, _ref=sub_ref):
+                        if e is _sq:
+                            return _ref
+                        return self._bind_subquery_expr(e, b)
+
+                    side_b = ExprBinder(scope, subquery_binder=sq_binder).bind(e_side)
+                    if not _null_if_null(side_b, sub_ref.key):
+                        raise not_ported(
+                            "a correlated scalar subquery inside an expression that "
+                            "is not NULL when the subquery is (it needs an outer join)")
+                    other_b = self._pred_binder(scope).bind(other)
+                    lhs, rhs = (side_b, other_b) if flip else (other_b, side_b)
+                    bound_preds.append(B.BoundComparison(inner.op, lhs, rhs))
+                    return True
+        return False
+
+    def _plan_sub_pool(self, sub: N.SelectStatement, scope, local_keys):
+        """Plan a subquery's FROM/WHERE with correlation extraction.
+
+        → (pool atoms, local predicates, correlated equalities [(outer_e,
+        inner_e)], other correlated predicates, sub scope, select node,
+        the subquery's own semi/anti specs).
+        """
+        if sub.ctes or sub.order_by or sub.limit:
+            raise BindError("complex subquery (ctes/order/limit) unsupported")
+        sel = sub.node
+        if not isinstance(sel, N.SelectNode):
+            raise BindError("set-op subquery unsupported")
+        if sel.from_table is None:
+            raise not_ported("a subquery without FROM")
+        sub_scope = Scope(parent=scope)
+        sub_atoms: List[Atom] = []
+        pred_asts: List[N.Expr] = []
+        self.collect_atoms(sel.from_table, sub_scope, sub_atoms, pred_asts)
+        sub_keys = set().union(*[a.keys for a in sub_atoms])
+        binder = self._pred_binder(sub_scope)
+        local_bound, corr_eqs, corr_extra = [], [], []
+        sub_semis: List[SemiSpec] = []
+        for ast in pred_asts + split_conjuncts(sel.where):
+            if self._flatten_conjunct(ast, sub_scope, sub_keys, local_bound,
+                                      sub_semis, sub_atoms):
+                continue
+            bp = binder.bind(ast)
+            if self._keys_of(bp) <= sub_keys:
+                local_bound.append(bp)
+                continue
+            # correlated: an equality with one side wholly outer?
+            if isinstance(bp, B.BoundComparison) and bp.op in ("=", "=="):
+                kl, kr = self._keys_of(bp.left), self._keys_of(bp.right)
+                if kl <= sub_keys and kr <= local_keys:
+                    corr_eqs.append((bp.right, bp.left))
+                    continue
+                if kr <= sub_keys and kl <= local_keys:
+                    corr_eqs.append((bp.left, bp.right))
+                    continue
+            corr_extra.append(bp)
+        return sub_atoms, local_bound, corr_eqs, corr_extra, sub_scope, sel, sub_semis
+
+    def _plan_semijoin_exists(self, sub, in_expr, negated, scope, local_keys, semis):
+        jtype = "anti" if negated else "semi"
+        # grouped/complex subquery (Q18's IN … GROUP BY … HAVING): plan it as
+        # a standalone query and semi-join against its output column
+        sel0 = sub.node
+        complex_sub = (
+            not isinstance(sel0, N.SelectNode)
+            or sel0.group_by or sel0.group_by_all or sel0.having is not None
+            or sel0.distinct or sub.ctes or sub.order_by or sub.limit
+            or any(_contains_aggregate(e) for e, _ in sel0.select_list))
+        if complex_sub and in_expr is not None:
+            build, output = self.plan_select(sub)
+            _, okey, ot = output[0]
+            outer_b = self._pred_binder(scope).bind(in_expr)
+            semis.append(SemiSpec(jtype, build, [outer_b], [B.BoundColumnRef(okey, ot)],
+                                  None, null_aware=negated))
+            return
+        (sub_atoms, local_bound, corr_eqs, corr_extra, sub_scope, sel,
+         sub_semis) = self._plan_sub_pool(sub, scope, local_keys)
+        build = self._stack_semis(self.plan_pool(sub_atoms, local_bound), sub_semis)
+        probe_keys = [o for o, _ in corr_eqs]
+        build_keys = [i for _, i in corr_eqs]
+        if in_expr is not None:
+            # IN: add the expr = select-item equality
+            if len(sel.select_list) != 1:
+                raise BindError("IN subquery must select one column")
+            inner_b = self._pred_binder(sub_scope).bind(sel.select_list[0][0])
+            outer_b = self._pred_binder(scope).bind(in_expr)
+            if inner_b.ltype != outer_b.ltype:
+                # mixed-type IN: both sides coerce to the common type
+                mt = max_logical_type(outer_b.ltype, inner_b.ltype)
+                if outer_b.ltype != mt:
+                    outer_b = B.BoundCast(outer_b, mt)
+                if inner_b.ltype != mt:
+                    inner_b = B.BoundCast(inner_b, mt)
+            probe_keys.append(outer_b)
+            build_keys.append(inner_b)
+        else:
+            spec = self._try_neq_exists_rewrite(build, corr_eqs, corr_extra, negated,
+                                                local_keys)
+            if spec is not None:
+                semis.append(spec)
+                return
+        extra = B.BoundConjunction("and", corr_extra) if corr_extra else None
+        if negated and in_expr is not None and extra is not None:
+            # NOT IN's NULL cases read the build rows the correlation selects;
+            # the eager anti join finds them through equalities only
+            raise not_ported("NOT IN over a subquery correlated by more than equalities")
+        if not probe_keys:
+            # uncorrelated EXISTS: a semi/anti join on a constant key, so
+            # every probe row matches iff the build side is non-empty
+            probe_keys.append(B.BoundLiteral(1, BIGINT))
+            build_keys.append(B.BoundLiteral(1, BIGINT))
+        semis.append(SemiSpec(jtype, build, probe_keys, build_keys, extra,
+                              null_aware=negated and in_expr is not None))
+
+    def _try_neq_exists_rewrite(self, build, corr_eqs, corr_extra, negated, local_keys):
+        """EXISTS(… k = outer.k AND c <> outer.c) → semi/anti join against
+        GROUP BY k: min(c), max(c) with the residual (min <> outer.c OR
+        max <> outer.c).
+
+        A row of the group with c ≠ a exists ⟺ min(c) ≠ a or max(c) ≠ a
+        (min/max skip NULL c exactly as `c <> a` is never TRUE for it). The
+        aggregate build has unique keys by construction, so the probe fuses
+        into the aggregate pipeline: the TPC-H Q21 shape.
+        """
+        if not corr_eqs or len(corr_extra) != 1:
+            return None
+        bp = corr_extra[0]
+        if not (isinstance(bp, B.BoundComparison) and bp.op in ("<>", "!=")):
+            return None
+        kl, kr = self._keys_of(bp.left), self._keys_of(bp.right)
+        if kl and not (kl & local_keys):
+            inner_c, outer_c = bp.left, bp.right
+        elif kr and not (kr & local_keys):
+            inner_c, outer_c = bp.right, bp.left
+        else:
+            return None
+        if self._keys_of(outer_c) & self._keys_of(inner_c):
+            return None
+        groups, build_keys = [], []
+        for _, i in corr_eqs:
+            gk = self.fresh("neqg")
+            groups.append((gk, i))
+            build_keys.append(B.BoundColumnRef(gk, i.ltype))
+        kmin, kmax = self.fresh("neqmin"), self.fresh("neqmax")
+        aggs = [B.BoundAggregate("min", [inner_c], False, inner_c.ltype, kmin),
+                B.BoundAggregate("max", [inner_c], False, inner_c.ltype, kmax)]
+        mn = B.BoundColumnRef(kmin, inner_c.ltype)
+        mx = B.BoundColumnRef(kmax, inner_c.ltype)
+        extra = B.BoundConjunction("or", [B.BoundComparison("<>", mn, outer_c),
+                                          B.BoundComparison("<>", mx, outer_c)])
+        return SemiSpec("anti" if negated else "semi", P.Aggregate(build, groups, aggs),
+                        [o for o, _ in corr_eqs], build_keys, extra)
+
+    def _correlated_scalar_ref(self, sub, scope, local_keys, bound_preds, atoms):
+        """`(SELECT agg-expr FROM … WHERE corr)` → a grouped-aggregate atom
+        equi-joined on the correlation keys; returns a BoundColumnRef over
+        its output (None when the subquery is not a flattenable correlated
+        scalar aggregate). Reference: FlattenDependentJoins,
+        duckdb/src/planner/subquery/flatten_dependent_join.cpp."""
+        try:
+            (sub_atoms, local_bound, corr_eqs, corr_extra, sub_scope, sel,
+             sub_semis) = self._plan_sub_pool(sub, scope, local_keys)
+        except BindError:
+            return None
+        if not corr_eqs or corr_extra:
+            return None
+        if len(sel.select_list) != 1 or sel.group_by or sel.having:
+            return None
+        item_ast = sel.select_list[0][0]
+        if not _contains_aggregate(item_ast):
+            return None
+        subplan = self._stack_semis(self.plan_pool(sub_atoms, local_bound), sub_semis)
+        sub_binder = self._pred_binder(sub_scope)
+        # group by the inner correlation expressions
+        groups = [(self.fresh("corr"), inner_e) for _, inner_e in corr_eqs]
+        aggs: List[B.BoundAggregate] = []
+
+        def collector(fc, b):
+            return self._bind_aggregate_call(fc, sub_binder, aggs)
+
+        post = ExprBinder(sub_scope, agg_collector=collector,
+                          subquery_binder=self._bind_subquery_expr)
+        item_b = post.bind(item_ast)
+        if not _null_on_no_rows(item_b, {a.key: a.func for a in aggs}):
+            # the inner join drops the outer rows that no subquery row
+            # matches, which is right only when the value over no rows is
+            # NULL (the JAX package flattens count(*) here too and loses
+            # those rows)
+            raise not_ported("a correlated scalar subquery whose value over no rows "
+                             "is not NULL, such as count or coalesce (it needs an "
+                             "outer join)")
+        out_key = self.fresh("subagg")
+        agg_plan = P.Project(P.Aggregate(subplan, groups, aggs), [(out_key, item_b)])
+        # an atom of the pool, joined on the correlation keys
+        keys = {out_key} | {k for k, _ in groups}
+        atoms.append(Atom(50_000 + len(atoms), agg_plan, 10_000, keys))
+        for (outer_e, inner_e), (gkey, _) in zip(corr_eqs, groups):
+            bound_preds.append(B.BoundComparison(
+                "=", outer_e, B.BoundColumnRef(gkey, inner_e.ltype)))
+        return B.BoundColumnRef(out_key, item_b.ltype)
+
     def _plan_order(self, plan, order_items, output, scope_info):
         out_scope, post_binder = scope_info
         items = []
@@ -442,6 +758,44 @@ class Planner:
                 be = post_binder.bind(e)
             items.append((be, it.descending, it.nulls_first))
         return P.Order(plan, items)
+
+
+_STRICT = (B.BoundArithmetic, B.BoundNegate, B.BoundCast)
+
+
+def _null_if_null(e: B.BoundExpr, key: str) -> bool:
+    """True if e is NULL whenever the column `key` is (NULL passes through
+    arithmetic, negation and casts; other forms are not relied on)."""
+    if isinstance(e, B.BoundColumnRef):
+        return e.key == key
+    return isinstance(e, _STRICT) and any(_null_if_null(c, key) for c in e.children())
+
+
+def _null_on_no_rows(e: B.BoundExpr, agg_funcs) -> bool:
+    """True if the aggregate expression e is NULL over no input rows: it
+    reaches a sum/avg/min/max through arithmetic, negation and casts
+    (count is 0 over no rows; other forms are not relied on)."""
+    if isinstance(e, B.BoundAggregateRef):
+        return agg_funcs.get(e.key) not in (None, "count", "count_star")
+    return isinstance(e, _STRICT) and any(_null_on_no_rows(c, agg_funcs)
+                                          for c in e.children())
+
+
+def _find_scalar_subqueries(e) -> list:
+    """The ScalarSubquery nodes in an expression (not descending into the
+    subqueries themselves)."""
+    if isinstance(e, N.ScalarSubquery):
+        return [e]
+    out = []
+    if dataclasses.is_dataclass(e) and not isinstance(e, type):
+        for f in dataclasses.fields(e):
+            v = getattr(e, f.name)
+            if isinstance(v, N.Expr):
+                out += _find_scalar_subqueries(v)
+            elif isinstance(v, (list, tuple)):
+                out += [s for x in v if isinstance(x, N.Expr)
+                        for s in _find_scalar_subqueries(x)]
+    return out
 
 
 def _contains_aggregate(e: N.Expr) -> bool:
@@ -505,8 +859,8 @@ class _PostAggBinder(ExprBinder):
     aggregate calls route to the collector.
     """
 
-    def __init__(self, scope, group_lookup, collector):
-        super().__init__(scope, agg_collector=collector)
+    def __init__(self, scope, group_lookup, collector, subquery_binder):
+        super().__init__(scope, agg_collector=collector, subquery_binder=subquery_binder)
         self.group_lookup = group_lookup
 
     def bind(self, e: N.Expr) -> B.BoundExpr:

@@ -18,7 +18,9 @@ else N; l_linestatus O when the ship date is after 1995-06-17, else F.
 Each order has 1 to 7 lines; its key and date are the ones its lines
 carry; o_custkey is never a multiple of 3; o_orderstatus is F or O when
 all its lines are, else P; o_orderpriority and c_mktsegment are uniform
-over their five values; o_shippriority is 0; c_nationkey and s_nationkey
+over their five values; p_brand is Brand#MN with M the manufacturer in
+[1, 5] and N in [1, 5]; p_container is uniform over the 40 containers;
+o_shippriority is 0; c_nationkey and s_nationkey
 are uniform in [0, 24]; c_acctbal is uniform in [-999.99, 9999.99];
 c_phone starts with the nation key + 10; nation and region hold the
 specification's fixed 25 and 5 rows; partsupp holds, for each part, the
@@ -68,7 +70,9 @@ NATIONS = [
     ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3), ("SAUDI ARABIA", 4),
     ("VIETNAM", 2), ("RUSSIA", 3), ("UNITED KINGDOM", 3), ("UNITED STATES", 1),
 ]
-_CONTAINERS = ["JUMBO BOX", "LG CASE", "MED BAG", "SM PACK", "WRAP JAR"]
+# P_CONTAINER: one of 5 sizes × 8 kinds (specification §4.2.2.13)
+_CONTAINERS = sorted(f"{size} {kind}" for size in ("SM", "LG", "MED", "JUMBO", "WRAP")
+                     for kind in ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"))
 _TYPES = ["ECONOMY ANODIZED STEEL", "LARGE BRUSHED BRASS", "MEDIUM PLATED TIN",
           "PROMO BURNISHED COPPER", "SMALL POLISHED NICKEL", "STANDARD PLATED TIN"]
 

@@ -1,16 +1,21 @@
-"""TPC-H Q3, Q5, Q10 and Q12 answered with numpy alone.
+"""TPC-H Q3, Q4, Q5, Q10, Q11, Q12, Q17, Q18 and Q21 answered with numpy alone.
 
-An independent implementation of the four queries over a directory that
+An independent implementation of the nine queries over a directory that
 testing/tpch_gen.py wrote: money in int64 cents with exact DECIMAL
 scaling, joins through np.searchsorted on primary keys, groups through
-np.unique(..., return_inverse=True) and np.add.at. It reads the files
-directly and shares no code with the engine, so the chip's smoke run
-(which has no JAX) and the CPU tests can hold the port against it.
+np.unique(..., return_inverse=True) and np.add.at, subqueries as set
+membership and per-key counts. It reads the files directly and shares no
+code with the engine, so the chip's smoke run (which has no JAX) and the
+CPU tests can hold the port against it.
 
-QUERIES holds the specification's texts with its validation parameters.
-`answer(name, data_dir)` returns the rows as `Result.rows()` gives them
-(DECIMAL → decimal.Decimal, DATE → datetime.date, VARCHAR → str), in the
-order ORDER BY fixes, LIMIT applied.
+QUERIES (joins) and SUBQUERY_QUERIES hold the specification's texts with
+its validation parameters (Q11's fraction is DuckDB's 0.0001000000).
+`answer(name, data_dir, **params)` returns the rows as `Result.rows()`
+gives them (DECIMAL → decimal.Decimal, DATE → datetime.date, VARCHAR →
+str), in the order ORDER BY fixes, LIMIT applied. Q11 takes its `nation`
+(default GERMANY) and Q18 its quantity `threshold` (default 300) as
+parameters, since small scale factors may select nothing with the
+specification's values.
 """
 
 from __future__ import annotations
@@ -69,6 +74,64 @@ WHERE o_orderkey = l_orderkey AND l_shipmode IN ('MAIL', 'SHIP')
   AND l_receiptdate < CAST('1995-01-01' AS date)
 GROUP BY l_shipmode
 ORDER BY l_shipmode
+""",
+}
+
+SUBQUERY_QUERIES = {
+    "q04": """
+SELECT o_orderpriority, count(*) AS order_count
+FROM orders
+WHERE o_orderdate >= CAST('1993-07-01' AS date)
+  AND o_orderdate < CAST('1993-10-01' AS date)
+  AND EXISTS (SELECT * FROM lineitem
+              WHERE l_orderkey = o_orderkey AND l_commitdate < l_receiptdate)
+GROUP BY o_orderpriority
+ORDER BY o_orderpriority
+""",
+    "q11": """
+SELECT ps_partkey, sum(ps_supplycost * ps_availqty) AS value
+FROM partsupp, supplier, nation
+WHERE ps_suppkey = s_suppkey AND s_nationkey = n_nationkey AND n_name = 'GERMANY'
+GROUP BY ps_partkey
+HAVING sum(ps_supplycost * ps_availqty) > (
+    SELECT sum(ps_supplycost * ps_availqty) * 0.0001000000
+    FROM partsupp, supplier, nation
+    WHERE ps_suppkey = s_suppkey AND s_nationkey = n_nationkey
+      AND n_name = 'GERMANY')
+ORDER BY value DESC
+""",
+    "q17": """
+SELECT sum(l_extendedprice) / 7.0 AS avg_yearly
+FROM lineitem, part
+WHERE p_partkey = l_partkey AND p_brand = 'Brand#23' AND p_container = 'MED BOX'
+  AND l_quantity < (SELECT 0.2 * avg(l_quantity) FROM lineitem
+                    WHERE l_partkey = p_partkey)
+""",
+    "q18": """
+SELECT c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice, sum(l_quantity)
+FROM customer, orders, lineitem
+WHERE o_orderkey IN (SELECT l_orderkey FROM lineitem GROUP BY l_orderkey
+                     HAVING sum(l_quantity) > 300)
+  AND c_custkey = o_custkey AND o_orderkey = l_orderkey
+GROUP BY c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+ORDER BY o_totalprice DESC, o_orderdate
+LIMIT 100
+""",
+    "q21": """
+SELECT s_name, count(*) AS numwait
+FROM supplier, lineitem l1, orders, nation
+WHERE s_suppkey = l1.l_suppkey AND o_orderkey = l1.l_orderkey
+  AND o_orderstatus = 'F' AND l1.l_receiptdate > l1.l_commitdate
+  AND EXISTS (SELECT * FROM lineitem l2
+              WHERE l2.l_orderkey = l1.l_orderkey AND l2.l_suppkey <> l1.l_suppkey)
+  AND NOT EXISTS (SELECT * FROM lineitem l3
+                  WHERE l3.l_orderkey = l1.l_orderkey
+                    AND l3.l_suppkey <> l1.l_suppkey
+                    AND l3.l_receiptdate > l3.l_commitdate)
+  AND s_nationkey = n_nationkey AND n_name = 'SAUDI ARABIA'
+GROUP BY s_name
+ORDER BY numwait DESC, s_name
+LIMIT 100
 """,
 }
 
@@ -211,9 +274,109 @@ def q12(t):
     return [(m.decode(), int(h), int(lo)) for m, h, lo in zip(modes, highs, lows)]
 
 
-_ANSWERS = {"q03": q03, "q05": q05, "q10": q10, "q12": q12}
+def _counts_per_row(keys: np.ndarray) -> np.ndarray:
+    """For each row, how many rows share its key."""
+    _, inv, counts = np.unique(keys, return_inverse=True, return_counts=True)
+    return counts[inv.reshape(-1)]
 
 
-def answer(name: str, data_dir: str):
-    """Rows of query `name` (a key of QUERIES) over data_dir."""
-    return _ANSWERS[name](_Tables(data_dir))
+def _nation_rows(t, table: str, prefix: str, name: bytes) -> np.ndarray:
+    """Mask of `table`'s rows whose nation is called `name`."""
+    nrow = _lookup(t("nation", "n_nationkey"), t(table, f"{prefix}_nationkey"))
+    return (nrow >= 0) & (t("nation", "n_name")[nrow] == name)
+
+
+def q04(t):
+    late = t("lineitem", "l_commitdate") < t("lineitem", "l_receiptdate")
+    has_late = np.isin(t("orders", "o_orderkey"), t("lineitem", "l_orderkey")[late])
+    odate = t("orders", "o_orderdate")
+    ok = (odate >= _day("1993-07-01")) & (odate < _day("1993-10-01")) & has_late
+    prios, counts = np.unique(t("orders", "o_orderpriority")[ok], return_counts=True)
+    return [(p.decode(), int(c)) for p, c in zip(prios, counts)]
+
+
+def q11(t, nation: str = "GERMANY"):
+    srow = _lookup(t("supplier", "s_suppkey"), t("partsupp", "ps_suppkey"))
+    ok = (srow >= 0) & _nation_rows(t, "supplier", "s", nation.encode())[srow]
+    rows = np.flatnonzero(ok)
+    value = t("partsupp", "ps_supplycost")[rows] * t("partsupp", "ps_availqty")[rows]
+    parts, sums = _group_sum(t("partsupp", "ps_partkey")[rows], value)
+    # sum (scale 2) > total (scale 2) × 0.0001000000, exactly
+    keep = sums.astype(object) * 10_000 > int(value.astype(object).sum())
+    parts, sums = parts[keep], sums[keep]
+    order = np.lexsort((parts, -sums))  # ties in value: any order is valid
+    return [(int(parts[i]), _dec(sums[i], 2)) for i in order]
+
+
+def q17(t):
+    part_ok = ((t("part", "p_brand") == b"Brand#23")
+               & (t("part", "p_container") == b"MED BOX"))
+    lpart = t("lineitem", "l_partkey")
+    prow = _lookup(t("part", "p_partkey"), lpart)
+    qty = t("lineitem", "l_quantity")
+    # 0.2 * avg(l_quantity) over each part's lines, in float64 as avg is
+    parts, inv = np.unique(lpart, return_inverse=True)
+    inv = inv.reshape(-1)
+    qsum = np.zeros(len(parts), dtype=np.int64)
+    np.add.at(qsum, inv, qty)
+    cnt = np.bincount(inv, minlength=len(parts))
+    avg = qsum.astype(np.float64) / (cnt.astype(np.float64) * 100.0)
+    ok = (prow >= 0) & part_ok[prow] & (qty.astype(np.float64) / 100.0 < 0.2 * avg[inv])
+    if not ok.any():
+        return [(None,)]
+    total = int(t("lineitem", "l_extendedprice")[ok].sum())
+    return [(float(total) / 100.0 / 7.0,)]
+
+
+def q18(t, threshold: int = 300):
+    lkey, qty = t("lineitem", "l_orderkey"), t("lineitem", "l_quantity")
+    keys, qsums = _group_sum(lkey, qty)
+    big = qsums > threshold * 100
+    orow = _lookup(t("orders", "o_orderkey"), keys[big])
+    crow = _lookup(t("customer", "c_custkey"), t("orders", "o_custkey")[orow])
+    keep = (orow >= 0) & (crow >= 0)
+    orow, crow = orow[keep], crow[keep]
+    qsum = qsums[big][keep]
+    price, odate = t("orders", "o_totalprice")[orow], t("orders", "o_orderdate")[orow]
+    order = np.lexsort((odate, -price))[:100]
+    return [(t("customer", "c_name")[crow[i]].decode(), int(t("customer", "c_custkey")[crow[i]]),
+             int(t("orders", "o_orderkey")[orow[i]]), _date(odate[i]), _dec(price[i], 2),
+             _dec(qsum[i], 2)) for i in order]
+
+
+def q21(t):
+    """EXISTS / NOT EXISTS as counts: a line of the same order from another
+    supplier exists iff the order has more lines than lines of this
+    supplier (among the late lines for NOT EXISTS)."""
+    lkey, supp = t("lineitem", "l_orderkey"), t("lineitem", "l_suppkey")
+    late = t("lineitem", "l_receiptdate") > t("lineitem", "l_commitdate")
+    pair = lkey * (int(supp.max()) + 1) + supp
+    others = _counts_per_row(lkey) - _counts_per_row(pair)
+    late_keys, late_pairs = lkey[late], pair[late]
+    uk, kc = np.unique(late_keys, return_counts=True)
+    up, pc = np.unique(late_pairs, return_counts=True)
+
+    def count_in(u, c, probe):
+        pos = _lookup(u, probe)
+        return np.where(pos >= 0, c[np.maximum(pos, 0)], 0)
+
+    late_others = count_in(uk, kc, lkey) - count_in(up, pc, pair)
+    orow = _lookup(t("orders", "o_orderkey"), lkey)
+    srow = _lookup(t("supplier", "s_suppkey"), supp)
+    ok = (late & (orow >= 0) & (t("orders", "o_orderstatus")[orow] == b"F")
+          & (srow >= 0) & _nation_rows(t, "supplier", "s", b"SAUDI ARABIA")[srow]
+          & (others > 0) & (late_others == 0))
+    names, counts = np.unique(t("supplier", "s_name")[srow[ok]], return_counts=True)
+    order = np.lexsort((names, -counts))[:100]
+    return [(names[i].decode(), int(counts[i])) for i in order]
+
+
+_ANSWERS = {"q03": q03, "q04": q04, "q05": q05, "q10": q10, "q11": q11, "q12": q12,
+            "q17": q17, "q18": q18, "q21": q21}
+
+
+def answer(name: str, data_dir: str, **params):
+    """Rows of query `name` (a key of QUERIES or SUBQUERY_QUERIES) over
+    data_dir; params go to the query's answer (Q11's `nation`, Q18's
+    `threshold`)."""
+    return _ANSWERS[name](_Tables(data_dir), **params)
