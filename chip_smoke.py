@@ -37,7 +37,18 @@ Phases (any failure exits non-zero before the result lines):
    scalar subquery and Q17's correlated average each add a dense
    aggregate), the grouped sum against its plain version on every input
    the five gave it (Q4's five priorities, Q11's and Q17's ungrouped sums)
-   and timed there, and each query's warm median and host syncs.
+   and timed there, and each query's warm median and host syncs;
+8. derived tables, OR factoring and outer joins: TPC-H Q7, Q8, Q15, Q19
+   (the specification's texts and values) and q13_nolike (Q13 without its
+   NOT LIKE conjunct), the same way: rows against the numpy oracle, the
+   route asserted (q13_nolike's customer-orders LEFT join runs eagerly on
+   the card, the four TPC-H queries run no eager join), the grouped sum
+   against its plain version on every input the five gave it (Q8's years,
+   Q15's max, Q19's single sum) and timed there, each query's warm median,
+   lineitem rows/s (customer rows/s for q13_nolike) and host syncs; then
+   one FULL join, customer FULL JOIN orders ON c_custkey = o_custkey AND
+   o_totalprice > the median price, whose pairs, unmatched customers and
+   unmatched orders must equal numpy's.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -312,6 +323,50 @@ def sweep(GS, card: str):
     return out
 
 
+def full_join_counts(con, card: str) -> str:
+    """customer FULL JOIN orders ON c_custkey = o_custkey AND o_totalprice >
+    the median price: the pairs, the customers without such an order and
+    the orders at or below the median must equal numpy's, and the join
+    must run eagerly on the card. '' when they do."""
+    import numpy as np
+    import torch
+
+    def col(table, name):
+        base = os.path.join(DATA, table, name)
+        kind = ".i64" if os.path.exists(base + ".i64") else ".i32"
+        return np.fromfile(base + kind, dtype=np.int64 if kind == ".i64" else np.int32)
+
+    price, ocust, ckey = col("orders", "o_totalprice"), col("orders", "o_custkey"), \
+        col("customer", "c_custkey")
+    median = int(np.median(price))
+    big = price > median
+    want = (int(big.sum()), int((~np.isin(ckey, ocust[big])).sum()), int((~big).sum()))
+    sql = (f"SELECT count(*) AS n, count(c_custkey) AS custs, count(o_orderkey) AS ords "
+           f"FROM customer FULL JOIN orders ON c_custkey = o_custkey "
+           f"AND o_totalprice > {median // 100}.{median % 100:02d}")
+    con.routes.clear()
+    (n, custs, ords), = con.sql(sql).rows()
+    torch.cuda.synchronize()
+    routes = dict(con.routes)
+    pairs = custs + ords - n
+    got = (pairs, custs - pairs, ords - pairs)
+    if routes.get("eager_full") != 1:
+        return f"the FULL join missed the eager full join: routes {routes}"
+    if got != want:
+        return f"FULL join counts (pairs, unmatched customers, unmatched orders) {got}, " \
+            f"numpy {want}"
+    med, times = warm_median(con, sql, [(n, custs, ords)])
+    if med is None:
+        return f"FULL join: {times}"
+    syncs = count_syncs(lambda: con.sql(sql).rows())
+    print(f"FULL join SF{SF:g} on {card}: pairs {got[0]}, unmatched customers {got[1]}, "
+          f"unmatched orders {got[2]} equal numpy's; routes {routes}; median of 5 warm "
+          f"runs {med * 1e3:.3f} ms (runs {', '.join(f'{t * 1e3:.3f}' for t in times)} "
+          f"ms), {(len(ckey) + len(price)) / med:.0f} customer+orders rows/s, {syncs} "
+          f"host syncs per run")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -421,13 +476,18 @@ def main() -> int:
           f"{nrows / med:.0f} rows/s, {syncs} host syncs per run")
 
     # 6. the join path: Q3, Q5, Q10, Q12; 7. the subquery path: Q4, Q11,
-    # Q17, Q18, Q21
+    # Q17, Q18, Q21; 8. the FROM path: Q7, Q8, Q15, Q19, q13_nolike
     launches_by_query = {"q01": launches}
     shapes = []
     subquery_routes = {"q04": {"fused_semi": 1}, "q11": {"dense": 2},
                        "q17": {"dense": 2}, "q18": {"fused_semi": 1, "sort_group": 1},
                        "q21": {"fused_semi": 1, "fused_anti": 1}}
-    for name, sql in {**tpch_oracle.QUERIES, **tpch_oracle.SUBQUERY_QUERIES}.items():
+    # the eager joins each runs (every other eager_* route is a failure)
+    from_routes = {"q07": {}, "q08": {}, "q15": {}, "q19": {},
+                   "q13_nolike": {"eager_left": 1}}
+    from_kernel = ("q08", "q15", "q19")  # those that reach the grouped sum
+    for name, sql in {**tpch_oracle.QUERIES, **tpch_oracle.SUBQUERY_QUERIES,
+                      **tpch_oracle.FROM_QUERIES}.items():
         recorded.clear()
         grouped_mod.grouped_sum_i64 = recording
         GS.grouped_sum_i64.launches = 0
@@ -461,6 +521,15 @@ def main() -> int:
                     d.device.type != "cuda" for d, _, _ in recorded)):
                 return fail(f"{name} did not launch the grouped sum on the card: "
                             f"launches {q_launches} {q_regimes}")
+        elif name in from_routes:
+            eager = {k: n for k, n in routes.items() if k.startswith("eager_")}
+            if eager != from_routes[name]:
+                return fail(f"{name} ran the eager joins {eager}, expected "
+                            f"{from_routes[name]}: routes {routes}")
+            if name in from_kernel and (q_launches < 1 or any(
+                    d.device.type != "cuda" for d, _, _ in recorded)):
+                return fail(f"{name} did not launch the grouped sum on the card: "
+                            f"launches {q_launches} {q_regimes}")
         elif routes.get("sort_group") != 1:
             return fail(f"{name} did not take the sort-group mode: routes {routes}")
         print(f"{name} (first run, columns load to the card): {first_s:.3f} s, {len(got)} "
@@ -491,9 +560,15 @@ def main() -> int:
         if med is None:
             return fail(f"{name}: {times}")
         syncs = count_syncs(lambda: con.sql(sql).rows())
+        table = "customer" if name == "q13_nolike" else "lineitem"
         print(f"{name} SF{SF:g} on {card}: median of 5 warm runs {med * 1e3:.3f} ms "
               f"(runs {', '.join(f'{t * 1e3:.3f}' for t in times)} ms), "
-              f"{nrows / med:.0f} lineitem rows/s, {syncs} host syncs per run")
+              f"{sizes[table] / med:.0f} {table} rows/s, {syncs} host syncs per run")
+
+    # 8. (end) one FULL join at SF1, its three counts against numpy's
+    bad = full_join_counts(con, card)
+    if bad:
+        return fail(bad)
 
     print(json.dumps({"kernels": [{
         "name": "grouped_sum_i64", "route": "cuda",

@@ -39,8 +39,9 @@ class Connection:
         self.catalog = Catalog(device=self.device)
         # plan cache: SQL text → (plan, output)
         self._plan_cache = {}
-        # the routes the fused aggregates of this connection's queries took
-        # (execution/executor.Executor.routes); callers may clear it
+        # the routes this connection's queries took: grouping modes, fused
+        # probe and membership steps, eager joins, CTEs materialized at plan
+        # time (execution/executor.Executor.routes); callers may clear it
         self.routes = collections.Counter()
 
     def sql(self, query: str) -> Result:

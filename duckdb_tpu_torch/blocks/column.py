@@ -55,6 +55,17 @@ class Column:
     def padded_len(self) -> int:
         return self.data.shape[0]
 
+    def host_values(self, n: int):
+        """The first n rows on the host → (values, validity|None); wide
+        values recombined exactly as Python ints, hi·2^64 + uint64(lo)."""
+        values = self.data[:n].cpu().numpy()
+        if self.data_hi is not None:
+            hi = self.data_hi[:n].cpu().numpy()
+            values = np.array([int(h) * (1 << 64) + (int(lo) & ((1 << 64) - 1))
+                               for h, lo in zip(hi, values)], dtype=object)
+        validity = None if self.validity is None else self.validity[:n].cpu().numpy()
+        return values, validity
+
     @staticmethod
     def from_numpy(
         values: np.ndarray,

@@ -54,6 +54,17 @@ class TableEntry:
         self._compute_stats(name)
         self.version += 1
 
+    def set_device_column(self, name, col: Column):
+        """A column computed on the device (a materialized CTE), already
+        padded to the table's length: it stays there as the device tier,
+        and the host tier gets one copy of its nrows values for the
+        statistics (wide values recombined exactly as Python ints)."""
+        values, validity = col.host_values(self.nrows)
+        self._host[name] = (values, validity, col.dict_values)
+        self._compute_stats(name)
+        self._device[name] = col
+        self.version += 1
+
     def set_lazy_column(self, name, loader: Callable[[], Tuple]):
         """loader() -> (values, validity, dict_values)"""
         self._loaders[name] = loader

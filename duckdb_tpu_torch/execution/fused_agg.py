@@ -454,6 +454,8 @@ def _plan_keys(node) -> set:
         return _plan_keys(node.child)
     if isinstance(node, P.Aggregate):
         return {k for k, _ in node.groups} | {a.key for a in node.aggs}
+    if isinstance(node, (P.Order, P.Limit)):
+        return _plan_keys(node.child)
     return set()
 
 
@@ -466,9 +468,11 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
 
     # 1. peel the Filter/Project/Join chain. Each inner, semi or anti join
     #    whose build can be prepared becomes a probe step (outermost first);
-    #    the first that cannot is the base, executed eagerly with everything
-    #    below. Filters commute with these joins; the body applies probes
-    #    and filters in dependency order.
+    #    the first that cannot (an outer join, a build not proven unique),
+    #    or any other node (a scan, an aggregate, a derived table's ORDER BY
+    #    or LIMIT), is the base, executed eagerly with everything below.
+    #    Filters commute with these joins; the body applies probes and
+    #    filters in dependency order.
     chain = []
     join_steps: List[_JoinStep] = []
     base = node.child
@@ -482,8 +486,6 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         else:
             chain.append(base)
             base = base.child
-    if not isinstance(base, (P.Scan, P.Join, P.Aggregate)):
-        return None
     chain.reverse()
     join_steps.reverse()  # innermost (closest to the base) first
 

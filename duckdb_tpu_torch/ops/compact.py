@@ -28,3 +28,16 @@ def compact_indices(mask: torch.Tensor, out_size: int) -> Tuple[torch.Tensor, to
     idx[:keep] = pos[:keep]
     out_live = torch.arange(out_size, device=mask.device) < count
     return idx, out_live
+
+
+def packed_indices(mask: torch.Tensor, cap: int) -> torch.Tensor:
+    """Packed indices of true mask positions for a capacity the caller
+    knows holds them all (it has read the count): each true position
+    writes its index to its rank, so no host sync is needed. The false
+    positions all write to a spare slot that is cut off; slots past the
+    count point at row 0, as in compact_indices."""
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    out = torch.zeros(cap + 1, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, torch.where(mask, rank, cap),
+                 torch.arange(mask.shape[0], device=mask.device))
+    return out[:cap]

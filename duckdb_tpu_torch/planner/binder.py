@@ -110,6 +110,17 @@ class Scope:
         except BindError:
             return None
 
+    def remove_keys(self, keys) -> None:
+        """Drop bindings whose key is in `keys` (semi/anti join build
+        columns leave scope after the join — reference binder hides the
+        right side of SEMI/ANTI syntax joins)."""
+        keys = set(keys)
+        self.by_qual = {q: b for q, b in self.by_qual.items() if b.key not in keys}
+        self.by_name = {n: [b for b in bs if b.key not in keys]
+                        for n, bs in self.by_name.items()}
+        self.by_name = {n: bs for n, bs in self.by_name.items() if bs}
+        self.order = [(a, c, b) for (a, c, b) in self.order if b.key not in keys]
+
     def columns_of(self, alias: str):
         return [(a, c, b) for (a, c, b) in self.order if a.lower() == alias.lower()]
 

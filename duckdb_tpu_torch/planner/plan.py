@@ -47,16 +47,17 @@ class Aggregate(PlanNode):
 
 @dataclass
 class Join(PlanNode):
-    """Equi-join; this slice plans and executes jtype "inner" only."""
+    """Equi-join: inner, left (a right join is planned as left with the
+    sides swapped), full, semi or anti."""
 
     probe: PlanNode  # "left" side of SQL semantics after planner normalization
     build: PlanNode
-    jtype: str  # inner (left / full / semi / anti / single: later slices)
+    jtype: str  # inner | left | full | semi | anti
     probe_keys: List[BoundExpr]
     build_keys: List[BoundExpr]
     # residual ON predicate over combined (probe ∪ build) columns
     extra: Optional[BoundExpr] = None
-    # NOT IN semantics (anti joins, a later slice)
+    # NOT IN semantics (anti joins)
     null_aware: bool = False
 
 

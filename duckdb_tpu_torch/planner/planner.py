@@ -1,27 +1,36 @@
 """Statement planner: parsed AST → plan tree.
 
 As in the JAX package (duckdb_tpu/planner/planner.py), FROM flattens into
-a pool of atoms (base tables, comma lists, [INNER] JOIN … ON); WHERE and ON
-conjuncts over one atom become filters on it; the joins are ordered by the
-DP of planner/join_order.py for three or more atoms, else by the greedy
-probe spine with its snowflake collapse, and become inner equi-Join nodes.
+a pool of atoms (base tables, derived tables, CTE references, comma lists,
+[INNER] JOIN … ON); WHERE and ON conjuncts, with the terms common to every
+branch of an OR hoisted out (`hoist_or_common`), over one atom become
+filters on it; the joins are ordered by the DP of planner/join_order.py
+for three or more atoms, else by the greedy probe spine with its snowflake
+collapse, and become inner equi-Join nodes. A LEFT, RIGHT (normalized to
+LEFT with the sides swapped), FULL, SEMI or ANTI JOIN plans each side as a
+pool of its own and becomes one atom. A CTE referenced once is inlined as
+a derived table; one referenced more often is executed once at plan time
+into a hidden catalog table on the catalog's device.
 WHERE-level subqueries are flattened (`_flatten_conjunct`): EXISTS, NOT
 EXISTS, IN and NOT IN become semi/anti (null-aware for NOT IN) Join nodes
 stacked on the pool, a correlated scalar aggregate becomes a grouped
-aggregate atom joined on its correlation keys, and an uncorrelated scalar
-subquery becomes a constant computed once (`BoundScalarSubquery`). On top
-come GROUP BY with aggregates, HAVING, the projection, DISTINCT, ORDER BY
-and LIMIT/OFFSET. Keys, output names and join orders match the reference's
-for these shapes. IN/EXISTS outside a WHERE conjunct (MARK joins),
-subqueries in FROM, outer joins, USING and NATURAL joins, table functions,
-joins without an equi-join condition, CTEs, set operations and windows are
-not yet ported and say so.
+aggregate atom joined on its correlation keys (a LEFT join stacked on the
+pool where its value over no rows is not NULL), and an uncorrelated
+scalar subquery becomes a constant computed once (`BoundScalarSubquery`).
+On top come GROUP BY with aggregates, HAVING, the projection, DISTINCT,
+ORDER BY and LIMIT/OFFSET. Keys, output names and join orders match the
+reference's for these shapes. IN/EXISTS outside a WHERE conjunct (MARK
+joins), LATERAL, WITH RECURSIVE, USING and NATURAL joins, table functions,
+joins without an equi-join condition, set operations and windows are not
+yet ported and say so.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
+import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
@@ -89,12 +98,14 @@ class BoundScalarSubquery(B.BoundExpr):
 
 @dataclass
 class SemiSpec:
-    jtype: str  # semi | anti
+    jtype: str  # semi | anti | left (a correlated scalar subquery's)
     build_plan: P.PlanNode
     probe_keys: List[B.BoundExpr]  # over outer columns
     build_keys: List[B.BoundExpr]  # over subquery columns
     extra: Optional[B.BoundExpr]  # residual over combined columns
     null_aware: bool = False  # NOT IN semantics
+    # the conjunct that reads the left join's build columns, applied on top
+    post_filter: Optional[B.BoundExpr] = None
 
 
 def split_conjuncts(e: Optional[N.Expr]) -> List[N.Expr]:
@@ -106,6 +117,77 @@ def split_conjuncts(e: Optional[N.Expr]) -> List[N.Expr]:
             out.extend(split_conjuncts(c))
         return out
     return [e]
+
+
+def hoist_or_common(ast: N.Expr) -> List[N.Expr]:
+    """OR(A∧X, A∧Y) → [A, OR(X, Y)] — exposes join edges hidden inside OR
+    branches (Q19 shape; the reference's filter-combiner does the same,
+    src/optimizer/filter_combiner.cpp)."""
+    if not (isinstance(ast, N.Conjunction) and ast.op == "or"):
+        return [ast]
+    branch_lists = [split_conjuncts(b) for b in ast.children]
+    common = [c for c in branch_lists[0]
+              if all(any(c == d for d in bl) for bl in branch_lists[1:])]
+    implied = _implied_in_filters(branch_lists)
+    if not common:
+        return implied + [ast]
+    rest_branches = []
+    for bl in branch_lists:
+        rest = [c for c in bl if not any(c == d for d in common)]
+        if not rest:
+            return common  # one branch is exactly the common set → OR is implied
+        rest_branches.append(rest[0] if len(rest) == 1
+                             else N.Conjunction("and", rest))
+    return implied + common + [N.Conjunction("or", rest_branches)]
+
+
+def _implied_in_filters(branch_lists) -> List[N.Expr]:
+    """Derive redundant single-column filters implied by an OR of
+    conjunctions: if EVERY branch pins column c to a literal (c = v, or
+    c IN (vs)), then `c IN (union of values)` holds whenever the OR does.
+    The derived filter pushes into c's atom — turning the q07 nation-pair
+    OR into restrictive dimension builds — while the original OR stays
+    for exactness (reference filter_combiner derives the same class)."""
+    def eq_map(conj):
+        out = {}
+        for c in conj:
+            if (isinstance(c, N.BinaryOp) and c.op == "="
+                    and isinstance(c.left, N.ColumnRef)
+                    and isinstance(c.right, N.Literal)):
+                ref, vals = c.left, [c.right]
+            elif (isinstance(c, N.BinaryOp) and c.op == "="
+                    and isinstance(c.right, N.ColumnRef)
+                    and isinstance(c.left, N.Literal)):
+                ref, vals = c.right, [c.left]
+            elif (isinstance(c, N.InList) and not c.negated
+                    and isinstance(c.expr, N.ColumnRef)
+                    and all(isinstance(i, N.Literal) for i in c.items)):
+                ref, vals = c.expr, list(c.items)
+            else:
+                continue
+            key = tuple(p.lower() for p in ref.parts)
+            out.setdefault(key, (ref, []))[1].extend(vals)
+        return out
+    maps = [eq_map(bl) for bl in branch_lists]
+    derived = []
+    for colkey, (ref, vals) in maps[0].items():
+        seen, items = set(), []
+        for m in maps:
+            if colkey not in m:
+                items = None
+                break
+            for v in m[colkey][1]:
+                if repr(v.value) not in seen:
+                    seen.add(repr(v.value))
+                    items.append(v)
+        if items:
+            derived.append(N.InList(ref, items) if len(items) > 1
+                           else N.BinaryOp("=", ref, items[0]))
+    return derived
+
+
+def _hoisted(asts: List[N.Expr]) -> List[N.Expr]:
+    return [h for p in asts for h in hoist_or_common(p)]
 
 
 @dataclass
@@ -130,22 +212,29 @@ class Atom:
 class Planner:
     def __init__(self, catalog, routes=None):
         self.catalog = catalog
-        # the Counter the executors of scalar subqueries report routes to
-        # (the connection's); None gives each its own
-        self.routes = routes
+        # the Counter that plan-time executions (scalar subqueries,
+        # materialized CTEs) report routes to: the connection's
+        self.routes = collections.Counter() if routes is None else routes
         self._key_counter = itertools.count()
+        self._cte_use_count: Dict[str, int] = {}
 
     def fresh(self, name: str) -> str:
         return f"{name}#{next(self._key_counter)}"
 
     # -- entry ---------------------------------------------------------------
-    def plan_select(self, stmt: N.SelectStatement, outer_scope=None):
+    def plan_select(self, stmt: N.SelectStatement, outer_scope=None,
+                    cte_scope: Optional[dict] = None):
         """→ (plan, output [(name, key, ltype)])."""
-        if stmt.ctes:
-            raise not_ported("WITH (common table expressions)")
+        ctes = dict(cte_scope or {})
+        for cte in stmt.ctes:
+            if cte.recursive:
+                raise not_ported("WITH RECURSIVE (it needs set operations)")
+            ctes[cte.name.lower()] = cte
+            self._cte_use_count[cte.name.lower()] = self._count_cte_refs(
+                stmt, cte.name.lower())
         if not isinstance(stmt.node, N.SelectNode):
             raise not_ported(f"the query form {type(stmt.node).__name__}")
-        plan, output, scope = self.plan_select_node(stmt.node, outer_scope)
+        plan, output, scope = self.plan_select_node(stmt.node, outer_scope, ctes)
         if stmt.order_by:
             plan = self._plan_order(plan, stmt.order_by, output, scope)
         if stmt.limit is not None or stmt.offset is not None:
@@ -157,15 +246,67 @@ class Planner:
             plan = P.Limit(plan, n, off)
         return plan, output
 
-    def _plan_base_table(self, ref: N.BaseTableRef):
-        """→ (Scan, scope additions [(alias, col, key, type)], table rows)."""
-        if ref.sample is not None or ref.column_aliases:
-            raise not_ported("table samples and column alias lists")
-        name = (f"{ref.schema}.{ref.name}" if ref.schema else ref.name).lower()
-        if not self.catalog.has_table(name):
-            raise BindError(f"Catalog Error: Table with name {ref.name} does not exist!")
-        entry = self.catalog.get_table(name)
+    # -- FROM planning -------------------------------------------------------
+    def _count_cte_refs(self, obj, name: str) -> int:
+        """Count table references to `name` in an AST subtree."""
+        n = 0
+        if isinstance(obj, N.BaseTableRef) and obj.name.lower() == name:
+            n += 1
+        if hasattr(obj, "__dataclass_fields__"):
+            for f in obj.__dataclass_fields__:
+                v = getattr(obj, f)
+                if isinstance(v, (list, tuple)):
+                    for x in v:
+                        n += self._count_cte_refs(x, name)
+                        if isinstance(x, tuple):
+                            for y in x:
+                                n += self._count_cte_refs(y, name)
+                elif hasattr(v, "__dataclass_fields__"):
+                    n += self._count_cte_refs(v, name)
+        return n
+
+    def _plan_base_table(self, ref: N.BaseTableRef, ctes):
+        """→ (plan, scope additions [(alias, col, key, type)], rows, catalog
+        table or None). `FROM t a(x, y)` alias column lists rename the
+        visible columns (reference: binder table alias handling,
+        src/planner/binder/tableref/bind_basetableref.cpp)."""
+        if ref.sample is not None:
+            raise not_ported("TABLESAMPLE")
+        plan, scope_adds, nrows, table = self._plan_base_table_inner(ref, ctes)
+        if ref.column_aliases:
+            scope_adds = [
+                (a, ref.column_aliases[i] if i < len(ref.column_aliases) else c, k, t)
+                for i, (a, c, k, t) in enumerate(scope_adds)]
+        return plan, scope_adds, nrows, table
+
+    def _plan_base_table_inner(self, ref: N.BaseTableRef, ctes):
+        name = ref.name.lower()
         alias = (ref.alias or ref.name).lower()
+        if ref.schema is None and name in ctes:
+            cte = ctes[name]
+            sub_ctes = {k: v for k, v in ctes.items() if k != name}
+            # a CTE referenced more than once is executed once (the
+            # reference's materialized CTE, src/execution/physical_plan/
+            # plan_cte.cpp); its hidden table is remembered on the CTE node,
+            # which the plan cache keeps alive with the plan
+            if getattr(cte, "_mat_table", None):
+                return self._scan_of(cte._mat_table, alias) + (None,)
+            if cte.materialized is not False and self._cte_use_count.get(name, 0) > 1:
+                plan, output = self.plan_select(cte.query, None, sub_ctes)
+                cte._mat_table = self._materialize_plan(
+                    f"__cte_{name}", plan, output, list(cte.column_aliases) or None)
+                return self._scan_of(cte._mat_table, alias) + (None,)
+            plan, output = self.plan_select(cte.query, None, sub_ctes)
+            return self._subquery_atom(plan, output, alias,
+                                       list(cte.column_aliases) or None) + (None,)
+        qname = (f"{ref.schema}.{ref.name}" if ref.schema else ref.name).lower()
+        if not self.catalog.has_table(qname):
+            raise BindError(f"Catalog Error: Table with name {ref.name} does not exist!")
+        plan, scope_adds, nrows = self._scan_of(qname, alias)
+        return plan, scope_adds, nrows, plan.table
+
+    def _scan_of(self, tname: str, alias: str):
+        entry = self.catalog.get_table(tname)
         cols = []
         scope_adds = []
         for cd in entry.columns:
@@ -174,33 +315,156 @@ class Planner:
             scope_adds.append((alias, cd.name, key, cd.ltype))
         return P.Scan(entry.name, alias, cols), scope_adds, entry.nrows
 
-    def collect_atoms(self, ref: N.TableRef, scope: Scope, atoms: List[Atom],
+    def _materialize_plan(self, base_name, plan, output, col_aliases) -> str:
+        """Execute a plan now, on the catalog's device, and register its
+        rows as a hidden table whose columns stay there."""
+        from duckdb_tpu_torch.catalog.catalog import ColumnDef, TableEntry
+        from duckdb_tpu_torch.execution.executor import Executor
+
+        nrows, columns = Executor(self.catalog, self.routes).materialize(plan, output)
+        names = col_aliases or [n for n, _, _ in output]
+        n = 0
+        while self.catalog.has_table(f"{base_name}_{n}"):
+            n += 1
+        entry = TableEntry(f"{base_name}_{n}", [ColumnDef(nm, t) for nm, (_, _, t)
+                                                in zip(names, output)])
+        entry.nrows = nrows
+        self.catalog.create_table(entry)
+        for cd, col in zip(entry.columns, columns):
+            entry.set_device_column(cd.name, col)
+        self.routes["cte_materialized"] += 1
+        return entry.name
+
+    def _subquery_atom(self, plan, output, alias, col_aliases):
+        scope_adds = []
+        for i, (n, key, t) in enumerate(output):
+            cn = col_aliases[i] if col_aliases and i < len(col_aliases) else n
+            scope_adds.append((alias, cn, key, t))
+        nrows = 10_000  # unknown; middle-of-road estimate
+        return plan, scope_adds, nrows
+
+    def _plan_derived(self, sub: N.SelectStatement, ctes, scope: Scope):
+        """Plan a derived table (FROM subquery or inlined CTE) with no outer
+        scope. One that reads a column of the query around it is LATERAL."""
+        try:
+            return self.plan_select(sub, None, ctes)
+        except BindError as err:
+            m = re.search(r'column "([^"]+)" not found', str(err))
+            if m and scope.try_resolve(tuple(m.group(1).split("."))) is not None:
+                raise not_ported("a correlated derived table (LATERAL)") from err
+            raise
+
+    def collect_atoms(self, ref: N.TableRef, ctes, scope: Scope, atoms: List[Atom],
                       pred_asts: List[N.Expr]):
-        """Flatten a FROM tree into atoms + predicate ASTs (inner joins only)."""
+        """Flatten a FROM tree into atoms + predicate ASTs. Outer, semi and
+        anti joins plan both sides as pools of their own and become one
+        atom."""
         if isinstance(ref, N.BaseTableRef):
-            plan, scope_adds, nrows = self._plan_base_table(ref)
-            self._add_atom(plan, scope_adds, nrows, scope, atoms, plan.table)
+            plan, scope_adds, nrows, table = self._plan_base_table(ref, ctes)
+            self._add_atom(plan, scope_adds, nrows, scope, atoms, table)
             return
+        if isinstance(ref, N.SubqueryRef):
+            alias = (ref.alias or f"subq{len(atoms)}").lower()
+            plan, output = self._plan_derived(ref.subquery, ctes, scope)
+            plan2, scope_adds, nrows = self._subquery_atom(
+                plan, output, alias, list(ref.column_aliases) or None)
+            self._add_atom(plan2, scope_adds, nrows, scope, atoms, None)
+            return
+        if isinstance(ref, N.JoinRef) and (ref.using or ref.natural):
+            raise not_ported("JOIN … USING and NATURAL JOIN")
         if isinstance(ref, N.JoinRef) and ref.join_type in ("inner", "cross"):
-            if ref.using or ref.natural:
-                raise not_ported("JOIN … USING and NATURAL JOIN")
-            self.collect_atoms(ref.left, scope, atoms, pred_asts)
-            self.collect_atoms(ref.right, scope, atoms, pred_asts)
+            self.collect_atoms(ref.left, ctes, scope, atoms, pred_asts)
+            self.collect_atoms(ref.right, ctes, scope, atoms, pred_asts)
             if ref.condition is not None:
                 pred_asts.extend(split_conjuncts(ref.condition))
             return
+        if isinstance(ref, N.JoinRef) and ref.join_type in ("left", "right", "full",
+                                                            "semi", "anti"):
+            self._plan_outer_join(ref, ctes, scope, atoms)
+            return
         if isinstance(ref, N.JoinRef):
             raise not_ported(f"{ref.join_type.upper()} JOIN")
-        raise not_ported(f"FROM {type(ref).__name__} (subqueries, table functions)")
+        raise not_ported(f"FROM {type(ref).__name__} (table functions)")
+
+    # the sides a join keeps every row of: an ON conjunct over one of them
+    # must not filter it, so it stays in the residual
+    _PRESERVED = {"left": "l", "right": "r", "full": "lr", "anti": "l", "semi": ""}
+
+    def _plan_outer_join(self, ref: N.JoinRef, ctes, scope: Scope, atoms: List[Atom]):
+        """LEFT / RIGHT / FULL / SEMI / ANTI JOIN … ON: each side becomes a
+        pool of its own; a RIGHT join is a LEFT join with the sides swapped.
+        An ON conjunct over the side that is not preserved filters that
+        side's pool; one over a preserved side, or over both sides without
+        being an equality between them, is the join's residual."""
+        jt = ref.join_type
+        left_atoms: List[Atom] = []
+        right_atoms: List[Atom] = []
+        lpreds: List[N.Expr] = []
+        rpreds: List[N.Expr] = []
+        self.collect_atoms(ref.left, ctes, scope, left_atoms, lpreds)
+        self.collect_atoms(ref.right, ctes, scope, right_atoms, rpreds)
+        binder = self._pred_binder(scope, ctes)
+        lkeys = set().union(*[a.keys for a in left_atoms])
+        rkeys = set().union(*[a.keys for a in right_atoms])
+        lpool, rpool, across, kept = [], [], [], []
+        for c in _hoisted(split_conjuncts(ref.condition)):
+            bc = binder.bind(c)
+            ks = self._keys_of(bc)
+            if ks <= lkeys:
+                (kept if "l" in self._PRESERVED[jt] else lpool).append(bc)
+            elif ks <= rkeys:
+                (kept if "r" in self._PRESERVED[jt] else rpool).append(bc)
+            else:
+                across.append(bc)
+        lpool += [binder.bind(c) for c in _hoisted(lpreds)]
+        rpool += [binder.bind(c) for c in _hoisted(rpreds)]
+        lplan = self.plan_pool(left_atoms, lpool)
+        rplan = self.plan_pool(right_atoms, rpool)
+        pk, bk, residual = self._split_join_conds(across, lkeys, rkeys)
+        residual += kept
+        if not pk:
+            # the JAX package's IEJoin and keyless cross-expansion paths
+            raise not_ported(f"{jt.upper()} JOIN without an equi-join condition")
+        extra = (None if not residual else residual[0] if len(residual) == 1
+                 else B.BoundConjunction("and", residual))
+        if jt == "right":
+            plan = P.Join(rplan, lplan, "left", bk, pk, extra)
+        else:
+            plan = P.Join(lplan, rplan, jt, pk, bk, extra)
+        if jt in ("semi", "anti"):
+            # the build columns leave scope: SELECT t2.y after a SEMI JOIN
+            # is a binder error
+            scope.remove_keys(rkeys)
+        atoms.append(Atom(len(atoms) + 10_000, plan, 100_000, lkeys | rkeys))
+
+    def _split_join_conds(self, conds, lkeys, rkeys):
+        """Partition cross-side conditions into equi keys + residual list."""
+        pk, bk, residual = [], [], []
+        for c in conds:
+            if isinstance(c, B.BoundComparison) and c.op in ("=", "=="):
+                ks_l, ks_r = self._keys_of(c.left), self._keys_of(c.right)
+                if ks_l <= lkeys and ks_r <= rkeys:
+                    pk.append(c.left)
+                    bk.append(c.right)
+                    continue
+                if ks_l <= rkeys and ks_r <= lkeys:
+                    pk.append(c.right)
+                    bk.append(c.left)
+                    continue
+            residual.append(c)
+        return pk, bk, residual
 
     def _add_atom(self, plan, scope_adds, nrows, scope: Scope, atoms: List[Atom],
-                  table: str):
+                  table: Optional[str]):
+        """`table`: the catalog table a base-table Scan reads, whose column
+        statistics drive the join-order estimates (None for other atoms)."""
         keys = set()
         col_of = {}
+        if table is not None:
+            col_of = {key: (table, col) for col, key, _ in plan.cols}
         for alias, col, key, t in scope_adds:
             scope.add(alias, col, key, t)
             keys.add(key)
-            col_of[key] = (table, col)
         atoms.append(Atom(len(atoms), plan, nrows, keys, col_of))
 
     def _keys_of(self, e: B.BoundExpr) -> Set[str]:
@@ -369,7 +633,7 @@ class Planner:
                     out.append((p, p.right, p.left))
         return out
 
-    def plan_select_node(self, sel: N.SelectNode, outer_scope=None):
+    def plan_select_node(self, sel: N.SelectNode, outer_scope, ctes):
         if sel.from_table is None:
             raise not_ported("SELECT without FROM")
         if sel.sample is not None or sel.qualify is not None or sel.distinct_on:
@@ -377,13 +641,13 @@ class Planner:
         scope = Scope(parent=outer_scope)
         atoms: List[Atom] = []
         pred_asts: List[N.Expr] = []
-        self.collect_atoms(sel.from_table, scope, atoms, pred_asts)
-        binder = self._pred_binder(scope)
+        self.collect_atoms(sel.from_table, ctes, scope, atoms, pred_asts)
+        binder = self._pred_binder(scope, ctes)
         bound_preds: List[B.BoundExpr] = []
         semis: List[SemiSpec] = []
         local_keys = set().union(*[a.keys for a in atoms])
-        for ast in pred_asts + split_conjuncts(sel.where):
-            if not self._flatten_conjunct(ast, scope, local_keys, bound_preds,
+        for ast in _hoisted(pred_asts + split_conjuncts(sel.where)):
+            if not self._flatten_conjunct(ast, scope, ctes, local_keys, bound_preds,
                                           semis, atoms):
                 bound_preds.append(binder.bind(ast))
         plan = self._stack_semis(self.plan_pool(atoms, bound_preds), semis)
@@ -395,7 +659,7 @@ class Planner:
         post_binder = binder
         if has_agg:
             plan, post_binder = self._plan_aggregate(plan, sel, scope,
-                                                     select_aliases, binder)
+                                                     select_aliases, binder, ctes)
 
         # -- projection -------------------------------------------------------
         items = []
@@ -436,7 +700,8 @@ class Planner:
         return out
 
     # -- aggregate planning ---------------------------------------------------
-    def _plan_aggregate(self, plan, sel: N.SelectNode, scope, select_aliases, binder):
+    def _plan_aggregate(self, plan, sel: N.SelectNode, scope, select_aliases, binder,
+                        ctes):
         group_asts = [self._resolve_group_ast(g, sel, select_aliases)
                       for g in sel.group_by]
         if sel.group_by_all:
@@ -453,7 +718,8 @@ class Planner:
         def collector(fc: N.FunctionCall, b):
             return self._bind_aggregate_call(fc, binder, aggs)
 
-        post = _PostAggBinder(scope, group_lookup, collector, self._bind_subquery_expr)
+        post = _PostAggBinder(scope, group_lookup, collector,
+                              lambda e, b: self._bind_subquery_expr(e, b, ctes))
         return P.Aggregate(plan, groups, aggs), post
 
     def _resolve_group_ast(self, g, sel, select_aliases):
@@ -490,15 +756,16 @@ class Planner:
         return B.BoundAggregateRef(key, t)
 
     # -- subqueries -------------------------------------------------------------
-    def _pred_binder(self, scope: Scope) -> ExprBinder:
-        return ExprBinder(scope, subquery_binder=self._bind_subquery_expr)
+    def _pred_binder(self, scope: Scope, ctes) -> ExprBinder:
+        return ExprBinder(scope,
+                          subquery_binder=lambda e, b: self._bind_subquery_expr(e, b, ctes))
 
-    def _bind_subquery_expr(self, e, binder: ExprBinder):
+    def _bind_subquery_expr(self, e, binder: ExprBinder, ctes):
         """A subquery that no WHERE conjunct flattened: an uncorrelated
         scalar subquery becomes a lazy constant. IN and EXISTS here need
         the reference's MARK join (BoundMarkSubquery), not yet ported."""
         if isinstance(e, N.ScalarSubquery):
-            plan, output = self.plan_select(e.subquery)
+            plan, output = self.plan_select(e.subquery, None, ctes)
             _, key, t = output[0]
             return BoundScalarSubquery(self, plan, key, t)
         raise not_ported(f"{type(e).__name__} outside a WHERE conjunct (MARK joins)")
@@ -508,9 +775,11 @@ class Planner:
         for s in semis:
             plan = P.Join(plan, s.build_plan, s.jtype, s.probe_keys, s.build_keys,
                           s.extra, null_aware=s.null_aware)
+            if s.post_filter is not None:
+                plan = P.Filter(plan, s.post_filter)
         return plan
 
-    def _flatten_conjunct(self, ast, scope, local_keys, bound_preds, semis,
+    def _flatten_conjunct(self, ast, scope, ctes, local_keys, bound_preds, semis,
                           atoms) -> bool:
         """Handle EXISTS / IN-subquery / correlated scalar-agg conjuncts."""
         neg = False
@@ -520,43 +789,72 @@ class Planner:
             inner = inner.child
         if isinstance(inner, N.Exists):
             self._plan_semijoin_exists(inner.subquery, None, neg != inner.negated,
-                                       scope, local_keys, semis)
+                                       scope, ctes, local_keys, semis)
             return True
         if isinstance(inner, N.InSubquery):
-            self._plan_semijoin_exists(inner.subquery, inner.expr,
-                                       neg != inner.negated, scope, local_keys, semis)
+            self._plan_semijoin_exists(inner.subquery, inner.expr, neg != inner.negated,
+                                       scope, ctes, local_keys, semis)
             return True
         if isinstance(inner, N.BinaryOp) and inner.op in B._CMP_OPS and not neg:
             for e_side, other, flip in ((inner.right, inner.left, False),
                                         (inner.left, inner.right, True)):
                 subs = _find_scalar_subqueries(e_side)
                 if len(subs) == 1 and not _find_scalar_subqueries(other):
-                    sq = subs[0]
-                    sub_ref = self._correlated_scalar_ref(
-                        sq.subquery, scope, local_keys, bound_preds, atoms)
-                    if sub_ref is None:
+                    sa = self._correlated_scalar_agg(subs[0].subquery, scope, ctes,
+                                                     local_keys)
+                    if sa is None:
                         return False  # uncorrelated → normal binding path
-
-                    # bind the containing expression with the subquery node
-                    # replaced by the grouped-aggregate output column (e.g.
-                    # `price > 1.2 * (SELECT avg(...) WHERE corr)`)
-                    def sq_binder(e, b, _sq=sq, _ref=sub_ref):
-                        if e is _sq:
-                            return _ref
-                        return self._bind_subquery_expr(e, b)
-
-                    side_b = ExprBinder(scope, subquery_binder=sq_binder).bind(e_side)
-                    if not _null_if_null(side_b, sub_ref.key):
-                        raise not_ported(
-                            "a correlated scalar subquery inside an expression that "
-                            "is not NULL when the subquery is (it needs an outer join)")
-                    other_b = self._pred_binder(scope).bind(other)
-                    lhs, rhs = (side_b, other_b) if flip else (other_b, side_b)
-                    bound_preds.append(B.BoundComparison(inner.op, lhs, rhs))
+                    self._plan_scalar_conjunct(inner.op, subs[0], e_side, other, flip,
+                                               sa, scope, ctes, bound_preds, semis,
+                                               atoms)
                     return True
         return False
 
-    def _plan_sub_pool(self, sub: N.SelectStatement, scope, local_keys):
+    def _plan_scalar_conjunct(self, op, sq, e_side, other, flip, sa: "_ScalarAgg",
+                              scope, ctes, bound_preds, semis, atoms):
+        """`other op f((SELECT agg … WHERE corr))`, with the subquery planned
+        as the grouped aggregate `sa`. When the conjunct is NULL wherever the
+        subquery has no rows, an inner join on the correlation keys drops
+        exactly the right outer rows, and the aggregate is an atom of the
+        pool (the JAX package's plan). Otherwise (count, coalesce, or an
+        expression that is not NULL when the subquery is) a LEFT join is
+        stacked on the pool, and the subquery's value is its value over no
+        rows where the join found no group."""
+
+        def bind_side(value):
+            # the containing expression with the subquery node replaced by
+            # `value` (e.g. `price > 1.2 * (SELECT avg(...) WHERE corr)`)
+            def sq_binder(e, b):
+                if e is sq:
+                    return value
+                return self._bind_subquery_expr(e, b, ctes)
+
+            return ExprBinder(scope, subquery_binder=sq_binder).bind(e_side)
+
+        side_b = bind_side(sa.ref)
+        other_b = self._pred_binder(scope, ctes).bind(other)
+        outer_keys = [o for o, _ in sa.corr_eqs]
+        build_keys = [B.BoundColumnRef(gk, ge.ltype) for gk, ge in sa.groups]
+        if sa.no_rows is None and _null_if_null(side_b, sa.ref.key):
+            keys = {sa.ref.key} | {gk for gk, _ in sa.groups}
+            atoms.append(Atom(50_000 + len(atoms), sa.plan, 10_000, keys))
+            for o, b in zip(outer_keys, build_keys):
+                bound_preds.append(B.BoundComparison("=", o, b))
+        else:
+            if sa.no_rows is not None:
+                # no group matched ⟺ the (never NULL when matched) group key
+                # is NULL-extended
+                side_b = bind_side(B.BoundCase(
+                    [(B.BoundIsNull(build_keys[0]), sa.no_rows)], sa.ref,
+                    sa.ref.ltype))
+            lhs, rhs = (side_b, other_b) if flip else (other_b, side_b)
+            semis.append(SemiSpec("left", sa.plan, outer_keys, build_keys, None,
+                                  post_filter=B.BoundComparison(op, lhs, rhs)))
+            return
+        lhs, rhs = (side_b, other_b) if flip else (other_b, side_b)
+        bound_preds.append(B.BoundComparison(op, lhs, rhs))
+
+    def _plan_sub_pool(self, sub: N.SelectStatement, scope, ctes, local_keys):
         """Plan a subquery's FROM/WHERE with correlation extraction.
 
         → (pool atoms, local predicates, correlated equalities [(outer_e,
@@ -573,13 +871,13 @@ class Planner:
         sub_scope = Scope(parent=scope)
         sub_atoms: List[Atom] = []
         pred_asts: List[N.Expr] = []
-        self.collect_atoms(sel.from_table, sub_scope, sub_atoms, pred_asts)
+        self.collect_atoms(sel.from_table, ctes, sub_scope, sub_atoms, pred_asts)
         sub_keys = set().union(*[a.keys for a in sub_atoms])
-        binder = self._pred_binder(sub_scope)
+        binder = self._pred_binder(sub_scope, ctes)
         local_bound, corr_eqs, corr_extra = [], [], []
         sub_semis: List[SemiSpec] = []
-        for ast in pred_asts + split_conjuncts(sel.where):
-            if self._flatten_conjunct(ast, sub_scope, sub_keys, local_bound,
+        for ast in _hoisted(pred_asts + split_conjuncts(sel.where)):
+            if self._flatten_conjunct(ast, sub_scope, ctes, sub_keys, local_bound,
                                       sub_semis, sub_atoms):
                 continue
             bp = binder.bind(ast)
@@ -598,7 +896,8 @@ class Planner:
             corr_extra.append(bp)
         return sub_atoms, local_bound, corr_eqs, corr_extra, sub_scope, sel, sub_semis
 
-    def _plan_semijoin_exists(self, sub, in_expr, negated, scope, local_keys, semis):
+    def _plan_semijoin_exists(self, sub, in_expr, negated, scope, ctes, local_keys,
+                              semis):
         jtype = "anti" if negated else "semi"
         # grouped/complex subquery (Q18's IN … GROUP BY … HAVING): plan it as
         # a standalone query and semi-join against its output column
@@ -609,14 +908,14 @@ class Planner:
             or sel0.distinct or sub.ctes or sub.order_by or sub.limit
             or any(_contains_aggregate(e) for e, _ in sel0.select_list))
         if complex_sub and in_expr is not None:
-            build, output = self.plan_select(sub)
+            build, output = self.plan_select(sub, None, ctes)
             _, okey, ot = output[0]
-            outer_b = self._pred_binder(scope).bind(in_expr)
+            outer_b = self._pred_binder(scope, ctes).bind(in_expr)
             semis.append(SemiSpec(jtype, build, [outer_b], [B.BoundColumnRef(okey, ot)],
                                   None, null_aware=negated))
             return
         (sub_atoms, local_bound, corr_eqs, corr_extra, sub_scope, sel,
-         sub_semis) = self._plan_sub_pool(sub, scope, local_keys)
+         sub_semis) = self._plan_sub_pool(sub, scope, ctes, local_keys)
         build = self._stack_semis(self.plan_pool(sub_atoms, local_bound), sub_semis)
         probe_keys = [o for o, _ in corr_eqs]
         build_keys = [i for _, i in corr_eqs]
@@ -624,8 +923,8 @@ class Planner:
             # IN: add the expr = select-item equality
             if len(sel.select_list) != 1:
                 raise BindError("IN subquery must select one column")
-            inner_b = self._pred_binder(sub_scope).bind(sel.select_list[0][0])
-            outer_b = self._pred_binder(scope).bind(in_expr)
+            inner_b = self._pred_binder(sub_scope, ctes).bind(sel.select_list[0][0])
+            outer_b = self._pred_binder(scope, ctes).bind(in_expr)
             if inner_b.ltype != outer_b.ltype:
                 # mixed-type IN: both sides coerce to the common type
                 mt = max_logical_type(outer_b.ltype, inner_b.ltype)
@@ -693,15 +992,15 @@ class Planner:
         return SemiSpec("anti" if negated else "semi", P.Aggregate(build, groups, aggs),
                         [o for o, _ in corr_eqs], build_keys, extra)
 
-    def _correlated_scalar_ref(self, sub, scope, local_keys, bound_preds, atoms):
-        """`(SELECT agg-expr FROM … WHERE corr)` → a grouped-aggregate atom
-        equi-joined on the correlation keys; returns a BoundColumnRef over
-        its output (None when the subquery is not a flattenable correlated
-        scalar aggregate). Reference: FlattenDependentJoins,
-        duckdb/src/planner/subquery/flatten_dependent_join.cpp."""
+    def _correlated_scalar_agg(self, sub, scope, ctes, local_keys) -> Optional["_ScalarAgg"]:
+        """`(SELECT agg-expr FROM … WHERE corr)` → its grouped aggregate over
+        the inner correlation expressions (None when the subquery is not a
+        flattenable correlated scalar aggregate). Reference:
+        FlattenDependentJoins, duckdb/src/planner/subquery/
+        flatten_dependent_join.cpp."""
         try:
             (sub_atoms, local_bound, corr_eqs, corr_extra, sub_scope, sel,
-             sub_semis) = self._plan_sub_pool(sub, scope, local_keys)
+             sub_semis) = self._plan_sub_pool(sub, scope, ctes, local_keys)
         except BindError:
             return None
         if not corr_eqs or corr_extra:
@@ -712,8 +1011,7 @@ class Planner:
         if not _contains_aggregate(item_ast):
             return None
         subplan = self._stack_semis(self.plan_pool(sub_atoms, local_bound), sub_semis)
-        sub_binder = self._pred_binder(sub_scope)
-        # group by the inner correlation expressions
+        sub_binder = self._pred_binder(sub_scope, ctes)
         groups = [(self.fresh("corr"), inner_e) for _, inner_e in corr_eqs]
         aggs: List[B.BoundAggregate] = []
 
@@ -721,25 +1019,15 @@ class Planner:
             return self._bind_aggregate_call(fc, sub_binder, aggs)
 
         post = ExprBinder(sub_scope, agg_collector=collector,
-                          subquery_binder=self._bind_subquery_expr)
+                          subquery_binder=lambda e, b: self._bind_subquery_expr(e, b, ctes))
         item_b = post.bind(item_ast)
-        if not _null_on_no_rows(item_b, {a.key: a.func for a in aggs}):
-            # the inner join drops the outer rows that no subquery row
-            # matches, which is right only when the value over no rows is
-            # NULL (the JAX package flattens count(*) here too and loses
-            # those rows)
-            raise not_ported("a correlated scalar subquery whose value over no rows "
-                             "is not NULL, such as count or coalesce (it needs an "
-                             "outer join)")
+        agg_funcs = {a.key: a.func for a in aggs}
         out_key = self.fresh("subagg")
-        agg_plan = P.Project(P.Aggregate(subplan, groups, aggs), [(out_key, item_b)])
-        # an atom of the pool, joined on the correlation keys
-        keys = {out_key} | {k for k, _ in groups}
-        atoms.append(Atom(50_000 + len(atoms), agg_plan, 10_000, keys))
-        for (outer_e, inner_e), (gkey, _) in zip(corr_eqs, groups):
-            bound_preds.append(B.BoundComparison(
-                "=", outer_e, B.BoundColumnRef(gkey, inner_e.ltype)))
-        return B.BoundColumnRef(out_key, item_b.ltype)
+        plan = P.Project(P.Aggregate(subplan, groups, aggs), [(out_key, item_b)])
+        no_rows = (None if _null_on_no_rows(item_b, agg_funcs)
+                   else _fold_aggregates(item_b, agg_funcs))
+        return _ScalarAgg(plan, corr_eqs, groups, B.BoundColumnRef(out_key, item_b.ltype),
+                          no_rows)
 
     def _plan_order(self, plan, order_items, output, scope_info):
         out_scope, post_binder = scope_info
@@ -779,6 +1067,37 @@ def _null_on_no_rows(e: B.BoundExpr, agg_funcs) -> bool:
         return agg_funcs.get(e.key) not in (None, "count", "count_star")
     return isinstance(e, _STRICT) and any(_null_on_no_rows(c, agg_funcs)
                                           for c in e.children())
+
+
+def _fold_aggregates(e: B.BoundExpr, agg_funcs) -> B.BoundExpr:
+    """The aggregate expression e over no input rows: count folds to 0 and
+    every other aggregate to NULL (of its own type)."""
+    if isinstance(e, B.BoundAggregateRef):
+        zero = agg_funcs.get(e.key) in ("count", "count_star")
+        return B.BoundLiteral(0 if zero else None, e.ltype)
+    changes = {}
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        if isinstance(v, B.BoundExpr):
+            changes[f.name] = _fold_aggregates(v, agg_funcs)
+        elif isinstance(v, list):
+            changes[f.name] = [
+                tuple(_fold_aggregates(y, agg_funcs) if isinstance(y, B.BoundExpr) else y
+                      for y in x) if isinstance(x, tuple)
+                else _fold_aggregates(x, agg_funcs) if isinstance(x, B.BoundExpr) else x
+                for x in v]
+    return dataclasses.replace(e, **changes)
+
+
+@dataclass
+class _ScalarAgg:
+    """A correlated scalar subquery planned as a grouped aggregate."""
+
+    plan: P.PlanNode  # Project(Aggregate(pool, groups), [(ref.key, value)])
+    corr_eqs: list  # [(outer expr, inner expr)]
+    groups: list  # [(group key, inner expr)], one per correlation equality
+    ref: B.BoundColumnRef  # the subquery's value
+    no_rows: Optional[B.BoundExpr]  # its value over no rows, where not NULL
 
 
 def _find_scalar_subqueries(e) -> list:

@@ -1,6 +1,7 @@
-"""TPC-H Q3, Q4, Q5, Q10, Q11, Q12, Q17, Q18 and Q21 answered with numpy alone.
+"""TPC-H Q3, Q4, Q5, Q7, Q8, Q10, Q11, Q12, Q15, Q17, Q18, Q19 and Q21, and
+a Q13 variant, answered with numpy alone.
 
-An independent implementation of the nine queries over a directory that
+An independent implementation of these queries over a directory that
 testing/tpch_gen.py wrote: money in int64 cents with exact DECIMAL
 scaling, joins through np.searchsorted on primary keys, groups through
 np.unique(..., return_inverse=True) and np.add.at, subqueries as set
@@ -8,14 +9,19 @@ membership and per-key counts. It reads the files directly and shares no
 code with the engine, so the chip's smoke run (which has no JAX) and the
 CPU tests can hold the port against it.
 
-QUERIES (joins) and SUBQUERY_QUERIES hold the specification's texts with
-its validation parameters (Q11's fraction is DuckDB's 0.0001000000).
+QUERIES (joins), SUBQUERY_QUERIES and FROM_QUERIES (derived tables, OR
+factoring, outer joins) hold the texts of DuckDB's TPC-H extension
+(extension/tpch/dbgen/queries/qNN.sql) with the specification's validation
+parameters (Q11's fraction is DuckDB's 0.0001000000). `q13_nolike` is Q13
+with the `o_comment NOT LIKE '%special%requests%'` conjunct dropped from its
+ON clause and nothing else changed.
 `answer(name, data_dir, **params)` returns the rows as `Result.rows()`
 gives them (DECIMAL → decimal.Decimal, DATE → datetime.date, VARCHAR →
-str), in the order ORDER BY fixes, LIMIT applied. Q11 takes its `nation`
-(default GERMANY) and Q18 its quantity `threshold` (default 300) as
-parameters, since small scale factors may select nothing with the
-specification's values.
+str), in the order ORDER BY fixes, LIMIT applied. Q7 takes its two
+nations, Q8 its nation, region and part type, Q11 its `nation` (default
+GERMANY) and Q18 its quantity `threshold` (default 300) as parameters,
+since small scale factors may select nothing with the specification's
+values.
 """
 
 from __future__ import annotations
@@ -132,6 +138,94 @@ WHERE s_suppkey = l1.l_suppkey AND o_orderkey = l1.l_orderkey
 GROUP BY s_name
 ORDER BY numwait DESC, s_name
 LIMIT 100
+""",
+}
+
+FROM_QUERIES = {
+    "q07": """
+SELECT supp_nation, cust_nation, l_year, sum(volume) AS revenue
+FROM (
+    SELECT n1.n_name AS supp_nation, n2.n_name AS cust_nation,
+        extract(year FROM l_shipdate) AS l_year,
+        l_extendedprice * (1 - l_discount) AS volume
+    FROM supplier, lineitem, orders, customer, nation n1, nation n2
+    WHERE s_suppkey = l_suppkey AND o_orderkey = l_orderkey
+        AND c_custkey = o_custkey AND s_nationkey = n1.n_nationkey
+        AND c_nationkey = n2.n_nationkey
+        AND ((n1.n_name = 'FRANCE' AND n2.n_name = 'GERMANY')
+            OR (n1.n_name = 'GERMANY' AND n2.n_name = 'FRANCE'))
+        AND l_shipdate BETWEEN CAST('1995-01-01' AS date)
+            AND CAST('1996-12-31' AS date)) AS shipping
+GROUP BY supp_nation, cust_nation, l_year
+ORDER BY supp_nation, cust_nation, l_year
+""",
+    "q08": """
+SELECT o_year,
+    sum(CASE WHEN nation = 'BRAZIL' THEN volume ELSE 0 END) / sum(volume) AS mkt_share
+FROM (
+    SELECT extract(year FROM o_orderdate) AS o_year,
+        l_extendedprice * (1 - l_discount) AS volume, n2.n_name AS nation
+    FROM part, supplier, lineitem, orders, customer, nation n1, nation n2, region
+    WHERE p_partkey = l_partkey AND s_suppkey = l_suppkey
+        AND l_orderkey = o_orderkey AND o_custkey = c_custkey
+        AND c_nationkey = n1.n_nationkey AND n1.n_regionkey = r_regionkey
+        AND r_name = 'AMERICA' AND s_nationkey = n2.n_nationkey
+        AND o_orderdate BETWEEN CAST('1995-01-01' AS date)
+            AND CAST('1996-12-31' AS date)
+        AND p_type = 'ECONOMY ANODIZED STEEL') AS all_nations
+GROUP BY o_year
+ORDER BY o_year
+""",
+    "q15": """
+SELECT s_suppkey, s_name, s_address, s_phone, total_revenue
+FROM supplier,
+    (SELECT l_suppkey AS supplier_no,
+         sum(l_extendedprice * (1 - l_discount)) AS total_revenue
+     FROM lineitem
+     WHERE l_shipdate >= CAST('1996-01-01' AS date)
+         AND l_shipdate < CAST('1996-04-01' AS date)
+     GROUP BY supplier_no) revenue0
+WHERE s_suppkey = supplier_no
+    AND total_revenue = (
+        SELECT max(total_revenue)
+        FROM (SELECT l_suppkey AS supplier_no,
+                  sum(l_extendedprice * (1 - l_discount)) AS total_revenue
+              FROM lineitem
+              WHERE l_shipdate >= CAST('1996-01-01' AS date)
+                  AND l_shipdate < CAST('1996-04-01' AS date)
+              GROUP BY supplier_no) revenue1)
+ORDER BY s_suppkey
+""",
+    "q19": """
+SELECT sum(l_extendedprice * (1 - l_discount)) AS revenue
+FROM lineitem, part
+WHERE (p_partkey = l_partkey AND p_brand = 'Brand#12'
+        AND p_container IN ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+        AND l_quantity >= 1 AND l_quantity <= 1 + 10
+        AND p_size BETWEEN 1 AND 5
+        AND l_shipmode IN ('AIR', 'AIR REG')
+        AND l_shipinstruct = 'DELIVER IN PERSON')
+    OR (p_partkey = l_partkey AND p_brand = 'Brand#23'
+        AND p_container IN ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+        AND l_quantity >= 10 AND l_quantity <= 10 + 10
+        AND p_size BETWEEN 1 AND 10
+        AND l_shipmode IN ('AIR', 'AIR REG')
+        AND l_shipinstruct = 'DELIVER IN PERSON')
+    OR (p_partkey = l_partkey AND p_brand = 'Brand#34'
+        AND p_container IN ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+        AND l_quantity >= 20 AND l_quantity <= 20 + 10
+        AND p_size BETWEEN 1 AND 15
+        AND l_shipmode IN ('AIR', 'AIR REG')
+        AND l_shipinstruct = 'DELIVER IN PERSON')
+""",
+    "q13_nolike": """
+SELECT c_count, count(*) AS custdist
+FROM (
+    SELECT c_custkey, count(o_orderkey)
+    FROM customer LEFT OUTER JOIN orders ON c_custkey = o_custkey
+    GROUP BY c_custkey) AS c_orders (c_custkey, c_count)
+GROUP BY c_count
+ORDER BY custdist DESC, c_count DESC
 """,
 }
 
@@ -371,12 +465,120 @@ def q21(t):
     return [(names[i].decode(), int(counts[i])) for i in order]
 
 
-_ANSWERS = {"q03": q03, "q04": q04, "q05": q05, "q10": q10, "q11": q11, "q12": q12,
-            "q17": q17, "q18": q18, "q21": q21}
+def _year(days: np.ndarray) -> np.ndarray:
+    return days.astype("datetime64[D]").astype("datetime64[Y]").astype(np.int64) + 1970
+
+
+def _nation_name(t, nationkey: np.ndarray) -> np.ndarray:
+    return t("nation", "n_name")[_lookup(t("nation", "n_nationkey"), nationkey)]
+
+
+def q07(t, nation1: str = "FRANCE", nation2: str = "GERMANY"):
+    ship = t("lineitem", "l_shipdate")
+    srow = _lookup(t("supplier", "s_suppkey"), t("lineitem", "l_suppkey"))
+    orow = _lookup(t("orders", "o_orderkey"), t("lineitem", "l_orderkey"))
+    crow = _lookup(t("customer", "c_custkey"), t("orders", "o_custkey"))[orow]
+    supp_nat = _nation_name(t, t("supplier", "s_nationkey")[srow])
+    cust_nat = _nation_name(t, t("customer", "c_nationkey")[crow])
+    a, b = nation1.encode(), nation2.encode()
+    ok = ((ship >= _day("1995-01-01")) & (ship <= _day("1996-12-31"))
+          & (srow >= 0) & (orow >= 0) & (crow >= 0)
+          & (((supp_nat == a) & (cust_nat == b)) | ((supp_nat == b) & (cust_nat == a))))
+    rows = np.flatnonzero(ok)
+    groups = {}
+    for s_n, c_n, y, v in zip(supp_nat[rows], cust_nat[rows], _year(ship[rows]),
+                              _revenue(t, rows)):
+        key = (s_n.decode(), c_n.decode(), int(y))
+        groups[key] = groups.get(key, 0) + int(v)
+    return [k + (_dec(groups[k], 4),) for k in sorted(groups)]
+
+
+def q08(t, nation: str = "BRAZIL", region: str = "AMERICA",
+        ptype: str = "ECONOMY ANODIZED STEEL"):
+    odate = t("orders", "o_orderdate")
+    prow = _lookup(t("part", "p_partkey"), t("lineitem", "l_partkey"))
+    srow = _lookup(t("supplier", "s_suppkey"), t("lineitem", "l_suppkey"))
+    orow = _lookup(t("orders", "o_orderkey"), t("lineitem", "l_orderkey"))
+    crow = _lookup(t("customer", "c_custkey"), t("orders", "o_custkey"))[orow]
+    c_nrow = _lookup(t("nation", "n_nationkey"), t("customer", "c_nationkey")[crow])
+    rrow = _lookup(t("region", "r_regionkey"), t("nation", "n_regionkey")[c_nrow])
+    ldate = odate[orow]
+    ok = ((prow >= 0) & (srow >= 0) & (orow >= 0) & (crow >= 0) & (c_nrow >= 0)
+          & (rrow >= 0) & (t("region", "r_name")[rrow] == region.encode())
+          & (t("part", "p_type")[prow] == ptype.encode())
+          & (ldate >= _day("1995-01-01")) & (ldate <= _day("1996-12-31")))
+    rows = np.flatnonzero(ok)
+    years = _year(ldate[rows])
+    volume = _revenue(t, rows)
+    mine = _nation_name(t, t("supplier", "s_nationkey")[srow[rows]]) == nation.encode()
+    out = []
+    for y in np.unique(years):
+        sel = years == y
+        share = int(volume[sel & mine].sum()), int(volume[sel].sum())
+        # DECIMAL / DECIMAL binds DOUBLE: each sum as a double, then divided
+        out.append((int(y), (share[0] / 10_000) / (share[1] / 10_000)))
+    return out
+
+
+def q15(t):
+    ship = t("lineitem", "l_shipdate")
+    ok = (ship >= _day("1996-01-01")) & (ship < _day("1996-04-01"))
+    rows = np.flatnonzero(ok)
+    supp, revenue = _group_sum(t("lineitem", "l_suppkey")[rows], _revenue(t, rows))
+    best = supp[revenue == revenue.max()] if len(supp) else supp
+    out = []
+    for key in np.sort(best):
+        r = _lookup(t("supplier", "s_suppkey"), np.array([key]))[0]
+        if r >= 0:
+            out.append((int(key), t("supplier", "s_name")[r].decode(),
+                        t("supplier", "s_address")[r].decode(),
+                        t("supplier", "s_phone")[r].decode(), _dec(revenue.max(), 4)))
+    return out
+
+
+# (brand, containers, least quantity, largest size) of Q19's three branches
+_Q19_BRANCHES = (
+    ("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1, 5),
+    ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), 10, 10),
+    ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20, 15))
+
+
+def q19(t):
+    prow = _lookup(t("part", "p_partkey"), t("lineitem", "l_partkey"))
+    qty = t("lineitem", "l_quantity")
+    mode = t("lineitem", "l_shipmode")
+    brand = t("part", "p_brand")[prow]
+    container = t("part", "p_container")[prow]
+    size = t("part", "p_size")[prow]
+    ok = np.zeros(len(qty), dtype=bool)
+    for b, boxes, q, top in _Q19_BRANCHES:
+        ok |= ((brand == b.encode()) & np.isin(container, [x.encode() for x in boxes])
+               & (qty >= q * 100) & (qty <= (q + 10) * 100) & (size >= 1) & (size <= top))
+    ok &= ((prow >= 0) & ((mode == b"AIR") | (mode == b"AIR REG"))
+           & (t("lineitem", "l_shipinstruct") == b"DELIVER IN PERSON"))
+    if not ok.any():
+        return [(None,)]
+    return [(_dec(int(_revenue(t, np.flatnonzero(ok)).sum()), 4),)]
+
+
+def q13_nolike(t):
+    """Orders per customer (zero for a customer with none), then customers
+    per order count."""
+    crow = _lookup(t("customer", "c_custkey"), t("orders", "o_custkey"))
+    per_cust = np.bincount(crow[crow >= 0], minlength=len(t("customer", "c_custkey")))
+    counts, dist = np.unique(per_cust, return_counts=True)
+    order = np.lexsort((-counts, -dist))
+    return [(int(counts[i]), int(dist[i])) for i in order]
+
+
+_ANSWERS = {"q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q08, "q10": q10,
+            "q11": q11, "q12": q12, "q13_nolike": q13_nolike, "q15": q15, "q17": q17,
+            "q18": q18, "q19": q19, "q21": q21}
 
 
 def answer(name: str, data_dir: str, **params):
-    """Rows of query `name` (a key of QUERIES or SUBQUERY_QUERIES) over
-    data_dir; params go to the query's answer (Q11's `nation`, Q18's
-    `threshold`)."""
+    """Rows of query `name` (a key of QUERIES, SUBQUERY_QUERIES or
+    FROM_QUERIES) over data_dir; params go to the query's answer (Q7's
+    `nation1`/`nation2`, Q8's `nation`/`region`/`ptype`, Q11's `nation`,
+    Q18's `threshold`)."""
     return _ANSWERS[name](_Tables(data_dir), **params)

@@ -223,3 +223,95 @@ def test_subquery_queries_on_cuda(tmp_path):
         got = con.sql(sql.replace(old, new) if old else sql).rows()
         want = tpch_oracle.answer(name, str(tmp_path), **kw)
         assert want and got == want, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sql,route", [
+    # duplicate build keys and NULL keys on both sides: the sorted path
+    ("SELECT count(*), count(y), sum(tp.v), sum(y) FROM tp LEFT JOIN tbn ON x = y",
+     "eager_left"),
+    ("SELECT x, tp.v, y, tbn.v FROM tp LEFT JOIN tbn ON x = y AND tbn.v < tp.v "
+     "ORDER BY tp.v, x, y, tbn.v LIMIT 300", "eager_left"),
+    # unique build keys: the direct-address path keeps the probe's shape
+    ("SELECT count(*), count(y), sum(y) FROM tp LEFT JOIN tu ON x = y AND tu.v > 40",
+     "eager_left"),
+    # a full join: unmatched build rows (a NULL key's too) marked on the card
+    ("SELECT count(*), count(x), count(y), sum(x), sum(y) FROM tp FULL JOIN tbn "
+     "ON x = y AND tbn.v < tp.v", "eager_full"),
+    ("SELECT count(*), count(x), count(y) FROM tp FULL JOIN tu ON x = y", "eager_full"),
+    # a correlated count through a left join
+    ("SELECT count(*), sum(x) FROM tp WHERE 0 = (SELECT count(*) FROM tbn WHERE y = x)",
+     "eager_left"),
+])
+def test_outer_joins_on_cuda_match_cpu(sql, route):
+    """Left and full joins on the card equal the CPU's, with duplicate build
+    keys and NULL keys on both sides."""
+    _need_cuda()
+    import numpy as np
+
+    from duckdb_tpu_torch.catalog.catalog import ColumnDef, TableEntry
+    from duckdb_tpu_torch.types import BIGINT
+
+    cpu, cuda = _membership_connections()
+    keys = np.random.default_rng(5).permutation(20_000).astype(np.int64) * 2
+    for con in (cpu, cuda):
+        entry = TableEntry("tu", [ColumnDef("y", BIGINT), ColumnDef("v", BIGINT)])
+        entry.nrows = len(keys)
+        entry.set_host_column("y", keys)
+        entry.set_host_column("v", np.arange(len(keys), dtype=np.int64) % 97)
+        con.catalog.create_table(entry)
+    want = cpu.sql(sql).rows()
+    cuda.routes.clear()
+    got = cuda.sql(sql).rows()
+    assert got == want
+    assert cuda.routes.get(route) == 1, dict(cuda.routes)
+
+
+@pytest.mark.gpu
+def test_from_queries_on_cuda(tmp_path):
+    """Q7, Q8, Q15, Q19 and q13_nolike at SF 0.01 on the card equal the
+    numpy oracle (Q8's share within 1e-9 relative)."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    for name, sql in tpch_oracle.FROM_QUERIES.items():
+        got = con.sql(sql).rows()
+        want = tpch_oracle.answer(name, str(tmp_path))
+        assert len(got) == len(want) and want, name
+        for g, w in zip(got, want):
+            assert g == pytest.approx(w, rel=1e-9) if name == "q08" else g == w, name
+
+
+@pytest.mark.gpu
+def test_materialized_cte_stays_on_cuda(tmp_path):
+    """A CTE referenced twice runs once into a hidden table whose columns
+    are on the card; Q15 written so equals the oracle's Q15."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    sql = """
+WITH revenue AS (
+  SELECT l_suppkey AS supplier_no, sum(l_extendedprice * (1 - l_discount)) AS total_revenue
+  FROM lineitem
+  WHERE l_shipdate >= CAST('1996-01-01' AS date) AND l_shipdate < CAST('1996-04-01' AS date)
+  GROUP BY supplier_no)
+SELECT s_suppkey, s_name, s_address, s_phone, total_revenue
+FROM supplier, revenue
+WHERE s_suppkey = supplier_no AND total_revenue = (SELECT max(total_revenue) FROM revenue)
+ORDER BY s_suppkey"""
+    con.routes.clear()
+    assert con.sql(sql).rows() == tpch_oracle.answer("q15", str(tmp_path))
+    assert con.routes.get("cte_materialized") == 1
+    (hidden,) = [n for n in con.catalog.tables if n.startswith("__cte_revenue_")]
+    entry = con.catalog.get_table(hidden)
+    assert all(entry.device_column(c.name).data.is_cuda for c in entry.columns)

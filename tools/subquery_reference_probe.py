@@ -10,9 +10,10 @@ default data/tpch_gen_sf<sf>_seed<seed>), then prints
   numpy oracle, and a count(*) for each of a few EXISTS / NOT EXISTS forms
   with a `<>` correlation, with and without a local filter in the
   subquery, from both packages and from numpy;
-- the customers without orders, and the JAX package's count of customers
-  with `0 = (SELECT count(*) FROM orders WHERE o_custkey = c_custkey)`
-  (SQL counts the same customers; the port declines the form);
+- the customers without orders, and the JAX package's and the port's
+  count of customers with `0 = (SELECT count(*) FROM orders WHERE
+  o_custkey = c_custkey)` (SQL counts the same customers; the port plans
+  the subquery through a LEFT join);
 - the JAX package's answers to the correlated NOT IN cases of
   tests/test_torch_tpch_subqueries.py beside SQL's, which the port gives.
 Runs the JAX package, so it needs JAX and runs on its CPU platform.
@@ -106,8 +107,8 @@ def main() -> int:
     no_orders = int((~np.isin(t("customer", "c_custkey"), t("orders", "o_custkey"))).sum())
     q = ("SELECT count(*) FROM customer WHERE 0 = "
          "(SELECT count(*) FROM orders WHERE o_custkey = c_custkey)")
-    print(f"customers without orders: numpy {no_orders}, "
-          f"JAX package's correlated count(*) = 0: {jcon.sql(q).rows()[0][0]}")
+    print(f"customers without orders: numpy {no_orders}; correlated count(*) = 0: "
+          f"JAX package {jcon.sql(q).rows()[0][0]}, port {tcon.sql(q).rows()[0][0]}")
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from test_torch_tpch_subqueries import BUILD_CORR, PROBE_CORR, SQL_ONLY_CASES
