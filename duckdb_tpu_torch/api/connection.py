@@ -37,8 +37,10 @@ class Connection:
         self.database = database
         self.device = _resolve_device(device)
         self.catalog = Catalog(device=self.device)
-        # plan cache: SQL text → (plan, output)
+        # plan cache: SQL text → (plan, output), and SQL text → the hidden
+        # tables of its materialized CTEs, which live as long as its plan
         self._plan_cache = {}
+        self._plan_tables = {}
         # the routes this connection's queries took: grouping modes, fused
         # probe and membership steps, eager joins, CTEs materialized at plan
         # time (execution/executor.Executor.routes); callers may clear it
@@ -51,8 +53,14 @@ class Connection:
             raise not_ported("statements other than a single SELECT")
         cached = self._plan_cache.get(query)
         if cached is None:
-            cached = Planner(self.catalog, self.routes).plan_select(stmts[0])
+            planner = Planner(self.catalog, self.routes)
+            try:
+                cached = planner.plan_select(stmts[0])
+            except BaseException:
+                self._drop_tables(planner.hidden_tables)
+                raise
             self._plan_cache[query] = cached
+            self._plan_tables[query] = planner.hidden_tables
         plan, output = cached
         return Executor(self.catalog, self.routes).run(plan, output)
 
@@ -61,7 +69,17 @@ class Connection:
         from duckdb_tpu_torch.catalog.tpch import register_tpch
 
         register_tpch(self.catalog, data_dir)
+        self._clear_plan_cache()
+
+    def _clear_plan_cache(self):
+        for names in self._plan_tables.values():
+            self._drop_tables(names)
         self._plan_cache.clear()
+        self._plan_tables.clear()
+
+    def _drop_tables(self, names):
+        for name in names:
+            self.catalog.drop_table(name)
 
 
 def connect(database: str = ":memory:", device=None) -> Connection:

@@ -171,3 +171,6 @@ class Catalog:
 
     def has_table(self, name: str) -> bool:
         return qualify(name) in self.tables
+
+    def drop_table(self, name: str):
+        del self.tables[qualify(name)]

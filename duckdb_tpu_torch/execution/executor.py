@@ -34,7 +34,7 @@ from duckdb_tpu_torch.blocks import Column, pad_bucket
 from duckdb_tpu_torch.catalog.catalog import Catalog, TableEntry
 from duckdb_tpu_torch.ops import join as J
 from duckdb_tpu_torch.ops import sort as S
-from duckdb_tpu_torch.ops.compact import compact_indices, packed_indices
+from duckdb_tpu_torch.ops.compact import packed_indices
 from duckdb_tpu_torch.planner import plan as P
 from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner.bound import EvalEnv, bcast, not_ported
@@ -720,7 +720,7 @@ class Executor:
     def _exec_Limit(self, node: P.Limit) -> Batch:
         b = self.execute(node.child)
         n = b.count_live()
-        idx, _ = compact_indices(b.live, max(1, pad_bucket(n)))
+        idx = packed_indices(b.live, max(1, pad_bucket(n)))
         lo = min(node.offset, n)
         hi = n if node.n is None else min(n, lo + node.n)
         cap = max(128, pad_bucket(hi - lo))

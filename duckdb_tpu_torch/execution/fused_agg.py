@@ -54,7 +54,7 @@ import torch
 from duckdb_tpu_torch.blocks import Column, pad_bucket
 from duckdb_tpu_torch.execution.tracing import TraceEnv
 from duckdb_tpu_torch.ops import sort as S
-from duckdb_tpu_torch.ops.compact import compact_indices
+from duckdb_tpu_torch.ops.compact import packed_indices
 from duckdb_tpu_torch.ops.grouped import grouped_reduce
 from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner import plan as P
@@ -903,7 +903,8 @@ def try_fused_aggregate(executor, node: P.Aggregate):
     cols, occ = run_jitted(fa.base_batch, keyrefs, fa.body)
     n_groups = int((occ > 0).sum())
     out_plen = max(128, pad_bucket(n_groups))
-    slot_idx, out_live = compact_indices(occ > 0, out_plen)
+    slot_idx = packed_indices(occ > 0, out_plen)
+    out_live = torch.arange(out_plen, device=occ.device) < n_groups
     out = {}
     for k in sorted(fa.out_types):
         t, dvals = fa.out_types[k]

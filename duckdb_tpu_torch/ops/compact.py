@@ -8,26 +8,7 @@ where downstream cost depends on the live-row count.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
-
-
-def compact_indices(mask: torch.Tensor, out_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Packed indices of true mask positions.
-
-    out_size: output capacity (truncates past it; the caller detects that
-    through the live count). Returns (indices int64 (out_size,), out_live
-    bool (out_size,)). Slots past the true count point at row 0 with
-    out_live False.
-    """
-    pos = torch.nonzero(mask).flatten()
-    count = pos.shape[0]
-    idx = torch.zeros(out_size, dtype=torch.int64, device=mask.device)
-    keep = min(count, out_size)
-    idx[:keep] = pos[:keep]
-    out_live = torch.arange(out_size, device=mask.device) < count
-    return idx, out_live
 
 
 def packed_indices(mask: torch.Tensor, cap: int) -> torch.Tensor:
@@ -35,7 +16,8 @@ def packed_indices(mask: torch.Tensor, cap: int) -> torch.Tensor:
     knows holds them all (it has read the count): each true position
     writes its index to its rank, so no host sync is needed. The false
     positions all write to a spare slot that is cut off; slots past the
-    count point at row 0, as in compact_indices."""
+    count point at row 0, and the caller masks them with
+    `arange(cap) < count`."""
     rank = torch.cumsum(mask.to(torch.int64), 0) - 1
     out = torch.zeros(cap + 1, dtype=torch.int64, device=mask.device)
     out.scatter_(0, torch.where(mask, rank, cap),

@@ -67,6 +67,14 @@ class BindError(B.BindError):
     pass
 
 
+class ColumnNotFound(BindError):
+    """A column name no scope resolves; `parts` is the name as written."""
+
+    def __init__(self, parts: Tuple[str, ...]):
+        super().__init__(f'Binder Error: column "{".".join(parts)}" not found')
+        self.parts = tuple(parts)
+
+
 @dataclass
 class Binding:
     key: str
@@ -102,7 +110,7 @@ class Scope:
                 return b
         if self.parent is not None:
             return self.parent.resolve(parts)
-        raise BindError(f'Binder Error: column "{".".join(parts)}" not found')
+        raise ColumnNotFound(parts)
 
     def try_resolve(self, parts) -> Optional[Binding]:
         try:

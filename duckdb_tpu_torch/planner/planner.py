@@ -30,7 +30,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
-import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
@@ -40,6 +39,7 @@ from duckdb_tpu_torch.planner import plan as P
 from duckdb_tpu_torch.planner.binder import (
     AGGREGATE_NAMES,
     BindError,
+    ColumnNotFound,
     ExprBinder,
     Scope,
 )
@@ -217,6 +217,9 @@ class Planner:
         self.routes = collections.Counter() if routes is None else routes
         self._key_counter = itertools.count()
         self._cte_use_count: Dict[str, int] = {}
+        # the hidden tables this planner's materialized CTEs created: their
+        # lifetime is the plan's, so the owner of the plan drops them
+        self.hidden_tables: List[str] = []
 
     def fresh(self, name: str) -> str:
         return f"{name}#{next(self._key_counter)}"
@@ -287,8 +290,8 @@ class Planner:
             sub_ctes = {k: v for k, v in ctes.items() if k != name}
             # a CTE referenced more than once is executed once (the
             # reference's materialized CTE, src/execution/physical_plan/
-            # plan_cte.cpp); its hidden table is remembered on the CTE node,
-            # which the plan cache keeps alive with the plan
+            # plan_cte.cpp); its hidden table is remembered on the CTE node
+            # for the statement's other references
             if getattr(cte, "_mat_table", None):
                 return self._scan_of(cte._mat_table, alias) + (None,)
             if cte.materialized is not False and self._cte_use_count.get(name, 0) > 1:
@@ -322,7 +325,10 @@ class Planner:
         from duckdb_tpu_torch.execution.executor import Executor
 
         nrows, columns = Executor(self.catalog, self.routes).materialize(plan, output)
-        names = col_aliases or [n for n, _, _ in output]
+        # the alias where there is one, else the output name, as the inlined
+        # path (_subquery_atom) names them
+        names = [col_aliases[i] if col_aliases and i < len(col_aliases) else nm
+                 for i, (nm, _, _) in enumerate(output)]
         n = 0
         while self.catalog.has_table(f"{base_name}_{n}"):
             n += 1
@@ -330,6 +336,7 @@ class Planner:
                                                 in zip(names, output)])
         entry.nrows = nrows
         self.catalog.create_table(entry)
+        self.hidden_tables.append(entry.name)
         for cd, col in zip(entry.columns, columns):
             entry.set_device_column(cd.name, col)
         self.routes["cte_materialized"] += 1
@@ -348,9 +355,8 @@ class Planner:
         scope. One that reads a column of the query around it is LATERAL."""
         try:
             return self.plan_select(sub, None, ctes)
-        except BindError as err:
-            m = re.search(r'column "([^"]+)" not found', str(err))
-            if m and scope.try_resolve(tuple(m.group(1).split("."))) is not None:
+        except ColumnNotFound as err:
+            if scope.try_resolve(err.parts) is not None:
                 raise not_ported("a correlated derived table (LATERAL)") from err
             raise
 
