@@ -48,7 +48,19 @@ Phases (any failure exits non-zero before the result lines):
    lineitem rows/s (customer rows/s for q13_nolike) and host syncs; then
    one FULL join, customer FULL JOIN orders ON c_custkey = o_custkey AND
    o_totalprice > the median price, whose pairs, unmatched customers and
-   unmatched orders must equal numpy's.
+   unmatched orders must equal numpy's;
+9. LIKE and count(DISTINCT): TPC-H Q2, Q9, Q13, Q14, Q16 and Q20 (the
+   specification's texts and values), the same way: rows against the numpy
+   oracle, the route asserted (Q13's LEFT join, Q16's NOT IN and Q20's two
+   IN joins run eagerly, Q2, Q9 and Q14 run no eager join; Q9 and Q14
+   launch the grouped sum), the grouped sum against its plain version on
+   every input they gave it and timed there, each query's warm median,
+   rows/s and host syncs; then the LIKE matcher: the three near-unique
+   dictionaries the queries match (p_name for Q9 and Q20, o_comment for
+   Q13, s_comment for Q16) must have gone through the device matcher and
+   not the host loop, and on each of them the matcher's LUT on the card
+   must equal the host regex's for every pattern of the six queries plus
+   `_` and escape cases; the matcher's time on o_comment is printed.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -367,6 +379,61 @@ def full_join_counts(con, card: str) -> str:
     return ""
 
 
+# phase 9: (table, column) of each near-unique dictionary a query matches,
+# with the query's pattern; and the patterns the matcher is held to the
+# host regex on: the six queries' own, plus `_` and escape cases
+LIKE_DICTS = {("part", "p_name"): ("%green%", "forest%"),
+              ("orders", "o_comment"): ("%special%requests%",),
+              ("supplier", "s_comment"): ("%Customer%Complaints%",)}
+LIKE_PATTERNS = ("%BRASS", "%green%", "%special%requests%", "PROMO%", "MEDIUM POLISHED%",
+                 "%Customer%Complaints%", "forest%", "%gr_en%", "_%", "%\\%%", "%\\_%",
+                 "C_stomer%")
+
+
+def like_matcher(con, card: str, device_events) -> str:
+    """The device matcher took the three near-unique dictionaries during
+    the queries (device_events: its (pattern, values) records), and on each
+    its LUT on the card equals the host regex's for every LIKE_PATTERNS
+    entry (and ILIKE for one). '' when it does."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from duckdb_tpu_torch.ops import strings as TS
+    from duckdb_tpu_torch.planner.bound import like_to_regex
+
+    for (table, col), patterns in LIKE_DICTS.items():
+        dvals = con.catalog.get_table(table).host_column(col)[2]
+        if len(dvals) < TS.DEVICE_LIKE_MIN_DICT:
+            return f"{table}.{col} holds {len(dvals)} values, under the device threshold"
+        for p in patterns:
+            if (p, len(dvals)) not in device_events:
+                return f"{table}.{col} LIKE {p!r} missed the device matcher: {device_events}"
+        checked = 0
+        for p in LIKE_PATTERNS + ("%SPECIAL%",):
+            ci = p == "%SPECIAL%"
+            got = TS.device_like_lut(dvals, p, ci, torch.device("cuda"))
+            if got is None or not got.is_cuda:
+                return f"{table}.{col}: the matcher gave no LUT on the card for {p!r}"
+            prog = re.compile(like_to_regex(p), re.DOTALL | (re.IGNORECASE if ci else 0))
+            want = np.fromiter((prog.match(s) is not None for s in dvals), dtype=bool,
+                               count=len(dvals))
+            if not np.array_equal(got.cpu().numpy(), want):
+                return f"{table}.{col} LIKE {p!r}: the card's LUT differs from the host regex"
+            checked += int(want.sum())
+        print(f"LIKE matcher on {table}.{col} ({len(dvals)} values, card {card}): "
+              f"{len(LIKE_PATTERNS) + 1} LUTs equal the host regex ({checked} matches)")
+    dvals = con.catalog.get_table("orders").host_column("o_comment")[2]
+    plane, lens = TS._pack_dict(dvals, torch.device("cuda"))
+    segs = TS.tokenize_pattern("%special%requests%", False)
+    ms = cuda_ms(lambda: TS._like_match(plane, lens, segs, False), 10)
+    print(f"LIKE matcher time on o_comment's plane {tuple(plane.shape)} for "
+          f"'%special%requests%' on {card}: {ms:.4f} ms "
+          f"({plane.numel() / ms / 1e6:.1f} GB/s of plane)")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -476,7 +543,12 @@ def main() -> int:
           f"{nrows / med:.0f} rows/s, {syncs} host syncs per run")
 
     # 6. the join path: Q3, Q5, Q10, Q12; 7. the subquery path: Q4, Q11,
-    # Q17, Q18, Q21; 8. the FROM path: Q7, Q8, Q15, Q19, q13_nolike
+    # Q17, Q18, Q21; 8. the FROM path: Q7, Q8, Q15, Q19, q13_nolike; 9. the
+    # LIKE path: Q2, Q9, Q13, Q14, Q16, Q20
+    from duckdb_tpu_torch.ops import strings as TS
+
+    TS.device_like_events.clear()
+    TS.host_loop_events.clear()
     launches_by_query = {"q01": launches}
     shapes = []
     subquery_routes = {"q04": {"fused_semi": 1}, "q11": {"dense": 2},
@@ -484,10 +556,16 @@ def main() -> int:
                        "q21": {"fused_semi": 1, "fused_anti": 1}}
     # the eager joins each runs (every other eager_* route is a failure)
     from_routes = {"q07": {}, "q08": {}, "q15": {}, "q19": {},
-                   "q13_nolike": {"eager_left": 1}}
-    from_kernel = ("q08", "q15", "q19")  # those that reach the grouped sum
+                   "q13_nolike": {"eager_left": 1},
+                   "q02": {}, "q09": {}, "q13": {"eager_left": 1}, "q14": {},
+                   "q16": {"eager_anti": 1}, "q20": {"eager_semi": 2}}
+    # those that reach the grouped sum
+    from_kernel = ("q08", "q15", "q19", "q09", "q14")
+    # rows/s over the table each query reads most of (lineitem otherwise)
+    rate_table = {"q13_nolike": "customer", "q13": "customer", "q02": "partsupp",
+                  "q16": "partsupp"}
     for name, sql in {**tpch_oracle.QUERIES, **tpch_oracle.SUBQUERY_QUERIES,
-                      **tpch_oracle.FROM_QUERIES}.items():
+                      **tpch_oracle.FROM_QUERIES, **tpch_oracle.LIKE_QUERIES}.items():
         recorded.clear()
         grouped_mod.grouped_sum_i64 = recording
         GS.grouped_sum_i64.launches = 0
@@ -560,13 +638,20 @@ def main() -> int:
         if med is None:
             return fail(f"{name}: {times}")
         syncs = count_syncs(lambda: con.sql(sql).rows())
-        table = "customer" if name == "q13_nolike" else "lineitem"
+        table = rate_table.get(name, "lineitem")
         print(f"{name} SF{SF:g} on {card}: median of 5 warm runs {med * 1e3:.3f} ms "
               f"(runs {', '.join(f'{t * 1e3:.3f}' for t in times)} ms), "
               f"{sizes[table] / med:.0f} {table} rows/s, {syncs} host syncs per run")
 
     # 8. (end) one FULL join at SF1, its three counts against numpy's
     bad = full_join_counts(con, card)
+    if bad:
+        return fail(bad)
+
+    # 9. (end) the LIKE matcher: the device path ran, and equals the host regex
+    if TS.host_loop_events:
+        return fail(f"a LIKE ran a host loop over a large dictionary: {TS.host_loop_events}")
+    bad = like_matcher(con, card, set(TS.device_like_events))
     if bad:
         return fail(bad)
 

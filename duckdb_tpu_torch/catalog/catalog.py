@@ -58,10 +58,17 @@ class TableEntry:
         """A column computed on the device (a materialized CTE), already
         padded to the table's length: it stays there as the device tier,
         and the host tier gets one copy of its nrows values for the
-        statistics (wide values recombined exactly as Python ints)."""
+        statistics (wide values recombined exactly as Python ints). A
+        VARCHAR column keeps its source's whole dictionary, so its
+        distinct count is that of the codes it holds, not the dictionary's
+        length (which would let a join trust a duplicated key as unique)."""
         values, validity = col.host_values(self.nrows)
         self._host[name] = (values, validity, col.dict_values)
         self._compute_stats(name)
+        st = self.stats[name]
+        if st.n_unique is not None:
+            live = values if validity is None else values[validity]
+            st.n_unique = int(len(np.unique(live)))
         self._device[name] = col
         self.version += 1
 

@@ -313,8 +313,8 @@ class Executor:
 
         fused = try_fused_aggregate(self, node)
         if fused is None:
-            raise not_ported("this aggregate shape (DISTINCT, holistic or string "
-                             "min/max aggregates, or computed string group keys)")
+            raise not_ported("this aggregate shape (holistic or string min/max "
+                             "aggregates, or computed string group keys)")
         return fused
 
     # -- joins ---------------------------------------------------------------

@@ -38,6 +38,10 @@ Grouping:
   packed into 62-bit words), group ids from key changes, and the same
   grouped reductions over those ids — the GroupedAggregateHashTable analog.
 
+count, sum and avg DISTINCT take the same reductions over the first row
+of each (group, value) run of a stable sort (`_compute_distinct_agg_mask`,
+the JAX package's aggregate_exec._compute_distinct_agg), in either mode.
+
 Not carried over (TPU-only, see ROADMAP): the bucket probe mode, the int32
 packed-key dtype, learned compaction caps with deferred re-runs, the
 probe-result cache and the sharded paths.
@@ -461,7 +465,7 @@ def _plan_keys(node) -> set:
 
 def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
     for agg in node.aggs:
-        if agg.func not in _FUSABLE_AGGS or agg.distinct or len(agg.args) > 1:
+        if agg.func not in _FUSABLE_AGGS or len(agg.args) > 1:
             return None
         if agg.ltype.id is TypeId.VARCHAR:
             return None  # min/max over strings: not yet ported
@@ -756,10 +760,10 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         live = apply_filters(filters2, env2, p, live)
         return env2, live, p
 
-    def agg_partial_vectors(env, live, p):
+    def agg_partial_vectors(env, live, p, gids):
         vecs, kinds = [], []
         for agg in node.aggs:
-            for vec, kind in _slot_agg_partial_vectors(agg, env, live, p):
+            for vec, kind in _slot_agg_partial_vectors(agg, env, live, p, gids):
                 vecs.append(vec)
                 kinds.append(kind)
         return vecs, kinds
@@ -789,7 +793,7 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
 
     def dense_reduce(env, live, p):
         dense = dense_ids(env, live, p)
-        vecs, kinds = agg_partial_vectors(env, live, p)
+        vecs, kinds = agg_partial_vectors(env, live, p, dense)
         # occupancy counted in int64 (the JAX package uses int32) so that it
         # rides in the grouped-sum kernel's launch instead of a second pass
         vecs.append(live.to(torch.int64))
@@ -865,7 +869,7 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         # per-group reductions over the group ids (dead rows hold id cap,
         # outside the slots): the aggregates' partial vectors, each group's
         # smallest row (its representative) and its occupancy
-        vecs, kinds = agg_partial_vectors(env, live, p)
+        vecs, kinds = agg_partial_vectors(env, live, p, gids)
         res = grouped_reduce(gids, vecs + [torch.arange(p, device=device), live.to(torch.int64)],
                              kinds + ["min", "sum"], cap)
         rep_rows = res[-2].clamp(max=p - 1)
@@ -915,8 +919,32 @@ def try_fused_aggregate(executor, node: P.Aggregate):
     return Batch(src=DictCols(out), plen=out_plen, live=out_live)
 
 
-def _slot_agg_partial_vectors(agg, env, live, plen):
-    """Per-row vectors + combine kinds for one aggregate."""
+def _compute_distinct_agg_mask(c, data, mask, gids, plen):
+    """The JAX package's aggregate_exec._compute_distinct_agg as a row mask:
+    a stable sort over (dead, group id, value) and, per (group, value) run,
+    its first row. Aggregating only those rows gives count/sum/avg
+    DISTINCT, and the per-group counts and sums stay the grouped
+    reduction's sums (never a scatter whose winner decides); a group with
+    no live value counts 0, and its sum and avg are NULL."""
+    keys = [gids.to(torch.int64)]
+    if c.data_hi is not None:  # a wide value: (hi, lo) compare together
+        keys.append(B.bcast(c.data_hi, plen).to(torch.int64))
+    keys.append(S.orderable_int64(data, None, False, False))
+    perm = S.sort_permutation(keys, mask)
+    change = torch.zeros(plen, dtype=torch.bool, device=mask.device)
+    for k in keys:
+        ks = k[perm]
+        change = change | (ks != torch.roll(ks, 1))
+    change[0] = True
+    first = torch.empty_like(mask)
+    first[perm] = change & mask[perm]  # perm is a permutation: one writer per row
+    return first
+
+
+def _slot_agg_partial_vectors(agg, env, live, plen, gids=None):
+    """Per-row vectors + combine kinds for one aggregate; `gids`, which a
+    DISTINCT aggregate needs, are the rows' slot or group ids (dead rows
+    outside the slots)."""
     if agg.func == "count_star":
         return [(live.to(torch.int64), "sum")]
     c = agg.args[0].eval(env)
@@ -924,6 +952,8 @@ def _slot_agg_partial_vectors(agg, env, live, plen):
     mask = live
     if c.validity is not None:
         mask = mask & B.bcast(c.validity, plen)
+    if agg.distinct:
+        mask = _compute_distinct_agg_mask(c, data, mask, gids, plen)
     cnt_vec = mask.to(torch.int64)
     if agg.func == "count":
         return [(cnt_vec, "sum")]

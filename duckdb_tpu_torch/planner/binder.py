@@ -461,6 +461,13 @@ class ExprBinder:
             "and", [B.BoundComparison(">=", a, lo), B.BoundComparison("<=", a2, hi)])
         return B.BoundNot(node) if e.negated else node
 
+    def _bind_LikeExpr(self, e: N.LikeExpr):
+        child = self.bind(e.expr)
+        pat = self.bind(e.pattern)
+        if not pat.is_const():
+            raise BindError("non-constant LIKE pattern not supported")
+        return B.BoundLike(child, pat.const_value(), e.negated, e.case_insensitive)
+
     def _bind_InList(self, e: N.InList):
         return B.BoundInList(self.bind(e.expr), [self.bind(i) for i in e.items],
                              e.negated)

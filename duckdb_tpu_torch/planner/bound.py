@@ -8,8 +8,9 @@ SQL three-valued NULL semantics via validity planes. Evaluation is eager:
 each node is a handful of torch ops on the env's device.
 
 VARCHAR columns are dictionary codes (sorted dict). String predicates are
-evaluated once per distinct value on the host dictionary and become a
-device LUT gather.
+evaluated once per distinct value and become a device LUT gather: on the
+host dictionary, or for LIKE over a near-unique dictionary on the device
+(ops/strings).
 
 DECIMAL is scaled int64; arithmetic follows duckdb's bind rules
 (duckdb/src/function/scalar/operator/arithmetic.cpp): add/sub rescale to
@@ -19,6 +20,7 @@ the max scale, mul adds scales, division binds to DOUBLE.
 from __future__ import annotations
 
 import datetime
+import re
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
@@ -729,6 +731,77 @@ class BoundCast(BoundExpr):
         from duckdb_tpu_torch.planner.fold import fold_cast
 
         return fold_cast(self)
+
+
+@dataclass
+class BoundLike(BoundExpr):
+    """LIKE over dictionary codes: a boolean LUT over the distinct values
+    (ops/strings on the device from DEVICE_LIKE_MIN_DICT values, else a
+    host regex), cached per dictionary and kept on the column's device,
+    then one gather by code. NULLs pass through in the validity mask."""
+
+    child: BoundExpr
+    pattern: str
+    negated: bool = False
+    case_insensitive: bool = False
+    ltype: LogicalType = BOOLEAN
+
+    def children(self):
+        return [self.child]
+
+    def eval(self, env: EvalEnv) -> Column:
+        c = self.child.eval(env)
+        if c.ltype.id is not TypeId.VARCHAR or c.dict_values is None:
+            raise not_ported(f"LIKE over {c.ltype!r}")
+        lut = like_lut(c.dict_values, self.pattern, self.case_insensitive,
+                       c.data.device)
+        if self.negated:
+            lut = ~lut
+        d = lut[c.data.long().clamp(0, lut.shape[0] - 1)]
+        return Column(data=d, ltype=BOOLEAN, validity=c.validity)
+
+
+def like_lut(dvals: np.ndarray, pattern: str, ci: bool, device) -> torch.Tensor:
+    """(max(1, n),) bool on `device`: which dictionary values match,
+    computed once per (dictionary, pattern, ci, device)."""
+    from duckdb_tpu_torch.ops import strings as dstr
+
+    def compute():
+        if len(dvals) >= dstr.DEVICE_LIKE_MIN_DICT:
+            # near-unique columns: vectorized matching over the packed byte
+            # plane instead of a Python loop per distinct value
+            lut = dstr.device_like_lut(dvals, pattern, ci, device)
+            if lut is not None:
+                return lut
+            dstr.note_host_loop(f"like:{pattern}", len(dvals))
+        # DOTALL: '%' and '_' match a newline too, as the device path does
+        prog = re.compile(like_to_regex(pattern),
+                          re.DOTALL | (re.IGNORECASE if ci else 0))
+        lut = np.fromiter((prog.match(s) is not None for s in dvals),
+                          dtype=np.bool_, count=len(dvals))
+        if not len(lut):  # an empty dictionary: one slot for the clamped gather
+            lut = np.zeros(1, dtype=np.bool_)
+        return torch.from_numpy(lut).to(device)
+
+    return dstr.cached_lut(dvals, ("like", pattern, ci, str(device)), compute)
+
+
+def like_to_regex(pattern: str) -> str:
+    out = []
+    i = 0
+    while i < len(pattern):
+        ch = pattern[i]
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        elif ch == "\\" and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 1
+        else:
+            out.append(re.escape(ch))
+        i += 1
+    return "".join(out) + r"\Z"
 
 
 @dataclass

@@ -103,6 +103,8 @@ def estimate_selectivity(planner, pred: B.BoundExpr, atom) -> float:
         if op in ("!=", "<>"):
             return 0.9
         return 0.5
+    if isinstance(pred, B.BoundLike):
+        return 0.75 if pred.negated else 0.25
     if isinstance(pred, B.BoundInList):
         base = min(1.0, 0.1 * max(1, len(pred.items)))
         return (1.0 - base) if pred.negated else base

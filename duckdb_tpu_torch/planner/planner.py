@@ -740,8 +740,8 @@ class Planner:
     def _bind_aggregate_call(self, fc: N.FunctionCall, binder,
                              aggs: List[B.BoundAggregate]):
         name = fc.name.lower()
-        if fc.filter is not None or fc.order_by or fc.distinct:
-            raise not_ported("FILTER, ORDER BY and DISTINCT inside an aggregate")
+        if fc.filter is not None or fc.order_by:
+            raise not_ported("FILTER and ORDER BY inside an aggregate")
         if name == "count" and fc.is_star:
             func, args = "count_star", []
         else:
@@ -752,13 +752,14 @@ class Planner:
                 raise BindError(f"Binder Error: {func} takes exactly one argument")
             args = [binder.bind(a) for a in fc.args]
         t = _agg_result_type(func, args)
+        distinct = fc.distinct and func not in ("min", "max")  # the same either way
         # dedup structurally identical aggregates
         for a in aggs:
-            if (a.func == func and len(a.args) == len(args)
+            if (a.func == func and a.distinct == distinct and len(a.args) == len(args)
                     and all(_bound_eq(x, y) for x, y in zip(a.args, args))):
                 return B.BoundAggregateRef(a.key, a.ltype)
         key = self.fresh(f"agg.{func}")
-        aggs.append(B.BoundAggregate(func, args, False, t, key))
+        aggs.append(B.BoundAggregate(func, args, distinct, t, key))
         return B.BoundAggregateRef(key, t)
 
     # -- subqueries -------------------------------------------------------------

@@ -24,14 +24,22 @@ o_shippriority is 0; c_nationkey and s_nationkey
 are uniform in [0, 24]; c_acctbal is uniform in [-999.99, 9999.99];
 c_phone starts with the nation key + 10; nation and region hold the
 specification's fixed 25 and 5 rows; partsupp holds, for each part, the
-four suppliers lineitem's l_suppkey formula can pick. The other columns
-are well-formed but cheap. Scale factor 1 holds the specification's
-6,001,215 lineitem rows, 150,000 customers, 200,000 parts, 800,000
-partsupp rows and 10,000 suppliers.
+four suppliers lineitem's l_suppkey formula can pick. The text columns
+that TPC-H's LIKE predicates read: p_name is five distinct words of the
+92 colors; p_type one of the 150 syllable triples; s_comment holds
+"Customer … Complaints" in 5 of every 10,000 suppliers and "Customer …
+Recommends" in 5 others; o_comment is 19 to 78 characters of word text,
+near-unique (about 1.5M distinct values at SF1). The other columns are
+well-formed but cheap. Scale factor 1 holds the specification's 6,001,215
+lineitem rows, 150,000 customers, 200,000 parts, 800,000 partsupp rows
+and 10,000 suppliers.
 
 lineitem (and its orders' keys and dates) comes from the seed's own
-stream; every other table draws from a stream of its own, so lineitem is
-the same for every (sf, seed) whichever tables are written.
+stream; every other table draws from a stream of its own, and p_name,
+p_type, s_comment and o_comment each from one of their own, so lineitem
+is the same for every (sf, seed) whichever tables are written, and the
+other columns of part, supplier and orders kept their values when those
+four came to follow the specification.
 
 Run as a script:  python -m duckdb_tpu_torch.testing.tpch_gen SF OUT_DIR [SEED]
 """
@@ -39,6 +47,7 @@ Run as a script:  python -m duckdb_tpu_torch.testing.tpch_gen SF OUT_DIR [SEED]
 from __future__ import annotations
 
 import datetime
+import itertools
 import json
 import os
 import sys
@@ -73,8 +82,33 @@ NATIONS = [
 # P_CONTAINER: one of 5 sizes × 8 kinds (specification §4.2.2.13)
 _CONTAINERS = sorted(f"{size} {kind}" for size in ("SM", "LG", "MED", "JUMBO", "WRAP")
                      for kind in ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"))
-_TYPES = ["ECONOMY ANODIZED STEEL", "LARGE BRUSHED BRASS", "MEDIUM PLATED TIN",
-          "PROMO BURNISHED COPPER", "SMALL POLISHED NICKEL", "STANDARD PLATED TIN"]
+# the pools the generator drew p_type and p_name from before they followed
+# the specification; their draws stay in the part stream so that the later
+# part columns keep their values
+_OLD_TYPES = 6
+_OLD_NAME_DRAWS = 2048
+# P_TYPE: one of 6 × 5 × 5 syllable triples (specification §4.2.2.13)
+TYPE_SYLLABLES = (("STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"),
+                  ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"),
+                  ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER"))
+# P_NAME: five distinct words of this list (specification §4.2.3)
+COLORS = [
+    "almond", "antique", "aquamarine", "azure", "beige", "bisque", "black",
+    "blanched", "blue", "blush", "brown", "burlywood", "burnished", "chartreuse",
+    "chiffon", "chocolate", "coral", "cornflower", "cornsilk", "cream", "cyan",
+    "dark", "deep", "dim", "dodger", "drab", "firebrick", "floral", "forest",
+    "frosted", "gainsboro", "ghost", "goldenrod", "green", "grey", "honeydew",
+    "hot", "indian", "ivory", "khaki", "lace", "lavender", "lawn", "lemon",
+    "light", "lime", "linen", "magenta", "maroon", "medium", "metallic",
+    "midnight", "mint", "misty", "moccasin", "navajo", "navy", "olive", "orange",
+    "orchid", "pale", "papaya", "peach", "peru", "pink", "plum", "powder", "puff",
+    "purple", "red", "rose", "rosy", "royal", "saddle", "salmon", "sandy",
+    "seashell", "sienna", "sky", "slate", "smoke", "snow", "spring", "steel",
+    "tan", "thistle", "tomato", "turquoise", "violet", "wheat", "white", "yellow",
+]
+# suppliers per 10,000 whose S_COMMENT holds "Customer ... Complaints", and
+# as many with "Customer ... Recommends" (specification §4.2.3)
+SUPPLIER_REMARKS_PER_10000 = 5
 
 # (name, kind) in schema order (catalog/tpch.py)
 LINEITEM_COLUMNS = [
@@ -106,9 +140,11 @@ TABLE_COLUMNS = {
                ("o_shippriority", "i32"), ("o_comment", "str")],
     "lineitem": LINEITEM_COLUMNS,
 }
-# each table's own stream: default_rng([seed, _STREAM[table]])
+# each table's own stream, and one for each text column that follows the
+# specification: default_rng([seed, _STREAM[name]])
 _STREAM = {"orders": 1, "customer": 2, "supplier": 3, "part": 4, "partsupp": 5,
-           "nation": 6, "region": 7}
+           "nation": 6, "region": 7, "p_name": 8, "p_type": 9, "s_comment": 10,
+           "o_comment": 11}
 
 
 def retail_price_cents(partkey: np.ndarray) -> np.ndarray:
@@ -220,6 +256,34 @@ def _pool(rng, values, n: int) -> tuple:
     return (list(values), rng.integers(0, len(values), size=n))
 
 
+def _join_words(words, idx: np.ndarray, width: int = 0, chunk: int = 1 << 16) -> tuple:
+    """Row i = the words idx[i, 0], idx[i, 1], ... joined by single spaces,
+    cut to `width` bytes when given → (uint8 matrix zero-padded past each
+    row's length, lengths)."""
+    enc = [w.encode("ascii") + b" " for w in words]
+    wlen = np.array([len(e) for e in enc], dtype=np.int64)
+    woff = np.cumsum(wlen) - wlen
+    blob = np.frombuffer(b"".join(enc), np.uint8)
+    row_len = wlen[idx].sum(axis=1) - 1  # no trailing space
+    if width:
+        row_len = np.minimum(row_len, width)
+    width = max(1, int(row_len.max()))
+    mat = np.zeros((len(idx), width), dtype=np.uint8)
+    for lo in range(0, len(idx), chunk):
+        part = idx[lo:lo + chunk]
+        lens = wlen[part].ravel()
+        # byte k of the chunk's stream comes from blob[start of its word + offset]
+        starts = np.repeat(woff[part.ravel()] - (np.cumsum(lens) - lens), lens)
+        stream = blob[starts + np.arange(len(starts))]
+        rl = wlen[part].sum(axis=1)
+        row_start = np.cumsum(rl) - rl
+        col = np.arange(width)
+        keep = col[None, :] < row_len[lo:lo + len(part), None]
+        mat[lo:lo + len(part)] = np.where(
+            keep, stream[np.minimum(row_start[:, None] + col[None, :], len(stream) - 1)], 0)
+    return mat, row_len.astype(np.uint32)
+
+
 def generate_orders(sf: float, seed: int, lineitem: dict, order_idx, order_dates) -> dict:
     rng = _stream(seed, "orders")
     norders = len(order_dates)
@@ -234,8 +298,8 @@ def generate_orders(sf: float, seed: int, lineitem: dict, order_idx, order_dates
     charge = ext * (100 - disc) * (100 + lineitem["l_tax"])
     nclerks = max(1, int(1000 * sf))
     clerks = [f"Clerk#{i:09d}" for i in range(1, nclerks + 1)]
-    comments = sorted({" ".join(rng.choice(_WORDS, size=int(k)))
-                       for k in rng.integers(3, 8, size=1024)})
+    for k in rng.integers(3, 8, size=1024):  # the old comment pool's draws
+        rng.choice(_WORDS, size=int(k))
     return {
         "o_orderkey": order_key(np.arange(norders)).astype(np.int64),
         "o_custkey": (pick + pick // 2 + 1).astype(np.int64),
@@ -245,8 +309,17 @@ def generate_orders(sf: float, seed: int, lineitem: dict, order_idx, order_dates
         "o_orderpriority": _pool(rng, PRIORITIES, norders),
         "o_clerk": _pool(rng, clerks, norders),
         "o_shippriority": np.zeros(norders, dtype=np.int32),
-        "o_comment": _pool(rng, comments, norders),
+        "o_comment": _order_comments(_stream(seed, "o_comment"), norders),
     }
+
+
+def _order_comments(rng, n: int) -> tuple:
+    """O_COMMENT: 19 to 78 characters of word text, cut at a random length
+    as dbgen cuts its text pool: near-unique (about 1.5M distinct values at
+    SF1), with "special" and "requests" among the words."""
+    mat, lens = _join_words(_WORDS, rng.integers(0, len(_WORDS), size=(n, 14)), width=78)
+    lens = np.minimum(lens, rng.integers(19, 79, size=n).astype(np.uint32))
+    return mat, lens
 
 
 def generate_customer(sf: float, seed: int) -> dict:
@@ -286,8 +359,26 @@ def generate_supplier(sf: float, seed: int) -> dict:
         "s_nationkey": nation.astype(np.int32),
         "s_phone": _phone(rng, nation),
         "s_acctbal": rng.integers(-99_999, 1_000_000, size=n).astype(np.int64),
-        "s_comment": _random_text(rng, n, 25, 100),
+        "s_comment": _supplier_comments(_stream(seed, "s_comment"), n),
     }
+
+
+def _supplier_comments(rng, n: int) -> tuple:
+    """S_COMMENT: 25 to 100 random characters; in SUPPLIER_REMARKS_PER_10000
+    of every 10,000 suppliers "Customer" and, after it, "Complaints" are
+    written over the text, and in as many others "Customer" and
+    "Recommends"."""
+    mat, lens = _random_text(rng, n, 25, 100)
+    k = n * SUPPLIER_REMARKS_PER_10000 // 10_000
+    rows = rng.choice(n, size=2 * k, replace=False)
+    for i, row in enumerate(rows):
+        tail = b"Complaints" if i < k else b"Recommends"
+        start = int(rng.integers(0, 41))  # "Customer" in [start, start + 8)
+        at = int(rng.integers(start + 9, 91))  # the tail ends by byte 100
+        mat[row, start:start + 8] = np.frombuffer(b"Customer", np.uint8)
+        mat[row, at:at + 10] = np.frombuffer(tail, np.uint8)
+        lens[row] = max(int(lens[row]), at + 10)
+    return mat, lens
 
 
 def generate_part(sf: float, seed: int) -> dict:
@@ -296,13 +387,21 @@ def generate_part(sf: float, seed: int) -> dict:
     key = np.arange(1, n + 1, dtype=np.int64)
     mfgr = rng.integers(1, 6, size=n)
     brand = mfgr * 10 + rng.integers(1, 6, size=n)
-    names = sorted({" ".join(rng.choice(_WORDS, size=5)) for _ in range(2048)})
+    # the old p_name pool, p_name and p_type draws
+    old_names = {" ".join(rng.choice(_WORDS, size=5)) for _ in range(_OLD_NAME_DRAWS)}
+    rng.integers(0, len(old_names), size=n)
+    rng.integers(0, _OLD_TYPES, size=n)
+    name_rng = _stream(seed, "p_name")
+    # five distinct colors: the first five of a random order of the 92
+    colors = np.argsort(name_rng.random((n, len(COLORS))), axis=1)[:, :5]
+    syl = _stream(seed, "p_type").integers(0, [6, 5, 5], size=(n, 3))
+    types = [" ".join(t) for t in itertools.product(*TYPE_SYLLABLES)]
     return {
         "p_partkey": key,
-        "p_name": _pool(rng, names, n),
+        "p_name": _join_words(COLORS, colors),
         "p_mfgr": _text(b"Manufacturer#", _digits(mfgr, 1)),
         "p_brand": _text(b"Brand#", _digits(brand, 2)),
-        "p_type": _pool(rng, _TYPES, n),
+        "p_type": (types, (syl[:, 0] * 5 + syl[:, 1]) * 5 + syl[:, 2]),
         "p_size": rng.integers(1, 51, size=n).astype(np.int32),
         "p_container": _pool(rng, _CONTAINERS, n),
         "p_retailprice": retail_price_cents(key).astype(np.int64),

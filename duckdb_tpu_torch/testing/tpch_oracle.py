@@ -1,5 +1,5 @@
-"""TPC-H Q3, Q4, Q5, Q7, Q8, Q10, Q11, Q12, Q15, Q17, Q18, Q19 and Q21, and
-a Q13 variant, answered with numpy alone.
+"""TPC-H Q2, Q3, Q4, Q5, Q7, Q8, Q9, Q10, Q11, Q12, Q13, Q14, Q15, Q16, Q17,
+Q18, Q19, Q20 and Q21, and a Q13 variant, answered with numpy alone.
 
 An independent implementation of these queries over a directory that
 testing/tpch_gen.py wrote: money in int64 cents with exact DECIMAL
@@ -9,19 +9,20 @@ membership and per-key counts. It reads the files directly and shares no
 code with the engine, so the chip's smoke run (which has no JAX) and the
 CPU tests can hold the port against it.
 
-QUERIES (joins), SUBQUERY_QUERIES and FROM_QUERIES (derived tables, OR
-factoring, outer joins) hold the texts of DuckDB's TPC-H extension
+QUERIES (joins), SUBQUERY_QUERIES, FROM_QUERIES (derived tables, OR
+factoring, outer joins) and LIKE_QUERIES (LIKE, count(DISTINCT); the
+oracle matches text with np.char find/startswith/endswith, not regexes)
+hold the texts of DuckDB's TPC-H extension
 (extension/tpch/dbgen/queries/qNN.sql) with the specification's validation
 parameters (Q11's fraction is DuckDB's 0.0001000000). `q13_nolike` is Q13
 with the `o_comment NOT LIKE '%special%requests%'` conjunct dropped from its
 ON clause and nothing else changed.
 `answer(name, data_dir, **params)` returns the rows as `Result.rows()`
 gives them (DECIMAL → decimal.Decimal, DATE → datetime.date, VARCHAR →
-str), in the order ORDER BY fixes, LIMIT applied. Q7 takes its two
-nations, Q8 its nation, region and part type, Q11 its `nation` (default
-GERMANY) and Q18 its quantity `threshold` (default 300) as parameters,
-since small scale factors may select nothing with the specification's
-values.
+str), in the order ORDER BY fixes, LIMIT applied. Queries take their
+substitution values as parameters (listed in `answer`), defaulting to the
+specification's, since small scale factors may select nothing with them:
+at SF 0.01 no supplier comment holds "Customer … Complaints" (5 in 10,000).
 """
 
 from __future__ import annotations
@@ -226,6 +227,80 @@ FROM (
     GROUP BY c_custkey) AS c_orders (c_custkey, c_count)
 GROUP BY c_count
 ORDER BY custdist DESC, c_count DESC
+""",
+}
+
+LIKE_QUERIES = {
+    "q02": """
+SELECT s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address, s_phone, s_comment
+FROM part, supplier, partsupp, nation, region
+WHERE p_partkey = ps_partkey AND s_suppkey = ps_suppkey AND p_size = 15
+  AND p_type LIKE '%BRASS' AND s_nationkey = n_nationkey
+  AND n_regionkey = r_regionkey AND r_name = 'EUROPE'
+  AND ps_supplycost = (
+      SELECT min(ps_supplycost)
+      FROM partsupp, supplier, nation, region
+      WHERE p_partkey = ps_partkey AND s_suppkey = ps_suppkey
+        AND s_nationkey = n_nationkey AND n_regionkey = r_regionkey
+        AND r_name = 'EUROPE')
+ORDER BY s_acctbal DESC, n_name, s_name, p_partkey
+LIMIT 100
+""",
+    "q09": """
+SELECT nation, o_year, sum(amount) AS sum_profit
+FROM (
+    SELECT n_name AS nation, extract(year FROM o_orderdate) AS o_year,
+        l_extendedprice * (1 - l_discount) - ps_supplycost * l_quantity AS amount
+    FROM part, supplier, lineitem, partsupp, orders, nation
+    WHERE s_suppkey = l_suppkey AND ps_suppkey = l_suppkey
+        AND ps_partkey = l_partkey AND p_partkey = l_partkey
+        AND o_orderkey = l_orderkey AND s_nationkey = n_nationkey
+        AND p_name LIKE '%green%') AS profit
+GROUP BY nation, o_year
+ORDER BY nation, o_year DESC
+""",
+    "q13": """
+SELECT c_count, count(*) AS custdist
+FROM (
+    SELECT c_custkey, count(o_orderkey)
+    FROM customer LEFT OUTER JOIN orders ON c_custkey = o_custkey
+        AND o_comment NOT LIKE '%special%requests%'
+    GROUP BY c_custkey) AS c_orders (c_custkey, c_count)
+GROUP BY c_count
+ORDER BY custdist DESC, c_count DESC
+""",
+    "q14": """
+SELECT 100.00 * sum(CASE WHEN p_type LIKE 'PROMO%'
+                         THEN l_extendedprice * (1 - l_discount) ELSE 0 END)
+    / sum(l_extendedprice * (1 - l_discount)) AS promo_revenue
+FROM lineitem, part
+WHERE l_partkey = p_partkey AND l_shipdate >= CAST('1995-09-01' AS date)
+  AND l_shipdate < CAST('1995-10-01' AS date)
+""",
+    "q16": """
+SELECT p_brand, p_type, p_size, count(DISTINCT ps_suppkey) AS supplier_cnt
+FROM partsupp, part
+WHERE p_partkey = ps_partkey AND p_brand <> 'Brand#45'
+  AND p_type NOT LIKE 'MEDIUM POLISHED%'
+  AND p_size IN (49, 14, 23, 45, 19, 3, 36, 9)
+  AND ps_suppkey NOT IN (SELECT s_suppkey FROM supplier
+                         WHERE s_comment LIKE '%Customer%Complaints%')
+GROUP BY p_brand, p_type, p_size
+ORDER BY supplier_cnt DESC, p_brand, p_type, p_size
+""",
+    "q20": """
+SELECT s_name, s_address
+FROM supplier, nation
+WHERE s_suppkey IN (
+        SELECT ps_suppkey FROM partsupp
+        WHERE ps_partkey IN (SELECT p_partkey FROM part WHERE p_name LIKE 'forest%')
+          AND ps_availqty > (
+              SELECT 0.5 * sum(l_quantity) FROM lineitem
+              WHERE l_partkey = ps_partkey AND l_suppkey = ps_suppkey
+                AND l_shipdate >= CAST('1994-01-01' AS date)
+                AND l_shipdate < CAST('1995-01-01' AS date)))
+  AND s_nationkey = n_nationkey AND n_name = 'CANADA'
+ORDER BY s_name
 """,
 }
 
@@ -571,14 +646,163 @@ def q13_nolike(t):
     return [(int(counts[i]), int(dist[i])) for i in order]
 
 
-_ANSWERS = {"q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q08, "q10": q10,
-            "q11": q11, "q12": q12, "q13_nolike": q13_nolike, "q15": q15, "q17": q17,
-            "q18": q18, "q19": q19, "q21": q21}
+def _has_in_order(values: np.ndarray, words) -> np.ndarray:
+    """Rows of a bytes column that hold words[0], then words[1] after it, …
+    (LIKE '%w0%w1%…%'): the leftmost hit of each word leaves the most room
+    for the next."""
+    start = np.zeros(len(values), dtype=np.int64)
+    ok = np.ones(len(values), dtype=bool)
+    for w in words:
+        at = np.char.find(values, w.encode(), np.where(ok, start, 0))
+        ok &= at >= 0
+        start = at + len(w)
+    return ok
+
+
+def _region_supplier(t, region: str) -> np.ndarray:
+    """Per supplier row: its nation lies in `region`."""
+    n_reg = _lookup(t("region", "r_regionkey"), t("nation", "n_regionkey"))
+    nation_ok = (n_reg >= 0) & (t("region", "r_name")[n_reg] == region.encode())
+    nrow = _lookup(t("nation", "n_nationkey"), t("supplier", "s_nationkey"))
+    return (nrow >= 0) & nation_ok[nrow]
+
+
+def q02(t, size: int = 15, type_suffix: str = "BRASS", region: str = "EUROPE"):
+    """Per part of the size and type, its suppliers in the region that ask
+    the least of them."""
+    ptype = t("part", "p_type")
+    part_ok = (t("part", "p_size") == size) & np.char.endswith(ptype, type_suffix.encode())
+    prow = _lookup(t("part", "p_partkey"), t("partsupp", "ps_partkey"))
+    srow = _lookup(t("supplier", "s_suppkey"), t("partsupp", "ps_suppkey"))
+    in_region = (prow >= 0) & (srow >= 0) & _region_supplier(t, region)[srow]
+    cost = t("partsupp", "ps_supplycost")
+    # the least cost over each part's in-region suppliers
+    rows = np.flatnonzero(in_region)
+    parts, inv = np.unique(prow[rows], return_inverse=True)
+    least = np.full(len(parts), np.iinfo(np.int64).max)
+    np.minimum.at(least, inv.reshape(-1), cost[rows])
+    keep = rows[part_ok[prow[rows]] & (cost[rows] == least[inv.reshape(-1)])]
+    s, p = srow[keep], prow[keep]
+    nation = _nation_name(t, t("supplier", "s_nationkey")[s])
+    bal, name = t("supplier", "s_acctbal")[s], t("supplier", "s_name")[s]
+    pkey = t("part", "p_partkey")[p]
+    order = np.lexsort((pkey, name, nation, -bal))[:100]
+    return [(_dec(bal[i], 2), name[i].decode(), nation[i].decode(), int(pkey[i]),
+             t("part", "p_mfgr")[p[i]].decode(), t("supplier", "s_address")[s[i]].decode(),
+             t("supplier", "s_phone")[s[i]].decode(),
+             t("supplier", "s_comment")[s[i]].decode()) for i in order]
+
+
+def q09(t, color: str = "green"):
+    """Profit (revenue less the supplier's cost) of the lines whose part
+    name holds the color, per supplier nation and order year."""
+    lpart, lsupp = t("lineitem", "l_partkey"), t("lineitem", "l_suppkey")
+    prow = _lookup(t("part", "p_partkey"), lpart)
+    srow = _lookup(t("supplier", "s_suppkey"), lsupp)
+    orow = _lookup(t("orders", "o_orderkey"), t("lineitem", "l_orderkey"))
+    radix = int(max(lsupp.max(), t("partsupp", "ps_suppkey").max())) + 1
+    ps_key = t("partsupp", "ps_partkey") * radix + t("partsupp", "ps_suppkey")
+    order_ps = np.argsort(ps_key)
+    pos = _lookup(ps_key[order_ps], lpart * radix + lsupp)
+    psrow = np.where(pos >= 0, order_ps[np.maximum(pos, 0)], -1)
+    named = np.char.find(t("part", "p_name"), color.encode()) >= 0
+    ok = (prow >= 0) & (srow >= 0) & (orow >= 0) & (psrow >= 0) & named[prow]
+    rows = np.flatnonzero(ok)
+    amount = (_revenue(t, rows) - t("partsupp", "ps_supplycost")[psrow[rows]]
+              * t("lineitem", "l_quantity")[rows])
+    nation = _nation_name(t, t("supplier", "s_nationkey")[srow[rows]])
+    year = _year(t("orders", "o_orderdate")[orow[rows]])
+    groups = {}
+    for n_, y, a in zip(nation, year, amount):
+        key = (n_.decode(), int(y))
+        groups[key] = groups.get(key, 0) + int(a)
+    keys = sorted(groups, key=lambda k: (k[0], -k[1]))
+    return [k + (_dec(groups[k], 4),) for k in keys]
+
+
+def q13(t, words=("special", "requests")):
+    """q13_nolike over the orders whose comment does not hold the words in
+    order (o_comment NOT LIKE '%special%requests%')."""
+    keep = ~_has_in_order(t("orders", "o_comment"), words)
+    crow = _lookup(t("customer", "c_custkey"), t("orders", "o_custkey")[keep])
+    per_cust = np.bincount(crow[crow >= 0], minlength=len(t("customer", "c_custkey")))
+    counts, dist = np.unique(per_cust, return_counts=True)
+    order = np.lexsort((-counts, -dist))
+    return [(int(counts[i]), int(dist[i])) for i in order]
+
+
+def q14(t, type_prefix: str = "PROMO"):
+    """Share of the month's revenue from parts of the type prefix, as a
+    DOUBLE: 100.00 × the promo sum (DECIMAL, scale 6) over the total
+    (scale 4), each converted to a double as DECIMAL / DECIMAL binds."""
+    ship = t("lineitem", "l_shipdate")
+    prow = _lookup(t("part", "p_partkey"), t("lineitem", "l_partkey"))
+    ok = (ship >= _day("1995-09-01")) & (ship < _day("1995-10-01")) & (prow >= 0)
+    rows = np.flatnonzero(ok)
+    if not len(rows):
+        return [(None,)]
+    revenue = _revenue(t, rows)
+    promo = np.char.startswith(t("part", "p_type")[prow[rows]], type_prefix.encode())
+    total = int(revenue.sum())
+    return [((10_000 * int(revenue[promo].sum())) / 1e6 / (total / 1e4),)]
+
+
+_Q16_SIZES = (49, 14, 23, 45, 19, 3, 36, 9)
+
+
+def q16(t, remark=("Customer", "Complaints")):
+    """Suppliers per (brand, type, size) of the parts that pass the filters,
+    leaving out the suppliers whose comment holds the remark's words in
+    order (s_comment LIKE '%Customer%Complaints%')."""
+    brand, ptype, size = (t("part", c) for c in ("p_brand", "p_type", "p_size"))
+    part_ok = ((brand != b"Brand#45") & ~np.char.startswith(ptype, b"MEDIUM POLISHED")
+               & np.isin(size, _Q16_SIZES))
+    bad = t("supplier", "s_suppkey")[_has_in_order(t("supplier", "s_comment"), remark)]
+    prow = _lookup(t("part", "p_partkey"), t("partsupp", "ps_partkey"))
+    supp = t("partsupp", "ps_suppkey")
+    ok = (prow >= 0) & part_ok[prow] & ~np.isin(supp, bad)
+    groups = {}
+    for p, s in zip(prow[ok], supp[ok]):
+        groups.setdefault((brand[p].decode(), ptype[p].decode(), int(size[p])), set()).add(int(s))
+    keys = sorted(groups, key=lambda k: (-len(groups[k]),) + k)
+    return [k + (len(groups[k]),) for k in keys]
+
+
+def q20(t, color: str = "forest", nation: str = "CANADA"):
+    """The nation's suppliers that hold more than half a year's shipped
+    quantity (1994) of some part whose name starts with the color."""
+    forest = t("part", "p_partkey")[np.char.startswith(t("part", "p_name"), color.encode())]
+    ship = t("lineitem", "l_shipdate")
+    year = (ship >= _day("1994-01-01")) & (ship < _day("1995-01-01"))
+    radix = int(t("supplier", "s_suppkey").max()) + 1
+    lkey = t("lineitem", "l_partkey")[year] * radix + t("lineitem", "l_suppkey")[year]
+    keys, qsum = _group_sum(lkey, t("lineitem", "l_quantity")[year])
+    ps_key = t("partsupp", "ps_partkey") * radix + t("partsupp", "ps_suppkey")
+    pos = _lookup(keys, ps_key)
+    # ps_availqty > 0.5 × sum(l_quantity): NULL (no line) is not greater;
+    # sum is DECIMAL scale 2, so availqty · 1000 > 5 · qsum exactly
+    avail = t("partsupp", "ps_availqty")
+    ok = (np.isin(t("partsupp", "ps_partkey"), forest) & (pos >= 0)
+          & (avail * 1000 > 5 * np.where(pos >= 0, qsum[np.maximum(pos, 0)], 0)))
+    held = t("partsupp", "ps_suppkey")[ok]
+    s_ok = (np.isin(t("supplier", "s_suppkey"), held)
+            & _nation_rows(t, "supplier", "s", nation.encode()))
+    names, addr = t("supplier", "s_name")[s_ok], t("supplier", "s_address")[s_ok]
+    order = np.argsort(names, kind="stable")
+    return [(names[i].decode(), addr[i].decode()) for i in order]
+
+
+_ANSWERS = {"q02": q02, "q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q08,
+            "q09": q09, "q10": q10, "q11": q11, "q12": q12, "q13": q13,
+            "q13_nolike": q13_nolike, "q14": q14, "q15": q15, "q16": q16, "q17": q17,
+            "q18": q18, "q19": q19, "q20": q20, "q21": q21}
 
 
 def answer(name: str, data_dir: str, **params):
-    """Rows of query `name` (a key of QUERIES, SUBQUERY_QUERIES or
-    FROM_QUERIES) over data_dir; params go to the query's answer (Q7's
-    `nation1`/`nation2`, Q8's `nation`/`region`/`ptype`, Q11's `nation`,
-    Q18's `threshold`)."""
+    """Rows of query `name` (a key of QUERIES, SUBQUERY_QUERIES,
+    FROM_QUERIES or LIKE_QUERIES) over data_dir; params go to the query's
+    answer (Q2's `size`/`type_suffix`/`region`, Q7's `nation1`/`nation2`,
+    Q8's `nation`/`region`/`ptype`, Q9's `color`, Q11's `nation`, Q13's
+    `words`, Q14's `type_prefix`, Q16's `remark`, Q18's `threshold`, Q20's
+    `color`/`nation`)."""
     return _ANSWERS[name](_Tables(data_dir), **params)

@@ -4,10 +4,12 @@ lineitem that does not move.
 lineitem at SF 0.01, seed 7 is pinned by a sha256 of its files, taken when
 the generator wrote lineitem alone: the other tables draw from streams of
 their own, so Q1's data is the same whichever tables are written. Primary
-keys must be unique and every foreign key must resolve.
+keys must be unique and every foreign key must resolve, and the text
+columns that TPC-H's LIKE predicates read follow the specification.
 """
 
 import hashlib
+import itertools
 import os
 
 import numpy as np
@@ -120,3 +122,39 @@ def test_table_sizes_follow_scale():
     sizes = tpch_gen.table_sizes(1.0)
     assert sizes == {"part": 200_000, "supplier": 10_000, "customer": 150_000,
                      "lineitem": 6_001_215}
+
+
+def test_text_columns_follow_specification(tables):
+    """p_name: five distinct colors of the 92; p_type: the 6 × 5 × 5 syllable
+    triples; o_comment: 19 to 78 characters, near-unique, some holding
+    "special" and later "requests" (Q13's NOT LIKE); s_comment: 25 to 100
+    characters."""
+    colors = set(tpch_gen.COLORS)
+    assert len(colors) == 92
+    names = _col(tables, "part", "p_name")
+    words = [n.split(" ") for n in names]
+    assert all(len(w) == 5 and len(set(w)) == 5 and set(w) <= colors for w in words)
+    types = set(_col(tables, "part", "p_type"))
+    triples = {" ".join(t) for t in itertools.product(*tpch_gen.TYPE_SYLLABLES)}
+    assert len(triples) == 150 and types <= triples and len(types) > 140
+    comments = _col(tables, "orders", "o_comment")
+    lens = np.array([len(c) for c in comments])
+    assert lens.min() >= 19 and lens.max() <= 78
+    assert len(set(comments)) > 0.99 * len(comments)
+    assert any("special" in c and "requests" in c[c.index("special"):] for c in comments)
+    supp = _col(tables, "supplier", "s_comment")
+    assert all(25 <= len(c) <= 100 for c in supp)
+
+
+def test_supplier_remarks_per_10000():
+    """At SF1's 10,000 suppliers, 5 comments hold "Customer" and then
+    "Complaints", and 5 others "Customer" and then "Recommends"."""
+    mat, lens = tpch_gen._supplier_comments(np.random.default_rng(0), 10_000)
+    text = [bytes(m[:n]).decode() for m, n in zip(mat, lens)]
+
+    def has(c, tail):
+        return "Customer" in c and tail in c[c.index("Customer") + 8:]
+
+    assert sum(has(c, "Complaints") for c in text) == 5
+    assert sum(has(c, "Recommends") for c in text) == 5
+    assert all(25 <= len(c) <= 100 for c in text)
