@@ -60,7 +60,22 @@ Phases (any failure exits non-zero before the result lines):
    Q13, s_comment for Q16) must have gone through the device matcher and
    not the host loop, and on each of them the matcher's LUT on the card
    must equal the host regex's for every pattern of the six queries plus
-   `_` and escape cases; the matcher's time on o_comment is printed.
+   `_` and escape cases; the matcher's time on o_comment is printed;
+10. string functions and the general aggregate path: TPC-H Q6 and Q22 (the
+   specification's texts and values) and `general_agg` (one query over
+   lineitem grouped by l_returnflag, l_linestatus with stddev_samp,
+   var_pop, median, quantile_disc, mode, first(... ORDER BY ...), arg_max,
+   bool_or, product, count(*) FILTER, string min/max and corr), the same
+   way: rows against the numpy oracle (DOUBLE within 1e-9 relative), the
+   route asserted (Q6 fuses into one slot; Q22 and general_agg take the
+   general path, Q22 with its NOT EXISTS as an eager anti join), all three
+   launch the grouped sum, whose result equals its plain version on every
+   input they gave it and is timed there, Q22's substring over c_phone
+   (150,000 values) must have run as a plane op on the card and no string
+   function as a host loop; each query's warm median, rows/s (customer
+   for Q22) and host syncs; then every plane op of ops/strings on the card
+   against its host function (testing/plane_checks) over c_phone, p_name
+   and o_comment, and the time of Q22's substring op on c_phone's plane.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -285,10 +300,11 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def warm_median(con, sql, want, runs=5):
+def warm_median(con, sql, want, runs=5, exact=True):
     """Median host seconds of `runs` warm runs after 1 warm-up; each run
-    ends in a synchronize and must give `want`. → (median, times) or a
-    failure message."""
+    ends in a synchronize and must give `want` (DOUBLE values within 1e-9
+    relative unless `exact`: float sums through atomics take any order).
+    → (median, times) or a failure message."""
     import torch
 
     times = []
@@ -298,7 +314,7 @@ def warm_median(con, sql, want, runs=5):
         torch.cuda.synchronize()
         if i:
             times.append(time.perf_counter() - t0)
-        if rows != want:
+        if (rows != want) if exact else rows_match(rows, want):
             return None, "rows changed between runs"
     return statistics.median(times), times
 
@@ -434,6 +450,43 @@ def like_matcher(con, card: str, device_events) -> str:
     return ""
 
 
+# phase 10: the dictionaries every plane op is held to its host function on
+PLANE_DICTS = (("customer", "c_phone"), ("part", "p_name"), ("orders", "o_comment"))
+
+
+def plane_ops(con, card: str) -> str:
+    """Every plane op on the card equals its host function over PLANE_DICTS
+    (testing/plane_checks), and the time of Q22's substring op and of the
+    whole transform (op, transfer, decode) on c_phone. '' when they agree."""
+    import torch
+
+    from duckdb_tpu_torch.ops import strings as TS
+    from duckdb_tpu_torch.testing import plane_checks
+
+    for table, col in PLANE_DICTS:
+        dvals = con.catalog.get_table(table).host_column(col)[2]
+        if len(dvals) < TS.DEVICE_STR_MIN_DICT:
+            return f"{table}.{col} holds {len(dvals)} values, under the device threshold"
+        t0 = time.perf_counter()
+        bad = plane_checks.check_dictionary(dvals, torch.device("cuda"))
+        if bad:
+            return f"{table}.{col}: the plane ops {bad} differ from their host functions"
+        print(f"string plane ops on {table}.{col} ({len(dvals)} values, card {card}): "
+              f"{len(plane_checks.TRANSFORMS)} transforms and {len(plane_checks.VALUES)} "
+              f"LUTs equal the host functions ({time.perf_counter() - t0:.1f} s with the "
+              f"host loops)")
+    dvals = con.catalog.get_table("customer").host_column("c_phone")[2]
+    plane, lens = TS._pack_dict(dvals, torch.device("cuda"))
+    op_ms = cuda_ms(lambda: TS.op_substring(plane, lens, 0, 2), 20)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        TS._decode_plane(*TS.op_substring(plane, lens, 0, 2))
+    whole_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"substring(c_phone, 1, 2) plane op on {tuple(plane.shape)} on {card}: "
+          f"{op_ms:.4f} ms on the card, {whole_ms:.3f} ms with the transfer and decode")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -475,9 +528,16 @@ def main() -> int:
 
     # 3. the main path, with the kernel's inputs recorded for phase 4
     recorded = []
+    calls_by_site = {}  # the grouped sum's calls by the module that made them
 
     def recording(dense, vectors, nseg):
         recorded.append((dense, list(vectors), nseg))
+        frame = sys._getframe(1)
+        while frame is not None and os.path.basename(frame.f_code.co_filename) in (
+                "grouped.py", "chip_smoke.py"):
+            frame = frame.f_back
+        site = "?" if frame is None else os.path.relpath(frame.f_code.co_filename, ROOT)
+        calls_by_site[site] = calls_by_site.get(site, 0) + 1
         return GS.grouped_sum_i64(dense, vectors, nseg)
 
     grouped_mod.grouped_sum_i64 = recording
@@ -544,10 +604,12 @@ def main() -> int:
 
     # 6. the join path: Q3, Q5, Q10, Q12; 7. the subquery path: Q4, Q11,
     # Q17, Q18, Q21; 8. the FROM path: Q7, Q8, Q15, Q19, q13_nolike; 9. the
-    # LIKE path: Q2, Q9, Q13, Q14, Q16, Q20
+    # LIKE path: Q2, Q9, Q13, Q14, Q16, Q20; 10. the general path: Q6, Q22,
+    # general_agg
     from duckdb_tpu_torch.ops import strings as TS
 
     TS.device_like_events.clear()
+    TS.device_str_events.clear()
     TS.host_loop_events.clear()
     launches_by_query = {"q01": launches}
     shapes = []
@@ -561,11 +623,18 @@ def main() -> int:
                    "q16": {"eager_anti": 1}, "q20": {"eager_semi": 2}}
     # those that reach the grouped sum
     from_kernel = ("q08", "q15", "q19", "q09", "q14")
+    # phase 10: the routes each must show (every eager_* route listed)
+    general_routes = {"q06": {"dense": 1},
+                      "q22": {"dense": 1, "general_aggregate": 1, "general_perfect": 1,
+                              "eager_anti": 1},
+                      "general_agg": {"general_aggregate": 1, "general_perfect": 1}}
     # rows/s over the table each query reads most of (lineitem otherwise)
     rate_table = {"q13_nolike": "customer", "q13": "customer", "q02": "partsupp",
-                  "q16": "partsupp"}
+                  "q16": "partsupp", "q22": "customer"}
+    c_phone_values = len(con.catalog.get_table("customer").host_column("c_phone")[2])
     for name, sql in {**tpch_oracle.QUERIES, **tpch_oracle.SUBQUERY_QUERIES,
-                      **tpch_oracle.FROM_QUERIES, **tpch_oracle.LIKE_QUERIES}.items():
+                      **tpch_oracle.FROM_QUERIES, **tpch_oracle.LIKE_QUERIES,
+                      **tpch_oracle.GENERAL_QUERIES}.items():
         recorded.clear()
         grouped_mod.grouped_sum_i64 = recording
         GS.grouped_sum_i64.launches = 0
@@ -582,7 +651,7 @@ def main() -> int:
         launches_by_query[name] = q_launches
         want = tpch_oracle.answer(name, DATA)
         bad = rows_match(got, want)
-        if bad or not want:
+        if bad or not want or want == [(None,)]:
             return fail(f"{name} rows differ from the numpy oracle: {bad or 'no rows'}")
         if name in ("q05", "q12"):
             if routes.get("dense") != 1 or q_launches < 1 or q_regimes["small"] < 1:
@@ -608,6 +677,18 @@ def main() -> int:
                     d.device.type != "cuda" for d, _, _ in recorded)):
                 return fail(f"{name} did not launch the grouped sum on the card: "
                             f"launches {q_launches} {q_regimes}")
+        elif name in general_routes:
+            want_routes = general_routes[name]
+            if {k: routes.get(k) for k in want_routes} != want_routes or \
+                    {k for k in routes if k.startswith("eager_")} != \
+                    {k for k in want_routes if k.startswith("eager_")}:
+                return fail(f"{name} missed its route {want_routes}: routes {routes}")
+            if q_launches < 1 or any(d.device.type != "cuda" for d, _, _ in recorded):
+                return fail(f"{name} did not launch the grouped sum on the card: "
+                            f"launches {q_launches} {q_regimes}")
+            if name == "q22" and ("substr:1:2", c_phone_values) not in TS.device_str_events:
+                return fail(f"Q22's substring over c_phone ({c_phone_values} values) did "
+                            f"not run as a plane op: {TS.device_str_events}")
         elif routes.get("sort_group") != 1:
             return fail(f"{name} did not take the sort-group mode: routes {routes}")
         print(f"{name} (first run, columns load to the card): {first_s:.3f} s, {len(got)} "
@@ -634,7 +715,7 @@ def main() -> int:
             shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg,
                            "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
                            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
-        med, times = warm_median(con, sql, got)
+        med, times = warm_median(con, sql, got, exact=name != "general_agg")
         if med is None:
             return fail(f"{name}: {times}")
         syncs = count_syncs(lambda: con.sql(sql).rows())
@@ -650,8 +731,14 @@ def main() -> int:
 
     # 9. (end) the LIKE matcher: the device path ran, and equals the host regex
     if TS.host_loop_events:
-        return fail(f"a LIKE ran a host loop over a large dictionary: {TS.host_loop_events}")
+        return fail(f"a LIKE or string function ran a host loop over a large "
+                    f"dictionary: {TS.host_loop_events}")
     bad = like_matcher(con, card, set(TS.device_like_events))
+    if bad:
+        return fail(bad)
+
+    # 10. (end) every string plane op on the card equals its host function
+    bad = plane_ops(con, card)
     if bad:
         return fail(bad)
 
@@ -664,7 +751,7 @@ def main() -> int:
         "regime": plan_q1.regime, "regime_launches": regime_launches,
         "max_abs_err": worst, "ms": kernel_ms, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "query_shapes": shapes,
+        "library_ms": library_ms, "query_shapes": shapes, "calls_by_site": calls_by_site,
         "sweep": [{key: r[key] for key in ("k", "nseg", "live", "kernel_ms", "index_add_ms")}
                   for r in swept]}]}))
     print(json.dumps({"ok": True, "device": {

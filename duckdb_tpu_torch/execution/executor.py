@@ -231,7 +231,9 @@ class Executor:
         # "probe_dense" / "probe_sorted" fused join-step probes,
         # "fused_semi" / "fused_anti" fused membership steps, and
         # "eager_semi" / "eager_anti" / "eager_left" / "eager_full" /
-        # "eager_inner_residual" joins run by _exec_Join (the planner adds
+        # "eager_inner_residual" joins run by _exec_Join, "general_aggregate"
+        # for each aggregate the fused pipeline refused, with its grouping,
+        # "general_perfect" or "general_sort_group" (the planner adds
         # "cte_materialized" for each CTE it executes at plan time)
         self.routes = collections.Counter() if routes is None else routes
 
@@ -309,13 +311,16 @@ class Executor:
         return Batch(src=ChainCols([DictCols(cols), b.src]), plen=b.plen, live=b.live)
 
     def _exec_Aggregate(self, node: P.Aggregate) -> Batch:
+        """The fused pipeline first; what it refuses takes the general path
+        (aggregate_exec) over the executed child, as in the JAX package."""
+        from duckdb_tpu_torch.execution.aggregate_exec import execute_aggregate
         from duckdb_tpu_torch.execution.fused_agg import try_fused_aggregate
 
         fused = try_fused_aggregate(self, node)
-        if fused is None:
-            raise not_ported("this aggregate shape (holistic or string min/max "
-                             "aggregates, or computed string group keys)")
-        return fused
+        if fused is not None:
+            return fused
+        self.routes["general_aggregate"] += 1
+        return execute_aggregate(self, self.execute(node.child), node)
 
     # -- joins ---------------------------------------------------------------
     def _join_keys(self, batch: Batch, key_exprs):

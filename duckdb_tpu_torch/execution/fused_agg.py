@@ -468,7 +468,7 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         if agg.func not in _FUSABLE_AGGS or len(agg.args) > 1:
             return None
         if agg.ltype.id is TypeId.VARCHAR:
-            return None  # min/max over strings: not yet ported
+            return None  # min/max over strings: the general path
 
     # 1. peel the Filter/Project/Join chain. Each inner, semi or anti join
     #    whose build can be prepared becomes a probe step (outermost first);
@@ -588,7 +588,7 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
             return None  # unresolvable ref
         if ge.ltype.id is TypeId.VARCHAR and not isinstance(
                 ge, (B.BoundColumnRef, B.BoundAggregateRef)):
-            return None  # computed VARCHAR group key: dict is data-dependent
+            return None  # computed VARCHAR group key (dict is data-dependent): the general path
         b = _expr_lo_hi(ge, ref_bounds)
         if b is None:
             dense_mode = False

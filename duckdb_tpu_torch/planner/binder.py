@@ -15,9 +15,11 @@ import datetime
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from duckdb_tpu_torch.blocks import Column
+from duckdb_tpu_torch.ops import strings as dstr
 from duckdb_tpu_torch.sql import nodes as N
 from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner import functions as F
@@ -357,7 +359,7 @@ class ExprBinder:
                                                  self.bind(e.right))
             return B.BoundComparison(e.op, left, right)
         if e.op == "||":
-            raise not_ported("string concatenation (||)")
+            return self._bind_concat(e)
         left = self.bind(e.left)
         right = self.bind(e.right)
         t = _arith_result_type(e.op, left.ltype, right.ltype)
@@ -370,6 +372,24 @@ class ExprBinder:
         if TypeId.INTERVAL in (left.ltype.id, right.ltype.id):
             return self._bind_interval_arith(e.op, left, right)
         return node
+
+    def _bind_concat(self, e: N.BinaryOp):
+        """VARCHAR || VARCHAR (NULL || x is NULL). DuckDB casts any other
+        operand to VARCHAR first; that cast is not yet ported (ROADMAP item
+        26), so such an operand is refused."""
+        args = []
+        for side in (e.left, e.right):
+            a = self.bind(side)
+            if a.ltype.id is TypeId.SQLNULL:
+                a = B.BoundCast(a, VARCHAR)
+            elif a.ltype.id is not TypeId.VARCHAR:
+                raise not_ported(f"the cast {a.ltype!r} → VARCHAR for || (ROADMAP item 26)")
+            args.append(a)
+
+        def impl(env, cols, node):
+            return concat_pair(env, cols[0], cols[1])
+
+        return B.BoundFunction("concat", args, VARCHAR, impl)
 
     def _bind_interval_arith(self, op: str, left: B.BoundExpr,
                              right: B.BoundExpr) -> B.BoundExpr:
@@ -529,3 +549,46 @@ class ExprBinder:
     _bind_ScalarSubquery = _bind_subquery
     _bind_InSubquery = _bind_subquery
     _bind_Exists = _bind_subquery
+
+
+# a dictionary product up to this many entries becomes one remap LUT
+CONCAT_PRODUCT_LIMIT = 1 << 18
+
+
+def concat_pair(env, a: Column, b: Column) -> Column:
+    """VARCHAR || VARCHAR over dictionary codes. A constant side (a
+    one-entry dictionary with no NULL) makes it a transform of the other
+    side's dictionary (ops/strings.op_concat_const on the device from
+    DEVICE_STR_MIN_DICT values); two small dictionaries concatenate every
+    pair once into a LUT indexed by (code_a, code_b); otherwise the rows
+    are concatenated on the host and re-encoded. NULL propagates."""
+    valid = B._and_validity(a.validity, b.validity)
+    na, nb = len(a.dict_values), len(b.dict_values)
+    for col, const, const_is_suffix in ((a, b, True), (b, a, False)):
+        if len(const.dict_values) != 1 or const.validity is not None:
+            continue
+        k = str(const.dict_values[0])
+        pre, sfx = ("", k) if const_is_suffix else (k, "")
+        dev = None
+        if k.isascii():
+            dev = lambda p, le: dstr.op_concat_const(p, le, pre, sfx)  # noqa: E731
+        c = F.dict_transform(col, lambda s: pre + s + sfx, device=dev,
+                             device_key=f"concat:{pre!r}:{sfx!r}")
+        return Column(data=c.data, ltype=VARCHAR, validity=valid,
+                      dict_values=c.dict_values)
+    device = env.live.device
+    ca = B.bcast(a.data, env.plen).long().clamp(0, max(na - 1, 0))
+    cb = B.bcast(b.data, env.plen).long().clamp(0, max(nb - 1, 0))
+    if na * nb <= CONCAT_PRODUCT_LIMIT:
+        prod = np.array([x + y for x in a.dict_values for y in b.dict_values] or [""],
+                        dtype=object)
+        uniq, inv = np.unique(prod.astype(str), return_inverse=True)
+        lut = torch.from_numpy(inv.reshape(-1).astype(np.int32)).to(device)
+        return Column(data=lut[ca * nb + cb], ltype=VARCHAR, validity=valid,
+                      dict_values=uniq.astype(object))
+    # near-unique dictionaries: per row on the host (one transfer each way)
+    strs = np.char.add(a.dict_values[ca.cpu().numpy()].astype(str),
+                       b.dict_values[cb.cpu().numpy()].astype(str))
+    uniq, inv = np.unique(strs, return_inverse=True)
+    return Column(data=torch.from_numpy(inv.reshape(-1).astype(np.int32)).to(device),
+                  ltype=VARCHAR, validity=valid, dict_values=uniq.astype(object))

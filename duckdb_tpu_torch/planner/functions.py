@@ -1,16 +1,28 @@
 """Scalar function registry (the core of the JAX package's registry).
 
 Each entry is bind(arg_exprs) → (result type, impl(env, cols, node) →
-Column, bound args). This slice carries the date parts and the numeric
-core; string and nested functions come with later slices, and the binder
-reports any function missing here as not yet ported.
+Column, bound args). This slice carries the date parts, the numeric core
+and the string core (substring, upper/lower, trim, length, contains,
+prefix, suffix); the nested functions and the rest of the string family
+come with later slices, and the binder reports any function missing here
+as not yet ported.
+
+A string function runs once per distinct dictionary value, never per row,
+and its result is gathered by code. From ops/strings.DEVICE_STR_MIN_DICT
+values it runs as a plane op on the column's device (ops/strings); below
+that, or over non-ASCII text, as a Python loop over the dictionary. Both
+results are cached per dictionary.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
+import numpy as np
 import torch
 
 from duckdb_tpu_torch.blocks import Column
+from duckdb_tpu_torch.ops import strings as dstr
 from duckdb_tpu_torch.planner.bound import (
     BindError,
     EvalEnv,
@@ -21,11 +33,118 @@ from duckdb_tpu_torch.planner.bound import (
 )
 from duckdb_tpu_torch.types import (
     BIGINT,
+    BOOLEAN,
     DOUBLE,
+    VARCHAR,
     TypeId,
     decimal,
     max_logical_type,
 )
+
+
+# -- string functions over dictionaries ----------------------------------------
+def _null_column(col: Column, ltype, dict_values=None) -> Column:
+    """An all-NULL column of `ltype` shaped like col."""
+    return Column(data=torch.zeros(col.data.shape, dtype=ltype.torch_dtype,
+                                   device=col.data.device),
+                  ltype=ltype,
+                  validity=torch.zeros(col.data.shape, dtype=torch.bool,
+                                       device=col.data.device),
+                  dict_values=dict_values)
+
+
+def _gather(lut: torch.Tensor, col: Column) -> torch.Tensor:
+    return lut[col.data.long().clamp(0, lut.shape[0] - 1)]
+
+
+def dict_transform(col: Column, fn: Callable[[str], str],
+                   device: Optional[Callable] = None, device_key: str = "") -> Column:
+    """Apply a str → str fn per distinct value and re-encode the codes
+    into the sorted dictionary of the results. `device`, a plane op of
+    ops/strings, runs the transform on the column's device from
+    DEVICE_STR_MIN_DICT values; below that, over non-ASCII text, or
+    without one, a host loop runs fn. `device_key` names the transform
+    (and keys its cached LUT)."""
+    if col.dict_values is None:
+        if col.ltype.id not in (TypeId.VARCHAR, TypeId.SQLNULL):
+            raise BindError(f"Binder Error: string function over {col.ltype!r} "
+                            "argument (no implicit cast)")
+        return _null_column(col, VARCHAR, np.array([""], dtype=object))  # fn(NULL)
+    dvals = col.dict_values
+    dev = col.data.device
+    nd = len(dvals)
+    res = None
+    if device is not None and nd >= dstr.DEVICE_STR_MIN_DICT:
+        res = dstr.device_transform_lut(dvals, device_key, device, dev)
+
+    def host():
+        dstr.note_host_loop(device_key, nd, dstr.DEVICE_STR_MIN_DICT)
+        new_vals = np.array([fn(s) for s in dvals] or [""], dtype=object)
+        uniq, inv = np.unique(new_vals.astype(str), return_inverse=True)
+        return torch.from_numpy(inv.reshape(-1).astype(np.int32)).to(dev), uniq.astype(object)
+
+    if res is None:
+        res = dstr.cached_lut(dvals, ("t_host", device_key, str(dev)), host)
+    remap, uniq = res
+    return Column(data=_gather(remap, col), ltype=VARCHAR, validity=col.validity,
+                  dict_values=uniq)
+
+
+def _dict_lut(col: Column, fn, device, device_key: str, ltype, np_dtype) -> Column:
+    """Per-distinct-value predicate (BOOLEAN) or integer fn (BIGINT) → a
+    LUT gathered by code; `device` (a plane op) computes it on the
+    column's device from DEVICE_STR_MIN_DICT values."""
+    if col.dict_values is None:  # typed-NULL input
+        return _null_column(col, ltype)
+    dvals = col.dict_values
+    dev = col.data.device
+    nd = len(dvals)
+    lut = None
+    if device is not None and nd >= dstr.DEVICE_STR_MIN_DICT:
+        lut = dstr.device_value_lut(dvals, device_key, device, dev)
+
+    def host():
+        dstr.note_host_loop(device_key, nd, dstr.DEVICE_STR_MIN_DICT)
+        vals = np.fromiter((fn(s) for s in dvals), dtype=np_dtype, count=nd)
+        return torch.from_numpy(vals if nd else np.zeros(1, np_dtype)).to(dev)
+
+    if lut is None:
+        lut = dstr.cached_lut(dvals, ("v_host", device_key, str(dev)), host)
+    return Column(data=_gather(lut, col).to(ltype.torch_dtype), ltype=ltype,
+                  validity=col.validity)
+
+
+def dict_predicate(col: Column, fn, device=None, device_key: str = "") -> Column:
+    return _dict_lut(col, fn, device, device_key, BOOLEAN, np.bool_)
+
+
+def dict_int(col: Column, fn, device=None, device_key: str = "") -> Column:
+    return _dict_lut(col, fn, device, device_key, BIGINT, np.int64)
+
+
+def duckdb_substring(s: str, start: int, length: Optional[int]) -> str:
+    """DuckDB's substring (function/scalar/string/substring.cpp,
+    SubstringStartEnd): a 1-based start; 0 starts one character before
+    the first; a negative start counts from the end (clamped at the
+    first character); a negative length takes the characters before the
+    start; no length takes the rest."""
+    n = len(s)
+    if length is None:
+        length = (1 << 32) - 1
+    if length == 0:
+        return ""
+    if start > 0:
+        lo = min(n, start - 1)
+    elif start < 0:
+        lo = max(n + start, 0)
+    else:
+        lo = 0
+        length -= 1
+        if length <= 0:
+            return ""
+    if length > 0:
+        return s[lo:min(n, lo + length)]
+    return s[max(0, lo + length):lo]
 
 
 # -- date part extraction ----------------------------------------------------
@@ -208,3 +327,109 @@ def _bind_coalesce(arg_exprs):
         return Column(data=data, ltype=t, validity=vmask)
 
     return t, impl, arg_exprs
+
+
+# -- string functions -----------------------------------------------------------
+@register("substring")
+@register("substr")
+def _bind_substring(arg_exprs):
+    """substring(s, start[, length]) with constant start and length, by
+    DuckDB's rules (`duckdb_substring`). A start ≥ 0 with a length ≥ 0 (or
+    none) runs as the plane op; a negative start or length takes the host
+    loop. (The JAX package slices Python strings at start - 1, which gives
+    '' for a start of 0 and counts a negative start one off: ROADMAP
+    Queue 3.)"""
+    start = arg_exprs[1].const_value()
+    length = arg_exprs[2].const_value() if len(arg_exprs) > 2 else None
+    null = start is None or (len(arg_exprs) > 2 and length is None)
+    s = None if null else int(start)
+    ln = None if length is None else int(length)
+
+    def impl(env, cols, node):
+        c = cols[0]
+        if null:
+            return _null_column(c, VARCHAR, np.array([""], dtype=object))
+        dev = None
+        if s >= 0 and (ln is None or ln >= 0):
+            # a start of 0 begins one character before the first
+            s0 = max(s - 1, 0)
+            n = ln if s > 0 or ln is None else max(ln - 1, 0)
+            dev = lambda p, le: dstr.op_substring(p, le, s0, n)  # noqa: E731
+        return dict_transform(c, lambda x: duckdb_substring(x, s, ln), device=dev,
+                              device_key=f"substr:{s}:{ln}")
+
+    return VARCHAR, impl, arg_exprs[:1]
+
+
+def _bind_case(upper: bool):
+    def bind(arg_exprs):
+        def impl(env, cols, node):
+            return dict_transform(cols[0], str.upper if upper else str.lower,
+                                  device=lambda p, le: dstr.op_case(p, le, upper),
+                                  device_key=f"case:{upper}")
+        return VARCHAR, impl, arg_exprs
+    return bind
+
+
+REGISTRY["upper"] = REGISTRY["ucase"] = _bind_case(True)
+REGISTRY["lower"] = REGISTRY["lcase"] = _bind_case(False)
+
+
+def _bind_trim(left: bool, right: bool):
+    def bind(arg_exprs):
+        chars = " " if len(arg_exprs) < 2 else str(arg_exprs[1].const_value())
+        host = {(True, True): str.strip, (True, False): str.lstrip,
+                (False, True): str.rstrip}[(left, right)]
+
+        def impl(env, cols, node):
+            dev = None
+            if chars.isascii():
+                cb = chars.encode("ascii")
+                dev = lambda p, le: dstr.op_trim(p, le, cb, left, right)  # noqa: E731
+            return dict_transform(cols[0], lambda x: host(x, chars), device=dev,
+                                  device_key=f"trim:{left}:{right}:{chars}")
+        return VARCHAR, impl, arg_exprs[:1]
+    return bind
+
+
+REGISTRY["trim"] = _bind_trim(True, True)
+REGISTRY["ltrim"] = _bind_trim(True, False)
+REGISTRY["rtrim"] = _bind_trim(False, True)
+
+
+@register("length")
+@register("len")
+@register("strlen")
+def _bind_length(arg_exprs):
+    def impl(env, cols, node):
+        return dict_int(cols[0], len, device=lambda p, le: le, device_key="len")
+
+    return BIGINT, impl, arg_exprs
+
+
+def _bind_str_predicate(name: str, host: Callable[[str, str], bool], op: Callable):
+    """contains / prefix / suffix with a constant needle; a NULL needle
+    gives NULL."""
+    def bind(arg_exprs):
+        needle = arg_exprs[1].const_value()
+
+        def impl(env, cols, node):
+            if needle is None:
+                return _null_column(cols[0], BOOLEAN)
+            needle_s = str(needle)
+            dev = None
+            if needle_s.isascii():
+                dev = lambda p, le: op(p, le, needle_s)  # noqa: E731
+            return dict_predicate(cols[0], lambda x: host(x, needle_s), device=dev,
+                                  device_key=f"{name}:{needle_s}")
+        return BOOLEAN, impl, arg_exprs[:1]
+    return bind
+
+
+REGISTRY["contains"] = _bind_str_predicate("contains", lambda s, n: n in s,
+                                           dstr.op_contains)
+REGISTRY["starts_with"] = REGISTRY["prefix"] = _bind_str_predicate(
+    "prefix", str.startswith, dstr.op_prefix)
+# the reference registers these in functions_ext.py (ROADMAP item 27)
+REGISTRY["ends_with"] = REGISTRY["suffix"] = _bind_str_predicate(
+    "suffix", str.endswith, dstr.op_suffix)

@@ -19,7 +19,8 @@ pool where its value over no rows is not NULL), and an uncorrelated
 scalar subquery becomes a constant computed once (`BoundScalarSubquery`).
 On top come GROUP BY with aggregates, HAVING, the projection, DISTINCT,
 ORDER BY and LIMIT/OFFSET. Keys, output names and join orders match the
-reference's for these shapes. IN/EXISTS outside a WHERE conjunct (MARK
+reference's for these shapes, as do its aggregate aliases and the FILTER
+clause's rewrite into CASE WHEN. IN/EXISTS outside a WHERE conjunct (MARK
 joins), LATERAL, WITH RECURSIVE, USING and NATURAL joins, table functions,
 joins without an equi-join condition, set operations and windows are not
 yet ported and say so.
@@ -43,9 +44,12 @@ from duckdb_tpu_torch.planner.binder import (
     ExprBinder,
     Scope,
 )
+from duckdb_tpu_torch.execution.aggregate_exec import VARIANCE_AGGS
+from duckdb_tpu_torch.execution.aggregate_stats import STAT_AGGS
 from duckdb_tpu_torch.planner.bound import not_ported
 from duckdb_tpu_torch.types import (
     BIGINT,
+    BOOLEAN,
     DOUBLE,
     HUGEINT,
     SQLNULL,
@@ -55,8 +59,41 @@ from duckdb_tpu_torch.types import (
     max_logical_type,
 )
 
-# aggregates the fused pipeline computes (execution/fused_agg.py)
-_PORTED_AGGS = {"sum", "count", "count_star", "avg", "min", "max"}
+# aggregates the port computes: sum, count, avg and min/max over numbers
+# fuse (execution/fused_agg.py), every other takes the general path
+# (execution/aggregate_exec.py, aggregate_stats.py)
+_PORTED_AGGS = {
+    "sum", "count", "count_star", "avg", "min", "max", "fsum", "bool_and", "bool_or",
+    "first", "last", "any_value", "arg_min", "arg_max", "arg_min_null", "arg_max_null",
+    "product", "median", "quantile_cont", "quantile_disc", "mode", "stddev",
+    "stddev_samp", "stddev_pop", "var_samp", "var_pop", "variance",
+} | STAT_AGGS
+
+# aggregates the JAX package computes and the port refuses, with the ROADMAP
+# item each waits for
+_REFUSED_AGGS = {
+    "bit_and": "24 (ops/scan.jit_ascan)", "bit_or": "24 (ops/scan.jit_ascan)",
+    "bit_xor": "24 (ops/scan.jit_ascan)", "approx_count_distinct": "24 (ops/hash)",
+    **{f: "27 (functions_nested.encode_objects)"
+       for f in ("histogram", "approx_top_k", "bitstring_agg", "histogram_exact", "lttb",
+                 "list", "array_agg", "string_agg")},
+}
+
+# the reference's aggregate aliases (duckdb_tpu/planner/planner.py)
+_AGG_ALIASES = {
+    "mean": "avg", "group_concat": "string_agg", "listagg": "string_agg",
+    "quantile": "quantile_disc", "approx_quantile": "quantile_cont",
+    "arbitrary": "first", "argmax": "arg_max", "argmin": "arg_min", "max_by": "arg_max",
+    "min_by": "arg_min", "favg": "avg", "sumkahan": "fsum", "kahan_sum": "fsum",
+    "sum_no_overflow": "sum", "reservoir_quantile": "quantile_disc",
+    # NULL by-values sort last, as the base arg_min/arg_max already do
+    "arg_max_nulls_last": "arg_max", "arg_min_nulls_last": "arg_min",
+}
+
+_AGG_ARITY = {"arg_min": 2, "arg_max": 2, "arg_min_null": 2, "arg_max_null": 2,
+              "corr": 2, "covar_pop": 2, "covar_samp": 2, "regr_slope": 2,
+              "regr_intercept": 2, "regr_r2": 2, "regr_count": 2, "regr_avgx": 2,
+              "regr_avgy": 2, "regr_sxx": 2, "regr_syy": 2, "regr_sxy": 2}
 
 
 @dataclass
@@ -740,26 +777,45 @@ class Planner:
     def _bind_aggregate_call(self, fc: N.FunctionCall, binder,
                              aggs: List[B.BoundAggregate]):
         name = fc.name.lower()
-        if fc.filter is not None or fc.order_by:
-            raise not_ported("FILTER and ORDER BY inside an aggregate")
+        if fc.filter is not None:
+            # agg(x) FILTER (WHERE p) ≡ agg(CASE WHEN p THEN x END): every
+            # aggregate but count(*) ignores NULL inputs, and count(*)
+            # becomes count(CASE WHEN p THEN 1 END)
+            def case(a):
+                return N.CaseExpr(None, [(fc.filter, a)], None)
+
+            args = [case(N.Literal(1))] if fc.is_star or not fc.args \
+                else [case(fc.args[0])] + list(fc.args[1:])
+            fc = N.FunctionCall("count" if fc.is_star or not fc.args else fc.name, args,
+                                distinct=fc.distinct, order_by=fc.order_by)
+            name = fc.name.lower()
         if name == "count" and fc.is_star:
             func, args = "count_star", []
         else:
-            func = {"mean": "avg"}.get(name, name)
+            func = _AGG_ALIASES.get(name, name)
+            if func in _REFUSED_AGGS:
+                raise not_ported(f"the aggregate {name}() (ROADMAP item {_REFUSED_AGGS[func]})")
             if func not in _PORTED_AGGS:
                 raise not_ported(f"the aggregate {name}()")
-            if len(fc.args) != 1:
-                raise BindError(f"Binder Error: {func} takes exactly one argument")
             args = [binder.bind(a) for a in fc.args]
+        arity = _AGG_ARITY.get(func)
+        if arity is not None and len(args) != arity:
+            raise BindError(f"Binder Error: {func} requires {arity} arguments, "
+                            f"{len(args)} given")
+        if not args and func != "count_star":
+            raise BindError(f"Binder Error: {func} requires at least one argument")
         t = _agg_result_type(func, args)
+        order_by = [(binder.bind(it.expr), it.descending, it.nulls_first)
+                    for it in fc.order_by]
         distinct = fc.distinct and func not in ("min", "max")  # the same either way
         # dedup structurally identical aggregates
         for a in aggs:
-            if (a.func == func and a.distinct == distinct and len(a.args) == len(args)
+            if (a.func == func and a.distinct == distinct and not a.order_by
+                    and not order_by and len(a.args) == len(args)
                     and all(_bound_eq(x, y) for x, y in zip(a.args, args))):
                 return B.BoundAggregateRef(a.key, a.ltype)
         key = self.fresh(f"agg.{func}")
-        aggs.append(B.BoundAggregate(func, args, distinct, t, key))
+        aggs.append(B.BoundAggregate(func, args, distinct, t, key, order_by=order_by))
         return B.BoundAggregateRef(key, t)
 
     # -- subqueries -------------------------------------------------------------
@@ -1159,9 +1215,16 @@ def _bound_eq(a: B.BoundExpr, b: B.BoundExpr) -> bool:
 
 
 def _agg_result_type(func: str, args) -> LogicalType:
-    if func in ("count", "count_star"):
+    """The reference's result types (duckdb_tpu/planner/planner.py)."""
+    if func in ("count", "count_star", "regr_count", "count_if", "countif"):
         return BIGINT
+    if func in STAT_AGGS or func in ("fsum", "product") or func in VARIANCE_AGGS:
+        return DOUBLE
+    if func in ("bool_and", "bool_or"):
+        return BOOLEAN
     t = args[0].ltype if args else SQLNULL
+    if func in ("median", "quantile_cont"):
+        return t if t.id is TypeId.VARCHAR else DOUBLE
     if func == "sum":
         if t.id is TypeId.DECIMAL:
             return decimal(38, t.scale)
@@ -1175,7 +1238,7 @@ def _agg_result_type(func: str, args) -> LogicalType:
         return BIGINT
     if func == "avg":
         return DOUBLE
-    return t  # min / max
+    return t  # min / max / first / last / any_value / arg_* / mode / quantile_disc
 
 
 class _PostAggBinder(ExprBinder):

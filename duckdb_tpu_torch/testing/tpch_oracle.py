@@ -1,5 +1,5 @@
-"""TPC-H Q2, Q3, Q4, Q5, Q7, Q8, Q9, Q10, Q11, Q12, Q13, Q14, Q15, Q16, Q17,
-Q18, Q19, Q20 and Q21, and a Q13 variant, answered with numpy alone.
+"""TPC-H Q2 to Q22 (all but Q1), a Q13 variant and a general-aggregate
+query, answered with numpy alone.
 
 An independent implementation of these queries over a directory that
 testing/tpch_gen.py wrote: money in int64 cents with exact DECIMAL
@@ -14,7 +14,9 @@ factoring, outer joins) and LIKE_QUERIES (LIKE, count(DISTINCT); the
 oracle matches text with np.char find/startswith/endswith, not regexes)
 hold the texts of DuckDB's TPC-H extension
 (extension/tpch/dbgen/queries/qNN.sql) with the specification's validation
-parameters (Q11's fraction is DuckDB's 0.0001000000). `q13_nolike` is Q13
+parameters (Q11's fraction is DuckDB's 0.0001000000); GENERAL_QUERIES holds
+Q6, Q22 and `general_agg`, one query over lineitem with every kind of
+aggregate the engine's general path computes. `q13_nolike` is Q13
 with the `o_comment NOT LIKE '%special%requests%'` conjunct dropped from its
 ON clause and nothing else changed.
 `answer(name, data_dir, **params)` returns the rows as `Result.rows()`
@@ -301,6 +303,49 @@ WHERE s_suppkey IN (
                 AND l_shipdate < CAST('1995-01-01' AS date)))
   AND s_nationkey = n_nationkey AND n_name = 'CANADA'
 ORDER BY s_name
+""",
+}
+
+# the general-aggregate slice: Q6 (fused, one slot), Q22 (a computed VARCHAR
+# group key, so the general path) and GENERAL_AGGREGATE, which runs every
+# kind of aggregate the general path adds over lineitem
+GENERAL_QUERIES = {
+    "q06": """
+SELECT sum(l_extendedprice * l_discount) AS revenue
+FROM lineitem
+WHERE l_shipdate >= CAST('1994-01-01' AS date)
+  AND l_shipdate < CAST('1995-01-01' AS date)
+  AND l_discount BETWEEN 0.05 AND 0.07
+  AND l_quantity < 24
+""",
+    "q22": """
+SELECT cntrycode, count(*) AS numcust, sum(c_acctbal) AS totacctbal
+FROM (
+    SELECT substring(c_phone FROM 1 FOR 2) AS cntrycode, c_acctbal
+    FROM customer
+    WHERE substring(c_phone FROM 1 FOR 2) IN ('13', '31', '23', '29', '30', '18', '17')
+      AND c_acctbal > (
+          SELECT avg(c_acctbal) FROM customer
+          WHERE c_acctbal > 0.00
+            AND substring(c_phone FROM 1 FOR 2) IN ('13', '31', '23', '29', '30', '18', '17'))
+      AND NOT EXISTS (SELECT * FROM orders WHERE o_custkey = c_custkey)) AS custsale
+GROUP BY cntrycode
+ORDER BY cntrycode
+""",
+    "general_agg": """
+SELECT l_returnflag, l_linestatus,
+  stddev_samp(l_quantity) AS sd_qty, var_pop(l_extendedprice) AS var_price,
+  median(l_quantity) AS med_qty, quantile_disc(l_extendedprice, 0.9) AS p90_price,
+  mode(l_shipmode) AS top_mode,
+  first(l_orderkey ORDER BY l_extendedprice DESC) AS top_order,
+  arg_max(l_partkey, l_quantity) AS big_part, bool_or(l_quantity > 49) AS any_full,
+  product(1 + l_discount) FILTER (WHERE l_orderkey < 1000) AS growth,
+  count(*) FILTER (WHERE l_discount > 0.05) AS n_disc,
+  min(l_shipinstruct) AS first_instr, max(l_comment) AS last_comment,
+  corr(l_quantity, l_extendedprice) AS corr_qp
+FROM lineitem
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus
 """,
 }
 
@@ -792,17 +837,108 @@ def q20(t, color: str = "forest", nation: str = "CANADA"):
     return [(names[i].decode(), addr[i].decode()) for i in order]
 
 
+def q06(t):
+    """Revenue of the year's discounted small lines: sum(price × discount),
+    DECIMAL scale 4 (NULL over no line)."""
+    ship, disc, qty = (t("lineitem", c) for c in ("l_shipdate", "l_discount", "l_quantity"))
+    ok = ((ship >= _day("1994-01-01")) & (ship < _day("1995-01-01"))
+          & (disc >= 5) & (disc <= 7) & (qty < 2400))
+    if not ok.any():
+        return [(None,)]
+    return [(_dec(int((t("lineitem", "l_extendedprice")[ok] * disc[ok]).sum()), 4),)]
+
+
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def q22(t, codes=Q22_CODES):
+    """Customers without orders whose phone's country code is listed and
+    whose balance is above the average positive balance of those codes:
+    their count and balance per code. avg(DECIMAL) is double(sum) /
+    (double(n) × 100), and the DECIMAL balance compares with it as a
+    double."""
+    cc = t("customer", "c_phone").astype("S2")  # the first two characters
+    bal = t("customer", "c_acctbal")
+    listed = np.isin(cc, [c.encode() for c in codes])
+    pos = listed & (bal > 0)
+    avg = float(bal[pos].sum()) / (float(pos.sum()) * 100.0)
+    no_order = ~np.isin(t("customer", "c_custkey"), t("orders", "o_custkey"))
+    ok = listed & (bal / 100.0 > avg) & no_order
+    uniq, inv = np.unique(cc[ok], return_inverse=True)
+    counts = np.bincount(inv.reshape(-1), minlength=len(uniq))
+    sums = np.zeros(len(uniq), dtype=np.int64)
+    np.add.at(sums, inv.reshape(-1), bal[ok])
+    return [(u.decode(), int(n), _dec(s, 2)) for u, n, s in zip(uniq, counts, sums)]
+
+
+def _exact_dot(a: np.ndarray, b: np.ndarray) -> int:
+    """Σ a·b of int64 vectors as a Python int (the products fit int64; the
+    sum is taken in chunks so that no partial sum overflows)."""
+    prod = a * b
+    return sum(int(prod[i:i + (1 << 16)].sum()) for i in range(0, len(prod), 1 << 16))
+
+
+def general_agg(t):
+    """GENERAL_QUERIES["general_agg"] per (returnflag, linestatus): the
+    variance family and corr from exact integer moment sums, the median
+    interpolated, quantile_disc, mode, first/arg_max, bool_or, product,
+    count FILTER and string min/max. quantile_disc(x, 0.9) takes the value
+    at floor or ceil of the reference's position start + (n − 1)·0.9 in
+    float64 (ceil when its fraction is above 0.5), where start is the
+    number of rows in the groups before (they sort by the same keys as
+    the output)."""
+    import math
+
+    li = {c: t("lineitem", c) for c in (
+        "l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice", "l_discount",
+        "l_orderkey", "l_partkey", "l_shipmode", "l_shipinstruct", "l_comment")}
+    rf, ls = li["l_returnflag"], li["l_linestatus"]
+    rows, start = [], 0
+    for r, s in sorted(set(zip(rf.tolist(), ls.tolist()))):
+        idx = np.flatnonzero((rf == r) & (ls == s))
+        n = len(idx)
+        q, p = li["l_quantity"][idx], li["l_extendedprice"][idx]
+        sq, sp = int(q.sum()), int(p.sum())
+        dq = n * _exact_dot(q, q) - sq * sq  # n²·var_pop, in cents²
+        dp = n * _exact_dot(p, p) - sp * sp
+        sd_qty = math.sqrt(dq / (n * (n - 1) * 10 ** 4)) if n > 1 else None
+        var_price = dp / (n * n * 10 ** 4)
+        qs = np.sort(q)
+        half = (n - 1) * 0.5
+        lo_f, hi_f = int(qs[math.floor(half)]) / 100.0, int(qs[math.ceil(half)]) / 100.0
+        med = lo_f + (hi_f - lo_f) * (half - math.floor(half))
+        ps = np.sort(p)
+        fpos = float(start) + float(n - 1) * 0.9
+        k = math.ceil(fpos) if fpos - math.floor(fpos) > 0.5 else math.floor(fpos)
+        modes, mode_n = np.unique(li["l_shipmode"][idx], return_counts=True)
+        sel = li["l_orderkey"][idx] < 1000
+        growth = (float(np.prod((100 + li["l_discount"][idx][sel]) / 100.0))
+                  if sel.any() else None)
+        num = n * _exact_dot(q, p) - sq * sp
+        corr = num / (math.sqrt(dq) * math.sqrt(dp))
+        rows.append((
+            r.decode(), s.decode(), sd_qty, var_price, med, _dec(ps[k - start], 2),
+            modes[np.argmax(mode_n)].decode(), int(li["l_orderkey"][idx][np.argmax(p)]),
+            int(li["l_partkey"][idx][np.argmax(q)]), bool((q > 4900).any()), growth,
+            int((li["l_discount"][idx] > 5).sum()), min(li["l_shipinstruct"][idx]).decode(),
+            max(li["l_comment"][idx]).decode(), corr))
+        start += n
+    return rows
+
+
 _ANSWERS = {"q02": q02, "q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q08,
             "q09": q09, "q10": q10, "q11": q11, "q12": q12, "q13": q13,
             "q13_nolike": q13_nolike, "q14": q14, "q15": q15, "q16": q16, "q17": q17,
-            "q18": q18, "q19": q19, "q20": q20, "q21": q21}
+            "q18": q18, "q19": q19, "q20": q20, "q21": q21, "q06": q06, "q22": q22,
+            "general_agg": general_agg}
 
 
 def answer(name: str, data_dir: str, **params):
     """Rows of query `name` (a key of QUERIES, SUBQUERY_QUERIES,
-    FROM_QUERIES or LIKE_QUERIES) over data_dir; params go to the query's
+    FROM_QUERIES, LIKE_QUERIES or GENERAL_QUERIES) over data_dir; params go
+    to the query's
     answer (Q2's `size`/`type_suffix`/`region`, Q7's `nation1`/`nation2`,
     Q8's `nation`/`region`/`ptype`, Q9's `color`, Q11's `nation`, Q13's
     `words`, Q14's `type_prefix`, Q16's `remark`, Q18's `threshold`, Q20's
-    `color`/`nation`)."""
+    `color`/`nation`, Q22's `codes`)."""
     return _ANSWERS[name](_Tables(data_dir), **params)

@@ -379,3 +379,80 @@ def test_like_queries_on_cuda(tmp_path):
             "SELECT CAST(o_custkey % 7 AS DOUBLE) AS g, count(DISTINCT o_orderpriority) "
             "FROM orders GROUP BY g ORDER BY g"):
         assert con.sql(sql).rows() == cpu.sql(sql).rows(), sql
+
+
+@pytest.mark.gpu
+def test_string_plane_ops_on_cuda_match_host(tmp_path):
+    """Every plane op of ops/strings on the card equals its host function
+    (testing/plane_checks) over c_phone, c_comment, p_name and o_comment at
+    SF 0.01, and a transform's LUT stays on the card."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.ops import strings as TS
+    from duckdb_tpu_torch.testing import plane_checks
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect(device="cpu")
+    con.load_tpch(str(tmp_path))
+    for table, col in (("customer", "c_phone"), ("customer", "c_comment"),
+                       ("part", "p_name"), ("orders", "o_comment")):
+        dvals = con.catalog.get_table(table).host_column(col)[2]
+        assert plane_checks.check_dictionary(dvals, torch.device("cuda")) == [], col
+        remap, _ = TS.device_transform_lut(dvals, "gpu:upper",
+                                           lambda p, le: TS.op_case(p, le, True),
+                                           torch.device("cuda"))
+        assert remap.is_cuda
+
+
+@pytest.mark.gpu
+def test_general_aggregates_on_cuda_match_cpu(tmp_path, monkeypatch):
+    """The general aggregate path on the card equals its CPU run (DOUBLE
+    within 1e-9 relative: the card's float sums take another order), and
+    Q6, Q22 (its substring on the plane path) and the general-aggregate
+    query equal the numpy oracle there."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.ops import strings as TS
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    monkeypatch.setattr(TS, "DEVICE_STR_MIN_DICT", 100)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path))
+
+    def same(got, want):
+        assert len(got) == len(want) and want
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if isinstance(b, float) and b == b:
+                    assert a == pytest.approx(b, rel=1e-9, abs=0.0), (g, w)
+                elif isinstance(b, float):
+                    assert a != a, (g, w)
+                else:
+                    assert a == b and type(a) is type(b), (g, w)
+
+    aggs = ("stddev_samp(o_totalprice), var_pop(o_custkey), median(o_totalprice), "
+            "quantile_disc(o_orderdate, 0.9), mode(o_orderstatus), "
+            "first(o_orderkey ORDER BY o_totalprice DESC), last(o_orderkey), "
+            "arg_max(o_comment, o_totalprice), bool_or(o_orderstatus = 'P'), "
+            "product(1 + o_custkey % 3) FILTER (WHERE o_orderkey < 300), "
+            "count(*) FILTER (WHERE o_totalprice > 150000), min(o_comment), "
+            "max(o_clerk), corr(o_totalprice, o_custkey), skewness(o_totalprice), "
+            "entropy(o_orderstatus), mad(o_totalprice), count(DISTINCT o_custkey)")
+    for sql in (f"SELECT o_orderpriority, {aggs} FROM orders GROUP BY 1 ORDER BY 1",
+                f"SELECT CAST(o_custkey % 5 AS DOUBLE) AS g, {aggs} FROM orders "
+                "GROUP BY g ORDER BY g",
+                f"SELECT {aggs} FROM orders",
+                f"SELECT c_nationkey, {aggs} FROM customer LEFT JOIN orders "
+                "ON c_custkey = o_custkey AND o_totalprice > 400000 GROUP BY 1 ORDER BY 1",
+                "SELECT substring(o_comment, 1, 1) AS k, count(*), median(o_totalprice) "
+                "FROM orders GROUP BY k ORDER BY k"):
+        same(con.sql(sql).rows(), cpu.sql(sql).rows())
+    TS.host_loop_events.clear()
+    for name, sql in tpch_oracle.GENERAL_QUERIES.items():
+        same(con.sql(sql).rows(), tpch_oracle.answer(name, str(tmp_path)))
+    assert TS.host_loop_events == []

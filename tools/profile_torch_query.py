@@ -48,7 +48,8 @@ def main() -> int:
     from duckdb_tpu_torch.testing.tpch_gen import TABLE_COLUMNS, write_tables
 
     queries = {"q01": chip_smoke.Q1, **tpch_oracle.QUERIES, **tpch_oracle.SUBQUERY_QUERIES,
-               **tpch_oracle.FROM_QUERIES, **tpch_oracle.LIKE_QUERIES}
+               **tpch_oracle.FROM_QUERIES, **tpch_oracle.LIKE_QUERIES,
+               **tpch_oracle.GENERAL_QUERIES}
     sql = queries[args.query]
 
     card = subprocess.run(
