@@ -75,7 +75,30 @@ Phases (any failure exits non-zero before the result lines):
    function as a host loop; each query's warm median, rows/s (customer
    for Q22) and host syncs; then every plane op of ops/strings on the card
    against its host function (testing/plane_checks) over c_phone, p_name
-   and o_comment, and the time of Q22's substring op on c_phone's plane.
+   and o_comment, and the time of Q22's substring op on c_phone's plane;
+11. casts, the extended function library, the bit and HLL aggregates and
+   SELECT without FROM: the four FUNCTION_QUERIES of testing/tpch_oracle.py
+   (fn_dates: date_trunc, date_diff, last_day, dayname, isodow over
+   lineitem; fn_math: DuckDB's truncating % and //, greatest, nullif, if,
+   gcd, bit_xor/bit_or/bit_and, hash, approx_count_distinct, ln and the
+   geomean macro over lineitem; fn_strings: left, strpos, initcap, reverse,
+   lpad, right and ascii over part; fn_casts: strftime, TIMESTAMP →
+   VARCHAR, strpos and ascii over orders), the same way: rows against the
+   numpy oracle (approx_count_distinct equal to a numpy HyperLogLog with
+   the same hash and registers, and within three of HLL's standard errors,
+   6.9%, of the exact distinct count), the route asserted (the general
+   path, perfect but for fn_dates' sort-group over its computed TIMESTAMP
+   key; no eager join), all four launch the grouped sum (the bit
+   aggregates count bits through it), whose result equals its plain
+   version on every input they gave it and is timed at each shape;
+   strpos, left, right and reverse over p_name's dictionary, initcap over
+   reverse's result and strpos and ascii over o_comment's must have run as
+   plane ops and no string function as a host loop; each query's warm
+   median, rows/s and host syncs. Then hash64 on the card equals the
+   CPU's bit for bit over l_orderkey, and SELECTs without FROM give
+   DuckDB's answers: greatest(1, NULL, 3) = 3, -7 % 3 = -1, -7 // 2 = -3,
+   and CAST('1e309' AS DOUBLE) raises where TRY_CAST gives NULL. (Phase 10's
+   plane-op check covers the new plane ops too.)
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -487,6 +510,64 @@ def plane_ops(con, card: str) -> str:
     return ""
 
 
+# HyperLogLog's relative standard error with 2,048 registers is
+# 1.04 / sqrt(2048) = 2.3%; an estimate more than three of them off the
+# exact count is a fault, not chance
+HLL_MAX_REL_ERR = 3 * 1.04 / 2048 ** 0.5
+
+
+def hll_near_exact(rows) -> str:
+    """fn_math's approx_count_distinct (column 12) within HLL_MAX_REL_ERR of
+    the exact distinct l_partkey count of each group; '' when it is."""
+    from duckdb_tpu_torch.testing import tpch_oracle
+
+    exact = tpch_oracle.fn_math_distinct(tpch_oracle._Tables(DATA))
+    bad = ""
+    for r, n in zip(rows, exact):
+        rel = abs(r[12] - n) / n
+        print(f"approx_count_distinct({r[0]}, {r[1]}): {r[12]} against {n} distinct "
+              f"({100 * rel:.3f}% off; limit {100 * HLL_MAX_REL_ERR:.2f}%)")
+        if rel > HLL_MAX_REL_ERR:
+            bad = f"fn_math: approx_count_distinct {r[12]} is {100 * rel:.3f}% off {n}"
+    return bad
+
+
+def functions_end(con, card: str) -> str:
+    """hash64 on the card equals the CPU's bit for bit over l_orderkey, and
+    SELECT without FROM gives DuckDB's answers for greatest with a NULL,
+    truncating % and //, and a text value beyond DOUBLE's range; '' when
+    they do."""
+    import decimal
+
+    import torch
+
+    from duckdb_tpu_torch.ops.hash import hash64
+    from duckdb_tpu_torch.planner.bound import BindError
+    from duckdb_tpu_torch.errors import ConversionException
+
+    keys = con.catalog.get_table("lineitem").device_column("l_orderkey").data
+    ms = cuda_ms(lambda: hash64(keys), 20)
+    if not torch.equal(hash64(keys).cpu(), hash64(keys.cpu())):
+        return "hash64 on the card differs from the CPU's"
+    print(f"hash64 over l_orderkey ({keys.shape[0]} values) on {card}: equal to the CPU's "
+          f"bit for bit, {ms:.4f} ms on the card")
+    want = [(3, -1, -3, 1, -3, decimal.Decimal("3.0"))]
+    got = con.sql("SELECT greatest(1, NULL, 3), -7 % 3, -7 // 2, 7 % -3, 7 // -2, "
+                  "least(NULL, 3.0, 5)").rows()
+    if got != want:
+        return f"SELECT without FROM: {got}, DuckDB gives {want}"
+    if con.sql("SELECT TRY_CAST('1e309' AS DOUBLE), TRY_CAST('1e308' AS DOUBLE)").rows() \
+            != [(None, 1e308)]:
+        return "TRY_CAST('1e309' AS DOUBLE) is not NULL"
+    try:
+        con.sql("SELECT CAST('1e309' AS DOUBLE)").rows()
+        return "CAST('1e309' AS DOUBLE) did not raise"
+    except (BindError, ConversionException) as err:
+        print(f"SELECT without FROM on {card}: {got[0]} as DuckDB; CAST('1e309' AS DOUBLE) "
+              f"raises ({err}), TRY_CAST gives NULL")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -533,8 +614,10 @@ def main() -> int:
     def recording(dense, vectors, nseg):
         recorded.append((dense, list(vectors), nseg))
         frame = sys._getframe(1)
-        while frame is not None and os.path.basename(frame.f_code.co_filename) in (
-                "grouped.py", "chip_smoke.py"):
+        # the caller past ops/grouped and the general path's Groups helpers
+        while frame is not None and (
+                os.path.basename(frame.f_code.co_filename) in ("grouped.py", "chip_smoke.py")
+                or frame.f_code.co_name in ("reduce", "count", "<lambda>")):
             frame = frame.f_back
         site = "?" if frame is None else os.path.relpath(frame.f_code.co_filename, ROOT)
         calls_by_site[site] = calls_by_site.get(site, 0) + 1
@@ -623,6 +706,21 @@ def main() -> int:
                    "q16": {"eager_anti": 1}, "q20": {"eager_semi": 2}}
     # those that reach the grouped sum
     from_kernel = ("q08", "q15", "q19", "q09", "q14")
+    # phase 11: the routes each must show (no eager join), and the plane ops
+    # each must have run over a near-unique dictionary
+    function_routes = {
+        "fn_dates": {"general_aggregate": 1, "general_sort_group": 1},
+        "fn_math": {"general_aggregate": 1, "general_perfect": 1},
+        "fn_strings": {"general_aggregate": 1, "general_perfect": 1},
+        "fn_casts": {"general_aggregate": 1, "general_perfect": 1}}
+    p_name_values = len(con.catalog.get_table("part").host_column("p_name")[2])
+    o_comment_values = len(con.catalog.get_table("orders").host_column("o_comment")[2])
+    function_plane_ops = {
+        # initcap runs over reverse's result, a dictionary as long as p_name's
+        "fn_strings": [("left:[5]", p_name_values), ("strpos:green", p_name_values),
+                       ("reverse:[]", p_name_values), ("initcap:[]", p_name_values),
+                       ("right:[4]", p_name_values)],
+        "fn_casts": [("strpos:special", o_comment_values), ("ascii", o_comment_values)]}
     # phase 10: the routes each must show (every eager_* route listed)
     general_routes = {"q06": {"dense": 1},
                       "q22": {"dense": 1, "general_aggregate": 1, "general_perfect": 1,
@@ -630,11 +728,12 @@ def main() -> int:
                       "general_agg": {"general_aggregate": 1, "general_perfect": 1}}
     # rows/s over the table each query reads most of (lineitem otherwise)
     rate_table = {"q13_nolike": "customer", "q13": "customer", "q02": "partsupp",
-                  "q16": "partsupp", "q22": "customer"}
+                  "q16": "partsupp", "q22": "customer", "fn_strings": "part",
+                  "fn_casts": "orders"}
     c_phone_values = len(con.catalog.get_table("customer").host_column("c_phone")[2])
     for name, sql in {**tpch_oracle.QUERIES, **tpch_oracle.SUBQUERY_QUERIES,
                       **tpch_oracle.FROM_QUERIES, **tpch_oracle.LIKE_QUERIES,
-                      **tpch_oracle.GENERAL_QUERIES}.items():
+                      **tpch_oracle.GENERAL_QUERIES, **tpch_oracle.FUNCTION_QUERIES}.items():
         recorded.clear()
         grouped_mod.grouped_sum_i64 = recording
         GS.grouped_sum_i64.launches = 0
@@ -689,6 +788,23 @@ def main() -> int:
             if name == "q22" and ("substr:1:2", c_phone_values) not in TS.device_str_events:
                 return fail(f"Q22's substring over c_phone ({c_phone_values} values) did "
                             f"not run as a plane op: {TS.device_str_events}")
+        elif name in function_routes:
+            want_routes = function_routes[name]
+            if {k: routes.get(k) for k in want_routes} != want_routes or \
+                    any(k.startswith("eager_") for k in routes):
+                return fail(f"{name} missed its route {want_routes}: routes {routes}")
+            if q_launches < 1 or any(d.device.type != "cuda" for d, _, _ in recorded):
+                return fail(f"{name} did not launch the grouped sum on the card: "
+                            f"launches {q_launches} {q_regimes}")
+            missing = [e for e in function_plane_ops.get(name, [])
+                       if e not in TS.device_str_events]
+            if missing:
+                return fail(f"{name}: {missing} did not run as plane ops: "
+                            f"{TS.device_str_events}")
+            if name == "fn_math":
+                bad = hll_near_exact(got)
+                if bad:
+                    return fail(bad)
         elif routes.get("sort_group") != 1:
             return fail(f"{name} did not take the sort-group mode: routes {routes}")
         print(f"{name} (first run, columns load to the card): {first_s:.3f} s, {len(got)} "
@@ -696,6 +812,7 @@ def main() -> int:
               f"{q_launches} by regime {q_regimes}")
         for r in got[:3]:
             print("  ", r)
+        timed = set()
         for dense, vecs, nseg in recorded:
             err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
                               GS.grouped_sum_i64_plain(dense, vecs, nseg))
@@ -706,6 +823,12 @@ def main() -> int:
             if err:
                 return fail(f"grouped_sum_i64 disagrees with its plain version on {name}")
             worst = max(worst, err)
+            if name in function_routes:
+                # the general path repeats shapes (one call per aggregate):
+                # each is checked, the first of a shape timed
+                if (n_q, k_q, nseg) in timed:
+                    continue
+                timed.add((n_q, k_q, nseg))
             k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
             b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
             print(f"grouped_sum_i64 at {name}'s shape N={n_q} K={k_q} nseg={nseg} on "
@@ -715,7 +838,8 @@ def main() -> int:
             shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg,
                            "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
                            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
-        med, times = warm_median(con, sql, got, exact=name != "general_agg")
+        med, times = warm_median(con, sql, got,
+                                 exact=name not in ("general_agg", "fn_math"))
         if med is None:
             return fail(f"{name}: {times}")
         syncs = count_syncs(lambda: con.sql(sql).rows())
@@ -739,6 +863,11 @@ def main() -> int:
 
     # 10. (end) every string plane op on the card equals its host function
     bad = plane_ops(con, card)
+    if bad:
+        return fail(bad)
+
+    # 11. (end) hash64 on the card, and SELECT without FROM
+    bad = functions_end(con, card)
     if bad:
         return fail(bad)
 

@@ -15,7 +15,8 @@ import torch
 
 from duckdb_tpu_torch.catalog.catalog import Catalog
 from duckdb_tpu_torch.execution.executor import Executor, Result
-from duckdb_tpu_torch.planner.bound import not_ported
+from duckdb_tpu_torch.planner import macros as M
+from duckdb_tpu_torch.planner.bound import BindError, not_ported
 from duckdb_tpu_torch.planner.planner import Planner
 from duckdb_tpu_torch.sql import nodes as N
 from duckdb_tpu_torch.sql.parser import Parser
@@ -55,7 +56,13 @@ class Connection:
         if cached is None:
             planner = Planner(self.catalog, self.routes)
             try:
-                cached = planner.plan_select(stmts[0])
+                # macro calls expand first, so that planning sees the
+                # aggregates inside their bodies
+                stmt = M.expand_macros(stmts[0], M.default_macros())
+            except M.MacroError as err:
+                raise BindError(str(err)) from None
+            try:
+                cached = planner.plan_select(stmt)
             except BaseException:
                 self._drop_tables(planner.hidden_tables)
                 raise

@@ -34,9 +34,10 @@ ops/sort.sort_permutation over (group id, orderable value).
 
 Not carried over (TPU-only): the 22-bit f64 limbs of `_seg_sum`, the learned
 compaction caps and key bounds with their deferred re-runs, and the 62-bit
-word packing of the sort keys. bit_and/bit_or/bit_xor, approx_count_distinct
-and the nested-result aggregates are refused at bind time (ROADMAP items 24
-and 27).
+word packing of the sort keys. bit_and/bit_or/bit_xor count each bit per
+group (ops/scan.grouped_bitwise) instead of the reference's segmented scan;
+approx_count_distinct keeps the reference's HyperLogLog. The
+nested-result aggregates are refused at bind time (ROADMAP item 27).
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ from duckdb_tpu_torch.blocks import Column, pad_bucket
 from duckdb_tpu_torch.ops import sort as S
 from duckdb_tpu_torch.ops.compact import packed_indices
 from duckdb_tpu_torch.ops.grouped import grouped_reduce
+from duckdb_tpu_torch.ops.hash import clz64, hash64
+from duckdb_tpu_torch.ops.scan import BITWISE_KINDS, grouped_bitwise
 from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner import plan as P
 from duckdb_tpu_torch.planner.bound import not_ported
@@ -396,7 +399,53 @@ def _compute_agg(agg, inp, grp: Groups, extra=(), order_cols=()) -> Column:
         d = torch.sqrt(var) if f.startswith("stddev") else var
         return Column(data=d, ltype=DOUBLE, validity=cnt > (0 if pop else 1))
 
+    if f in BITWISE_KINDS:
+        d = grouped_bitwise(f, data, mask, lambda vs: grp.reduce(vs, ["sum"] * len(vs)), cnt)
+        return Column(data=d.to(c.data.dtype), ltype=agg.ltype, validity=nonempty)
+
+    if f == "approx_count_distinct":
+        return _approx_count_distinct(agg, c, data, mask, grp)
+
     raise not_ported(f"the aggregate {f}()")
+
+
+HLL_MAX_GROUPS = 2048  # above this many groups, the exact count
+HLL_P_BITS = 11
+HLL_REGISTERS = 1 << HLL_P_BITS
+
+
+def _approx_count_distinct(agg, c, data, mask, grp: Groups) -> Column:
+    """HyperLogLog as the reference computes it (aggregate_exec.py:947-985;
+    DuckDB's src/common/types/hyperloglog.cpp): 2,048 registers per group,
+    register = the low 11 bits of hash64 of the value's key, rho = leading
+    zeros of the other 53 bits plus one, the per-group register max, then
+    the raw estimate with the linear-counting correction, rounded. Above
+    HLL_MAX_GROUPS groups the exact distinct count stands in. (The
+    reference decides by its output capacity, which it learns across runs;
+    the port by the group count.) The register max is a scatter_reduce_
+    "amax": a max does not depend on the order of the writes."""
+    plen = grp.plen
+    if grp.n_groups > HLL_MAX_GROUPS:
+        from duckdb_tpu_torch.execution.fused_agg import _compute_distinct_agg_mask
+
+        return Column(data=grp.count(_compute_distinct_agg_mask(c, data, mask, grp.gids, plen)),
+                      ltype=BIGINT)
+    m = HLL_REGISTERS
+    nseg = grp.n_groups + 1  # one register row takes the dead rows
+    h = hash64(_key_data(c, plen))
+    idx = h & (m - 1)
+    rho = (clz64(h << HLL_P_BITS) + 1).clamp(max=64 - HLL_P_BITS + 1)
+    rho = torch.where(mask, rho, 0)
+    regs = torch.zeros(nseg * m, dtype=torch.int64, device=data.device)
+    regs.scatter_reduce_(0, grp.gids.clamp(0, nseg - 1) * m + idx, rho, reduce="amax")
+    r = regs.view(nseg, m)[:-1].to(torch.float64)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    est = alpha * m * m / torch.pow(2.0, -r).sum(dim=1)
+    zeros = (r == 0.0).sum(dim=1)
+    linear = m * torch.log(m / zeros.clamp(min=1).to(torch.float64))
+    est = torch.where((est <= 2.5 * m) & (zeros > 0), linear, est)
+    d = torch.round(est).to(torch.int64)
+    return Column(data=torch.cat([d, d.new_zeros(grp.G - grp.n_groups)]), ltype=BIGINT)
 
 
 def _pick_agg(agg, c, data, mask, grp: Groups, nonempty, extra, order_cols) -> Column:

@@ -207,6 +207,11 @@ class Result:
                 elif t.id is TypeId.TIMESTAMP:
                     out.append(datetime.datetime(1970, 1, 1)
                                + datetime.timedelta(microseconds=int(v)))
+                elif t.id is TypeId.TIMESTAMPTZ:
+                    out.append(datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+                               + datetime.timedelta(microseconds=int(v)))
+                elif t.id is TypeId.BLOB:
+                    out.append(bytes(dvals[v]))
                 elif t.id is TypeId.TIME:
                     us = int(v)
                     out.append(datetime.time(us // 3_600_000_000, us // 60_000_000 % 60,
@@ -285,6 +290,10 @@ class Executor:
         keymap = {key: col for col, key, _ in node.cols}
         live = torch.arange(plen, device=self.catalog.device) < entry.nrows
         return Batch(src=TableCols(entry, keymap, plen), plen=plen, live=live)
+
+    def _exec_ConstantRow(self, node: P.ConstantRow) -> Batch:
+        live = torch.arange(128, device=self.catalog.device) == 0
+        return Batch(src=DictCols({}), plen=128, live=live)
 
     def _exec_Filter(self, node: P.Filter) -> Batch:
         from duckdb_tpu_torch.execution.tracing import run_jitted

@@ -23,9 +23,11 @@ from duckdb_tpu_torch.ops import strings as dstr
 from duckdb_tpu_torch.sql import nodes as N
 from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner import functions as F
+from duckdb_tpu_torch.planner import macros as M
 from duckdb_tpu_torch.planner.bound import not_ported
 from duckdb_tpu_torch.types import (
     BIGINT,
+    BLOB,
     BOOLEAN,
     DATE,
     DOUBLE,
@@ -36,6 +38,7 @@ from duckdb_tpu_torch.types import (
     SQLNULL,
     TIME,
     TIMESTAMP,
+    TIMESTAMPTZ,
     TINYINT,
     VARCHAR,
     LogicalType,
@@ -215,9 +218,15 @@ _TYPE_NAMES = {
     "float": DOUBLE, "double": DOUBLE, "float8": DOUBLE,
     "varchar": VARCHAR, "text": VARCHAR, "string": VARCHAR, "char": VARCHAR,
     "bpchar": VARCHAR,
+    # JSON is VARCHAR storage in the reference; a UUID is its canonical
+    # lowercase text, whose order is the 128-bit value's
+    "json": VARCHAR, "uuid": VARCHAR, "guid": VARCHAR,
     "date": DATE, "timestamp": TIMESTAMP, "datetime": TIMESTAMP,
-    "time": TIME,
+    "time": TIME, "timestamptz": TIMESTAMPTZ, "timetz": TIME,
+    "blob": BLOB, "bytea": BLOB, "binary": BLOB, "varbinary": BLOB,
 }
+# type names of the reference that wait for a later ROADMAP item
+_LATER_TYPE_NAMES = {"bit": "27", "bitstring": "27"}
 
 
 def resolve_type_name(name: str, mods: Tuple[int, ...]) -> LogicalType:
@@ -228,7 +237,9 @@ def resolve_type_name(name: str, mods: Tuple[int, ...]) -> LogicalType:
         return decimal(w, s)
     if n in _TYPE_NAMES:
         return _TYPE_NAMES[n]
-    raise not_ported(f"the type {name}")
+    if n in _LATER_TYPE_NAMES:
+        raise not_ported(f"the type {name} (ROADMAP item {_LATER_TYPE_NAMES[n]})")
+    raise not_ported(f"the type {name} (nested and user types: ROADMAP items 27 and 34)")
 
 
 def bind_literal(lit: N.Literal) -> B.BoundExpr:
@@ -306,6 +317,10 @@ def _arith_result_type(op: str, lt: LogicalType, rt: LogicalType) -> LogicalType
             return decimal(min(38, intp + s), s)
         if op == "*":
             return decimal(min(38, dl.width + dr.width), dl.scale + dr.scale)
+        if op == "%":
+            # a remainder is no larger than the divisor, at the larger scale
+            s = max(dl.scale, dr.scale)
+            return decimal(min(38, max(dl.width - dl.scale, dr.width - dr.scale) + s), s)
         if op == "/":
             # duckdb's decimal division falls back to DOUBLE when the width
             # is unbounded (decimal_division.cpp); bind DOUBLE as the JAX
@@ -319,6 +334,10 @@ def _arith_result_type(op: str, lt: LogicalType, rt: LogicalType) -> LogicalType
                  TypeId.HUGEINT]
         return LogicalType(max(lt.id, rt.id, key=order.index))
     raise BindError(f"cannot apply {op} to {lt} and {rt}")
+
+
+_KEYWORD_FUNCTIONS = {"current_date": "today", "current_time": "now", "localtimestamp": "now",
+                      "current_timestamp": "now"}
 
 
 class ExprBinder:
@@ -349,7 +368,14 @@ class ExprBinder:
         return B.BoundLiteral(bind_interval(e.value, e.unit), INTERVAL)
 
     def _bind_ColumnRef(self, e: N.ColumnRef):
-        b = self.scope.resolve(e.parts)
+        try:
+            b = self.scope.resolve(e.parts)
+        except ColumnNotFound:
+            # keyword pseudo-columns, which DuckDB binds as functions
+            name = e.parts[0].lower() if len(e.parts) == 1 else None
+            if name in _KEYWORD_FUNCTIONS:
+                return self._bind_FunctionCall(N.FunctionCall(_KEYWORD_FUNCTIONS[name], []))
+            raise
         return B.BoundColumnRef(b.key, b.ltype)
 
     # -- operators -----------------------------------------------------------
@@ -374,16 +400,13 @@ class ExprBinder:
         return node
 
     def _bind_concat(self, e: N.BinaryOp):
-        """VARCHAR || VARCHAR (NULL || x is NULL). DuckDB casts any other
-        operand to VARCHAR first; that cast is not yet ported (ROADMAP item
-        26), so such an operand is refused."""
+        """VARCHAR || VARCHAR (NULL || x is NULL); DuckDB casts any other
+        operand to VARCHAR first."""
         args = []
         for side in (e.left, e.right):
             a = self.bind(side)
-            if a.ltype.id is TypeId.SQLNULL:
+            if a.ltype.id is not TypeId.VARCHAR:
                 a = B.BoundCast(a, VARCHAR)
-            elif a.ltype.id is not TypeId.VARCHAR:
-                raise not_ported(f"the cast {a.ltype!r} → VARCHAR for || (ROADMAP item 26)")
             args.append(a)
 
         def impl(env, cols, node):
@@ -526,6 +549,15 @@ class ExprBinder:
 
     def _bind_FunctionCall(self, e: N.FunctionCall):
         name = e.name.lower()
+        mac = M.default_macros().get(name)
+        if mac is not None and not mac.is_table:
+            pos, named = M.split_args(e.args)
+            try:
+                expanded = M.expand_call(mac, pos, named)
+            except M.MacroError as err:
+                raise BindError(str(err))
+            with M.expansion_guard(name):
+                return self.bind(expanded)
         if name in AGGREGATE_NAMES or (name == "count" and e.is_star):
             if self.agg_collector is None:
                 raise BindError(f"aggregate {name}() not allowed here")

@@ -20,6 +20,7 @@ the max scale, mul adds scales, division binds to DOUBLE.
 from __future__ import annotations
 
 import datetime
+import math
 import re
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
@@ -81,17 +82,21 @@ def _valid_or_ones(c: Column, plen: int, device) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # date math on device (days since 1970-01-01 → civil fields)
-# Branchless civil-from-days (Howard Hinnant's algorithm); `//` on integer
-# tensors floors, as the algorithm needs.
+# Branchless civil-from-days (Howard Hinnant's algorithm); the divisions
+# floor, as the algorithm needs for days before 1970.
+def _fdiv(x: torch.Tensor, k: int) -> torch.Tensor:
+    return torch.div(x, k, rounding_mode="floor")
+
+
 def civil_from_days(days: torch.Tensor):
     z = days.to(torch.int64) + 719468
-    era = torch.where(z >= 0, z, z - 146096) // 146097
+    era = _fdiv(torch.where(z >= 0, z, z - 146096), 146097)
     doe = z - era * 146097
-    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524) - _fdiv(doe, 146096), 365)
     y = yoe + era * 400
-    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
-    mp = (5 * doy + 2) // 153
-    d = doy - (153 * mp + 2) // 5 + 1
+    doy = doe - (365 * yoe + _fdiv(yoe, 4) - _fdiv(yoe, 100))
+    mp = _fdiv(5 * doy + 2, 153)
+    d = doy - _fdiv(153 * mp + 2, 5) + 1
     m = torch.where(mp < 10, mp + 3, mp - 9)
     y = torch.where(m <= 2, y + 1, y)
     return y, m, d
@@ -435,14 +440,17 @@ class BoundArithmetic(BoundExpr):
             elif self.op == "/":
                 d = x / y
             elif self.op == "%":
-                d = torch.remainder(x, y)  # floor mod, as jnp.mod
+                d = torch.fmod(x, y)  # DuckDB truncates: the dividend's sign
             else:
-                d = torch.floor_divide(x, y)
+                d = torch.div(x, y, rounding_mode="trunc")
             return Column(data=d, ltype=t, validity=v)
         if t.id is TypeId.DECIMAL:
             if self.op in ("+", "-"):
                 x, y, _ = _decimal_align(lc, rc)
                 d = x + y if self.op == "+" else x - y
+            elif self.op == "%":
+                x, y, _ = _decimal_align(lc, rc)
+                d, v = _trunc_divmod(x, y, v, "%")
             elif self.op == "*":
                 d = lc.data.to(torch.int64) * rc.data.to(torch.int64)
             else:
@@ -461,13 +469,7 @@ class BoundArithmetic(BoundExpr):
         elif self.op == "*":
             d = x * y
         elif self.op in ("%", "//"):
-            # x % 0 and x // 0 are NULL; mask the divisor first (torch
-            # raises on integer division by zero where jnp does not)
-            zero = y == 0
-            safe = torch.where(zero, torch.ones_like(y), y)
-            d = (torch.remainder(x, safe) if self.op == "%"
-                 else torch.div(x, safe, rounding_mode="floor"))
-            v = ~zero if v is None else v & ~zero
+            d, v = _trunc_divmod(x, y, v, self.op)
         else:
             raise BindError("integer / binds to DOUBLE")
         return Column(data=d, ltype=t, validity=v)
@@ -479,6 +481,17 @@ class BoundArithmetic(BoundExpr):
         from duckdb_tpu_torch.planner.fold import fold_arithmetic
 
         return fold_arithmetic(self)
+
+
+def _trunc_divmod(x: torch.Tensor, y: torch.Tensor, v, op: str):
+    """Integer x % y or x // y as DuckDB computes them: truncated toward
+    zero, so the remainder takes the dividend's sign (-7 % 3 = -1, -7 // 2
+    = -3). x % 0 and x // 0 are NULL; the divisor is masked first, since
+    torch raises on an integer division by zero. → (data, validity)."""
+    zero = y == 0
+    safe = torch.where(zero, torch.ones_like(y), y)
+    d = torch.fmod(x, safe) if op == "%" else torch.div(x, safe, rounding_mode="trunc")
+    return d, (~zero if v is None else v & ~zero)
 
 
 @dataclass
@@ -563,6 +576,14 @@ def _coerce_to(c: Column, t: LogicalType, env: EvalEnv,
                       validity=_const(env, False, torch.bool),
                       dict_values=(np.array([""], dtype=object)
                                    if t.id is TypeId.VARCHAR else None))
+    if c.ltype.id is TypeId.VARCHAR and t.id is TypeId.BLOB:
+        # a relabel of the dictionary: each distinct value UTF-8 encoded
+        # (byte order is code point order, so the dictionary stays sorted)
+        dv = np.array([str(x).encode() for x in c.dict_values], dtype=object)
+        return Column(data=c.data, ltype=t, validity=c.validity, dict_values=dv)
+    if c.ltype.id is TypeId.BLOB and t.id is TypeId.VARCHAR:
+        dv = np.array([bytes(x).decode() for x in c.dict_values], dtype=object)
+        return Column(data=c.data, ltype=t, validity=c.validity, dict_values=dv)
     if c.ltype.id is TypeId.VARCHAR and t.id is not TypeId.VARCHAR:
         # string source: parse per distinct value (must run before the
         # numeric branches, which would otherwise cast the dict CODES)
@@ -621,6 +642,18 @@ def format_varchar(v, t: LogicalType) -> str:
         return str(pydec.Decimal(int(v)).scaleb(-t.scale)) if t.scale else str(int(v))
     if t.id is TypeId.DATE:
         return (datetime.date(1970, 1, 1) + datetime.timedelta(days=int(v))).isoformat()
+    if t.id in (TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ):
+        dt = datetime.datetime(1970, 1, 1) + datetime.timedelta(microseconds=int(v))
+        s = dt.strftime("%Y-%m-%d %H:%M:%S")
+        if dt.microsecond:
+            s += f".{dt.microsecond:06d}".rstrip("0")
+        return s + "+00" if t.id is TypeId.TIMESTAMPTZ else s  # the session is UTC
+    if t.id is TypeId.TIME:
+        us = int(v)
+        s = f"{us // 3_600_000_000:02d}:{us // 60_000_000 % 60:02d}:{us // 1_000_000 % 60:02d}"
+        if us % 1_000_000:
+            s += f".{us % 1_000_000:06d}".rstrip("0")
+        return s
     if t.is_float:
         f = float(v)
         if f != f or f in (float("inf"), float("-inf")):
@@ -633,16 +666,54 @@ def format_varchar(v, t: LogicalType) -> str:
     raise not_ported(f"the cast {t!r} → VARCHAR")
 
 
+def format_distinct(c: Column, env, fmt: Callable[[object], str],
+                    null_text: Optional[str] = None) -> Column:
+    """A VARCHAR column of fmt(value) for every row of c, formatted once
+    per distinct value: torch.unique on the column's device, one transfer
+    of the distinct values, fmt over them on the host, and a gather of the
+    inverse. The codes and the sorted dictionary equal those of formatting
+    every row and np.unique-ing the strings. A NULL row gives `null_text`
+    (its data formatted when None); its validity is kept."""
+    device = env.live.device
+    data = bcast(c.data, env.plen)
+    if c.data_hi is not None:  # a wide value: distinct (hi, lo) pairs
+        uniq, inv = torch.unique(torch.stack([bcast(c.data_hi, env.plen), data], 1),
+                                 dim=0, return_inverse=True)
+        vals = [int(h) * (1 << 64) + (int(lo) & ((1 << 64) - 1))
+                for h, lo in uniq.cpu().tolist()]
+    elif data.dtype.is_floating_point:
+        # distinct bit patterns, so that -0.0 and 0.0 stay apart
+        bits = data.view(torch.int64 if data.dtype == torch.float64 else torch.int32)
+        uniq, inv = torch.unique(bits, return_inverse=True)
+        vals = uniq.view(data.dtype).cpu().numpy()
+    else:
+        uniq, inv = torch.unique(data, return_inverse=True)
+        vals = uniq.cpu().numpy()
+    if null_text is not None and c.validity is not None:
+        # a value that only NULL rows hold is not formatted; NULL rows take
+        # one more entry, null_text
+        valid = bcast(c.validity, env.plen)
+        used = torch.zeros(len(vals), dtype=torch.bool, device=device)
+        used[inv[valid]] = True
+        strs = [fmt(v) if u else null_text for v, u in zip(vals, used.cpu().tolist())]
+        if not bool(valid.all()):
+            inv = torch.where(valid, inv, len(strs))
+            strs.append(null_text)
+    else:
+        strs = [fmt(v) for v in vals]
+    d, remap = np.unique(np.array(strs or [""], dtype=str), return_inverse=True)
+    remap = torch.from_numpy(remap.reshape(-1).astype(np.int32)).to(device)
+    return Column(data=remap[inv], ltype=VARCHAR, validity=c.validity,
+                  dict_values=d.astype(object))
+
+
 def _cast_to_varchar(c: Column, env) -> Column:
-    """Non-VARCHAR → VARCHAR: host-side formatting + sorted dict encode."""
-    data = bcast(c.data, env.plen).cpu().numpy()
-    valid = bcast(c.validity, env.plen).cpu().numpy() if c.validity is not None else None
-    strs = np.array([format_varchar(v, c.ltype) if valid is None or valid[i] else ""
-                     for i, v in enumerate(data)], dtype=object)
-    uniq, codes = np.unique(strs.astype(str), return_inverse=True)
-    return Column(data=torch.from_numpy(codes.astype(np.int32)).to(env.live.device),
-                  ltype=VARCHAR, validity=c.validity,
-                  dict_values=uniq.astype(object))
+    """Non-VARCHAR → VARCHAR: each distinct value formatted once on the
+    host (format_varchar), NULL rows as ''."""
+    if c.ltype.id in (TypeId.INTERVAL, TypeId.BIT, TypeId.LIST, TypeId.STRUCT, TypeId.MAP,
+                      TypeId.ARRAY, TypeId.UNION):
+        raise not_ported(f"the cast {c.ltype!r} → VARCHAR (ROADMAP item 26)")
+    return format_distinct(c, env, lambda v: format_varchar(v, c.ltype), null_text="")
 
 
 def parse_decimal_text(c: str, scale: int) -> int:
@@ -664,13 +735,34 @@ def parse_decimal_text(c: str, scale: int) -> int:
     return -v if neg else v
 
 
+def parse_float_text(s: str, t: LogicalType) -> float:
+    """Text → DOUBLE / REAL as DuckDB casts it: a value beyond the type's
+    range is a conversion error (ValueError), not an infinity; 'inf',
+    'infinity' and 'nan' are accepted."""
+    f = float(s)
+    if math.isinf(f) and s.strip().lstrip("+-").lower() not in ("inf", "infinity"):
+        raise ValueError(f"{s!r} is out of range for {t!r}")
+    if t.id is TypeId.FLOAT and not math.isinf(f) and abs(f) > np.finfo(np.float32).max:
+        raise ValueError(f"{s!r} is out of range for {t!r}")
+    return f
+
+
 def _cast_from_varchar(c: Column, t: LogicalType, try_cast: bool = False) -> Column:
-    """VARCHAR → numeric/date/boolean: parse each DISTINCT value once into a
-    LUT, gather by code."""
+    """VARCHAR → numeric/date/time/boolean: parse each DISTINCT value once
+    into a LUT, gather by code."""
+    from duckdb_tpu_torch.planner.binder import (_parse_time_micros, _parse_timestamp,
+                                                 _parse_timestamptz)
+
     def parse(s):
         s = str(s).strip()
         if t.id is TypeId.DATE:
             return (datetime.date.fromisoformat(s) - datetime.date(1970, 1, 1)).days
+        if t.id is TypeId.TIMESTAMP:
+            return _parse_timestamp(s)
+        if t.id is TypeId.TIMESTAMPTZ:
+            return _parse_timestamptz(s)
+        if t.id is TypeId.TIME:
+            return _parse_time_micros(s)
         if t.id is TypeId.DECIMAL:
             return parse_decimal_text(s, t.scale)
         if t.id is TypeId.BOOLEAN:
@@ -680,7 +772,7 @@ def _cast_from_varchar(c: Column, t: LogicalType, try_cast: bool = False) -> Col
                 return 0
             raise ValueError(s)
         if t.is_float:
-            return float(s)
+            return parse_float_text(s, t)
         if t.is_integer:
             if s.lstrip("+-").isdigit():
                 return int(s)

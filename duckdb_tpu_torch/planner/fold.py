@@ -62,6 +62,9 @@ def fold_arithmetic(node) -> object:
             return x + y if node.op == "+" else x - y
         if node.op == "*":
             return lv * rv
+        if node.op == "%":
+            s = t.scale
+            return _trunc_divmod(lv * 10 ** (s - sl), rv * 10 ** (s - sr), "%")
         raise ValueError("decimal division folds to double")
     if t.id in (TypeId.DOUBLE, TypeId.FLOAT):
         import math
@@ -78,7 +81,11 @@ def fold_arithmetic(node) -> object:
         if node.op == "%":
             return math.nan if y == 0.0 else math.fmod(x, y)
         if node.op == "//":
-            return math.nan if y == 0.0 else x // y
+            # truncated, as DuckDB's (and torch.div's rounding_mode="trunc")
+            if y == 0.0:
+                return math.nan
+            q = x / y
+            return float(math.trunc(q)) if math.isfinite(q) else q
         return {"+": x + y, "-": x - y, "*": x * y}[node.op]
     if node.op in ("%", "//") and rv == 0:
         return None  # integer x % 0 / x // 0 → NULL (reference semantics)
@@ -88,10 +95,8 @@ def fold_arithmetic(node) -> object:
         out = lv - rv
     elif node.op == "*":
         out = lv * rv
-    elif node.op == "%":
-        out = lv % rv
-    elif node.op == "//":
-        out = lv // rv
+    elif node.op in ("%", "//"):
+        out = _trunc_divmod(lv, rv, node.op)
     else:
         raise ValueError(f"cannot fold {node.op}")
     if t.is_integer:
@@ -108,6 +113,17 @@ def fold_arithmetic(node) -> object:
                 f"Overflow in {opname} of {int_type_name(t.np_dtype)} "
                 f"({lv} {node.op} {rv})!")
     return out
+
+
+def _trunc_divmod(x: int, y: int, op: str):
+    """x % y or x // y truncated toward zero, as DuckDB's integer operators
+    (-7 % 3 = -1, -7 // 2 = -3); None when y is 0."""
+    if y == 0:
+        return None
+    q = abs(x) // abs(y)
+    if (x < 0) != (y < 0):
+        q = -q
+    return q if op == "//" else x - q * y
 
 
 def fold_cast(node) -> object:
@@ -138,6 +154,21 @@ def fold_cast(node) -> object:
             raise ConversionException(
                 f"value {v} is out of range for {dst!r}")
         return out
+    if src.id is TypeId.VARCHAR and dst.is_float:
+        from duckdb_tpu_torch.errors import ConversionException
+        from duckdb_tpu_torch.planner.bound import parse_float_text
+
+        try:
+            return parse_float_text(str(v), dst)
+        except ValueError:
+            if node.try_cast:
+                return None
+            raise ConversionException(
+                f"Could not convert string '{v}' to {dst.id.name}") from None
+    if src.id is TypeId.VARCHAR and dst.id is TypeId.TIME:
+        from duckdb_tpu_torch.planner.binder import _parse_time_micros
+
+        return _parse_time_micros(str(v).strip())
     if dst.id is TypeId.DOUBLE:
         return v / 10**src.scale if src.id is TypeId.DECIMAL else float(v)
     if dst.is_integer:

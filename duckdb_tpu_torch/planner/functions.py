@@ -1,10 +1,11 @@
 """Scalar function registry (the core of the JAX package's registry).
 
 Each entry is bind(arg_exprs) → (result type, impl(env, cols, node) →
-Column, bound args). This slice carries the date parts, the numeric core
+Column, bound args). This module carries the date parts, the numeric core
 and the string core (substring, upper/lower, trim, length, contains,
-prefix, suffix); the nested functions and the rest of the string family
-come with later slices, and the binder reports any function missing here
+prefix, suffix); planner/functions_ext.py registers the extended library.
+The nested functions and functions_more/functions_parity come with later
+slices (ROADMAP item 27), and the binder reports any function missing here
 as not yet ported.
 
 A string function runs once per distinct dictionary value, never per row,
@@ -433,3 +434,8 @@ REGISTRY["starts_with"] = REGISTRY["prefix"] = _bind_str_predicate(
 # the reference registers these in functions_ext.py (ROADMAP item 27)
 REGISTRY["ends_with"] = REGISTRY["suffix"] = _bind_str_predicate(
     "suffix", str.endswith, dstr.op_suffix)
+
+
+# the extended library (math, conditionals, the rest of the strings, dates,
+# misc) registers itself in REGISTRY
+from duckdb_tpu_torch.planner import functions_ext  # noqa: E402,F401

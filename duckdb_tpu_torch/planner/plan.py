@@ -61,6 +61,10 @@ class Join(PlanNode):
     null_aware: bool = False
 
 
+class ConstantRow(PlanNode):
+    """A SELECT without FROM: one live row, no columns."""
+
+
 @dataclass
 class Order(PlanNode):
     child: PlanNode

@@ -17,6 +17,7 @@ stacked on the pool, a correlated scalar aggregate becomes a grouped
 aggregate atom joined on its correlation keys (a LEFT join stacked on the
 pool where its value over no rows is not NULL), and an uncorrelated
 scalar subquery becomes a constant computed once (`BoundScalarSubquery`).
+No FROM (SELECT 1, IN (SELECT 1)) is one constant row (`ConstantRow`).
 On top come GROUP BY with aggregates, HAVING, the projection, DISTINCT,
 ORDER BY and LIMIT/OFFSET. Keys, output names and join orders match the
 reference's for these shapes, as do its aggregate aliases and the FILTER
@@ -67,13 +68,12 @@ _PORTED_AGGS = {
     "first", "last", "any_value", "arg_min", "arg_max", "arg_min_null", "arg_max_null",
     "product", "median", "quantile_cont", "quantile_disc", "mode", "stddev",
     "stddev_samp", "stddev_pop", "var_samp", "var_pop", "variance",
+    "bit_and", "bit_or", "bit_xor", "approx_count_distinct",
 } | STAT_AGGS
 
 # aggregates the JAX package computes and the port refuses, with the ROADMAP
 # item each waits for
 _REFUSED_AGGS = {
-    "bit_and": "24 (ops/scan.jit_ascan)", "bit_or": "24 (ops/scan.jit_ascan)",
-    "bit_xor": "24 (ops/scan.jit_ascan)", "approx_count_distinct": "24 (ops/hash)",
     **{f: "27 (functions_nested.encode_objects)"
        for f in ("histogram", "approx_top_k", "bitstring_agg", "histogram_exact", "lttb",
                  "list", "array_agg", "string_agg")},
@@ -401,7 +401,11 @@ class Planner:
                       pred_asts: List[N.Expr]):
         """Flatten a FROM tree into atoms + predicate ASTs. Outer, semi and
         anti joins plan both sides as pools of their own and become one
-        atom."""
+        atom. No FROM (SELECT 1, IN (SELECT 1)) is one constant live row
+        with no columns, as the reference's bind_emptytableref.cpp."""
+        if ref is None:
+            atoms.append(Atom(len(atoms) + 20_000, P.ConstantRow(), 1, set()))
+            return
         if isinstance(ref, N.BaseTableRef):
             plan, scope_adds, nrows, table = self._plan_base_table(ref, ctes)
             self._add_atom(plan, scope_adds, nrows, scope, atoms, table)
@@ -677,8 +681,6 @@ class Planner:
         return out
 
     def plan_select_node(self, sel: N.SelectNode, outer_scope, ctes):
-        if sel.from_table is None:
-            raise not_ported("SELECT without FROM")
         if sel.sample is not None or sel.qualify is not None or sel.distinct_on:
             raise not_ported("SAMPLE, QUALIFY and DISTINCT ON")
         scope = Scope(parent=outer_scope)
@@ -929,8 +931,6 @@ class Planner:
         sel = sub.node
         if not isinstance(sel, N.SelectNode):
             raise BindError("set-op subquery unsupported")
-        if sel.from_table is None:
-            raise not_ported("a subquery without FROM")
         sub_scope = Scope(parent=scope)
         sub_atoms: List[Atom] = []
         pred_asts: List[N.Expr] = []
@@ -1216,7 +1216,8 @@ def _bound_eq(a: B.BoundExpr, b: B.BoundExpr) -> bool:
 
 def _agg_result_type(func: str, args) -> LogicalType:
     """The reference's result types (duckdb_tpu/planner/planner.py)."""
-    if func in ("count", "count_star", "regr_count", "count_if", "countif"):
+    if func in ("count", "count_star", "regr_count", "count_if", "countif",
+                "approx_count_distinct"):
         return BIGINT
     if func in STAT_AGGS or func in ("fsum", "product") or func in VARIANCE_AGGS:
         return DOUBLE

@@ -64,9 +64,19 @@ def dict_encode(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     if values.dtype.kind == "S":
         uniq_b, codes = np.unique(values, return_inverse=True)
         uniq = np.char.decode(uniq_b, "utf-8").astype(object)
+        _register_plane(uniq, uniq_b, np.char.str_len(uniq_b))
         return codes.astype(np.int32), uniq
     uniq, codes = np.unique(values, return_inverse=True)
     return codes.astype(np.int32), uniq.astype(object)
+
+
+def _register_plane(uniq: np.ndarray, fixed: np.ndarray, lens: np.ndarray):
+    """Hand a decoded dictionary's fixed-width bytes to ops/strings, whose
+    byte planes then skip re-encoding the Python strings."""
+    if len(uniq):
+        from duckdb_tpu_torch.ops import strings as dstr
+
+        dstr.register_plane(uniq, fixed, lens)
 
 
 def load_string_dict(table_dir: str, name: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -81,7 +91,9 @@ def load_string_dict(table_dir: str, name: str) -> Tuple[np.ndarray, np.ndarray]
                             dtype=np.uint32)
         dblob = np.fromfile(os.path.join(table_dir, f"{name}.dict.bytes"),
                             dtype=np.uint8)
-        uniq = np.char.decode(_ragged_to_fixed(dblob, dlens), "utf-8").astype(object)
+        fixed = _ragged_to_fixed(dblob, dlens)
+        uniq = np.char.decode(fixed, "utf-8").astype(object)
+        _register_plane(uniq, fixed, dlens)
         return codes, uniq
     values = read_string_column(table_dir, name)
     codes, uniq = dict_encode(values)

@@ -18,6 +18,7 @@ import numpy as np
 
 from duckdb_tpu_torch.ops import strings as TS
 from duckdb_tpu_torch.planner.functions import duckdb_substring
+from duckdb_tpu_torch.planner.functions_ext import _host_pad, _left, _right
 
 # (name, plane op, host function): str → str
 TRANSFORMS: List[Tuple[str, Callable, Callable]] = [
@@ -37,6 +38,19 @@ TRANSFORMS: List[Tuple[str, Callable, Callable]] = [
     ("s || '-x'", lambda p, le: TS.op_concat_const(p, le, "", "-x"), lambda s: s + "-x"),
     ("'<' || s || '>'", lambda p, le: TS.op_concat_const(p, le, "<", ">"),
      lambda s: "<" + s + ">"),
+    ("left(s, 5)", lambda p, le: TS.op_left(p, le, 5), lambda s: _left(s, 5)),
+    ("left(s, -3)", lambda p, le: TS.op_left(p, le, -3), lambda s: _left(s, -3)),
+    ("right(s, 4)", lambda p, le: TS.op_right(p, le, 4), lambda s: _right(s, 4)),
+    ("right(s, -2)", lambda p, le: TS.op_right(p, le, -2), lambda s: _right(s, -2)),
+    ("reverse", TS.op_reverse, lambda s: s[::-1]),
+    ("initcap", TS.op_initcap, lambda s: s[:1].upper() + s[1:].lower()),
+    ("initcap(reverse(s))", lambda p, le: TS.op_initcap(*TS.op_reverse(p, le)),
+     lambda s: s[::-1][:1].upper() + s[::-1][1:].lower()),
+    ("lpad(s, 12, '*')", lambda p, le: TS.op_pad(p, le, 12, "*", True),
+     lambda s: _host_pad(s, 12, "*", True)),
+    ("rpad(s, 30, 'xy')", lambda p, le: TS.op_pad(p, le, 30, "xy", False),
+     lambda s: _host_pad(s, 30, "xy", False)),
+    ("repeat(s, 2)", lambda p, le: TS.op_repeat(p, le, 2), lambda s: s * 2),
 ]
 
 # (name, plane op, host function): str → bool / int
@@ -49,6 +63,14 @@ VALUES: List[Tuple[str, Callable, Callable]] = [
      lambda s: s.startswith("for")),
     ("suffix(s, 's')", lambda p, le: TS.op_suffix(p, le, "s"), lambda s: s.endswith("s")),
     ("suffix(s, 'ly.')", lambda p, le: TS.op_suffix(p, le, "ly."), lambda s: s.endswith("ly.")),
+    ("strpos(s, 'special')", lambda p, le: TS.op_strpos(p, le, "special"),
+     lambda s: s.find("special") + 1),
+    ("strpos(s, 'green')", lambda p, le: TS.op_strpos(p, le, "green"),
+     lambda s: s.find("green") + 1),
+    ("strpos(s, '-')", lambda p, le: TS.op_strpos(p, le, "-"), lambda s: s.find("-") + 1),
+    ("ascii", TS.op_ascii, lambda s: ord(s[0]) if s else 0),
+    ("ascii(right(s, 4))", lambda p, le: TS.op_ascii(*TS.op_right(p, le, 4)),
+     lambda s: ord(_right(s, 4)[0]) if s else 0),
 ]
 
 

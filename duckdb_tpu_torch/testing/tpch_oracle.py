@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import datetime
 import decimal
+import math
 import os
 
 import numpy as np
@@ -346,6 +347,40 @@ SELECT l_returnflag, l_linestatus,
 FROM lineitem
 GROUP BY l_returnflag, l_linestatus
 ORDER BY l_returnflag, l_linestatus
+""",
+}
+
+# function-heavy queries over the TPC-H tables: dates, math with DuckDB's
+# truncating % and //, the bit aggregates and HyperLogLog, the string plane
+# functions, and the formatting casts (strftime, TIMESTAMP → VARCHAR)
+FUNCTION_QUERIES = {
+    "fn_dates": """
+SELECT date_trunc('year', l_shipdate) AS yr, count(*), sum(l_quantity),
+  sum(date_diff('day', l_shipdate, l_receiptdate)), max(last_day(l_shipdate)),
+  min(dayname(l_commitdate)),
+  sum(CASE WHEN isodow(l_receiptdate) >= 6 THEN 1 ELSE 0 END)
+FROM lineitem GROUP BY yr ORDER BY yr
+""",
+    "fn_math": """
+SELECT l_returnflag, l_linestatus, sum(CAST(l_quantity AS INTEGER) % 7),
+  sum(-l_linenumber // 2), sum(greatest(l_tax, l_discount)),
+  count(nullif(l_linenumber, 1)), sum(if(l_shipmode = 'AIR', 1, 0)),
+  sum(gcd(l_orderkey, l_linenumber)), bit_xor(l_orderkey), bit_or(l_suppkey),
+  bit_and(l_partkey + 1048576), bit_xor(hash(l_orderkey)),
+  approx_count_distinct(l_partkey), avg(ln(l_extendedprice)), geomean(l_quantity)
+FROM lineitem GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus
+""",
+    "fn_strings": """
+SELECT left(p_name, 5) AS k, count(*), sum(strpos(p_name, 'green')),
+  max(initcap(reverse(p_name))), min(lpad(p_brand, 12, '*')),
+  sum(ascii(right(p_name, 4)))
+FROM part GROUP BY k ORDER BY 2 DESC, 1 LIMIT 20
+""",
+    "fn_casts": """
+SELECT strftime(o_orderdate, '%Y-%m') AS ym, count(*), sum(o_totalprice),
+  max(CAST(CAST(o_orderdate AS TIMESTAMP) AS VARCHAR)),
+  sum(strpos(o_comment, 'special')), sum(ascii(o_comment))
+FROM orders GROUP BY ym ORDER BY ym
 """,
 }
 
@@ -926,11 +961,193 @@ def general_agg(t):
     return rows
 
 
+def _groups(*keys):
+    """(sorted unique key rows, each row's group id) over parallel columns."""
+    if len(keys) == 1:
+        uniq, inv = np.unique(keys[0], return_inverse=True)
+        return [(u,) for u in uniq], inv.reshape(-1)
+    rec = np.rec.fromarrays(keys)
+    uniq, inv = np.unique(rec, return_inverse=True)
+    return [tuple(u) for u in uniq], inv.reshape(-1)
+
+
+def _sums(inv, n, values) -> np.ndarray:
+    out = np.zeros(n, dtype=np.int64)
+    np.add.at(out, inv, values.astype(np.int64))
+    return out
+
+
+def _reduce_at(inv, n, values, ufunc, ident) -> np.ndarray:
+    out = np.full(n, ident, dtype=values.dtype)
+    ufunc.at(out, inv, values)
+    return out
+
+
+_DAYNAMES = ("Thursday", "Friday", "Saturday", "Sunday", "Monday", "Tuesday", "Wednesday")
+
+
+def fn_dates(t):
+    """FUNCTION_QUERIES["fn_dates"]: per ship year (date_trunc gives a
+    TIMESTAMP), the line count, quantity sum, days from ship to receipt,
+    the latest month end of a ship date, the first day name (in string
+    order) of a commit date and the lines received on a weekend."""
+    ship, commit, receipt, qty = (t("lineitem", c) for c in (
+        "l_shipdate", "l_commitdate", "l_receiptdate", "l_quantity"))
+    year = ship.astype("datetime64[D]").astype("datetime64[Y]").astype(np.int64) + 1970
+    keys, inv = _groups(year)
+    n = len(keys)
+    month_end = ((ship.astype("datetime64[D]").astype("datetime64[M]") + 1)
+                 .astype("datetime64[D]").astype(np.int64) - 1)
+    last = _reduce_at(inv, n, month_end, np.maximum, np.iinfo(np.int64).min)
+    dow = (commit + 0) % 7  # 1970-01-01 was a Thursday
+    seen = np.zeros((n, 7), dtype=bool)
+    seen[inv, dow] = True
+    weekend = ((receipt + 3) % 7 + 1) >= 6
+    counts = np.bincount(inv, minlength=n)
+    return [(datetime.datetime(int(y), 1, 1), int(counts[g]), _dec(_sums(inv, n, qty)[g], 2),
+             int(_sums(inv, n, receipt - ship)[g]), _date(last[g]),
+             min(_DAYNAMES[d] for d in np.flatnonzero(seen[g])),
+             int(_sums(inv, n, weekend)[g]))
+            for g, (y,) in enumerate(keys)]
+
+
+_M64 = (1 << 64) - 1
+
+
+def hash64_np(x: np.ndarray) -> np.ndarray:
+    """splitmix64's finalizer in numpy uint64 (the engine's hash())."""
+    h = x.astype(np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        h = (h ^ (h >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        h = (h ^ (h >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return h ^ (h >> np.uint64(31))
+
+
+def hll_estimate(values: np.ndarray, inv: np.ndarray, n: int) -> np.ndarray:
+    """HyperLogLog per group as DuckDB and the engine compute it: 2,048
+    registers, register = the low 11 bits of the hash, rho = leading zeros
+    of the other 53 bits plus one, the raw estimate with linear counting
+    below 2.5 × 2,048 when a register is empty, rounded half to even."""
+    m, p_bits = 2048, 11
+    h = hash64_np(values)
+    idx = (h & np.uint64(m - 1)).astype(np.int64)
+    rest = h << np.uint64(p_bits)
+    lz = np.full(len(h), 64, dtype=np.int64)
+    nz = rest != 0
+    # leading zeros of a nonzero uint64: 63 minus the top bit's position
+    lz[nz] = 63 - np.floor(np.log2(rest[nz].astype(np.float64))).astype(np.int64)
+    # the float log2 can round up at a power-of-two boundary; correct it
+    top = np.uint64(1) << (63 - lz[nz]).astype(np.uint64)
+    lz[nz] += (rest[nz] < top).astype(np.int64)
+    rho = np.minimum(lz + 1, 64 - p_bits + 1)
+    regs = np.zeros(n * m, dtype=np.int64)
+    np.maximum.at(regs, inv * m + idx, rho)
+    r = regs.reshape(n, m).astype(np.float64)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    est = alpha * m * m / np.power(2.0, -r).sum(axis=1)
+    zeros = (r == 0.0).sum(axis=1)
+    linear = m * np.log(m / np.maximum(zeros, 1).astype(np.float64))
+    est = np.where((est <= 2.5 * m) & (zeros > 0), linear, est)
+    return np.round(est).astype(np.int64)
+
+
+def fn_math(t):
+    """FUNCTION_QUERIES["fn_math"] per (returnflag, linestatus), with
+    DuckDB's truncating % and // (the integer quantity's remainder by 7,
+    -linenumber // 2 rounded toward zero), the bit aggregates by numpy's
+    bitwise reductions, the engine's hash as numpy uint64 and HyperLogLog
+    with the same hash and registers (`hll_estimate`)."""
+    li = {c: t("lineitem", c) for c in (
+        "l_returnflag", "l_linestatus", "l_quantity", "l_linenumber", "l_tax", "l_discount",
+        "l_shipmode", "l_orderkey", "l_suppkey", "l_partkey", "l_extendedprice")}
+    keys, inv = _groups(li["l_returnflag"], li["l_linestatus"])
+    n = len(keys)
+    qty_int = (li["l_quantity"] + 50) // 100  # CAST(DECIMAL AS INTEGER), non-negative
+    ln = li["l_linenumber"]
+    cols = [
+        _sums(inv, n, np.fmod(qty_int, 7)),
+        _sums(inv, n, -(ln // 2)),  # -ln // 2 truncated, ln > 0
+        _sums(inv, n, np.maximum(li["l_tax"], li["l_discount"])),
+        _sums(inv, n, ln != 1),
+        _sums(inv, n, li["l_shipmode"] == b"AIR"),
+        _sums(inv, n, np.gcd(li["l_orderkey"], ln)),
+        _reduce_at(inv, n, li["l_orderkey"], np.bitwise_xor, 0),
+        _reduce_at(inv, n, li["l_suppkey"], np.bitwise_or, 0),
+        _reduce_at(inv, n, li["l_partkey"] + 1048576, np.bitwise_and, -1),
+        _reduce_at(inv, n, hash64_np(li["l_orderkey"]).view(np.int64), np.bitwise_xor, 0),
+        hll_estimate(li["l_partkey"], inv, n),
+    ]
+    counts = np.bincount(inv, minlength=n)
+    log_price = np.zeros(n)
+    np.add.at(log_price, inv, np.log(li["l_extendedprice"] / 100.0))
+    log_qty = np.zeros(n)
+    np.add.at(log_qty, inv, np.log(li["l_quantity"] / 100.0))
+    rows = []
+    for g, (rf, ls) in enumerate(keys):
+        c = [int(col[g]) for col in cols]
+        rows.append((rf.decode(), ls.decode(), c[0], c[1], _dec(c[2], 2), *c[3:],
+                     float(log_price[g] / counts[g]), float(math.exp(log_qty[g] / counts[g]))))
+    return rows
+
+
+def fn_math_distinct(t):
+    """The exact distinct l_partkey count per (returnflag, linestatus) of
+    fn_math, which approx_count_distinct must lie near."""
+    keys, inv = _groups(t("lineitem", "l_returnflag"), t("lineitem", "l_linestatus"))
+    pairs = np.unique(inv * (1 << 32) + t("lineitem", "l_partkey"))
+    return np.bincount(pairs >> 32, minlength=len(keys)).tolist()
+
+
+def fn_strings(t):
+    """FUNCTION_QUERIES["fn_strings"]: parts grouped by the first five
+    characters of their name; the 20 largest groups (ties by key)."""
+    names = t("part", "p_name").astype(object)
+    names = np.array([s.decode() for s in names], dtype=object)
+    brands = [s.decode() for s in t("part", "p_brand")]
+    keys, inv = _groups(np.array([s[:5] for s in names], dtype=str))
+    n = len(keys)
+    count = np.bincount(inv, minlength=n)
+    pos = _sums(inv, n, np.array([s.find("green") + 1 for s in names]))
+    tail = _sums(inv, n, np.array([ord(s[-4:][0]) if s else 0 for s in names]))
+    best = [""] * n
+    low = [None] * n
+    for g, s, b in zip(inv.tolist(), names, brands):
+        r = s[::-1]
+        r = r[:1].upper() + r[1:].lower()
+        best[g] = max(best[g], r)
+        padded = b[:12] if len(b) >= 12 else ("*" * 12)[:12 - len(b)] + b
+        low[g] = padded if low[g] is None else min(low[g], padded)
+    order = sorted(range(n), key=lambda g: (-count[g], keys[g][0]))[:20]
+    return [(str(keys[g][0]), int(count[g]), int(pos[g]), best[g], low[g], int(tail[g]))
+            for g in order]
+
+
+def fn_casts(t):
+    """FUNCTION_QUERIES["fn_casts"] per order month: the count, the price
+    sum, the latest order date as TIMESTAMP text, the 1-based positions of
+    'special' in the comments and the comments' first character codes."""
+    day = t("orders", "o_orderdate")
+    month = day.astype("datetime64[D]").astype("datetime64[M]")
+    keys, inv = _groups(month.astype(np.int64))
+    n = len(keys)
+    comment = t("orders", "o_comment")
+    pos = np.char.find(comment, b"special") + 1
+    first = comment.view(np.uint8).reshape(len(comment), -1)[:, 0].astype(np.int64)
+    last = _reduce_at(inv, n, day, np.maximum, np.iinfo(np.int64).min)
+    count = np.bincount(inv, minlength=n)
+    price = _sums(inv, n, t("orders", "o_totalprice"))
+    spos, asc = _sums(inv, n, pos), _sums(inv, n, first)
+    return [(str(np.datetime64(int(m), "M")), int(count[g]), _dec(price[g], 2),
+             f"{_date(last[g]).isoformat()} 00:00:00", int(spos[g]), int(asc[g]))
+            for g, (m,) in enumerate(keys)]
+
+
 _ANSWERS = {"q02": q02, "q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q08,
             "q09": q09, "q10": q10, "q11": q11, "q12": q12, "q13": q13,
             "q13_nolike": q13_nolike, "q14": q14, "q15": q15, "q16": q16, "q17": q17,
             "q18": q18, "q19": q19, "q20": q20, "q21": q21, "q06": q06, "q22": q22,
-            "general_agg": general_agg}
+            "general_agg": general_agg, "fn_dates": fn_dates, "fn_math": fn_math,
+            "fn_strings": fn_strings, "fn_casts": fn_casts}
 
 
 def answer(name: str, data_dir: str, **params):

@@ -221,9 +221,9 @@ def test_ungrouped_over_no_rows(cons):
 
 
 @pytest.mark.parametrize("sql,item", [
-    ("SELECT bit_and(o_custkey) FROM orders", "24"),
-    ("SELECT bit_or(o_custkey) FROM orders GROUP BY o_orderstatus", "24"),
-    ("SELECT approx_count_distinct(o_custkey) FROM orders", "24"),
+    ("SELECT approx_top_k(o_custkey, 3) FROM orders", "27"),
+    ("SELECT bitstring_agg(o_custkey) FROM orders GROUP BY o_orderstatus", "27"),
+    ("SELECT histogram_exact(o_custkey, [1, 2]) FROM orders", "27"),
     ("SELECT histogram(o_orderstatus) FROM orders", "27"),
     ("SELECT list(o_orderkey) FROM orders", "27"),
     ("SELECT string_agg(o_orderstatus, ',') FROM orders", "27"),

@@ -456,3 +456,88 @@ def test_general_aggregates_on_cuda_match_cpu(tmp_path, monkeypatch):
     for name, sql in tpch_oracle.GENERAL_QUERIES.items():
         same(con.sql(sql).rows(), tpch_oracle.answer(name, str(tmp_path)))
     assert TS.host_loop_events == []
+
+
+@pytest.mark.gpu
+def test_hash64_and_new_plane_ops_on_cuda_match_cpu():
+    """hash64 and clz64 on the card equal the CPU's bit for bit, over
+    negative, zero and wrapping values; the plane ops of the function
+    library equal their CPU results on a ragged seeded plane."""
+    _need_cuda()
+    from duckdb_tpu_torch.ops import hash as TH
+    from duckdb_tpu_torch.ops import strings as TS
+
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randint(-(2**63), 2**63 - 1, (1 << 20,), generator=gen, dtype=torch.int64)
+    x[:4] = torch.tensor([0, -1, 2**63 - 1, -(2**63)])
+    assert torch.equal(TH.hash64(x.cuda()).cpu(), TH.hash64(x))
+    assert torch.equal(TH.clz64(x.cuda()).cpu(), TH.clz64(x))
+    lens = torch.randint(0, 33, (4096,), generator=gen)
+    plane = torch.randint(32, 127, (4096, 32), generator=gen, dtype=torch.int64).to(torch.uint8)
+    plane = torch.where(torch.arange(32)[None, :] < lens[:, None], plane, 0)
+    for op, args in (("op_initcap", ()), ("op_reverse", ()), ("op_left", (5,)),
+                     ("op_left", (-3,)), ("op_right", (4,)), ("op_right", (-2,)),
+                     ("op_pad", (12, "*", True)), ("op_pad", (40, "xy", False)),
+                     ("op_repeat", (3,)), ("op_strpos", ("a",)), ("op_ascii", ())):
+        got = getattr(TS, op)(plane.cuda(), lens.cuda(), *args)
+        want = getattr(TS, op)(plane, lens, *args)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.is_cuda and torch.equal(g.cpu(), w), op
+
+
+@pytest.mark.gpu
+def test_bit_and_hll_aggregates_on_cuda_match_cpu(tmp_path):
+    """bit_and/bit_or/bit_xor and approx_count_distinct on the card equal
+    the port's CPU run exactly, grouped (perfect, sort-group, more than
+    2,048 groups) and ungrouped, over NULLs."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path))
+    for sql in (
+            "SELECT bit_and(o_custkey), bit_or(o_custkey), bit_xor(o_orderkey), "
+            "approx_count_distinct(o_custkey), approx_count_distinct(o_comment) FROM orders",
+            "SELECT o_orderstatus, bit_and(o_custkey - 700), bit_or(-o_orderkey), "
+            "bit_xor(CASE WHEN o_orderkey % 3 = 0 THEN NULL ELSE o_custkey END), "
+            "approx_count_distinct(o_totalprice) FROM orders GROUP BY 1 ORDER BY 1",
+            "SELECT o_orderpriority, o_orderstatus, bit_xor(hash(o_custkey)), "
+            "approx_count_distinct(o_clerk) FROM orders GROUP BY 1, 2 ORDER BY 1, 2",
+            "SELECT o_orderkey, approx_count_distinct(o_custkey) FROM orders "
+            "GROUP BY o_orderkey ORDER BY o_orderkey"):
+        assert con.sql(sql).rows() == cpu.sql(sql).rows(), sql
+
+
+@pytest.mark.gpu
+def test_function_queries_on_cuda(tmp_path, monkeypatch):
+    """The four FUNCTION_QUERIES on the card equal the numpy oracle (DOUBLE
+    within 1e-9 relative), with the string functions on the plane path and
+    none as a host loop, and SELECT without FROM gives DuckDB's answers."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.ops import strings as TS
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    monkeypatch.setattr(TS, "DEVICE_STR_MIN_DICT", 100)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    TS.host_loop_events.clear()
+    for name, sql in tpch_oracle.FUNCTION_QUERIES.items():
+        got, want = con.sql(sql).rows(), tpch_oracle.answer(name, str(tmp_path))
+        assert len(got) == len(want) and want
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if isinstance(b, float):
+                    assert a == pytest.approx(b, rel=1e-9, abs=0.0), (name, g, w)
+                else:
+                    assert a == b, (name, g, w)
+    assert TS.host_loop_events == []
+    assert con.sql("SELECT greatest(1, NULL, 3), -7 % 3, -7 // 2, "
+                   "TRY_CAST('1e309' AS DOUBLE)").rows() == [(3, -1, -3, None)]

@@ -266,7 +266,7 @@ def test_distinct_group_without_values(cons):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT bit_xor(o_custkey) FILTER (WHERE o_totalprice > 1000) FROM orders",
+    "SELECT list(o_custkey) FILTER (WHERE o_totalprice > 1000) FROM orders",
     "SELECT string_agg(o_comment, ',' ORDER BY o_orderdate) FROM orders",
 ])
 def test_aggregate_forms_not_yet_ported_say_so(data_dir, sql):
