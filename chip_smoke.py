@@ -99,6 +99,24 @@ Phases (any failure exits non-zero before the result lines):
    DuckDB's answers: greatest(1, NULL, 3) = 3, -7 % 3 = -1, -7 // 2 = -3,
    and CAST('1e309' AS DOUBLE) raises where TRY_CAST gives NULL. (Phase 10's
    plane-op check covers the new plane ops too.)
+12. nested values: the NESTED_QUERIES of testing/tpch_oracle.py
+   (nested_agg: histogram, its element and cardinality, approx_top_k,
+   list(DISTINCT), bitstring_agg, count and sum over lineitem;
+   nested_collect: each order's list(l_partkey ORDER BY l_linenumber)
+   through len, list_sort, list_reduce and list_filter's lambdas;
+   nested_words: UNNEST of string_split over part's names; nested_pack: a
+   columnar list_value in a derived table with list_contains and string
+   element access; nested_pack_agg: string_agg ... ORDER BY over
+   supplier), the same way: rows against the numpy oracle, the route
+   asserted exactly (nested_agg perfect on the general path with the
+   grouped sum's small regime for its count and sum; nested_collect's
+   per-order lists perfect on the general path, its outer grouping the
+   fused sort-group mode), the grouped sum against its plain version on
+   every input they gave it and timed at each shape, each query's first
+   run, warm median (3 runs for nested_collect, 5 otherwise), rows/s and
+   host syncs. Then [{'a': 1}], CAST('[1, 2, NULL]' AS INTEGER[]),
+   CAST([1,2] AS VARCHAR) and list_value(p_partkey, p_size) over part's
+   200,000 rows must give DuckDB's answers on the card.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -568,6 +586,47 @@ def functions_end(con, card: str) -> str:
     return ""
 
 
+# phase 12: the routes each nested query takes (exactly), its warm runs
+# (nested_collect rebuilds about 1.5M lists per run on the host: 3 runs),
+# and the table its rate counts
+NESTED_ROUTES = {
+    "nested_agg": {"general_aggregate": 1, "general_perfect": 1},
+    "nested_collect": {"general_aggregate": 1, "general_perfect": 1, "sort_group": 1},
+    "nested_words": {"dense": 1},
+    "nested_pack": {"general_aggregate": 1, "general_sort_group": 1},
+    "nested_pack_agg": {"general_aggregate": 1, "general_perfect": 1}}
+NESTED_WARM_RUNS = {"nested_collect": 3}
+NESTED_RATE_TABLE = {"nested_agg": "lineitem", "nested_collect": "lineitem",
+                     "nested_words": "part", "nested_pack": "part",
+                     "nested_pack_agg": "supplier"}
+
+
+def nested_end(con, card: str) -> str:
+    """Nested values on the card give DuckDB's answers: a list of structs,
+    a text cast to INTEGER[], a list cast to VARCHAR, and list_value over
+    part's 200,000 rows against numpy; '' when they do."""
+    from duckdb_tpu_torch.testing import tpch_oracle
+
+    checks = [("SELECT [{'a': 1}]", [([{"a": 1}],)]),
+              ("SELECT CAST('[1, 2, NULL]' AS INTEGER[])", [([1, 2, None],)]),
+              ("SELECT CAST([1,2] AS VARCHAR)", [("[1, 2]",)])]
+    for sql, want in checks:
+        got = con.sql(sql).rows()
+        if got != want:
+            return f"{sql}: {got}, DuckDB gives {want}"
+    t = tpch_oracle._Tables(DATA)
+    want = sorted([int(k), int(s)] for k, s in zip(t("part", "p_partkey"), t("part", "p_size")))
+    t0 = time.perf_counter()
+    got = con.sql("SELECT list_value(p_partkey, p_size) FROM part").rows()
+    first_s = time.perf_counter() - t0
+    if sorted(r[0] for r in got) != want or len(got) != 200_000 * SF:
+        return f"list_value(p_partkey, p_size) over part: {len(got)} rows differ from numpy"
+    print(f"nested values on {card}: [{{'a': 1}}], CAST('[1, 2, NULL]' AS INTEGER[]) and "
+          f"CAST([1,2] AS VARCHAR) give DuckDB's answers; list_value(p_partkey, p_size) over "
+          f"{len(got)} part rows equals numpy ({first_s:.3f} s with Result.rows())")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -870,6 +929,80 @@ def main() -> int:
     bad = functions_end(con, card)
     if bad:
         return fail(bad)
+
+    # 12. nested values: NESTED_QUERIES, then nested constants and casts
+    phase12_t0 = time.perf_counter()
+    for name, sql in tpch_oracle.NESTED_QUERIES.items():
+        recorded.clear()
+        grouped_mod.grouped_sum_i64 = recording
+        GS.grouped_sum_i64.launches = 0
+        GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
+        con.routes.clear()
+        t0 = time.perf_counter()
+        got = con.sql(sql).rows()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        q_launches = GS.grouped_sum_i64.launches
+        q_regimes = dict(GS.grouped_sum_i64.regime_launches)
+        routes = dict(con.routes)
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+        launches_by_query[name] = q_launches
+        t0 = time.perf_counter()
+        want = tpch_oracle.answer(name, DATA)
+        oracle_s = time.perf_counter() - t0
+        bad = rows_match(got, want)
+        if bad or not want:
+            return fail(f"{name} rows differ from the numpy oracle: {bad or 'no rows'}")
+        if routes != NESTED_ROUTES[name]:
+            return fail(f"{name} missed its route {NESTED_ROUTES[name]}: routes {routes}")
+        if any(d.device.type != "cuda" for d, _, _ in recorded):
+            return fail(f"{name}: the grouped sum ran on a tensor off the card")
+        if name == "nested_agg" and (q_regimes["small"] < 1 or len(recorded) < 3):
+            return fail(f"nested_agg's count and sum missed the grouped sum's small regime: "
+                        f"launches {q_launches} {q_regimes}")
+        print(f"{name} (first run): {first_s:.3f} s, {len(got)} rows match the numpy oracle "
+              f"({oracle_s:.1f} s to answer); routes {routes}; grouped_sum_i64 launches "
+              f"{q_launches} by regime {q_regimes}")
+        for r in got[:3]:
+            print("  ", repr(r)[:300])
+        timed = set()
+        for dense, vecs, nseg in recorded:
+            err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
+                              GS.grouped_sum_i64_plain(dense, vecs, nseg))
+            torch.cuda.synchronize()
+            n_q, k_q = dense.shape[0], len(vecs)
+            print(f"kernel vs plain, {name} inputs N={n_q} K={k_q} nseg={nseg}: "
+                  f"max abs err {err}")
+            if err:
+                return fail(f"grouped_sum_i64 disagrees with its plain version on {name}")
+            worst = max(worst, err)
+            if (n_q, k_q, nseg) in timed:
+                continue
+            timed.add((n_q, k_q, nseg))
+            k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+            b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
+            print(f"grouped_sum_i64 at {name}'s shape N={n_q} K={k_q} nseg={nseg} on "
+                  f"{card}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ "
+                  f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, "
+                  f"{b_adds} adds), regime {GS.launch_plan(nseg, k_q).regime}")
+            shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg,
+                           "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+        runs = NESTED_WARM_RUNS.get(name, 5)
+        med, times = warm_median(con, sql, got, runs=runs)
+        if med is None:
+            return fail(f"{name}: {times}")
+        syncs = count_syncs(lambda: con.sql(sql).rows())
+        table = NESTED_RATE_TABLE[name]
+        print(f"{name} SF{SF:g} on {card}: first run {first_s:.3f} s, median of {runs} warm "
+              f"runs {med * 1e3:.3f} ms (runs {', '.join(f'{t * 1e3:.3f}' for t in times)} "
+              f"ms), {sizes[table] / med:.0f} {table} rows/s, {syncs} host syncs per run")
+
+    # 12. (end) nested constants, casts and a columnar list_value on the card
+    bad = nested_end(con, card)
+    if bad:
+        return fail(bad)
+    print(f"phase 12 took {time.perf_counter() - phase12_t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "grouped_sum_i64", "route": "cuda",

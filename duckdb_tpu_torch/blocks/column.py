@@ -11,9 +11,16 @@ Padding: lengths round up to the JAX package's size buckets (`pad_bucket`)
 so that padded lengths, and with them dense slot counts and output
 capacities, match the reference row for row.
 
-VARCHAR columns are dictionary-encoded: `data` holds int32 codes into the
-host-side `dict_values` (a sorted np.ndarray of unique strings), so string
-ORDER BY and range predicates are code comparisons on the device.
+Dictionary-encoded columns hold int32 codes in `data` into the host-side
+`dict_values`, with one invariant per type:
+- VARCHAR (and BLOB): a sorted np.ndarray of unique values, so string
+  ORDER BY, min/max and range predicates are code comparisons on the
+  device;
+- LIST, ARRAY, STRUCT, MAP, UNION and BIT (blocks/nested.py): an object
+  array of unique values in first-seen order, so codes are good for
+  equality only (GROUP BY, DISTINCT, `=`); ORDER BY, min/max, range
+  predicates and join keys map them to DuckDB's ranks first
+  (nested.rank_lut).
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ class Column:
     data: torch.Tensor  # shape (P,) padded physical values
     ltype: LogicalType
     validity: Optional[torch.Tensor] = None  # bool (P,); None = all valid
-    dict_values: Optional[np.ndarray] = None  # VARCHAR: sorted unique strings
+    dict_values: Optional[np.ndarray] = None  # the dictionary (see the module docstring)
     data_hi: Optional[torch.Tensor] = None  # int64 (P,) high plane (wide values)
 
     @property

@@ -36,17 +36,29 @@ Not carried over (TPU-only): the 22-bit f64 limbs of `_seg_sum`, the learned
 compaction caps and key bounds with their deferred re-runs, and the 62-bit
 word packing of the sort keys. bit_and/bit_or/bit_xor count each bit per
 group (ops/scan.grouped_bitwise) instead of the reference's segmented scan;
-approx_count_distinct keeps the reference's HyperLogLog. The
-nested-result aggregates are refused at bind time (ROADMAP item 27).
+approx_count_distinct keeps the reference's HyperLogLog.
+
+The nested-result aggregates (list/array_agg, string_agg, histogram,
+histogram_exact, approx_top_k, bitstring_agg, lttb) finalize per group, not
+per row: one device sort by (dead, group[, ORDER BY keys][, value]), the
+group boundaries (and runs of equal values) found on the device, one copy
+of the rows or run representatives to the host, and each group's value
+built from its slice.
+Where the reference differs from DuckDB, the port follows DuckDB:
+list(x ORDER BY y) orders by y, and list() … FILTER drops the filtered rows
+instead of listing NULLs. min/max over a nested value compare DuckDB's
+ranks (blocks/nested.py), not its first-seen codes.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from duckdb_tpu_torch.blocks import Column, pad_bucket
+from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
 from duckdb_tpu_torch.ops import sort as S
 from duckdb_tpu_torch.ops.compact import packed_indices
 from duckdb_tpu_torch.ops.grouped import grouped_reduce
@@ -68,6 +80,10 @@ VARIANCE_AGGS = ("stddev", "stddev_samp", "var_samp", "variance", "stddev_pop",
                  "var_pop")
 PICK_AGGS = ("first", "last", "any_value", "arg_min", "arg_max", "arg_min_null",
              "arg_max_null")
+# aggregates whose result is a new value per group (a list, a map, a
+# string): finalized on the host once per group (`_nested_result_agg`)
+NESTED_RESULT_AGGS = {"histogram", "approx_top_k", "bitstring_agg", "histogram_exact", "lttb",
+                      "list", "array_agg", "string_agg"}
 
 
 def _key_data(c: Column, plen: int) -> torch.Tensor:
@@ -172,8 +188,13 @@ def execute_aggregate(executor, child, node: P.Aggregate):
     key_cols = [expr.eval(env) for _, expr in node.groups]
     key_data = [_key_data(c, plen) for c in key_cols]
     key_valid = [_full_valid(c, plen) for c in key_cols]
-    inputs, extras, orders = [], [], []
+    inputs, extras, orders, filters = [], [], [], []
     for agg in node.aggs:
+        if agg.filter is not None:
+            fc = agg.filter.eval(env)
+            filters.append(live & B.bcast(fc.data.to(torch.bool), plen) & _full_valid(fc, plen))
+        else:
+            filters.append(None)
         agg._wide = sum_needs_wide(agg, child.src, plen)
         if agg.args:
             c = agg.args[0].eval(env)
@@ -195,8 +216,8 @@ def execute_aggregate(executor, child, node: P.Aggregate):
         reps = []
 
     cols = {gkey: rep for (gkey, _), rep in zip(node.groups, reps)}
-    for agg, inp, extra, ocols in zip(node.aggs, inputs, extras, orders):
-        cols[agg.key] = _compute_agg(agg, inp, grp, extra, ocols)
+    for agg, inp, extra, ocols, rows in zip(node.aggs, inputs, extras, orders, filters):
+        cols[agg.key] = _compute_agg(agg, inp, grp, extra, ocols, rows)
     out_live = torch.arange(grp.G, device=live.device) < grp.n_groups
     return Batch(src=DictCols(cols), plen=grp.G, live=out_live)
 
@@ -205,7 +226,8 @@ def _static_bounds(expr, c: Column, src) -> Optional[Tuple[int, int]]:
     """(lo, hi) of a group key without reading the device: a VARCHAR key's
     dictionary (for a computed key, the one its function made) or a column's
     catalog stats; None → the sort-group mode."""
-    if c.ltype.id is TypeId.VARCHAR:
+    if c.ltype.id is TypeId.VARCHAR or c.ltype.id in UNSORTED_DICT_IDS:
+        # codes index the dictionary (a nested one groups by equality only)
         return (0, max(0, len(c.dict_values) - 1)) if c.dict_values is not None else None
     if c.ltype.is_float or not isinstance(expr, B.BoundColumnRef):
         return None
@@ -294,7 +316,7 @@ def _sort_group(key_cols, key_data, key_valid, live, plen):
 
 
 # ---------------------------------------------------------------------------
-def _compute_agg(agg, inp, grp: Groups, extra=(), order_cols=()) -> Column:
+def _compute_agg(agg, inp, grp: Groups, extra=(), order_cols=(), rows=None) -> Column:
     f = agg.func
     plen, live = grp.plen, grp.live
     if f == "count_star":
@@ -302,6 +324,9 @@ def _compute_agg(agg, inp, grp: Groups, extra=(), order_cols=()) -> Column:
     c, valid = inp
     data = B.bcast(c.data, plen)
     mask = live if c.validity is None else live & valid  # one tensor: count() reuses
+    if f in NESTED_RESULT_AGGS:
+        return _nested_result_agg(agg, c, data, valid, grp, extra, order_cols,
+                                  live if rows is None else rows)
     if agg.distinct:
         # the aggregate over the first row of each (group, value) run
         from duckdb_tpu_torch.execution.fused_agg import _compute_distinct_agg_mask
@@ -350,6 +375,8 @@ def _compute_agg(agg, inp, grp: Groups, extra=(), order_cols=()) -> Column:
 
     if f in ("min", "max"):
         # VARCHAR codes index a sorted dictionary: their order is the strings'
+        if c.ltype.id in UNSORTED_DICT_IDS:
+            return _nested_min_max(agg, c, data, mask, grp, nonempty)
         if c.ltype.is_float:
             sent = float("inf") if f == "min" else float("-inf")
             x = torch.where(mask, data.to(torch.float64), sent)
@@ -541,3 +568,255 @@ def _quantile_agg(agg, c, data, mask, grp: Groups, cnt, nonempty, extra) -> Colu
     pick = torch.where(frac > 0.5, hi_v, lo_v)
     d = _decode_float_key(pick, c.data.dtype) if is_float else pick.to(c.data.dtype)
     return Column(data=d, ltype=agg.ltype, validity=nonempty, dict_values=c.dict_values)
+
+
+# ---------------------------------------------------------------------------
+# nested-result aggregates: one sort, one copy to the host, per-group values
+def _nested_min_max(agg, c, data, mask, grp: Groups, nonempty) -> Column:
+    """min/max of a nested value: the least/greatest DuckDB rank, mapped
+    back to a code of that rank."""
+    from duckdb_tpu_torch.blocks.nested import rank_lut
+
+    lut = rank_lut(c.dict_values, c.ltype, data.device)
+    rank = lut[data.long().clamp(0, lut.shape[0] - 1)]
+    f = agg.func
+    x = torch.where(mask, rank, _I64_MAX if f == "min" else _I64_MIN)
+    best = grp.reduce([x], [f])[0]
+    code_of = torch.zeros(int(lut.max()) + 1, dtype=torch.int64, device=data.device)
+    code_of[lut] = torch.arange(lut.shape[0], device=data.device)  # equal ranks: equal values
+    d = code_of[best.clamp(0, code_of.shape[0] - 1)].to(c.data.dtype)
+    return Column(data=d, ltype=agg.ltype, validity=nonempty, dict_values=c.dict_values)
+
+
+class _SortedRows:
+    """The rows of `mask` sorted by (group, keys...) and stably by row
+    otherwise. The boundaries are found on the card and only they come to
+    the host: each group's [start, end) among the sorted rows, and, given
+    `run_keys` (per row, in the original order), each run of equal
+    (group, run keys): its count, group and first row, the first seen."""
+
+    def __init__(self, grp: Groups, keys, mask, run_keys=()):
+        perm, gid_s, dead_s = grp.sorted_by(keys, mask)
+        n = int((~dead_s).sum())  # the row count, read once
+        self.n = n
+        self.perm = perm[:n]
+        gid_s = gid_s[:n]
+        new_group = torch.ones(n, dtype=torch.bool, device=perm.device)
+        new_group[1:] = gid_s[1:] != gid_s[:-1]
+        at = torch.nonzero(new_group).reshape(-1)
+        self.starts = at.cpu().numpy()
+        self.ends = np.append(self.starts[1:], n).astype(np.int64)
+        self.groups = gid_s[at].cpu().numpy()
+        if run_keys:
+            new_run = new_group.clone()
+            for k in run_keys:
+                rk = k[self.perm]
+                new_run[1:] |= rk[1:] != rk[:-1]
+            rat = torch.nonzero(new_run).reshape(-1)
+            self.run_starts = rat.cpu().numpy()
+            self.run_counts = np.diff(np.append(self.run_starts, n))
+            self.run_gid = gid_s[rat].cpu().numpy()
+            self.run_rows = self.perm[rat]  # each run's first row (the sort is stable)
+
+    def values(self, c: Column, data: torch.Tensor) -> list:
+        """c's Python values in sorted order."""
+        return _values_at(self.perm, c, data)
+
+    def per_group(self, n_groups: int, make, empty):
+        """[make(start, end) for each group with rows, `empty` otherwise]."""
+        made = list(map(make, self.starts.tolist(), self.ends.tolist()))
+        if len(made) == n_groups:  # every group has rows: they come in order
+            return made
+        out = [empty] * n_groups
+        for g, m in zip(self.groups.tolist(), made):
+            out[g] = m
+        return out
+
+
+def _group_column(entries, agg, grp: Groups, validity, varchar: bool) -> Column:
+    """Per-group values (n_groups of them) → a Column sized G: VARCHAR over
+    a sorted dictionary, nested values over a first-seen one."""
+    from duckdb_tpu_torch.blocks.nested import encode_objects
+
+    device = grp.live.device
+    if varchar:
+        uniq, inv = np.unique(np.array([e or "" for e in entries] or [""], dtype=str),
+                              return_inverse=True)
+        codes, dvals = inv.reshape(-1).astype(np.int32), uniq.astype(object)
+    else:
+        codes, dvals = encode_objects(entries)
+    data = np.zeros(grp.G, dtype=np.int32)
+    data[:len(entries)] = codes[:len(entries)]
+    return Column(data=torch.from_numpy(data).to(device), ltype=agg.ltype, validity=validity,
+                  dict_values=dvals)
+
+
+def _value_key(c: Column, data: torch.Tensor) -> torch.Tensor:
+    """An int64 per row that orders as the values do (nested: by rank)."""
+    if c.ltype.id in UNSORTED_DICT_IDS:
+        from duckdb_tpu_torch.blocks.nested import order_data
+
+        return order_data(c, data.shape[0])
+    return _key_data(c, data.shape[0])
+
+
+def _const_arg(agg, i, default):
+    try:
+        v = agg.args[i].const_value() if len(agg.args) > i else None
+    except (B.BindError, ValueError):
+        v = None
+    return default if v is None else v
+
+
+def _nested_result_agg(agg, c, data, valid, grp: Groups, extra, order_cols, rows) -> Column:
+    """list/array_agg, string_agg, histogram, histogram_exact, approx_top_k,
+    bitstring_agg and lttb over the rows in `rows` (the live rows, or a
+    FILTER's): NULL inputs are listed by list() and skipped by the others."""
+    f = agg.func
+    plen = grp.plen
+    n_groups = grp.n_groups
+    mask = rows if c.validity is None else rows & valid
+    has_rows = grp.count(rows) > 0
+    nonempty = grp.count(mask) > 0
+
+    def order_keys():
+        keys = []
+        for oc, desc, nf in order_cols:
+            od = B.bcast(oc.data, plen)
+            if oc.ltype.id in UNSORTED_DICT_IDS:
+                from duckdb_tpu_torch.blocks.nested import order_data
+
+                od = order_data(oc, plen)
+            ov = None if oc.validity is None else B.bcast(oc.validity, plen)
+            keys.append(S.orderable_int64(od.contiguous(), ov, bool(desc),
+                                          bool(nf) if nf is not None else False))
+        return keys
+
+    if f in ("list", "array_agg"):
+        if agg.distinct:
+            # each distinct value's first row (NULL is one value), found on
+            # the card; then those rows in first-seen order per group
+            key = torch.where(B.bcast(valid, plen), _value_key(c, data), 0) \
+                if c.validity is not None else _value_key(c, data)
+            null = (~B.bcast(valid, plen)).to(torch.int64) if c.validity is not None \
+                else torch.zeros(plen, dtype=torch.int64, device=data.device)
+            runs = _SortedRows(grp, [null, key], rows, run_keys=[null, key])
+            first = torch.zeros(plen, dtype=torch.bool, device=data.device)
+            first[runs.run_rows] = True
+            rows = rows & first
+        sr = _SortedRows(grp, order_keys(), rows)  # NULL elements are listed
+        vals = sr.values(c, data)
+        entries = sr.per_group(n_groups, lambda a, b: tuple(vals[a:b]), ())
+        return _group_column(entries, agg, grp, has_rows, varchar=False)
+
+    if f == "string_agg":
+        sep = str(_const_arg(agg, 1, ","))
+        sr = _SortedRows(grp, order_keys(), mask)
+        vals = sr.values(c, data)
+        entries = sr.per_group(n_groups, lambda a, b: sep.join(vals[a:b]), None)
+        return _group_column(entries, agg, grp, nonempty, varchar=True)
+
+    if f in ("histogram", "histogram_exact", "approx_top_k"):
+        # runs of equal (group, value): each value's count, its first row
+        key = torch.where(mask, _value_key(c, data), 0)
+        sr = _SortedRows(grp, [key], mask, run_keys=[key])
+        counts, run_gid, rep = sr.run_counts, sr.run_gid, sr.run_rows
+        run_vals = _values_at(rep, c, data) if sr.n else []
+        if f == "approx_top_k":
+            k = int(_const_arg(agg, 1, 5))
+            first = rep.cpu().numpy()
+            order = np.lexsort((first, -counts, run_gid))  # ties: the first seen wins
+            g = run_gid[order]
+            keep = order[np.arange(len(order)) - np.searchsorted(g, g) < k]  # k per group
+            entries = [()] * n_groups
+            for part in np.split(keep, np.flatnonzero(np.diff(run_gid[keep])) + 1):
+                if len(part):
+                    entries[run_gid[part[0]]] = tuple(run_vals[i] for i in part.tolist())
+            return _group_column(entries, agg, grp, has_rows, varchar=False)
+        per = [dict() for _ in range(n_groups)]
+        for g, v, n in zip(run_gid.tolist(), run_vals, counts.tolist()):
+            per[g][v] = n
+        if f == "histogram":  # keys in value order; a group of NULLs only is NULL
+            entries = [tuple(d.items()) for d in per]
+            return _group_column(entries, agg, grp, nonempty, varchar=False)
+        bins = extra[0]
+        bvals = tuple(bins.dict_values[int(bins.data.reshape(-1)[0])]) \
+            if bins.dict_values is not None else ()
+        entries = [tuple((b, d.get(b, 0)) for b in bvals) for d in per]
+        return _group_column(entries, agg, grp, has_rows, varchar=False)
+
+    if f == "bitstring_agg":
+        # '1' at each value's offset from the lower bound (the arguments',
+        # else the least and greatest value over every group)
+        sr = _SortedRows(grp, [], mask)
+        vh = data[sr.perm].cpu().numpy().astype(np.int64)
+        gid = np.repeat(sr.groups, sr.ends - sr.starts)
+        if len(extra) >= 2:
+            lo, hi = int(extra[0].data.reshape(-1)[0]), int(extra[1].data.reshape(-1)[0])
+        else:
+            lo = int(vh.min()) if len(vh) else 0
+            hi = int(vh.max()) if len(vh) else 0
+        width = max(hi - lo + 1, 1)
+        pos = vh - lo
+        ok = (pos >= 0) & (pos < width)
+        entries = []
+        if n_groups * width <= 1 << 24:
+            bits = np.zeros((n_groups, width), dtype=np.uint8)
+            bits[gid[ok], pos[ok]] = 1
+            entries = [bytes(r + 48).decode() for r in bits]
+        else:
+            for g in range(n_groups):
+                sel = ok & (gid == g)
+                row = np.zeros(width, dtype=np.uint8)
+                row[pos[sel]] = 1
+                entries.append(bytes(row + 48).decode())
+        return _group_column(entries, agg, grp, has_rows, varchar=True)
+
+    if f == "lttb":
+        # largest-triangle-three-buckets over each group's (x, y) points
+        sr = _SortedRows(grp, [], mask)
+        xs = sr.values(c, data)
+        ys = B.bcast(extra[0].data, plen).to(torch.float64)[sr.perm].cpu().tolist()
+        n_out = int(_const_arg(agg, 2, 100))
+        entries = sr.per_group(
+            n_groups, lambda a, b: _lttb(sorted(zip(xs[a:b], ys[a:b])), n_out), ())
+        return _group_column(entries, agg, grp, has_rows, varchar=False)
+
+    raise not_ported(f"the aggregate {f}()")
+
+
+def _values_at(rows: torch.Tensor, c: Column, data: torch.Tensor) -> list:
+    """c's Python values at `rows` (one transfer of the data and one of
+    the validity)."""
+    from duckdb_tpu_torch.blocks.nested import host_pyvals
+
+    d = data[rows].cpu().numpy()
+    v = None if c.validity is None else B.bcast(c.validity, data.shape[0])[rows].cpu().numpy()
+    hi = None if c.data_hi is None else B.bcast(c.data_hi, data.shape[0])[rows].cpu().numpy()
+    return host_pyvals(d, v, c.dict_values, c.ltype, hi)
+
+
+def _lttb(pts, n_out):
+    m = len(pts)
+    if m <= n_out or n_out < 3:
+        return tuple(pts)
+    sel = [pts[0]]
+    bucket = (m - 2) / (n_out - 2)
+    a_pt = pts[0]
+    for bi in range(n_out - 2):
+        s_ = int(1 + bi * bucket)
+        e = min(int(1 + (bi + 1) * bucket), m - 1)
+        ns = min(int(1 + (bi + 1) * bucket), m - 1)
+        ne = min(int(1 + (bi + 2) * bucket), m)
+        nxt = pts[ns:ne] or [pts[-1]]
+        cx = sum(p[0] for p in nxt) / len(nxt)
+        cy = sum(p[1] for p in nxt) / len(nxt)
+        best, best_area = pts[s_], -1.0
+        for p in pts[s_:e]:
+            area = abs((a_pt[0] - cx) * (p[1] - a_pt[1]) - (a_pt[0] - p[0]) * (cy - a_pt[1]))
+            if area > best_area:
+                best, best_area = p, area
+        sel.append(best)
+        a_pt = best
+    sel.append(pts[-1])
+    return tuple(sel)

@@ -16,7 +16,10 @@ path (build columns NULL where nothing matched); left joins with duplicate
 build keys and every full join expand the pairs and append the unmatched
 rows, NULL-extended. Host syncs happen where a size is needed (group count, live
 count, pair count); PyTorch runs eagerly, so a size is read when it is
-needed instead of learned across runs.
+needed instead of learned across runs. ListPack (a columnar list_value)
+and Unnest build nested values from whole columns on the host, one
+transfer per column, and Result.rows converts nested values at every
+depth.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 import collections
 import datetime
 import decimal as pydec
+import itertools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -31,6 +35,8 @@ import numpy as np
 import torch
 
 from duckdb_tpu_torch.blocks import Column, pad_bucket
+from duckdb_tpu_torch.blocks.nested import (UNSORTED_DICT_IDS, merged_rank_luts, order_data,
+                                            to_result)
 from duckdb_tpu_torch.catalog.catalog import Catalog, TableEntry
 from duckdb_tpu_torch.ops import join as J
 from duckdb_tpu_torch.ops import sort as S
@@ -38,7 +44,7 @@ from duckdb_tpu_torch.ops.compact import packed_indices
 from duckdb_tpu_torch.planner import plan as P
 from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner.bound import EvalEnv, bcast, not_ported
-from duckdb_tpu_torch.types import LogicalType, TypeId
+from duckdb_tpu_torch.types import SQLNULL, LogicalType, TypeId
 
 _I64_MIN = torch.iinfo(torch.int64).min
 _I64_MAX = torch.iinfo(torch.int64).max
@@ -222,6 +228,10 @@ class Result:
                     out.append(float(v))
                 elif t.is_integer:
                     out.append(int(v))
+                elif t.id in UNSORTED_DICT_IDS:
+                    # LIST/ARRAY → list, STRUCT → dict, MAP → dict, UNION →
+                    # its value, BIT → str, at every depth
+                    out.append(to_result(dvals[v], t))
                 else:
                     raise not_ported(f"materializing {t!r} values")
             pycols.append(out)
@@ -367,8 +377,10 @@ class Executor:
         packed_b = torch.zeros(build_b.plen, dtype=torch.int64, device=device)
         dense_size = 1
         for i, (pc, bc) in enumerate(zip(p_cols, b_cols)):
-            if pc.ltype.id is TypeId.VARCHAR:
-                lp, lb = B._varchar_rank_luts(pc, bc, device)
+            if pc.ltype.id is TypeId.VARCHAR or pc.ltype.id in UNSORTED_DICT_IDS:
+                # two dictionaries: compare ranks in one merged order
+                lp, lb = (B._varchar_rank_luts(pc, bc, device) if pc.ltype.id is TypeId.VARCHAR
+                          else merged_rank_luts(pc, bc, device))
                 pd = lp[bcast(pc.data, probe_b.plen).long().clamp(0, len(lp) - 1)].long()
                 bd = lb[bcast(bc.data, build_b.plen).long().clamp(0, len(lb) - 1)].long()
                 lo, hi = 0, max(int(lp.shape[0]), int(lb.shape[0]))
@@ -709,6 +721,107 @@ class Executor:
                          GatherCols(build_b.src, out_build, null_rows=null_build)])
         return Batch(src=src, plen=out_cap, live=pos < n_pairs + n_unmatched + n_bun)
 
+    # -- nested values ------------------------------------------------------------
+    def _exec_ListPack(self, node: P.ListPack) -> Batch:
+        """One LIST value per live row from N columns: one transfer per
+        column, the rows deduplicated as whole numpy arrays (their physical
+        values and validity), and a tuple built per distinct row only. The
+        dictionary is in first-seen row order; 0.0 and -0.0 are one value,
+        and so are NaNs (DuckDB's equality)."""
+        from duckdb_tpu_torch.blocks.nested import host_pyvals, obj_array
+
+        b = self.execute(node.child)
+        env = b.env()
+        ct = node.ltype.child
+        rows = np.flatnonzero(b.live.cpu().numpy())
+        cols, keys = [], []
+        for e in node.exprs:
+            c = e.eval(env)
+            if c.ltype != ct:
+                c = B._coerce_to(c, ct, env)
+            data = bcast(c.data, b.plen).cpu().numpy()[rows]
+            valid = None if c.validity is None else bcast(c.validity, b.plen).cpu().numpy()[rows]
+            hi = None if c.data_hi is None else bcast(c.data_hi, b.plen).cpu().numpy()[rows]
+            cols.append((data, valid, c.dict_values, hi))
+            if hi is not None:  # a wide value: its high plane is a key too
+                keys.append(hi if valid is None else np.where(valid, hi, 0))
+            if data.dtype.kind == "f":
+                k = np.where(np.isnan(data), np.nan, data.astype(np.float64) + 0.0).view(np.int64)
+            else:
+                k = data.astype(np.int64)
+            if valid is not None:
+                k = np.where(valid, k, 0)
+                keys.append(valid.astype(np.int64))
+            keys.append(k)
+        n = len(rows)
+        if n:
+            mat = np.stack(keys, axis=1) if keys else np.zeros((n, 1), np.int64)
+            _, first, inv = np.unique(mat, axis=0, return_index=True, return_inverse=True)
+            order = np.argsort(first, kind="stable")  # first-seen order
+            rank = np.empty(len(order), dtype=np.int64)
+            rank[order] = np.arange(len(order))
+            inv = rank[inv.reshape(-1)]
+            reps = first[order]
+            vals = [host_pyvals(d[reps], None if v is None else v[reps], dv, ct,
+                                None if h is None else h[reps])
+                    for d, v, dv, h in cols]
+            dvals = obj_array(list(zip(*vals)) if vals else [() for _ in reps])
+        else:
+            inv, dvals = np.zeros(0, np.int64), obj_array([()])
+        codes = np.zeros(b.plen, dtype=np.int32)
+        codes[rows] = inv
+        col = Column(data=torch.from_numpy(codes).to(b.live.device), ltype=node.ltype,
+                     dict_values=dvals)
+        return Batch(src=ChainCols([DictCols({node.key: col}), b.src]), plen=b.plen,
+                     live=b.live)
+
+    def _exec_Unnest(self, node: P.Unnest) -> Batch:
+        """LIST values to rows: each live row repeats max(list lengths)
+        times (several unnests zip by position, the shorter NULL-padded) in
+        row order, the other columns through a gather index. The element
+        values are built once per distinct list (the dictionary
+        flattened), and each output row gathers its element by index."""
+        from duckdb_tpu_torch.blocks.nested import lut_column
+
+        b = self.execute(node.child)
+        env = b.env()
+        device = b.live.device
+        rows = np.flatnonzero(b.live.cpu().numpy())
+        specs = []
+        m = np.zeros(len(rows), dtype=np.int64)
+        for e in node.exprs:
+            c = e.eval(env)
+            dv = c.dict_values if c.dict_values is not None else np.empty(0, dtype=object)
+            codes = bcast(c.data, b.plen).long().cpu().numpy()[rows].clip(0, max(len(dv) - 1, 0))
+            lens = np.fromiter((len(t) for t in dv), dtype=np.int64, count=len(dv))
+            offs = np.cumsum(lens) - lens
+            row_len = lens[codes] if len(dv) else np.zeros(len(rows), np.int64)
+            if c.validity is not None:
+                row_len = np.where(bcast(c.validity, b.plen).cpu().numpy()[rows], row_len, 0)
+            specs.append((c.ltype.child or SQLNULL, dv, codes, offs, row_len))
+            m = np.maximum(m, row_len)
+        n = int(m.sum())
+        cap = max(128, pad_bucket(n))
+        start = np.repeat(np.cumsum(m) - m, m)
+        j = np.arange(n, dtype=np.int64) - start
+        src_row = np.repeat(np.arange(len(rows)), m)
+        cols = {}
+        for key, (ct, dv, codes, offs, row_len) in zip(node.keys, specs):
+            flat = list(itertools.chain.from_iterable(dv))
+            elem = lut_column(flat + [None], ct, device)
+            idx = np.where(j < row_len[src_row], offs[codes[src_row]] + j, len(flat))
+            pidx = np.full(cap, len(flat), dtype=np.int64)
+            pidx[:n] = idx
+            t_idx = torch.from_numpy(pidx).to(device)
+            cols[key] = Column(data=elem.data[t_idx], ltype=ct,
+                               validity=(torch.ones(cap, dtype=torch.bool, device=device)
+                                         if elem.validity is None else elem.validity[t_idx]),
+                               dict_values=elem.dict_values)
+        gidx = np.zeros(cap, dtype=np.int64)
+        gidx[:n] = rows[src_row]
+        src = ChainCols([DictCols(cols), GatherCols(b.src, torch.from_numpy(gidx).to(device))])
+        return Batch(src=src, plen=cap, live=torch.arange(cap, device=device) < n)
+
     # -- order / limit --------------------------------------------------------
     def _order_norm_keys(self, node: P.Order, b: Batch):
         env = b.env()
@@ -717,6 +830,8 @@ class Executor:
             c = expr.eval(env)
             nulls_first = bool(nulls_first)  # duckdb default NULLS LAST
             data = bcast(c.data, b.plen)
+            if c.ltype.id in UNSORTED_DICT_IDS:
+                data = order_data(c, b.plen)  # first-seen codes → DuckDB's ranks
             if c.data_hi is not None:
                 # wide value: lexicographic (hi, unsigned-low) key pair
                 norm.append(S.orderable_int64(bcast(c.data_hi, b.plen), c.validity,

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from duckdb_tpu_torch.blocks import Column, pad_bucket
+from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
 from duckdb_tpu_torch.execution.tracing import TraceEnv
 from duckdb_tpu_torch.ops import sort as S
 from duckdb_tpu_torch.ops.compact import packed_indices
@@ -382,7 +383,7 @@ def _prep_join_step_fresh(executor, j: P.Join) -> Optional[_JoinStep]:
     key_cols = []
     for e in j.build_keys:
         c = e.eval(env_b)
-        if c.ltype.id is TypeId.VARCHAR or c.ltype.is_float:
+        if c.ltype.id is TypeId.VARCHAR or c.ltype.id in UNSORTED_DICT_IDS or c.ltype.is_float:
             return None  # dictionary-rank alignment / float keys: eager path
         key_cols.append(c)
     device = bb.live.device
@@ -460,6 +461,10 @@ def _plan_keys(node) -> set:
         return {k for k, _ in node.groups} | {a.key for a in node.aggs}
     if isinstance(node, (P.Order, P.Limit)):
         return _plan_keys(node.child)
+    if isinstance(node, P.ListPack):
+        return _plan_keys(node.child) | {node.key}
+    if isinstance(node, P.Unnest):
+        return _plan_keys(node.child) | set(node.keys)
     return set()
 
 
@@ -467,8 +472,8 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
     for agg in node.aggs:
         if agg.func not in _FUSABLE_AGGS or len(agg.args) > 1:
             return None
-        if agg.ltype.id is TypeId.VARCHAR:
-            return None  # min/max over strings: the general path
+        if agg.ltype.id is TypeId.VARCHAR or agg.ltype.id in UNSORTED_DICT_IDS:
+            return None  # min/max over strings or nested values: the general path
 
     # 1. peel the Filter/Project/Join chain. Each inner, semi or anti join
     #    whose build can be prepared becomes a probe step (outermost first);
@@ -586,9 +591,11 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         if isinstance(ge, (B.BoundColumnRef, B.BoundAggregateRef)) \
                 and col_lookup(ge.key) is None:
             return None  # unresolvable ref
-        if ge.ltype.id is TypeId.VARCHAR and not isinstance(
-                ge, (B.BoundColumnRef, B.BoundAggregateRef)):
-            return None  # computed VARCHAR group key (dict is data-dependent): the general path
+        if (ge.ltype.id is TypeId.VARCHAR or ge.ltype.id in UNSORTED_DICT_IDS) \
+                and not isinstance(ge, (B.BoundColumnRef, B.BoundAggregateRef)):
+            # a computed VARCHAR or nested group key (its dictionary is
+            # data-dependent): the general path
+            return None
         b = _expr_lo_hi(ge, ref_bounds)
         if b is None:
             dense_mode = False

@@ -12,6 +12,7 @@ binds but this port does not yet raises a BindError saying so.
 from __future__ import annotations
 
 import datetime
+import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -38,13 +39,18 @@ from duckdb_tpu_torch.types import (
     SQLNULL,
     TIME,
     TIMESTAMP,
+    BIT,
     TIMESTAMPTZ,
     TINYINT,
     VARCHAR,
     LogicalType,
     TypeId,
+    array_of,
     decimal,
+    list_of,
     max_logical_type,
+    struct_of,
+    union_of,
 )
 
 # every aggregate name the JAX package knows: the parser and the planner
@@ -224,22 +230,55 @@ _TYPE_NAMES = {
     "date": DATE, "timestamp": TIMESTAMP, "datetime": TIMESTAMP,
     "time": TIME, "timestamptz": TIMESTAMPTZ, "timetz": TIME,
     "blob": BLOB, "bytea": BLOB, "binary": BLOB, "varbinary": BLOB,
+    "bit": BIT, "bitstring": BIT,
 }
-# type names of the reference that wait for a later ROADMAP item
-_LATER_TYPE_NAMES = {"bit": "27", "bitstring": "27"}
+
+
+def _split_fields(body: str):
+    """'a int, b struct(c int)' → [(field name, LogicalType), ...], split
+    at depth 0."""
+    fields, depth, part = [], 0, ""
+    for ch in body + ",":
+        if ch == "(":
+            depth += 1
+        elif ch == ")":
+            depth -= 1
+        if ch == "," and depth == 0:
+            fname, _, ftype = part.strip().partition(" ")
+            fmods: Tuple[int, ...] = ()
+            ftype = ftype.strip()
+            if "(" in ftype and ftype.endswith(")") and not ftype.startswith(("struct(",
+                                                                               "union(")):
+                base, _, rest = ftype.partition("(")
+                fmods = tuple(int(x) for x in rest[:-1].split(","))
+                ftype = base
+            fields.append((fname, resolve_type_name(ftype, fmods)))
+            part = ""
+        else:
+            part += ch
+    return fields
 
 
 def resolve_type_name(name: str, mods: Tuple[int, ...]) -> LogicalType:
+    """A type name as the parser spells it: T[] is a LIST, T[N] an ARRAY,
+    struct(...)/union(...) carry their fields (DuckDB's type grammar)."""
     n = name.lower()
+    if n.endswith("[]"):
+        return list_of(resolve_type_name(n[:-2], mods))
+    m = re.match(r"^(.*)\[(\d+)\]$", n)
+    if m:
+        return array_of(resolve_type_name(m.group(1), mods), int(m.group(2)))
+    if n.startswith("union(") and n.endswith(")"):
+        return union_of(*_split_fields(n[6:-1]))
+    if n.startswith("struct(") and n.endswith(")"):
+        return struct_of(*_split_fields(n[7:-1]))
     if n in ("decimal", "numeric"):
         w = mods[0] if mods else 18
         s = mods[1] if len(mods) > 1 else 3
         return decimal(w, s)
     if n in _TYPE_NAMES:
         return _TYPE_NAMES[n]
-    if n in _LATER_TYPE_NAMES:
-        raise not_ported(f"the type {name} (ROADMAP item {_LATER_TYPE_NAMES[n]})")
-    raise not_ported(f"the type {name} (nested and user types: ROADMAP items 27 and 34)")
+    raise not_ported(f"the type {name} (user types and ENUM: ROADMAP item 34)")
 
 
 def bind_literal(lit: N.Literal) -> B.BoundExpr:
@@ -335,6 +374,12 @@ def _arith_result_type(op: str, lt: LogicalType, rt: LogicalType) -> LogicalType
         return LogicalType(max(lt.id, rt.id, key=order.index))
     raise BindError(f"cannot apply {op} to {lt} and {rt}")
 
+
+_REDUCE_NAMES = ("list_reduce", "array_reduce", "reduce")
+_LAMBDA_NAMES = ("list_transform", "array_transform", "apply", "list_apply", "array_apply",
+                 "list_filter", "array_filter", "filter")
+# functions of the JAX package that wait for a later ROADMAP item
+_LATER_FUNCTIONS = {"json_group_array": "33 (to_json, storage/json_io.py)"}
 
 _KEYWORD_FUNCTIONS = {"current_date": "today", "current_time": "now", "localtimestamp": "now",
                       "current_timestamp": "now"}
@@ -562,8 +607,24 @@ class ExprBinder:
             if self.agg_collector is None:
                 raise BindError(f"aggregate {name}() not allowed here")
             return self.agg_collector(e, self)
+        if len(e.args) == 2 and isinstance(e.args[1], N.LambdaExpr):
+            if name in _REDUCE_NAMES:
+                return self._bind_reduce(name, e)
+            if name in _LAMBDA_NAMES:
+                return self._bind_lambda(name, e)
+        if name in _LATER_FUNCTIONS:
+            raise not_ported(f"{name}() (ROADMAP item {_LATER_FUNCTIONS[name]})")
         if name in F.REGISTRY:
-            args = [self.bind(a) for a in e.args]
+            args = []
+            for a in e.args:
+                if (name in ("struct_pack", "row", "union_value") and isinstance(a, N.BinaryOp)
+                        and a.op in (":=", "=>") and isinstance(a.left, N.ColumnRef)):
+                    # a named argument: field/tag := value
+                    b = self.bind(a.right)
+                    b.alias = a.left.parts[-1]
+                    args.append(b)
+                else:
+                    args.append(self.bind(a))
             try:
                 rt, impl, args2 = F.REGISTRY[name](args)
             except (IndexError, KeyError) as err:
@@ -571,6 +632,47 @@ class ExprBinder:
                     f"Binder Error: invalid arguments to {name} ({err!r})")
             return B.BoundFunction(name, args2, rt, impl)
         raise not_ported(f"the function {name}()")
+
+    # -- lambdas ----------------------------------------------------------------
+    def _lambda_binder(self, params) -> "ExprBinder":
+        """A binder over the lambda's parameters alone (a body reads no
+        column of the query around it, as in the JAX package)."""
+        lscope = Scope()
+        for pname, key, t in params:
+            lscope.add(pname, pname, key, t)
+        return ExprBinder(lscope, agg_collector=None, subquery_binder=self.subquery_binder)
+
+    def _bind_reduce(self, name: str, e: N.FunctionCall):
+        """list_reduce(l, (acc, x) -> …): a fold (DuckDB's list_reduce.cpp)."""
+        from duckdb_tpu_torch.planner.functions_nested import bind_reduce_func
+
+        base = self.bind(e.args[0])
+        lam = e.args[1]
+        if not lam.index_param:
+            raise BindError(f"{name} requires a two-parameter lambda (accumulator, element)")
+        child_t = base.ltype.child or SQLNULL
+        akey, xkey = f"__lambda_{lam.param}", f"__lambda_{lam.index_param}"
+        body = self._lambda_binder([(lam.param, akey, child_t),
+                                    (lam.index_param, xkey, child_t)]).bind(lam.body)
+        rt, impl = bind_reduce_func(name, base, body, akey, xkey, child_t)
+        return B.BoundFunction(name, [base], rt, impl)
+
+    def _bind_lambda(self, name: str, e: N.FunctionCall):
+        """list_transform / list_filter with x -> … or (x, i) -> …."""
+        from duckdb_tpu_torch.planner.functions_nested import bind_lambda_func
+
+        base = self.bind(e.args[0])
+        lam = e.args[1]
+        child_t = base.ltype.child or SQLNULL
+        pkey = f"__lambda_{lam.param}"
+        params = [(lam.param, pkey, child_t)]
+        ikey = None
+        if lam.index_param:
+            ikey = f"__lambda_{lam.index_param}"
+            params.append((lam.index_param, ikey, BIGINT))
+        body = self._lambda_binder(params).bind(lam.body)
+        rt, impl = bind_lambda_func(name, base, body, pkey, child_t, ikey=ikey)
+        return B.BoundFunction(name, [base], rt, impl)
 
     # -- subqueries (the planner flattens or evaluates them) -------------------
     def _bind_subquery(self, e):

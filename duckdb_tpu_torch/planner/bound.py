@@ -10,7 +10,10 @@ each node is a handful of torch ops on the env's device.
 VARCHAR columns are dictionary codes (sorted dict). String predicates are
 evaluated once per distinct value and become a device LUT gather: on the
 host dictionary, or for LIKE over a near-unique dictionary on the device
-(ops/strings).
+(ops/strings). Nested values (LIST, STRUCT, MAP, ARRAY, UNION, BIT) are
+dictionary codes too, in first-seen order (blocks/nested.py): comparisons
+over them compare DuckDB's ranks, and their casts run once per distinct
+value (`_coerce_nested`).
 
 DECIMAL is scaled int64; arithmetic follows duckdb's bind rules
 (duckdb/src/function/scalar/operator/arithmetic.cpp): add/sub rescale to
@@ -29,9 +32,11 @@ import numpy as np
 import torch
 
 from duckdb_tpu_torch.blocks import Column
+from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS, merged_rank_luts
 from duckdb_tpu_torch.types import (
     BOOLEAN,
     DOUBLE,
+    SQLNULL,
     VARCHAR,
     LogicalType,
     TypeId,
@@ -171,7 +176,10 @@ class BoundLiteral(BoundExpr):
                           ltype=self.ltype)
         if self.ltype.id in (TypeId.LIST, TypeId.STRUCT, TypeId.MAP,
                              TypeId.ARRAY, TypeId.UNION, TypeId.BIT):
-            raise not_ported(f"a {self.ltype!r} literal")
+            # a nested constant → a one-entry dictionary, code 0
+            d = np.empty(1, dtype=object)
+            d[0] = self.value if self.ltype.id is TypeId.BIT else tuple(self.value)
+            return Column(data=_const(env, 0, torch.int32), ltype=self.ltype, dict_values=d)
         return Column(data=_const(env, self.value, self.ltype.torch_dtype),
                       ltype=self.ltype)
 
@@ -241,6 +249,11 @@ class BoundComparison(BoundExpr):
         if lc.ltype.id is TypeId.VARCHAR or rc.ltype.id is TypeId.VARCHAR:
             la, lb = _varchar_rank_luts(lc, rc, env.live.device)
             data = _cmp(self.op, la[lc.data.long()], lb[rc.data.long()])
+        elif lc.ltype.id in UNSORTED_DICT_IDS or rc.ltype.id in UNSORTED_DICT_IDS:
+            # nested codes are in first-seen order: compare DuckDB's ranks
+            la, lb = merged_rank_luts(lc, rc, env.live.device)
+            data = _cmp(self.op, la[lc.data.long().clamp(0, la.shape[0] - 1)],
+                        lb[rc.data.long().clamp(0, lb.shape[0] - 1)])
         elif (lc.data_hi is not None or rc.data_hi is not None) \
                 and not (lc.ltype.is_float or rc.ltype.is_float):
             data = _wide_compare(self.op, lc, rc, env.plen)
@@ -256,12 +269,22 @@ class BoundComparison(BoundExpr):
 
 
 def varchar_where(take, a: Column, b: Column, plen):
-    """Elementwise select over two VARCHAR columns with dictionary union."""
+    """Elementwise select over two dictionary-coded columns (VARCHAR, or
+    nested) with the dictionaries' union: sorted for VARCHAR, first-seen
+    for nested values."""
     da, db = bcast(a.data, plen), bcast(b.data, plen)
     if a.dict_values is b.dict_values:
         return torch.where(take, da, db), a.dict_values
-    merged = np.union1d(a.dict_values, b.dict_values).astype(object)
     device = da.device
+    if a.ltype.id in UNSORTED_DICT_IDS:
+        from duckdb_tpu_torch.blocks.nested import encode_objects
+
+        codes, merged = encode_objects(list(a.dict_values) + list(b.dict_values))
+        ra = torch.from_numpy(codes[:len(a.dict_values)]).to(device)
+        rb = torch.from_numpy(codes[len(a.dict_values):]).to(device)
+        return torch.where(take, ra[da.long().clamp(0, len(a.dict_values) - 1)],
+                           rb[db.long().clamp(0, len(b.dict_values) - 1)]), merged
+    merged = np.union1d(a.dict_values, b.dict_values).astype(object)
     ra = torch.from_numpy(np.searchsorted(merged, a.dict_values).astype(np.int32)).to(device)
     rb = torch.from_numpy(np.searchsorted(merged, b.dict_values).astype(np.int32)).to(device)
     data = torch.where(take,
@@ -534,11 +557,9 @@ class BoundCase(BoundExpr):
         if self.else_expr is not None:
             acc = _coerce_to(self.else_expr.eval(env), self.ltype, env)
         else:
-            acc = Column(
-                data=_const(env, 0, self.ltype.torch_dtype), ltype=self.ltype,
-                validity=_const(env, False, torch.bool),
-                dict_values=(np.array([""], dtype=object)
-                             if self.ltype.id is TypeId.VARCHAR else None))
+            acc = _coerce_to(Column(data=_const(env, 0, torch.int32), ltype=SQLNULL,
+                                    validity=_const(env, False, torch.bool)),
+                             self.ltype, env)
         acc_data = bcast(acc.data, env.plen)
         acc_dict = acc.dict_values
         acc_valid = _valid_or_ones(acc, env.plen, device)
@@ -549,7 +570,7 @@ class BoundCase(BoundExpr):
                 take = take & cc.validity
             rc = _coerce_to(res.eval(env), self.ltype, env)
             rv = _valid_or_ones(rc, env.plen, device)
-            if self.ltype.id is TypeId.VARCHAR:
+            if self.ltype.id is TypeId.VARCHAR or self.ltype.id in UNSORTED_DICT_IDS:
                 acc_col = Column(data=acc_data, ltype=self.ltype, dict_values=acc_dict)
                 acc_data, acc_dict = varchar_where(take, rc, acc_col, env.plen)
             else:
@@ -572,10 +593,14 @@ def _coerce_to(c: Column, t: LogicalType, env: EvalEnv,
         return c
     if c.ltype.id is TypeId.SQLNULL:
         # NULL literal → all-null column of the target type
+        dv = None
+        if t.id in (TypeId.VARCHAR, TypeId.BIT):
+            dv = np.array([""], dtype=object)
+        elif t.id in UNSORTED_DICT_IDS:
+            dv = np.empty(1, dtype=object)
+            dv[0] = ()
         return Column(data=_const(env, 0, t.torch_dtype), ltype=t,
-                      validity=_const(env, False, torch.bool),
-                      dict_values=(np.array([""], dtype=object)
-                                   if t.id is TypeId.VARCHAR else None))
+                      validity=_const(env, False, torch.bool), dict_values=dv)
     if c.ltype.id is TypeId.VARCHAR and t.id is TypeId.BLOB:
         # a relabel of the dictionary: each distinct value UTF-8 encoded
         # (byte order is code point order, so the dictionary stays sorted)
@@ -584,6 +609,9 @@ def _coerce_to(c: Column, t: LogicalType, env: EvalEnv,
     if c.ltype.id is TypeId.BLOB and t.id is TypeId.VARCHAR:
         dv = np.array([bytes(x).decode() for x in c.dict_values], dtype=object)
         return Column(data=c.data, ltype=t, validity=c.validity, dict_values=dv)
+    nested = _coerce_nested(c, t, env, try_cast)
+    if nested is not None:
+        return nested
     if c.ltype.id is TypeId.VARCHAR and t.id is not TypeId.VARCHAR:
         # string source: parse per distinct value (must run before the
         # numeric branches, which would otherwise cast the dict CODES)
@@ -628,6 +656,122 @@ def _coerce_to(c: Column, t: LogicalType, env: EvalEnv,
     if t.is_float:  # FLOAT target
         return Column(data=_to_double(c).to(t.torch_dtype), ltype=t,
                       validity=c.validity)
+    raise not_ported(f"the cast {c.ltype!r} → {t!r}")
+
+
+def _codes_hit_bad(c: Column, ok: np.ndarray) -> bool:
+    """True if a valid row references a dictionary entry marked not ok
+    (one transfer of the codes)."""
+    codes = c.data.reshape(-1).long().clamp(0, max(len(ok) - 1, 0)).cpu().numpy()
+    if c.validity is not None:
+        codes = codes[c.validity.expand(c.data.shape).reshape(-1).cpu().numpy()]
+    return bool((~ok[codes]).any())
+
+
+def _with_ok(c: Column, t: LogicalType, ok: np.ndarray, dvals) -> Column:
+    """c relabelled as t over `dvals`, NULL where its entry is not ok."""
+    validity = c.validity
+    if not ok.all():
+        okv = torch.from_numpy(ok).to(c.data.device)[c.data.long().clamp(0, len(ok) - 1)]
+        validity = okv if validity is None else validity & okv
+    return Column(data=c.data, ltype=t, validity=validity, dict_values=dvals)
+
+
+def _coerce_nested(c: Column, t: LogicalType, env, try_cast: bool) -> Optional[Column]:
+    """The casts that involve a nested type or BIT (DuckDB's list_cast.cpp,
+    struct_cast.cpp, union_casts.cpp, string_cast.cpp): LIST ↔ ARRAY with
+    the length check, UNION ↔ UNION by member name, a member type into a
+    UNION, VARCHAR → nested or BIT parsed once per distinct string, and
+    nested or BIT → VARCHAR formatted once per distinct value. None when
+    neither side is nested."""
+    from duckdb_tpu_torch.blocks.nested import NESTED_IDS, encode_objects, obj_array, to_text
+    from duckdb_tpu_torch.errors import ConversionException
+
+    src, dst = c.ltype.id, t.id
+    if src not in UNSORTED_DICT_IDS and dst not in UNSORTED_DICT_IDS:
+        return None
+    dv = c.dict_values if c.dict_values is not None else np.empty(0, dtype=object)
+    if src in UNSORTED_DICT_IDS and dst is TypeId.VARCHAR:
+        strs = [to_text(v, c.ltype) for v in dv] or [""]
+        uniq, inv = np.unique(np.array(strs, dtype=str), return_inverse=True)
+        lut = torch.from_numpy(inv.reshape(-1).astype(np.int32)).to(c.data.device)
+        return Column(data=lut[c.data.long().clamp(0, len(strs) - 1)], ltype=VARCHAR,
+                      validity=c.validity, dict_values=uniq.astype(object))
+    if src is TypeId.LIST and dst is TypeId.ARRAY:
+        ok = np.array([len(e) == t.width for e in dv] or [True])
+        if not ok.all() and not try_cast and _codes_hit_bad(c, ok):
+            raise ConversionException(
+                f"Cannot cast list of length {len(dv[int(np.argmin(ok))])} to {t!r}")
+        return _with_ok(c, t, ok, dv)
+    if src is TypeId.ARRAY and dst is TypeId.LIST:
+        return Column(data=c.data, ltype=t, validity=c.validity, dict_values=dv)
+    if src is TypeId.UNION and dst is TypeId.UNION:
+        src_names = [n for n, _ in (c.ltype.fields or ())]
+        dst_idx = {n.lower(): i for i, (n, _) in enumerate(t.fields or ())}
+        out = []
+        for e in dv:
+            if not e:
+                out.append(e)
+                continue
+            tag, v = e
+            name = src_names[tag] if tag < len(src_names) else None
+            if name is None or name.lower() not in dst_idx:
+                raise BindError(f"union member {name!r} not present in {t!r}")
+            out.append((dst_idx[name.lower()], v))
+        return Column(data=c.data, ltype=t, validity=c.validity, dict_values=obj_array(out))
+    if dst is TypeId.UNION and src is TypeId.VARCHAR:
+        for ki, (_, ft) in enumerate(t.fields or ()):
+            if ft.id is TypeId.VARCHAR:
+                return Column(data=c.data, ltype=t, validity=c.validity,
+                              dict_values=obj_array([(ki, str(v)) for v in dv]))
+        raise BindError(f"no union member accepts VARCHAR in {t!r}")
+    if dst is TypeId.UNION:
+        # a member type → the first member that accepts it (union_casts.cpp)
+        from duckdb_tpu_torch.blocks.nested import column_values
+        from duckdb_tpu_torch.types import implicit_cast_cost
+
+        tag = next((i for i, (_, ft) in enumerate(t.fields or ())
+                    if ft == c.ltype or implicit_cast_cost(c.ltype, ft) is not None), None)
+        if tag is None:
+            raise BindError(f"no union member accepts {c.ltype!r}")
+        if c.dict_values is not None:
+            codes, d = encode_objects([(tag, v) for v in dv])
+            lut = torch.from_numpy(codes if len(codes) else np.zeros(1, np.int32)).to(
+                c.data.device)
+            return Column(data=lut[c.data.long().clamp(0, max(len(codes) - 1, 0))], ltype=t,
+                          validity=c.validity, dict_values=d)
+        vals = column_values(Column(data=bcast(c.data, env.plen), ltype=c.ltype), env.plen)
+        codes, d = encode_objects([(tag, v) for v in vals])
+        return Column(data=torch.from_numpy(codes).to(c.data.device), ltype=t,
+                      validity=c.validity, dict_values=d)
+    if src is TypeId.VARCHAR and dst is TypeId.BIT:
+        ok = np.array([len(str(s_)) > 0 and all(ch in "01" for ch in str(s_)) for s_ in dv]
+                      or [True])
+        if not ok.all() and not try_cast and _codes_hit_bad(c, ok):
+            raise ConversionException(
+                f"Could not convert string '{dv[int(np.argmin(ok))]}' to BIT")
+        return _with_ok(c, t, ok, np.array([str(s_) for s_ in dv] or [""], dtype=object))
+    if src is TypeId.VARCHAR and dst in NESTED_IDS:
+        # parse each distinct string once (nested_cast.py)
+        from duckdb_tpu_torch.planner.nested_cast import cast_str_to_nested
+
+        entries, ok = [], np.ones(max(len(dv), 1), dtype=bool)
+        for i, s_ in enumerate(dv):
+            try:
+                entries.append(cast_str_to_nested(str(s_), t))
+            except (ValueError, ArithmeticError):
+                entries.append(())
+                ok[i] = False
+        if not ok.all() and not try_cast and _codes_hit_bad(c, ok):
+            bad = dv[int(np.argmin(ok))]
+            raise ConversionException(f"Could not convert string '{bad}' to {t!r}")
+        codes, d = encode_objects(entries)
+        lut = torch.from_numpy(codes if len(codes) else np.zeros(1, np.int32)).to(c.data.device)
+        out = Column(data=lut[c.data.long().clamp(0, max(len(codes) - 1, 0))], ltype=t,
+                     validity=c.validity, dict_values=d)
+        return _with_ok(out, t, ok, d) if not ok.all() else out
+    if src is TypeId.BIT and dst is TypeId.BIT:
+        return c
     raise not_ported(f"the cast {c.ltype!r} → {t!r}")
 
 
@@ -710,8 +854,7 @@ def format_distinct(c: Column, env, fmt: Callable[[object], str],
 def _cast_to_varchar(c: Column, env) -> Column:
     """Non-VARCHAR → VARCHAR: each distinct value formatted once on the
     host (format_varchar), NULL rows as ''."""
-    if c.ltype.id in (TypeId.INTERVAL, TypeId.BIT, TypeId.LIST, TypeId.STRUCT, TypeId.MAP,
-                      TypeId.ARRAY, TypeId.UNION):
+    if c.ltype.id is TypeId.INTERVAL:
         raise not_ported(f"the cast {c.ltype!r} → VARCHAR (ROADMAP item 26)")
     return format_distinct(c, env, lambda v: format_varchar(v, c.ltype), null_text="")
 
@@ -960,6 +1103,8 @@ class BoundAggregate:
     ltype: LogicalType  # result type
     key: str  # output binding
     order_by: List = field(default_factory=list)  # (BoundExpr, desc, nf)
+    # list()/array_agg's FILTER (WHERE …): the rows it drops are not listed
+    filter: Optional[BoundExpr] = None
 
 
 def walk(expr: BoundExpr):

@@ -223,6 +223,19 @@ def fold_cast(node) -> object:
         return t
     if src.id is TypeId.ARRAY and dst.id is TypeId.LIST:
         return tuple(v)
+    if src.id is TypeId.VARCHAR and dst.id in (TypeId.LIST, TypeId.STRUCT,
+                                               TypeId.MAP, TypeId.ARRAY):
+        from duckdb_tpu_torch.planner.nested_cast import cast_str_to_nested
+
+        try:
+            return cast_str_to_nested(str(v), dst)
+        except (ValueError, ArithmeticError):
+            if node.try_cast:
+                return None
+            from duckdb_tpu_torch.errors import ConversionException
+
+            raise ConversionException(
+                f"Could not convert string '{v}' to {dst!r}") from None
     if src.id in (TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ) \
             and dst.id in (TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ):
         return int(v)

@@ -4,9 +4,9 @@ Each entry is bind(arg_exprs) → (result type, impl(env, cols, node) →
 Column, bound args). This module carries the date parts, the numeric core
 and the string core (substring, upper/lower, trim, length, contains,
 prefix, suffix); planner/functions_ext.py registers the extended library.
-The nested functions and functions_more/functions_parity come with later
-slices (ROADMAP item 27), and the binder reports any function missing here
-as not yet ported.
+planner/functions_nested.py registers the nested functions;
+functions_more/functions_parity come with a later slice (ROADMAP item 27),
+and the binder reports any function missing here as not yet ported.
 
 A string function runs once per distinct dictionary value, never per row,
 and its result is gathered by code. From ops/strings.DEVICE_STR_MIN_DICT
@@ -398,10 +398,17 @@ REGISTRY["ltrim"] = _bind_trim(True, False)
 REGISTRY["rtrim"] = _bind_trim(False, True)
 
 
+_NESTED_LENGTH = (TypeId.LIST, TypeId.ARRAY, TypeId.MAP)
+
+
 @register("length")
 @register("len")
 @register("strlen")
 def _bind_length(arg_exprs):
+    if arg_exprs and arg_exprs[0].ltype.id in _NESTED_LENGTH:
+        # the length of a list (or a map's entry count), not of a string
+        return REGISTRY["array_length"](arg_exprs[:1])
+
     def impl(env, cols, node):
         return dict_int(cols[0], len, device=lambda p, le: le, device_key="len")
 
@@ -427,8 +434,16 @@ def _bind_str_predicate(name: str, host: Callable[[str, str], bool], op: Callabl
     return bind
 
 
-REGISTRY["contains"] = _bind_str_predicate("contains", lambda s, n: n in s,
-                                           dstr.op_contains)
+_bind_str_contains = _bind_str_predicate("contains", lambda s, n: n in s, dstr.op_contains)
+
+
+@register("contains")
+def _bind_contains(arg_exprs):
+    if arg_exprs and arg_exprs[0].ltype.id in (TypeId.LIST, TypeId.ARRAY):
+        return REGISTRY["list_contains"](arg_exprs)  # contains over a list
+    return _bind_str_contains(arg_exprs)
+
+
 REGISTRY["starts_with"] = REGISTRY["prefix"] = _bind_str_predicate(
     "prefix", str.startswith, dstr.op_prefix)
 # the reference registers these in functions_ext.py (ROADMAP item 27)
@@ -439,3 +454,6 @@ REGISTRY["ends_with"] = REGISTRY["suffix"] = _bind_str_predicate(
 # the extended library (math, conditionals, the rest of the strings, dates,
 # misc) registers itself in REGISTRY
 from duckdb_tpu_torch.planner import functions_ext  # noqa: E402,F401
+
+# the nested functions and lambdas (LIST, STRUCT, MAP, ARRAY, UNION, BIT)
+from duckdb_tpu_torch.planner import functions_nested  # noqa: E402,F401

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from duckdb_tpu_torch.blocks import Column
+from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
 from duckdb_tpu_torch.ops import strings as dstr
 from duckdb_tpu_torch.ops.hash import hash64, lsr
 from duckdb_tpu_torch.planner.bound import (
@@ -350,7 +351,7 @@ def _bind_if(arg_exprs):
             take = take & bcast(cond.validity, env.plen)
         ca, cb = _coerce_to(a, t, env), _coerce_to(b, t, env)
         dvals = None
-        if t.id is TypeId.VARCHAR:
+        if t.id is TypeId.VARCHAR or t.id in UNSORTED_DICT_IDS:
             d, dvals = varchar_where(take, ca, cb, env.plen)
         else:
             d = torch.where(take, bcast(ca.data, env.plen), bcast(cb.data, env.plen))

@@ -12,10 +12,11 @@ stops a macro that calls itself).
 
 The macros are the reference's default table
 (duckdb/src/catalog/default/default_functions.cpp) as the JAX package
-carries it, less the entries whose bodies need the nested functions
-(list_*, array_*, map_*, json_group_array: ROADMAP item 27) and
-current_catalog (current_database is not a function here). CREATE MACRO
-comes with the connection's DDL (ROADMAP item 34).
+carries it, with the nested shims (list_*, array_*, map_contains_value),
+less json_group_array (its to_json waits for storage/json_io.py, ROADMAP
+item 33, and the binder says so) and current_catalog (current_database is
+not a function here). CREATE MACRO comes with the connection's DDL
+(ROADMAP item 34).
 """
 
 from __future__ import annotations
@@ -149,6 +150,25 @@ _DEFAULT_MACRO_SQL = [
     "CREATE MACRO date_add(date, i) AS date + i",
     "CREATE MACRO days_in_month(date) AS day(last_day(date))",
     "CREATE MACRO ago(i) AS current_timestamp - i",
+    # the nested shims (list_append and list_prepend are native functions)
+    "CREATE MACRO list_append(l, e) AS list_concat(l, list_value(e))",
+    "CREATE MACRO array_append(arr, el) AS list_append(arr, el)",
+    "CREATE MACRO list_prepend(e, l) AS list_concat(list_value(e), l)",
+    "CREATE MACRO array_prepend(el, arr) AS list_prepend(el, arr)",
+    "CREATE MACRO array_push_back(arr, e) AS list_concat(arr, list_value(e))",
+    "CREATE MACRO array_push_front(arr, e) AS list_concat(list_value(e), arr)",
+    "CREATE MACRO array_to_string(arr, sep) AS list_aggr(arr, 'string_agg', sep)",
+    "CREATE MACRO array_to_string_comma_default(arr, sep := ',') AS "
+    "list_aggr(arr, 'string_agg', sep)",
+    "CREATE MACRO array_reverse(l) AS list_reverse(l)",
+    "CREATE MACRO map_contains_value(map, value) AS contains(map_values(map), value)",
+] + [
+    f"CREATE MACRO list_{a}(l) AS list_aggr(l, '{a}')"
+    for a in ("avg", "var_samp", "var_pop", "stddev_pop", "stddev_samp", "sem",
+              "approx_count_distinct", "bit_xor", "bit_or", "bit_and", "bool_and", "bool_or",
+              "count", "entropy", "last", "first", "any_value", "kurtosis", "kurtosis_pop",
+              "min", "max", "product", "skewness", "sum", "string_agg", "mode", "median",
+              "mad")
 ]
 
 _DEFAULT_MACROS = None

@@ -76,3 +76,25 @@ class Limit(PlanNode):
     child: PlanNode
     n: Optional[int]
     offset: int = 0
+
+
+@dataclass
+class ListPack(PlanNode):
+    """Columnar list_value: one LIST value per row from N column
+    expressions (DuckDB's list_value.cpp over vectors)."""
+
+    child: PlanNode
+    exprs: list  # BoundExprs, one per element position
+    key: str
+    ltype: LogicalType  # the LIST type
+
+
+@dataclass
+class Unnest(PlanNode):
+    """LIST expressions flattened to rows: several unnests zip by position
+    with NULL padding, and the other columns repeat (DuckDB's
+    physical_unnest.cpp)."""
+
+    child: PlanNode
+    exprs: list  # BoundExprs of LIST type
+    keys: list  # the output column keys, one per expr

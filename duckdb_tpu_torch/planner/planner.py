@@ -45,7 +45,7 @@ from duckdb_tpu_torch.planner.binder import (
     ExprBinder,
     Scope,
 )
-from duckdb_tpu_torch.execution.aggregate_exec import VARIANCE_AGGS
+from duckdb_tpu_torch.execution.aggregate_exec import NESTED_RESULT_AGGS, VARIANCE_AGGS
 from duckdb_tpu_torch.execution.aggregate_stats import STAT_AGGS
 from duckdb_tpu_torch.planner.bound import not_ported
 from duckdb_tpu_torch.types import (
@@ -54,10 +54,14 @@ from duckdb_tpu_torch.types import (
     DOUBLE,
     HUGEINT,
     SQLNULL,
+    VARCHAR,
     LogicalType,
     TypeId,
     decimal,
+    list_of,
+    map_of,
     max_logical_type,
+    struct_of,
 )
 
 # aggregates the port computes: sum, count, avg and min/max over numbers
@@ -69,15 +73,7 @@ _PORTED_AGGS = {
     "product", "median", "quantile_cont", "quantile_disc", "mode", "stddev",
     "stddev_samp", "stddev_pop", "var_samp", "var_pop", "variance",
     "bit_and", "bit_or", "bit_xor", "approx_count_distinct",
-} | STAT_AGGS
-
-# aggregates the JAX package computes and the port refuses, with the ROADMAP
-# item each waits for
-_REFUSED_AGGS = {
-    **{f: "27 (functions_nested.encode_objects)"
-       for f in ("histogram", "approx_top_k", "bitstring_agg", "histogram_exact", "lttb",
-                 "list", "array_agg", "string_agg")},
-}
+} | STAT_AGGS | NESTED_RESULT_AGGS
 
 # the reference's aggregate aliases (duckdb_tpu/planner/planner.py)
 _AGG_ALIASES = {
@@ -707,10 +703,27 @@ class Planner:
                                                      select_aliases, binder, ctes)
 
         # -- projection -------------------------------------------------------
+        # list_value over columns becomes a ListPack node (below the
+        # aggregate when it feeds one), unnest() at the top of a select
+        # item an Unnest node
+        post_packs = []
+        unnests = []  # (key, LIST expr)
         items = []
         output = []
         for e, alias in self._expand_stars(sel.select_list, scope):
-            be = post_binder.bind(e)
+            e2 = self._hoist_listpacks(e, post_binder, scope,
+                                       lambda key, args, lt: post_packs.append((key, args, lt)),
+                                       below_aggs=False)
+            if isinstance(e2, N.FunctionCall) and e2.name.lower() == "unnest" \
+                    and len(e2.args) == 1:
+                arg = post_binder.bind(e2.args[0])
+                if arg.ltype.id not in (TypeId.LIST, TypeId.ARRAY):
+                    raise BindError(f"Binder Error: unnest() expects a LIST, got {arg.ltype!r}")
+                ukey = self.fresh("unnest")
+                unnests.append((ukey, arg))
+                be = B.BoundColumnRef(ukey, arg.ltype.child or SQLNULL)
+            else:
+                be = post_binder.bind(e2)
             key = self.fresh("out")
             items.append((key, be))
             output.append((alias or _default_name(e), key, be.ltype))
@@ -723,6 +736,10 @@ class Planner:
                         "Binder Error: HAVING column must appear in the GROUP "
                         "BY clause or be used in an aggregate function")
             plan = P.Filter(plan, hb)
+        for key, args, lt in post_packs:
+            plan = P.ListPack(plan, args, key, lt)
+        if unnests:
+            plan = P.Unnest(plan, [a for _, a in unnests], [k for k, _ in unnests])
         plan = P.Project(plan, items)
         if sel.distinct:
             plan = P.Aggregate(plan, [(k, B.BoundColumnRef(k, t))
@@ -744,6 +761,55 @@ class Planner:
                 out.append((e, alias))
         return out
 
+    # -- columnar list_value --------------------------------------------------
+    def _hoist_listpacks(self, e, binder, scope: Scope, add_pack, below_aggs=True):
+        """e with each list_value over columns replaced by a reference to a
+        ListPack's output (add_pack(key, bound args, LIST type) plans it);
+        list_value over constants binds in place. Lambda bodies and
+        subqueries are left alone, and so are aggregate calls unless
+        `below_aggs`."""
+        if not isinstance(e, N.Expr) or isinstance(e, N.LambdaExpr):
+            return e
+        if not below_aggs and isinstance(e, N.FunctionCall) \
+                and (e.name.lower() in AGGREGATE_NAMES or e.is_star):
+            return e  # the aggregate's collector hoists its arguments below it
+        if isinstance(e, N.FunctionCall) and e.name.lower() in ("list_value", "list_pack") \
+                and e.args:
+            e2 = N.FunctionCall(e.name, [
+                self._hoist_listpacks(a, binder, scope, add_pack, below_aggs) for a in e.args])
+            try:
+                binder.bind(e2)
+                return e2
+            except B.BindError:
+                args = [binder.bind(a) for a in e2.args]
+                child = SQLNULL
+                for a in args:
+                    child = max_logical_type(child, a.ltype)
+                key = self.fresh("listpack")
+                ph = f"__lp_{key}"
+                lt = list_of(child)
+                scope.add(ph, ph, key, lt)
+                add_pack(key, args, lt)
+                return N.ColumnRef((ph, ph))
+        if not dataclasses.is_dataclass(e):
+            return e
+        changes = {}
+        for f in dataclasses.fields(e):
+            v = getattr(e, f.name)
+            if isinstance(v, N.Expr):
+                nv = self._hoist_listpacks(v, binder, scope, add_pack, below_aggs)
+            elif isinstance(v, list):
+                nv = [tuple(self._hoist_listpacks(y, binder, scope, add_pack, below_aggs)
+                            for y in x) if isinstance(x, tuple)
+                      else self._hoist_listpacks(x, binder, scope, add_pack, below_aggs)
+                      for x in v]
+            else:
+                continue
+            if (any(a is not b for a, b in zip(nv, v)) if isinstance(v, list)
+                    else nv is not v):
+                changes[f.name] = nv
+        return dataclasses.replace(e, **changes) if changes else e
+
     # -- aggregate planning ---------------------------------------------------
     def _plan_aggregate(self, plan, sel: N.SelectNode, scope, select_aliases, binder,
                         ctes):
@@ -759,13 +825,19 @@ class Planner:
             groups.append((key, bg))
             group_lookup.append((g, key, bg.ltype))
         aggs: List[B.BoundAggregate] = []
+        node = P.Aggregate(plan, groups, aggs)
+
+        def below(key, args, lt):
+            # a ListPack that feeds an aggregate's argument runs below it
+            node.child = P.ListPack(node.child, args, key, lt)
 
         def collector(fc: N.FunctionCall, b):
+            fc = self._hoist_listpacks(fc, binder, scope, below)
             return self._bind_aggregate_call(fc, binder, aggs)
 
         post = _PostAggBinder(scope, group_lookup, collector,
                               lambda e, b: self._bind_subquery_expr(e, b, ctes))
-        return P.Aggregate(plan, groups, aggs), post
+        return node, post
 
     def _resolve_group_ast(self, g, sel, select_aliases):
         if isinstance(g, N.Literal) and isinstance(g.value, int):
@@ -779,7 +851,12 @@ class Planner:
     def _bind_aggregate_call(self, fc: N.FunctionCall, binder,
                              aggs: List[B.BoundAggregate]):
         name = fc.name.lower()
-        if fc.filter is not None:
+        agg_filter = None
+        if fc.filter is not None and _AGG_ALIASES.get(name, name) in ("list", "array_agg"):
+            # list() keeps NULL elements, so a FILTER drops rows rather than
+            # nulling them as the CASE form below would
+            agg_filter = binder.bind(fc.filter)
+        elif fc.filter is not None:
             # agg(x) FILTER (WHERE p) ≡ agg(CASE WHEN p THEN x END): every
             # aggregate but count(*) ignores NULL inputs, and count(*)
             # becomes count(CASE WHEN p THEN 1 END)
@@ -795,11 +872,13 @@ class Planner:
             func, args = "count_star", []
         else:
             func = _AGG_ALIASES.get(name, name)
-            if func in _REFUSED_AGGS:
-                raise not_ported(f"the aggregate {name}() (ROADMAP item {_REFUSED_AGGS[func]})")
             if func not in _PORTED_AGGS:
                 raise not_ported(f"the aggregate {name}()")
+            if fc.distinct and func in NESTED_RESULT_AGGS - {"list", "array_agg"}:
+                raise BindError(f"distinct aggregate {func}")  # as the JAX package refuses
             args = [binder.bind(a) for a in fc.args]
+            if func == "string_agg" and args and args[0].ltype.id is not TypeId.VARCHAR:
+                args[0] = B.BoundCast(args[0], VARCHAR)  # DuckDB's string_agg.cpp
         arity = _AGG_ARITY.get(func)
         if arity is not None and len(args) != arity:
             raise BindError(f"Binder Error: {func} requires {arity} arguments, "
@@ -813,11 +892,13 @@ class Planner:
         # dedup structurally identical aggregates
         for a in aggs:
             if (a.func == func and a.distinct == distinct and not a.order_by
-                    and not order_by and len(a.args) == len(args)
+                    and not order_by and a.filter is None and agg_filter is None
+                    and len(a.args) == len(args)
                     and all(_bound_eq(x, y) for x, y in zip(a.args, args))):
                 return B.BoundAggregateRef(a.key, a.ltype)
         key = self.fresh(f"agg.{func}")
-        aggs.append(B.BoundAggregate(func, args, distinct, t, key, order_by=order_by))
+        aggs.append(B.BoundAggregate(func, args, distinct, t, key, order_by=order_by,
+                                     filter=agg_filter))
         return B.BoundAggregateRef(key, t)
 
     # -- subqueries -------------------------------------------------------------
@@ -1239,6 +1320,14 @@ def _agg_result_type(func: str, args) -> LogicalType:
         return BIGINT
     if func == "avg":
         return DOUBLE
+    if func in ("list", "array_agg", "approx_top_k"):
+        return list_of(t)
+    if func in ("histogram", "histogram_exact"):
+        return map_of(t, BIGINT)
+    if func in ("string_agg", "bitstring_agg"):
+        return VARCHAR  # bitstring_agg's '0'/'1' text, as in the JAX package
+    if func == "lttb":
+        return list_of(struct_of(("x", t), ("y", DOUBLE)))
     return t  # min / max / first / last / any_value / arg_* / mode / quantile_disc
 
 

@@ -833,6 +833,21 @@ class Parser:
             j += 1
         return self.peek(j).value == ")"
 
+    def _at_paren_lambda(self) -> bool:
+        """At `( ident [, ident]* ) ->`?"""
+        if not (self.peek().type == TokType.OP and self.peek().value == "("):
+            return False
+        j = 1
+        while True:
+            if self.peek(j).type != TokType.IDENT:
+                return False
+            j += 1
+            if self.peek(j).value == ",":
+                j += 1
+                continue
+            return (self.peek(j).value == ")" and self.peek(j + 1).type == TokType.OP
+                    and self.peek(j + 1).value == "->")
+
     # -- expressions (Pratt) ----------------------------------------------------
     def parse_expr(self) -> N.Expr:
         # lambdas (list_transform/list_filter args): `x -> expr` (legacy
@@ -851,6 +866,19 @@ class Parser:
             param = self.next().value
             self.next()
             return N.LambdaExpr(param, self.parse_expr())
+        if self._at_paren_lambda():
+            # (a, x) -> expr: DuckDB's two-parameter arrow form (without this
+            # the parenthesized list parses as a row and -> as JSON extract)
+            self.next()
+            params = [self.expect_ident()]
+            while self.accept_op(","):
+                params.append(self.expect_ident())
+            self.expect_op(")")
+            self.expect_op("->")
+            if len(params) > 2:
+                raise ParserError("at most two lambda parameters (x, i)")
+            return N.LambdaExpr(params[0], self.parse_expr(),
+                                index_param=(params[1] if len(params) > 1 else None))
         if (self.kw() == "lambda" and self.peek(1).type == TokType.IDENT
                 and self.peek(2).value in (":", ",")):
             self.next()

@@ -384,6 +384,45 @@ FROM orders GROUP BY ym ORDER BY ym
 """,
 }
 
+# nested values: the nested-result aggregates, per-order lists with
+# lambdas, UNNEST and a columnar list_value, string_agg with ORDER BY
+NESTED_QUERIES = {
+    "nested_agg": """
+SELECT l_returnflag, l_linestatus,
+  histogram(l_shipmode), histogram(l_shipmode)['AIR'],
+  cardinality(histogram(l_shipmode)),
+  approx_top_k(l_shipmode, 2), list(DISTINCT l_shipinstruct),
+  bitstring_agg(l_linenumber), count(*), sum(l_quantity)
+FROM lineitem GROUP BY 1, 2 ORDER BY 1, 2
+""",
+    "nested_collect": """
+SELECT len(s) AS n, count(*) AS orders,
+  sum(list_sort(s)[1]) AS firsts,
+  sum(list_reduce(s, lambda a, x: a + x)) AS total,
+  sum(len(list_filter(s, x -> x % 2 = 0))) AS evens
+FROM (SELECT l_orderkey, list(l_partkey ORDER BY l_linenumber) AS s
+      FROM lineitem GROUP BY l_orderkey)
+GROUP BY 1 ORDER BY 1
+""",
+    "nested_words": """
+SELECT w, count(*) AS n
+FROM (SELECT unnest(string_split(p_name, ' ')) AS w FROM part)
+GROUP BY w ORDER BY n DESC, w LIMIT 10
+""",
+    "nested_pack": """
+SELECT p_size, count(*) AS n, sum(l[1]) AS keys,
+  sum(CAST(list_contains(string_split(p_name, ' '), 'green') AS INTEGER)) AS green,
+  min(string_split(p_name, ' ')[2]) AS w2
+FROM (SELECT p_size, p_name, list_value(p_partkey, p_size) AS l FROM part)
+GROUP BY p_size ORDER BY p_size
+""",
+    "nested_pack_agg": """
+SELECT s_nationkey, count(*),
+  string_agg(s_name, ',' ORDER BY s_acctbal DESC, s_name)
+FROM supplier GROUP BY 1 ORDER BY 1
+""",
+}
+
 _EPOCH = datetime.date(1970, 1, 1)
 
 
@@ -1142,17 +1181,143 @@ def fn_casts(t):
             for g, (m,) in enumerate(keys)]
 
 
+def _text(t, table: str, col: str) -> list:
+    return [v.decode() for v in t(table, col)]
+
+
+def _factorize(a: np.ndarray):
+    """(sorted unique byte strings, each row's index among them) of an 'S'
+    array, sorted as big-endian 64-bit words (np.unique sorts the strings
+    themselves, which takes seconds over lineitem at SF1)."""
+    w = a.dtype.itemsize
+    mat = np.zeros((len(a), w + (-w) % 8), dtype=np.uint8)
+    mat[:, :w] = a.view(np.uint8).reshape(len(a), w)
+    words = mat.view(">u8").astype(np.uint64)
+    order = np.lexsort(words.T[::-1])
+    sw = words[order]
+    change = np.ones(len(a), dtype=bool)
+    change[1:] = (sw[1:] != sw[:-1]).any(axis=1)
+    inv = np.empty(len(a), dtype=np.int64)
+    inv[order] = np.cumsum(change) - 1
+    return a[order[change]], inv
+
+
+def _pair_runs(inv, codes, n_codes):
+    """(group, code) pairs → (group, code, first row, count) per distinct
+    pair, in (group, code) order."""
+    pair = inv.astype(np.int64) * n_codes + codes
+    uniq, first, count = np.unique(pair, return_index=True, return_counts=True)
+    return uniq // n_codes, uniq % n_codes, first, count
+
+
+def nested_agg(t):
+    """NESTED_QUERIES["nested_agg"] per (l_returnflag, l_linestatus): the
+    ship modes' counts in key order, AIR's count, the number of modes, the
+    two most frequent modes (a tie goes to the mode seen first in row
+    order), the distinct ship instructions in first-seen order, a bit per
+    line number from the least to the greatest over all rows, the count
+    and the quantity sum."""
+    flags, fcode = _factorize(t("lineitem", "l_returnflag"))
+    stats, scode = _factorize(t("lineitem", "l_linestatus"))
+    gkeys, inv = np.unique(fcode * len(stats) + scode, return_inverse=True)
+    inv = inv.reshape(-1)
+    keys = [(flags[k // len(stats)], stats[k % len(stats)]) for k in gkeys.tolist()]
+    n = len(keys)
+    modes, mcode = _factorize(t("lineitem", "l_shipmode"))
+    instrs, icode = _factorize(t("lineitem", "l_shipinstruct"))
+    line = t("lineitem", "l_linenumber")
+    qty = _sums(inv, n, t("lineitem", "l_quantity"))
+    count = np.bincount(inv, minlength=n)
+    lo, hi = int(line.min()), int(line.max())
+    mg, mc, mfirst, mcount = _pair_runs(inv, mcode, len(modes))
+    ig, ic, ifirst, _ = _pair_runs(inv, icode, len(instrs))
+    bg, bpos, _, _ = _pair_runs(inv, line - lo, hi - lo + 1)
+    out = []
+    for g, key in enumerate(keys):
+        sel = mg == g
+        hist = {modes[c].decode(): int(k) for c, k in zip(mc[sel], mcount[sel])}
+        order = np.lexsort((mfirst[sel], -mcount[sel]))[:2]
+        top = [modes[c].decode() for c in mc[sel][order]]
+        isel = ig == g
+        seen = [instrs[c].decode() for c in ic[isel][np.argsort(ifirst[isel])]]
+        bits = np.zeros(hi - lo + 1, dtype=np.uint8)
+        bits[bpos[bg == g]] = 1
+        out.append((key[0].decode(), key[1].decode(), hist, hist.get("AIR"), len(hist), top,
+                    seen, "".join(map(str, bits.tolist())), int(count[g]), _dec(qty[g], 2)))
+    return out
+
+
+def nested_collect(t):
+    """NESTED_QUERIES["nested_collect"]: orders grouped by their line
+    count, with the sum of each order's least part key, of all its part
+    keys and the count of its even part keys."""
+    okey, part = t("lineitem", "l_orderkey"), t("lineitem", "l_partkey")
+    orders, inv = np.unique(okey, return_inverse=True)
+    inv = inv.reshape(-1)
+    n = len(orders)
+    length = np.bincount(inv, minlength=n)
+    least = _reduce_at(inv, n, part, np.minimum, np.iinfo(np.int64).max)
+    total = _sums(inv, n, part)
+    evens = _sums(inv, n, (part % 2 == 0).astype(np.int64))
+    out = []
+    for k in np.unique(length).tolist():
+        sel = length == k
+        out.append((k, int(sel.sum()), int(least[sel].sum()), int(total[sel].sum()),
+                    int(evens[sel].sum())))
+    return out
+
+
+def nested_words(t):
+    """NESTED_QUERIES["nested_words"]: the ten most frequent words of the
+    part names (ties by word)."""
+    counts = {}
+    for name in _text(t, "part", "p_name"):
+        for w in name.split(" "):
+            counts[w] = counts.get(w, 0) + 1
+    return sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
+
+
+def nested_pack(t):
+    """NESTED_QUERIES["nested_pack"] per p_size: the count, the part keys'
+    sum, the names holding the word green, the least second word."""
+    size, key = t("part", "p_size"), t("part", "p_partkey")
+    names = _text(t, "part", "p_name")
+    out = []
+    for sz in np.unique(size).tolist():
+        rows = np.flatnonzero(size == sz).tolist()
+        words = [names[r].split(" ") for r in rows]
+        out.append((sz, len(rows), int(key[rows].sum()), sum("green" in w for w in words),
+                    min(w[1] if len(w) > 1 else None for w in words)))
+    return out
+
+
+def nested_pack_agg(t):
+    """NESTED_QUERIES["nested_pack_agg"] per s_nationkey: the count and the
+    supplier names joined by ',' in descending balance, ties by name."""
+    nation, bal = t("supplier", "s_nationkey"), t("supplier", "s_acctbal")
+    names = _text(t, "supplier", "s_name")
+    out = []
+    for nk in np.unique(nation).tolist():
+        rows = np.flatnonzero(nation == nk).tolist()
+        rows.sort(key=lambda r: (-int(bal[r]), names[r]))
+        out.append((nk, len(rows), ",".join(names[r] for r in rows)))
+    return out
+
+
 _ANSWERS = {"q02": q02, "q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q08,
             "q09": q09, "q10": q10, "q11": q11, "q12": q12, "q13": q13,
             "q13_nolike": q13_nolike, "q14": q14, "q15": q15, "q16": q16, "q17": q17,
             "q18": q18, "q19": q19, "q20": q20, "q21": q21, "q06": q06, "q22": q22,
             "general_agg": general_agg, "fn_dates": fn_dates, "fn_math": fn_math,
-            "fn_strings": fn_strings, "fn_casts": fn_casts}
+            "fn_strings": fn_strings, "fn_casts": fn_casts, "nested_agg": nested_agg,
+            "nested_collect": nested_collect, "nested_words": nested_words,
+            "nested_pack": nested_pack, "nested_pack_agg": nested_pack_agg}
 
 
 def answer(name: str, data_dir: str, **params):
     """Rows of query `name` (a key of QUERIES, SUBQUERY_QUERIES,
-    FROM_QUERIES, LIKE_QUERIES or GENERAL_QUERIES) over data_dir; params go
+    FROM_QUERIES, LIKE_QUERIES, GENERAL_QUERIES, FUNCTION_QUERIES or
+    NESTED_QUERIES) over data_dir; params go
     to the query's
     answer (Q2's `size`/`type_suffix`/`region`, Q7's `nation1`/`nation2`,
     Q8's `nation`/`region`/`ptype`, Q9's `color`, Q11's `nation`, Q13's

@@ -221,13 +221,10 @@ def test_ungrouped_over_no_rows(cons):
 
 
 @pytest.mark.parametrize("sql,item", [
-    ("SELECT approx_top_k(o_custkey, 3) FROM orders", "27"),
-    ("SELECT bitstring_agg(o_custkey) FROM orders GROUP BY o_orderstatus", "27"),
-    ("SELECT histogram_exact(o_custkey, [1, 2]) FROM orders", "27"),
-    ("SELECT histogram(o_orderstatus) FROM orders", "27"),
-    ("SELECT list(o_orderkey) FROM orders", "27"),
-    ("SELECT string_agg(o_orderstatus, ',') FROM orders", "27"),
-    ("SELECT array_agg(o_orderkey) FROM orders", "27"),
+    # the nested-result aggregates are ported (tests/test_torch_nested_aggs.py);
+    # json_group_array's to_json waits for storage/json_io.py
+    ("SELECT json_group_array(o_orderkey) FROM orders", "33"),
+    ("SELECT o_orderstatus, json_group_array(o_custkey) FROM orders GROUP BY 1", "33"),
 ])
 def test_left_out_aggregates_name_their_roadmap_item(cons, sql, item):
     _, tcon = cons

@@ -541,3 +541,53 @@ def test_function_queries_on_cuda(tmp_path, monkeypatch):
     assert TS.host_loop_events == []
     assert con.sql("SELECT greatest(1, NULL, 3), -7 % 3, -7 // 2, "
                    "TRY_CAST('1e309' AS DOUBLE)").rows() == [(3, -1, -3, None)]
+
+
+@pytest.mark.gpu
+def test_nested_queries_on_cuda(tmp_path):
+    """The five NESTED_QUERIES on the card equal the numpy oracle, and the
+    nested constants and casts give DuckDB's answers there."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    for name, sql in tpch_oracle.NESTED_QUERIES.items():
+        assert con.sql(sql).rows() == tpch_oracle.answer(name, str(tmp_path)), name
+    assert con.sql("SELECT [{'a': 1}], CAST('[1, 2, NULL]' AS INTEGER[]), "
+                   "CAST([1,2] AS VARCHAR), list_reduce([1, 2, 3], (a, x) -> a + x)").rows() \
+        == [([{"a": 1}], [1, 2, None], "[1, 2]", 6)]
+
+
+@pytest.mark.gpu
+def test_nested_values_on_cuda_match_cpu(tmp_path):
+    """Lambdas over per-order lists, ListPack, UNNEST, ORDER BY a list and
+    every nested-result aggregate on the card equal the port's CPU run."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path))
+    for sql in (
+            "SELECT o_custkey, list_reduce(l, lambda a, x: a + x), list_transform(l, "
+            "lambda x, i: x * i), list_filter(l, x -> x % 3 = 0), list_sort(l) FROM "
+            "(SELECT o_custkey, list(o_orderkey ORDER BY o_totalprice) AS l FROM orders "
+            "WHERE o_custkey < 300 GROUP BY 1) ORDER BY l",
+            "SELECT p_size, sum(list_value(p_partkey, p_size)[1]), min(string_split(p_name, ' ')) "
+            "FROM part GROUP BY 1 ORDER BY 1",
+            "SELECT unnest(string_split(p_type, ' ')) AS w, p_partkey FROM part "
+            "WHERE p_partkey < 300 ORDER BY 2, 1",
+            "SELECT n_regionkey, list(n_name ORDER BY n_name DESC), string_agg(n_name, ',' "
+            "ORDER BY n_nationkey), histogram(n_nationkey % 3), approx_top_k(n_nationkey % 4, 2), "
+            "bitstring_agg(n_nationkey), list(DISTINCT n_nationkey % 2), "
+            "histogram_exact(n_nationkey % 4, [0, 1]) FROM nation GROUP BY 1 ORDER BY 1",
+            "SELECT list(o_orderkey) FILTER (WHERE o_orderkey % 5 = 0), "
+            "histogram(o_orderstatus) FROM orders"):
+        assert con.sql(sql).rows() == cpu.sql(sql).rows(), sql

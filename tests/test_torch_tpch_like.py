@@ -266,8 +266,10 @@ def test_distinct_group_without_values(cons):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT list(o_custkey) FILTER (WHERE o_totalprice > 1000) FROM orders",
-    "SELECT string_agg(o_comment, ',' ORDER BY o_orderdate) FROM orders",
+    # list/string_agg with FILTER and ORDER BY are ported
+    # (tests/test_torch_nested_aggs.py); a window aggregate is not
+    "SELECT sum(o_totalprice) OVER (PARTITION BY o_custkey) FROM orders",
+    "SELECT json_group_array(o_comment) FROM orders",
 ])
 def test_aggregate_forms_not_yet_ported_say_so(data_dir, sql):
     with pytest.raises(ValueError, match="not yet ported"):
