@@ -117,6 +117,22 @@ Phases (any failure exits non-zero before the result lines):
    host syncs. Then [{'a': 1}], CAST('[1, 2, NULL]' AS INTEGER[]),
    CAST([1,2] AS VARCHAR) and list_value(p_partkey, p_size) over part's
    200,000 rows must give DuckDB's answers on the card.
+13. the rest of the scalar functions: the MORE_QUERIES of
+   testing/tpch_oracle.py (more_dates: isoyear, yearweek, epoch_ms,
+   date_sub, make_timestamp, millennium and julian over orders; more_math:
+   acosh, asinh, signbit and cot over lineitem; more_text: bit_length,
+   to_base64, sha256, jaccard, damerau_levenshtein, md5_number,
+   regexp_extract_all and parse_filename over part; parity_lists:
+   list_dot_product, list_distance, list_zip, list_grade_up and
+   list_resize over a columnar list of part; json_orders: json_object
+   over two columns of orders, then json_extract(_string)) and count(*)
+   and sum over range(10,000,000), the same way as phase 12: rows against
+   the numpy oracle (numpy's arange for range), the route exactly, each
+   launches the grouped sum, which equals its plain version on every input
+   and is timed at each shape, each query's first run, warm median of 5,
+   rows/s and host syncs. Then range()'s column was made on the card;
+   duckdb_functions() counts each type as the port's catalog does;
+   epoch_ms(BIGINT) is a TIMESTAMP; current_query() gives its own text.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -627,6 +643,47 @@ def nested_end(con, card: str) -> str:
     return ""
 
 
+# phase 13: the route each MORE_QUERIES query and the range() count take
+# (exactly), and the table (or table function) its rate counts
+RANGE_N = 10_000_000
+RANGE_SQL = f"SELECT count(*), sum(range) FROM range({RANGE_N})"
+MORE_ROUTES = {"more_dates": {"dense": 1}, "more_math": {"dense": 1},
+               "more_text": {"general_aggregate": 1, "general_perfect": 1},
+               "parity_lists": {"general_aggregate": 1, "general_sort_group": 1},
+               "json_orders": {"general_aggregate": 1, "general_perfect": 1},
+               "range": {"dense": 1}}
+MORE_RATE_TABLE = {"more_dates": "orders", "more_math": "lineitem", "more_text": "part",
+                   "parity_lists": "part", "json_orders": "orders", "range": "range"}
+
+
+def more_end(con, card: str) -> str:
+    """On the card: range()'s column was made there; duckdb_functions()
+    counts each function type as the port's catalog does; epoch_ms(BIGINT)
+    is a TIMESTAMP; current_query() gives its own text. '' when they do."""
+    import datetime
+
+    from duckdb_tpu_torch.planner.function_catalog import function_types
+
+    entry = con.catalog.get_table(con._plan_tables[RANGE_SQL][0])
+    if entry.device_column("range").data.device.type != "cuda":
+        return "range()'s column is not on the card"
+    counts = dict(con.sql("SELECT function_type, count(*) FROM duckdb_functions() "
+                          "GROUP BY 1").rows())
+    types = function_types()
+    want_counts = {t: sum(1 for v in types.values() if v == t) for t in set(types.values())}
+    if counts != want_counts:
+        return f"duckdb_functions() counts {counts}, the catalog {want_counts}"
+    if con.sql("SELECT epoch_ms(1700000000000)").rows() != [
+            (datetime.datetime(2023, 11, 14, 22, 13, 20),)]:
+        return "epoch_ms(1700000000000) is not the TIMESTAMP 2023-11-14 22:13:20"
+    q = "SELECT current_query() AS q, 13 AS phase"
+    if con.sql(q).rows() != [(q, 13)]:
+        return "current_query() does not give its own text"
+    print(f"on {card}: range({RANGE_N})'s column made on the card; duckdb_functions() "
+          f"counts {counts}; epoch_ms(BIGINT) is a TIMESTAMP; current_query() gives its text")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -930,79 +987,117 @@ def main() -> int:
     if bad:
         return fail(bad)
 
+    def oracle_phase(queries, want_routes, warm_runs, rate_table, need_kernel,
+                     oracle=lambda name: tpch_oracle.answer(name, DATA)):
+        """Each query once with the kernel's counts reset just before and
+        read just after: rows against `oracle` (numpy's), the route exactly,
+        the grouped sum on the card (launched at least once where
+        `need_kernel`) and equal to its plain version on every input, timed
+        at each shape; then the warm median, rows/s and host syncs. → '' or
+        a failure message."""
+        nonlocal worst
+        for name, sql in queries.items():
+            recorded.clear()
+            grouped_mod.grouped_sum_i64 = recording
+            GS.grouped_sum_i64.launches = 0
+            GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
+            con.routes.clear()
+            t0 = time.perf_counter()
+            got = con.sql(sql).rows()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            q_launches = GS.grouped_sum_i64.launches
+            q_regimes = dict(GS.grouped_sum_i64.regime_launches)
+            routes = dict(con.routes)
+            grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+            launches_by_query[name] = q_launches
+            t0 = time.perf_counter()
+            want = oracle(name)
+            oracle_s = time.perf_counter() - t0
+            bad = rows_match(got, want)
+            if bad or not want:
+                return f"{name} rows differ from the numpy oracle: {bad or 'no rows'}"
+            if routes != want_routes[name]:
+                return f"{name} missed its route {want_routes[name]}: routes {routes}"
+            if (need_kernel and q_launches < 1) or any(
+                    d.device.type != "cuda" for d, _, _ in recorded):
+                return (f"{name} did not launch the grouped sum on the card: launches "
+                        f"{q_launches} {q_regimes}")
+            if name == "nested_agg" and (q_regimes["small"] < 1 or len(recorded) < 3):
+                return (f"nested_agg's count and sum missed the grouped sum's small regime: "
+                        f"launches {q_launches} {q_regimes}")
+            print(f"{name} (first run): {first_s:.3f} s, {len(got)} rows match the numpy "
+                  f"oracle ({oracle_s:.1f} s to answer); routes {routes}; grouped_sum_i64 "
+                  f"launches {q_launches} by regime {q_regimes}")
+            for r in got[:3]:
+                print("  ", repr(r)[:300])
+            timed = set()
+            for dense, vecs, nseg in recorded:
+                err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
+                                  GS.grouped_sum_i64_plain(dense, vecs, nseg))
+                torch.cuda.synchronize()
+                n_q, k_q = dense.shape[0], len(vecs)
+                print(f"kernel vs plain, {name} inputs N={n_q} K={k_q} nseg={nseg}: "
+                      f"max abs err {err}")
+                if err:
+                    return f"grouped_sum_i64 disagrees with its plain version on {name}"
+                worst = max(worst, err)
+                if (n_q, k_q, nseg) in timed:
+                    continue
+                timed.add((n_q, k_q, nseg))
+                k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+                b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
+                print(f"grouped_sum_i64 at {name}'s shape N={n_q} K={k_q} nseg={nseg} on "
+                      f"{card}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ "
+                      f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, "
+                      f"{b_adds} adds), regime {GS.launch_plan(nseg, k_q).regime}")
+                shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg,
+                               "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+            runs = warm_runs.get(name, 5)
+            med, times = warm_median(con, sql, got, runs=runs,
+                                     exact=not any(isinstance(v, float) for r in got for v in r))
+            if med is None:
+                return f"{name}: {times}"
+            syncs = count_syncs(lambda: con.sql(sql).rows())
+            table = rate_table[name]
+            print(f"{name} SF{SF:g} on {card}: first run {first_s:.3f} s, median of {runs} "
+                  f"warm runs {med * 1e3:.3f} ms (runs "
+                  f"{', '.join(f'{t * 1e3:.3f}' for t in times)} ms), "
+                  f"{sizes[table] / med:.0f} {table} rows/s, {syncs} host syncs per run")
+        return ""
+
     # 12. nested values: NESTED_QUERIES, then nested constants and casts
     phase12_t0 = time.perf_counter()
-    for name, sql in tpch_oracle.NESTED_QUERIES.items():
-        recorded.clear()
-        grouped_mod.grouped_sum_i64 = recording
-        GS.grouped_sum_i64.launches = 0
-        GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
-        con.routes.clear()
-        t0 = time.perf_counter()
-        got = con.sql(sql).rows()
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        q_launches = GS.grouped_sum_i64.launches
-        q_regimes = dict(GS.grouped_sum_i64.regime_launches)
-        routes = dict(con.routes)
-        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
-        launches_by_query[name] = q_launches
-        t0 = time.perf_counter()
-        want = tpch_oracle.answer(name, DATA)
-        oracle_s = time.perf_counter() - t0
-        bad = rows_match(got, want)
-        if bad or not want:
-            return fail(f"{name} rows differ from the numpy oracle: {bad or 'no rows'}")
-        if routes != NESTED_ROUTES[name]:
-            return fail(f"{name} missed its route {NESTED_ROUTES[name]}: routes {routes}")
-        if any(d.device.type != "cuda" for d, _, _ in recorded):
-            return fail(f"{name}: the grouped sum ran on a tensor off the card")
-        if name == "nested_agg" and (q_regimes["small"] < 1 or len(recorded) < 3):
-            return fail(f"nested_agg's count and sum missed the grouped sum's small regime: "
-                        f"launches {q_launches} {q_regimes}")
-        print(f"{name} (first run): {first_s:.3f} s, {len(got)} rows match the numpy oracle "
-              f"({oracle_s:.1f} s to answer); routes {routes}; grouped_sum_i64 launches "
-              f"{q_launches} by regime {q_regimes}")
-        for r in got[:3]:
-            print("  ", repr(r)[:300])
-        timed = set()
-        for dense, vecs, nseg in recorded:
-            err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
-                              GS.grouped_sum_i64_plain(dense, vecs, nseg))
-            torch.cuda.synchronize()
-            n_q, k_q = dense.shape[0], len(vecs)
-            print(f"kernel vs plain, {name} inputs N={n_q} K={k_q} nseg={nseg}: "
-                  f"max abs err {err}")
-            if err:
-                return fail(f"grouped_sum_i64 disagrees with its plain version on {name}")
-            worst = max(worst, err)
-            if (n_q, k_q, nseg) in timed:
-                continue
-            timed.add((n_q, k_q, nseg))
-            k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
-            b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
-            print(f"grouped_sum_i64 at {name}'s shape N={n_q} K={k_q} nseg={nseg} on "
-                  f"{card}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ "
-                  f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, "
-                  f"{b_adds} adds), regime {GS.launch_plan(nseg, k_q).regime}")
-            shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg,
-                           "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
-                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
-        runs = NESTED_WARM_RUNS.get(name, 5)
-        med, times = warm_median(con, sql, got, runs=runs)
-        if med is None:
-            return fail(f"{name}: {times}")
-        syncs = count_syncs(lambda: con.sql(sql).rows())
-        table = NESTED_RATE_TABLE[name]
-        print(f"{name} SF{SF:g} on {card}: first run {first_s:.3f} s, median of {runs} warm "
-              f"runs {med * 1e3:.3f} ms (runs {', '.join(f'{t * 1e3:.3f}' for t in times)} "
-              f"ms), {sizes[table] / med:.0f} {table} rows/s, {syncs} host syncs per run")
+    bad = oracle_phase(tpch_oracle.NESTED_QUERIES, NESTED_ROUTES, NESTED_WARM_RUNS,
+                       NESTED_RATE_TABLE, need_kernel=False)
+    if bad:
+        return fail(bad)
 
     # 12. (end) nested constants, casts and a columnar list_value on the card
     bad = nested_end(con, card)
     if bad:
         return fail(bad)
     print(f"phase 12 took {time.perf_counter() - phase12_t0:.1f} s")
+
+    # 13. the rest of the scalar functions: MORE_QUERIES and a count and sum
+    # over range(10,000,000) against numpy, then duckdb_functions(), epoch_ms
+    # and current_query() on the card
+    phase13_t0 = time.perf_counter()
+    import numpy as np
+
+    sizes["range"] = RANGE_N  # range()'s rows, for its rate
+    want_range = [(RANGE_N, int(np.arange(RANGE_N, dtype=np.int64).sum()))]
+    bad = oracle_phase({**tpch_oracle.MORE_QUERIES, "range": RANGE_SQL}, MORE_ROUTES, {},
+                       MORE_RATE_TABLE, need_kernel=True,
+                       oracle=lambda name: want_range if name == "range"
+                       else tpch_oracle.answer(name, DATA))
+    if bad:
+        return fail(bad)
+    bad = more_end(con, card)
+    if bad:
+        return fail(bad)
+    print(f"phase 13 took {time.perf_counter() - phase13_t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "grouped_sum_i64", "route": "cuda",

@@ -18,6 +18,7 @@ from duckdb_tpu_torch.execution.executor import Executor, Result
 from duckdb_tpu_torch.planner import macros as M
 from duckdb_tpu_torch.planner.bound import BindError, not_ported
 from duckdb_tpu_torch.planner.planner import Planner
+from duckdb_tpu_torch.planner.session import Session, activate
 from duckdb_tpu_torch.sql import nodes as N
 from duckdb_tpu_torch.sql.parser import Parser
 
@@ -46,9 +47,16 @@ class Connection:
         # probe and membership steps, eager joins, CTEs materialized at plan
         # time (execution/executor.Executor.routes); callers may clear it
         self.routes = collections.Counter()
+        # what current_database(), current_query(), random() and setseed()
+        # read and change while a statement runs (planner/session.py)
+        self.session = Session()
 
     def sql(self, query: str) -> Result:
         """Execute one SELECT statement and return its Result."""
+        with activate(self.session, query):
+            return self._run(query)
+
+    def _run(self, query: str) -> Result:
         stmts = Parser(query).parse_statements()
         if len(stmts) != 1 or not isinstance(stmts[0], N.SelectStatement):
             raise not_ported("statements other than a single SELECT")

@@ -72,6 +72,16 @@ class TableEntry:
         self._device[name] = col
         self.version += 1
 
+    def set_generated_column(self, name, col: Column, stats: ColumnStats):
+        """A column made on the device (a table function's, such as
+        range()), padded to the table's length: it stays there, its
+        statistics are the caller's, and the host tier copies it only when
+        something asks for it."""
+        self._device[name] = col
+        self.stats[name] = stats
+        self._loaders[name] = lambda: (*col.host_values(self.nrows), col.dict_values)
+        self.version += 1
+
     def set_lazy_column(self, name, loader: Callable[[], Tuple]):
         """loader() -> (values, validity, dict_values)"""
         self._loaders[name] = loader

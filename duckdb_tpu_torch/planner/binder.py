@@ -24,6 +24,7 @@ from duckdb_tpu_torch.ops import strings as dstr
 from duckdb_tpu_torch.sql import nodes as N
 from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner import functions as F
+from duckdb_tpu_torch.planner import functions_parity as FP
 from duckdb_tpu_torch.planner import macros as M
 from duckdb_tpu_torch.planner.bound import not_ported
 from duckdb_tpu_torch.types import (
@@ -378,8 +379,6 @@ def _arith_result_type(op: str, lt: LogicalType, rt: LogicalType) -> LogicalType
 _REDUCE_NAMES = ("list_reduce", "array_reduce", "reduce")
 _LAMBDA_NAMES = ("list_transform", "array_transform", "apply", "list_apply", "array_apply",
                  "list_filter", "array_filter", "filter")
-# functions of the JAX package that wait for a later ROADMAP item
-_LATER_FUNCTIONS = {"json_group_array": "33 (to_json, storage/json_io.py)"}
 
 _KEYWORD_FUNCTIONS = {"current_date": "today", "current_time": "now", "localtimestamp": "now",
                       "current_timestamp": "now"}
@@ -464,13 +463,18 @@ class ExprBinder:
         """Runtime temporal ± interval (device intervals are int64 micros):
         DATE ± INTERVAL and TIMESTAMP ± INTERVAL → TIMESTAMP, TIME wraps
         mod 24h, INTERVAL ± INTERVAL → INTERVAL (duckdb/src/common/operator/
-        add.cpp). Month-granularity intervals stay bind-time constants."""
+        add.cpp). Month-granularity intervals stay bind-time constants; a
+        DATE or TIMESTAMP column moves by calendar months on the device
+        (`_add_months`)."""
         if op not in ("+", "-"):
             raise BindError(f"cannot apply {op} to interval operands")
         if left.ltype.id is TypeId.INTERVAL and right.ltype.id is not TypeId.INTERVAL:
             if op != "+":
                 raise BindError("cannot subtract temporal from interval")
             left, right = right, left  # interval + temporal → temporal + interval
+        if (left.ltype.id in (TypeId.DATE, TypeId.TIMESTAMP) and right.is_const()
+                and isinstance(right.const_value(), tuple) and right.const_value()[0]):
+            return _add_months(left, right.const_value(), 1 if op == "+" else -1)
 
         def norm(x: B.BoundExpr) -> B.BoundExpr:
             # constant (months, days, micros) literals flatten to pure micros
@@ -612,8 +616,13 @@ class ExprBinder:
                 return self._bind_reduce(name, e)
             if name in _LAMBDA_NAMES:
                 return self._bind_lambda(name, e)
-        if name in _LATER_FUNCTIONS:
-            raise not_ported(f"{name}() (ROADMAP item {_LATER_FUNCTIONS[name]})")
+        rewrite = _op_function_rewrite(name, e.args)
+        if rewrite is not None:
+            return self.bind(rewrite)
+        if name in FP.MONTH_INTERVAL_FNS:
+            return self._bind_month_interval(name, e)
+        if name in ("struct_insert", "struct_update") and len(e.args) >= 2:
+            return self._bind_struct_named(name, e)
         if name in F.REGISTRY:
             args = []
             for a in e.args:
@@ -632,6 +641,51 @@ class ExprBinder:
                     f"Binder Error: invalid arguments to {name} ({err!r})")
             return B.BoundFunction(name, args2, rt, impl)
         raise not_ported(f"the function {name}()")
+
+    def _bind_month_interval(self, name: str, e: N.FunctionCall):
+        """to_months … to_millennia(n): a constant n folds to a (months, days,
+        micros) literal, as month intervals are bind-time values here (a
+        DATE or TIMESTAMP plus one moves by calendar months)."""
+        if len(e.args) != 1:
+            raise BindError(f"Binder Error: {name} takes 1 argument")
+        arg = self.bind(e.args[0])
+        if not arg.is_const():
+            raise BindError(f"Binder Error: {name} with a non-constant argument is not "
+                            "supported (a month interval is a bind-time value)")
+        v = arg.const_value()
+        if v is None:
+            return B.BoundLiteral(None, INTERVAL)
+        return B.BoundLiteral((int(v) * FP.MONTH_INTERVAL_FNS[name], 0, 0), INTERVAL)
+
+    def _bind_struct_named(self, name: str, e: N.FunctionCall):
+        """struct_insert / struct_update(s, field := value, ...)."""
+        base = self.bind(e.args[0])
+        pairs = []
+        for a in e.args[1:]:
+            if not (isinstance(a, N.BinaryOp) and a.op in (":=", "=>", "=", "==")
+                    and isinstance(a.left, N.ColumnRef)):
+                raise BindError(f"Binder Error: {name} requires named arguments "
+                                "(field := value)")
+            pairs.append((a.left.parts[-1], self.bind(a.right)))
+        rt, impl = FP.bind_struct_insert_update(name, base, pairs)
+        return B.BoundFunction(name, [base], rt, impl)
+
+    def _bind_IsDistinctFrom(self, e: N.IsDistinctFrom):
+        """a IS [NOT] DISTINCT FROM b: equality where NULL equals NULL; never NULL."""
+        left, right = self.bind(e.left), self.bind(e.right)
+        if SQLNULL in (left.ltype, right.ltype):
+            eq = B.BoundLiteral(False, BOOLEAN)  # decided by the NULLs alone
+        else:
+            left, right = self._align_comparison(left, right)
+            eq = B.BoundComparison("=", left, right)
+        args = [eq, B.BoundIsNull(left, False), B.BoundIsNull(right, False)]
+
+        def impl(env, cols, node):
+            eq, ln, rn = (B.bcast(c.data, env.plen).to(torch.bool) for c in cols)
+            d = torch.where(ln | rn, ln != rn, ~eq)
+            return Column(data=~d if e.negated else d, ltype=BOOLEAN)
+
+        return B.BoundFunction("is_distinct_from", args, BOOLEAN, impl)
 
     # -- lambdas ----------------------------------------------------------------
     def _lambda_binder(self, params) -> "ExprBinder":
@@ -674,6 +728,9 @@ class ExprBinder:
         rt, impl = bind_lambda_func(name, base, body, pkey, child_t, ikey=ikey)
         return B.BoundFunction(name, [base], rt, impl)
 
+    def _bind_WindowFunction(self, e):
+        raise not_ported("window functions (ROADMAP item 29)")
+
     # -- subqueries (the planner flattens or evaluates them) -------------------
     def _bind_subquery(self, e):
         if self.subquery_binder is None:
@@ -683,6 +740,79 @@ class ExprBinder:
     _bind_ScalarSubquery = _bind_subquery
     _bind_InSubquery = _bind_subquery
     _bind_Exists = _bind_subquery
+
+
+def _add_months(base: B.BoundExpr, interval, sign: int) -> B.BoundExpr:
+    """A DATE or TIMESTAMP column ± a constant (months, days, micros)
+    interval → TIMESTAMP, as DuckDB's AddOperator: the months move the
+    calendar date, whose day is clamped to the new month's last, then the
+    days and micros add."""
+    from duckdb_tpu_torch.planner.functions_ext import civil_to_days
+
+    months, days, micros = (sign * v for v in interval)
+    us_day = 86_400_000_000
+    is_date = base.ltype.id is TypeId.DATE
+
+    def impl(env, cols, node):
+        a = cols[0]
+        us = a.data.to(torch.int64) * us_day if is_date else a.data.to(torch.int64)
+        day = torch.div(us, us_day, rounding_mode="floor")
+        y, m, d = B.civil_from_days(day)
+        total = y * 12 + (m - 1) + months
+        ny = torch.div(total, 12, rounding_mode="floor")
+        nm = total - ny * 12 + 1
+        first = civil_to_days(ny, nm, torch.ones_like(nm))
+        last = civil_to_days(ny + (nm == 12).to(torch.int64), torch.remainder(nm, 12) + 1,
+                             torch.ones_like(nm)) - first
+        out = (first + torch.minimum(d, last) - 1 + days) * us_day + (us - day * us_day) + micros
+        return Column(data=out, ltype=TIMESTAMP, validity=a.validity)
+
+    return B.BoundFunction("__add_months", [base], TIMESTAMP, impl)
+
+
+# operators called as functions ("+"(1, 2), add(a, b), "~~"(s, p)): DuckDB
+# registers each operator under its symbol and name (function_list.cpp);
+# the call is rewritten to the operator's expression
+_ARITH_NAMES = {"+": "+", "-": "-", "*": "*", "/": "/", "//": "//", "%": "%", "add": "+",
+                "subtract": "-", "multiply": "*", "divide": "/", "mod": "%", "||": "||"}
+_CMP_NAMES = {"=": "=", "==": "=", "!=": "<>", "<>": "<>", "<": "<", "<=": "<=", ">": ">",
+              ">=": ">="}
+_CALL_NAMES = {"~~~": "glob", "^@": "starts_with", "@>": "list_has_all", "&&": "list_has_any",
+               "<->": "list_distance", "<=>": "list_cosine_distance", "^": "power",
+               "**": "power"}
+OPERATOR_NAMES = (set(_ARITH_NAMES) | set(_CMP_NAMES) | set(_CALL_NAMES)
+                  | {"~~", "!~~", "~~*", "!~~*", "<@", "@", "!__postfix", "__between",
+                     "IS DISTINCT FROM", "IS NOT DISTINCT FROM", "&", "|", "<<", ">>", "~",
+                     "xor"})
+
+
+def _op_function_rewrite(name: str, args) -> Optional[N.Expr]:
+    """The expression an operator's function call stands for, or None."""
+    n = len(args)
+    if n == 2 and name == "mod":
+        return None  # mod() is functions_ext's (exact truncation)
+    if n == 2 and name in _ARITH_NAMES:
+        return N.BinaryOp(_ARITH_NAMES[name], args[0], args[1])
+    if n == 1 and name == "-":
+        return N.UnaryOp("-", args[0])
+    if n == 2 and name in _CMP_NAMES:
+        return N.BinaryOp(_CMP_NAMES[name], args[0], args[1])
+    if n == 2 and name in ("~~", "!~~", "~~*", "!~~*"):
+        return N.LikeExpr(args[0], args[1], negated=name.startswith("!"),
+                          case_insensitive=name.endswith("*"))
+    if n == 2 and name in _CALL_NAMES:
+        return N.FunctionCall(_CALL_NAMES[name], list(args))
+    if n == 2 and name == "<@":
+        return N.FunctionCall("list_has_all", [args[1], args[0]])
+    if n == 1 and name == "@":
+        return N.FunctionCall("abs", list(args))
+    if n == 1 and name == "!__postfix":
+        return N.FunctionCall("factorial", list(args))
+    if n == 2 and name in ("is distinct from", "is not distinct from"):
+        return N.IsDistinctFrom(args[0], args[1], negated="not" in name)
+    if n == 3 and name == "__between":
+        return N.Between(args[0], args[1], args[2])
+    return None
 
 
 # a dictionary product up to this many entries becomes one remap LUT

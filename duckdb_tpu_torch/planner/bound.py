@@ -603,8 +603,13 @@ def _coerce_to(c: Column, t: LogicalType, env: EvalEnv,
                       validity=_const(env, False, torch.bool), dict_values=dv)
     if c.ltype.id is TypeId.VARCHAR and t.id is TypeId.BLOB:
         # a relabel of the dictionary: each distinct value UTF-8 encoded
-        # (byte order is code point order, so the dictionary stays sorted)
-        dv = np.array([str(x).encode() for x in c.dict_values], dtype=object)
+        # (byte order is code point order, so the dictionary stays sorted),
+        # once per dictionary, so that functions of the BLOB find their
+        # cached lookup tables on the next run
+        from duckdb_tpu_torch.ops.strings import cached_lut
+
+        dv = cached_lut(c.dict_values, ("to_blob",), lambda: np.array(
+            [str(x).encode() for x in c.dict_values], dtype=object))
         return Column(data=c.data, ltype=t, validity=c.validity, dict_values=dv)
     if c.ltype.id is TypeId.BLOB and t.id is TypeId.VARCHAR:
         dv = np.array([bytes(x).decode() for x in c.dict_values], dtype=object)
@@ -615,7 +620,7 @@ def _coerce_to(c: Column, t: LogicalType, env: EvalEnv,
     if c.ltype.id is TypeId.VARCHAR and t.id is not TypeId.VARCHAR:
         # string source: parse per distinct value (must run before the
         # numeric branches, which would otherwise cast the dict CODES)
-        return _cast_from_varchar(c, t, try_cast=try_cast)
+        return _cast_from_varchar(c, t, env, try_cast=try_cast)
     if t.id is TypeId.DOUBLE:
         return Column(data=_to_double(c), ltype=t, validity=c.validity)
     if t.id is TypeId.DECIMAL:
@@ -659,13 +664,29 @@ def _coerce_to(c: Column, t: LogicalType, env: EvalEnv,
     raise not_ported(f"the cast {c.ltype!r} → {t!r}")
 
 
-def _codes_hit_bad(c: Column, ok: np.ndarray) -> bool:
-    """True if a valid row references a dictionary entry marked not ok
-    (one transfer of the codes)."""
-    codes = c.data.reshape(-1).long().clamp(0, max(len(ok) - 1, 0)).cpu().numpy()
-    if c.validity is not None:
-        codes = codes[c.validity.expand(c.data.shape).reshape(-1).cpu().numpy()]
-    return bool((~ok[codes]).any())
+def raise_if_read(c: Column, errs: dict, env: Optional[EvalEnv]) -> None:
+    """Raise errs[i] for the failing dictionary value i that the first row
+    the statement reads holds (live in `env` and valid); without `env`,
+    the first valid row of c. A failing value that no such row holds, as
+    one only rows a WHERE removed hold, fails nothing. One host sync, and
+    none when nothing failed."""
+    if not errs:
+        return
+    dev = c.data.device
+    nd = len(c.dict_values)
+    failed = torch.zeros(nd, dtype=torch.bool, device=dev)
+    failed[torch.tensor(list(errs), dtype=torch.long, device=dev)] = True
+    codes = c.data.long().clamp(0, nd - 1)
+    if env is None:
+        codes = codes.reshape(-1)
+        keep = None if c.validity is None else c.validity.expand(c.data.shape).reshape(-1)
+    else:
+        codes = bcast(codes, env.plen)
+        keep = env.live if c.validity is None else env.live & bcast(c.validity, env.plen)
+    hit = failed[codes] if keep is None else failed[codes] & keep
+    first = int(torch.where(hit.any(), codes[hit.to(torch.int8).argmax()], -1))
+    if first >= 0:
+        raise errs[first]
 
 
 def _with_ok(c: Column, t: LogicalType, ok: np.ndarray, dvals) -> Column:
@@ -699,9 +720,10 @@ def _coerce_nested(c: Column, t: LogicalType, env, try_cast: bool) -> Optional[C
                       validity=c.validity, dict_values=uniq.astype(object))
     if src is TypeId.LIST and dst is TypeId.ARRAY:
         ok = np.array([len(e) == t.width for e in dv] or [True])
-        if not ok.all() and not try_cast and _codes_hit_bad(c, ok):
-            raise ConversionException(
-                f"Cannot cast list of length {len(dv[int(np.argmin(ok))])} to {t!r}")
+        if not try_cast:
+            raise_if_read(c, {i: ConversionException(
+                f"Cannot cast list of length {len(dv[i])} to {t!r}")
+                for i in np.flatnonzero(~ok).tolist()}, env)
         return _with_ok(c, t, ok, dv)
     if src is TypeId.ARRAY and dst is TypeId.LIST:
         return Column(data=c.data, ltype=t, validity=c.validity, dict_values=dv)
@@ -747,9 +769,10 @@ def _coerce_nested(c: Column, t: LogicalType, env, try_cast: bool) -> Optional[C
     if src is TypeId.VARCHAR and dst is TypeId.BIT:
         ok = np.array([len(str(s_)) > 0 and all(ch in "01" for ch in str(s_)) for s_ in dv]
                       or [True])
-        if not ok.all() and not try_cast and _codes_hit_bad(c, ok):
-            raise ConversionException(
-                f"Could not convert string '{dv[int(np.argmin(ok))]}' to BIT")
+        if not try_cast:
+            raise_if_read(c, {i: ConversionException(
+                f"Could not convert string '{dv[i]}' to BIT")
+                for i in np.flatnonzero(~ok).tolist()}, env)
         return _with_ok(c, t, ok, np.array([str(s_) for s_ in dv] or [""], dtype=object))
     if src is TypeId.VARCHAR and dst in NESTED_IDS:
         # parse each distinct string once (nested_cast.py)
@@ -762,9 +785,10 @@ def _coerce_nested(c: Column, t: LogicalType, env, try_cast: bool) -> Optional[C
             except (ValueError, ArithmeticError):
                 entries.append(())
                 ok[i] = False
-        if not ok.all() and not try_cast and _codes_hit_bad(c, ok):
-            bad = dv[int(np.argmin(ok))]
-            raise ConversionException(f"Could not convert string '{bad}' to {t!r}")
+        if not try_cast:
+            raise_if_read(c, {i: ConversionException(
+                f"Could not convert string '{dv[i]}' to {t!r}")
+                for i in np.flatnonzero(~ok).tolist()}, env)
         codes, d = encode_objects(entries)
         lut = torch.from_numpy(codes if len(codes) else np.zeros(1, np.int32)).to(c.data.device)
         out = Column(data=lut[c.data.long().clamp(0, max(len(codes) - 1, 0))], ltype=t,
@@ -890,9 +914,12 @@ def parse_float_text(s: str, t: LogicalType) -> float:
     return f
 
 
-def _cast_from_varchar(c: Column, t: LogicalType, try_cast: bool = False) -> Column:
+def _cast_from_varchar(c: Column, t: LogicalType, env: Optional[EvalEnv],
+                       try_cast: bool = False) -> Column:
     """VARCHAR → numeric/date/time/boolean: parse each DISTINCT value once
-    into a LUT, gather by code."""
+    into a LUT, gather by code. A value that does not parse fails the cast
+    where a row of `env` reads it (raise_if_read), and is NULL under
+    TRY_CAST."""
     from duckdb_tpu_torch.planner.binder import (_parse_time_micros, _parse_timestamp,
                                                  _parse_timestamptz)
 
@@ -927,20 +954,20 @@ def _cast_from_varchar(c: Column, t: LogicalType, try_cast: bool = False) -> Col
     dv = c.dict_values if c.dict_values is not None else []
     ok = np.ones(max(1, len(dv)), dtype=bool)
     vals = np.zeros(max(1, len(dv)), dtype=t.np_dtype)
-    bad = None
+    errs = {}
     for i, s_ in enumerate(dv):
         try:
             vals[i] = parse(s_)
         except (ValueError, OverflowError):
             ok[i] = False
-            bad = str(s_)
-    if bad is not None and not try_cast:
-        raise BindError(
-            f"Conversion Error: Could not convert string '{bad}' to {t.id.name}")
+            errs[i] = BindError(
+                f"Conversion Error: Could not convert string '{s_}' to {t.id.name}")
+    if not try_cast:
+        raise_if_read(c, errs, env)
     device = c.data.device
     idx = c.data.long().clamp(0, len(vals) - 1)
     validity = c.validity
-    if bad is not None:  # TRY_CAST: unparseable values become NULL
+    if errs:  # TRY_CAST: unparseable values become NULL
         okv = torch.from_numpy(ok).to(device)[idx]
         validity = okv if validity is None else validity & okv
     return Column(data=torch.from_numpy(vals).to(device)[idx], ltype=t,

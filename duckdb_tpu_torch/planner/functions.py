@@ -4,9 +4,10 @@ Each entry is bind(arg_exprs) → (result type, impl(env, cols, node) →
 Column, bound args). This module carries the date parts, the numeric core
 and the string core (substring, upper/lower, trim, length, contains,
 prefix, suffix); planner/functions_ext.py registers the extended library.
-planner/functions_nested.py registers the nested functions;
-functions_more/functions_parity come with a later slice (ROADMAP item 27),
-and the binder reports any function missing here as not yet ported.
+planner/functions_nested.py registers the nested functions,
+planner/functions_more.py and functions_parity.py the rest of the scalar
+library, and storage/json_io.py the JSON functions; the binder reports any
+function missing here as not yet ported.
 
 A string function runs once per distinct dictionary value, never per row,
 and its result is gathered by code. From ops/strings.DEVICE_STR_MIN_DICT
@@ -31,6 +32,7 @@ from duckdb_tpu_torch.planner.bound import (
     _to_double,
     bcast,
     civil_from_days,
+    raise_if_read,
 )
 from duckdb_tpu_torch.types import (
     BIGINT,
@@ -58,14 +60,29 @@ def _gather(lut: torch.Tensor, col: Column) -> torch.Tensor:
     return lut[col.data.long().clamp(0, lut.shape[0] - 1)]
 
 
+def per_value(fn, dvals, fill):
+    """fn over each dictionary value; a value fn raises ValueError on gets
+    `fill` → (values, {failing index: its error})."""
+    out, errs = [], {}
+    for i, s in enumerate(dvals):
+        try:
+            out.append(fn(s))
+        except ValueError as e:
+            out.append(fill)
+            errs[i] = e
+    return out, errs
+
+
 def dict_transform(col: Column, fn: Callable[[str], str],
-                   device: Optional[Callable] = None, device_key: str = "") -> Column:
+                   device: Optional[Callable] = None, device_key: str = "",
+                   env: Optional[EvalEnv] = None) -> Column:
     """Apply a str → str fn per distinct value and re-encode the codes
     into the sorted dictionary of the results. `device`, a plane op of
     ops/strings, runs the transform on the column's device from
     DEVICE_STR_MIN_DICT values; below that, over non-ASCII text, or
     without one, a host loop runs fn. `device_key` names the transform
-    (and keys its cached LUT)."""
+    (and keys its cached LUT). A value fn raises ValueError on fails the
+    statement only where a row of `env` reads it (raise_if_read)."""
     if col.dict_values is None:
         if col.ltype.id not in (TypeId.VARCHAR, TypeId.SQLNULL):
             raise BindError(f"Binder Error: string function over {col.ltype!r} "
@@ -76,51 +93,60 @@ def dict_transform(col: Column, fn: Callable[[str], str],
     nd = len(dvals)
     res = None
     if device is not None and nd >= dstr.DEVICE_STR_MIN_DICT:
-        res = dstr.device_transform_lut(dvals, device_key, device, dev)
+        lut = dstr.device_transform_lut(dvals, device_key, device, dev)
+        res = None if lut is None else lut + ({},)
 
     def host():
         dstr.note_host_loop(device_key, nd, dstr.DEVICE_STR_MIN_DICT)
-        new_vals = np.array([fn(s) for s in dvals] or [""], dtype=object)
+        vals, errs = per_value(fn, dvals, "")
+        new_vals = np.array(vals or [""], dtype=object)
         uniq, inv = np.unique(new_vals.astype(str), return_inverse=True)
-        return torch.from_numpy(inv.reshape(-1).astype(np.int32)).to(dev), uniq.astype(object)
+        return (torch.from_numpy(inv.reshape(-1).astype(np.int32)).to(dev), uniq.astype(object),
+                errs)
 
     if res is None:
         res = dstr.cached_lut(dvals, ("t_host", device_key, str(dev)), host)
-    remap, uniq = res
+    remap, uniq, errs = res
+    raise_if_read(col, errs, env)
     return Column(data=_gather(remap, col), ltype=VARCHAR, validity=col.validity,
                   dict_values=uniq)
 
 
-def _dict_lut(col: Column, fn, device, device_key: str, ltype, np_dtype) -> Column:
+def _dict_lut(col: Column, fn, device, device_key: str, ltype, np_dtype, env=None) -> Column:
     """Per-distinct-value predicate (BOOLEAN) or integer fn (BIGINT) → a
     LUT gathered by code; `device` (a plane op) computes it on the
-    column's device from DEVICE_STR_MIN_DICT values."""
+    column's device from DEVICE_STR_MIN_DICT values; failures as in
+    dict_transform."""
     if col.dict_values is None:  # typed-NULL input
         return _null_column(col, ltype)
     dvals = col.dict_values
     dev = col.data.device
     nd = len(dvals)
-    lut = None
+    res = None
     if device is not None and nd >= dstr.DEVICE_STR_MIN_DICT:
         lut = dstr.device_value_lut(dvals, device_key, device, dev)
+        res = None if lut is None else (lut, {})
 
     def host():
         dstr.note_host_loop(device_key, nd, dstr.DEVICE_STR_MIN_DICT)
-        vals = np.fromiter((fn(s) for s in dvals), dtype=np_dtype, count=nd)
-        return torch.from_numpy(vals if nd else np.zeros(1, np_dtype)).to(dev)
+        vals, errs = per_value(fn, dvals, 0)
+        vals = np.array(vals, dtype=np_dtype) if nd else np.zeros(1, np_dtype)
+        return torch.from_numpy(vals).to(dev), errs
 
-    if lut is None:
-        lut = dstr.cached_lut(dvals, ("v_host", device_key, str(dev)), host)
+    if res is None:
+        res = dstr.cached_lut(dvals, ("v_host", device_key, str(dev)), host)
+    lut, errs = res
+    raise_if_read(col, errs, env)
     return Column(data=_gather(lut, col).to(ltype.torch_dtype), ltype=ltype,
                   validity=col.validity)
 
 
-def dict_predicate(col: Column, fn, device=None, device_key: str = "") -> Column:
-    return _dict_lut(col, fn, device, device_key, BOOLEAN, np.bool_)
+def dict_predicate(col: Column, fn, device=None, device_key: str = "", env=None) -> Column:
+    return _dict_lut(col, fn, device, device_key, BOOLEAN, np.bool_, env)
 
 
-def dict_int(col: Column, fn, device=None, device_key: str = "") -> Column:
-    return _dict_lut(col, fn, device, device_key, BIGINT, np.int64)
+def dict_int(col: Column, fn, device=None, device_key: str = "", env=None) -> Column:
+    return _dict_lut(col, fn, device, device_key, BIGINT, np.int64, env)
 
 
 def duckdb_substring(s: str, start: int, length: Optional[int]) -> str:
@@ -457,3 +483,9 @@ from duckdb_tpu_torch.planner import functions_ext  # noqa: E402,F401
 
 # the nested functions and lambdas (LIST, STRUCT, MAP, ARRAY, UNION, BIT)
 from duckdb_tpu_torch.planner import functions_nested  # noqa: E402,F401
+
+# the rest of the scalar universe: codecs, similarity, dates and system
+# functions; the list vector math, structs, maps and meta functions; JSON
+from duckdb_tpu_torch.planner import functions_more  # noqa: E402,F401
+from duckdb_tpu_torch.planner import functions_parity  # noqa: E402,F401
+from duckdb_tpu_torch.storage import json_io  # noqa: E402,F401

@@ -21,17 +21,17 @@ input), time_bucket counts day buckets from 2000-01-03 and takes months,
 and uuid()/random() give a value per row. now() and current_date are read
 when the query runs, so a cached plan does not freeze them;
 REPLAY_TIME_MICROS pins them (tests use it). random() and the uuid family
-draw from a torch.Generator on the column's device, seeded from
-REPLAY_RNG when set. nextval/currval wait for CREATE SEQUENCE (ROADMAP
-item 34), concat_ws over columns and format_bytes, which the reference
-refuses too, say they are not ported.
+draw from the connection's torch.Generator on the column's device
+(planner/session.py), which setseed() seeds, and else REPLAY_RNG when
+set. nextval/currval wait for CREATE SEQUENCE (ROADMAP item 34), and
+concat_ws over columns, which the reference refuses too, says it is not
+ported. format_bytes is planner/functions_more.py's.
 """
 
 from __future__ import annotations
 
 import datetime
 import math
-import random as _random
 import re
 import time
 import uuid as _uuid
@@ -58,6 +58,7 @@ from duckdb_tpu_torch.planner.bound import (
     not_ported,
     varchar_where,
 )
+from duckdb_tpu_torch.planner import session
 from duckdb_tpu_torch.planner.functions import (
     REGISTRY,
     _days_before_month,
@@ -86,17 +87,12 @@ _US_DAY = 86_400_000_000
 REPLAY_TIME_MICROS = None
 # seeds random() and the uuid family when set (a random.Random)
 REPLAY_RNG = None
-_GENERATORS: dict = {}  # str(device) → torch.Generator
 
 
 def _generator(device) -> torch.Generator:
-    key = str(device)
-    g = _GENERATORS.get(key)
-    if g is None:
-        g = torch.Generator(device=device)
-        g.manual_seed((REPLAY_RNG or _random).getrandbits(63))
-        _GENERATORS[key] = g
-    return g
+    """The running connection's generator for `device` (planner/session.py:
+    setseed() seeds it)."""
+    return session.active().generator(device, REPLAY_RNG)
 
 
 def _valid_of(cols):
@@ -583,11 +579,6 @@ def _bind_hamming(arg_exprs):
     return BIGINT, impl, arg_exprs[:1]
 
 
-@register("format_bytes")
-def _bind_format_bytes(arg_exprs):
-    raise not_ported("format_bytes(), which the JAX package refuses too")
-
-
 @register("bar")
 def _bind_bar(arg_exprs):
     """A Unicode bar (core_functions/scalar/bar.cpp), the fractional tail in
@@ -835,16 +826,17 @@ def _bind_strftime(arg_exprs):
 
 @register("strptime")
 def _bind_strptime(arg_exprs):
-    """VARCHAR → TIMESTAMP, parsed once per distinct value."""
+    """VARCHAR → TIMESTAMP, parsed once per distinct value (a value that
+    does not parse fails only where a row the statement reads holds it)."""
     fmt = str(arg_exprs[1].const_value())
     epoch = datetime.datetime(1970, 1, 1)
 
+    def parse(s):
+        return int((datetime.datetime.strptime(str(s), fmt) - epoch).total_seconds() * 1e6)
+
     def impl(env, cols, node):
-        c = cols[0]
-        lut = np.array([int((datetime.datetime.strptime(str(s), fmt) - epoch).total_seconds()
-                            * 1e6) for s in c.dict_values] or [0], dtype=np.int64)
-        d = torch.from_numpy(lut).to(c.data.device)[c.data.long().clamp(0, len(lut) - 1)]
-        return Column(data=d, ltype=TIMESTAMP, validity=c.validity)
+        c = dict_int(cols[0], parse, device_key=f"strptime:{fmt}", env=env)
+        return Column(data=c.data, ltype=TIMESTAMP, validity=c.validity)
     return TIMESTAMP, impl, arg_exprs[:1]
 
 

@@ -128,11 +128,18 @@ def _codes(c: Column, n: int) -> torch.Tensor:
     return c.data.long().clamp(0, max(n - 1, 0))
 
 
-def _lut_gather(col: Column, vals, ct: LogicalType) -> Column:
+def _lut_gather(col: Column, vals, ct: LogicalType, key=None) -> Column:
     """Per-distinct host values → the column of them, one gather by code
-    on the column's device; NULL where the value or the row is NULL."""
-    lut = lut_column(vals, ct, col.data.device)
-    idx = _codes(col, len(vals))
+    on the column's device; NULL where the value or the row is NULL. With
+    a `key`, vals is a function that computes them, and the lookup table
+    is cached per dictionary under the key (ops/strings.cached_lut)."""
+    if key is None:
+        lut = lut_column(vals, ct, col.data.device)
+    else:
+        dev = col.data.device
+        lut = dstr.cached_lut(col.dict_values, key + (ct, str(dev)),
+                              lambda: lut_column(vals(), ct, dev))
+    idx = _codes(col, lut.data.shape[0])
     valid = None if lut.validity is None else lut.validity[idx]
     return Column(data=lut.data[idx], ltype=ct, validity=_and_validity(valid, col.validity),
                   dict_values=lut.dict_values)
@@ -305,12 +312,13 @@ def _bind_list_extract(arg_exprs):
 
     def impl(env, cols, node):
         c = cols[0]
-        if idx > 0:
-            i = idx - 1
-            vals = [t[i] if len(t) > i else None for t in c.dict_values]
-        else:
-            vals = [_pick(t, idx) for t in c.dict_values]
-        return _lut_gather(c, vals, ct)
+
+        def vals():
+            if idx > 0:
+                i = idx - 1
+                return [t[i] if len(t) > i else None for t in c.dict_values]
+            return [_pick(t, idx) for t in c.dict_values]
+        return _lut_gather(c, vals, ct, key=("list_extract", idx))
 
     return ct, impl, arg_exprs[:1]
 
@@ -910,20 +918,3 @@ def _enum_refused(name):
 
 for _name in ("enum_range", "enum_first", "enum_last", "enum_code", "enum_range_boundary"):
     REGISTRY[_name] = _enum_refused(_name)
-
-def _bit_only(name, typed):
-    """get_bit/set_bit/bit_position/bitstring over a BIT argument; the
-    integer and text forms live in functions_parity (ROADMAP item 27)."""
-    def binder(arg_exprs):
-        pos = -1 if name == "bit_position" else 0
-        if arg_exprs and arg_exprs[pos].ltype.id is TypeId.BIT:
-            return typed(arg_exprs)
-        raise not_ported(f"{name}() over {arg_exprs[pos].ltype!r} (functions_parity, "
-                         "ROADMAP item 27)")
-    return binder
-
-
-for _name, _typed in (("get_bit", bind_get_bit_typed), ("set_bit", bind_set_bit_typed),
-                      ("bit_position", bind_bit_position_typed),
-                      ("bitstring", bind_bitstring_typed)):
-    REGISTRY[_name] = _bit_only(_name, _typed)

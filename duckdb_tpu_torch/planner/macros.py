@@ -13,10 +13,8 @@ stops a macro that calls itself).
 The macros are the reference's default table
 (duckdb/src/catalog/default/default_functions.cpp) as the JAX package
 carries it, with the nested shims (list_*, array_*, map_contains_value),
-less json_group_array (its to_json waits for storage/json_io.py, ROADMAP
-item 33, and the binder says so) and current_catalog (current_database is
-not a function here). CREATE MACRO comes with the connection's DDL
-(ROADMAP item 34).
+json_group_array (to_json is storage/json_io.py's) and current_catalog.
+CREATE MACRO comes with the connection's DDL (ROADMAP item 34).
 """
 
 from __future__ import annotations
@@ -162,6 +160,9 @@ _DEFAULT_MACRO_SQL = [
     "list_aggr(arr, 'string_agg', sep)",
     "CREATE MACRO array_reverse(l) AS list_reverse(l)",
     "CREATE MACRO map_contains_value(map, value) AS contains(map_values(map), value)",
+    "CREATE MACRO current_catalog() AS current_database()",
+    # the json aggregate shim (DuckDB's is a native aggregate, json_create.cpp)
+    "CREATE MACRO json_group_array(x) AS to_json(list(x))",
 ] + [
     f"CREATE MACRO list_{a}(l) AS list_aggr(l, '{a}')"
     for a in ("avg", "var_samp", "var_pop", "stddev_pop", "stddev_samp", "sem",

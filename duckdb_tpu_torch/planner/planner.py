@@ -21,10 +21,13 @@ No FROM (SELECT 1, IN (SELECT 1)) is one constant row (`ConstantRow`).
 On top come GROUP BY with aggregates, HAVING, the projection, DISTINCT,
 ORDER BY and LIMIT/OFFSET. Keys, output names and join orders match the
 reference's for these shapes, as do its aggregate aliases and the FILTER
-clause's rewrite into CASE WHEN. IN/EXISTS outside a WHERE conjunct (MARK
-joins), LATERAL, WITH RECURSIVE, USING and NATURAL joins, table functions,
-joins without an equi-join condition, set operations and windows are not
-yet ported and say so.
+clause's rewrite into CASE WHEN. The table functions range,
+generate_series and repeat and duckdb_functions() become hidden tables
+that live as long as the plan (range's column made on the device).
+IN/EXISTS outside a WHERE conjunct (MARK joins), LATERAL, WITH RECURSIVE,
+USING and NATURAL joins, the other table functions, joins without an
+equi-join condition, set operations and windows are not yet ported and
+say so.
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ import itertools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
+import numpy as np
+import torch
+
+from duckdb_tpu_torch.blocks import Column, pad_bucket
 from duckdb_tpu_torch.sql import nodes as N
 from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner import plan as P
@@ -53,6 +60,7 @@ from duckdb_tpu_torch.types import (
     BOOLEAN,
     DOUBLE,
     HUGEINT,
+    INTEGER,
     SQLNULL,
     VARCHAR,
     LogicalType,
@@ -427,7 +435,114 @@ class Planner:
             return
         if isinstance(ref, N.JoinRef):
             raise not_ported(f"{ref.join_type.upper()} JOIN")
-        raise not_ported(f"FROM {type(ref).__name__} (table functions)")
+        if isinstance(ref, N.TableFunctionRef):
+            plan, scope_adds, nrows = self._plan_table_function(ref)
+            self._add_atom(plan, scope_adds, nrows, scope, atoms, plan.table)
+            return
+        raise not_ported(f"FROM {type(ref).__name__}")
+
+    # table functions the port does not run yet → the ROADMAP item they wait for
+    _LATER_TABLE_FUNCTIONS = {
+        **dict.fromkeys(("read_csv", "read_csv_auto", "read_parquet", "parquet_scan",
+                         "read_json", "read_json_auto", "read_ndjson", "read_json_objects",
+                         "read_text", "read_blob", "__file_scan"), "33 (the file readers)"),
+        **dict.fromkeys(("duckdb_tables", "duckdb_columns", "duckdb_types",
+                         "pragma_table_info"), "43 (the catalog table functions)"),
+        **dict.fromkeys(("duckdb_settings", "duckdb_logs"), "36 (settings and logging)"),
+        **dict.fromkeys(("duckdb_views", "duckdb_indexes"), "34 (views and indexes)")}
+
+    def _plan_table_function(self, ref: N.TableFunctionRef):
+        """range, generate_series and repeat (DuckDB's src/function/table/
+        range.cpp, repeat.cpp), and duckdb_functions(), as a hidden table
+        that lives as long as the plan → (Scan, scope additions, rows)."""
+        from duckdb_tpu_torch.catalog.catalog import ColumnDef, ColumnStats, TableEntry
+
+        name = ref.name.lower()
+        if name in self._LATER_TABLE_FUNCTIONS:
+            raise not_ported(f"the table function {name}() (ROADMAP item "
+                             f"{self._LATER_TABLE_FUNCTIONS[name]})")
+        binder = ExprBinder(Scope())
+        args = []
+        for a in ref.args:
+            if isinstance(a, N.BinaryOp) and a.op in (":=", "=>"):
+                raise BindError(f"Binder Error: Invalid named parameter for function {name}")
+            b = binder.bind(a)
+            if not b.is_const():
+                raise BindError(f"Binder Error: the arguments of {name}() must be constants")
+            args.append(b)
+        n = 0
+        while self.catalog.has_table(f"__{name}_{n}"):
+            n += 1
+        tname = f"__{name}_{n}"
+        device = self.catalog.device
+        if name in ("range", "generate_series"):
+            if not 1 <= len(args) <= 3 or not all(a.ltype.is_integer for a in args):
+                raise not_ported(f"{name}() over {[str(a.ltype) for a in args]} "
+                                 "(the integer forms are ported)")
+            vals = [int(a.const_value()) for a in args]
+            lo, hi, step = (0, vals[0], 1) if len(vals) == 1 else \
+                (vals[0], vals[1], vals[2] if len(vals) > 2 else 1)
+            if step == 0:
+                raise BindError("Binder Error: the step of range() cannot be 0")
+            if name == "generate_series":
+                hi += 1 if step > 0 else -1  # an inclusive end
+            count = max(0, -(-(hi - lo) // step))
+            entry = TableEntry(tname, [ColumnDef(name, BIGINT)])
+            entry.nrows = count
+            self.catalog.create_table(entry)
+            # the column is made on the card: arange, padded
+            data = torch.zeros(pad_bucket(count), dtype=torch.int64, device=device)
+            data[:count] = torch.arange(lo, lo + count * step, step, dtype=torch.int64,
+                                        device=device)
+            last = lo + (count - 1) * step
+            entry.set_generated_column(name, Column(data=data, ltype=BIGINT), ColumnStats(
+                min_val=min(lo, last) if count else None,
+                max_val=max(lo, last) if count else None, n_unique=count))
+        elif name == "repeat":
+            if len(args) != 2:
+                raise BindError("Binder Error: repeat() takes a value and a count")
+            value, t = args[0].const_value(), args[0].ltype
+            count = max(0, int(args[1].const_value()))
+            if t.id is TypeId.SQLNULL:
+                t = INTEGER
+            entry = TableEntry(tname, [ColumnDef("repeat", t)])
+            entry.nrows = count
+            self.catalog.create_table(entry)
+            validity = None if value is not None else np.zeros(count, dtype=bool)
+            if t.id is TypeId.VARCHAR:
+                entry.set_host_column("repeat", np.zeros(count, np.int32), validity,
+                                      np.array(["" if value is None else str(value)],
+                                               dtype=object))
+            elif t.id in (TypeId.LIST, TypeId.STRUCT, TypeId.MAP, TypeId.ARRAY):
+                raise not_ported(f"repeat() of a {t}")
+            else:
+                entry.set_host_column("repeat", np.full(count, 0 if value is None else value,
+                                                        dtype=t.np_dtype), validity)
+        elif name == "duckdb_functions":
+            if args:
+                raise BindError("Binder Error: duckdb_functions() takes no arguments")
+            from duckdb_tpu_torch.planner.function_catalog import function_types
+
+            rows = sorted(function_types().items())
+            entry = TableEntry(tname, [ColumnDef("function_name", VARCHAR),
+                                       ColumnDef("function_type", VARCHAR)])
+            entry.nrows = len(rows)
+            self.catalog.create_table(entry)
+            for ci, cname in enumerate(("function_name", "function_type")):
+                uniq, codes = np.unique(np.array([r[ci] for r in rows], dtype=str),
+                                        return_inverse=True)
+                entry.set_host_column(cname, codes.reshape(-1).astype(np.int32),
+                                      dict_values=uniq.astype(object))
+        else:
+            raise BindError(f"Catalog Error: Table Function with name {ref.name} does not "
+                            "exist!")
+        self.hidden_tables.append(tname)
+        alias = (ref.alias or name).lower()
+        plan, scope_adds, nrows = self._scan_of(tname, alias)
+        if ref.column_aliases:
+            scope_adds = [(a, ref.column_aliases[i] if i < len(ref.column_aliases) else c, k, t)
+                          for i, (a, c, k, t) in enumerate(scope_adds)]
+        return plan, scope_adds, nrows
 
     # the sides a join keeps every row of: an ON conjunct over one of them
     # must not filter it, so it stays in the residual

@@ -18,7 +18,10 @@ parameters (Q11's fraction is DuckDB's 0.0001000000); GENERAL_QUERIES holds
 Q6, Q22 and `general_agg`, one query over lineitem with every kind of
 aggregate the engine's general path computes. `q13_nolike` is Q13
 with the `o_comment NOT LIKE '%special%requests%'` conjunct dropped from its
-ON clause and nothing else changed.
+ON clause and nothing else changed. FUNCTION_QUERIES, NESTED_QUERIES and
+MORE_QUERIES exercise the scalar library, nested values, and the rest of
+the scalar functions with the JSON functions, each answered in numpy (and
+Python's hashlib, base64 arithmetic and re where a function is a text one).
 `answer(name, data_dir, **params)` returns the rows as `Result.rows()`
 gives them (DECIMAL → decimal.Decimal, DATE → datetime.date, VARCHAR →
 str), in the order ORDER BY fixes, LIMIT applied. Queries take their
@@ -420,6 +423,43 @@ GROUP BY p_size ORDER BY p_size
 SELECT s_nationkey, count(*),
   string_agg(s_name, ',' ORDER BY s_acctbal DESC, s_name)
 FROM supplier GROUP BY 1 ORDER BY 1
+""",
+}
+
+# the rest of the scalar library: functions_more's dates, math and text
+# functions, functions_parity's list functions over a columnar list, and
+# the JSON functions
+MORE_QUERIES = {
+    "more_dates": """
+SELECT o_orderstatus, count(*), sum(isoyear(o_orderdate)), sum(yearweek(o_orderdate)),
+  sum(epoch_ms(o_orderdate::TIMESTAMP) // 86400000),
+  sum(date_sub('day', DATE '1992-01-01', o_orderdate)),
+  max(make_timestamp(year(o_orderdate), 1, 1, 0, 0, 0.0)),
+  sum(millennium(o_orderdate)), sum(julian(o_orderdate))
+FROM orders GROUP BY 1 ORDER BY 1
+""",
+    "more_math": """
+SELECT l_returnflag, l_linestatus, sum(acosh(l_quantity + 1)), sum(asinh(l_extendedprice)),
+  sum(signbit(l_tax - 0.04)::INT), sum(cot(l_discount + 0.5)), count(*)
+FROM lineitem GROUP BY 1, 2 ORDER BY 1, 2
+""",
+    "more_text": """
+SELECT p_mfgr, sum(bit_length(p_name)), sum(length(to_base64(p_name::BLOB))),
+  max(sha256(p_name)), sum(jaccard(p_name, 'almond')),
+  sum(damerau_levenshtein(p_container, 'JUMBO PKG')), count(DISTINCT md5_number(p_type)),
+  max(regexp_extract_all(p_name, '[a-z]+')[2]), max(parse_filename(p_type))
+FROM part GROUP BY 1 ORDER BY 1
+""",
+    "parity_lists": """
+SELECT p_size % 5 AS k, sum(list_dot_product(v, [1, 2])), max(list_distance(v, [10, 3])),
+  sum(len(list_zip(v, v))), max(list_grade_up(v)), sum(list_resize(v, 3, 0)[3])
+FROM (SELECT p_size, list_value(p_size, p_partkey % 7) AS v FROM part)
+GROUP BY 1 ORDER BY 1
+""",
+    "json_orders": """
+SELECT json_extract_string(j, '$.b') AS b, count(*), sum(json_extract(j, '$.a')::INT)
+FROM (SELECT json_object('a', o_orderkey % 10, 'b', o_orderpriority) AS j FROM orders)
+GROUP BY 1 ORDER BY 1
 """,
 }
 
@@ -1304,6 +1344,132 @@ def nested_pack_agg(t):
     return out
 
 
+def _iso_year_week(days: np.ndarray):
+    """ISO-8601 (year, week) of day numbers: those of the week's Thursday."""
+    thursday = days - (days + 3) % 7 + 3  # 1970-01-01 was a Thursday
+    year = thursday.astype("datetime64[D]").astype("datetime64[Y]").astype(np.int64) + 1970
+    jan1 = (year - 1970).astype("datetime64[Y]").astype("datetime64[D]").astype(np.int64)
+    return year, (thursday - jan1) // 7 + 1
+
+
+def more_dates(t):
+    """MORE_QUERIES["more_dates"] per o_orderstatus: the count, the ISO
+    years and year-weeks, the days since the epoch (through milliseconds),
+    the days since 1992-01-01, January 1st of the latest year, the
+    millennia and the Julian days."""
+    day = t("orders", "o_orderdate")
+    keys, inv = _groups(t("orders", "o_orderstatus"))
+    n = len(keys)
+    year = day.astype("datetime64[D]").astype("datetime64[Y]").astype(np.int64) + 1970
+    iso_year, week = _iso_year_week(day)
+    count = np.bincount(inv, minlength=n)
+    top = _reduce_at(inv, n, year, np.maximum, np.iinfo(np.int64).min)
+    sums = [_sums(inv, n, v) for v in (iso_year, iso_year * 100 + week, day,
+                                       day - _day("1992-01-01"), (year - 1) // 1000 + 1,
+                                       day + 2440588)]
+    return [(k.decode(), int(count[g]), *(int(v[g]) for v in sums[:4]),
+             datetime.datetime(int(top[g]), 1, 1), int(sums[4][g]), float(sums[5][g]))
+            for g, (k,) in enumerate(keys)]
+
+
+def more_math(t):
+    """MORE_QUERIES["more_math"] per (l_returnflag, l_linestatus): sums of
+    acosh, asinh and cot over the DECIMAL columns as doubles, the lines
+    whose tax is below 0.04 and the count."""
+    keys, inv = _groups(t("lineitem", "l_returnflag"), t("lineitem", "l_linestatus"))
+    n = len(keys)
+    qty, price, tax, disc = (t("lineitem", c) for c in (
+        "l_quantity", "l_extendedprice", "l_tax", "l_discount"))
+
+    def fsum(v):
+        return np.bincount(inv, weights=v, minlength=n)
+
+    acosh = fsum(np.arccosh(qty / 100.0 + 1.0))
+    asinh = fsum(np.arcsinh(price / 100.0))
+    cot = fsum(1.0 / np.tan(disc / 100.0 + 0.5))
+    below = _sums(inv, n, tax < 4)
+    count = np.bincount(inv, minlength=n)
+    return [(f.decode(), s.decode(), float(acosh[g]), float(asinh[g]), int(below[g]),
+             float(cot[g]), int(count[g])) for g, (f, s) in enumerate(keys)]
+
+
+def _osa_distance(a: str, b: str) -> int:
+    """Optimal string alignment distance (adjacent transpositions)."""
+    prev2, prev = None, list(range(len(b) + 1))
+    for i in range(1, len(a) + 1):
+        cur = [i] + [0] * len(b)
+        for j in range(1, len(b) + 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (a[i - 1] != b[j - 1]))
+            if i > 1 and j > 1 and a[i - 1] == b[j - 2] and a[i - 2] == b[j - 1]:
+                cur[j] = min(cur[j], prev2[j - 2] + 1)
+        prev2, prev = prev, cur
+    return prev[len(b)]
+
+
+def more_text(t):
+    """MORE_QUERIES["more_text"] per p_mfgr: name bits, base64 lengths, the
+    greatest name SHA-256, the names' character-set Jaccard similarity to
+    'almond', the containers' edit distance to 'JUMBO PKG' with
+    transpositions, the distinct types, the greatest second lowercase word
+    and the greatest type (a file name without a slash is itself)."""
+    import hashlib
+    import re
+
+    names, containers = _text(t, "part", "p_name"), _text(t, "part", "p_container")
+    types = _text(t, "part", "p_type")
+    keys, inv = _groups(t("part", "p_mfgr"))
+    n = len(keys)
+    almond = set("almond")
+    words = re.compile("[a-z]+")
+    cache = {}
+    out = [[0, 0, "", 0.0, 0, set(), None, ""] for _ in range(n)]
+    for g, name, cont, typ in zip(inv.tolist(), names, containers, types):
+        o = out[g]
+        raw = name.encode()
+        o[0] += 8 * len(raw)
+        o[1] += 4 * ((len(raw) + 2) // 3)
+        o[2] = max(o[2], hashlib.sha256(raw).hexdigest())
+        o[3] += len(set(name) & almond) / len(set(name) | almond)
+        if cont not in cache:
+            cache[cont] = _osa_distance(cont, "JUMBO PKG")
+        o[4] += cache[cont]
+        o[5].add(typ)
+        w = words.findall(name)
+        if len(w) > 1 and (o[6] is None or w[1] > o[6]):
+            o[6] = w[1]
+        o[7] = max(o[7], typ)
+    return [(k.decode(), o[0], o[1], o[2], o[3], o[4], len(o[5]), o[6], o[7])
+            for (k,), o in zip(keys, out)]
+
+
+def parity_lists(t):
+    """MORE_QUERIES["parity_lists"] per p_size % 5 over v = [p_size,
+    p_partkey % 7]: the dot products with [1, 2], the greatest distance to
+    [10, 3], twice the count (each zip of v with itself has two entries),
+    the greatest grade of v ([2, 1] where p_size > p_partkey % 7, else
+    [1, 2]) and a third element that the resize fills with 0."""
+    size, key = t("part", "p_size"), t("part", "p_partkey")
+    m = key % 7
+    keys, inv = _groups(size % 5)
+    n = len(keys)
+    dot = np.bincount(inv, weights=(size + 2 * m).astype(np.float64), minlength=n)
+    dist = _reduce_at(inv, n, np.sqrt((size - 10.0) ** 2 + (m - 3.0) ** 2), np.maximum, -1.0)
+    count = np.bincount(inv, minlength=n)
+    down = _sums(inv, n, size > m)
+    return [(int(k), float(dot[g]), float(dist[g]), 2 * int(count[g]),
+             [2, 1] if down[g] else [1, 2], 0) for g, (k,) in enumerate(keys)]
+
+
+def json_orders(t):
+    """MORE_QUERIES["json_orders"] per o_orderpriority: the count and the
+    sum of o_orderkey % 10, which the JSON documents carry."""
+    keys, inv = _groups(t("orders", "o_orderpriority"))
+    n = len(keys)
+    count = np.bincount(inv, minlength=n)
+    digits = _sums(inv, n, t("orders", "o_orderkey") % 10)
+    return [(k.decode(), int(count[g]), int(digits[g])) for g, (k,) in enumerate(keys)]
+
+
 _ANSWERS = {"q02": q02, "q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q08,
             "q09": q09, "q10": q10, "q11": q11, "q12": q12, "q13": q13,
             "q13_nolike": q13_nolike, "q14": q14, "q15": q15, "q16": q16, "q17": q17,
@@ -1311,14 +1477,15 @@ _ANSWERS = {"q02": q02, "q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q
             "general_agg": general_agg, "fn_dates": fn_dates, "fn_math": fn_math,
             "fn_strings": fn_strings, "fn_casts": fn_casts, "nested_agg": nested_agg,
             "nested_collect": nested_collect, "nested_words": nested_words,
-            "nested_pack": nested_pack, "nested_pack_agg": nested_pack_agg}
+            "nested_pack": nested_pack, "nested_pack_agg": nested_pack_agg,
+            "more_dates": more_dates, "more_math": more_math, "more_text": more_text,
+            "parity_lists": parity_lists, "json_orders": json_orders}
 
 
 def answer(name: str, data_dir: str, **params):
     """Rows of query `name` (a key of QUERIES, SUBQUERY_QUERIES,
-    FROM_QUERIES, LIKE_QUERIES, GENERAL_QUERIES, FUNCTION_QUERIES or
-    NESTED_QUERIES) over data_dir; params go
-    to the query's
+    FROM_QUERIES, LIKE_QUERIES, GENERAL_QUERIES, FUNCTION_QUERIES,
+    NESTED_QUERIES or MORE_QUERIES) over data_dir; params go to the query's
     answer (Q2's `size`/`type_suffix`/`region`, Q7's `nation1`/`nation2`,
     Q8's `nation`/`region`/`ptype`, Q9's `color`, Q11's `nation`, Q13's
     `words`, Q14's `type_prefix`, Q16's `remark`, Q18's `threshold`, Q20's

@@ -1,0 +1,379 @@
+"""The scalar functions of planner/functions_more.py in duckdb_tpu_torch
+(device="cpu"), against duckdb_tpu and DuckDB's answers.
+
+Every family the reference registers in its functions_more.py runs
+through SQL in both packages over the port's generator's tables at SF
+0.01, seed 7, over columns and over constants: math, string lengths,
+codecs and hashes, the LIKE-escape family, graphemes, similarity metrics,
+the regexp additions, readable byte sizes, date/time constructors and
+parts, interval builders and the system functions. VARCHAR functions run
+on the host route and, where a plane op exists, the device route too
+(DEVICE_STR_MIN_DICT patched low in both packages). DOUBLE results are
+held to 1e-9 relative (1e-12 absolute near zero): torch's and XLA's
+transcendental functions may differ in the last ulp; every other type
+exactly. Where the reference differs from DuckDB (ROADMAP Queue 3, faults
+(h), (i), (m), (n) and (o)) the port is held to DuckDB's answers, and the
+parity queries leave those inputs out; the calendar functions are held
+to Python's calendar.
+"""
+
+import datetime
+
+import pytest
+import torch
+
+import duckdb_tpu
+import duckdb_tpu_torch
+from duckdb_tpu.ops import strings as JS
+from duckdb_tpu_torch.errors import ConversionException
+from duckdb_tpu_torch.ops import strings as TS
+from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def data_dir(tmp_path_factory):
+    root = tmp_path_factory.mktemp("tpch_gen_functions_more")
+    write_tables(str(root), 0.01, seed=7)
+    return str(root)
+
+
+@pytest.fixture(scope="module")
+def cons(data_dir):
+    jcon = duckdb_tpu.connect()
+    jcon.load_tpch(data_dir)
+    tcon = duckdb_tpu_torch.connect(device="cpu")
+    tcon.load_tpch(data_dir)
+    return jcon, tcon
+
+
+def _close(got, want):
+    assert len(got) == len(want), (len(got), len(want))
+    for g, w in zip(got, want):
+        assert len(g) == len(w), (g, w)
+        for a, b in zip(g, w):
+            if isinstance(b, float):
+                assert a == pytest.approx(b, rel=1e-9, abs=1e-12, nan_ok=True), (g, w)
+            else:
+                assert a == b and type(a) is type(b), (g, w)
+
+
+_LI = "FROM lineitem WHERE l_orderkey < 300"
+_O = "FROM orders WHERE o_orderkey < 2000"
+SQL = {
+    "math": "SELECT l_orderkey, l_linenumber, acosh(l_quantity + 1), asinh(l_extendedprice), "
+            "atanh(l_discount), cot(l_discount + 0.5), signbit(l_tax - 0.04), "
+            f"binom(l_linenumber + 3, 2), to_base(l_partkey, 16), to_base(l_suppkey, 2) {_LI}",
+    "math_constants": "SELECT acosh(1.5), asinh(-2.0), atanh(0.25), cot(1.0), signbit(-0.0), "
+                      "signbit(3), binom(10, 3), binom(5, 7), to_base(255, 16), to_base(0, 2), "
+                      "greatest_common_divisor(12, 18), least_common_multiple(4, 6)",
+    "lengths_codecs": "SELECT p_partkey, bit_length(p_name), octet_length(p_name), "
+                      "char_length(p_name), character_length(p_type), to_base64(p_name), "
+                      "base64(p_type), from_base64(to_base64(p_type)), sha1(p_type), "
+                      "sha256(p_name), md5_number(p_type), nfc_normalize(p_name), "
+                      "strip_accents(p_name), url_encode(p_name), url_decode(url_encode(p_type)), "
+                      "regexp_escape(p_container), bin(p_size), to_binary(p_size % 7), "
+                      "encode(p_container), decode(encode(p_type)) "
+                      "FROM part WHERE p_partkey < 600",
+    "codec_constants": "SELECT bit_length('héllo'), octet_length('héllo'), to_base64('DuckDB'), "
+                       "from_base64('RHVja0RC'), sha1('abc'), md5_number('abc'), bin('ab'), "
+                       "bin(5), unbin('0100000101'), from_binary('0110'), unhex('4142'), "
+                       "from_hex('6869'), url_encode('a b/c?'), url_decode('a%20b'), "
+                       "strip_accents('Müller café'), nfc_normalize('e\u0301'), "
+                       "parse_filename('/a/b/c.txt'), parse_filename('C:\\x\\y.csv'), "
+                       "parse_dirname('/a/b/c.txt'), parse_dirpath('/a/b/c.txt'), "
+                       "parse_dirpath('c.txt'), regexp_escape('a.b*c')",
+    "like_escape": "SELECT p_partkey, like_escape(p_name, '%green%', '\\'), "
+                   "not_like_escape(p_type, 'PROMO%', '\\'), ilike_escape(p_name, '%GREEN%', '!'), "
+                   "not_ilike_escape(p_container, 'sm _ase', '!'), "
+                   "like_escape('10%off', '10!%%', '!'), like_escape('10xoff', '10!%%', '!') "
+                   "FROM part WHERE p_partkey < 800",
+    "graphemes": "SELECT p_partkey, length_grapheme(p_name), left_grapheme(p_name, 3), "
+                 "right_grapheme(p_type, 4), substring_grapheme(p_name, 2, 5), "
+                 "substring_grapheme(p_container, 3), length_grapheme('cafe\u0301'), "
+                 "left_grapheme('cafe\u0301s', 4) FROM part WHERE p_partkey < 500",
+    "similarity": "SELECT p_partkey, damerau_levenshtein(p_container, 'JUMBO PKG'), "
+                  "jaccard(p_name, 'almond'), jaro_similarity(p_type, 'PROMO BURNISHED'), "
+                  "jaro_winkler_similarity(p_container, 'SM CASE'), "
+                  "overlay(p_name PLACING 'XY' FROM 3 FOR 2), "
+                  "damerau_levenshtein('abcd', 'acbd'), jaccard('', ''), "
+                  "jaro_winkler_similarity('martha', 'marhta') FROM part WHERE p_partkey < 500",
+    "regexp": "SELECT p_partkey, regexp_full_match(p_container, 'SM .*'), "
+              "regexp_extract_all(p_name, '[a-z]+'), regexp_extract_all(p_type, '([A-Z])[A-Z]+', "
+              "1), string_split_regex(p_type, ' +'), regexp_split_to_array(p_container, ' '), "
+              "str_split_regex(p_name, 'e'), parse_path('/usr/local/bin'), parse_path('a/b') "
+              "FROM part WHERE p_partkey < 300",
+    "dates": "SELECT o_orderkey, epoch_us(o_orderdate), epoch_ms(o_orderdate), "
+             "epoch_ns(CAST(o_orderdate AS TIMESTAMP)), epoch_ms(CAST(o_orderdate AS TIMESTAMP)), "
+             "to_timestamp(o_orderkey * 1000), era(o_orderdate), millennium(o_orderdate), "
+             "weekday(o_orderdate), dayofmonth(o_orderdate), isoyear(o_orderdate), "
+             "yearweek(o_orderdate), julian(o_orderdate), datepart('month', o_orderdate), "
+             "date_sub('day', DATE '1992-01-01', o_orderdate), "
+             f"datesub('week', o_orderdate, DATE '1999-01-01') {_O}",
+    "constructors": "SELECT o_orderkey, make_time(o_orderkey % 24, o_custkey % 60, 30.25), "
+                    "make_timestamp(year(o_orderdate), month(o_orderdate), 1, o_orderkey % 24, "
+                    "7, 4.5), make_timestamp(o_orderkey * 1000000), make_timestamp_ms(o_orderkey),"
+                    " make_timestamp_ns(o_orderkey * 1000000), "
+                    "julian(CAST(o_orderdate AS TIMESTAMP)), to_microseconds(o_orderkey), "
+                    "to_milliseconds(o_custkey), to_seconds(o_orderkey % 60), "
+                    "to_minutes(o_custkey % 60), to_hours(o_orderkey % 24), to_days(o_custkey), "
+                    f"to_weeks(o_orderkey % 5) {_O}",
+    "date_constants": "SELECT isoyear(DATE '2024-12-30'), yearweek(DATE '2024-12-30'), "
+                      "yearweek(DATE '2021-01-03'), era(DATE '2000-01-01'), "
+                      "millennium(DATE '2000-12-31'), millennium(DATE '2001-01-01'), "
+                      "weekday(DATE '2024-06-02'), julian(DATE '1992-09-20'), "
+                      "make_time(13, 14, 15.5), make_timestamp(2024, 2, 29, 23, 59, 58.25), "
+                      "date_sub('hour', TIMESTAMP '2024-01-01 00:00:00', "
+                      "TIMESTAMP '2024-01-02 05:00:00'), "
+                      "try_strptime('2024-03-04', '%Y-%m-%d'), try_strptime('nope', '%Y-%m-%d'), "
+                      "parse_formatted_bytes('2 MiB'), parse_formatted_bytes('1.5kB')",
+    "try_strptime": "SELECT o_orderkey, try_strptime(strftime(o_orderdate, '%d/%m/%Y'), "
+                    "'%d/%m/%Y'), try_strptime(o_orderpriority, '%Y') "
+                    "FROM orders WHERE o_orderkey < 1000",
+    "system": "SELECT current_database(), current_schema(), current_schemas(true), version(), "
+              "constant_or_null(1, 2), constant_or_null(7, NULL), can_cast_implicitly(1, 1.5), "
+              "can_cast_implicitly('a', 1), current_query_id()",
+    "system_column": "SELECT n_nationkey, constant_or_null(n_name, n_regionkey), "
+                     "constant_or_null(n_nationkey, nullif(n_regionkey, 1)) FROM nation",
+    "grouped": "SELECT p_mfgr, sum(bit_length(p_name)), sum(length(to_base64(p_name::BLOB))), "
+               "max(sha256(p_name)), sum(jaccard(p_name, 'almond')), "
+               "sum(damerau_levenshtein(p_container, 'JUMBO PKG')), "
+               "count(DISTINCT md5_number(p_type)), max(regexp_extract_all(p_name, '[a-z]+')[2]), "
+               "max(parse_filename(p_type)) FROM part GROUP BY 1 ORDER BY 1",
+}
+# the families whose functions have a plane op on the device route
+_DEVICE = ("lengths_codecs", "graphemes", "regexp", "grouped")
+
+
+@pytest.mark.parametrize("name", sorted(SQL))
+def test_function_matches_jax(cons, name):
+    jcon, tcon = cons
+    got = sorted(tcon.sql(SQL[name]).rows(), key=repr)
+    _close(got, sorted(jcon.sql(SQL[name]).rows(), key=repr))
+
+
+@pytest.mark.parametrize("name", _DEVICE)
+def test_function_matches_jax_device_route(cons, monkeypatch, name):
+    jcon, tcon = cons
+    monkeypatch.setattr(TS, "DEVICE_STR_MIN_DICT", 100)
+    monkeypatch.setattr(JS, "DEVICE_STR_MIN_DICT", 100)
+    got = sorted(tcon.sql(SQL[name]).rows(), key=repr)
+    _close(got, sorted(jcon.sql(SQL[name]).rows(), key=repr))
+
+
+def test_epoch_functions_held_to_duckdb(cons):
+    """(h) epoch_ms(BIGINT) is a TIMESTAMP, and epoch_us/epoch_ns take no
+    integer; (i) epoch_ms before 1970 truncates toward zero."""
+    _, tcon = cons
+    assert tcon.sql("SELECT epoch_ms(1700000000000), epoch_ms(-1), "
+                    "epoch_ms(TIMESTAMP '1969-12-31 23:59:59.9995'), "
+                    "epoch_ms(TIMESTAMP '1969-12-31 23:59:59.9985'), "
+                    "epoch_ms(DATE '1969-12-31'), epoch_us(TIMESTAMP '1969-12-31 23:59:59.9995'), "
+                    "epoch_ns(TIMESTAMP '1970-01-01 00:00:01')").rows() == [
+        (datetime.datetime(2023, 11, 14, 22, 13, 20),
+         datetime.datetime(1969, 12, 31, 23, 59, 59, 999000), 0, -1, -86_400_000, -500,
+         1_000_000_000)]
+    for sql in ("SELECT epoch_ns(1700000000000000000)", "SELECT epoch_us(17)"):
+        with pytest.raises(ValueError, match="No function matches"):
+            tcon.sql(sql)
+    # over a column of whole milliseconds
+    rows = tcon.sql("SELECT o_orderkey, epoch_ms(o_orderkey * 86400000) FROM orders "
+                    "WHERE o_orderkey < 100").rows()
+    assert rows and all(ts == datetime.datetime(1970, 1, 1) + datetime.timedelta(days=k)
+                        for k, ts in rows)
+
+
+def test_readable_sizes_held_to_duckdb(cons):
+    """format_bytes is formatReadableSize, in integer arithmetic: one
+    decimal truncated, '1 byte', a DECIMAL count rounded to an integer first
+    (StringUtil::BytesToHumanReadableString). The reference's format_bytes
+    rounds, and its formatReadableSize floors a float quotient."""
+    _, tcon = cons
+    assert tcon.sql("SELECT format_bytes(2000), formatReadableSize(2047), format_bytes(1), "
+                    "format_bytes(-1536), formatReadableDecimalSize(1999999), "
+                    "formatReadableSize(1023.6), format_bytes(1125899906842624)").rows() == [
+        ("1.9 KiB", "1.9 KiB", "1 byte", "-1.5 KiB", "1.9 MB", "1.0 KiB", "1.0 PiB")]
+    rows = tcon.sql("SELECT l_extendedprice, formatReadableSize(l_extendedprice), "
+                    "format_bytes(CAST(l_extendedprice AS BIGINT) * 1000) "
+                    "FROM lineitem WHERE l_orderkey < 100").rows()
+    for price, a, b in rows:
+        n = int(price.to_integral_value(rounding="ROUND_HALF_UP"))
+        assert a == (f"{n} bytes" if n < 1024 else f"{n // 1024}.{n % 1024 * 10 // 1024} KiB")
+        m = int(price) * 1000
+        kib, mib = m // 1024, m // 1024 // 1024
+        assert b == (f"{mib}.{kib % 1024 * 10 // 1024} MiB" if mib else
+                     f"{kib}.{m % 1024 * 10 // 1024} KiB")
+
+
+def test_to_base_negative_raises(cons):
+    """(m) DuckDB refuses a negative number; the reference prints '-101'."""
+    _, tcon = cons
+    with pytest.raises(ValueError, match="'to_base' number must be greater than or equal to 0"):
+        tcon.sql("SELECT to_base(-5, 2)").rows()
+    assert tcon.sql("SELECT to_base(5, 2, 8), to_base(255, 36)").rows() == [("00000101", "73")]
+    # a negative value that the WHERE removes is not formatted
+    assert tcon.sql("SELECT to_base(o_custkey - 100, 10) FROM orders WHERE o_custkey > 100 "
+                    "ORDER BY o_orderkey LIMIT 1").rows()[0][0].isdigit()
+
+
+def test_failures_only_where_a_read_row_holds_the_value(cons):
+    """A per-distinct function (or a VARCHAR cast) that fails on a value
+    fails the statement only where a row it reads holds the value: the
+    rows a WHERE removes do not count (ROADMAP Queue 3, F2 and F3)."""
+    _, tcon = cons
+    for sql in ("SELECT strptime(o_orderpriority, '%Y') FROM orders",
+                "SELECT from_base64(o_orderpriority) FROM orders",
+                "SELECT CAST(o_orderpriority AS INTEGER) FROM orders",
+                "SELECT unhex(o_orderstatus) FROM orders"):
+        with pytest.raises(ValueError):
+            tcon.sql(sql).rows()
+        assert tcon.sql(sql + " WHERE o_orderkey < 0").rows() == []
+    assert tcon.sql("SELECT count(*), min(CAST(o_orderpriority AS INTEGER)) FROM orders "
+                    "WHERE o_orderpriority = '1-URGENT' AND o_orderkey < 0").rows() == [(0, None)]
+
+
+def test_the_error_names_a_value_a_read_row_holds(cons):
+    """Of several failing values, the error names one that a read row
+    holds: not the first failing value of the dictionary (1-URGENT, F),
+    nor the last (5-LOW, P), when the WHERE keeps neither."""
+    _, tcon = cons
+    for sql, held in (
+            ("SELECT CAST(o_orderpriority AS INTEGER) FROM orders "
+             "WHERE o_orderpriority = '3-MEDIUM'", "3-MEDIUM"),
+            ("SELECT CAST(o_orderpriority AS INTEGER[]) FROM orders "
+             "WHERE o_orderpriority = '3-MEDIUM'", "3-MEDIUM"),
+            ("SELECT CAST(o_orderstatus AS BIT) FROM orders WHERE o_orderstatus = 'O'", "'O'"),
+            ("SELECT strptime(o_orderpriority, '%Y') FROM orders "
+             "WHERE o_orderpriority = '3-MEDIUM'", "3-MEDIUM")):
+        with pytest.raises((ValueError, ConversionException)) as err:
+            tcon.sql(sql).rows()
+        assert held in str(err.value), (sql, str(err.value))
+
+
+def test_current_query_is_each_statements_text(data_dir):
+    """(n) current_query() gives the running statement's text, a cached
+    plan's too, per connection (the reference gives '')."""
+    a = duckdb_tpu_torch.connect(device="cpu")
+    b = duckdb_tpu_torch.connect(device="cpu")
+    q1 = "SELECT current_query()"
+    q2 = "SELECT current_query(), 1"
+    assert a.sql(q1).rows() == [(q1,)]
+    assert b.sql(q2).rows() == [(q2, 1)]
+    assert a.sql(q1).rows() == [(q1,)]  # a plan-cache hit
+    a.load_tpch(data_dir)
+    q3 = "SELECT count(*), min(current_query()) FROM nation"
+    assert a.sql(q3).rows() == [(25, q3)]
+    assert a.sql("SELECT current_database(), current_schema(), current_catalog()").rows() == [
+        ("memory", "main", "memory")]
+
+
+def test_current_setting_waits_for_settings(cons):
+    """(o) the settings are ROADMAP item 36."""
+    _, tcon = cons
+    with pytest.raises(ValueError, match="ROADMAP item 36.*not yet ported"):
+        tcon.sql("SELECT current_setting('threads')")
+
+
+def test_setseed_seeds_the_connection(data_dir):
+    """setseed() restarts the connection's generator, which random() and
+    the uuids draw from: two connections seeded alike draw alike; a
+    connection's seed does not move another's."""
+    a = duckdb_tpu_torch.connect(device="cpu")
+    b = duckdb_tpu_torch.connect(device="cpu")
+    for con in (a, b):
+        con.load_tpch(data_dir)
+        assert con.sql("SELECT setseed(0.42)").rows() == [(None,)]
+    sql = "SELECT random(), uuid() FROM nation"
+    ra = a.sql(sql).rows()
+    assert ra == b.sql(sql).rows() and len({r[0] for r in ra}) == 25
+    a.sql("SELECT setseed(0.42)").rows()
+    assert a.sql(sql).rows() == ra
+    assert b.sql(sql).rows() != ra  # b's generator went on
+    with pytest.raises(ValueError, match="between -1.0 and 1.0"):
+        a.sql("SELECT setseed(2)").rows()
+
+
+def test_session_counters(cons):
+    _, tcon = cons
+    (t1, c1), = tcon.sql("SELECT txid_current(), current_connection_id()").rows()
+    (t2, c2), = tcon.sql("SELECT current_transaction_id(), current_connection_id()").rows()
+    assert t2 > t1 and c1 == c2 == tcon.session.connection_id
+    assert tcon.sql("SELECT getenv('DUCKDB_TPU_TORCH_UNSET_VARIABLE')").rows() == [("",)]
+
+
+def test_calendar_functions_against_python(cons):
+    """isoyear, yearweek, weekday, dayofmonth, julian, era and millennium
+    over every order date, held to Python's calendar."""
+    _, tcon = cons
+    rows = tcon.sql("SELECT o_orderdate, isoyear(o_orderdate), yearweek(o_orderdate), "
+                    "weekday(o_orderdate), dayofmonth(o_orderdate), julian(o_orderdate), "
+                    "era(o_orderdate), millennium(o_orderdate) FROM orders").rows()
+    assert len(rows) > 10_000
+    for d, iy, yw, wd, dom, jd, era, mil in rows:
+        y, w, _ = d.isocalendar()
+        assert (iy, yw, wd, dom, jd, era, mil) == (
+            y, y * 100 + w, d.isoweekday() % 7, d.day, float(d.toordinal() + 1721425), 1,
+            (d.year - 1) // 1000 + 1)
+    for y, m, d in ((2024, 12, 30), (2021, 1, 3), (2020, 12, 31), (2027, 1, 1), (1, 1, 1),
+                    (1000, 12, 31), (1001, 1, 1)):
+        dt = datetime.date(y, m, d)
+        iy, w, _ = dt.isocalendar()
+        got = tcon.sql(f"SELECT isoyear(make_date({y}, {m}, {d})), "
+                       f"yearweek(make_date({y}, {m}, {d})), "
+                       f"millennium(make_date({y}, {m}, {d}))").rows()
+        assert got == [(iy, iy * 100 + w, (y - 1) // 1000 + 1)]
+
+
+def test_make_timestamp_against_python(cons):
+    _, tcon = cons
+    for args, want in (((2024, 2, 29, 23, 59, 58.25), datetime.datetime(2024, 2, 29, 23, 59, 58,
+                                                                        250000)),
+                       ((1969, 12, 31, 23, 59, 59.5), datetime.datetime(1969, 12, 31, 23, 59,
+                                                                        59, 500000)),
+                       ((1900, 3, 1, 0, 0, 0.000001), datetime.datetime(1900, 3, 1, 0, 0, 0, 1)),
+                       ((2000, 1, 1, 12, 30, 59.999999),
+                        datetime.datetime(2000, 1, 1, 12, 30, 59, 999999))):
+        assert tcon.sql(f"SELECT make_timestamp{args}").rows() == [(want,)]
+
+
+def test_timezone_functions_follow_the_utc_session(cons):
+    _, tcon = cons
+    utc = datetime.timezone.utc
+    assert tcon.sql("SELECT timezone('UTC', TIMESTAMP '2024-01-02 03:04:05'), "
+                    "timezone('UTC', TIMESTAMPTZ '2024-01-02 03:04:05+00'), "
+                    "timezone(TIMESTAMPTZ '2024-01-02 03:04:05+00'), "
+                    "timezone_hour(TIMESTAMPTZ '2024-01-02 03:04:05+00'), "
+                    "timezone_minute(TIMESTAMP '2024-01-02 03:04:05')").rows() == [
+        (datetime.datetime(2024, 1, 2, 3, 4, 5, tzinfo=utc),
+         datetime.datetime(2024, 1, 2, 3, 4, 5), 0, 0, 0)]
+    with pytest.raises(ValueError, match="time zone.*not yet ported"):
+        tcon.sql("SELECT timezone('Europe/Paris', TIMESTAMP '2024-01-02 03:04:05')")
+
+
+def test_error_and_refusals(cons):
+    _, tcon = cons
+    with pytest.raises(ValueError, match="Invalid Input Error: boom"):
+        tcon.sql("SELECT error('boom')").rows()
+    with pytest.raises(ValueError, match="date_sub\\('month'.*not yet ported"):
+        tcon.sql("SELECT date_sub('month', DATE '2024-01-01', DATE '2024-05-01')")
+    with pytest.raises(ValueError, match="not a constant expression"):
+        tcon.sql("SELECT jaro_winkler_similarity(p_name, p_type) FROM part")
+
+
+def test_registry_covers_the_reference(cons):
+    """Every name the reference's functions_more registers is registered
+    in the port."""
+    import re
+
+    from duckdb_tpu.planner import functions_more as JM
+    from duckdb_tpu.planner.functions import REGISTRY as JREG
+    from duckdb_tpu_torch.planner.functions import REGISTRY as TREG
+
+    src = open(JM.__file__).read()
+    names = set(re.findall(r'@register\("(\w+)"\)', src))
+    names |= set(re.findall(r'REGISTRY\["(\w+)"\]', src))
+    names |= set(re.findall(r'_(?:dict_str2?|mk_\w+|blob_fn|extract_like|const_varchar|'
+                            r'register_length_with_bit)\(\s*"(\w+)"', src))
+    assert len(names) > 90 and names <= set(JREG)
+    assert names - set(TREG) == set()

@@ -591,3 +591,93 @@ def test_nested_values_on_cuda_match_cpu(tmp_path):
             "SELECT list(o_orderkey) FILTER (WHERE o_orderkey % 5 = 0), "
             "histogram(o_orderstatus) FROM orders"):
         assert con.sql(sql).rows() == cpu.sql(sql).rows(), sql
+
+
+def _close_rows(got, want, what):
+    assert len(got) == len(want) and want, what
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(b, float):
+                assert a == pytest.approx(b, rel=1e-9, abs=1e-12), (what, g, w)
+            else:
+                assert a == b, (what, g, w)
+
+
+@pytest.mark.gpu
+def test_more_queries_on_cuda(tmp_path):
+    """The five MORE_QUERIES on the card equal the numpy oracle (DOUBLE
+    within 1e-9 relative: more_math's transcendental functions)."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    for name, sql in tpch_oracle.MORE_QUERIES.items():
+        _close_rows(con.sql(sql).rows(), tpch_oracle.answer(name, str(tmp_path)), name)
+
+
+@pytest.mark.gpu
+def test_list_vector_math_on_cuda_matches_cpu(tmp_path):
+    """The list vector functions reduce over the flattened elements on the
+    card; they equal the CPU run, over constants and a columnar list."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path))
+    for sql in (
+            "SELECT p_partkey, list_dot_product(v, [1, 2]), list_distance(v, [10, 3]), "
+            "list_cosine_similarity(v, [1, 1]), list_cosine_distance(v, v), "
+            "list_negative_inner_product(v, [2, 5]), v <-> [0, 0] FROM (SELECT p_partkey, "
+            "list_value(p_size, p_partkey % 7) AS v FROM part) ORDER BY 1",
+            "SELECT list_distance([1, 2, 3], [1, 2, 5]), list_inner_product([1.5, 2.0], "
+            "[2.0, 4.0]), array_cross_product([1, 2, 3], [4, 5, 6])"):
+        _close_rows(con.sql(sql).rows(), cpu.sql(sql).rows(), sql)
+
+
+@pytest.mark.gpu
+def test_per_distinct_hash_lut_on_cuda_matches_cpu(tmp_path):
+    """A per-distinct hash (sha256, md5_number) is computed once per
+    dictionary value, its lookup table on the card; the gathered rows equal
+    the CPU run's, and a second run reads the cached table."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.ops import strings as TS
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path))
+    sql = ("SELECT p_partkey, sha256(p_name), md5_number(p_type), to_base64(p_name::BLOB), "
+           "jaccard(p_name, 'almond') FROM part ORDER BY 1")
+    got = con.sql(sql).rows()
+    _close_rows(got, cpu.sql(sql).rows(), sql)
+    cached = len(TS._LUT_CACHE)
+    assert con.sql(sql).rows() == got and len(TS._LUT_CACHE) == cached
+    assert any(isinstance(v[1], torch.Tensor) and v[1].device.type == "cuda"
+               for v in TS._LUT_CACHE.values())
+
+
+@pytest.mark.gpu
+def test_range_on_cuda(tmp_path):
+    """range()'s column is made on the card; its sum equals numpy's."""
+    _need_cuda()
+    import numpy as np
+
+    import duckdb_tpu_torch
+
+    con = duckdb_tpu_torch.connect()
+    sql = "SELECT count(*), sum(range), max(range) FROM range(3, 5000003, 7)"
+    want = np.arange(3, 5_000_003, 7, dtype=np.int64)
+    assert con.sql(sql).rows() == [(len(want), int(want.sum()), int(want.max()))]
+    entry = con.catalog.get_table(con._plan_tables[sql][0])
+    assert entry.device_column("range").data.device.type == "cuda"

@@ -266,10 +266,10 @@ def test_distinct_group_without_values(cons):
 
 
 @pytest.mark.parametrize("sql", [
-    # list/string_agg with FILTER and ORDER BY are ported
-    # (tests/test_torch_nested_aggs.py); a window aggregate is not
+    # list/string_agg with FILTER and ORDER BY and json_group_array are
+    # ported; a window aggregate and grouping sets are not
     "SELECT sum(o_totalprice) OVER (PARTITION BY o_custkey) FROM orders",
-    "SELECT json_group_array(o_comment) FROM orders",
+    "SELECT o_orderstatus, count(*) FROM orders GROUP BY ROLLUP (o_orderstatus)",
 ])
 def test_aggregate_forms_not_yet_ported_say_so(data_dir, sql):
     with pytest.raises(ValueError, match="not yet ported"):
