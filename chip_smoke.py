@@ -133,6 +133,26 @@ Phases (any failure exits non-zero before the result lines):
    rows/s and host syncs. Then range()'s column was made on the card;
    duckdb_functions() counts each type as the port's catalog does;
    epoch_ms(BIGINT) is a TIMESTAMP; current_query() gives its own text.
+14. the SELECT forms: the SELECT_FORM_QUERIES of testing/tpch_oracle.py
+   (rollup_q1: Q1's measures over ROLLUP (l_returnflag, l_linestatus) with
+   grouping(); cube_flags: CUBE over the two flags; setops_big: UNION ALL
+   of lineitem and partsupp, 6.8M rows concatenated on the card;
+   INTERSECT, EXCEPT and their ALL forms of l_partkey and p_partkey, held
+   to multisets; values_join: a VALUES list joined to supplier;
+   recursive_months: WITH RECURSIVE over the 84 months joined to orders;
+   mark_q4 and mark_in_or: EXISTS and IN as MARK joins; notin_residual:
+   NOT IN correlated by a residual; asof_ship: an ASOF join of lineitem
+   and orders; band_join: an inequality join of part and supplier;
+   cross_small; positional; using_left, using_full and natural_join held
+   to DuckDB's USING rules; sample_rows: an exact reservoir count), the
+   same way as phase 13: rows against the numpy oracle, the route
+   exactly, the grouped sum against its plain version on every input and
+   timed at each shape (rollup_q1 must launch it once per ROLLUP branch,
+   mark_q4 at least once), each query's first run, warm median, rows/s
+   and host syncs. Then TABLESAMPLE 10% REPEATABLE (42) must count within
+   5 standard deviations of 600,121.5 and repeat itself, and
+   duckdb_columns(), pragma_table_info('lineitem') and duckdb_tables()
+   must equal the generator's schema.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -684,6 +704,73 @@ def more_end(con, card: str) -> str:
     return ""
 
 
+# phase 14: the route each SELECT_FORM_QUERIES query takes (exactly), the
+# table its rate counts, and the queries with fewer warm runs
+SELECT_ROUTES = {
+    "rollup_q1": {"dense": 3, "set_op": 1},
+    "cube_flags": {"dense": 4, "set_op": 1},
+    "setops_big": {"set_op": 1, "dense": 1},
+    "setops_intersect": {"set_op": 1, "sort_group": 1, "dense": 1},
+    "setops_except": {"set_op": 1, "sort_group": 1, "dense": 1},
+    "setops_intersect_all": {"set_op": 1, "sort_group": 1, "dense": 1},
+    "setops_except_all": {"set_op": 1, "sort_group": 1, "dense": 1},
+    "values_join": {"set_op": 1, "dense": 1},
+    "recursive_months": {"cte_recursive": 1, "probe_dense": 1, "dense": 1},
+    "mark_q4": {"dense": 1, "mark_build": 1},
+    "mark_in_or": {"mark_build": 1, "dense": 1},
+    "notin_residual": {"eager_anti": 1, "dense": 1},
+    "asof_ship": {"eager_asof": 1, "dense": 1},
+    "band_join": {"ie_join": 1, "dense": 1},
+    "cross_small": {"cross_product": 1, "dense": 1},
+    "positional": {"positional": 1, "dense": 1},
+    "using_left": {"eager_left": 1, "dense": 1},
+    "using_full": {"eager_full": 1, "dense": 1},
+    "natural_join": {"dense": 1},
+    "sample_rows": {"sample": 1, "dense": 1}}
+SELECT_RATE_TABLE = {"values_join": "supplier", "recursive_months": "orders",
+                     "mark_q4": "orders", "mark_in_or": "orders", "band_join": "part",
+                     "cross_small": "nation", "using_left": "orders", "using_full": "orders",
+                     "natural_join": "orders"}
+SELECT_WARM_RUNS = {}
+
+
+def select_forms_end(con, card: str) -> str:
+    """On the card: TABLESAMPLE 10% REPEATABLE (42) counts within 5
+    standard deviations of the binomial mean and repeats itself; the
+    catalog functions list the generator's schema. '' when they do."""
+    import math
+
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import TABLE_COLUMNS
+
+    n = con.catalog.get_table("lineitem").nrows
+    got = con.sql(tpch_oracle.SAMPLE_PERCENT_QUERY).rows()[0][0]
+    sigma = math.sqrt(n * 0.1 * 0.9)
+    if abs(got - n * 0.1) > 5 * sigma:
+        return f"TABLESAMPLE 10% counted {got}, not within 5 sigma of {n * 0.1}"
+    if con.sql(tpch_oracle.SAMPLE_PERCENT_QUERY).rows()[0][0] != got:
+        return "TABLESAMPLE 10% REPEATABLE (42) did not repeat itself"
+    t0 = time.perf_counter()
+    cols = con.sql("SELECT table_name, column_name, column_index FROM duckdb_columns()").rows()
+    cat_s = time.perf_counter() - t0
+    if cols != [(t, c, i) for t in sorted(TABLE_COLUMNS)
+                for i, (c, _) in enumerate(TABLE_COLUMNS[t])]:
+        return f"duckdb_columns() differs from the schema: {cols[:5]}"
+    info = con.sql("SELECT cid, name FROM pragma_table_info('lineitem')").rows()
+    if info != [(i, c) for i, (c, _) in enumerate(TABLE_COLUMNS["lineitem"])]:
+        return f"pragma_table_info('lineitem') differs from the schema: {info[:5]}"
+    tables = con.sql("SELECT name, estimated_size, column_count FROM duckdb_tables()").rows()
+    want = [(t, con.catalog.get_table(t).nrows, len(TABLE_COLUMNS[t]))
+            for t in sorted(TABLE_COLUMNS)]
+    if tables != want:
+        return f"duckdb_tables() gives {tables}, the catalog {want}"
+    print(f"on {card}: TABLESAMPLE 10% REPEATABLE (42) counted {got} of {n} "
+          f"({(got - n * 0.1) / sigma:+.2f} sigma) twice; duckdb_columns() "
+          f"({len(cols)} rows, {cat_s:.3f} s), pragma_table_info('lineitem') and "
+          "duckdb_tables() equal the schema")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -1098,6 +1185,22 @@ def main() -> int:
     if bad:
         return fail(bad)
     print(f"phase 13 took {time.perf_counter() - phase13_t0:.1f} s")
+
+    # 14. the SELECT forms: SELECT_FORM_QUERIES against numpy, then a
+    # sampled percentage and the catalog functions
+    phase14_t0 = time.perf_counter()
+    bad = oracle_phase(tpch_oracle.SELECT_FORM_QUERIES, SELECT_ROUTES, SELECT_WARM_RUNS,
+                       {n: SELECT_RATE_TABLE.get(n, "lineitem")
+                        for n in tpch_oracle.SELECT_FORM_QUERIES}, need_kernel=False)
+    if bad:
+        return fail(bad)
+    if launches_by_query["rollup_q1"] < 3 or launches_by_query["mark_q4"] < 1:
+        return fail(f"rollup_q1 ({launches_by_query['rollup_q1']}) or mark_q4 "
+                    f"({launches_by_query['mark_q4']}) missed the grouped sum")
+    bad = select_forms_end(con, card)
+    if bad:
+        return fail(bad)
+    print(f"phase 14 took {time.perf_counter() - phase14_t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "grouped_sum_i64", "route": "cuda",

@@ -74,6 +74,13 @@ class Connection:
             except BaseException:
                 self._drop_tables(planner.hidden_tables)
                 raise
+            if planner.uncacheable:
+                # a snapshot of the catalog (duckdb_tables() and the like)
+                # is taken anew by every run, and its tables go with it
+                try:
+                    return Executor(self.catalog, self.routes).run(*cached)
+                finally:
+                    self._drop_tables(planner.hidden_tables)
             self._plan_cache[query] = cached
             self._plan_tables[query] = planner.hidden_tables
         plan, output = cached

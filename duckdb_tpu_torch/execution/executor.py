@@ -14,12 +14,20 @@ not match; a residual is evaluated on the matched build row or over the
 expanded pairs. A left join keeps the probe's shape on the direct-address
 path (build columns NULL where nothing matched); left joins with duplicate
 build keys and every full join expand the pairs and append the unmatched
-rows, NULL-extended. Host syncs happen where a size is needed (group count, live
-count, pair count); PyTorch runs eagerly, so a size is read when it is
-needed instead of learned across runs. ListPack (a columnar list_value)
-and Unnest build nested values from whole columns on the host, one
-transfer per column, and Result.rows converts nested values at every
-depth.
+rows, NULL-extended. A join without keys is an inequality join (the build
+sorted once, each probe row's candidate range found by searchsorted, the
+conditions checked over the candidate pairs) or a cross expansion; an
+ASOF join finds each probe row's nearest build row with one
+searchsorted; NOT IN with a residual counts, per probe row, the build
+rows its correlation selects. Set operations concatenate their inputs
+(dictionaries merged); INTERSECT and EXCEPT repeat each grouped tuple as
+SQL's multiset rules say. A sample narrows the live mask from a
+torch.Generator on the device. Host syncs happen where a size is needed
+(group count, live count, pair count); PyTorch runs eagerly, so a size is
+read when it is needed instead of learned across runs. ListPack (a
+columnar list_value) and Unnest build nested values from whole columns on
+the host, one transfer per column, and Result.rows converts nested values
+at every depth.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from duckdb_tpu_torch.ops import sort as S
 from duckdb_tpu_torch.ops.compact import packed_indices
 from duckdb_tpu_torch.planner import plan as P
 from duckdb_tpu_torch.planner import bound as B
-from duckdb_tpu_torch.planner.bound import EvalEnv, bcast, not_ported
+from duckdb_tpu_torch.planner.bound import BindError, EvalEnv, bcast, not_ported
 from duckdb_tpu_torch.types import SQLNULL, LogicalType, TypeId
 
 _I64_MIN = torch.iinfo(torch.int64).min
@@ -172,10 +180,74 @@ class Batch:
         return int(self.live.sum())
 
 
+def _reads(batch: "Batch", expr: B.BoundExpr) -> bool:
+    """True if every column `expr` reads is one of `batch`'s."""
+    return all(n.key in batch.src for n in B.walk(expr)
+               if isinstance(n, (B.BoundColumnRef, B.BoundAggregateRef)))
+
+
+# an inequality with its sides swapped
+_FLIP = {">=": "<=", ">": "<", "<=": ">=", "<": ">"}
+
+
 def _full_valid(c: Column, plen: int) -> torch.Tensor:
     if c.validity is None:
         return torch.ones(plen, dtype=torch.bool, device=c.data.device)
     return bcast(c.validity, plen)
+
+
+def concat_packed(parts, types) -> Tuple[int, List[Column]]:
+    """Concatenate packed column sets [(n, [Column per type])], each with
+    its n live rows first, into one packed set → (total, columns), padded
+    as a table's are. VARCHAR and BLOB dictionaries merge into one sorted
+    dictionary (a side without one, such as a NULL constant's, adds
+    nothing); the nested types' first-seen dictionaries are concatenated,
+    each side's codes shifted past the ones before."""
+    total = sum(n for n, _ in parts)
+    cap = max(128, pad_bucket(total))
+    device = parts[0][1][0].data.device if parts and parts[0][1] else torch.device("cpu")
+    out = []
+    for ci, t in enumerate(types):
+        cols = [(n, cs[ci]) for n, cs in parts]
+        datas = [c.data[:n] for n, c in cols]
+        dvals = None
+        if t.id in (TypeId.VARCHAR, TypeId.BLOB):
+            dicts = [np.empty(0, dtype=object) if c.dict_values is None
+                     else np.asarray(c.dict_values, dtype=object) for _, c in cols]
+            dvals = np.unique(np.concatenate(dicts)) if any(len(d) for d in dicts) \
+                else np.array([""], dtype=object)
+            for i, d in enumerate(dicts):
+                lut = torch.from_numpy(np.searchsorted(dvals, d).astype(np.int64)
+                                       if len(d) else np.zeros(1, np.int64)).to(device)
+                datas[i] = lut[datas[i].long().clamp(0, lut.shape[0] - 1)].to(torch.int32)
+        elif t.id in UNSORTED_DICT_IDS:
+            merged, shift = [], 0
+            for i, (_, c) in enumerate(cols):
+                d = [] if c.dict_values is None else list(c.dict_values)
+                datas[i] = datas[i].to(torch.int32) + shift
+                merged += d
+                shift += len(d)
+            dvals = np.empty(max(len(merged), 1), dtype=object)
+            for i, v in enumerate(merged):
+                dvals[i] = v
+        dtype = datas[0].dtype
+        for d in datas[1:]:
+            dtype = torch.promote_types(dtype, d.dtype)
+        data = torch.zeros(cap, dtype=dtype, device=device)
+        valid = torch.zeros(cap, dtype=torch.bool, device=device)
+        wide = any(c.data_hi is not None for _, c in cols)
+        hi = torch.zeros(cap, dtype=torch.int64, device=device) if wide else None
+        at = 0
+        for (n, c), d in zip(cols, datas):
+            data[at:at + n] = d
+            valid[at:at + n] = c.validity[:n] if c.validity is not None else True
+            if wide:
+                # a narrow side sign-extends into the high plane
+                hi[at:at + n] = c.data_hi[:n] if c.data_hi is not None \
+                    else torch.where(d < 0, -1, 0)
+            at += n
+        out.append(Column(data=data, ltype=t, validity=valid, dict_values=dvals, data_hi=hi))
+    return total, out
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +336,10 @@ class Executor:
         Column per output item, live rows packed first and padded as a
         catalog table's columns are, the padding zero and invalid)."""
         self._batch_memo = {}
-        batch = self.execute(plan)
+        return self._packed(self.execute(plan), [key for _, key, _ in output])
+
+    def _packed(self, batch: Batch, keys) -> Tuple[int, List[Column]]:
+        """A batch's live rows of `keys`, packed first → (count, Columns)."""
         n = batch.count_live()
         cap = max(128, pad_bucket(n))
         idx = packed_indices(batch.live, cap)
@@ -276,7 +351,7 @@ class Executor:
                                                              device=x.device))
 
         columns = []
-        for _, key, _ in output:
+        for key in keys:
             c = batch.src[key]
             columns.append(Column(data=take(c.data), ltype=c.ltype,
                                   validity=take(c.validity), dict_values=c.dict_values,
@@ -411,20 +486,28 @@ class Executor:
     EAGER_BUILD_CACHE_MAX = 1 << 25
 
     def _exec_Join(self, node: P.Join) -> Batch:
-        if node.jtype not in ("inner", "semi", "anti", "left", "full"):
+        if node.jtype not in ("inner", "semi", "anti", "left", "full", "asof", "asof_left"):
             raise not_ported(f"{node.jtype} joins")
-        if not node.probe_keys:
-            raise not_ported("joins without an equi-join condition")
+        asof = node.jtype in ("asof", "asof_left")
         if node.jtype != "inner":
             self.routes["eager_" + node.jtype] += 1
-        elif node.extra is not None:
+        elif node.extra is not None and node.probe_keys:
             self.routes["eager_inner_residual"] += 1
         probe_b = self.execute(node.probe)
         build_b = self._exec_build_cached(node)
+        if node.null_aware and node.extra is not None:
+            return self._null_aware_residual(node, probe_b, build_b)
+        if not node.probe_keys and not asof:
+            # no equi key: the inequality join, else a cross expansion,
+            # with the conditions as the residual
+            out = self._ie_join(node, probe_b, build_b)
+            return out if out is not None else self._keyless_cross(node, probe_b, build_b)
         pk, p_valid, bk, b_valid, dense_size = self._pack_keys(
             probe_b, build_b, node.probe_keys, node.build_keys)
         build_live = build_b.live & b_valid
         probe_live = probe_b.live & p_valid
+        if asof:
+            return self._asof_join(node, probe_b, build_b, pk, bk, probe_live, build_live)
         if node.jtype in ("inner", "semi"):
             # runtime join-filter pushdown (BuildPrefixRangeFilter analog,
             # reference join_hashtable.cpp:1011): tighten the probe mask by
@@ -618,13 +701,9 @@ class Executor:
         if not (isinstance(e, B.BoundComparison) and e.op in ("<>", "!=")):
             return None
 
-        def on(batch, expr):
-            return all(n.key in batch.src for n in B.walk(expr)
-                       if isinstance(n, (B.BoundColumnRef, B.BoundAggregateRef)))
-
-        if on(probe_b, e.left) and on(build_b, e.right):
+        if _reads(probe_b, e.left) and _reads(build_b, e.right):
             e_probe, e_build = e.left, e.right
-        elif on(probe_b, e.right) and on(build_b, e.left):
+        elif _reads(probe_b, e.right) and _reads(build_b, e.left):
             e_probe, e_build = e.right, e.left
         else:
             return None
@@ -651,10 +730,11 @@ class Executor:
                                  probe_live, build_live)
 
     def _expand_tail(self, node, probe_b, build_b, counts, lo, perm, probe_live,
-                     build_live) -> Batch:
+                     build_live, total: Optional[int] = None) -> Batch:
         """Join result via pair expansion: candidate position lo[row] + k
         (k < counts[row]) maps through `perm` to a build row. The pair
-        count is read once from the device. A semi/anti join without a
+        count is read once from the device (`total`, where the caller has
+        read it already). A semi/anti join without a
         residual needs only the counts; with one, the residual is evaluated
         over the expanded pairs and any pair that holds marks its probe
         row. Left and full joins emit the pairs that hold, then the live
@@ -663,7 +743,8 @@ class Executor:
         if node.jtype in ("semi", "anti") and node.extra is None:
             return self._semi_anti_tail(node, probe_b, build_b, counts > 0, probe_live,
                                         build_live)
-        total = int(counts.sum())
+        if total is None:
+            total = int(counts.sum())
         cap = max(128, pad_bucket(total))
         pr, br, pair_live = J.expand_matches(counts, lo, perm, cap)
         pair_src = ChainCols([GatherCols(probe_b.src, pr), GatherCols(build_b.src, br)])
@@ -720,6 +801,307 @@ class Executor:
         src = ChainCols([GatherCols(probe_b.src, out_probe, null_rows=null_probe),
                          GatherCols(build_b.src, out_build, null_rows=null_build)])
         return Batch(src=src, plen=out_cap, live=pos < n_pairs + n_unmatched + n_bun)
+
+    # -- joins without an equi key ---------------------------------------------
+    # the most candidate pairs an inequality join, a cross expansion or NOT
+    # IN with a residual makes (the JAX package's IE_PAIR_CAP)
+    PAIR_CAP = 1 << 27
+
+    def _check_pairs(self, total: int) -> int:
+        """`total` candidate pairs, refused above PAIR_CAP."""
+        if total > self.PAIR_CAP:
+            from duckdb_tpu_torch.errors import OutOfRangeException
+
+            raise OutOfRangeException(f"Out of Range Error: the join would expand {total} "
+                                      f"candidate pairs (the limit is {self.PAIR_CAP})")
+        return total
+
+    def _ie_join(self, node: P.Join, probe_b: Batch, build_b: Batch) -> Optional[Batch]:
+        """Inequality join (DuckDB's PhysicalIEJoin, physical_iejoin.cpp,
+        as the JAX package shapes it): sort the build once by the column
+        that the best group of `probe op build` conjuncts compares (a
+        lower and an upper bound on one column, peeled of constant shifts,
+        make a band), find each probe row's candidate range with one
+        searchsorted per conjunct, and expand only those pairs; every
+        condition is checked over them as the residual. None when no
+        conjunct compares the two sides by <, <=, > or >=, or when a side
+        is a string."""
+        conds = B.and_terms(node.extra) if node.extra is not None else []
+
+        def peel(e):
+            # monotone shifts by a constant keep the sort order
+            while True:
+                if isinstance(e, B.BoundArithmetic) and e.op in ("+", "-") \
+                        and isinstance(e.right, B.BoundLiteral):
+                    e = e.left
+                elif isinstance(e, B.BoundArithmetic) and e.op == "+" \
+                        and isinstance(e.left, B.BoundLiteral):
+                    e = e.right
+                elif isinstance(e, B.BoundFunction) and e.name in ("__interval_+",
+                                                                  "__interval_-") \
+                        and isinstance(e.args[1], B.BoundLiteral):
+                    e = e.args[0]
+                else:
+                    return e
+
+        groups: Dict[object, list] = {}
+        for c in conds:
+            if not (isinstance(c, B.BoundComparison) and c.op in _FLIP):
+                continue
+            if _reads(probe_b, c.left) and _reads(build_b, c.right):
+                op, ep, eb = c.op, c.left, c.right
+            elif _reads(probe_b, c.right) and _reads(build_b, c.left):
+                op, ep, eb = _FLIP[c.op], c.right, c.left
+            else:
+                continue
+            root = peel(eb)
+            gk = ("col", root.key) if isinstance(root, B.BoundColumnRef) else ("id", id(eb))
+            groups.setdefault(gk, []).append((op, ep, eb))
+        if not groups:
+            return None
+        # a band (an upper and a lower bound on one column) first
+        best = next((g for g in groups.values()
+                     if any(op in (">", ">=") for op, _, _ in g)
+                     and any(op in ("<", "<=") for op, _, _ in g)),
+                    next(iter(groups.values())))
+        m, plen = build_b.plen, probe_b.plen
+        env_p, env_b = probe_b.env(), build_b.env()
+        pairs = []
+        for op, ep, eb in best:
+            pc, bc = ep.eval(env_p), eb.eval(env_b)
+            if TypeId.VARCHAR in (pc.ltype.id, bc.ltype.id) or \
+                    pc.ltype.id in UNSORTED_DICT_IDS or bc.ltype.id in UNSORTED_DICT_IDS:
+                return None
+            pav, bav = B._common_numeric(
+                Column(data=bcast(pc.data, plen), ltype=pc.ltype, data_hi=pc.data_hi),
+                Column(data=bcast(bc.data, m), ltype=bc.ltype, data_hi=bc.data_hi))
+            pairs.append((op, bcast(pav, plen), bcast(bav, m), _full_valid(pc, plen),
+                          _full_valid(bc, m)))
+        build_ok = build_b.live
+        for *_, bv in pairs:
+            build_ok = build_ok & bv
+        root = peel(best[0][2])
+        sort_vals = (bcast(root.eval(env_b).data, m)
+                     if isinstance(root, B.BoundColumnRef) and root is not best[0][2]
+                     else pairs[0][2])
+        # live rows first, in the order of the build column: the candidate
+        # ranges lie inside the live prefix
+        perm = torch.sort(sort_vals, stable=True).indices
+        perm = perm[torch.sort((~build_ok[perm]).to(torch.int8), stable=True).indices]
+        m_live = int(build_ok.sum())
+        pos_lo = torch.zeros(plen, dtype=torch.int64, device=build_ok.device)
+        pos_up = torch.full((plen,), m_live, dtype=torch.int64, device=build_ok.device)
+        probe_ok = probe_b.live
+        for op, pav, bav, pv, _ in pairs:
+            sk = bav[perm[:m_live]].contiguous()
+            probe_ok = probe_ok & pv
+            pos = torch.searchsorted(sk, pav.contiguous(), right=op in ("<", ">="))
+            if op in (">", ">="):
+                pos_up = torch.minimum(pos_up, pos)  # build values at or below the probe's
+            else:
+                pos_lo = torch.maximum(pos_lo, pos)  # at or above
+        counts = torch.where(probe_ok, (pos_up - pos_lo).clamp(min=0), 0)
+        total = self._check_pairs(int(counts.sum()))
+        self.routes["ie_join"] += 1
+        # outer tails must still see NULL-valued build rows as unmatched
+        return self._expand_tail(node, probe_b, build_b, counts, pos_lo, perm, probe_ok,
+                                 build_b.live, total)
+
+    def _keyless_cross(self, node: P.Join, probe_b: Batch, build_b: Batch) -> Batch:
+        """A keyless join no inequality prunes: every live probe row pairs
+        with every live build row, through the shared tail (the residual
+        checked over the pairs), for every join type."""
+        counts, lo, perm = self._all_pairs(probe_b, build_b)
+        total = self._check_pairs(int(counts.sum()))
+        self.routes["cross_product"] += 1
+        return self._expand_tail(node, probe_b, build_b, counts, lo, perm, probe_b.live,
+                                 build_b.live, total)
+
+    @staticmethod
+    def _all_pairs(probe_b: Batch, build_b: Batch):
+        """Every live probe row against every live build row, in the
+        (counts, lo, perm) form `_expand_tail` and `J.expand_matches` take."""
+        m_live = build_b.count_live()
+        perm = packed_indices(build_b.live, max(1, pad_bucket(m_live)))
+        counts = torch.where(probe_b.live, m_live, 0)
+        return counts, torch.zeros(probe_b.plen, dtype=torch.int64, device=perm.device), perm
+
+    def _exec_CrossJoin(self, node: P.CrossJoin) -> Batch:
+        a = self.execute(node.probe)
+        b = self.execute(node.build)
+        na, nb = a.count_live(), b.count_live()
+        total = na * nb
+        self._check_pairs(total)
+        self.routes["cross_product"] += 1
+        ia = packed_indices(a.live, max(1, pad_bucket(na)))
+        ib = packed_indices(b.live, max(1, pad_bucket(nb)))
+        cap = max(128, pad_bucket(total))
+        pos = torch.arange(cap, device=a.live.device)
+        ra = ia[(pos // max(nb, 1)).clamp(0, ia.shape[0] - 1)]
+        rb = ib[(pos % max(nb, 1)).clamp(0, ib.shape[0] - 1)]
+        return Batch(src=ChainCols([GatherCols(a.src, ra), GatherCols(b.src, rb)]), plen=cap,
+                     live=pos < total)
+
+    def _asof_join(self, node, probe_b, build_b, pk, bk, probe_live, build_live) -> Batch:
+        """ASOF join (DuckDB's physical_asof_join.cpp): per probe row, the
+        build row of its equality group nearest on the inequality's side.
+        Keys and values are ranked among the build's distinct ones, the
+        build sorted by (key rank, value rank), and each probe row finds
+        its candidate with one searchsorted."""
+        e = node.extra
+        if not (isinstance(e, B.BoundComparison) and e.op in (">=", ">", "<=", "<")):
+            raise BindError("Binder Error: ASOF JOIN requires one inequality condition")
+
+        op = e.op
+        if _reads(probe_b, e.left) and _reads(build_b, e.right):
+            e_probe, e_build = e.left, e.right
+        elif _reads(probe_b, e.right) and _reads(build_b, e.left):
+            e_probe, e_build = e.right, e.left
+            op = _FLIP[op]
+        else:
+            raise BindError("Binder Error: the ASOF JOIN inequality must compare the two sides")
+        pc, bc = e_probe.eval(probe_b.env()), e_build.eval(build_b.env())
+        if TypeId.VARCHAR in (pc.ltype.id, bc.ltype.id):
+            raise not_ported("ASOF JOIN over a VARCHAR inequality")
+        pav, bav = B._common_numeric(
+            Column(data=bcast(pc.data, probe_b.plen), ltype=pc.ltype, data_hi=pc.data_hi),
+            Column(data=bcast(bc.data, build_b.plen), ltype=bc.ltype, data_hi=bc.data_hi))
+        probe_live = probe_live & _full_valid(pc, probe_b.plen)
+        build_live = build_live & _full_valid(bc, build_b.plen)
+        if op in ("<=", "<"):  # the smallest build value at or above the probe's
+            pav, bav = -pav, -bav
+            op = {"<=": ">=", "<": ">"}[op]
+        ukeys = torch.unique(bk[build_live])
+        uvals = torch.unique(bav[build_live])
+        nk, nv = max(1, ukeys.shape[0]), uvals.shape[0] + 1
+        kb = torch.searchsorted(ukeys, bk.contiguous())
+        vb = torch.searchsorted(uvals, bav.contiguous())
+        kp = torch.searchsorted(ukeys, pk.contiguous()).clamp(max=nk - 1)
+        found = ukeys.shape[0] > 0
+        key_hit = probe_live & (ukeys[kp] == pk) if found else torch.zeros_like(probe_live)
+        # the rank of the largest build value ≤ (or <) the probe's, -1 if none
+        vp = torch.searchsorted(uvals, pav.contiguous(), right=op == ">=") - 1
+        comb_b = torch.where(build_live, kb * nv + vb, _I64_MAX)
+        sorted_b, perm = torch.sort(comb_b, stable=True)
+        pos = torch.searchsorted(sorted_b, (kp * nv + vp).contiguous(), right=True) - 1
+        posc = pos.clamp(0, build_b.plen - 1)
+        cand = sorted_b[posc]
+        matched = key_hit & (vp >= 0) & (pos >= 0) & (cand != _I64_MAX) & (cand // nv == kp)
+        brow = perm[posc]
+        src = ChainCols([probe_b.src, GatherCols(build_b.src, brow, null_rows=~matched)])
+        return Batch(src=src, plen=probe_b.plen,
+                     live=matched if node.jtype == "asof" else probe_b.live)
+
+    def _null_aware_residual(self, node: P.Join, probe_b: Batch, build_b: Batch) -> Batch:
+        """NOT IN over a subquery correlated by more than equalities: a
+        probe row sees the build rows its correlation selects (the
+        equality keys before the last, then the residual, over the
+        expanded pairs). It stays when it sees none; else when its value
+        is not NULL, equals none of them and none of theirs is NULL (SQL's
+        rule, per probe row)."""
+        if len(node.probe_keys) > 1:
+            pk, pv, bk, bv, _ = self._pack_keys(probe_b, build_b, node.probe_keys[:-1],
+                                                node.build_keys[:-1])
+            table = J.build_sorted(bk, build_b.live & bv)
+            counts, lo, _ = J.probe_counts(table, pk, probe_b.live & pv)
+            perm = table.perm
+        else:
+            counts, lo, perm = self._all_pairs(probe_b, build_b)
+        total = self._check_pairs(int(counts.sum()))
+        cap = max(128, pad_bucket(total))
+        pr, br, pair_live = J.expand_matches(counts, lo, perm, cap)
+        env = EvalEnv(cols=ChainCols([GatherCols(probe_b.src, pr), GatherCols(build_b.src, br)]),
+                      plen=cap, live=pair_live)
+        r = node.extra.eval(env)
+        seen = pair_live & bcast(r.data.to(torch.bool), cap) & _full_valid(r, cap)
+        eq = B.BoundComparison("=", node.probe_keys[-1], node.build_keys[-1]).eval(env)
+        y_null = ~_full_valid(node.build_keys[-1].eval(env), cap)
+
+        # a probe row's pairs are contiguous (J.expand_matches), so its
+        # count of a mask is the difference of a running sum at its bounds
+        ends = torch.cumsum(counts, 0)
+        starts = ends - counts
+
+        def per_probe(mask):
+            run = torch.zeros(cap + 1, dtype=torch.int64, device=pr.device)
+            run[1:] = torch.cumsum(mask.to(torch.int64), 0)
+            return run[ends] - run[starts]
+
+        n_seen = per_probe(seen)
+        n_eq = per_probe(seen & bcast(eq.data.to(torch.bool), cap) & _full_valid(eq, cap))
+        n_null = per_probe(seen & y_null)
+        x_valid = _full_valid(node.probe_keys[-1].eval(probe_b.env()), probe_b.plen)
+        live = probe_b.live & ((n_seen == 0) | ((n_eq == 0) & x_valid & (n_null == 0)))
+        return Batch(src=probe_b.src, plen=probe_b.plen, live=live)
+
+    def _exec_PositionalJoin(self, node: P.PositionalJoin) -> Batch:
+        """The i-th live row of each side side by side; the shorter side
+        is NULL past its end."""
+        a, b = self.execute(node.left), self.execute(node.right)
+        na, nb = a.count_live(), b.count_live()
+        n = max(na, nb)
+        cap = max(128, pad_bucket(n))
+        pos = torch.arange(cap, device=a.live.device)
+        self.routes["positional"] += 1
+        src = ChainCols([GatherCols(a.src, packed_indices(a.live, cap), null_rows=pos >= na),
+                         GatherCols(b.src, packed_indices(b.live, cap), null_rows=pos >= nb)])
+        return Batch(src=src, plen=cap, live=pos < n)
+
+    # -- samples and set operations ---------------------------------------------
+    def _exec_Sample(self, node: P.Sample) -> Batch:
+        """Narrow the live mask: each live row kept with probability
+        percent / 100 (Bernoulli), or `rows` live rows drawn without
+        replacement. The draws come from a torch.Generator on the
+        device, seeded by REPEATABLE / the method's seed, else the
+        session's (setseed())."""
+        from duckdb_tpu_torch.planner.session import current
+
+        b = self.execute(node.child)
+        device = b.live.device
+        if node.seed is not None:
+            g = torch.Generator(device=device)
+            g.manual_seed(int(node.seed))
+        else:
+            session = current()
+            g = session.generator(device) if session is not None else None
+        r = torch.rand(b.plen, generator=g, device=device, dtype=torch.float64)
+        if node.percent is not None:
+            keep = b.live & (r < node.percent / 100.0)
+        else:
+            order = torch.argsort(torch.where(b.live, r, 2.0))
+            keep = torch.zeros(b.plen, dtype=torch.bool, device=device)
+            keep[order[:max(0, min(node.rows, b.plen))]] = True
+            keep &= b.live
+        self.routes["sample"] += 1
+        return Batch(src=b.src, plen=b.plen, live=keep)
+
+    def _exec_SetOp(self, node: P.SetOp) -> Batch:
+        """UNION ALL: each input's live rows packed, then concatenated."""
+        keys = [k for k, _ in node.keys]
+        parts = [self._packed(self.execute(child), keys) for child in node.inputs]
+        total, cols = concat_packed(parts, [t for _, t in node.keys])
+        self.routes["set_op"] += 1
+        cap = cols[0].data.shape[0] if cols else max(128, pad_bucket(total))
+        return Batch(src=DictCols(dict(zip(keys, cols))), plen=cap,
+                     live=torch.arange(cap, device=self.catalog.device) < total)
+
+    def _exec_Multiplicity(self, node: P.Multiplicity) -> Batch:
+        """Each grouped tuple repeated as INTERSECT / EXCEPT [ALL] keep it."""
+        b = self.execute(node.child)
+        cl = bcast(b.src[node.left_count].data, b.plen).to(torch.int64)
+        cr = bcast(b.src[node.right_count].data, b.plen).to(torch.int64)
+        if node.op == "intersect":
+            n = torch.minimum(cl, cr) if node.all else ((cl > 0) & (cr > 0)).to(torch.int64)
+        else:
+            n = (cl - cr).clamp(min=0) if node.all else ((cl > 0) & (cr == 0)).to(torch.int64)
+        n = torch.where(b.live, n, 0)
+        total = int(n.sum())
+        cap = max(128, pad_bucket(total))
+        rows = torch.zeros(cap, dtype=torch.int64, device=n.device)
+        rows[:total] = torch.repeat_interleave(torch.arange(b.plen, device=n.device), n,
+                                               output_size=total)
+        return Batch(src=GatherCols(b.src, rows), plen=cap,
+                     live=torch.arange(cap, device=n.device) < total)
 
     # -- nested values ------------------------------------------------------------
     def _exec_ListPack(self, node: P.ListPack) -> Batch:

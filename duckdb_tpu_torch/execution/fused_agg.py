@@ -50,6 +50,7 @@ probe-result cache and the sharded paths.
 from __future__ import annotations
 
 import datetime
+import itertools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -71,6 +72,9 @@ DENSE_LUT_LIMIT = 1 << 27  # direct-address join LUT cap (int64 slots: 1 GiB)
 # device memory, so very large builds re-prep each run instead
 PREP_CACHE_MAX_BUILD = 1 << 25
 _I64_MAX = torch.iinfo(torch.int64).max
+
+# a fresh number per unseeded sample a build cache key meets
+_DRAWS = itertools.count()
 
 _FUSABLE_AGGS = {"sum", "count", "count_star", "avg", "mean", "min", "max"}
 
@@ -318,18 +322,23 @@ def _subtree_filters(node) -> bool:
     stack = [node]
     while stack:
         n = stack.pop()
-        if isinstance(n, (P.Filter, P.Limit, P.Join)):
+        if isinstance(n, (P.Filter, P.Limit, P.Join, P.Sample, P.Multiplicity)):
             return True
-        for attr in ("child", "probe", "build"):
-            c = getattr(n, attr, None)
-            if c is not None:
-                stack.append(c)
+        stack += _children(n)
     return False
+
+
+def _children(n) -> list:
+    """The plan nodes directly under `n`."""
+    out = [c for c in (getattr(n, a, None) for a in ("child", "probe", "build", "left",
+                                                      "right")) if c is not None]
+    return out + list(getattr(n, "inputs", ()))
 
 
 def _scan_versions(executor, node):
     """(table, rows, version) for every Scan under `node`: the key of the
-    build caches."""
+    build caches. A sample the session's generator draws is new on every
+    run, so it adds a key that never repeats."""
     out = []
     stack = [node]
     while stack:
@@ -337,10 +346,9 @@ def _scan_versions(executor, node):
         if isinstance(n, P.Scan):
             ent = executor.catalog.get_table(n.table)
             out.append((n.table, ent.nrows, ent.version))
-        for attr in ("child", "probe", "build"):
-            c = getattr(n, attr, None)
-            if c is not None:
-                stack.append(c)
+        elif isinstance(n, P.Sample) and n.seed is None:
+            out.append(("", 0, next(_DRAWS)))
+        stack += _children(n)
     return tuple(sorted(out))
 
 
@@ -356,8 +364,8 @@ def _prep_join_step(executor, j: P.Join) -> Optional[_JoinStep]:
     skips the build side entirely. The reference's hash table lives for one
     query (join_hashtable.cpp); this persists like an index until the data
     changes. None (also cached) when the join cannot fuse."""
-    if j.jtype not in ("inner", "semi", "anti") or j.null_aware:
-        return None
+    if j.jtype not in ("inner", "semi", "anti") or j.null_aware or not j.probe_keys:
+        return None  # keyless joins (inequality, cross) run eagerly
     if j.extra is not None and j.jtype == "inner":
         return None  # an inner residual changes the match itself: eager path
     vkey = _scan_versions(executor, j.build)
@@ -465,6 +473,12 @@ def _plan_keys(node) -> set:
         return _plan_keys(node.child) | {node.key}
     if isinstance(node, P.Unnest):
         return _plan_keys(node.child) | set(node.keys)
+    if isinstance(node, (P.CrossJoin, P.PositionalJoin, P.Sample)):
+        return set().union(*[_plan_keys(c) for c in _children(node)])
+    if isinstance(node, P.SetOp):
+        return {k for k, _ in node.keys}
+    if isinstance(node, P.Multiplicity):
+        return {k for k, _ in node.child.groups}
     return set()
 
 

@@ -93,6 +93,16 @@ class Binding:
     ltype: LogicalType
 
 
+@dataclass
+class KeyRef(N.Expr):
+    """A column named by its binding key rather than by name: what `*`
+    expands to (two columns of one name stay two columns) and the two
+    sides of a USING equality."""
+
+    key: str
+    ltype: LogicalType
+
+
 class Scope:
     """Column name resolution: alias.col and unqualified col → binding."""
 
@@ -101,6 +111,11 @@ class Scope:
         self.by_qual: Dict[Tuple[str, str], Binding] = {}
         self.by_name: Dict[str, List[Binding]] = {}
         self.order: List[Tuple[str, str, Binding]] = []  # (alias, col, binding)
+        # USING / NATURAL joins: `*` skips the keys in star_hidden (a USING
+        # column's other sides) and reads star_replace[key] in place of a
+        # key (a FULL join's COALESCE of both sides)
+        self.star_hidden: set = set()
+        self.star_replace: Dict[str, Binding] = {}
 
     def add(self, alias: str, col: str, key: str, ltype: LogicalType):
         b = Binding(key, ltype)
@@ -140,6 +155,20 @@ class Scope:
                         for n, bs in self.by_name.items()}
         self.by_name = {n: bs for n, bs in self.by_name.items() if bs}
         self.order = [(a, c, b) for (a, c, b) in self.order if b.key not in keys]
+
+    def merge_using(self, col: str, hidden: List[Binding], shown: Binding,
+                    replaces: Binding):
+        """A USING column: the unqualified name reads `shown` alone, `*`
+        lists it once, as `shown` at the position of `replaces`, and the
+        bindings in `hidden` leave `*` (they stay reachable by their
+        qualified name)."""
+        name = col.lower()
+        drop = {b.key for b in hidden} | {replaces.key}
+        self.by_name[name] = [b for b in self.by_name.get(name, [])
+                              if b.key not in drop] + [shown]
+        self.star_hidden |= {b.key for b in hidden}
+        if shown.key != replaces.key:
+            self.star_replace[replaces.key] = shown
 
     def columns_of(self, alias: str):
         return [(a, c, b) for (a, c, b) in self.order if a.lower() == alias.lower()]
@@ -421,6 +450,9 @@ class ExprBinder:
                 return self._bind_FunctionCall(N.FunctionCall(_KEYWORD_FUNCTIONS[name], []))
             raise
         return B.BoundColumnRef(b.key, b.ltype)
+
+    def _bind_KeyRef(self, e: KeyRef):
+        return B.BoundColumnRef(e.key, e.ltype)
 
     # -- operators -----------------------------------------------------------
     def _bind_BinaryOp(self, e: N.BinaryOp):

@@ -1134,6 +1134,13 @@ class BoundAggregate:
     filter: Optional[BoundExpr] = None
 
 
+def and_terms(e: BoundExpr) -> List[BoundExpr]:
+    """The conjuncts of a bound AND, at any depth ([e] otherwise)."""
+    if isinstance(e, BoundConjunction) and e.op == "and":
+        return [t for c in e.exprs for t in and_terms(c)]
+    return [e]
+
+
 def walk(expr: BoundExpr):
     yield expr
     for c in expr.children():

@@ -281,11 +281,19 @@ def dp_join_order(planner, by_id: Dict[int, object],
             used.add(id(p))
             conn.append((p, lexpr, rexpr, lm, rm, False))
         keys = lk | rk
-        if not pk:
-            # no equi edge between the DP sides: the JAX package plans a
-            # keyless Join (its IEJoin path) or a CrossJoin here
-            raise B.not_ported("joins without an equi-join condition")
-        plan = P.Join(lp, rp, "inner", pk, bk, None)
+        if pk:
+            plan = P.Join(lp, rp, "inner", pk, bk, None)
+        else:
+            # no equi edge between the DP sides: spanning inequalities make
+            # a keyless Join (the executor's inequality join), else a
+            # CrossJoin
+            conds = planner._ineq_conds_between(
+                [p for p in pending if id(p) not in used], lk, rk)
+            for p in conds:
+                used.add(id(p))
+            plan = (P.CrossJoin(lp, rp) if not conds else
+                    P.Join(lp, rp, "inner", [], [], conds[0] if len(conds) == 1
+                           else B.BoundConjunction("and", conds)))
         card = join_card(lc, rc, conn) if conn else lc * rc
         plan = apply_pending(plan, keys)
         return plan, keys, card, max(lb, rb)

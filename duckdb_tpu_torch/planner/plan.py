@@ -1,4 +1,4 @@
-"""Plan operator tree (the node kinds this slice executes).
+"""Plan operator tree (the node kinds the port executes).
 
 The reference lowers LogicalOperator → PhysicalOperator
 (duckdb/src/execution/physical_plan_generator.cpp). As in the JAX package,
@@ -47,8 +47,11 @@ class Aggregate(PlanNode):
 
 @dataclass
 class Join(PlanNode):
-    """Equi-join: inner, left (a right join is planned as left with the
-    sides swapped), full, semi or anti."""
+    """Join: inner, left (a right join is planned as left with the sides
+    swapped), full, semi, anti, asof or asof_left. With no keys, an inner
+    or outer join runs as an inequality join (IEJoin) or a cross
+    expansion with `extra` as its residual; an ASOF join's `extra` is its
+    one inequality."""
 
     probe: PlanNode  # "left" side of SQL semantics after planner normalization
     build: PlanNode
@@ -59,6 +62,60 @@ class Join(PlanNode):
     extra: Optional[BoundExpr] = None
     # NOT IN semantics (anti joins)
     null_aware: bool = False
+
+
+@dataclass
+class CrossJoin(PlanNode):
+    """Every live probe row with every live build row (no condition)."""
+
+    probe: PlanNode
+    build: PlanNode
+
+
+@dataclass
+class PositionalJoin(PlanNode):
+    """Row-by-row zip of two relations; the shorter side pads with NULLs
+    (DuckDB's physical_positional_join.cpp)."""
+
+    left: PlanNode
+    right: PlanNode
+
+
+@dataclass
+class Sample(PlanNode):
+    """A pseudo-random subset of the child's live rows: `rows` of them,
+    or each with probability `percent` / 100 (DuckDB's
+    physical_reservoir_sample.cpp, physical_streaming_sample.cpp)."""
+
+    child: PlanNode
+    rows: Optional[int] = None
+    percent: Optional[float] = None
+    method: Optional[str] = None
+    seed: Optional[int] = None  # REPEATABLE (seed); None → the session's generator
+
+
+@dataclass
+class SetOp(PlanNode):
+    """UNION ALL of the inputs, each a Project onto one output key per
+    column (`keys`, with their widened types)."""
+
+    inputs: List[PlanNode]
+    keys: List[Tuple[str, LogicalType]]
+
+
+@dataclass
+class Multiplicity(PlanNode):
+    """INTERSECT / EXCEPT over grouped rows: the child holds one row per
+    distinct tuple with its count on the left (`left_count`) and on the
+    right (`right_count`); each row repeats min(l, r) times (INTERSECT
+    ALL), max(l - r, 0) times (EXCEPT ALL), or once where INTERSECT or
+    EXCEPT keeps it."""
+
+    child: PlanNode
+    op: str  # intersect | except
+    all: bool
+    left_count: str
+    right_count: str
 
 
 class ConstantRow(PlanNode):

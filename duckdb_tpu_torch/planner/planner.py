@@ -17,17 +17,26 @@ stacked on the pool, a correlated scalar aggregate becomes a grouped
 aggregate atom joined on its correlation keys (a LEFT join stacked on the
 pool where its value over no rows is not NULL), and an uncorrelated
 scalar subquery becomes a constant computed once (`BoundScalarSubquery`).
+IN and EXISTS anywhere else (the SELECT list, CASE, OR) are MARK joins
+(`BoundMarkSubquery`): the build runs once, the membership on the device.
 No FROM (SELECT 1, IN (SELECT 1)) is one constant row (`ConstantRow`).
 On top come GROUP BY with aggregates, HAVING, the projection, DISTINCT,
 ORDER BY and LIMIT/OFFSET. Keys, output names and join orders match the
 reference's for these shapes, as do its aggregate aliases and the FILTER
-clause's rewrite into CASE WHEN. The table functions range,
-generate_series and repeat and duckdb_functions() become hidden tables
-that live as long as the plan (range's column made on the device).
-IN/EXISTS outside a WHERE conjunct (MARK joins), LATERAL, WITH RECURSIVE,
-USING and NATURAL joins, the other table functions, joins without an
-equi-join condition, set operations and windows are not yet ported and
-say so.
+clause's rewrite into CASE WHEN. Set operations concatenate their inputs
+(`SetOp`); UNION dedups by grouping, and INTERSECT / EXCEPT group both
+sides together and keep each tuple as often as SQL's multiset rules say
+(`Multiplicity`). VALUES is a UNION ALL of constant rows, and the
+parser's GROUPING SETS / ROLLUP / CUBE desugar to UNION ALL. WITH
+RECURSIVE iterates to a fixpoint at plan time through hidden tables.
+Atoms that no equality connects join by an inequality join (a keyless
+Join) or a CrossJoin; ASOF, POSITIONAL, USING and NATURAL joins are
+planned here too, USING to DuckDB's rules for every join type. The table
+functions range, generate_series and repeat, duckdb_functions() and the
+catalog functions become hidden tables that live as long as the plan
+(range's column made on the device); a plan that snapshots the catalog
+is `uncacheable`. LATERAL, windows, QUALIFY and DISTINCT ON are not yet
+ported and say so.
 """
 
 from __future__ import annotations
@@ -48,8 +57,10 @@ from duckdb_tpu_torch.planner import plan as P
 from duckdb_tpu_torch.planner.binder import (
     AGGREGATE_NAMES,
     BindError,
+    Binding,
     ColumnNotFound,
     ExprBinder,
+    KeyRef,
     Scope,
 )
 from duckdb_tpu_torch.execution.aggregate_exec import NESTED_RESULT_AGGS, VARIANCE_AGGS
@@ -135,6 +146,92 @@ class BoundScalarSubquery(B.BoundExpr):
                 else:
                     self._value = int(vals[0])
         return self._value
+
+
+@dataclass
+class BoundMarkSubquery(B.BoundExpr):
+    """A MARK join as an expression: `x IN (subquery)` or `EXISTS
+    (subquery)` anywhere an expression may stand (DuckDB's MARK join,
+    join_hashtable.cpp). The mark is TRUE on a match; FALSE against a
+    build without NULLs; NULL where the probe value is NULL or the build
+    holds a NULL (and the build is not empty). A correlated EXISTS
+    rewritten as membership (`exists_semantics`) is two-valued. The build
+    runs once, on first eval, on the catalog's device; the membership
+    test runs there too."""
+
+    planner: "Planner"
+    expr: Optional[B.BoundExpr]  # None: EXISTS, an emptiness test
+    plan: P.PlanNode
+    out_key: str
+    out_type: LogicalType
+    negated: bool
+    exists_semantics: bool = False
+    ltype: LogicalType = BOOLEAN
+
+    def children(self):
+        return [self.expr] if self.expr is not None else []
+
+    def _build(self):
+        """→ ((the build's Column, the mask of its live valid rows),
+        whether a live build value is NULL, whether the build is empty)."""
+        if not hasattr(self, "_vals"):
+            from duckdb_tpu_torch.execution.executor import Executor
+
+            ex = Executor(self.planner.catalog, self.planner.routes)
+            self.planner.routes["mark_build"] += 1
+            n, cols = ex.materialize(self.plan, [("v", self.out_key, self.out_type)])
+            c = cols[0]
+            live = torch.arange(c.data.shape[0], device=c.data.device) < n
+            valid = live if c.validity is None else live & c.validity
+            self._vals = (c, valid)
+            self._has_null = bool((live & ~valid).any())
+            self._empty = n == 0
+        return self._vals, self._has_null, self._empty
+
+    def eval(self, env):
+        (bc, bvalid), has_null, empty = self._build()
+        plen = env.plen
+        device = env.live.device
+        if self.expr is None:  # EXISTS
+            return Column(data=torch.full((plen,), empty == self.negated, dtype=torch.bool,
+                                          device=device), ltype=BOOLEAN)
+        c = self.expr.eval(env)
+        x = B.bcast(c.data, plen)
+        if c.ltype.id is TypeId.VARCHAR:
+            # each distinct probe string against the build's string set
+            probe_d = c.dict_values if c.dict_values is not None else np.empty(0, object)
+            codes = bc.data[bvalid].long().unique().cpu().numpy()
+            bset = set() if bc.dict_values is None else \
+                set(np.asarray(bc.dict_values)[codes].astype(str).tolist())
+            lut = torch.tensor([str(v) in bset for v in probe_d] or [False],
+                               dtype=torch.bool, device=device)
+            match = lut[x.long().clamp(0, lut.shape[0] - 1)]
+        else:
+            s1 = c.ltype.scale if c.ltype.id is TypeId.DECIMAL else 0
+            s2 = self.out_type.scale if self.out_type.id is TypeId.DECIMAL else 0
+            if c.ltype.is_float or self.out_type.is_float:
+                xv = x.to(torch.float64) / 10.0 ** s1
+                bv = bc.data[bvalid].to(torch.float64) / 10.0 ** s2
+            else:
+                # the integer families at one DECIMAL scale (exact)
+                sm = max(s1, s2)
+                xv = x.to(torch.int64) * 10 ** (sm - s1)
+                bv = bc.data[bvalid].to(torch.int64) * 10 ** (sm - s2)
+            match = torch.isin(xv, torch.unique(bv))
+        x_valid = None if c.validity is None else B.bcast(c.validity, plen)
+        if self.exists_semantics:
+            # EXISTS as membership: a NULL probe matches nothing
+            if x_valid is not None:
+                match = match & x_valid
+            return Column(data=match ^ self.negated, ltype=BOOLEAN)
+        if empty:
+            # IN over no rows is FALSE for every probe, NULL included
+            return Column(data=torch.full((plen,), self.negated, dtype=torch.bool,
+                                          device=device), ltype=BOOLEAN)
+        x_null = torch.zeros(plen, dtype=torch.bool, device=device) if x_valid is None \
+            else ~x_valid
+        unknown = ~match & (x_null | has_null)
+        return Column(data=match ^ self.negated, ltype=BOOLEAN, validity=~unknown)
 
 
 @dataclass
@@ -261,6 +358,9 @@ class Planner:
         # the hidden tables this planner's materialized CTEs created: their
         # lifetime is the plan's, so the owner of the plan drops them
         self.hidden_tables: List[str] = []
+        # set when the plan snapshots the catalog (duckdb_tables() and
+        # the like): the connection must not cache it
+        self.uncacheable = False
 
     def fresh(self, name: str) -> str:
         return f"{name}#{next(self._key_counter)}"
@@ -271,14 +371,10 @@ class Planner:
         """→ (plan, output [(name, key, ltype)])."""
         ctes = dict(cte_scope or {})
         for cte in stmt.ctes:
-            if cte.recursive:
-                raise not_ported("WITH RECURSIVE (it needs set operations)")
             ctes[cte.name.lower()] = cte
             self._cte_use_count[cte.name.lower()] = self._count_cte_refs(
                 stmt, cte.name.lower())
-        if not isinstance(stmt.node, N.SelectNode):
-            raise not_ported(f"the query form {type(stmt.node).__name__}")
-        plan, output, scope = self.plan_select_node(stmt.node, outer_scope, ctes)
+        plan, output, scope = self.plan_query_node(stmt.node, outer_scope, ctes)
         if stmt.order_by:
             plan = self._plan_order(plan, stmt.order_by, output, scope)
         if stmt.limit is not None or stmt.offset is not None:
@@ -289,6 +385,87 @@ class Planner:
                    if stmt.offset is not None else 0)
             plan = P.Limit(plan, n, off)
         return plan, output
+
+    # -- set operations --------------------------------------------------------
+    def plan_query_node(self, node, outer_scope, ctes):
+        """A SELECT, a set operation or VALUES → (plan, output, scope info)."""
+        if isinstance(node, N.ValuesNode):
+            # VALUES (…), (…): a UNION ALL of one-row SELECTs, its columns
+            # named col0, col1, … as DuckDB names them
+            widths = {len(r) for r in node.rows}
+            if len(widths) != 1:
+                raise BindError("Binder Error: VALUES lists must all be the same length")
+            branches = [N.SelectNode(select_list=[(e, f"col{i}") for i, e in enumerate(r)])
+                        for r in node.rows]
+            return self._plan_setop_inputs("union", True, [
+                self.plan_select_node(b, outer_scope, ctes)[:2] for b in branches])
+        if isinstance(node, N.SelectNode):
+            return self.plan_select_node(node, outer_scope, ctes)
+        if isinstance(node, N.SetOpNode):
+            if node.op == "union" and node.all:
+                # a chain of UNION ALL is one n-ary concatenation
+                leaves = []
+
+                def flatten(n):
+                    if isinstance(n, N.SetOpNode) and n.op == "union" and n.all:
+                        flatten(n.left)
+                        flatten(n.right)
+                    else:
+                        leaves.append(n)
+
+                flatten(node)
+            else:
+                leaves = [node.left, node.right]
+            return self._plan_setop_inputs(node.op, node.all, [
+                self.plan_query_node(n, outer_scope, ctes)[:2] for n in leaves])
+        raise not_ported(f"the query form {type(node).__name__}")
+
+    def _plan_setop_inputs(self, op: str, all_: bool, inputs):
+        """UNION / INTERSECT / EXCEPT [ALL] of planned inputs [(plan,
+        output)]: names from the first input, each column's type the widest
+        of its inputs'. INTERSECT and EXCEPT match NULL to NULL and keep
+        SQL's multiplicities (`Multiplicity`)."""
+        width = len(inputs[0][1])
+        if any(len(o) != width for _, o in inputs):
+            raise BindError("Binder Error: Set operations can only apply to expressions "
+                            "with the same number of result columns")
+        types = []
+        for i in range(width):
+            t = SQLNULL
+            for _, o in inputs:
+                t = max_logical_type(t, o[i][2])
+            types.append(t)
+        keys = [self.fresh("setop") for _ in range(width)]
+        tags = []
+        if op in ("intersect", "except"):
+            # each side counts its rows in a column of its own
+            tags = [self.fresh("setop_left"), self.fresh("setop_right")]
+        projected = []
+        for side, (plan, out) in enumerate(inputs):
+            items = []
+            for key, (_, k, t), want in zip(keys, out, types):
+                e: B.BoundExpr = B.BoundColumnRef(k, t)
+                if t != want:
+                    e = B.BoundCast(e, want)
+                items.append((key, e))
+            for ti, tag in enumerate(tags):
+                items.append((tag, B.BoundLiteral(1 if ti == side else None, INTEGER)))
+            projected.append(P.Project(plan, items))
+        set_keys = [(k, t) for k, t in zip(keys, types)] + [(t, INTEGER) for t in tags]
+        plan: P.PlanNode = P.SetOp(projected, set_keys)
+        groups = [(k, B.BoundColumnRef(k, t)) for k, t in zip(keys, types)]
+        if op == "union" and not all_:
+            plan = P.Aggregate(plan, groups, [])
+        elif op in ("intersect", "except"):
+            counts = [self.fresh("setop_count") for _ in tags]
+            aggs = [B.BoundAggregate("count", [B.BoundColumnRef(tag, INTEGER)], False, BIGINT,
+                                     ck) for tag, ck in zip(tags, counts)]
+            plan = P.Multiplicity(P.Aggregate(plan, groups, aggs), op, all_, *counts)
+        output = [(nm, k, t) for (nm, _, _), k, t in zip(inputs[0][1], keys, types)]
+        out_scope = Scope()
+        for nm, k, t in output:
+            out_scope.add("", nm, k, t)
+        return plan, output, (out_scope, ExprBinder(out_scope))
 
     # -- FROM planning -------------------------------------------------------
     def _count_cte_refs(self, obj, name: str) -> int:
@@ -314,9 +491,10 @@ class Planner:
         table or None). `FROM t a(x, y)` alias column lists rename the
         visible columns (reference: binder table alias handling,
         src/planner/binder/tableref/bind_basetableref.cpp)."""
-        if ref.sample is not None:
-            raise not_ported("TABLESAMPLE")
         plan, scope_adds, nrows, table = self._plan_base_table_inner(ref, ctes)
+        if ref.sample is not None:
+            # TABLESAMPLE samples the scan; zone maps no longer bound it
+            plan, table = self._plan_sample(plan, ref.sample), None
         if ref.column_aliases:
             scope_adds = [
                 (a, ref.column_aliases[i] if i < len(ref.column_aliases) else c, k, t)
@@ -334,6 +512,10 @@ class Planner:
             # plan_cte.cpp); its hidden table is remembered on the CTE node
             # for the statement's other references
             if getattr(cte, "_mat_table", None):
+                return self._scan_of(cte._mat_table, alias) + (None,)
+            if cte.recursive and isinstance(cte.query.node, N.SetOpNode) \
+                    and cte.query.node.op == "union":
+                cte._mat_table = self._materialize_recursive_cte(name, cte, sub_ctes)
                 return self._scan_of(cte._mat_table, alias) + (None,)
             if cte.materialized is not False and self._cte_use_count.get(name, 0) > 1:
                 plan, output = self.plan_select(cte.query, None, sub_ctes)
@@ -362,7 +544,6 @@ class Planner:
     def _materialize_plan(self, base_name, plan, output, col_aliases) -> str:
         """Execute a plan now, on the catalog's device, and register its
         rows as a hidden table whose columns stay there."""
-        from duckdb_tpu_torch.catalog.catalog import ColumnDef, TableEntry
         from duckdb_tpu_torch.execution.executor import Executor
 
         nrows, columns = Executor(self.catalog, self.routes).materialize(plan, output)
@@ -370,18 +551,89 @@ class Planner:
         # path (_subquery_atom) names them
         names = [col_aliases[i] if col_aliases and i < len(col_aliases) else nm
                  for i, (nm, _, _) in enumerate(output)]
+        name = self._register_rows(base_name, names, [t for _, _, t in output], nrows,
+                                   columns)
+        self.hidden_tables.append(name)
+        self.routes["cte_materialized"] += 1
+        return name
+
+    def _register_rows(self, base_name, names, types, nrows, columns) -> str:
+        """Register device columns (packed, padded as a table's are) as the
+        catalog table `{base_name}_{n}`, the first n free → its name."""
+        from duckdb_tpu_torch.catalog.catalog import ColumnDef, TableEntry
+
         n = 0
         while self.catalog.has_table(f"{base_name}_{n}"):
             n += 1
-        entry = TableEntry(f"{base_name}_{n}", [ColumnDef(nm, t) for nm, (_, _, t)
-                                                in zip(names, output)])
+        entry = TableEntry(f"{base_name}_{n}", [ColumnDef(nm, t) for nm, t in zip(names, types)])
         entry.nrows = nrows
         self.catalog.create_table(entry)
-        self.hidden_tables.append(entry.name)
         for cd, col in zip(entry.columns, columns):
             entry.set_device_column(cd.name, col)
-        self.routes["cte_materialized"] += 1
         return entry.name
+
+    def _materialize_recursive_cte(self, name: str, cte, sub_ctes) -> str:
+        """WITH RECURSIVE to its fixpoint, at plan time (DuckDB's
+        physical_recursive_cte.cpp): the anchor's rows, then round after
+        round of the recursive term over the last round's rows (the
+        working table, a hidden table), until a round adds none. Under
+        UNION (not ALL) a round keeps only rows no earlier round gave, so
+        a cycle ends. → the hidden table of every round's rows."""
+        from duckdb_tpu_torch.execution.executor import Executor, concat_packed
+
+        node = cte.query.node
+        distinct = not node.all
+        anchor, a_out = self.plan_query_node(node.left, None, sub_ctes)[:2]
+        names = (list(cte.column_aliases) + [nm for nm, _, _ in a_out][len(cte.column_aliases):]
+                 if cte.column_aliases else [nm for nm, _, _ in a_out])
+        types = [t for _, _, t in a_out]
+        if distinct:
+            anchor = P.Aggregate(anchor, [(k, B.BoundColumnRef(k, t)) for _, k, t in a_out], [])
+        n, cols = Executor(self.catalog, self.routes).materialize(anchor, a_out)
+        parts = [(n, cols)]
+        work_tables = []
+        try:
+            rounds = 0
+            while n and rounds < self.RECURSION_LIMIT:
+                rounds += 1
+                work = self._register_rows(f"__recursive_{name}", names, types, n, cols)
+                work_tables.append(work)
+                rec = N.CTE(name, None, tuple(names))
+                rec._mat_table = work
+                plan, out = self.plan_query_node(node.right, None, {**sub_ctes, name: rec})[:2]
+                if len(out) != len(types):
+                    raise BindError("Binder Error: the recursive term of a recursive CTE must "
+                                    "give as many columns as its anchor")
+                keys = [self.fresh("rec") for _ in types]
+                plan = P.Project(plan, [(k, B.BoundColumnRef(ok, ot) if ot == t
+                                         else B.BoundCast(B.BoundColumnRef(ok, ot), t))
+                                        for k, (_, ok, ot), t in zip(keys, out, types)])
+                r_out = [(nm, k, t) for nm, k, t in zip(names, keys, types)]
+                if distinct:
+                    # only the rows that no earlier round gave, once each
+                    seen = self._register_rows(f"__recursive_{name}", names, types,
+                                               *concat_packed(parts, types))
+                    work_tables.append(seen)
+                    scan, adds, _ = self._scan_of(seen, "__seen")
+                    plan, r_out, _ = self._plan_setop_inputs(
+                        "except", False, [(plan, r_out),
+                                          (scan, [(nm, k, t) for (_, nm, k, t) in adds])])
+                n, cols = Executor(self.catalog, self.routes).materialize(plan, r_out)
+                if n:
+                    parts.append((n, cols))
+                for t in work_tables:
+                    self.catalog.drop_table(t)
+                work_tables = []
+        finally:
+            for t in work_tables:
+                self.catalog.drop_table(t)
+        table = self._register_rows(f"__cte_{name}", names, types, *concat_packed(parts, types))
+        self.hidden_tables.append(table)
+        self.routes["cte_recursive"] += 1
+        return table
+
+    # the most rounds a recursive CTE runs (the JAX package's bound)
+    RECURSION_LIMIT = 10_000
 
     def _subquery_atom(self, plan, output, alias, col_aliases):
         scope_adds = []
@@ -400,6 +652,19 @@ class Planner:
             if scope.try_resolve(err.parts) is not None:
                 raise not_ported("a correlated derived table (LATERAL)") from err
             raise
+
+    def _plan_sample(self, plan, sample) -> P.Sample:
+        """USING SAMPLE / TABLESAMPLE (amount, unit, method, seed) → Sample."""
+        amount_ast, unit, method, seed = sample
+        be = ExprBinder(Scope()).bind(amount_ast)
+        v = be.const_value()
+        if be.ltype.id is TypeId.DECIMAL:
+            v = v / 10 ** be.ltype.scale
+        if unit == "percent":
+            if not 0 <= float(v) <= 100:
+                raise BindError("Binder Error: Sample rate must be between 0 and 100")
+            return P.Sample(plan, percent=float(v), method=method, seed=seed)
+        return P.Sample(plan, rows=int(v), method=method, seed=seed)
 
     def collect_atoms(self, ref: N.TableRef, ctes, scope: Scope, atoms: List[Atom],
                       pred_asts: List[N.Expr]):
@@ -421,16 +686,36 @@ class Planner:
                 plan, output, alias, list(ref.column_aliases) or None)
             self._add_atom(plan2, scope_adds, nrows, scope, atoms, None)
             return
-        if isinstance(ref, N.JoinRef) and (ref.using or ref.natural):
-            raise not_ported("JOIN … USING and NATURAL JOIN")
         if isinstance(ref, N.JoinRef) and ref.join_type in ("inner", "cross"):
+            n0 = len(atoms)
             self.collect_atoms(ref.left, ctes, scope, atoms, pred_asts)
+            n1 = len(atoms)
             self.collect_atoms(ref.right, ctes, scope, atoms, pred_asts)
             if ref.condition is not None:
                 pred_asts.extend(split_conjuncts(ref.condition))
+            lkeys = set().union(*[a.keys for a in atoms[n0:n1]])
+            rkeys = set().union(*[a.keys for a in atoms[n1:]])
+            for _, lb, rb in self._using_pairs(ref, scope, lkeys, rkeys):
+                pred_asts.append(N.BinaryOp("=", KeyRef(lb.key, lb.ltype),
+                                            KeyRef(rb.key, rb.ltype)))
             return
-        if isinstance(ref, N.JoinRef) and ref.join_type in ("left", "right", "full",
-                                                            "semi", "anti"):
+        if isinstance(ref, N.JoinRef) and ref.join_type == "positional":
+            sides = []
+            for side in (ref.left, ref.right):
+                side_atoms: List[Atom] = []
+                side_preds: List[N.Expr] = []
+                self.collect_atoms(side, ctes, scope, side_atoms, side_preds)
+                binder = self._pred_binder(scope, ctes)
+                sides.append((self.plan_pool(side_atoms, [binder.bind(c) for c in
+                                                          _hoisted(side_preds)]),
+                              side_atoms))
+            keys = set().union(*[a.keys for _, side_atoms in sides for a in side_atoms])
+            rows = max(sum(a.rows for a in side_atoms) for _, side_atoms in sides)
+            atoms.append(Atom(len(atoms) + 30_000, P.PositionalJoin(sides[0][0], sides[1][0]),
+                              max(rows, 1), keys))
+            return
+        if isinstance(ref, N.JoinRef) and ref.join_type in ("left", "right", "full", "semi",
+                                                            "anti", "asof", "asof_left"):
             self._plan_outer_join(ref, ctes, scope, atoms)
             return
         if isinstance(ref, N.JoinRef):
@@ -446,15 +731,14 @@ class Planner:
         **dict.fromkeys(("read_csv", "read_csv_auto", "read_parquet", "parquet_scan",
                          "read_json", "read_json_auto", "read_ndjson", "read_json_objects",
                          "read_text", "read_blob", "__file_scan"), "33 (the file readers)"),
-        **dict.fromkeys(("duckdb_tables", "duckdb_columns", "duckdb_types",
-                         "pragma_table_info"), "43 (the catalog table functions)"),
         **dict.fromkeys(("duckdb_settings", "duckdb_logs"), "36 (settings and logging)"),
         **dict.fromkeys(("duckdb_views", "duckdb_indexes"), "34 (views and indexes)")}
 
     def _plan_table_function(self, ref: N.TableFunctionRef):
         """range, generate_series and repeat (DuckDB's src/function/table/
-        range.cpp, repeat.cpp), and duckdb_functions(), as a hidden table
-        that lives as long as the plan → (Scan, scope additions, rows)."""
+        range.cpp, repeat.cpp), duckdb_functions() and the catalog
+        functions, as a hidden table that lives as long as the plan →
+        (Scan, scope additions, rows)."""
         from duckdb_tpu_torch.catalog.catalog import ColumnDef, ColumnStats, TableEntry
 
         name = ref.name.lower()
@@ -518,6 +802,8 @@ class Planner:
             else:
                 entry.set_host_column("repeat", np.full(count, 0 if value is None else value,
                                                         dtype=t.np_dtype), validity)
+        elif name in self._CATALOG_FUNCTIONS:
+            self._catalog_table_function(tname, name, args)
         elif name == "duckdb_functions":
             if args:
                 raise BindError("Binder Error: duckdb_functions() takes no arguments")
@@ -544,16 +830,112 @@ class Planner:
                           for i, (a, c, k, t) in enumerate(scope_adds)]
         return plan, scope_adds, nrows
 
+    _CATALOG_FUNCTIONS = ("duckdb_tables", "duckdb_columns", "duckdb_types",
+                          "pragma_table_info")
+
+    def _catalog_table_function(self, tname: str, name: str, args):
+        """duckdb_tables(), duckdb_columns(), duckdb_types() and
+        pragma_table_info(t), with the JAX package's columns (DuckDB's
+        src/function/table/system/): a snapshot of the catalog taken now,
+        so the plan is `uncacheable`. Hidden tables (names starting "__")
+        are left out."""
+        from duckdb_tpu_torch.catalog.catalog import ColumnDef, TableEntry
+        from duckdb_tpu_torch.planner.binder import _TYPE_NAMES
+
+        self.uncacheable = True
+        user_tables = [(n, e) for n, e in sorted(self.catalog.tables.items())
+                       if not n.startswith("__")]
+        if name == "duckdb_tables":
+            if args:
+                raise BindError("Binder Error: duckdb_tables() takes no arguments")
+            cols = [("name", VARCHAR), ("schema_name", VARCHAR), ("estimated_size", BIGINT),
+                    ("column_count", BIGINT), ("comment", VARCHAR)]
+            rows = [(n.split(".")[-1], n.split(".")[0] if "." in n else "main", e.nrows,
+                     len(e.columns), None) for n, e in user_tables]
+        elif name == "duckdb_columns":
+            if args:
+                raise BindError("Binder Error: duckdb_columns() takes no arguments")
+            cols = [("table_name", VARCHAR), ("column_name", VARCHAR),
+                    ("column_index", BIGINT), ("data_type", VARCHAR), ("comment", VARCHAR)]
+            rows = [(n, cd.name, i, str(cd.ltype), None) for n, e in user_tables
+                    for i, cd in enumerate(e.columns)]
+        elif name == "duckdb_types":
+            if args:
+                raise BindError("Binder Error: duckdb_types() takes no arguments")
+            cols = [("logical_type", VARCHAR), ("sql_name", VARCHAR)]
+            rows = sorted({(str(t), n) for n, t in _TYPE_NAMES.items()})
+        else:
+            if len(args) != 1 or args[0].ltype.id is not TypeId.VARCHAR:
+                raise BindError("Binder Error: pragma_table_info() takes one table name")
+            table = str(args[0].const_value())
+            if not self.catalog.has_table(table):
+                raise BindError(f"Catalog Error: Table with name {table} does not exist!")
+            cols = [("cid", BIGINT), ("name", VARCHAR), ("type", VARCHAR),
+                    ("notnull", BOOLEAN), ("dflt_value", VARCHAR), ("pk", BOOLEAN)]
+            rows = [(i, cd.name, str(cd.ltype), False, "", False)
+                    for i, cd in enumerate(self.catalog.get_table(table).columns)]
+        entry = TableEntry(tname, [ColumnDef(c, t) for c, t in cols])
+        entry.nrows = len(rows)
+        self.catalog.create_table(entry)
+        for ci, (cname, t) in enumerate(cols):
+            vals = [r[ci] for r in rows]
+            valid = np.array([v is not None for v in vals], dtype=bool)
+            validity = None if valid.all() else valid
+            if t.id is TypeId.VARCHAR:
+                uniq, codes = np.unique(np.array(["" if v is None else str(v) for v in vals]
+                                                 + [""], dtype=str), return_inverse=True)
+                entry.set_host_column(cname, codes.reshape(-1)[:-1].astype(np.int32), validity,
+                                      uniq.astype(object))
+            else:
+                entry.set_host_column(cname, np.array([0 if v is None else v for v in vals],
+                                                      dtype=t.np_dtype), validity)
+
     # the sides a join keeps every row of: an ON conjunct over one of them
     # must not filter it, so it stays in the residual
-    _PRESERVED = {"left": "l", "right": "r", "full": "lr", "anti": "l", "semi": ""}
+    _PRESERVED = {"left": "l", "right": "r", "full": "lr", "anti": "l", "semi": "",
+                  "asof": "", "asof_left": "l"}
+
+    def _using_pairs(self, ref: N.JoinRef, scope: Scope, lkeys, rkeys):
+        """The (left, right) bindings a USING list or NATURAL join equates,
+        and the scope's view of each such column (DuckDB's
+        bind_joinref.cpp): its unqualified name reads the left side's value
+        in INNER, LEFT, SEMI and ANTI joins, the right side's in RIGHT
+        joins, and COALESCE of both in FULL joins (the caller plans that
+        one); `*` lists it once."""
+        if ref.natural:
+            rnames = {c.lower() for _, c, b in scope.order if b.key in rkeys}
+            seen, cols = set(), []
+            for _, c, b in scope.order:
+                if b.key in lkeys and c.lower() in rnames and c.lower() not in seen:
+                    seen.add(c.lower())
+                    cols.append(c)
+        else:
+            cols = list(ref.using)
+        pairs = []
+        for col in cols:
+            found = []
+            for keys, side in ((lkeys, "left"), (rkeys, "right")):
+                bs = [b for b in scope.by_name.get(col.lower(), []) if b.key in keys]
+                if len(bs) != 1:
+                    raise BindError(f'Binder Error: column "{col}" '
+                                    + ("does not exist on the " + side + " side of the join"
+                                       if not bs else "is ambiguous") + " (USING)")
+                found.append(bs[0])
+            lb, rb = found
+            if ref.join_type != "full":
+                scope.merge_using(col, [rb], rb if ref.join_type == "right" else lb, lb)
+            pairs.append((col, lb, rb))
+        return pairs
 
     def _plan_outer_join(self, ref: N.JoinRef, ctes, scope: Scope, atoms: List[Atom]):
-        """LEFT / RIGHT / FULL / SEMI / ANTI JOIN … ON: each side becomes a
-        pool of its own; a RIGHT join is a LEFT join with the sides swapped.
-        An ON conjunct over the side that is not preserved filters that
-        side's pool; one over a preserved side, or over both sides without
-        being an equality between them, is the join's residual."""
+        """LEFT / RIGHT / FULL / SEMI / ANTI / ASOF JOIN … ON or USING:
+        each side becomes a pool of its own; a RIGHT join is a LEFT join
+        with the sides swapped. An ON conjunct over the side that is not
+        preserved filters that side's pool; one over a preserved side, or
+        over both sides without being an equality between them, is the
+        join's residual. A join with no equality runs as an inequality
+        join or a cross expansion; an ASOF join's residual is its one
+        inequality."""
         jt = ref.join_type
         left_atoms: List[Atom] = []
         right_atoms: List[Atom] = []
@@ -565,6 +947,10 @@ class Planner:
         lkeys = set().union(*[a.keys for a in left_atoms])
         rkeys = set().union(*[a.keys for a in right_atoms])
         lpool, rpool, across, kept = [], [], [], []
+        using = self._using_pairs(ref, scope, lkeys, rkeys)
+        for _, lb, rb in using:
+            across.append(binder.bind(N.BinaryOp("=", KeyRef(lb.key, lb.ltype),
+                                                 KeyRef(rb.key, rb.ltype))))
         for c in _hoisted(split_conjuncts(ref.condition)):
             bc = binder.bind(c)
             ks = self._keys_of(bc)
@@ -580,9 +966,10 @@ class Planner:
         rplan = self.plan_pool(right_atoms, rpool)
         pk, bk, residual = self._split_join_conds(across, lkeys, rkeys)
         residual += kept
-        if not pk:
-            # the JAX package's IEJoin and keyless cross-expansion paths
-            raise not_ported(f"{jt.upper()} JOIN without an equi-join condition")
+        if jt in ("asof", "asof_left") and len(residual) != 1:
+            raise BindError("Binder Error: ASOF JOIN requires an inequality condition"
+                            if not residual else
+                            "Binder Error: ASOF JOIN takes equalities and one inequality")
         extra = (None if not residual else residual[0] if len(residual) == 1
                  else B.BoundConjunction("and", residual))
         if jt == "right":
@@ -593,7 +980,19 @@ class Planner:
             # the build columns leave scope: SELECT t2.y after a SEMI JOIN
             # is a binder error
             scope.remove_keys(rkeys)
-        atoms.append(Atom(len(atoms) + 10_000, plan, 100_000, lkeys | rkeys))
+        keys = lkeys | rkeys
+        if jt == "full" and using:
+            # an unqualified USING column of a FULL join is COALESCE(l, r)
+            items = []
+            for col, lb, rb in using:
+                ckey = self.fresh(f"using.{col}")
+                be = ExprBinder(scope).bind(N.FunctionCall(
+                    "coalesce", [KeyRef(lb.key, lb.ltype), KeyRef(rb.key, rb.ltype)]))
+                items.append((ckey, be))
+                scope.merge_using(col, [rb], Binding(ckey, be.ltype), lb)
+                keys.add(ckey)
+            plan = P.Project(plan, items)
+        atoms.append(Atom(len(atoms) + 10_000, plan, 100_000, keys))
 
     def _split_join_conds(self, conds, lkeys, rkeys):
         """Partition cross-side conditions into equi keys + residual list."""
@@ -743,9 +1142,28 @@ class Planner:
                         best = (a, edges)
                         best_score = score
             if best is None:
-                # the JAX package plans a keyless Join (its IEJoin path) or a
-                # CrossJoin here
-                raise not_ported("joins without an equi-join condition")
+                # no equality reaches the pool: the atom that inequalities
+                # connect (the smallest) joins by a keyless Join, which the
+                # executor runs as an inequality join; with none, the
+                # smallest atom is a cross product
+                pick = None
+                for a in remaining.values():
+                    conds = self._ineq_conds_between(pending, joined_keys, a.keys)
+                    if conds and (pick is None or a.rows < pick[0].rows):
+                        pick = (a, conds)
+                if pick is not None:
+                    a, conds = pick
+                    pending = [p for p in pending if not any(p is c for c in conds)]
+                    plan = P.Join(plan, a.plan, "inner", [], [],
+                                  conds[0] if len(conds) == 1
+                                  else B.BoundConjunction("and", conds))
+                else:
+                    a = min(remaining.values(), key=lambda x: x.rows)
+                    plan = P.CrossJoin(plan, a.plan)
+                del remaining[a.id]
+                joined_keys |= a.keys
+                plan = try_apply_pending(plan)
+                continue
             a, edges = best
             del remaining[a.id]
             pk, bk, used = [], [], []
@@ -778,6 +1196,24 @@ class Planner:
                 denom *= rng
         return max(1.0, atom.rows / denom)
 
+    def _ineq_conds_between(self, preds, lkeys: Set[str], rkeys: Set[str]):
+        """The predicates that span both key sets, when one of them (or a
+        conjunct of one, as BETWEEN binds) compares a left expression with
+        a right one by <, <=, > or >= (the inequality join's sort
+        predicate); they all ride along as its residual. [] otherwise."""
+        spanning, has_ineq = [], False
+        for p in preds:
+            ks = self._keys_of(p)
+            if not (ks and ks <= lkeys | rkeys and ks & lkeys and ks & rkeys):
+                continue
+            spanning.append(p)
+            for c in B.and_terms(p):
+                if isinstance(c, B.BoundComparison) and c.op in ("<", "<=", ">", ">="):
+                    kl, kr = self._keys_of(c.left), self._keys_of(c.right)
+                    if (kl <= lkeys and kr <= rkeys) or (kl <= rkeys and kr <= lkeys):
+                        has_ineq = True
+        return spanning if has_ineq else []
+
     def _edges_between(self, preds, joined_keys: Set[str], atom_keys: Set[str]):
         out = []
         for p in preds:
@@ -792,8 +1228,8 @@ class Planner:
         return out
 
     def plan_select_node(self, sel: N.SelectNode, outer_scope, ctes):
-        if sel.sample is not None or sel.qualify is not None or sel.distinct_on:
-            raise not_ported("SAMPLE, QUALIFY and DISTINCT ON")
+        if sel.qualify is not None or sel.distinct_on:
+            raise not_ported("QUALIFY and DISTINCT ON (ROADMAP item 29)")
         scope = Scope(parent=outer_scope)
         atoms: List[Atom] = []
         pred_asts: List[N.Expr] = []
@@ -807,6 +1243,9 @@ class Planner:
                                           semis, atoms):
                 bound_preds.append(binder.bind(ast))
         plan = self._stack_semis(self.plan_pool(atoms, bound_preds), semis)
+        if sel.sample is not None:
+            # USING SAMPLE samples what FROM and WHERE give
+            plan = self._plan_sample(plan, sel.sample)
 
         # -- aggregation ------------------------------------------------------
         has_agg = (bool(sel.group_by) or sel.group_by_all or sel.having is not None
@@ -842,6 +1281,17 @@ class Planner:
             key = self.fresh("out")
             items.append((key, be))
             output.append((alias or _default_name(e), key, be.ltype))
+        if has_agg:
+            # a column of FROM that is neither grouped nor aggregated
+            allowed = {gk for gk, _ in plan.groups} | {a.key for a in plan.aggs}
+            names = {b.key: c for _, c, b in scope.order}
+            for _, be in items:
+                for nn in B.walk(be):
+                    if isinstance(nn, B.BoundColumnRef) and nn.key in local_keys \
+                            and nn.key not in allowed:
+                        raise BindError(
+                            f'Binder Error: column "{names.get(nn.key, nn.key)}" must appear '
+                            "in the GROUP BY clause or must be part of an aggregate function")
         if sel.having is not None:
             hb = post_binder.bind(sel.having)
             allowed = {gk for gk, _ in plan.groups} | {a.key for a in plan.aggs}
@@ -865,13 +1315,23 @@ class Planner:
         return plan, output, (out_scope, post_binder)
 
     def _expand_stars(self, select_list, scope: Scope):
+        """`*` and `t.*` → one item per binding, named by the column and
+        bound by its key (so two columns of one name stay two). A bare `*`
+        lists a USING column once (Scope.merge_using)."""
         out = []
         for e, alias in select_list:
             if isinstance(e, N.Star):
                 cols = (scope.columns_of(e.table) if e.table else scope.all_columns())
                 excluded = {x.lower() for x in e.exclude}
-                out += [(N.ColumnRef((a, c)), c) for a, c, _ in cols
-                        if c.lower() not in excluded]
+                for _, c, b in cols:
+                    if c.lower() in excluded:
+                        continue
+                    if not e.table:
+                        if b.key in scope.star_replace:
+                            b = scope.star_replace[b.key]
+                        elif b.key in scope.star_hidden:
+                            continue
+                    out.append((KeyRef(b.key, b.ltype), c))
             else:
                 out.append((e, alias))
         return out
@@ -1023,13 +1483,58 @@ class Planner:
 
     def _bind_subquery_expr(self, e, binder: ExprBinder, ctes):
         """A subquery that no WHERE conjunct flattened: an uncorrelated
-        scalar subquery becomes a lazy constant. IN and EXISTS here need
-        the reference's MARK join (BoundMarkSubquery), not yet ported."""
+        scalar subquery becomes a lazy constant; IN and EXISTS become MARK
+        joins (an EXISTS correlated by one equality, `_correlated_mark`)."""
         if isinstance(e, N.ScalarSubquery):
             plan, output = self.plan_select(e.subquery, None, ctes)
             _, key, t = output[0]
             return BoundScalarSubquery(self, plan, key, t)
-        raise not_ported(f"{type(e).__name__} outside a WHERE conjunct (MARK joins)")
+        if isinstance(e, N.InSubquery):
+            child = binder.bind(e.expr)
+            plan, output = self.plan_select(e.subquery, None, ctes)
+            if len(output) != 1:
+                raise BindError("Binder Error: Subquery returns "
+                                f"{len(output)} columns - expected 1")
+            _, key, t = output[0]
+            return BoundMarkSubquery(self, child, plan, key, t, e.negated)
+        if isinstance(e, N.Exists):
+            try:
+                plan, output = self.plan_select(e.subquery, None, ctes)
+            except ColumnNotFound as err:
+                if binder.scope.try_resolve(err.parts) is None:
+                    raise
+                mark = self._correlated_mark(e.subquery, binder.scope, ctes, e.negated)
+                if mark is None:
+                    raise not_ported("EXISTS outside a WHERE conjunct correlated by other "
+                                     "than one equality")
+                return mark
+            _, key, t = output[0]
+            return BoundMarkSubquery(self, None, plan, key, t, e.negated)
+        raise not_ported(f"the subquery form {type(e).__name__}")
+
+    def _correlated_mark(self, sub, scope, ctes, negated):
+        """A correlated EXISTS in any expression position: `EXISTS (SELECT …
+        WHERE inner.k = outer.k AND local)` is `outer.k IN (SELECT inner.k
+        … WHERE local)` with EXISTS's two values (DuckDB's correlated MARK
+        join, flatten_dependent_join.cpp). One correlation equality; None
+        for other shapes."""
+        outer_keys = set()
+        s_ = scope
+        while s_ is not None:
+            outer_keys |= {b.key for _, _, b in s_.order}
+            s_ = s_.parent
+        try:
+            (sub_atoms, local_bound, corr_eqs, corr_extra, _, _,
+             sub_semis) = self._plan_sub_pool(sub, scope, ctes, outer_keys)
+        except BindError:
+            return None
+        if len(corr_eqs) != 1 or corr_extra:
+            return None
+        build = self._stack_semis(self.plan_pool(sub_atoms, local_bound), sub_semis)
+        outer_e, inner_e = corr_eqs[0]
+        out_key = self.fresh("corrmark")
+        return BoundMarkSubquery(self, outer_e, P.Project(build, [(out_key, inner_e)]),
+                                 out_key, inner_e.ltype, negated, exists_semantics=True)
 
     @staticmethod
     def _stack_semis(plan, semis: List[SemiSpec]):
@@ -1200,10 +1705,6 @@ class Planner:
                 semis.append(spec)
                 return
         extra = B.BoundConjunction("and", corr_extra) if corr_extra else None
-        if negated and in_expr is not None and extra is not None:
-            # NOT IN's NULL cases read the build rows the correlation selects;
-            # the eager anti join finds them through equalities only
-            raise not_ported("NOT IN over a subquery correlated by more than equalities")
         if not probe_keys:
             # uncorrelated EXISTS: a semi/anti join on a constant key, so
             # every probe row matches iff the build side is non-empty
@@ -1465,10 +1966,19 @@ class _PostAggBinder(ExprBinder):
 
 
 def _ast_eq(a: N.Expr, b: N.Expr, scope: Scope) -> bool:
-    if isinstance(a, N.ColumnRef) and isinstance(b, N.ColumnRef):
-        ba = scope.try_resolve(a.parts)
-        bb = scope.try_resolve(b.parts)
-        return ba is not None and bb is not None and ba.key == bb.key
+    """Two expressions are one: a column named or expanded from `*` by its
+    binding, anything else by its syntax."""
+    def key(e):
+        if isinstance(e, KeyRef):
+            return e.key
+        if isinstance(e, N.ColumnRef):
+            bd = scope.try_resolve(e.parts)
+            return None if bd is None else bd.key
+        return None
+
+    if isinstance(a, (N.ColumnRef, KeyRef)) and isinstance(b, (N.ColumnRef, KeyRef)):
+        ka = key(a)
+        return ka is not None and ka == key(b)
     return a == b
 
 

@@ -72,6 +72,11 @@ def activate(session: Session, query: str):
         _ACTIVE.reset(token)
 
 
+def current():
+    """The Session of the statement running, or None outside one."""
+    return _ACTIVE.get()
+
+
 def active() -> Session:
     s = _ACTIVE.get()
     if s is None:

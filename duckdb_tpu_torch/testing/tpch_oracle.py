@@ -21,7 +21,10 @@ with the `o_comment NOT LIKE '%special%requests%'` conjunct dropped from its
 ON clause and nothing else changed. FUNCTION_QUERIES, NESTED_QUERIES and
 MORE_QUERIES exercise the scalar library, nested values, and the rest of
 the scalar functions with the JSON functions, each answered in numpy (and
-Python's hashlib, base64 arithmetic and re where a function is a text one).
+Python's hashlib, base64 arithmetic and re where a function is a text one);
+SELECT_FORM_QUERIES the set operations, grouping sets, recursion, MARK
+joins and the joins without an equality, answered in numpy and Python's
+collections.Counter (multisets).
 `answer(name, data_dir, **params)` returns the rows as `Result.rows()`
 gives them (DECIMAL → decimal.Decimal, DATE → datetime.date, VARCHAR →
 str), in the order ORDER BY fixes, LIMIT applied. Queries take their
@@ -462,6 +465,112 @@ FROM (SELECT json_object('a', o_orderkey % 10, 'b', o_orderpriority) AS j FROM o
 GROUP BY 1 ORDER BY 1
 """,
 }
+
+# slice 11's SELECT forms: set operations, VALUES, GROUPING SETS, WITH
+# RECURSIVE, MARK joins, NOT IN with a residual and the joins without an
+# equality (ASOF, inequality, cross, POSITIONAL, USING, NATURAL); each has
+# a numpy answer below (the samples and the catalog functions are checked
+# by their callers: a count within bounds, the generator's own schema)
+_SHIP_WINDOW = ("l_shipdate >= DATE '1995-01-01' AND l_shipdate < DATE '1995-03-01'")
+_SETOP_LEFT = f"SELECT l_partkey AS k FROM lineitem WHERE {_SHIP_WINDOW}"
+_SETOP_RIGHT = "SELECT p_partkey FROM part WHERE p_size < 20"
+SELECT_FORM_QUERIES = {
+    "rollup_q1": """
+SELECT l_returnflag, l_linestatus, grouping(l_returnflag) AS g,
+  sum(l_quantity) AS sum_qty, sum(l_extendedprice) AS sum_base_price,
+  sum(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
+  sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
+  avg(l_quantity) AS avg_qty, avg(l_extendedprice) AS avg_price,
+  avg(l_discount) AS avg_disc, count(*) AS count_order
+FROM lineitem
+WHERE l_shipdate <= CAST('1998-09-02' AS date)
+GROUP BY ROLLUP (l_returnflag, l_linestatus)
+ORDER BY l_returnflag NULLS LAST, l_linestatus NULLS LAST
+""",
+    "cube_flags": """
+SELECT l_returnflag, l_linestatus, count(*), sum(l_quantity)
+FROM lineitem GROUP BY CUBE (l_returnflag, l_linestatus)
+ORDER BY 1 NULLS LAST, 2 NULLS LAST
+""",
+    "setops_big": """
+SELECT count(*), sum(x) FROM (SELECT l_quantity AS x FROM lineitem
+  UNION ALL SELECT ps_availqty FROM partsupp)
+""",
+    "setops_intersect": f"SELECT count(*), sum(k) FROM ({_SETOP_LEFT} INTERSECT {_SETOP_RIGHT})",
+    "setops_except": f"SELECT count(*), sum(k) FROM ({_SETOP_LEFT} EXCEPT {_SETOP_RIGHT})",
+    "setops_intersect_all":
+        f"SELECT count(*), sum(k) FROM ({_SETOP_LEFT} INTERSECT ALL {_SETOP_RIGHT})",
+    "setops_except_all":
+        f"SELECT count(*), sum(k) FROM ({_SETOP_LEFT} EXCEPT ALL {_SETOP_RIGHT})",
+    "values_join": """
+SELECT v.label, count(*), sum(s_acctbal)
+FROM supplier, (VALUES """ + ", ".join(f"({k}, '{['west', 'east', 'north', 'south'][k % 4]}')"
+                                        for k in range(25)) + """) v(k, label)
+WHERE s_nationkey = v.k
+GROUP BY v.label ORDER BY v.label
+""",
+    "recursive_months": """
+WITH RECURSIVE months(ym) AS (
+  SELECT 1992 * 12 + 1 UNION ALL SELECT ym + 1 FROM months WHERE ym < 1998 * 12 + 12)
+SELECT ym, count(*) FROM months, orders
+WHERE year(o_orderdate) * 12 + month(o_orderdate) = ym
+GROUP BY ym ORDER BY ym
+""",
+    "mark_q4": """
+SELECT o_orderpriority,
+  sum(CASE WHEN EXISTS (SELECT * FROM lineitem WHERE l_orderkey = o_orderkey
+                         AND l_commitdate < l_receiptdate) THEN 1 ELSE 0 END) AS order_count
+FROM orders
+WHERE o_orderdate >= CAST('1993-07-01' AS date) AND o_orderdate < CAST('1993-10-01' AS date)
+GROUP BY o_orderpriority ORDER BY o_orderpriority
+""",
+    "mark_in_or": """
+SELECT o_orderstatus, count(*), sum(o_totalprice) FROM orders
+WHERE o_custkey IN (SELECT c_custkey FROM customer WHERE c_mktsegment = 'BUILDING')
+   OR o_totalprice > 400000
+GROUP BY o_orderstatus ORDER BY o_orderstatus
+""",
+    "notin_residual": """
+SELECT count(*), sum(l_quantity) FROM lineitem
+WHERE l_suppkey NOT IN (SELECT ps_suppkey FROM partsupp
+                        WHERE ps_partkey = l_partkey AND ps_availqty > l_quantity * 100)
+""",
+    "asof_ship": """
+SELECT count(*), sum(o_totalprice) FROM lineitem l
+ASOF JOIN orders o ON l_orderkey = o_orderkey AND l_shipdate >= o_orderdate
+""",
+    "band_join": """
+SELECT count(*) FROM part, supplier
+WHERE p_retailprice BETWEEN s_acctbal - 1 AND s_acctbal + 1
+""",
+    "cross_small": """
+SELECT r_name, count(*), sum(n_nationkey) FROM nation, region GROUP BY r_name ORDER BY r_name
+""",
+    "positional": """
+SELECT count(*), sum(a), sum(b), sum(a * b)
+FROM (SELECT l_quantity AS a FROM lineitem WHERE l_linenumber = 1)
+POSITIONAL JOIN (SELECT l_discount AS b FROM lineitem WHERE l_returnflag = 'R')
+""",
+    "using_left": """
+SELECT count(*), count(c_name), sum(c_custkey) FROM
+  (SELECT o_orderkey, o_custkey AS c_custkey FROM orders WHERE o_orderkey % 7 = 0) o
+  LEFT JOIN (SELECT c_custkey, c_name FROM customer WHERE c_nationkey < 10) c
+  USING (c_custkey)
+""",
+    "using_full": """
+SELECT count(*), count(c_custkey), sum(c_custkey), count(o_orderkey), count(c_name) FROM
+  (SELECT o_orderkey, o_custkey AS c_custkey FROM orders WHERE o_orderkey % 7 = 0) o
+  FULL JOIN (SELECT c_custkey, c_name FROM customer WHERE c_nationkey < 10) c
+  USING (c_custkey)
+""",
+    "natural_join": """
+SELECT count(*), sum(c_custkey), sum(o_totalprice) FROM
+  (SELECT o_custkey AS c_custkey, o_orderstatus AS st, o_totalprice FROM orders) o
+  NATURAL JOIN (SELECT c_custkey, 'F' AS st FROM customer WHERE c_mktsegment = 'MACHINERY') c
+""",
+    "sample_rows": "SELECT count(*) FROM lineitem USING SAMPLE 100000 ROWS (reservoir, 42)",
+}
+SAMPLE_PERCENT_QUERY = "SELECT count(*) FROM lineitem TABLESAMPLE 10% REPEATABLE (42)"
 
 _EPOCH = datetime.date(1970, 1, 1)
 
@@ -1470,6 +1579,210 @@ def json_orders(t):
     return [(k.decode(), int(count[g]), int(digits[g])) for g, (k,) in enumerate(keys)]
 
 
+def _nulls_last(rows):
+    return sorted(rows, key=lambda r: tuple((v is None, "" if v is None else v) for v in r))
+
+
+def rollup_q1(t):
+    """Q1's measures per (l_returnflag, l_linestatus), per l_returnflag
+    and over all rows, with grouping(l_returnflag)."""
+    ship = t("lineitem", "l_shipdate")
+    keep = ship <= _day("1998-09-02")
+    qty, price = t("lineitem", "l_quantity")[keep], t("lineitem", "l_extendedprice")[keep]
+    disc, tax = t("lineitem", "l_discount")[keep], t("lineitem", "l_tax")[keep]
+    rf, ls = t("lineitem", "l_returnflag")[keep], t("lineitem", "l_linestatus")[keep]
+    disc_price = price * (100 - disc)
+    charge = disc_price * (100 + tax)
+    rows = []
+    for sets in ((rf, ls), (rf,), ()):
+        if sets:
+            keys, inv = _groups(*sets)
+        else:
+            keys, inv = [()], np.zeros(len(qty), dtype=np.int64)
+        n = len(keys)
+        cnt = np.bincount(inv, minlength=n)
+        sq, sp, sd = _sums(inv, n, qty), _sums(inv, n, price), _sums(inv, n, disc_price)
+        sc, sdisc = _sums(inv, n, charge), _sums(inv, n, disc)
+        for g, k in enumerate(keys):
+            key = [v.decode() for v in k] + [None] * (2 - len(k))
+            rows.append((*key, 0 if sets else 1, _dec(sq[g], 2), _dec(sp[g], 2),
+                         _dec(sd[g], 4), _dec(sc[g], 6), float(sq[g] / (cnt[g] * 100.0)),
+                         float(sp[g] / (cnt[g] * 100.0)), float(sdisc[g] / (cnt[g] * 100.0)),
+                         int(cnt[g])))
+    return _nulls_last(rows)
+
+
+def cube_flags(t):
+    rf, ls = t("lineitem", "l_returnflag"), t("lineitem", "l_linestatus")
+    qty = t("lineitem", "l_quantity")
+    rows = []
+    for mask in ((1, 1), (1, 0), (0, 1), (0, 0)):
+        cols = [c for c, m in zip((rf, ls), mask) if m]
+        keys, inv = _groups(*cols) if cols else ([()], np.zeros(len(qty), dtype=np.int64))
+        n = len(keys)
+        cnt, sq = np.bincount(inv, minlength=n), _sums(inv, n, qty)
+        for g, k in enumerate(keys):
+            vals = iter(v.decode() for v in k)
+            key = [next(vals) if m else None for m in mask]
+            rows.append((*key, int(cnt[g]), _dec(sq[g], 2)))
+    return _nulls_last(rows)
+
+
+def setops_big(t):
+    qty, avail = t("lineitem", "l_quantity"), t("partsupp", "ps_availqty")
+    # l_quantity is DECIMAL(15,2); ps_availqty an INTEGER widened to it
+    return [(len(qty) + len(avail), _dec(int(qty.sum()) + 100 * int(avail.sum()), 2))]
+
+
+def _setop_sides(t):
+    import collections
+
+    ship = t("lineitem", "l_shipdate")
+    left = t("lineitem", "l_partkey")[(ship >= _day("1995-01-01")) & (ship < _day("1995-03-01"))]
+    right = t("part", "p_partkey")[t("part", "p_size") < 20]
+    return collections.Counter(left.tolist()), collections.Counter(right.tolist())
+
+
+def _count_sum(keys):
+    keys = list(keys)
+    return [(len(keys), sum(keys) if keys else None)]
+
+
+def setops_intersect(t):
+    left, right = _setop_sides(t)
+    return _count_sum(left.keys() & right.keys())
+
+
+def setops_except(t):
+    left, right = _setop_sides(t)
+    return _count_sum(left.keys() - right.keys())
+
+
+def setops_intersect_all(t):
+    left, right = _setop_sides(t)
+    return _count_sum((left & right).elements())
+
+
+def setops_except_all(t):
+    left, right = _setop_sides(t)
+    return _count_sum((left - right).elements())
+
+
+def values_join(t):
+    labels = np.array(["west", "east", "north", "south"])[t("supplier", "s_nationkey") % 4]
+    keys, inv = _groups(labels)
+    n = len(keys)
+    cnt, acct = np.bincount(inv, minlength=n), _sums(inv, n, t("supplier", "s_acctbal"))
+    return [(str(k[0]), int(cnt[g]), _dec(acct[g], 2)) for g, k in enumerate(keys)]
+
+
+def recursive_months(t):
+    days = t("orders", "o_orderdate")
+    dates = [_date(d) for d in np.unique(days)]
+    ym_of = {np.int64((d - _EPOCH).days): d.year * 12 + d.month for d in dates}
+    ym = np.array([ym_of[d] for d in days.tolist()]) if len(days) else np.zeros(0, np.int64)
+    lo, hi = 1992 * 12 + 1, 1998 * 12 + 12
+    vals, counts = np.unique(ym[(ym >= lo) & (ym <= hi)], return_counts=True)
+    return [(int(v), int(c)) for v, c in zip(vals, counts)]
+
+
+def mark_q4(t):
+    late = t("lineitem", "l_commitdate") < t("lineitem", "l_receiptdate")
+    has_late = np.isin(t("orders", "o_orderkey"), t("lineitem", "l_orderkey")[late])
+    odate = t("orders", "o_orderdate")
+    ok = (odate >= _day("1993-07-01")) & (odate < _day("1993-10-01"))
+    keys, inv = _groups(t("orders", "o_orderpriority")[ok])
+    sums = _sums(inv, len(keys), has_late[ok])
+    return [(k[0].decode(), int(sums[g])) for g, k in enumerate(keys)]
+
+
+def mark_in_or(t):
+    building = t("customer", "c_custkey")[t("customer", "c_mktsegment") == b"BUILDING"]
+    price = t("orders", "o_totalprice")
+    ok = np.isin(t("orders", "o_custkey"), building) | (price > 40_000_000)
+    keys, inv = _groups(t("orders", "o_orderstatus")[ok])
+    n = len(keys)
+    cnt, tot = np.bincount(inv, minlength=n), _sums(inv, n, price[ok])
+    return [(k[0].decode(), int(cnt[g]), _dec(tot[g], 2)) for g, k in enumerate(keys)]
+
+
+def notin_residual(t):
+    """A lineitem row stays unless a partsupp row of its part with
+    ps_availqty > l_quantity * 100 has its supplier (no key is NULL)."""
+    ps_part, ps_supp = t("partsupp", "ps_partkey"), t("partsupp", "ps_suppkey")
+    ps_key = ps_part * 1_000_000_000 + ps_supp
+    order = np.argsort(ps_key)
+    l_key = t("lineitem", "l_partkey") * 1_000_000_000 + t("lineitem", "l_suppkey")
+    pos = np.clip(np.searchsorted(ps_key[order], l_key), 0, len(order) - 1)
+    row = order[pos]
+    found = ps_key[row] == l_key
+    qty = t("lineitem", "l_quantity")  # cents: l_quantity * 100 is qty
+    excluded = found & (t("partsupp", "ps_availqty")[row] * 100 > qty * 100)
+    keep = ~excluded
+    return [(int(keep.sum()), _dec(int(qty[keep].sum()), 2))]
+
+
+def asof_ship(t):
+    okey = t("orders", "o_orderkey")
+    row = _lookup(okey, t("lineitem", "l_orderkey"))
+    ok = (row >= 0) & (t("lineitem", "l_shipdate") >= t("orders", "o_orderdate")[row])
+    return [(int(ok.sum()), _dec(int(t("orders", "o_totalprice")[row[ok]].sum()), 2))]
+
+
+def band_join(t):
+    acct = np.sort(t("supplier", "s_acctbal"))
+    price = t("part", "p_retailprice")
+    n = np.searchsorted(acct, price + 100, side="right") - np.searchsorted(acct, price - 100)
+    return [(int(n.sum()),)]
+
+
+def cross_small(t):
+    names = sorted(v.decode() for v in t("region", "r_name"))
+    nations = t("nation", "n_nationkey")
+    return [(nm, len(nations), int(nations.sum())) for nm in names]
+
+
+def positional(t):
+    a = t("lineitem", "l_quantity")[t("lineitem", "l_linenumber") == 1]
+    b = t("lineitem", "l_discount")[t("lineitem", "l_returnflag") == b"R"]
+    m = min(len(a), len(b))
+    return [(max(len(a), len(b)), _dec(int(a.sum()), 2), _dec(int(b.sum()), 2),
+             _dec(int((a[:m] * b[:m]).sum()), 4))]
+
+
+def _using_sides(t):
+    okey = t("orders", "o_orderkey")
+    o_cust = t("orders", "o_custkey")[okey % 7 == 0]
+    c_cust = t("customer", "c_custkey")[t("customer", "c_nationkey") < 10]
+    return o_cust, c_cust
+
+
+def using_left(t):
+    o_cust, c_cust = _using_sides(t)
+    hit = np.isin(o_cust, c_cust)  # customer keys are unique
+    return [(len(o_cust), int(hit.sum()), int(o_cust.sum()))]
+
+
+def using_full(t):
+    o_cust, c_cust = _using_sides(t)
+    hit = np.isin(o_cust, c_cust)
+    c_unmatched = c_cust[~np.isin(c_cust, o_cust)]
+    n = len(o_cust) + len(c_unmatched)
+    return [(n, n, int(o_cust.sum()) + int(c_unmatched.sum()), len(o_cust),
+             int(hit.sum()) + len(c_unmatched))]
+
+
+def natural_join(t):
+    machinery = t("customer", "c_custkey")[t("customer", "c_mktsegment") == b"MACHINERY"]
+    ok = np.isin(t("orders", "o_custkey"), machinery) & (t("orders", "o_orderstatus") == b"F")
+    return [(int(ok.sum()), int(t("orders", "o_custkey")[ok].sum()),
+             _dec(int(t("orders", "o_totalprice")[ok].sum()), 2))]
+
+
+def sample_rows(t):
+    return [(min(100_000, len(t("lineitem", "l_orderkey"))),)]
+
+
 _ANSWERS = {"q02": q02, "q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q08,
             "q09": q09, "q10": q10, "q11": q11, "q12": q12, "q13": q13,
             "q13_nolike": q13_nolike, "q14": q14, "q15": q15, "q16": q16, "q17": q17,
@@ -1479,13 +1792,21 @@ _ANSWERS = {"q02": q02, "q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q
             "nested_collect": nested_collect, "nested_words": nested_words,
             "nested_pack": nested_pack, "nested_pack_agg": nested_pack_agg,
             "more_dates": more_dates, "more_math": more_math, "more_text": more_text,
-            "parity_lists": parity_lists, "json_orders": json_orders}
+            "parity_lists": parity_lists, "json_orders": json_orders,
+            "rollup_q1": rollup_q1, "cube_flags": cube_flags, "setops_big": setops_big,
+            "setops_intersect": setops_intersect, "setops_except": setops_except,
+            "setops_intersect_all": setops_intersect_all,
+            "setops_except_all": setops_except_all, "values_join": values_join,
+            "recursive_months": recursive_months, "mark_q4": mark_q4, "mark_in_or": mark_in_or,
+            "notin_residual": notin_residual, "asof_ship": asof_ship, "band_join": band_join,
+            "cross_small": cross_small, "positional": positional, "using_left": using_left,
+            "using_full": using_full, "natural_join": natural_join, "sample_rows": sample_rows}
 
 
 def answer(name: str, data_dir: str, **params):
     """Rows of query `name` (a key of QUERIES, SUBQUERY_QUERIES,
     FROM_QUERIES, LIKE_QUERIES, GENERAL_QUERIES, FUNCTION_QUERIES,
-    NESTED_QUERIES or MORE_QUERIES) over data_dir; params go to the query's
+    NESTED_QUERIES, MORE_QUERIES or SELECT_FORM_QUERIES) over data_dir; params go to the query's
     answer (Q2's `size`/`type_suffix`/`region`, Q7's `nation1`/`nation2`,
     Q8's `nation`/`region`/`ptype`, Q9's `color`, Q11's `nation`, Q13's
     `words`, Q14's `type_prefix`, Q16's `remark`, Q18's `threshold`, Q20's

@@ -681,3 +681,79 @@ def test_range_on_cuda(tmp_path):
     assert con.sql(sql).rows() == [(len(want), int(want.sum()), int(want.max()))]
     entry = con.catalog.get_table(con._plan_tables[sql][0])
     assert entry.device_column("range").data.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_rollup_on_cuda_launches_kernel_equal_to_plain(tmp_path, monkeypatch):
+    """A ROLLUP over a generated table on the card: each branch's dense
+    aggregate launches the grouped sum, which equals its plain version on
+    that branch's inputs, and the rows equal the numpy oracle."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.ops import grouped as grouped_mod
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    seen = []
+
+    def recording(dense, vectors, nseg):
+        seen.append((dense.clone(), [v.clone() for v in vectors], nseg))
+        return GS.grouped_sum_i64(dense, vectors, nseg)
+
+    monkeypatch.setattr(grouped_mod, "grouped_sum_i64", recording)
+    GS.grouped_sum_i64.launches = 0
+    got = con.sql(tpch_oracle.SELECT_FORM_QUERIES["rollup_q1"]).rows()
+    _close_rows(got, tpch_oracle.answer("rollup_q1", str(tmp_path)), "rollup_q1")
+    assert len(seen) == 3 and GS.grouped_sum_i64.launches >= 3
+    for dense, vecs, nseg in seen:
+        assert dense.device.type == "cuda"
+        for a, b in zip(GS.grouped_sum_i64(dense, vecs, nseg),
+                        GS.grouped_sum_i64_plain(dense, vecs, nseg)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_keyless_joins_on_cuda_match_cpu(tmp_path):
+    """A keyless cross join, an inequality (band) join, an ASOF join and a
+    FULL inequality join on CUDA tensors give the CPU port's rows."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path))
+    for sql in ("SELECT r_name, count(*), sum(n_nationkey) FROM nation, region "
+                "GROUP BY r_name ORDER BY 1",
+                tpch_oracle.SELECT_FORM_QUERIES["band_join"],
+                tpch_oracle.SELECT_FORM_QUERIES["asof_ship"],
+                "SELECT count(*), count(a.n_name), count(b.n_name) FROM nation a FULL JOIN "
+                "nation b ON a.n_nationkey < b.n_regionkey",
+                "SELECT count(*) FROM orders WHERE o_custkey NOT IN (SELECT c_custkey FROM "
+                "customer WHERE c_acctbal > o_totalprice)"):
+        con.routes.clear()
+        got = con.sql(sql).rows()
+        assert got == cpu.sql(sql).rows(), sql
+    assert con.sql("SELECT count(*) FROM lineitem TABLESAMPLE 10% REPEATABLE (3)").rows() == \
+        con.sql("SELECT count(*) FROM lineitem TABLESAMPLE 10% REPEATABLE (3)").rows()
+
+
+@pytest.mark.gpu
+def test_select_forms_on_cuda(tmp_path):
+    """Every SELECT_FORM_QUERIES query on the card equals the numpy oracle."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    for name, sql in tpch_oracle.SELECT_FORM_QUERIES.items():
+        _close_rows(con.sql(sql).rows(), tpch_oracle.answer(name, str(tmp_path)), name)

@@ -279,15 +279,37 @@ def test_preserved_side_conjunct_is_residual(cons, jt):
     assert isinstance(plan.extra, TB.BoundComparison) and plan.extra.op == ">"
 
 
+def _nested_loop_counts():
+    """SQL's answers for the three join forms below, by nested loops."""
+    p, d = SEEDED["p"], SEEDED["d"]
+    left = sum(max(1, sum(1 for dk, _ in d if None not in (pk, dk) and pk < dk))
+               for pk, _ in p)
+    pairs = [(i, j) for i, (pk, _) in enumerate(p) for j, (dk, _) in enumerate(d)
+             if pk is not None and pk == dk]
+    full = (len(pairs) + len(p) - len({i for i, _ in pairs})
+            + len(d) - len({j for _, j in pairs}))
+    asof = sum(1 for pk, px in p if px is not None and any(
+        pk is not None and dk == pk and dy <= px for dk, dy in d))
+    return {"left": left, "full": full, "asof": asof}
+
+
 @pytest.mark.parametrize("sql", [
     "SELECT count(*) FROM p LEFT JOIN d ON p.k < d.k",  # no equi key
     "SELECT count(*) FROM p FULL JOIN d USING (k)",
     "SELECT count(*) FROM p ASOF JOIN d ON p.k = d.k AND p.x >= d.y",
+    "SELECT k, row_number() OVER (ORDER BY x) FROM p",  # a window: item 29
 ])
 def test_outer_join_forms_not_yet_ported_say_so(cons, sql):
+    """The keyless LEFT join, FULL JOIN … USING and the ASOF join are
+    ported and give SQL's counts (nested loops over the seeded tables);
+    a window function still says "not yet ported"."""
     _, tcon = cons
-    with pytest.raises(ValueError, match="not yet ported"):
-        tcon.sql(sql)
+    if "OVER" in sql:
+        with pytest.raises(ValueError, match="not yet ported"):
+            tcon.sql(sql)
+        return
+    want = _nested_loop_counts()[sql.split()[4].lower()]
+    assert tcon.sql(sql).rows() == [(want,)]
 
 
 # -- inner joins with a residual, on a hand-built plan ------------------------

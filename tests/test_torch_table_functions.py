@@ -777,11 +777,18 @@ def test_each_listed_name_binds(cons, name):
 
 @pytest.mark.parametrize("name", sorted(LATER_TABLE_FUNCTIONS))
 def test_later_table_functions_name_their_item(cons, name):
-    _, tcon = cons
+    """The table functions still to port name their ROADMAP item; the
+    catalog functions of item 43 are ported and give the JAX package's
+    rows."""
+    jcon, tcon = cons
     arg = "'x.csv'" if name.startswith("read_") else ""
+    sql = f"SELECT * FROM {name}({arg})"
+    if LATER_TABLE_FUNCTIONS[name] == 43:
+        assert tcon.sql(sql).rows() == jcon.sql(sql).rows()
+        return
     with pytest.raises(ValueError, match=f"ROADMAP item {LATER_TABLE_FUNCTIONS[name]}"
                                          ".*not yet ported"):
-        tcon.sql(f"SELECT * FROM {name}({arg})")
+        tcon.sql(sql)
 
 
 def test_unknown_table_function(cons):

@@ -483,6 +483,22 @@ def test_try_semi_neq_counts_other_suppliers(data_dir, jtype, monkeypatch):
     "SELECT count(*) FROM orders WHERE o_orderkey IN "
     "(SELECT l_orderkey FROM (SELECT * FROM lineitem WHERE l_orderkey = o_orderkey) l)",
 ])
-def test_subquery_forms_not_yet_ported_say_so(data_dir, sql):
-    with pytest.raises(ValueError, match="not yet ported"):
-        _fresh(data_dir).sql(sql)
+def test_subquery_forms_not_yet_ported_say_so(cons, data_dir, sql):
+    """A derived table correlated with the query around it (LATERAL)
+    still says "not yet ported". IN and EXISTS outside a WHERE conjunct
+    (MARK joins) give the JAX package's answers; NOT IN correlated by a
+    residual is held to a nested-loop answer in numpy."""
+    jcon, tcon = cons
+    if "LATERAL" in sql or "= o_custkey) c" in sql or "= o_orderkey) l" in sql:
+        with pytest.raises(ValueError, match="not yet ported"):
+            _fresh(data_dir).sql(sql)
+    elif "NOT IN" in sql:
+        t = tpch_oracle._Tables(data_dir)
+        acct, cust = t("customer", "c_acctbal"), t("customer", "c_custkey")
+        price, ocust = t("orders", "o_totalprice"), t("orders", "o_custkey")
+        # no customer key is NULL: NOT IN holds unless a customer with
+        # c_acctbal > o_totalprice has the order's key
+        seen = (ocust[:, None] == cust[None, :]) & (acct[None, :] > price[:, None])
+        assert tcon.sql(sql).rows() == [(int((~seen.any(axis=1)).sum()),)]
+    else:
+        assert tcon.sql(sql).rows() == jcon.sql(sql).rows()

@@ -50,7 +50,8 @@ def main() -> int:
     queries = {"q01": chip_smoke.Q1, **tpch_oracle.QUERIES, **tpch_oracle.SUBQUERY_QUERIES,
                **tpch_oracle.FROM_QUERIES, **tpch_oracle.LIKE_QUERIES,
                **tpch_oracle.GENERAL_QUERIES, **tpch_oracle.FUNCTION_QUERIES,
-               **tpch_oracle.NESTED_QUERIES, **tpch_oracle.MORE_QUERIES}
+               **tpch_oracle.NESTED_QUERIES, **tpch_oracle.MORE_QUERIES,
+               **tpch_oracle.SELECT_FORM_QUERIES}
     sql = queries[args.query]
 
     card = subprocess.run(
