@@ -154,6 +154,30 @@ Phases (any failure exits non-zero before the result lines):
    duckdb_columns(), pragma_table_info('lineitem') and duckdb_tables()
    must equal the generator's schema.
 
+15. window functions, QUALIFY and DISTINCT ON: the WINDOW_QUERIES of
+   testing/tpch_oracle.py (win_rank_lineitem: rank() over all of lineitem
+   per order, kept where 1, then a grouped count and sum; win_running_orders:
+   a running DECIMAL sum over orders per priority; win_frames_lineitem: a
+   7-row trailing avg, a 7-row centred min and max (the sparse table) and a
+   30-day RANGE sum per supplier; win_lag_lead; win_dist_partsupp: ntile,
+   percent_rank, cume_dist and dense_rank; win_median_part: a
+   whole-partition median; qualify_top3: QUALIFY on a select alias;
+   distinct_on_nation: DISTINCT ON), the same way as phase 14: rows against
+   the numpy oracle, the route exactly (one window node each), the grouped
+   sum against its plain version on every input and timed at each shape,
+   each query's first run, warm median of 5, rows/s and host syncs; then the
+   device busy share of win_rank_lineitem and win_frames_lineitem under
+   torch.profiler.
+16. out-of-core execution: under catalog.set_memory_limit(OOC_LIMIT) Q1, Q3,
+   Q6 and a pure select with ORDER BY … LIMIT run in chunks of lineitem (at
+   least 4): rows bit-identical to the same query in memory and equal to
+   the numpy oracle, the out_of_core route with its chunk count, the grouped
+   sum's launches (one per chunk and one for the merge of Q1 and Q6) held to
+   the plain version and timed at the chunk and merge shapes, each query's
+   warm median of 5 under the limit and in memory; then an ORDER BY whose
+   result passes the limit sorts range partitions (columns equal to the
+   in-memory run's and to a numpy lexsort); the limit goes back to 0.
+
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
 """
@@ -771,6 +795,191 @@ def select_forms_end(con, card: str) -> str:
     return ""
 
 
+# phase 15: the route each WINDOW_QUERIES query takes (exactly), and the
+# table its rate counts
+WINDOW_ROUTES = {"win_rank_lineitem": {"window": 1, "dense": 1},
+                 "win_running_orders": {"window": 1, "dense": 1},
+                 "win_frames_lineitem": {"window": 1, "dense": 1},
+                 "win_lag_lead": {"window": 1, "dense": 1},
+                 "win_dist_partsupp": {"window": 1, "sort_group": 1},
+                 "win_median_part": {"window": 1, "dense": 1},
+                 "qualify_top3": {"window": 1},
+                 "distinct_on_nation": {"window": 1}}
+WINDOW_RATE_TABLE = {"win_running_orders": "orders", "win_dist_partsupp": "partsupp",
+                     "win_median_part": "part", "qualify_top3": "customer",
+                     "distinct_on_nation": "customer"}
+# phase 16: the device memory limit (48 MiB: every query below needs at
+# least 4 chunks of lineitem), the queries run under it, and the ORDER BY
+# whose result passes it
+OOC_LIMIT = 48 << 20
+OOC_SELECT = ("SELECT l_orderkey, l_linenumber, l_extendedprice FROM lineitem "
+              "WHERE l_quantity < 3 ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber "
+              "LIMIT 100")
+OOC_SORT = ("SELECT l_orderkey, l_linenumber, l_extendedprice FROM lineitem "
+            "WHERE l_quantity <= 20 ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber")
+
+
+def busy_share(con, sql, card: str, runs: int = 3) -> str:
+    """Device busy share of `runs` warm runs of sql under torch.profiler:
+    the summed CUDA kernel time over the wall (tools/profile_torch_query.py's
+    measure). '' or a failure message."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    con.sql(sql).rows()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            con.sql(sql).rows()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / runs
+    top = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)[:4]
+    busy = "not measured (no device time in the trace)" if device_ms <= 0 \
+        else f"{100 * device_ms / wall_ms:.1f}%"
+    print(f"busy share on {card}: wall {wall_ms:.3f} ms/query under the profiler, CUDA kernel "
+          f"time {device_ms:.3f} ms/query, device busy {busy}; top kernels "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / runs:.3f} ms"
+                      for e in top))
+    return ""
+
+
+def numpy_ooc_select(data_dir: str, limit=None, max_qty_cents=299):
+    """OOC_SELECT (l_quantity < 3, LIMIT 100) or OOC_SORT (l_quantity <= 20,
+    no limit) over the generated files: (l_orderkey, l_linenumber,
+    l_extendedprice in cents) columns in ORDER BY order."""
+    import numpy as np
+
+    t = os.path.join(data_dir, "lineitem")
+
+    def col(name):
+        for ext, dt in ((".i64", np.int64), (".i32", np.int32)):
+            if os.path.exists(os.path.join(t, name + ext)):
+                return np.fromfile(os.path.join(t, name + ext), dtype=dt).astype(np.int64)
+        raise FileNotFoundError(name)
+
+    keep = col("l_quantity") <= max_qty_cents
+    ok, ln, price = col("l_orderkey")[keep], col("l_linenumber")[keep], \
+        col("l_extendedprice")[keep]
+    order = np.lexsort((ln, ok, -price))[:limit]
+    return ok[order], ln[order], price[order]
+
+
+def out_of_core_phase(con, card, recording, recorded, launches_by_query, shapes, reps) -> str:
+    """Phase 16 (see the module docstring). '' or a failure message."""
+    import decimal
+
+    import numpy as np
+    import torch
+
+    from duckdb_tpu_torch.catalog import catalog as C
+    from duckdb_tpu_torch.ops import grouped as grouped_mod
+    from duckdb_tpu_torch.ops import grouped_sum as GS
+    from duckdb_tpu_torch.testing import tpch_oracle
+
+    def numpy_select():
+        ok, ln, price = numpy_ooc_select(DATA, limit=100)
+        return [(int(a), int(b), decimal.Decimal(int(c)).scaleb(-2))
+                for a, b, c in zip(ok, ln, price)]
+
+    queries = {"q01": (Q1, lambda: numpy_q1(DATA)),
+               "q03": (tpch_oracle.QUERIES["q03"], lambda: tpch_oracle.answer("q03", DATA)),
+               "q06": (tpch_oracle.GENERAL_QUERIES["q06"],
+                       lambda: tpch_oracle.answer("q06", DATA)),
+               "ooc_select": (OOC_SELECT, numpy_select)}
+    nrows = con.catalog.get_table("lineitem").nrows
+    for name, (sql, oracle) in queries.items():
+        C.set_memory_limit(0)
+        in_memory = con.sql(sql).rows()
+        mem_med, mem_times = warm_median(con, sql, in_memory)
+        C.set_memory_limit(OOC_LIMIT)
+        recorded.clear()
+        grouped_mod.grouped_sum_i64 = recording
+        GS.grouped_sum_i64.launches = 0
+        GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
+        con.routes.clear()
+        t0 = time.perf_counter()
+        got = con.sql(sql).rows()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+        launches = GS.grouped_sum_i64.launches
+        routes = dict(con.routes)
+        launches_by_query[f"{name}_ooc"] = launches
+        chunks = routes.get("out_of_core_chunks", 0)
+        if got != in_memory:
+            return f"{name} under the limit differs from its run in memory"
+        bad = rows_match(got, oracle())
+        if bad:
+            return f"{name} under the limit differs from the numpy oracle: {bad}"
+        if routes.get("out_of_core") != 1 or chunks < 4:
+            return f"{name} did not run in at least 4 chunks: routes {routes}"
+        if name in ("q01", "q06") and launches != chunks + 1:
+            return (f"{name} launched the grouped sum {launches} times, not once per chunk "
+                    f"and once for the merge ({chunks} + 1)")
+        print(f"{name} under memory_limit {OOC_LIMIT} on {card}: first run {first_s:.3f} s, "
+              f"{len(got)} rows equal the in-memory run and the numpy oracle; "
+              f"{chunks} chunks of lineitem ({-(-nrows // chunks)} rows each); routes "
+              f"{routes}; grouped_sum_i64 launches {launches}")
+        timed = set()
+        for dense, vecs, nseg in recorded:
+            err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
+                              GS.grouped_sum_i64_plain(dense, vecs, nseg))
+            torch.cuda.synchronize()
+            n_q, k_q = dense.shape[0], len(vecs)
+            if err:
+                return f"grouped_sum_i64 disagrees with its plain version on {name}'s chunks"
+            if (n_q, k_q, nseg) in timed:
+                continue
+            timed.add((n_q, k_q, nseg))
+            k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+            b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
+            print(f"grouped_sum_i64 at {name}_ooc's shape N={n_q} K={k_q} nseg={nseg} on "
+                  f"{card}: max abs err {err}, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"index_add_ {l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, "
+                  f"{b_adds} adds)")
+            shapes.append({"query": f"{name}_ooc", "n": n_q, "k": k_q, "nseg": nseg,
+                           "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+        med, times = warm_median(con, sql, in_memory)
+        if med is None:
+            return f"{name}: {times}"
+        syncs = count_syncs(lambda: con.sql(sql).rows())
+        print(f"{name} SF{SF:g} on {card}: under the limit median of 5 warm runs "
+              f"{med * 1e3:.3f} ms (runs {', '.join(f'{t * 1e3:.3f}' for t in times)} ms), "
+              f"{nrows / med:.0f} lineitem rows/s, {syncs} host syncs; in memory "
+              f"{mem_med * 1e3:.3f} ms")
+
+    # the ORDER BY whose result passes the limit: range partitions
+    C.set_memory_limit(0)
+    mem = con.sql(OOC_SORT)
+    C.set_memory_limit(OOC_LIMIT)
+    con.routes.clear()
+    t0 = time.perf_counter()
+    res = con.sql(OOC_SORT)
+    sort_s = time.perf_counter() - t0
+    C.set_memory_limit(0)
+    routes = dict(con.routes)
+    want = numpy_ooc_select(DATA, limit=None, max_qty_cents=2000)
+    if res.nrows != mem.nrows or res.nrows != len(want[0]):
+        return f"the ORDER BY under the limit gave {res.nrows} rows, in memory {mem.nrows}"
+    for (a, _, _), (b, _, _), w in zip(res.columns, mem.columns, want):
+        if not (np.array_equal(np.asarray(a).astype(np.int64), np.asarray(b).astype(np.int64))
+                and np.array_equal(np.asarray(a).astype(np.int64), w)):
+            return "the range-partitioned ORDER BY differs from the in-memory run or numpy"
+    if routes.get("out_of_core_sort") != 1:
+        return f"the ORDER BY under the limit did not sort range partitions: routes {routes}"
+    print(f"ORDER BY of {res.nrows} rows under memory_limit {OOC_LIMIT} on {card}: "
+          f"{sort_s:.3f} s, {routes.get('out_of_core_chunks')} chunks, "
+          f"{routes.get('out_of_core_sort_partitions')} range partitions; columns equal the "
+          f"in-memory run's and numpy's lexsort")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -1201,6 +1410,36 @@ def main() -> int:
     if bad:
         return fail(bad)
     print(f"phase 14 took {time.perf_counter() - phase14_t0:.1f} s")
+
+    # 15. windows: WINDOW_QUERIES against numpy, then two busy shares
+    phase15_t0 = time.perf_counter()
+    bad = oracle_phase(tpch_oracle.WINDOW_QUERIES, WINDOW_ROUTES, {},
+                       {n: WINDOW_RATE_TABLE.get(n, "lineitem")
+                        for n in tpch_oracle.WINDOW_QUERIES}, need_kernel=False)
+    if bad:
+        return fail(bad)
+    if launches_by_query["win_rank_lineitem"] < 1 or launches_by_query["win_frames_lineitem"] < 1:
+        return fail("win_rank_lineitem or win_frames_lineitem missed the grouped sum")
+    for name in ("win_rank_lineitem", "win_frames_lineitem"):
+        print(f"{name}:", end=" ")
+        busy_share(con, tpch_oracle.WINDOW_QUERIES[name], card)
+    print(f"phase 15 took {time.perf_counter() - phase15_t0:.1f} s")
+
+    # 16. out-of-core: Q1, Q3, Q6 and a select in chunks under OOC_LIMIT,
+    # then an ORDER BY over more rows than the limit holds
+    phase16_t0 = time.perf_counter()
+    from duckdb_tpu_torch.catalog import catalog as C
+
+    try:
+        bad = out_of_core_phase(con, card, recording, recorded, launches_by_query, shapes,
+                                reps)
+    finally:
+        C.set_memory_limit(0)
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    if bad:
+        return fail(bad)
+    worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
+    print(f"phase 16 took {time.perf_counter() - phase16_t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "grouped_sum_i64", "route": "cuda",

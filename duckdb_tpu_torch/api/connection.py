@@ -4,7 +4,10 @@
 whose columns and intermediates all live on `device` (default "cuda").
 This slice runs SELECT statements over tables registered with
 `load_tpch`; DDL, DML, persistence and the rest of the JAX package's
-Connection surface come with later slices.
+Connection surface come with later slices. A device out-of-memory error
+is retried once cold, every cache emptied (execution/cache_registry.py);
+the device memory limit is `catalog.catalog.set_memory_limit(bytes)`
+until `SET memory_limit` arrives with the settings (ROADMAP item 36).
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import collections
 import torch
 
 from duckdb_tpu_torch.catalog.catalog import Catalog
+from duckdb_tpu_torch.errors import OutOfMemoryException
+from duckdb_tpu_torch.execution.cache_registry import PressureTrim, clear_all, is_oom
 from duckdb_tpu_torch.execution.executor import Executor, Result
 from duckdb_tpu_torch.planner import macros as M
 from duckdb_tpu_torch.planner.bound import BindError, not_ported
@@ -50,11 +55,32 @@ class Connection:
         # what current_database(), current_query(), random() and setseed()
         # read and change while a statement runs (planner/session.py)
         self.session = Session()
+        # empties the device caches before a new statement when the card
+        # is nearly full (execution/cache_registry.py)
+        self._pressure_trim = PressureTrim()
 
     def sql(self, query: str) -> Result:
-        """Execute one SELECT statement and return its Result."""
+        """Execute one SELECT statement and return its Result. If the card
+        runs out of memory, every device cache and pooled column is dropped
+        and the statement runs once more, cold; a second OOM raises
+        OutOfMemoryException."""
         with activate(self.session, query):
-            return self._run(query)
+            self._pressure_trim(query, self.device)
+            try:
+                return self._run(query)
+            except Exception as err:  # noqa: BLE001 — classified, else re-raised
+                if not is_oom(err):
+                    raise
+            # the retry runs outside the except block: the first attempt's
+            # traceback pins its frames' tensors until the handler ends
+            clear_all()
+            try:
+                return self._run(query)
+            except Exception as err:  # noqa: BLE001 — classified, else re-raised
+                if not is_oom(err):
+                    raise
+            raise OutOfMemoryException("Out of Memory Error: the query does not fit in device "
+                                       "memory even with every cache evicted")
 
     def _run(self, query: str) -> Result:
         stmts = Parser(query).parse_statements()

@@ -2,12 +2,21 @@
 
 As in the JAX package, column data is host-resident numpy (the "disk
 tier") and is promoted lazily to padded tensors on the catalog's device
-(the device tier) on first query touch. This slice keeps no buffer-pool
-limit: a promoted column stays on the device until its table is replaced.
+(the device tier) on first query touch. A process-wide DeviceBufferPool
+(`POOL`) counts the bytes of every promoted column and, under a memory
+limit (`set_memory_limit`; 0, the default, is none), evicts the least
+recently touched ones: an evicted column drops its device copy and
+re-promotes from the host tier on its next touch (DuckDB's buffer
+manager, standard_buffer_manager.cpp). A column made on the device (a
+materialized CTE, range()'s) gets its host copy before it can leave the
+device, so eviction never drops the only copy; a wide column (with a
+high plane) is never evicted. Under a limit, a query whose scans do not
+fit runs in chunks (execution/chunked.py).
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -15,6 +24,76 @@ import numpy as np
 
 from duckdb_tpu_torch.blocks import Column, pad_bucket
 from duckdb_tpu_torch.types import LogicalType, TypeId
+
+
+class DeviceBufferPool:
+    """LRU accounting of the device bytes of promoted columns."""
+
+    def __init__(self, limit_bytes: int = 0):
+        self.limit = limit_bytes  # 0: no limit
+        self.used = 0
+        self._clock = 0
+        # (id(entry), name) → [bytes, last touch, entry, name]
+        self._resident: Dict[tuple, list] = {}
+
+    def touch(self, entry: "TableEntry", name: str, nbytes: int = 0):
+        """Mark a column used; a new one adds its bytes and may evict others."""
+        self._clock += 1
+        key = (id(entry), name)
+        rec = self._resident.get(key)
+        if rec is not None:
+            rec[1] = self._clock
+            return
+        if not any(k[0] == key[0] for k in self._resident):
+            # a table that is garbage-collected leaves the pool with it
+            weakref.finalize(entry, self.forget, key[0])
+        self._resident[key] = [nbytes, self._clock, weakref.ref(entry), name]
+        self.used += nbytes
+        self._maybe_evict()
+
+    def release(self, entry: "TableEntry", name: str):
+        rec = self._resident.pop((id(entry), name), None)
+        if rec:
+            self.used -= rec[0]
+
+    def release_entry(self, entry: "TableEntry"):
+        """Forget every column of a dropped or replaced table."""
+        self.forget(id(entry))
+
+    def forget(self, entry_id: int):
+        for key in [k for k in self._resident if k[0] == entry_id]:
+            self.used -= self._resident.pop(key)[0]
+
+    def _maybe_evict(self):
+        if not self.limit:
+            return
+        while self.used > self.limit and len(self._resident) > 1:
+            key, (_, _, ref, name) = min(self._resident.items(), key=lambda kv: kv[1][1])
+            entry = ref()
+            if entry is not None:
+                entry.evict_device(name)
+            self.used -= self._resident.pop(key)[0]
+
+    def evict_all(self):
+        """Drop every pooled column's device copy (OOM recovery)."""
+        for _, _, ref, name in list(self._resident.values()):
+            entry = ref()
+            if entry is not None:
+                entry.evict_device(name)
+        self._resident.clear()
+        self.used = 0
+
+
+POOL = DeviceBufferPool()
+
+
+def set_memory_limit(limit_bytes: int):
+    """The device bytes promoted columns may hold (0: no limit). Above it,
+    the least recently used columns leave the device, and a query whose
+    scans need more runs in chunks (execution/chunked.py). `SET
+    memory_limit` comes with the settings (ROADMAP item 36)."""
+    POOL.limit = int(limit_bytes)
+    POOL._maybe_evict()
 
 
 @dataclass
@@ -51,6 +130,7 @@ class TableEntry:
     def set_host_column(self, name, values, validity=None, dict_values=None):
         self._host[name] = (values, validity, dict_values)
         self._device.pop(name, None)
+        POOL.release(self, name)
         self._compute_stats(name)
         self.version += 1
 
@@ -70,6 +150,7 @@ class TableEntry:
             live = values if validity is None else values[validity]
             st.n_unique = int(len(np.unique(live)))
         self._device[name] = col
+        self._pool(name, col)
         self.version += 1
 
     def set_generated_column(self, name, col: Column, stats: ColumnStats):
@@ -80,6 +161,7 @@ class TableEntry:
         self._device[name] = col
         self.stats[name] = stats
         self._loaders[name] = lambda: (*col.host_values(self.nrows), col.dict_values)
+        self._pool(name, col)
         self.version += 1
 
     def set_lazy_column(self, name, loader: Callable[[], Tuple]):
@@ -93,25 +175,61 @@ class TableEntry:
             self._compute_stats(name)
         return self._host[name]
 
+    def _device_dtype(self, name, values) -> np.dtype:
+        """The dtype a column is promoted at: an int64-typed column whose
+        zone-map range fits is narrowed to int32, which halves its device
+        residency and the bytes every scan reads (compute still widens to
+        int64)."""
+        if np.dtype(self.col_types[name].np_dtype) == np.int64 and len(values):
+            st = self.stats_for(name)
+            if (st.min_val is not None and st.max_val is not None
+                    and -2**31 < int(st.min_val) and int(st.max_val) < 2**31 - 1):
+                return np.dtype(np.int32)
+        return values.dtype
+
+    def device_bytes(self, name) -> int:
+        """The device bytes of a column, promoted or not: its padded rows at
+        its device dtype's width, plus one a row for a validity plane."""
+        col = self._device.get(name)
+        if col is not None:
+            return col.data.numel() * col.data.element_size() + (
+                0 if col.validity is None else col.validity.numel())
+        values, validity, _ = self.host_column(name)
+        n = pad_bucket(self.nrows)
+        return n * self._device_dtype(name, values).itemsize + (0 if validity is None else n)
+
     def device_column(self, name) -> Column:
         if name not in self._device:
             values, validity, dict_values = self.host_column(name)
             ltype = self.col_types[name]
-            # width narrowing: store int64-typed columns as int32 planes when
-            # the zone-map range fits — halves device residency and the bytes
-            # every scan reads (compute still widens to int64)
-            if np.dtype(ltype.np_dtype) == np.int64 and len(values):
-                st = self.stats_for(name)
-                if (st.min_val is not None and st.max_val is not None
-                        and -2**31 < int(st.min_val)
-                        and int(st.max_val) < 2**31 - 1):
-                    values = values.astype(np.int32)
-            self._device[name] = Column.from_numpy(
+            values = values.astype(self._device_dtype(name, values), copy=False)
+            col = Column.from_numpy(
                 values, ltype, validity=validity, dict_values=dict_values,
                 pad_to=pad_bucket(self.nrows), device=self.device,
                 dtype_override=values.dtype,
             )
+            self._device[name] = col
+            self._pool(name, col)
+        else:
+            POOL.touch(self, name)
         return self._device[name]
+
+    def _pool(self, name, col: Column):
+        """Count a device column in the pool (a wide one stays pinned)."""
+        if col.data_hi is None:
+            nbytes = col.data.numel() * col.data.element_size()
+            if col.validity is not None:
+                nbytes += col.validity.numel()
+            POOL.touch(self, name, nbytes)
+
+    def evict_device(self, name):
+        """Drop a column's device copy, keeping (or first making) its host
+        copy; the next device_column() promotes it again."""
+        col = self._device.get(name)
+        if col is None or col.data_hi is not None:
+            return
+        self.host_column(name)  # a column made on the device is copied first
+        del self._device[name]
 
     def _compute_stats(self, name):
         values, validity, dict_values = self._host[name]
@@ -178,6 +296,8 @@ class Catalog:
         entry.device = self.device
         if key in self.tables and not or_replace:
             raise ValueError(f'table "{entry.name}" already exists')
+        if key in self.tables:
+            POOL.release_entry(self.tables[key])
         self.tables[key] = entry
 
     def get_table(self, name: str) -> TableEntry:
@@ -190,4 +310,4 @@ class Catalog:
         return qualify(name) in self.tables
 
     def drop_table(self, name: str):
-        del self.tables[qualify(name)]
+        POOL.release_entry(self.tables.pop(qualify(name)))

@@ -196,6 +196,21 @@ def _full_valid(c: Column, plen: int) -> torch.Tensor:
     return bcast(c.validity, plen)
 
 
+def sort_keys(c: Column, plen: int, desc: bool, nulls_first: bool) -> List[torch.Tensor]:
+    """A column's normalized int64 sort keys (ops/sort.orderable_int64), in
+    DuckDB's order: a VARCHAR by its sorted dictionary's codes, a nested
+    value by its rank, a wide value as its (high, unsigned low) pair."""
+    data = bcast(c.data, plen)
+    if c.ltype.id in UNSORTED_DICT_IDS:
+        data = order_data(c, plen)  # first-seen codes → DuckDB's ranks
+    keys = []
+    if c.data_hi is not None:
+        keys.append(S.orderable_int64(bcast(c.data_hi, plen), c.validity, desc, nulls_first))
+        data = data.to(torch.int64) ^ _I64_MIN
+    keys.append(S.orderable_int64(data, c.validity, desc, nulls_first))
+    return keys
+
+
 def concat_packed(parts, types) -> Tuple[int, List[Column]]:
     """Concatenate packed column sets [(n, [Column per type])], each with
     its n live rows first, into one packed set → (total, columns), padded
@@ -320,12 +335,29 @@ class Executor:
         # "eager_semi" / "eager_anti" / "eager_left" / "eager_full" /
         # "eager_inner_residual" joins run by _exec_Join, "general_aggregate"
         # for each aggregate the fused pipeline refused, with its grouping,
-        # "general_perfect" or "general_sort_group" (the planner adds
-        # "cte_materialized" for each CTE it executes at plan time)
+        # "general_perfect" or "general_sort_group", "window" per Window
+        # node (the planner adds "cte_materialized" for each CTE it executes
+        # at plan time)
         self.routes = collections.Counter() if routes is None else routes
+        # table name → the TableEntry a scan reads instead (a chunk of the
+        # table, or the merge's partial results: execution/chunked.py)
+        self.scan_overrides: Dict[str, TableEntry] = {}
+
+    def get_table(self, name: str) -> TableEntry:
+        if name in self.scan_overrides:
+            return self.scan_overrides[name]
+        return self.catalog.get_table(name)
 
     # -- entry ---------------------------------------------------------------
     def run(self, plan: P.PlanNode, output: List[Tuple[str, str, LogicalType]]) -> Result:
+        """Run a plan to host rows: in chunks when a memory limit is set
+        and its scans do not fit (execution/chunked.py), else at once."""
+        from duckdb_tpu_torch.execution.chunked import try_chunked
+
+        if not self.scan_overrides:
+            res = try_chunked(self, plan, output)
+            if res is not None:
+                return res
         n, cols = self.materialize(plan, output)
         columns = [c.host_values(n) + (c.dict_values,) for c in cols]
         return Result(names=[n_ for n_, _, _ in output],
@@ -370,7 +402,7 @@ class Executor:
 
     # -- scans / filters / projections ---------------------------------------
     def _exec_Scan(self, node: P.Scan) -> Batch:
-        entry = self.catalog.get_table(node.table)
+        entry = self.get_table(node.table)
         plen = max(128, pad_bucket(entry.nrows))
         keymap = {key: col for col, key, _ in node.cols}
         live = torch.arange(plen, device=self.catalog.device) < entry.nrows
@@ -536,6 +568,8 @@ class Executor:
         from duckdb_tpu_torch.execution.fused_agg import _cache_store, _scan_versions
 
         vkey = _scan_versions(self, node.build)
+        if vkey is None:
+            return self.execute(node.build)
         cache = _cache_store(node, "_eager_build_cache")
         hit = cache.get(vkey)
         if hit is not None:
@@ -1204,23 +1238,17 @@ class Executor:
         src = ChainCols([DictCols(cols), GatherCols(b.src, torch.from_numpy(gidx).to(device))])
         return Batch(src=src, plen=cap, live=torch.arange(cap, device=device) < n)
 
+    # -- windows ----------------------------------------------------------------
+    def _exec_Window(self, node: P.Window) -> Batch:
+        from duckdb_tpu_torch.execution.window_exec import execute_window
+
+        return execute_window(self, node)
+
     # -- order / limit --------------------------------------------------------
     def _order_norm_keys(self, node: P.Order, b: Batch):
         env = b.env()
-        norm = []
-        for expr, desc, nulls_first in node.items:
-            c = expr.eval(env)
-            nulls_first = bool(nulls_first)  # duckdb default NULLS LAST
-            data = bcast(c.data, b.plen)
-            if c.ltype.id in UNSORTED_DICT_IDS:
-                data = order_data(c, b.plen)  # first-seen codes → DuckDB's ranks
-            if c.data_hi is not None:
-                # wide value: lexicographic (hi, unsigned-low) key pair
-                norm.append(S.orderable_int64(bcast(c.data_hi, b.plen), c.validity,
-                                              desc, nulls_first))
-                data = data.to(torch.int64) ^ _I64_MIN
-            norm.append(S.orderable_int64(data, c.validity, desc, nulls_first))
-        return norm
+        return [k for expr, desc, nulls_first in node.items
+                for k in sort_keys(expr.eval(env), b.plen, desc, bool(nulls_first))]
 
     def _exec_Order(self, node: P.Order) -> Batch:
         b = self.execute(node.child)

@@ -338,12 +338,16 @@ def _children(n) -> list:
 def _scan_versions(executor, node):
     """(table, rows, version) for every Scan under `node`: the key of the
     build caches. A sample the session's generator draws is new on every
-    run, so it adds a key that never repeats."""
+    run, so it adds a key that never repeats. None when a scan reads a
+    chunk of its table (execution/chunked.py): a chunk's state is never
+    cached, and no cached whole-table state answers a chunk."""
     out = []
     stack = [node]
     while stack:
         n = stack.pop()
         if isinstance(n, P.Scan):
+            if n.table in executor.scan_overrides:
+                return None
             ent = executor.catalog.get_table(n.table)
             out.append((n.table, ent.nrows, ent.version))
         elif isinstance(n, P.Sample) and n.seed is None:
@@ -354,8 +358,14 @@ def _scan_versions(executor, node):
 
 def _cache_store(node, attr: str) -> dict:
     """Per-plan-node cache dict (the plan lives in the connection's plan
-    cache, so warm queries find it)."""
-    return node.__dict__.setdefault(attr, {})
+    cache, so warm queries find it), registered with
+    execution/cache_registry so that OOM recovery can empty it."""
+    from duckdb_tpu_torch.execution.cache_registry import tracked_dict
+
+    store = node.__dict__.get(attr)
+    if store is None:
+        store = node.__dict__[attr] = tracked_dict()
+    return store
 
 
 def _prep_join_step(executor, j: P.Join) -> Optional[_JoinStep]:
@@ -369,6 +379,8 @@ def _prep_join_step(executor, j: P.Join) -> Optional[_JoinStep]:
     if j.extra is not None and j.jtype == "inner":
         return None  # an inner residual changes the match itself: eager path
     vkey = _scan_versions(executor, j.build)
+    if vkey is None:
+        return _prep_join_step_fresh(executor, j)
     cache = _cache_store(j, "_prep_cache")
     if vkey in cache:
         return cache[vkey]
@@ -471,6 +483,8 @@ def _plan_keys(node) -> set:
         return _plan_keys(node.child)
     if isinstance(node, P.ListPack):
         return _plan_keys(node.child) | {node.key}
+    if isinstance(node, P.Window):
+        return _plan_keys(node.child) | {w.key for w in node.windows}
     if isinstance(node, P.Unnest):
         return _plan_keys(node.child) | set(node.keys)
     if isinstance(node, (P.CrossJoin, P.PositionalJoin, P.Sample)):
@@ -529,7 +543,7 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
     base_batch = executor.execute(base)
     plen = base_batch.plen
     if isinstance(base, P.Scan):
-        entry = executor.catalog.get_table(base.table)
+        entry = executor.get_table(base.table)
         key2col = {key: col for col, key, _ in base.cols}
         base_rows = entry.nrows
     else:

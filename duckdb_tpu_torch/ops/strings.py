@@ -49,6 +49,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from duckdb_tpu_torch.execution.cache_registry import tracked_dict
+
 # below this many distinct values the host regex loop is cheap
 DEVICE_LIKE_MIN_DICT = 4096
 # the same for the string functions' host loops
@@ -62,15 +64,16 @@ device_like_events: List[Tuple[str, int]] = []
 # every LUT a plane op computed: [(op key, n_distinct), ...]
 device_str_events: List[Tuple[str, int]] = []
 
-# (id(dict_values), device) → (dict_values, plane, lens)
-_PLANE_CACHE: dict = {}
+# (id(dict_values), device) → (dict_values, plane, lens); both device
+# caches are emptied by OOM recovery (execution/cache_registry)
+_PLANE_CACHE: dict = tracked_dict()
 _PLANE_CACHE_MAX = 8
 # id(dict_values) → (dict_values, uint8 matrix (n, L), lens): the raw bytes
 # of a dictionary the storage reader decoded (register_plane)
 _PREPACKED: dict = {}
 _PREPACKED_MAX = 8
 # (id(dict_values),) + key → (dict_values, LUT tensor)
-_LUT_CACHE: dict = {}
+_LUT_CACHE: dict = tracked_dict()
 _LUT_CACHE_MAX = 64
 
 

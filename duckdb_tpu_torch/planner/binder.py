@@ -420,12 +420,17 @@ class ExprBinder:
     set when binding select/having/order lists of an aggregating query.
     subquery_binder: callable(ast node, binder) → BoundExpr for Scalar/In/
     Exists subqueries (installed by the planner).
+    window_collector: callable(WindowFunction ast, binder) → BoundAggregateRef
+    to the window's output column, set while binding a SELECT's
+    select list and QUALIFY.
     """
 
-    def __init__(self, scope: Scope, agg_collector=None, subquery_binder=None):
+    def __init__(self, scope: Scope, agg_collector=None, subquery_binder=None,
+                 window_collector=None):
         self.scope = scope
         self.agg_collector = agg_collector
         self.subquery_binder = subquery_binder
+        self.window_collector = window_collector
 
     def bind(self, e: N.Expr) -> B.BoundExpr:
         m = getattr(self, "_bind_" + type(e).__name__, None)
@@ -761,7 +766,9 @@ class ExprBinder:
         return B.BoundFunction(name, [base], rt, impl)
 
     def _bind_WindowFunction(self, e):
-        raise not_ported("window functions (ROADMAP item 29)")
+        if self.window_collector is None:
+            raise BindError("Binder Error: window functions are not allowed here")
+        return self.window_collector(e, self)
 
     # -- subqueries (the planner flattens or evaluates them) -------------------
     def _bind_subquery(self, e):

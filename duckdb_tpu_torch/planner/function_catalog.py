@@ -5,8 +5,9 @@ own tables: the scalar registry (planner/functions.REGISTRY, filled by
 functions, functions_ext, functions_nested, functions_more,
 functions_parity and storage/json_io), the aggregates and lambdas the
 binder dispatches, the operators it rewrites from a function call, the
-names it binds structurally, and the default macros. Window functions
-wait for ROADMAP item 29, so the port knows no window name yet.
+names it binds structurally, and the default macros. Window function
+names (planner._bind_window_call) are recognized only in OVER (); the
+aggregates that double as window functions are counted as aggregates.
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ from duckdb_tpu_torch.planner import functions_parity as _parity
 from duckdb_tpu_torch.planner import macros as _macros
 from duckdb_tpu_torch.planner.functions import REGISTRY
 
-# recognized only in OVER () (ROADMAP item 29): none yet
-WINDOW_NAMES: frozenset = frozenset()
+# recognized only in OVER ()
+WINDOW_NAMES = frozenset({
+    "row_number", "rank", "dense_rank", "rank_dense", "ntile", "lag", "lead", "first_value",
+    "last_value", "nth_value", "percent_rank", "cume_dist", "fill"})
 
 LAMBDA_NAMES = frozenset(_binder._LAMBDA_NAMES + _binder._REDUCE_NAMES)
 

@@ -123,6 +123,29 @@ class ConstantRow(PlanNode):
 
 
 @dataclass
+class BoundWindow:
+    """One window function call: its output key, function name, bound
+    arguments, PARTITION BY and ORDER BY, and frame (None: the default)."""
+
+    key: str
+    func: str  # row_number / rank / dense_rank / sum / avg / min / max / lag / …
+    args: List[BoundExpr]
+    partition_by: List[BoundExpr]
+    order_by: List[Tuple[BoundExpr, bool, Optional[bool]]]  # (expr, desc, nulls_first)
+    frame: Optional[Tuple[str, tuple, tuple]]  # (mode, start, end) as the parser gives it
+    ltype: LogicalType = None
+
+
+@dataclass
+class Window(PlanNode):
+    """The child's rows with one column per window function added (DuckDB's
+    physical_window.cpp): every row keeps its place."""
+
+    child: PlanNode
+    windows: List[BoundWindow]
+
+
+@dataclass
 class Order(PlanNode):
     child: PlanNode
     items: List[Tuple[BoundExpr, bool, Optional[bool]]]  # (expr, desc, nulls_first)

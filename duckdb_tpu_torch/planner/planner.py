@@ -35,8 +35,12 @@ planned here too, USING to DuckDB's rules for every join type. The table
 functions range, generate_series and repeat, duckdb_functions() and the
 catalog functions become hidden tables that live as long as the plan
 (range's column made on the device); a plan that snapshots the catalog
-is `uncacheable`. LATERAL, windows, QUALIFY and DISTINCT ON are not yet
-ported and say so.
+is `uncacheable`. Window functions, with their ORDER BY, PARTITION BY
+and ROWS or RANGE frame, become one Window node over the aggregate's
+output; QUALIFY is a filter over it and reads select aliases, and
+DISTINCT ON keeps the rows that row_number() over the ON keys, in the
+statement's ORDER BY order, numbers 1. LATERAL is not yet ported and says
+so.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 
 from duckdb_tpu_torch.blocks import Column, pad_bucket
+from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
 from duckdb_tpu_torch.sql import nodes as N
 from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner import plan as P
@@ -93,6 +98,11 @@ _PORTED_AGGS = {
     "stddev_samp", "stddev_pop", "var_samp", "var_pop", "variance",
     "bit_and", "bit_or", "bit_xor", "approx_count_distinct",
 } | STAT_AGGS | NESTED_RESULT_AGGS
+
+# window functions over the whole partition only: with an ORDER BY or a
+# frame they wait for ROADMAP item 44
+_HOLISTIC_WINDOWS = ("median", "quantile_cont", "stddev", "stddev_samp", "stddev_pop",
+                     "var_samp", "var_pop", "variance")
 
 # the reference's aggregate aliases (duckdb_tpu/planner/planner.py)
 _AGG_ALIASES = {
@@ -374,7 +384,8 @@ class Planner:
             ctes[cte.name.lower()] = cte
             self._cte_use_count[cte.name.lower()] = self._count_cte_refs(
                 stmt, cte.name.lower())
-        plan, output, scope = self.plan_query_node(stmt.node, outer_scope, ctes)
+        plan, output, scope = self.plan_query_node(stmt.node, outer_scope, ctes,
+                                                   order_by=stmt.order_by)
         if stmt.order_by:
             plan = self._plan_order(plan, stmt.order_by, output, scope)
         if stmt.limit is not None or stmt.offset is not None:
@@ -387,8 +398,10 @@ class Planner:
         return plan, output
 
     # -- set operations --------------------------------------------------------
-    def plan_query_node(self, node, outer_scope, ctes):
-        """A SELECT, a set operation or VALUES → (plan, output, scope info)."""
+    def plan_query_node(self, node, outer_scope, ctes, order_by=()):
+        """A SELECT, a set operation or VALUES → (plan, output, scope info).
+        `order_by` is the statement's ORDER BY, which a SELECT's DISTINCT ON
+        reads."""
         if isinstance(node, N.ValuesNode):
             # VALUES (…), (…): a UNION ALL of one-row SELECTs, its columns
             # named col0, col1, … as DuckDB names them
@@ -400,7 +413,7 @@ class Planner:
             return self._plan_setop_inputs("union", True, [
                 self.plan_select_node(b, outer_scope, ctes)[:2] for b in branches])
         if isinstance(node, N.SelectNode):
-            return self.plan_select_node(node, outer_scope, ctes)
+            return self.plan_select_node(node, outer_scope, ctes, order_by)
         if isinstance(node, N.SetOpNode):
             if node.op == "union" and node.all:
                 # a chain of UNION ALL is one n-ary concatenation
@@ -1227,9 +1240,7 @@ class Planner:
                     out.append((p, p.right, p.left))
         return out
 
-    def plan_select_node(self, sel: N.SelectNode, outer_scope, ctes):
-        if sel.qualify is not None or sel.distinct_on:
-            raise not_ported("QUALIFY and DISTINCT ON (ROADMAP item 29)")
+    def plan_select_node(self, sel: N.SelectNode, outer_scope, ctes, order_by=()):
         scope = Scope(parent=outer_scope)
         atoms: List[Atom] = []
         pred_asts: List[N.Expr] = []
@@ -1255,6 +1266,18 @@ class Planner:
         if has_agg:
             plan, post_binder = self._plan_aggregate(plan, sel, scope,
                                                      select_aliases, binder, ctes)
+
+        # -- windows: each call in the select list, QUALIFY or DISTINCT ON
+        # adds a column to one Window node over the aggregate's output
+        windows: List[P.BoundWindow] = []
+        window_refs = {}  # id(WindowFunction ast) → its column, bound once
+
+        def window_collector(wf, b):
+            if id(wf) not in window_refs:
+                window_refs[id(wf)] = self._bind_window_call(wf, b, windows)
+            return window_refs[id(wf)]
+
+        post_binder.window_collector = window_collector
 
         # -- projection -------------------------------------------------------
         # list_value over columns becomes a ListPack node (below the
@@ -1293,7 +1316,10 @@ class Planner:
                             f'Binder Error: column "{names.get(nn.key, nn.key)}" must appear '
                             "in the GROUP BY clause or must be part of an aggregate function")
         if sel.having is not None:
+            # HAVING filters before the windows run: no window in it
+            post_binder.window_collector = None
             hb = post_binder.bind(sel.having)
+            post_binder.window_collector = window_collector
             allowed = {gk for gk, _ in plan.groups} | {a.key for a in plan.aggs}
             for nn in B.walk(hb):
                 if isinstance(nn, B.BoundColumnRef) and nn.key not in allowed:
@@ -1301,12 +1327,28 @@ class Planner:
                         "Binder Error: HAVING column must appear in the GROUP "
                         "BY clause or be used in an aggregate function")
             plan = P.Filter(plan, hb)
+        qualify = None
+        if sel.qualify is not None:
+            # QUALIFY reads a select alias where no column has its name, as
+            # DuckDB does (the reference raises "column not found": W2)
+            qualify = post_binder.bind(_subst_aliases(sel.qualify, select_aliases, scope))
+        first_on = None
+        if sel.distinct_on:
+            first_on = self._distinct_on_window(sel, order_by, select_aliases, post_binder,
+                                                windows)
+        post_binder.window_collector = None
+        if windows:
+            plan = P.Window(plan, windows)
+        if qualify is not None:
+            plan = P.Filter(plan, qualify)
+        if first_on is not None:
+            plan = P.Filter(plan, first_on)
         for key, args, lt in post_packs:
             plan = P.ListPack(plan, args, key, lt)
         if unnests:
             plan = P.Unnest(plan, [a for _, a in unnests], [k for k, _ in unnests])
         plan = P.Project(plan, items)
-        if sel.distinct:
+        if sel.distinct and not sel.distinct_on:
             plan = P.Aggregate(plan, [(k, B.BoundColumnRef(k, t))
                                       for _, k, t in output], [])
         out_scope = Scope()
@@ -1789,6 +1831,69 @@ class Planner:
         return _ScalarAgg(plan, corr_eqs, groups, B.BoundColumnRef(out_key, item_b.ltype),
                           no_rows)
 
+    # -- windows ---------------------------------------------------------------
+    def _bind_window_call(self, wf: N.WindowFunction, binder, windows: List[P.BoundWindow]):
+        """A window call → a reference to its output column, its BoundWindow
+        appended to `windows` (result types as the JAX package gives them)."""
+        fc, spec = wf.func, wf.spec
+        name = fc.name.lower()
+        name = {"rank_dense": "dense_rank", "mean": "avg"}.get(name, name)
+        if fc.distinct or fc.filter is not None or fc.order_by:
+            raise not_ported(f"{name}() with DISTINCT, FILTER or ORDER BY over a window")
+        args = [binder.bind(a) for a in fc.args]
+        part = [binder.bind(e) for e in spec.partition_by]
+        order = [(binder.bind(it.expr), it.descending, it.nulls_first)
+                 for it in spec.order_by]
+        if name in ("row_number", "rank", "dense_rank", "ntile", "count"):
+            t = BIGINT
+        elif name == "sum":
+            t = _agg_result_type("sum", args)
+        elif name in ("avg", "percent_rank", "cume_dist"):
+            t = DOUBLE
+        elif name in ("min", "max", "lag", "lead", "first_value", "last_value",
+                      "nth_value", "fill"):
+            t = args[0].ltype if args else SQLNULL
+        elif name in _HOLISTIC_WINDOWS:
+            if order or spec.frame is not None:
+                # the JAX package ignores both and answers over the whole
+                # partition (W3)
+                raise not_ported(f"{name}() over an ORDER BY or a frame (ROADMAP item 44)")
+            t = DOUBLE
+        else:
+            raise BindError(f"Binder Error: window function {name} is not supported")
+        if name in ("sum", "avg", "min", "max", "lag", "lead", "first_value", "last_value",
+                    "nth_value", "fill") + _HOLISTIC_WINDOWS and not args:
+            raise BindError(f"Binder Error: {name}() over a window needs an argument")
+        if args and (args[0].ltype.id is TypeId.HUGEINT
+                     or args[0].ltype.id in UNSORTED_DICT_IDS):
+            raise not_ported(f"{name}() over a window of {args[0].ltype!r} values")
+        key = self.fresh(f"win.{name}")
+        windows.append(P.BoundWindow(key, name, args, part, order, spec.frame, t))
+        return B.BoundAggregateRef(key, t)
+
+    def _distinct_on_window(self, sel, order_by, select_aliases, binder, windows):
+        """DISTINCT ON (keys): row_number() over the keys in the statement's
+        ORDER BY order, and the predicate that keeps its first row (DuckDB's
+        first row of each key in ORDER BY order; any one row without an
+        ORDER BY). Keys and ORDER BY items may name a select alias or a
+        select-list position."""
+        def resolve(e):
+            if isinstance(e, N.Literal) and isinstance(e.value, int) \
+                    and not isinstance(e.value, bool):
+                return sel.select_list[e.value - 1][0]
+            if isinstance(e, N.ColumnRef) and len(e.parts) == 1 \
+                    and e.parts[0].lower() in select_aliases:
+                return select_aliases[e.parts[0].lower()]
+            return e
+
+        part = [binder.bind(resolve(e)) for e in sel.distinct_on]
+        order = [(binder.bind(resolve(it.expr)), it.descending, it.nulls_first)
+                 for it in order_by]
+        key = self.fresh("win.row_number")
+        windows.append(P.BoundWindow(key, "row_number", [], part, order, None, BIGINT))
+        return B.BoundComparison("=", B.BoundAggregateRef(key, BIGINT),
+                                 B.BoundLiteral(1, BIGINT))
+
     def _plan_order(self, plan, order_items, output, scope_info):
         out_scope, post_binder = scope_info
         items = []
@@ -1878,6 +1983,10 @@ def _find_scalar_subqueries(e) -> list:
 
 
 def _contains_aggregate(e: N.Expr) -> bool:
+    if isinstance(e, N.WindowFunction):
+        # a windowed aggregate is not a GROUP BY aggregate, but an aggregate
+        # in its arguments is (sum(sum(x)) OVER ())
+        return any(_contains_aggregate(a) for a in e.func.args)
     if isinstance(e, N.FunctionCall):
         if e.name.lower() in AGGREGATE_NAMES or e.is_star:
             return True
@@ -1894,6 +2003,31 @@ def _contains_aggregate(e: N.Expr) -> bool:
                         isinstance(y, N.Expr) and _contains_aggregate(y) for y in x):
                     return True
     return False
+
+
+def _subst_aliases(e, aliases: Dict[str, N.Expr], scope: Scope):
+    """e with each one-part column name that no column of `scope` answers
+    to replaced by the select-list expression it aliases (not inside
+    subqueries or window specifications)."""
+    if isinstance(e, N.ColumnRef):
+        if len(e.parts) == 1 and e.parts[0].lower() in aliases \
+                and scope.try_resolve(e.parts) is None:
+            return aliases[e.parts[0].lower()]
+        return e
+    if not isinstance(e, N.Expr) or not dataclasses.is_dataclass(e):
+        return e
+    changes = {}
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        if isinstance(v, N.Expr):
+            nv = _subst_aliases(v, aliases, scope)
+        elif isinstance(v, list):
+            nv = [tuple(_subst_aliases(y, aliases, scope) for y in x) if isinstance(x, tuple)
+                  else _subst_aliases(x, aliases, scope) for x in v]
+        else:
+            continue
+        changes[f.name] = nv
+    return dataclasses.replace(e, **changes) if changes else e
 
 
 def _bound_eq(a: B.BoundExpr, b: B.BoundExpr) -> bool:

@@ -24,7 +24,9 @@ the scalar functions with the JSON functions, each answered in numpy (and
 Python's hashlib, base64 arithmetic and re where a function is a text one);
 SELECT_FORM_QUERIES the set operations, grouping sets, recursion, MARK
 joins and the joins without an equality, answered in numpy and Python's
-collections.Counter (multisets).
+collections.Counter (multisets); WINDOW_QUERIES window functions, QUALIFY
+and DISTINCT ON, answered by lexsorts and per-partition cumulative sums,
+shifts and searchsorted.
 `answer(name, data_dir, **params)` returns the rows as `Result.rows()`
 gives them (DECIMAL → decimal.Decimal, DATE → datetime.date, VARCHAR →
 str), in the order ORDER BY fixes, LIMIT applied. Queries take their
@@ -571,6 +573,69 @@ SELECT count(*), sum(c_custkey), sum(o_totalprice) FROM
     "sample_rows": "SELECT count(*) FROM lineitem USING SAMPLE 100000 ROWS (reservoir, 42)",
 }
 SAMPLE_PERCENT_QUERY = "SELECT count(*) FROM lineitem TABLESAMPLE 10% REPEATABLE (42)"
+
+_SUPP_ORDER = "PARTITION BY l_suppkey ORDER BY l_shipdate, l_orderkey, l_linenumber"
+_PS_ORDER = "PARTITION BY ps_partkey ORDER BY ps_supplycost"
+WINDOW_QUERIES = {
+    "win_rank_lineitem": """
+SELECT l_returnflag, l_linestatus, count(*) AS n, sum(l_extendedprice) AS s
+FROM (SELECT l_returnflag, l_linestatus, l_extendedprice,
+        rank() OVER (PARTITION BY l_orderkey ORDER BY l_extendedprice DESC) AS r
+      FROM lineitem) t
+WHERE r = 1
+GROUP BY l_returnflag, l_linestatus ORDER BY 1, 2
+""",
+    "win_running_orders": """
+SELECT o_orderpriority, count(*) AS n, max(rs) AS top, sum(rs) AS s
+FROM (SELECT o_orderpriority, sum(o_totalprice) OVER (PARTITION BY o_orderpriority
+        ORDER BY o_orderdate, o_orderkey ROWS UNBOUNDED PRECEDING) AS rs
+      FROM orders) t
+GROUP BY o_orderpriority ORDER BY 1
+""",
+    "win_frames_lineitem": f"""
+SELECT l_returnflag, count(*) AS n, sum(a7) AS s_a7, sum(mn) AS s_mn, sum(mx) AS s_mx,
+  sum(r30) AS s_r30
+FROM (SELECT l_returnflag,
+        avg(l_quantity) OVER ({_SUPP_ORDER} ROWS BETWEEN 6 PRECEDING AND CURRENT ROW) AS a7,
+        min(l_extendedprice) OVER ({_SUPP_ORDER}
+          ROWS BETWEEN 3 PRECEDING AND 3 FOLLOWING) AS mn,
+        max(l_extendedprice) OVER ({_SUPP_ORDER}
+          ROWS BETWEEN 3 PRECEDING AND 3 FOLLOWING) AS mx,
+        sum(l_quantity) OVER (PARTITION BY l_suppkey ORDER BY l_shipdate
+          RANGE BETWEEN INTERVAL 30 DAY PRECEDING AND CURRENT ROW) AS r30
+      FROM lineitem) t
+GROUP BY l_returnflag ORDER BY 1
+""",
+    "win_lag_lead": """
+SELECT count(*) AS n, count(prev_ship) AS n_prev, count(next_ship) AS n_next,
+  sum(CASE WHEN l_shipdate < prev_ship THEN 1 ELSE 0 END) AS n_earlier
+FROM (SELECT l_shipdate,
+        lag(l_shipdate) OVER (PARTITION BY l_orderkey ORDER BY l_linenumber) AS prev_ship,
+        lead(l_shipdate) OVER (PARTITION BY l_orderkey ORDER BY l_linenumber) AS next_ship
+      FROM lineitem) t
+""",
+    "win_dist_partsupp": f"""
+SELECT n4, count(*) AS n, sum(pr) AS s_pr, sum(cd) AS s_cd, sum(dr) AS s_dr
+FROM (SELECT ntile(4) OVER ({_PS_ORDER}) AS n4, percent_rank() OVER ({_PS_ORDER}) AS pr,
+        cume_dist() OVER ({_PS_ORDER}) AS cd, dense_rank() OVER ({_PS_ORDER}) AS dr
+      FROM partsupp) t
+GROUP BY n4 ORDER BY n4
+""",
+    "win_median_part": """
+SELECT p_brand, count(*) AS n, min(m) AS m
+FROM (SELECT p_brand, median(p_retailprice) OVER (PARTITION BY p_brand) AS m FROM part) t
+GROUP BY p_brand ORDER BY p_brand
+""",
+    "qualify_top3": """
+SELECT c_nationkey, c_custkey, c_acctbal,
+  row_number() OVER (PARTITION BY c_nationkey ORDER BY c_acctbal DESC, c_custkey) AS rn
+FROM customer QUALIFY rn <= 3 ORDER BY c_nationkey, rn
+""",
+    "distinct_on_nation": """
+SELECT DISTINCT ON (c_nationkey) c_nationkey, c_custkey, c_name, c_acctbal
+FROM customer ORDER BY c_nationkey, c_acctbal DESC
+""",
+}
 
 _EPOCH = datetime.date(1970, 1, 1)
 
@@ -1783,6 +1848,147 @@ def sample_rows(t):
     return [(min(100_000, len(t("lineitem", "l_orderkey"))),)]
 
 
+def _runs(keys: np.ndarray) -> np.ndarray:
+    """Each row's run id over sorted keys (a run: equal neighbours)."""
+    return np.cumsum(np.r_[True, keys[1:] != keys[:-1]]) - 1
+
+
+def win_rank_lineitem(t):
+    """rank() = 1 where a line's price is its order's largest."""
+    okey, price = t("lineitem", "l_orderkey"), t("lineitem", "l_extendedprice")
+    order = np.argsort(okey, kind="stable")
+    run = _runs(okey[order])
+    top = np.maximum.reduceat(price[order], np.flatnonzero(np.r_[True, np.diff(run) > 0]))
+    keep = np.empty(len(okey), dtype=bool)
+    keep[order] = price[order] == top[run]
+    keys, inv = _groups(t("lineitem", "l_returnflag")[keep], t("lineitem", "l_linestatus")[keep])
+    cnt, s = np.bincount(inv, minlength=len(keys)), _sums(inv, len(keys), price[keep])
+    return [(k[0].decode(), k[1].decode(), int(cnt[g]), _dec(s[g], 2))
+            for g, k in enumerate(keys)]
+
+
+def win_running_orders(t):
+    """Running sums of o_totalprice per priority in (date, key) order."""
+    prio, price = t("orders", "o_orderpriority"), t("orders", "o_totalprice")
+    order = np.lexsort((t("orders", "o_orderkey"), t("orders", "o_orderdate"), prio))
+    p_s, x = prio[order], price[order]
+    run = _runs(p_s)
+    starts = np.flatnonzero(np.r_[True, np.diff(run) > 0])
+    c = np.cumsum(x)
+    rs = c - (c - x)[starts][run]
+    return [(p_s[st].decode(), int(n), _dec(int(m), 2), _dec(int(sm), 2))
+            for st, n, m, sm in zip(starts, np.diff(np.r_[starts, len(x)]),
+                                    np.maximum.reduceat(rs, starts), np.add.reduceat(rs, starts))]
+
+
+def win_frames_lineitem(t):
+    """Per l_suppkey in (shipdate, orderkey, linenumber) order: a 7-row
+    trailing avg of l_quantity, a 7-row centred min and max of
+    l_extendedprice, and the l_quantity of the last 30 days (peers in)."""
+    supp, ship = t("lineitem", "l_suppkey"), t("lineitem", "l_shipdate")
+    order = np.lexsort((t("lineitem", "l_linenumber"), t("lineitem", "l_orderkey"), ship, supp))
+    sp, sh = supp[order], ship[order]
+    q, pr = t("lineitem", "l_quantity")[order], t("lineitem", "l_extendedprice")[order]
+    rf = t("lineitem", "l_returnflag")[order]
+    n = len(sp)
+    idx = np.arange(n)
+    run = _runs(sp)
+    starts = np.flatnonzero(np.r_[True, np.diff(run) > 0])
+    first = starts[run]
+    last = np.r_[starts[1:] - 1, n - 1][run]
+    cq = np.r_[0, np.cumsum(q)]
+    lo = np.maximum(idx - 6, first)
+    a7 = (cq[idx + 1] - cq[lo]) / ((idx - lo + 1) * 100.0)
+    mn, mx = pr.copy(), pr.copy()
+    for d in (1, 2, 3):
+        for j in (idx - d, idx + d):
+            ok = (j >= first) & (j <= last)
+            v = pr[np.clip(j, 0, n - 1)]
+            mn = np.where(ok, np.minimum(mn, v), mn)
+            mx = np.where(ok, np.maximum(mx, v), mx)
+    key = sp.astype(np.int64) * 100_000 + sh
+    r30 = cq[np.searchsorted(key, key, side="right")] - cq[np.searchsorted(key, key - 30)]
+    keys, inv = _groups(rf)
+    k = len(keys)
+    cnt = np.bincount(inv, minlength=k)
+    s_a7 = np.bincount(inv, weights=a7, minlength=k)
+    return [(keys[g][0].decode(), int(cnt[g]), float(s_a7[g]),
+             _dec(_sums(inv, k, mn)[g], 2), _dec(_sums(inv, k, mx)[g], 2),
+             _dec(_sums(inv, k, r30)[g], 2)) for g in range(k)]
+
+
+def win_lag_lead(t):
+    okey, ship = t("lineitem", "l_orderkey"), t("lineitem", "l_shipdate")
+    order = np.lexsort((t("lineitem", "l_linenumber"), okey))
+    o_s, sh = okey[order], ship[order]
+    has_prev = np.r_[False, o_s[1:] == o_s[:-1]]
+    earlier = has_prev & (sh < np.r_[0, sh[:-1]])
+    return [(len(o_s), int(has_prev.sum()), int(has_prev.sum()), int(earlier.sum()))]
+
+
+def win_dist_partsupp(t):
+    """ntile(4), percent_rank, cume_dist and dense_rank per part in
+    supply-cost order, summed per tile."""
+    pk, cost = t("partsupp", "ps_partkey"), t("partsupp", "ps_supplycost")
+    order = np.lexsort((cost, pk))
+    p_s, c_s = pk[order], cost[order]
+    n = len(p_s)
+    idx = np.arange(n)
+    run = _runs(p_s)
+    starts = np.flatnonzero(np.r_[True, np.diff(run) > 0])
+    first = starts[run]
+    size = np.diff(np.r_[starts, n])[run]
+    peer = np.cumsum(np.r_[True, (p_s[1:] != p_s[:-1]) | (c_s[1:] != c_s[:-1])]) - 1
+    pstarts = np.flatnonzero(np.r_[True, np.diff(peer) > 0])
+    peer_first = pstarts[peer]
+    peer_last = np.r_[pstarts[1:] - 1, n - 1][peer]
+    pr = np.where(size > 1, (peer_first - first) / np.maximum(size - 1, 1), 0.0)
+    cd = (peer_last - first + 1) / size
+    dr = peer - peer[first] + 1
+    k = idx - first
+    base, rem = size // 4, size % 4
+    n4 = np.where(k < rem * (base + 1), k // (base + 1),
+                  rem + (k - rem * (base + 1)) // np.maximum(base, 1)) + 1
+    out = []
+    for tile in np.unique(n4):
+        m = n4 == tile
+        out.append((int(tile), int(m.sum()), float(pr[m].sum()), float(cd[m].sum()),
+                    int(dr[m].sum())))
+    return out
+
+
+def win_median_part(t):
+    brand, price = t("part", "p_brand"), t("part", "p_retailprice")
+    out = []
+    for b in np.unique(brand):
+        v = np.sort(price[brand == b]) / 100.0
+        pos = (len(v) - 1) * 0.5
+        lo, hi = int(math.floor(pos)), int(math.ceil(pos))
+        out.append((b.decode(), len(v), float(v[lo] * (1.0 - (pos - lo)) + v[hi] * (pos - lo))))
+    return out
+
+
+def qualify_top3(t):
+    nk, ck, bal = (t("customer", c) for c in ("c_nationkey", "c_custkey", "c_acctbal"))
+    order = np.lexsort((ck, -bal, nk))
+    run = _runs(nk[order])
+    starts = np.flatnonzero(np.r_[True, np.diff(run) > 0])
+    rn = np.arange(len(order)) - starts[run] + 1
+    return [(int(nk[i]), int(ck[i]), _dec(bal[i], 2), int(r))
+            for i, r in zip(order, rn) if r <= 3]
+
+
+def distinct_on_nation(t):
+    """The first customer of each nation by c_acctbal DESC; of equal
+    balances, the first in row order (the port's stable sort; DuckDB may
+    give any of them)."""
+    nk, bal = t("customer", "c_nationkey"), t("customer", "c_acctbal")
+    order = np.lexsort((np.arange(len(nk)), -bal, nk))
+    firsts = order[np.r_[True, nk[order][1:] != nk[order][:-1]]]
+    return [(int(nk[i]), int(t("customer", "c_custkey")[i]),
+             t("customer", "c_name")[i].decode(), _dec(bal[i], 2)) for i in firsts]
+
+
 _ANSWERS = {"q02": q02, "q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q08,
             "q09": q09, "q10": q10, "q11": q11, "q12": q12, "q13": q13,
             "q13_nolike": q13_nolike, "q14": q14, "q15": q15, "q16": q16, "q17": q17,
@@ -1800,13 +2006,15 @@ _ANSWERS = {"q02": q02, "q03": q03, "q04": q04, "q05": q05, "q07": q07, "q08": q
             "recursive_months": recursive_months, "mark_q4": mark_q4, "mark_in_or": mark_in_or,
             "notin_residual": notin_residual, "asof_ship": asof_ship, "band_join": band_join,
             "cross_small": cross_small, "positional": positional, "using_left": using_left,
-            "using_full": using_full, "natural_join": natural_join, "sample_rows": sample_rows}
+            "using_full": using_full, "natural_join": natural_join, "sample_rows": sample_rows,
+            **{name: globals()[name] for name in WINDOW_QUERIES}}
 
 
 def answer(name: str, data_dir: str, **params):
     """Rows of query `name` (a key of QUERIES, SUBQUERY_QUERIES,
     FROM_QUERIES, LIKE_QUERIES, GENERAL_QUERIES, FUNCTION_QUERIES,
-    NESTED_QUERIES, MORE_QUERIES or SELECT_FORM_QUERIES) over data_dir; params go to the query's
+    NESTED_QUERIES, MORE_QUERIES, SELECT_FORM_QUERIES or WINDOW_QUERIES) over data_dir;
+    params go to the query's
     answer (Q2's `size`/`type_suffix`/`region`, Q7's `nation1`/`nation2`,
     Q8's `nation`/`region`/`ptype`, Q9's `color`, Q11's `nation`, Q13's
     `words`, Q14's `type_prefix`, Q16's `remark`, Q18's `threshold`, Q20's

@@ -757,3 +757,73 @@ def test_select_forms_on_cuda(tmp_path):
     con.load_tpch(str(tmp_path))
     for name, sql in tpch_oracle.SELECT_FORM_QUERIES.items():
         _close_rows(con.sql(sql).rows(), tpch_oracle.answer(name, str(tmp_path)), name)
+
+
+@pytest.mark.gpu
+def test_windows_on_cuda_match_cpu(tmp_path):
+    """Ranking, running sums, framed min/max (the sparse table), RANGE
+    frames (the bisection, INTERVAL offsets) and the holistics on CUDA
+    tensors give the CPU port's rows; the WINDOW_QUERIES equal the numpy
+    oracle."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path))
+    for sql in (
+            "SELECT l_orderkey, l_linenumber, rank() OVER (PARTITION BY l_orderkey ORDER BY "
+            "l_extendedprice DESC), dense_rank() OVER (ORDER BY l_shipmode), row_number() OVER "
+            "(PARTITION BY l_returnflag ORDER BY l_orderkey, l_linenumber) FROM lineitem",
+            "SELECT o_orderkey, sum(o_totalprice) OVER (PARTITION BY o_orderpriority ORDER BY "
+            "o_orderdate, o_orderkey), avg(o_totalprice) OVER (PARTITION BY o_orderstatus), "
+            "min(o_orderdate) OVER (PARTITION BY o_custkey ORDER BY o_orderkey) FROM orders",
+            "SELECT l_orderkey, l_linenumber, min(l_extendedprice) OVER (PARTITION BY l_suppkey "
+            "ORDER BY l_orderkey, l_linenumber ROWS BETWEEN 3 PRECEDING AND 3 FOLLOWING), "
+            "max(l_discount) OVER (PARTITION BY l_suppkey ORDER BY l_orderkey, l_linenumber ROWS "
+            "BETWEEN 5 PRECEDING AND CURRENT ROW) FROM lineitem",
+            "SELECT l_orderkey, l_linenumber, sum(l_quantity) OVER (PARTITION BY l_suppkey ORDER "
+            "BY l_shipdate RANGE BETWEEN INTERVAL 30 DAY PRECEDING AND CURRENT ROW), count(*) "
+            "OVER (PARTITION BY l_suppkey ORDER BY l_shipdate DESC RANGE BETWEEN INTERVAL 1 "
+            "MONTH PRECEDING AND INTERVAL 2 DAY FOLLOWING) FROM lineitem",
+            "SELECT p_partkey, median(p_retailprice) OVER (PARTITION BY p_brand), lag(p_name, 2, "
+            "'none') OVER (ORDER BY p_partkey), ntile(7) OVER (PARTITION BY p_size ORDER BY "
+            "p_partkey) FROM part",
+            # DOUBLE running and span sums: log-step scans per partition,
+            # held to the CPU within 1e-9 relative
+            "SELECT l_orderkey, l_linenumber, sum(CAST(l_extendedprice AS DOUBLE)) OVER "
+            "(PARTITION BY l_suppkey ORDER BY l_orderkey, l_linenumber), avg(CAST(l_tax AS "
+            "DOUBLE)) OVER (PARTITION BY l_suppkey ORDER BY l_orderkey, l_linenumber ROWS BETWEEN "
+            "20 PRECEDING AND 5 FOLLOWING) FROM lineitem"):
+        got = sorted(con.sql(sql).rows())
+        _close_rows(got, sorted(cpu.sql(sql).rows()), sql)
+    for name, sql in tpch_oracle.WINDOW_QUERIES.items():
+        _close_rows(con.sql(sql).rows(), tpch_oracle.answer(name, str(tmp_path)), name)
+
+
+@pytest.mark.gpu
+def test_chunked_aggregate_on_cuda(tmp_path):
+    """Under a memory limit Q1 runs in chunks on the card, bit-identical to
+    its run in memory."""
+    _need_cuda()
+    import chip_smoke
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.catalog import catalog as C
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    want = con.sql(chip_smoke.Q1).rows()
+    C.set_memory_limit(2_000_000)
+    try:
+        con.routes.clear()
+        got = con.sql(chip_smoke.Q1).rows()
+    finally:
+        C.set_memory_limit(0)
+    assert got == want
+    assert con.routes["out_of_core"] == 1 and con.routes["out_of_core_chunks"] >= 2

@@ -51,7 +51,7 @@ def main() -> int:
                **tpch_oracle.FROM_QUERIES, **tpch_oracle.LIKE_QUERIES,
                **tpch_oracle.GENERAL_QUERIES, **tpch_oracle.FUNCTION_QUERIES,
                **tpch_oracle.NESTED_QUERIES, **tpch_oracle.MORE_QUERIES,
-               **tpch_oracle.SELECT_FORM_QUERIES}
+               **tpch_oracle.SELECT_FORM_QUERIES, **tpch_oracle.WINDOW_QUERIES}
     sql = queries[args.query]
 
     card = subprocess.run(
