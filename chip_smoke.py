@@ -178,6 +178,24 @@ Phases (any failure exits non-zero before the result lines):
    result passes the limit sorts range partitions (columns equal to the
    in-memory run's and to a numpy lexsort); the limit goes back to 0.
 
+17. multi-device execution (parallel/shard.py): the card count
+   (nvidia-smi -L) and the shard -> device map of SHARDS shards (shared
+   round-robin when there are fewer cards); q1_local_partial on the JAX
+   package's entry inputs (rebuilt here with numpy) against its plain
+   version; then, on a fresh connection under SET num_shards = SHARDS, Q1
+   (the grouped sum once per shard, each launch held to the plain version,
+   max abs err 0), Q3, a left, a semi and an anti join under SET
+   exchange_join_threshold = 0, a duplicate-key self-join of lineitem,
+   ORDER BY over all of lineitem, a TopN and a PARTITION BY l_orderkey
+   window (row_number, a whole-partition count and sum): each equal to its
+   run on phase 3's single-device connection and to numpy where the script
+   has an oracle, its sharded routes present, its first run, warm median
+   of 3, host syncs and the bytes copied between cards; each shard's kernel
+   timed on its own card, and a time under its bound (by more than
+   BOUND_SLACK) fails the phase; then one Q1 under num_shards = 0 (AUTO),
+   which prints the shard count it chose. Phases 1-16 run with SET
+   num_shards = 1, the port's default.
+
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
 """
@@ -206,6 +224,9 @@ SWEEP = ((16, 20, 4), (16, 20, 20), (1, 1, 1), (24, 1, 1), (9, 216, 216), (24, 2
 # data sheet's only CUDA-core rate; int64 adds issue no faster, so it
 # gives a lower bound on their time
 CUDA_CORE_OPS_PER_S = 67e12
+# a kernel time under bound / BOUND_SLACK (above 105% of the roofline) is
+# one the events did not measure: phase 17 fails on it
+BOUND_SLACK = 1.05
 
 # bench.py's Q1 text
 Q1 = """
@@ -869,6 +890,271 @@ def numpy_ooc_select(data_dir: str, limit=None, max_qty_cents=299):
     return ok[order], ln[order], price[order]
 
 
+SHARDS = 4
+SHARD_QUERIES = {
+    "q01": None,  # Q1, set in sharded_phase
+    "q03": None,
+    "left_join": "SELECT o_orderkey, o_totalprice, c_name FROM orders LEFT JOIN customer "
+                 "ON o_custkey = c_custkey AND c_acctbal > 0 "
+                 "ORDER BY o_totalprice DESC, o_orderkey LIMIT 100",
+    "semi_join": "SELECT o_orderkey, o_totalprice FROM orders WHERE EXISTS (SELECT 1 FROM "
+                 "customer WHERE c_custkey = o_custkey AND c_mktsegment = 'BUILDING') "
+                 "ORDER BY o_totalprice, o_orderkey LIMIT 100",
+    "anti_join": "SELECT o_orderkey, o_totalprice FROM orders WHERE NOT EXISTS (SELECT 1 FROM "
+                 "customer WHERE c_custkey = o_custkey AND c_mktsegment = 'BUILDING') "
+                 "ORDER BY o_totalprice, o_orderkey LIMIT 100",
+    "dup_self_join": "SELECT count(*), sum(a.l_quantity), sum(b.l_extendedprice) FROM lineitem a "
+                     "JOIN lineitem b ON a.l_orderkey = b.l_orderkey WHERE a.l_linenumber = 1",
+    "order_lineitem": "SELECT l_orderkey, l_linenumber, l_extendedprice FROM lineitem "
+                      "ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber",
+    "topn_lineitem": "SELECT l_orderkey, l_linenumber, l_extendedprice FROM lineitem "
+                     "ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber LIMIT 100",
+    "window_lineitem": "SELECT l_orderkey, l_linenumber, row_number() OVER (PARTITION BY "
+                       "l_orderkey ORDER BY l_linenumber) AS rn, count(*) OVER (PARTITION BY "
+                       "l_orderkey) AS c, sum(l_quantity) OVER (PARTITION BY l_orderkey) AS s "
+                       "FROM lineitem",
+}
+# the sharded operators each must show (any other may run too)
+SHARD_ROUTES = {"q01": {"sharded_agg": 1}, "q03": {"exchange_join": 1},
+                "left_join": {"exchange_join": 1, "eager_left": 1, "sharded_topn": 1},
+                "semi_join": {"exchange_join": 1, "eager_semi": 1, "sharded_topn": 1},
+                "anti_join": {"exchange_join": 1, "eager_anti": 1, "sharded_topn": 1},
+                "dup_self_join": {"exchange_join_dup": 1, "sharded_agg": 1},
+                "order_lineitem": {"sharded_sort": 1}, "topn_lineitem": {"sharded_topn": 1},
+                "window_lineitem": {"sharded_window": 1}}
+# compared as host columns, not Python rows (6,001,215 rows)
+SHARD_COLUMNS = ("order_lineitem", "window_lineitem")
+
+
+def graft_inputs():
+    """__graft_entry__.entry()'s Q1 inputs, rebuilt with numpy (that module
+    imports jax): n 2,048, 8 groups, seed 0."""
+    import numpy as np
+
+    n = 2048
+    rng = np.random.default_rng(0)
+    qty = rng.integers(1, 50, n) * 100
+    price = rng.integers(1000, 100000, n)
+    disc = rng.integers(0, 10, n)
+    tax = rng.integers(0, 8, n)
+    gid = rng.integers(0, 8, n).astype(np.int32)
+    live = rng.random(n) < 0.95
+    return (qty, price, disc, tax, gid, live), 8
+
+
+def numpy_lineitem_order(limit=None):
+    """ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber over the
+    generated lineitem → (orderkey, linenumber, price in cents) columns."""
+    return numpy_ooc_select(DATA, limit=limit, max_qty_cents=1 << 62)
+
+
+def numpy_lineitem_window():
+    """SHARD_QUERIES["window_lineitem"]'s columns in row order: row_number
+    by linenumber, the line count and quantity sum of each order."""
+    import numpy as np
+
+    t = os.path.join(DATA, "lineitem")
+
+    def col(name):
+        for ext, dt in ((".i64", np.int64), (".i32", np.int32)):
+            if os.path.exists(os.path.join(t, name + ext)):
+                return np.fromfile(os.path.join(t, name + ext), dtype=dt).astype(np.int64)
+        raise FileNotFoundError(name)
+
+    ok, ln, qty = col("l_orderkey"), col("l_linenumber"), col("l_quantity")
+    _, inv, counts = np.unique(ok, return_inverse=True, return_counts=True)
+    sums = np.zeros(len(counts), dtype=np.int64)
+    np.add.at(sums, inv, qty)
+    order = np.lexsort((np.arange(len(ok)), ln, ok))
+    first = np.r_[True, ok[order][1:] != ok[order][:-1]]
+    start = np.maximum.accumulate(np.where(first, np.arange(len(ok)), 0))
+    rn = np.empty(len(ok), dtype=np.int64)
+    rn[order] = np.arange(len(ok)) - start + 1
+    return ok, ln, rn, counts[inv], sums[inv]
+
+
+def _columns_equal(a, b) -> bool:
+    import numpy as np
+
+    return a.nrows == b.nrows and all(
+        np.array_equal(np.asarray(x[0]), np.asarray(y[0]))
+        and (x[1] is None) == (y[1] is None)
+        and (x[1] is None or np.array_equal(np.asarray(x[1]), np.asarray(y[1])))
+        for x, y in zip(a.columns, b.columns))
+
+
+def sharded_phase(con, card, recording, recorded, launches_by_query, shapes, reps) -> str:
+    """Phase 17 (see the module docstring). '' or a failure message."""
+    import decimal
+
+    import numpy as np
+    import torch
+
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.execution.executor import Executor
+    from duckdb_tpu_torch.ops import grouped as grouped_mod
+    from duckdb_tpu_torch.ops import grouped_sum as GS
+    from duckdb_tpu_torch.parallel import shard
+    from duckdb_tpu_torch.testing import tpch_oracle
+
+    cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60,
+                           check=True).stdout.strip().splitlines()
+    mesh = shard.mesh_for(SHARDS, con.device)
+    print(f"cards (nvidia-smi -L): {len(cards)}; torch.cuda.device_count() "
+          f"{torch.cuda.device_count()}; {SHARDS} shards: {mesh}; "
+          f"{'shards share cards' if mesh.shared else 'one card per shard'}")
+
+    # q1_local_partial on the JAX package's entry inputs, against its plain version
+    arrays, groups = graft_inputs()
+    cuda_in = [torch.from_numpy(np.asarray(a)).to(con.device) for a in arrays]
+    GS.grouped_sum_i64.launches = 0
+    got = shard.q1_local_partial(*cuda_in, groups)
+    torch.cuda.synchronize()
+    q1_launches = launches_by_query["q1_local_partial"] = GS.grouped_sum_i64.launches
+    want = shard.q1_local_partial(*(torch.from_numpy(np.asarray(a)) for a in arrays), groups)
+    qty, price, disc, tax, gid, live = arrays
+    omd = price * (100 - disc)
+    oracle = [np.array([int(x[live & (gid == g)].sum()) for g in range(groups)], dtype=np.int64)
+              for x in (qty, price, omd, omd * (100 + tax), disc, np.ones_like(qty))]
+    err = max_abs_err([g.cpu() for g in got], list(want))
+    if err or q1_launches != 1 or any(
+            not np.array_equal(g.cpu().numpy(), o) for g, o in zip(got, oracle)):
+        return (f"q1_local_partial on the card: max abs err {err} against its plain version, "
+                f"{q1_launches} launches, or it differs from numpy")
+    print(f"q1_local_partial (n 2048, 8 groups, seed 0) on {card}: 1 launch, max abs err 0 "
+          f"against its plain version, equal to numpy")
+
+    queries = dict(SHARD_QUERIES, q01=Q1, q03=tpch_oracle.QUERIES["q03"])
+    oracles = {"q01": lambda: numpy_q1(DATA), "q03": lambda: tpch_oracle.answer("q03", DATA)}
+    ok_, ln_, price_ = numpy_lineitem_order(limit=100)
+    oracles["topn_lineitem"] = lambda: [(int(a), int(b), decimal.Decimal(int(c)).scaleb(-2))
+                                        for a, b, c in zip(ok_, ln_, price_)]
+    sharded = duckdb_tpu_torch.connect(device=con.device)
+    sharded.load_tpch(DATA)
+    sharded.sql(f"SET num_shards = {SHARDS}")
+    sharded.sql("SET exchange_join_threshold = 0")
+    con.sql("SET exchange_join_threshold = 0")
+    placement = "sharded_shared_card" if mesh.shared else "sharded"
+    try:
+        for name, sql in queries.items():
+            columns = name in SHARD_COLUMNS
+            single = con.sql(sql)
+            recorded.clear()
+            grouped_mod.grouped_sum_i64 = recording
+            GS.grouped_sum_i64.launches = 0
+            GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
+            sharded.routes.clear()
+            shard.COPIED["bytes"] = 0
+            t0 = time.perf_counter()
+            res = sharded.sql(sql)
+            got = None if columns else res.rows()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+            launches = GS.grouped_sum_i64.launches
+            launches_by_query[f"{name}_sharded"] = launches
+            routes = dict(sharded.routes)
+            copied = shard.COPIED["bytes"]
+            if columns:
+                if not _columns_equal(res, single):
+                    return f"{name} on {SHARDS} shards differs from its single-device run"
+                want_cols = numpy_lineitem_order() if name == "order_lineitem" \
+                    else numpy_lineitem_window()
+                if any(not np.array_equal(np.asarray(c[0]).astype(np.int64), w)
+                       for c, w in zip(res.columns, want_cols)):
+                    return f"{name} on {SHARDS} shards differs from numpy"
+            else:
+                bad = rows_match(got, single.rows())
+                if bad:
+                    return f"{name} on {SHARDS} shards differs from its single-device run: {bad}"
+                if name in oracles:
+                    bad = rows_match(got, oracles[name]())
+                    if bad:
+                        return f"{name} on {SHARDS} shards differs from the numpy oracle: {bad}"
+            want_routes = SHARD_ROUTES[name]
+            if any(routes.get(k, 0) < v for k, v in want_routes.items()) \
+                    or not routes.get(placement):
+                return f"{name} missed its sharded route {want_routes} ({placement}): {routes}"
+            if name == "q01" and (launches != SHARDS or len(recorded) != SHARDS):
+                return (f"sharded Q1 launched the grouped sum {launches} times, not once per "
+                        f"shard ({SHARDS})")
+            for dense, vecs, nseg in recorded:
+                if dense.device.type != con.device.type:
+                    return f"{name}: the grouped sum ran off the card"
+                err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
+                                  GS.grouped_sum_i64_plain(dense, vecs, nseg))
+                torch.cuda.synchronize()
+                if err:
+                    return f"grouped_sum_i64 disagrees with its plain version on {name}'s shard"
+            timed = set()
+            for dense, vecs, nseg in recorded:
+                n_q, k_q = dense.shape[0], len(vecs)
+                if (n_q, k_q, nseg, dense.device) in timed:
+                    continue
+                timed.add((n_q, k_q, nseg, dense.device))
+                with torch.cuda.device(dense.device):  # cuda_ms's events on that card
+                    k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+                b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
+                if k_ms * BOUND_SLACK < b_ms:
+                    return (f"grouped_sum_i64 on {dense.device} at {name}'s shard shape timed "
+                            f"{k_ms:.4f} ms, under its bound {b_ms:.4f} ms: the events did not "
+                            f"time the launches")
+                print(f"grouped_sum_i64 at {name}_sharded's shard shape N={n_q} K={k_q} "
+                      f"nseg={nseg} on {dense.device} of {card}: max abs err 0, kernel "
+                      f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ {l_ms:.4f} ms, bound "
+                      f"{b_ms:.4f} ms by {b_by} ({b_bytes} bytes, {b_adds} adds)")
+                shapes.append({"query": f"{name}_sharded", "n": n_q, "k": k_q, "nseg": nseg,
+                               "max_abs_err": 0, "kernel_ms": k_ms, "plain_ms": p_ms,
+                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+            times = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                again = sharded.sql(sql)
+                same = _columns_equal(again, res) if columns else again.rows() == got
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if not same:
+                    return f"{name} on {SHARDS} shards changed between runs"
+            med = statistics.median(times[1:])
+            syncs = count_syncs(lambda: sharded.sql(sql).rows() if not columns
+                                else sharded.sql(sql))
+            t0 = time.perf_counter()
+            con.sql(sql) if columns else con.sql(sql).rows()
+            torch.cuda.synchronize()
+            single_s = time.perf_counter() - t0
+            print(f"{name} on {SHARDS} shards ({card}): first run {first_s:.3f} s, "
+                  f"{res.nrows} rows equal the single-device run"
+                  f"{' and numpy' if name in oracles or columns else ''}; routes {routes}; "
+                  f"grouped_sum_i64 launches {launches}; median of 3 warm runs "
+                  f"{med * 1e3:.3f} ms (runs {', '.join(f'{x * 1e3:.3f}' for x in times[1:])} "
+                  f"ms; one single-device run {single_s * 1e3:.3f} ms), {syncs} host syncs, "
+                  f"{copied} bytes copied between cards")
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+        con.sql("RESET exchange_join_threshold")
+    del sharded
+
+    # AUTO: every visible card once the rows pass auto_shard_rows
+    con.sql("SET num_shards = 0")
+    try:
+        con.routes.clear()
+        rows = con.sql(Q1).rows()
+        chosen = Executor(con.catalog)._join_shards(
+            rows=con.catalog.get_table("lineitem").nrows)
+        routes = dict(con.routes)
+    finally:
+        con.sql("SET num_shards = 1")
+    bad = rows_match(rows, numpy_q1(DATA))
+    if bad:
+        return f"Q1 under num_shards = 0 differs from numpy: {bad}"
+    visible = shard.visible_devices(con.device)
+    if (chosen > 1) != ("sharded_agg" in routes) or chosen != max(visible, 1):
+        return f"AUTO chose {chosen} shards on {visible} cards with routes {routes}"
+    print(f"num_shards = 0 (AUTO) on {visible} visible card(s): chose {chosen} shard(s) for "
+          f"lineitem's rows; Q1 equals numpy; routes {routes}")
+    return ""
+
+
 def out_of_core_phase(con, card, recording, recorded, launches_by_query, shapes, reps) -> str:
     """Phase 16 (see the module docstring). '' or a failure message."""
     import decimal
@@ -1014,6 +1300,8 @@ def main() -> int:
         write_tables(DATA, SF, SEED)
     con = duckdb_tpu_torch.connect()
     con.load_tpch(DATA)
+    # phases 1-16 on one device, also on a host with several cards (phase 17 shards)
+    con.sql("SET num_shards = 1")
     nrows = con.catalog.get_table("lineitem").nrows
     sizes = {t: con.catalog.get_table(t).nrows for t in TABLE_COLUMNS}
     print(f"data: TPC-H SF{SF:g} seed {SEED}, rows {sizes}, "
@@ -1440,6 +1728,16 @@ def main() -> int:
         return fail(bad)
     worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
     print(f"phase 16 took {time.perf_counter() - phase16_t0:.1f} s")
+
+    # 17. multi-device: the sharded routes over SHARDS shards
+    phase17_t0 = time.perf_counter()
+    try:
+        bad = sharded_phase(con, card, recording, recorded, launches_by_query, shapes, reps)
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    if bad:
+        return fail(bad)
+    print(f"phase 17 took {time.perf_counter() - phase17_t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "grouped_sum_i64", "route": "cuda",

@@ -3,11 +3,11 @@
 `connect(database=":memory:", device=None)` opens an in-memory database
 whose columns and intermediates all live on `device` (default "cuda").
 This slice runs SELECT statements over tables registered with
-`load_tpch`; DDL, DML, persistence and the rest of the JAX package's
+`load_tpch`, and SET / RESET of the settings the port honours
+(main/settings.py: num_shards, auto_shard_rows, exchange_join_threshold,
+memory_limit); DDL, DML, persistence and the rest of the JAX package's
 Connection surface come with later slices. A device out-of-memory error
-is retried once cold, every cache emptied (execution/cache_registry.py);
-the device memory limit is `catalog.catalog.set_memory_limit(bytes)`
-until `SET memory_limit` arrives with the settings (ROADMAP item 36).
+is retried once cold, every cache emptied (execution/cache_registry.py).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from duckdb_tpu_torch.catalog.catalog import Catalog
 from duckdb_tpu_torch.errors import OutOfMemoryException
 from duckdb_tpu_torch.execution.cache_registry import PressureTrim, clear_all, is_oom
 from duckdb_tpu_torch.execution.executor import Executor, Result
+from duckdb_tpu_torch.main.settings import SettingsManager
 from duckdb_tpu_torch.planner import macros as M
 from duckdb_tpu_torch.planner.bound import BindError, not_ported
 from duckdb_tpu_torch.planner.planner import Planner
@@ -44,6 +45,10 @@ class Connection:
         self.database = database
         self.device = _resolve_device(device)
         self.catalog = Catalog(device=self.device)
+        # SET / RESET values; the executor reads the sharding settings
+        # through the catalog, as nested executors share it
+        self.settings = SettingsManager()
+        self.catalog.settings = self.settings
         # plan cache: SQL text → (plan, output), and SQL text → the hidden
         # tables of its materialized CTEs, which live as long as its plan
         self._plan_cache = {}
@@ -60,7 +65,8 @@ class Connection:
         self._pressure_trim = PressureTrim()
 
     def sql(self, query: str) -> Result:
-        """Execute one SELECT statement and return its Result. If the card
+        """Execute one SELECT (or SET / RESET) statement and return its
+        Result (no rows for SET). If the card
         runs out of memory, every device cache and pooled column is dropped
         and the statement runs once more, cold; a second OOM raises
         OutOfMemoryException."""
@@ -84,8 +90,15 @@ class Connection:
 
     def _run(self, query: str) -> Result:
         stmts = Parser(query).parse_statements()
+        if len(stmts) == 1 and isinstance(stmts[0], N.SetStatement):
+            s = stmts[0]
+            if s.is_reset:
+                self.settings.reset(s.name)
+            else:
+                self.settings.set(s.name, s.value)
+            return Result(names=[], types=[], columns=[], nrows=0)
         if len(stmts) != 1 or not isinstance(stmts[0], N.SelectStatement):
-            raise not_ported("statements other than a single SELECT")
+            raise not_ported("statements other than a single SELECT or SET")
         cached = self._plan_cache.get(query)
         if cached is None:
             planner = Planner(self.catalog, self.routes)

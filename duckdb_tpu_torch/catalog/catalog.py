@@ -91,7 +91,7 @@ def set_memory_limit(limit_bytes: int):
     """The device bytes promoted columns may hold (0: no limit). Above it,
     the least recently used columns leave the device, and a query whose
     scans need more runs in chunks (execution/chunked.py). `SET
-    memory_limit` comes with the settings (ROADMAP item 36)."""
+    memory_limit` sets it (main/settings.py)."""
     POOL.limit = int(limit_bytes)
     POOL._maybe_evict()
 
@@ -289,6 +289,9 @@ class Catalog:
     def __init__(self, device="cpu"):
         self.device = device
         self.tables: Dict[str, TableEntry] = {}
+        # the connection's main/settings.SettingsManager (None: defaults,
+        # one device)
+        self.settings = None
 
     def create_table(self, entry: TableEntry, or_replace: bool = False):
         key = qualify(entry.name)

@@ -348,6 +348,46 @@ class Executor:
             return self.scan_overrides[name]
         return self.catalog.get_table(name)
 
+    # -- sharding ------------------------------------------------------------
+    def _setting(self, name: str, default: int) -> int:
+        settings = getattr(self.catalog, "settings", None)
+        return default if settings is None else int(settings.get(name, default))
+
+    def _join_shards(self, rows: Optional[int] = None) -> int:
+        """Shard count for a distributed operator over `rows` padded rows.
+
+        num_shards = 1, the port's default, is one device. num_shards = 0
+        is the AUTO policy, the JAX package's default: every visible card
+        once the operator's rows exceed auto_shard_rows (DuckDB
+        parallelizes everything by default with its morsel scheduler,
+        src/parallel/task_scheduler.cpp), so one on a host with one card
+        and on the CPU; the port keeps it opt-in because on four cards it
+        was slower than one (main/settings.py). num_shards = n > 1 gives n
+        shards even with fewer cards: they share the cards round-robin
+        (parallel/shard.Mesh). The JAX package runs single-chip then; the
+        port shares, so that the CPU and a one-card host run the sharded
+        code at all."""
+        from duckdb_tpu_torch.parallel import shard
+
+        n = self._setting("num_shards", 1)
+        if n >= 1:
+            return n
+        k = shard.visible_devices(self.catalog.device)
+        if k <= 1 or (rows is not None and rows < self._setting("auto_shard_rows", 1 << 15)):
+            return 1
+        return k
+
+    def _mesh(self, n: int, op: str):
+        """The n-shard mesh on the connection's device, the operator's route
+        recorded with how the shards were placed: "sharded" (a card each)
+        or "sharded_shared_card" (some share one; on the CPU, all)."""
+        from duckdb_tpu_torch.parallel import shard
+
+        mesh = shard.mesh_for(n, self.catalog.device)
+        self.routes[op] += 1
+        self.routes["sharded_shared_card" if mesh.shared else "sharded"] += 1
+        return mesh
+
     # -- entry ---------------------------------------------------------------
     def run(self, plan: P.PlanNode, output: List[Tuple[str, str, LogicalType]]) -> Result:
         """Run a plan to host rows: in chunks when a memory limit is set
@@ -553,6 +593,13 @@ class Executor:
             if out is not None:
                 return out
         unique = self._build_known_unique(node, build_b)
+        n_shards = self._join_shards(rows=max(probe_b.plen, build_b.plen))
+        if n_shards > 1 and dense_size > self._setting("exchange_join_threshold", 1 << 24):
+            exchange = self._exchange_join if unique else self._exchange_join_dup
+            out = exchange(node, probe_b, build_b, pk, bk, probe_live, build_live, n_shards)
+            if out is not None:
+                return out
+            self.routes[f"sharding_single:{node.jtype} join"] += 1
         # a full join's unmatched build rows come from the pair expansion
         if node.jtype != "full" and dense_size <= self.DENSE_JOIN_LIMIT:
             out = self._dense_join(node, probe_b, build_b, pk, bk, probe_live,
@@ -651,15 +698,137 @@ class Executor:
                 return None  # duplicate build keys → sorted path
         slots = torch.full((size + 1,), -1, dtype=torch.int64, device=device)
         slots[slot] = torch.where(build_live, torch.arange(build_b.plen, device=device), -1)
-        brow, matched = self._probe_dense(slots, size, pk, probe_live)
+        brow, matched = self._probe_dense(node, slots, size, pk, probe_live)
         return self._one_match_tail(node, probe_b, build_b, brow, matched, probe_live,
                                     build_live)
 
-    def _probe_dense(self, slots, size, pk, probe_live):
-        """Dense-table probe → (build row or -1, matched)."""
-        in_range = (pk >= 0) & (pk < size)
-        brow = torch.where(in_range, slots[pk.clamp(0, size - 1)], -1)
-        return brow, probe_live & (brow >= 0)
+    def _probe_dense(self, node, slots, size, pk, probe_live):
+        """Dense-table probe → (build row or -1, matched). Sharded, the
+        table is copied to each shard's device (DuckDB's broadcast
+        exchange, src/parallel/pipeline_broadcast_exchange.cpp) and each
+        shard probes its rows."""
+        from duckdb_tpu_torch.parallel import shard
+
+        def probe(slots, pk, probe_live):
+            in_range = (pk >= 0) & (pk < size)
+            brow = torch.where(in_range, slots[pk.clamp(0, size - 1)], -1)
+            return brow, probe_live & (brow >= 0)
+
+        n = self._join_shards(rows=pk.shape[0])
+        if n <= 1:
+            return probe(slots, pk, probe_live)
+        mesh = self._mesh(n, "sharded_probe")
+        parts = [probe(*a) for a in zip(self._replicas(node, mesh, slots),
+                                        shard.split_rows(mesh, pk),
+                                        shard.split_rows(mesh, probe_live))]
+        return shard.gather(mesh, [b for b, _ in parts]), shard.gather(mesh, [m for _, m in parts])
+
+    def _replicas(self, node, mesh, slots):
+        """The dense table on every shard's device. The table is a function
+        of the join's inputs, so the copies are kept on the join node keyed
+        by every scan under it, as the build caches are: a warm query
+        copies nothing between cards."""
+        from duckdb_tpu_torch.execution.fused_agg import _cache_store, _scan_versions
+        from duckdb_tpu_torch.parallel import shard
+
+        vkey = _scan_versions(self, node)
+        if vkey is None or slots.shape[0] > self.EAGER_BUILD_CACHE_MAX:
+            return shard.replicate(mesh, slots)
+        key = (vkey, slots.shape[0], tuple(mesh.devices))
+        cache = _cache_store(node, "_replica_cache")
+        hit = cache.get(key)
+        if hit is None:
+            cache.clear()
+            hit = cache[key] = shard.replicate(mesh, slots)
+        return hit
+
+    def _exchange_join(self, node, probe_b, build_b, pk, bk, probe_live, build_live, n):
+        """A join over the mesh with unique build keys: both sides
+        hash-repartitioned, each shard's partition joined there
+        (parallel/shard.make_exchange_join). Inner, left, semi and anti
+        joins, a residual evaluated on the matched build row; a left join
+        routes every live probe row (a NULL key as -2, which no live
+        build key equals: packed build keys are non-negative). The
+        output lists the routed probe rows shard by shard. None for other
+        join types."""
+        from duckdb_tpu_torch.parallel import shard
+
+        if node.jtype not in ("inner", "left", "semi", "anti"):
+            return None
+        mesh = self._mesh(n, "exchange_join")
+        device = pk.device
+        route_live = probe_b.live if node.jtype == "left" else probe_live
+        res = shard.make_exchange_join(mesh)(
+            torch.where(probe_live, pk, -2), route_live,
+            torch.arange(probe_b.plen, device=device), bk, build_live,
+            torch.arange(build_b.plen, device=device))
+        rp, br = shard.gather(mesh, res.rp), shard.gather(mesh, res.br)
+        total = rp.shape[0]
+        if node.jtype in ("semi", "anti"):
+            matched = self._residual_on(node, probe_b, build_b, rp, br)
+            hit = torch.zeros(probe_b.plen, dtype=torch.bool, device=device)
+            hit[rp] = matched  # each routed probe row once
+            return self._semi_anti_tail(node, probe_b, build_b, hit, probe_live, build_live)
+        cap = max(128, pad_bucket(total))
+        rp_p = torch.zeros(cap, dtype=torch.int64, device=device)
+        rp_p[:total] = rp
+        br_p = torch.full((cap,), -1, dtype=torch.int64, device=device)
+        br_p[:total] = br
+        routed = torch.arange(cap, device=device) < total
+        matched = routed & self._residual_on(node, probe_b, build_b, rp_p, br_p)
+        br_c = br_p.clamp(0, build_b.plen - 1)
+        if node.jtype == "inner":
+            src = ChainCols([GatherCols(probe_b.src, rp_p), GatherCols(build_b.src, br_c)])
+            return Batch(src=src, plen=cap, live=matched)
+        src = ChainCols([GatherCols(probe_b.src, rp_p),
+                         GatherCols(build_b.src, br_c, null_rows=~matched)])
+        return Batch(src=src, plen=cap, live=routed)
+
+    def _residual_on(self, node, probe_b, build_b, rp, br) -> torch.Tensor:
+        """Which (probe row, build row or -1) pairs match: a build row, and
+        the join's residual TRUE on the pair where it has one."""
+        matched = br >= 0
+        if node.extra is None:
+            return matched
+        n = rp.shape[0]
+        pair_src = ChainCols([GatherCols(probe_b.src, rp),
+                              GatherCols(build_b.src, br.clamp(0, build_b.plen - 1),
+                                         null_rows=~matched)])
+        c = node.extra.eval(EvalEnv(cols=pair_src, plen=n, live=matched))
+        return matched & bcast(c.data.to(torch.bool), n) & _full_valid(c, n)
+
+    def _exchange_join_dup(self, node, probe_b, build_b, pk, bk, probe_live, build_live, n):
+        """A join over the mesh with duplicate build keys
+        (parallel/shard.make_exchange_join_dup): inner joins from the
+        shards' pairs (a residual evaluated over them), semi and anti
+        joins without a residual from each routed probe row's match flag.
+        None otherwise."""
+        from duckdb_tpu_torch.parallel import shard
+
+        if node.jtype not in ("inner", "semi", "anti") or (
+                node.jtype != "inner" and node.extra is not None):
+            return None
+        mesh = self._mesh(n, "exchange_join_dup")
+        device = pk.device
+        res = shard.make_exchange_join_dup(mesh)(
+            torch.where(probe_live, pk, -2), probe_live,
+            torch.arange(probe_b.plen, device=device), bk, build_live,
+            torch.arange(build_b.plen, device=device))
+        if node.jtype != "inner":
+            hit = torch.zeros(probe_b.plen, dtype=torch.bool, device=device)
+            hit[shard.gather(mesh, res.prr)] = shard.gather(mesh, res.pm)
+            return self._semi_anti_tail(node, probe_b, build_b, hit, probe_live, build_live)
+        pr, br = shard.gather(mesh, res.pr), shard.gather(mesh, res.br)
+        total = pr.shape[0]
+        cap = max(128, pad_bucket(total))
+        pr_p = torch.zeros(cap, dtype=torch.int64, device=device)
+        pr_p[:total] = pr
+        br_p = torch.full((cap,), -1, dtype=torch.int64, device=device)
+        br_p[:total] = br
+        live = self._residual_on(node, probe_b, build_b, pr_p, br_p)
+        src = ChainCols([GatherCols(probe_b.src, pr_p),
+                         GatherCols(build_b.src, br_p.clamp(0, build_b.plen - 1))])
+        return Batch(src=src, plen=cap, live=live)
 
     def _one_match_tail(self, node, probe_b, build_b, brow, matched, probe_live,
                         build_live) -> Batch:
@@ -1250,13 +1419,75 @@ class Executor:
         return [k for expr, desc, nulls_first in node.items
                 for k in sort_keys(expr.eval(env), b.plen, desc, bool(nulls_first))]
 
+    # padded rows from which ORDER BY and TopN shard
+    SHARDED_SORT_MIN_ROWS = 1 << 14
+    SHARDED_TOPN_MIN_ROWS = 1 << 15
+    SHARDED_TOPN_MAX_K = 1 << 14
+
     def _exec_Order(self, node: P.Order) -> Batch:
         b = self.execute(node.child)
-        perm = S.sort_permutation(self._order_norm_keys(node, b), b.live)
+        keys = self._order_norm_keys(node, b)
+        n = self._join_shards(rows=b.plen)
+        if n > 1 and b.plen >= self.SHARDED_SORT_MIN_ROWS:
+            return self._sharded_order(b, keys, n)
+        perm = S.sort_permutation(keys, b.live)
         live = torch.arange(b.plen, device=b.live.device) < b.count_live()
         return Batch(src=GatherCols(b.src, perm), plen=b.plen, live=live)
 
+    def _sharded_order(self, b: Batch, keys, n: int) -> Batch:
+        """ORDER BY over the mesh (parallel/shard.make_sharded_sort):
+        range-partitioned by the first key, each shard sorted by all keys
+        and the row id, concatenated in shard order — the single-device
+        stable sort's order exactly."""
+        from duckdb_tpu_torch.parallel import shard
+
+        mesh = self._mesh(n, "sharded_sort")
+        device = b.live.device
+        rows = shard.gather(mesh, shard.make_sharded_sort(mesh, len(keys))(
+            torch.stack(keys), b.live, torch.arange(b.plen, device=device)))
+        m = rows.shape[0]
+        perm = torch.zeros(b.plen, dtype=torch.int64, device=device)
+        perm[:m] = rows
+        return Batch(src=GatherCols(b.src, perm), plen=b.plen,
+                     live=torch.arange(b.plen, device=device) < m)
+
+    def _sharded_topn(self, node: P.Limit) -> Optional[Batch]:
+        """ORDER BY … LIMIT over the mesh: each shard's first offset + n
+        rows (parallel/shard.make_sharded_topn), then one small stable sort
+        of the candidates on the home device; candidates come in shard
+        order, so ties keep row order. None below SHARDED_TOPN_MIN_ROWS,
+        above SHARDED_TOPN_MAX_K rows, or unsharded."""
+        from duckdb_tpu_torch.parallel import shard
+
+        order = node.child
+        offset = node.offset or 0
+        k = offset + node.n
+        if k <= 0 or k > self.SHARDED_TOPN_MAX_K:
+            return None
+        b = self.execute(order.child)
+        n = self._join_shards(rows=b.plen)
+        if n <= 1 or b.plen < self.SHARDED_TOPN_MIN_ROWS:
+            return None
+        keys = self._order_norm_keys(order, b)
+        mesh = self._mesh(n, "sharded_topn")
+        device = b.live.device
+        cand = shard.make_sharded_topn(mesh, k, len(keys))(
+            torch.stack(keys), b.live, torch.arange(b.plen, device=device))
+        perm = S.sort_permutation(list(cand.keys), cand.live)
+        n_live = int(cand.live.sum())
+        lo = min(offset, n_live)
+        hi = min(n_live, lo + node.n)
+        cap = max(128, pad_bucket(hi - lo))
+        pos = torch.arange(cap, device=device)
+        rows = cand.rows[perm][(pos + lo).clamp(0, max(perm.shape[0] - 1, 0))] \
+            if perm.shape[0] else torch.zeros(cap, dtype=torch.int64, device=device)
+        return Batch(src=GatherCols(b.src, rows), plen=cap, live=pos < hi - lo)
+
     def _exec_Limit(self, node: P.Limit) -> Batch:
+        if node.n is not None and isinstance(node.child, P.Order):
+            out = self._sharded_topn(node)
+            if out is not None:
+                return out
         b = self.execute(node.child)
         n = b.count_live()
         idx = packed_indices(b.live, max(1, pad_bucket(n)))

@@ -42,9 +42,18 @@ count, sum and avg DISTINCT take the same reductions over the first row
 of each (group, value) run of a stable sort (`_compute_distinct_agg_mask`,
 the JAX package's aggregate_exec._compute_distinct_agg), in either mode.
 
+Sharded (`_num_shards`, `_run_sharded`): a dense aggregate whose rows the
+executor shards runs the pipeline, its grouping and its per-slot
+reductions on each shard's rows on that shard's device (the grouped-sum
+kernel once per shard), the slot partials combine by kind on the home
+device (sum, min, max), and the finalize runs once there. A join step's
+LUT or sorted keys and its build columns are copied once to each device
+and kept with the step (`_JoinStep.on`). A sort-group or DISTINCT
+aggregate runs on one device, as the JAX package does for the first.
+
 Not carried over (TPU-only, see ROADMAP): the bucket probe mode, the int32
-packed-key dtype, learned compaction caps with deferred re-runs, the
-probe-result cache and the sharded paths.
+packed-key dtype, learned compaction caps with deferred re-runs and the
+probe-result cache.
 """
 
 from __future__ import annotations
@@ -209,12 +218,23 @@ class FusedAgg:
     (slots,), occ: int32 (slots,)). Slot `i` is live iff occ[i] > 0.
     """
 
-    def __init__(self, base_batch, needed, body, out_types, dense):
+    def __init__(self, base_batch, needed, body, out_types, dense, head=None, partials=None,
+                 finalize=None, distinct=False):
         self.base_batch = base_batch
         self.needed = needed
         self.body = body
         self.out_types = out_types  # key → (ltype, dict_values|None)
         self.dense = dense  # grouping mode: dense slots, else sort-group
+        # the body in three steps for shards: head(env, routes) → (state,
+        # live count tensor | None) runs the pipeline up to its
+        # compaction; partials(state, live count | None, routes) → (occ,
+        # per-slot partials, their kinds) runs the rest and the dense
+        # reduction (dense only); finalize(occ, partials) → (cols, occ)
+        # once the shards' partials are combined
+        self.head = head
+        self.partials = partials
+        self.finalize = finalize
+        self.distinct = distinct  # a DISTINCT aggregate (shard partials would double count)
 
 
 class _JoinStep:
@@ -242,6 +262,28 @@ class _JoinStep:
         self.lut, self.sk, self.sp = lut, sk, sp
         self.build_cols: Dict[str, Column] = {}  # key → build-length Column
         self.phase1 = False
+        self._copies: Dict[torch.device, "_JoinStep"] = {}  # this step on other devices
+
+    def on(self, device) -> "_JoinStep":
+        """This step with its LUT or sorted keys and its build columns on
+        `device`, copied there once and kept (a sharded pipeline probes on
+        every shard's device)."""
+        from duckdb_tpu_torch.parallel.shard import to
+
+        table = self.lut if self.mode == "dense" else self.sk
+        if table.device == device:
+            return self
+        step = self._copies.get(device)
+        if step is None:
+            step = _JoinStep(self.mode, self.probe_keys, self.los, self.rngs, self.strides,
+                             self.size, self.build_plen, None,
+                             lut=None if self.lut is None else to(self.lut, device),
+                             sk=None if self.sk is None else to(self.sk, device),
+                             sp=None if self.sp is None else to(self.sp, device),
+                             jtype=self.jtype, extra=self.extra)
+            step.build_cols = {k: _column_to(c, device) for k, c in self.build_cols.items()}
+            self._copies[device] = step
+        return step
 
     def register_build_col(self, key) -> bool:
         if key in self.build_cols:
@@ -280,6 +322,16 @@ class _JoinStep:
         a column is gathered at probe length only if something reads it."""
         for k in self.build_cols:
             env._overlay[k] = _LazyGatherCol(self, k, bidx)
+
+
+def _column_to(c: Column, device) -> Column:
+    from duckdb_tpu_torch.parallel.shard import to
+
+    def move(x):
+        return None if x is None else to(x, device)
+
+    return Column(data=move(c.data), ltype=c.ltype, validity=move(c.validity),
+                  dict_values=c.dict_values, data_hi=move(c.data_hi))
 
 
 def _extra_found(step, env, p, bidx, found):
@@ -718,22 +770,22 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
     filters2 = [f for f in filters if _refs_build_cols(f)]
     # a compaction only pays when something downstream runs at the shrunken
     # length: more probes, a sort-group, or a wide dense domain
-    compact_after_phase1 = plen > (1 << 16) and bool(
-        phase2_steps or not dense_mode or total > (1 << 10))
+    compact_downstream = bool(phase2_steps or not dense_mode or total > (1 << 10))
 
     class _LazyBaseCol:
         """Post-compaction base column: one gather from the original plane
-        through the row selection, evaluated only on access."""
+        (n rows) through the row selection, evaluated only on access."""
 
-        def __init__(self, col, sel):
+        def __init__(self, col, sel, n):
             self.col = col
             self.sel = sel
+            self.n = n
 
         def eval(self, env):
             c, sel = self.col, self.sel
 
             def take(x):
-                return None if x is None else B.bcast(x, plen)[sel]
+                return None if x is None else B.bcast(x, self.n)[sel]
 
             return Column(data=take(c.data), ltype=c.ltype, validity=take(c.validity),
                           dict_values=c.dict_values, data_hi=take(c.data_hi))
@@ -748,12 +800,14 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
             env2.live = live
         return live
 
-    def apply_probes(steps, env2, p, live, bidx_map):
+    def apply_probes(steps, env2, p, live, bidx_map, routes):
         """Inner steps keep the matched rows and register their build
         columns; semi steps keep the rows found, anti steps those not
-        found, and neither registers a column for the pipeline."""
+        found, and neither registers a column for the pipeline. Each step
+        probes on the device of the rows (its copy there)."""
         for step in steps:
-            executor.routes["probe_" + step.mode] += 1
+            step = step.on(live.device)
+            routes["probe_" + step.mode] += 1
             bidx, found = step.probe(env2, p)
             if step.extra is not None:
                 found = _extra_found(step, env2, p, bidx, found)
@@ -763,37 +817,46 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
                 bidx_map[step] = bidx
                 step.register_lazy(env2, bidx)
             else:
-                executor.routes["fused_" + step.jtype] += 1
+                routes["fused_" + step.jtype] += 1
         return live
 
-    def run_pipeline(env):
-        """Filters, restrictive probes, one compaction, the other probes
-        and filters → (env2, live, p)."""
-        p = plen
+    def pipeline_head(env, routes):
+        """Filters and restrictive probes over env's rows (the base
+        batch's, or one shard's) → the state pipeline_tail takes, and the
+        live count tensor its compaction needs (None: no compaction)."""
+        p = env.plen
         live = env.live
         env2 = TraceEnv({k: env[k] for k in needed}, p, live, overlay=dict(proj_list))
         bidx_map = {}
         live = apply_filters(filters1, env2, p, live)
-        live = apply_probes(phase1_steps, env2, p, live, bidx_map)
-        if compact_after_phase1:
-            # the live count, read once: the compaction's capacity
-            pos = torch.nonzero(live).flatten()
-            n = pos.shape[0]
-            cap = max(128, pad_bucket(n))
-            if cap <= p // 2:
-                sel = torch.zeros(cap, dtype=torch.int64, device=live.device)
-                sel[:n] = pos
-                live = torch.arange(cap, device=live.device) < n
-                env2 = TraceEnv({}, cap, live, overlay=dict(proj_list))
-                for k in needed:
-                    env2._overlay[k] = _LazyBaseCol(env[k], sel)
-                for st, b in list(bidx_map.items()):
-                    bidx_map[st] = b[sel]
-                    st.register_lazy(env2, bidx_map[st])
-                p = cap
-        live = apply_probes(phase2_steps, env2, p, live, bidx_map)
+        live = apply_probes(phase1_steps, env2, p, live, bidx_map, routes)
+        count = live.sum() if p > (1 << 16) and compact_downstream else None
+        return (env, env2, live, p, bidx_map), count
+
+    def pipeline_tail(state, n_live, routes):
+        """One compaction to n_live rows (read from the head's count) where
+        it halves the length, then the other probes and filters →
+        (env2, live, p)."""
+        env, env2, live, p, bidx_map = state
+        cap = max(128, pad_bucket(n_live)) if n_live is not None else p
+        if cap <= p // 2:
+            sel = packed_indices(live, cap)
+            live = torch.arange(cap, device=live.device) < n_live
+            env2 = TraceEnv({}, cap, live, overlay=dict(proj_list))
+            for k in needed:
+                env2._overlay[k] = _LazyBaseCol(env[k], sel, env.plen)
+            for st, b in list(bidx_map.items()):
+                bidx_map[st] = b[sel]
+                st.register_lazy(env2, bidx_map[st])
+            p = cap
+        live = apply_probes(phase2_steps, env2, p, live, bidx_map, routes)
         live = apply_filters(filters2, env2, p, live)
         return env2, live, p
+
+    def run_pipeline(env, routes):
+        """The whole pipeline on one device: the live count read once."""
+        state, count = pipeline_head(env, routes)
+        return pipeline_tail(state, None if count is None else int(count), routes)
 
     def agg_partial_vectors(env, live, p, gids):
         vecs, kinds = [], []
@@ -827,6 +890,7 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         return torch.where(live, dense, total).to(torch.int32)
 
     def dense_reduce(env, live, p):
+        """→ (per-slot partials, occupancy, the partials' kinds)."""
         dense = dense_ids(env, live, p)
         vecs, kinds = agg_partial_vectors(env, live, p, dense)
         # occupancy counted in int64 (the JAX package uses int32) so that it
@@ -834,7 +898,7 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         vecs.append(live.to(torch.int64))
         kinds.append("sum")
         res = grouped_reduce(dense, vecs, kinds, total)
-        return res[:-1], res[-1].to(torch.int32)
+        return res[:-1], res[-1].to(torch.int32), kinds[:-1]
 
     def dense_finalize(occ, flat):
         """Decode group keys, finalize aggregates."""
@@ -919,15 +983,23 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         return cols, occ
 
     def body(env):
-        env2, live, p = run_pipeline(env)
+        env2, live, p = run_pipeline(env, executor.routes)
         if dense_mode:
             executor.routes["dense"] += 1
-            flat, occ = dense_reduce(env2, live, p)
+            flat, occ, _ = dense_reduce(env2, live, p)
             return dense_finalize(occ, flat)
         executor.routes["sort_group"] += 1
         return sort_group_reduce(env2, live, p)
 
-    return FusedAgg(base_batch, needed, body, out_types, dense_mode)
+    def partials(state, n_live, routes):
+        env2, live, p = pipeline_tail(state, n_live, routes)
+        flat, occ, kinds = dense_reduce(env2, live, p)
+        return occ, flat, kinds
+
+    return FusedAgg(base_batch, needed, body, out_types, dense_mode,
+                    head=pipeline_head, partials=partials if dense_mode else None,
+                    finalize=dense_finalize if dense_mode else None,
+                    distinct=any(agg.distinct for agg in node.aggs))
 
 
 def try_fused_aggregate(executor, node: P.Aggregate):
@@ -938,8 +1010,12 @@ def try_fused_aggregate(executor, node: P.Aggregate):
     fa = build_fused_agg(executor, node)
     if fa is None:
         return None
-    keyrefs = [B.BoundColumnRef(k, fa.base_batch.src[k].ltype) for k in fa.needed]
-    cols, occ = run_jitted(fa.base_batch, keyrefs, fa.body)
+    n_shards = _num_shards(executor, fa)
+    if n_shards > 1:
+        cols, occ = _run_sharded(executor, fa, n_shards)
+    else:
+        keyrefs = [B.BoundColumnRef(k, fa.base_batch.src[k].ltype) for k in fa.needed]
+        cols, occ = run_jitted(fa.base_batch, keyrefs, fa.body)
     n_groups = int((occ > 0).sum())
     out_plen = max(128, pad_bucket(n_groups))
     slot_idx = packed_indices(occ > 0, out_plen)
@@ -952,6 +1028,71 @@ def try_fused_aggregate(executor, node: P.Aggregate):
         out[k] = Column(data=c.data[slot_idx], ltype=t, validity=v, dict_values=dvals,
                         data_hi=c.data_hi[slot_idx] if c.data_hi is not None else None)
     return Batch(src=DictCols(out), plen=out_plen, live=out_live)
+
+
+def _num_shards(executor, fa: FusedAgg) -> int:
+    """How many shards the aggregate runs on: the executor's count over its
+    base rows, 1 for a sort-group aggregate (group ids are shard-local, as
+    in the JAX package) or a DISTINCT one (a value in two shards would
+    count twice); those record their reason in routes."""
+    n = executor._join_shards(rows=fa.base_batch.plen)
+    if n <= 1:
+        return 1
+    reason = "sort_group aggregate" if not fa.dense else (
+        "distinct aggregate" if fa.distinct else None)
+    if reason is not None:
+        executor.routes[f"sharding_single:{reason}"] += 1
+        return 1
+    return n
+
+
+def _split_column(mesh, c: Column, plen: int) -> List[Column]:
+    """A base column's planes cut into the shards' rows; a plane that is
+    not row-length (a broadcast constant) is copied whole."""
+    from duckdb_tpu_torch.parallel import shard
+
+    def parts(x):
+        if x is None:
+            return [None] * mesh.n
+        if x.dim() == 1 and x.shape[0] == plen:
+            return shard.split_rows(mesh, x)
+        return shard.replicate(mesh, x)
+
+    return [Column(data=d, ltype=c.ltype, validity=v, dict_values=c.dict_values, data_hi=h)
+            for d, v, h in zip(parts(c.data), parts(c.validity), parts(c.data_hi))]
+
+
+def _run_sharded(executor, fa: FusedAgg, n: int):
+    """The dense aggregate over the mesh: each shard runs the pipeline and
+    the per-slot reductions over its rows on its device, the slot partials
+    combine by kind on the home device (psum, pmin, pmax: DuckDB's
+    Combine, physical_operator.hpp's sink contract), and the finalize runs
+    once there. → (cols, occ) as the single-device body gives them."""
+    import collections
+
+    from duckdb_tpu_torch.parallel import shard
+
+    mesh = executor._mesh(n, "sharded_agg")
+    executor.routes["dense"] += 1
+    batch = fa.base_batch
+    lives = shard.split_rows(mesh, batch.live)
+    cols = {k: _split_column(mesh, batch.src[k], batch.plen) for k in fa.needed}
+    # the probe routes once per aggregate, as a single-device run has them
+    routes = [executor.routes] + [collections.Counter() for _ in lives[1:]]
+    heads = [fa.head(TraceEnv({k: cols[k][i] for k in fa.needed}, live.shape[0], live),
+                     routes[i]) for i, live in enumerate(lives)]
+    # every shard's head is enqueued before the live counts are read, in
+    # one transfer, so that no card waits on another's sync
+    counts = [c for _, c in heads if c is not None]
+    read = iter(shard.host_ints(mesh, counts))
+    occs, flats = [], []
+    for (state, count), r in zip(heads, routes):
+        occ, flat, kinds = fa.partials(state, None if count is None else next(read)[0], r)
+        occs.append(occ)
+        flats.append(flat)
+    combine = {"sum": shard.psum, "min": shard.pmin, "max": shard.pmax}
+    flat = [combine[kind](mesh, [f[j] for f in flats]) for j, kind in enumerate(kinds)]
+    return fa.finalize(shard.psum(mesh, occs), flat)
 
 
 def _compute_distinct_agg_mask(c, data, mask, gids, plen):

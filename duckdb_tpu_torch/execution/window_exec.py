@@ -33,12 +33,13 @@ from __future__ import annotations
 
 import decimal
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from duckdb_tpu_torch.blocks import Column
+from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
 from duckdb_tpu_torch.ops import sort as S
 from duckdb_tpu_torch.ops.scan import cummax, cummin
 from duckdb_tpu_torch.planner import bound as B
@@ -108,16 +109,35 @@ def _boundaries(keys: List[torch.Tensor], n: int, first) -> torch.Tensor:
     return out
 
 
-def _sort(executor, b, w: P.BoundWindow, env) -> _Order:
+def _window_keys(b, w: P.BoundWindow, env):
+    """The window's normalized PARTITION BY and ORDER BY keys over b."""
+    return _partition_keys(b, w, env), _order_keys(b, w, env)
+
+
+def _partition_keys(b, w: P.BoundWindow, env):
     from duckdb_tpu_torch.execution.executor import sort_keys
 
-    plen = b.plen
-    device = b.live.device
-    pkeys = [k for e in w.partition_by for k in sort_keys(e.eval(env), plen, False, True)]
-    okeys = [k for e, desc, nf in w.order_by
-             for k in sort_keys(e.eval(env), plen, desc, bool(nf))]
-    perm = S.sort_permutation(pkeys + okeys, b.live)
-    live = b.live[perm]
+    return [k for e in w.partition_by for k in sort_keys(e.eval(env), b.plen, False, True)]
+
+
+def _order_keys(b, w: P.BoundWindow, env):
+    from duckdb_tpu_torch.execution.executor import sort_keys
+
+    return [k for e, desc, nf in w.order_by
+            for k in sort_keys(e.eval(env), b.plen, desc, bool(nf))]
+
+
+def _sort(executor, b, w: P.BoundWindow, env) -> _Order:
+    return order_from_keys(*_window_keys(b, w, env), b.live)
+
+
+def order_from_keys(pkeys, okeys, live) -> _Order:
+    """One stable sort by (dead, partition keys, order keys) — ties keep
+    row order — and the partition and peer runs in sorted order."""
+    plen = live.shape[0]
+    device = live.device
+    perm = S.sort_permutation(pkeys + okeys, live)
+    live = live[perm]
     first = torch.arange(plen, device=device) == 0
     # the dead rows (sorted last) are a partition of their own
     seg_start = _boundaries([live] + [k[perm] for k in pkeys], plen, first)
@@ -136,8 +156,10 @@ def execute_window(executor, node: P.Window):
     b = executor.execute(node.child)
     env = b.env()
     orders = []  # [(window, _Order)]: windows of one signature share a sort
-    out = {}
+    out = _sharded_windows(executor, node.windows, env, b)
     for w in node.windows:
+        if w.key in out:
+            continue
         od = next((o for w2, o in orders if _same_sort(w, w2, _bound_eq)), None)
         if od is None:
             od = _sort(executor, b, w, env)
@@ -152,6 +174,89 @@ def execute_window(executor, node: P.Window):
         out[w.key] = Column(data=data, ltype=w.ltype, validity=validity, dict_values=dvals)
     executor.routes["window"] += 1
     return Batch(src=ChainCols([DictCols(out), b.src]), plen=b.plen, live=b.live)
+
+
+_SHARDED_WINDOW_FNS = {"row_number", "rank", "dense_rank", "count", "sum", "avg", "min",
+                       "max"}
+_SHARDED_MIN_ROWS = 1 << 14
+
+
+def _sharded_windows(executor, windows, env, b) -> Dict[str, Column]:
+    """The windows that run over the mesh (parallel/shard.make_sharded_window)
+    when rows are sharded: a ranking function or a whole-partition /
+    running count, sum, avg, min or max over PARTITION BY, without a
+    frame, from _SHARDED_MIN_ROWS padded rows (the JAX package's gates; min
+    and max only over whole partitions). Windows of one PARTITION BY share
+    one exchange, and those of one ORDER BY one sort on each shard.
+    → {window key: Column}; the others run on one device."""
+    from duckdb_tpu_torch.planner.planner import _bound_eq
+
+    n = executor._join_shards(rows=b.plen) if b.plen >= _SHARDED_MIN_ROWS else 1
+    if n <= 1:
+        return {}
+    picked = [(w, a) for w in windows for a in [_sharded_arg(w, env, b)] if a is not None]
+    groups = []  # [[(window, arg)]] of one PARTITION BY
+    for w, a in picked:
+        g = next((g for g in groups if len(g[0][0].partition_by) == len(w.partition_by)
+                  and all(_bound_eq(x, y) for x, y in zip(g[0][0].partition_by,
+                                                            w.partition_by))), None)
+        if g is None:
+            groups.append([(w, a)])
+        else:
+            g.append((w, a))
+    out = {}
+    for group in groups:
+        out.update(_sharded_group(executor, n, group, env, b, _bound_eq))
+    return out
+
+
+def _sharded_arg(w: P.BoundWindow, env, b):
+    """(argument, validity, scale) of a window the mesh takes, None for
+    count(*)'s; None where the window stays on one device."""
+    from duckdb_tpu_torch.execution.executor import _full_valid
+
+    if (not w.partition_by or w.frame is not None or w.func not in _SHARDED_WINDOW_FNS
+            or len(w.args) > 1 or (w.func in ("min", "max") and w.order_by)):
+        return None
+    if not w.args:
+        return None, None, 1.0
+    c = w.args[0].eval(env)
+    if c.ltype.id in (TypeId.VARCHAR, TypeId.BLOB) or c.data_hi is not None \
+            or c.ltype.id in UNSORTED_DICT_IDS:
+        return None
+    scale = 10.0 ** c.ltype.scale if c.ltype.id is TypeId.DECIMAL else 1.0
+    return bcast(c.data, b.plen), _full_valid(c, b.plen), scale
+
+
+def _sharded_group(executor, n, group, env, b, eq) -> Dict[str, Column]:
+    """The windows of one PARTITION BY over n shards, in one exchange."""
+    from duckdb_tpu_torch.parallel import shard
+
+    plen, device = b.plen, b.live.device
+    firsts, specs = [], []  # a window of each distinct ORDER BY; (kind, its index)
+    for w, _ in group:
+        o = next((i for i, f in enumerate(firsts) if _same_sort(w, f, eq)), None)
+        if o is None:
+            o = len(firsts)
+            firsts.append(w)
+        specs.append((w.func, o))
+    pkeys = _partition_keys(b, group[0][0], env)
+    okeys = [_order_keys(b, f, env) for f in firsts]
+    mesh = executor._mesh(n, "sharded_window")
+    res = shard.make_sharded_window(mesh, len(pkeys), [len(k) for k in okeys], specs)(
+        pkeys[0], b.live, torch.arange(plen, device=device), pkeys, okeys,
+        [a for _, a in group])
+    out = {}
+    for (w, _), r in zip(group, res):
+        # each live row's value back at its row (every row id once)
+        data = torch.zeros(plen, dtype=r.values.dtype, device=device)
+        data[r.rows] = r.values
+        validity = None
+        if w.func not in ("row_number", "rank", "dense_rank", "count"):
+            validity = torch.zeros(plen, dtype=torch.bool, device=device)
+            validity[r.rows] = r.valid
+        out[w.key] = Column(data=data, ltype=w.ltype, validity=validity)
+    return out
 
 
 def _same_sort(a: P.BoundWindow, b: P.BoundWindow, eq) -> bool:
@@ -173,12 +278,8 @@ def _compute(w: P.BoundWindow, env, plen: int, od: _Order):
     device = od.perm.device
     idx = torch.arange(plen, device=device)
     f = w.func
-    if f == "row_number":
-        return idx - od.start + 1, None, None
-    if f == "rank":
-        return od.peer_s - od.start + 1, None, None
-    if f == "dense_rank":
-        return od.peer_id - od.peer_id[od.start] + 1, None, None
+    if f in ("row_number", "rank", "dense_rank"):
+        return _rank_values(f, od, idx), None, None
     size = od.end - od.start + 1
     if f == "percent_rank":
         rk = (od.peer_s - od.start).to(torch.float64)
@@ -243,34 +344,60 @@ def _compute(w: P.BoundWindow, env, plen: int, od: _Order):
         q = 0.5 if f == "median" or len(w.args) < 2 else float(w.args[1].const_value())
         return _quantile(q, c, vals, valid, od, plen) + (None,)
 
-    # sum, avg, count, min, max: over the whole partition, running (the
-    # default frame with an ORDER BY: up to the current row's last peer),
-    # or over an explicit frame
+    if f in ("count", "sum", "avg", "min", "max"):
+        scale = 10.0 ** c.ltype.scale if c is not None and c.ltype.id is TypeId.DECIMAL else 1.0
+        res, ok = _agg_over(f, vals, valid, od, span, plen, scale)
+        return res, ok, dvals if f in ("min", "max") else None
+    raise BindError(f"Binder Error: window function {f} is not supported")
+
+
+def _agg_over(f, vals, valid, od: _Order, span, plen: int, scale: float):
+    """count, sum, avg, min or max over the whole partition, running (the
+    default frame with an ORDER BY: up to the current row's last peer), or
+    over an explicit frame `span` → (values, validity | None), in sorted
+    order. `scale` divides an avg of a DECIMAL's scaled integers."""
     n_valid = _over(valid.to(torch.int64), od, span, plen)
     if f == "count":
-        return n_valid, None, None
+        return n_valid, None
+    is_float = vals.dtype.is_floating_point
     if f in ("sum", "avg"):
-        zero = 0.0 if c.ltype.is_float else 0
-        x = torch.where(valid, vals.to(torch.float64 if c.ltype.is_float else torch.int64), zero)
+        zero = 0.0 if is_float else 0
+        x = torch.where(valid, vals.to(torch.float64 if is_float else torch.int64), zero)
         s = _over(x, od, span, plen)
         if f == "sum":
-            return s, n_valid > 0, None
-        scale = 10.0 ** c.ltype.scale if c.ltype.id is TypeId.DECIMAL else 1.0
-        return s.to(torch.float64) / (n_valid.to(torch.float64) * scale), n_valid > 0, None
-    if f in ("min", "max"):
-        op = torch.minimum if f == "min" else torch.maximum
-        if c.ltype.is_float:
-            ident = float("inf") if f == "min" else float("-inf")
-            x = torch.where(valid, vals.to(torch.float64), ident)
-        else:
-            ident = _I64_MAX if f == "min" else _I64_MIN
-            x = torch.where(valid, vals.to(torch.int64), ident)
-        if framed:
-            run = _span_minmax(x, lo, hi, op, ident)
-        else:
-            run = _seg_scan(x, od, op)[od.peer_e if od.has_order else od.end]
-        return run.to(vals.dtype), n_valid > 0, dvals
-    raise BindError(f"Binder Error: window function {f} is not supported")
+            return s, n_valid > 0
+        return s.to(torch.float64) / (n_valid.to(torch.float64) * scale), n_valid > 0
+    op = torch.minimum if f == "min" else torch.maximum
+    if is_float:
+        ident = float("inf") if f == "min" else float("-inf")
+        x = torch.where(valid, vals.to(torch.float64), ident)
+    else:
+        ident = _I64_MAX if f == "min" else _I64_MIN
+        x = torch.where(valid, vals.to(torch.int64), ident)
+    if span is not None:
+        run = _span_minmax(x, span[0], span[1], op, ident)
+    else:
+        run = _seg_scan(x, od, op)[od.peer_e if od.has_order else od.end]
+    return run.to(vals.dtype), n_valid > 0
+
+
+def _rank_values(f, od: _Order, idx):
+    if f == "row_number":
+        return idx - od.start + 1
+    if f == "rank":
+        return od.peer_s - od.start + 1
+    return od.peer_id - od.peer_id[od.start] + 1  # dense_rank
+
+
+def keyed_window_values(kind: str, od: _Order, vals, valid, scale: float = 1.0):
+    """A sharded window's values over one shard's rows, sorted (`od`), with
+    the single-device code: a ranking function, or count / sum / avg / min
+    / max over the whole partition or running to the last peer. vals and
+    valid are the argument in sorted order. → (values, validity | None)."""
+    plen = od.perm.shape[0]
+    if kind in ("row_number", "rank", "dense_rank"):
+        return _rank_values(kind, od, torch.arange(plen, device=od.perm.device)), None
+    return _agg_over(kind, vals, valid & od.live, od, None, plen, scale)
 
 
 # -- scans ------------------------------------------------------------------------

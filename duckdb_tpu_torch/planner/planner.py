@@ -227,7 +227,8 @@ class BoundMarkSubquery(B.BoundExpr):
                 sm = max(s1, s2)
                 xv = x.to(torch.int64) * 10 ** (sm - s1)
                 bv = bc.data[bvalid].to(torch.int64) * 10 ** (sm - s2)
-            match = torch.isin(xv, torch.unique(bv))
+            # the build lives on the catalog's device; a shard's rows may not
+            match = torch.isin(xv, torch.unique(bv).to(device))
         x_valid = None if c.validity is None else B.bcast(c.validity, plen)
         if self.exists_semantics:
             # EXISTS as membership: a NULL probe matches nothing

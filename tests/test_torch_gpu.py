@@ -827,3 +827,119 @@ def test_chunked_aggregate_on_cuda(tmp_path):
         C.set_memory_limit(0)
     assert got == want
     assert con.routes["out_of_core"] == 1 and con.routes["out_of_core_chunks"] >= 2
+
+
+# -- multi-device execution (parallel/shard.py) ----------------------------------------
+@pytest.mark.gpu
+def test_kernel_on_every_card():
+    """The grouped-sum kernel launched on each visible card reads that
+    card's memory and writes its result there, equal to the plain version."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(31)
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        dense = torch.randint(-1, 22, (300_000,), generator=gen, dtype=torch.int32)
+        vecs = [torch.randint(-(2**62), 2**62, (300_000,), generator=gen, dtype=torch.int64)
+                for _ in range(5)]
+        GS.grouped_sum_i64.launches = 0
+        got = GS.grouped_sum_i64(dense.to(dev), [v.to(dev) for v in vecs], 20)
+        torch.cuda.synchronize(dev)
+        assert GS.grouped_sum_i64.launches == 1
+        want = GS.grouped_sum_i64_plain(dense, vecs, 20)
+        for g, w in zip(got, want):
+            assert g.device == dev and torch.equal(g.cpu(), w)
+
+
+def _graft_q1_inputs():
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    n = 2048
+    return [torch.from_numpy(x) for x in (
+        rng.integers(1, 50, n) * 100, rng.integers(1000, 100000, n), rng.integers(0, 10, n),
+        rng.integers(0, 8, n), rng.integers(0, 8, n).astype(np.int32), rng.random(n) < 0.95)]
+
+
+def _sharded_q1_checks(n_shards, monkeypatch, tmp_path):
+    """q1_local_partial and make_sharded_q1 over n_shards on the cards,
+    then Q1 through SQL: equal to the CPU, one launch per shard, each on
+    its shard's card."""
+    import chip_smoke
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.ops import grouped as G
+    from duckdb_tpu_torch.parallel import shard
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    ins = _graft_q1_inputs()
+    want = shard.q1_local_partial(*ins, 8)
+    mesh = shard.mesh_for(n_shards, "cuda")
+    assert mesh.devices == [torch.device("cuda", i % torch.cuda.device_count())
+                            for i in range(n_shards)]
+    GS.grouped_sum_i64.launches = 0
+    got = shard.make_sharded_q1(mesh, 8)(*(x.cuda() for x in ins))
+    torch.cuda.synchronize()
+    assert GS.grouped_sum_i64.launches == n_shards
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(shard.q1_local_partial(
+        *(x.cuda() for x in ins), 8), want))
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path))
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    con.sql(f"SET num_shards = {n_shards}")
+    want_rows = cpu.sql(chip_smoke.Q1).rows()
+    devices = []
+    orig = G.grouped_sum_i64
+
+    def on(dense, vectors, nseg):
+        devices.append(dense.device)
+        return orig(dense, vectors, nseg)
+
+    monkeypatch.setattr(G, "grouped_sum_i64", on)
+    GS.grouped_sum_i64.launches = 0
+    con.routes.clear()
+    rows = con.sql(chip_smoke.Q1).rows()
+    assert rows == want_rows
+    assert GS.grouped_sum_i64.launches == n_shards and devices == mesh.devices
+    assert con.routes["sharded_agg"] == 1
+    assert con.routes["sharded_shared_card" if mesh.shared else "sharded"] == 1
+    return con, cpu
+
+
+@pytest.mark.gpu
+def test_sharded_q1_shards_share_one_card(monkeypatch, tmp_path):
+    """Eight shards on however many cards (one card: all eight share it)."""
+    _need_cuda()
+    _sharded_q1_checks(8, monkeypatch, tmp_path)
+
+
+@pytest.mark.gpu
+def test_sharded_queries_across_two_cards(monkeypatch, tmp_path):
+    """Two shards on two cards: Q1's kernel launches on each card, and the
+    exchange joins, ORDER BY, TopN and windows equal the CPU's rows."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from duckdb_tpu_torch.parallel import shard
+    from duckdb_tpu_torch.testing import tpch_oracle
+
+    con, cpu = _sharded_q1_checks(2, monkeypatch, tmp_path)
+    con.sql("SET exchange_join_threshold = 0")
+    shard.COPIED["bytes"] = 0
+    for sql in [tpch_oracle.QUERIES["q03"], tpch_oracle.QUERIES["q05"],
+                "SELECT count(*), sum(o_totalprice) FROM orders LEFT JOIN customer "
+                "ON o_custkey = c_custkey AND c_acctbal > 0",
+                "SELECT l_orderkey, l_linenumber FROM lineitem ORDER BY l_extendedprice DESC, "
+                "l_orderkey, l_linenumber",
+                "SELECT l_orderkey, l_linenumber FROM lineitem ORDER BY l_extendedprice, "
+                "l_orderkey LIMIT 30",
+                "SELECT l_orderkey, l_linenumber, row_number() OVER (PARTITION BY l_orderkey "
+                "ORDER BY l_linenumber), count(*) OVER (PARTITION BY l_orderkey), "
+                "sum(l_quantity) OVER (PARTITION BY l_orderkey) FROM lineitem"]:
+        con.routes.clear()
+        got = con.sql(sql).rows()
+        assert con.routes["sharded"] >= 1, (sql, dict(con.routes))
+        _close_rows(got, cpu.sql(sql).rows(), sql)
+    assert shard.COPIED["bytes"] > 0
