@@ -196,6 +196,28 @@ Phases (any failure exits non-zero before the result lines):
    which prints the shard count it chose. Phases 1-16 run with SET
    num_shards = 1, the port's default.
 
+18. DML at SF1 on a connection of its own (every column of lineitem and
+   orders on the card first): CREATE TABLE li AS SELECT * FROM lineitem
+   (6,001,215 rows), DELETE of the rows shipped before 1993, UPDATE of
+   l_discount where l_returnflag = 'R' and it is under 0.10, INSERT … SELECT
+   of lineitem's orders divisible by 7, each Count held to numpy over the
+   same files with the same edits; Q1 over li against that numpy oracle,
+   its grouped sum held to the plain version and timed; BEGIN, a DELETE of
+   the 'F' rows, count(*), ROLLBACK, Q1 equal to step 5's; two cursors in
+   transactions writing li, the second's COMMIT raising
+   TransactionException and Q1 afterwards showing only the first's write;
+   CREATE TABLE o with a PRIMARY KEY over orders (1,500,000 rows), a
+   duplicate key raising ConstraintException, INSERT … ON CONFLICT DO
+   UPDATE of the 1,000 smallest keys changing exactly those rows (Count
+   1,000: DuckDB counts the rows an upsert updates); INSERT …
+   SELECT … GROUP BY into agg through the grouped sum (held to the plain
+   version) equal to numpy; DROP of the three tables, after which the pool
+   holds none of their columns and memory_allocated() is at most 64 MiB
+   above its value before step 1. Each step prints its wall ms, host syncs
+   (CUDA sync debug mode, on during the step) and the bytes it moved
+   between host and card (TransferCounter), beside the card's name and
+   power limit.
+
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
 """
@@ -255,25 +277,43 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def numpy_q1(data_dir: str):
-    """Q1 over the generated files with numpy alone → rows as Q1 returns them."""
-    import datetime
-    import decimal
+LINEITEM_NUMPY = ("l_orderkey", "l_linenumber", "l_quantity", "l_extendedprice",
+                  "l_discount", "l_tax", "l_returnflag", "l_linestatus", "l_shipdate")
 
+
+def lineitem_numpy(data_dir: str) -> dict:
+    """The lineitem columns Q1 and phase 18 read, from the generated files:
+    integers (DECIMAL in cents, dates in days) as int64, the one-character
+    flags as their bytes."""
     import numpy as np
 
     t = os.path.join(data_dir, "lineitem")
+    out = {}
+    for name in LINEITEM_NUMPY:
+        if os.path.exists(os.path.join(t, name + ".bytes")):
+            out[name] = np.fromfile(os.path.join(t, name + ".bytes"), dtype="S1")
+        elif os.path.exists(os.path.join(t, name + ".i64")):
+            out[name] = np.fromfile(os.path.join(t, name + ".i64"), dtype=np.int64)
+        else:
+            out[name] = np.fromfile(os.path.join(t, name + ".i32"),
+                                    dtype=np.int32).astype(np.int64)
+    return out
 
-    def i64(name):
-        return np.fromfile(os.path.join(t, name + ".i64"), dtype=np.int64)
 
-    def flag(name):  # one-character VARCHAR → its characters
-        return np.fromfile(os.path.join(t, name + ".bytes"), dtype="S1")
+def numpy_q1(data_dir: str):
+    """Q1 over the generated files with numpy alone → rows as Q1 returns them."""
+    return numpy_q1_of(lineitem_numpy(data_dir))
 
-    qty, price = i64("l_quantity"), i64("l_extendedprice")
-    disc, tax = i64("l_discount"), i64("l_tax")
-    ship = np.fromfile(os.path.join(t, "l_shipdate.i32"), dtype=np.int32)
-    rf, ls = flag("l_returnflag"), flag("l_linestatus")
+
+def numpy_q1_of(cols: dict):
+    """Q1 over lineitem columns as lineitem_numpy gives them."""
+    import datetime
+    import decimal
+
+    qty, price = cols["l_quantity"], cols["l_extendedprice"]
+    disc, tax = cols["l_discount"], cols["l_tax"]
+    ship = cols["l_shipdate"]
+    rf, ls = cols["l_returnflag"], cols["l_linestatus"]
     keep = ship <= (datetime.date(1998, 9, 2) - datetime.date(1970, 1, 1)).days
     rows = []
     for r in sorted(set(rf[keep].tolist())):
@@ -1266,6 +1306,291 @@ def out_of_core_phase(con, card, recording, recorded, launches_by_query, shapes,
     return ""
 
 
+class TransferCounter:
+    """Bytes that cross between the host and a CUDA device through
+    torch.Tensor.to / .cpu / .cuda (every promotion, result copy and host
+    read of the port goes through one of them) while counting."""
+
+    def __init__(self):
+        import torch
+
+        self.torch = torch
+        self.bytes = 0
+        self._orig = {}
+
+    def __enter__(self):
+        T = self.torch.Tensor
+        for name in ("to", "cpu", "cuda"):
+            self._orig[name] = getattr(T, name)
+
+        def wrap(orig):
+            def f(t, *args, **kwargs):
+                out = orig(t, *args, **kwargs)
+                if out is not t and out.device.type != t.device.type:
+                    self.bytes += t.numel() * t.element_size()
+                return out
+            return f
+
+        for name, orig in self._orig.items():
+            setattr(T, name, wrap(orig))
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(self.torch.Tensor, name, orig)
+        return False
+
+
+def dml_phase(card, recording, recorded, launches_by_query, shapes, reps) -> str:
+    """Phase 18 (see the module docstring). '' or a failure message."""
+    import datetime
+    import decimal
+    import gc
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.api.connection import TransactionException
+    from duckdb_tpu_torch.catalog import catalog as C
+    from duckdb_tpu_torch.errors import ConstraintException
+    from duckdb_tpu_torch.ops import grouped as grouped_mod
+    from duckdb_tpu_torch.ops import grouped_sum as GS
+
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(DATA)
+    con.sql("SET num_shards = 1")
+    for table in ("lineitem", "orders"):  # resident before the baseline
+        entry = con.catalog.get_table(table)
+        for cd in entry.columns:
+            entry.device_column(cd.name)
+    base = lineitem_numpy(DATA)
+    li = {k: v.copy() for k, v in base.items()}
+
+    def day(s):
+        return (datetime.date.fromisoformat(s) - datetime.date(1970, 1, 1)).days
+
+    def step(label, fn):
+        """Run one step with its host syncs and host↔device bytes counted:
+        → (its value, the line to print)."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught, TransferCounter() as moved:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                value = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        return value, (f"phase 18 step {label} on {card}: {wall * 1e3:.3f} ms wall, {syncs} "
+                       f"host syncs, {moved.bytes} host<->device bytes")
+
+    def count_of(res):
+        return res.rows()[0][0]
+
+    def kernel_check(name):
+        timed = set()
+        for dense, vecs, nseg in recorded:
+            err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
+                              GS.grouped_sum_i64_plain(dense, vecs, nseg))
+            torch.cuda.synchronize()
+            if err:
+                return f"grouped_sum_i64 disagrees with its plain version on {name}"
+            n_q, k_q = dense.shape[0], len(vecs)
+            if (n_q, k_q, nseg) in timed:
+                continue
+            timed.add((n_q, k_q, nseg))
+            k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+            b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
+            print(f"grouped_sum_i64 at {name}'s shape N={n_q} K={k_q} nseg={nseg} on {card}: "
+                  f"max abs err 0, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ "
+                  f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, {b_adds} "
+                  "adds)")
+            shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg, "max_abs_err": 0,
+                           "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "library_ms": l_ms})
+        return ""
+
+    def with_kernel(label, name, fn):
+        recorded.clear()
+        grouped_mod.grouped_sum_i64 = recording
+        GS.grouped_sum_i64.launches = 0
+        try:
+            value, line = step(label, fn)
+        finally:
+            grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+        launches_by_query[name] = GS.grouped_sum_i64.launches
+        return value, line
+
+    q1_li = Q1.replace("FROM lineitem", "FROM li")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+
+    # 1. CREATE TABLE … AS SELECT
+    _, line = step("1 CREATE TABLE li AS SELECT * FROM lineitem",
+                   lambda: con.sql("CREATE TABLE li AS SELECT * FROM lineitem"))
+    n = con.catalog.get_table("li").nrows
+    if n != len(li["l_orderkey"]):
+        return f"li has {n} rows, lineitem {len(li['l_orderkey'])}"
+    print(line + f"; {n} rows")
+    # 2. DELETE
+    got, line = step("2 DELETE", lambda: count_of(con.sql(
+        "DELETE FROM li WHERE l_shipdate < DATE '1993-01-01'")))
+    gone = li["l_shipdate"] < day("1993-01-01")
+    li = {k: v[~gone] for k, v in li.items()}
+    if got != int(gone.sum()):
+        return f"DELETE counted {got}, numpy {int(gone.sum())}"
+    print(line + f"; Count {got} equals numpy's")
+    # 3. UPDATE
+    got, line = step("3 UPDATE", lambda: count_of(con.sql(
+        "UPDATE li SET l_discount = l_discount + 0.01 WHERE l_returnflag = 'R' AND "
+        "l_discount < 0.10")))
+    m = (li["l_returnflag"] == b"R") & (li["l_discount"] < 10)
+    li["l_discount"] = np.where(m, li["l_discount"] + 1, li["l_discount"])
+    if got != int(m.sum()):
+        return f"UPDATE counted {got}, numpy {int(m.sum())}"
+    print(line + f"; Count {got} equals numpy's")
+    # 4. INSERT … SELECT
+    got, line = step("4 INSERT … SELECT", lambda: count_of(con.sql(
+        "INSERT INTO li SELECT * FROM lineitem WHERE l_orderkey % 7 = 0")))
+    add = base["l_orderkey"] % 7 == 0
+    li = {k: np.concatenate([v, base[k][add]]) for k, v in li.items()}
+    if got != int(add.sum()):
+        return f"INSERT counted {got}, numpy {int(add.sum())}"
+    print(line + f"; Count {got} equals numpy's")
+    # 5. Q1 over the edited table, through the kernel
+    rows5, line = with_kernel("5 Q1 over li", "q01_dml", lambda: con.sql(q1_li).rows())
+    bad = rows_match(rows5, numpy_q1_of(li))
+    if bad:
+        return f"Q1 over li differs from the numpy oracle: {bad}"
+    if launches_by_query["q01_dml"] < 1:
+        return "Q1 over li did not launch the grouped sum"
+    print(line + f"; {len(rows5)} rows equal numpy's; grouped_sum_i64 launches "
+          f"{launches_by_query['q01_dml']}")
+    bad = kernel_check("q01_dml")
+    if bad:
+        return bad
+    # 6. a rolled-back DELETE
+    con.sql("BEGIN")
+    got, line = step("6 DELETE in a transaction", lambda: count_of(con.sql(
+        "DELETE FROM li WHERE l_linestatus = 'F'")))
+    f_rows = int((li["l_linestatus"] == b"F").sum())
+    inside = count_of(con.sql("SELECT count(*) FROM li"))
+    con.sql("ROLLBACK")
+    if got != f_rows or inside != len(li["l_orderkey"]) - f_rows:
+        return f"the DELETE in the transaction counted {got} and left {inside} rows"
+    again, line2 = step("6 Q1 after ROLLBACK", lambda: con.sql(q1_li).rows())
+    if again != rows5:
+        return "Q1 after the ROLLBACK differs from step 5"
+    print(line + f"; Count {got} and count(*) {inside} equal numpy's")
+    print(line2 + "; equals step 5")
+    # 7. two cursors: first committer wins at table granularity
+    c2 = con.cursor()
+    con.sql("BEGIN")
+    c2.sql("BEGIN")
+    got, line = step("7 UPDATE by cursor 1", lambda: count_of(con.sql(
+        "UPDATE li SET l_tax = l_tax + 0.01 WHERE l_linenumber = 1")))
+    if got != int((li["l_linenumber"] == 1).sum()):
+        return f"cursor 1's UPDATE counted {got}"
+    if c2.sql(q1_li).rows() != rows5:
+        return "cursor 2 saw cursor 1's uncommitted UPDATE"
+    c2.sql("UPDATE li SET l_tax = 0 WHERE l_linenumber = 2")
+    con.sql("COMMIT")
+    try:
+        c2.sql("COMMIT")
+        return "cursor 2's COMMIT of a table cursor 1 wrote did not raise"
+    except TransactionException:
+        pass
+    li["l_tax"] = np.where(li["l_linenumber"] == 1, li["l_tax"] + 1, li["l_tax"])
+    rows7, line2 = step("7 Q1 after both COMMITs", lambda: con.sql(q1_li).rows())
+    bad = rows_match(rows7, numpy_q1_of(li)) or rows_match(c2.sql(q1_li).rows(), rows7)
+    if bad:
+        return f"Q1 after the two commits differs from numpy (cursor 1's update only): {bad}"
+    print(line + "; cursor 2's Q1 equals step 5; cursor 2's COMMIT raised "
+          "TransactionException")
+    print(line2 + "; equals numpy with cursor 1's update and not cursor 2's")
+    del c2
+    # 8. constraints and ON CONFLICT
+    o_dir = os.path.join(DATA, "orders")
+    okey = np.fromfile(os.path.join(o_dir, "o_orderkey.i64"), dtype=np.int64)
+    oprice = np.fromfile(os.path.join(o_dir, "o_totalprice.i64"), dtype=np.int64)
+    con.sql("CREATE TABLE o (o_orderkey BIGINT PRIMARY KEY, o_custkey BIGINT NOT NULL, "
+            "o_totalprice DECIMAL(15,2), o_orderdate DATE)")
+    got, line = step("8 INSERT INTO o", lambda: count_of(con.sql(
+        "INSERT INTO o SELECT o_orderkey, o_custkey, o_totalprice, o_orderdate FROM orders")))
+    if got != len(okey):
+        return f"INSERT INTO o counted {got}, orders has {len(okey)}"
+    print(line + f"; Count {got}")
+    try:
+        con.sql(f"INSERT INTO o SELECT o_orderkey, o_custkey, o_totalprice, o_orderdate "
+                f"FROM orders WHERE o_orderkey = {int(okey[0])}")
+        return "a duplicate primary key did not raise"
+    except ConstraintException as err:
+        print(f"phase 18 step 8: a duplicate key raised ConstraintException ({err})")
+    kth = int(np.sort(okey)[999])
+    got, line = step("8 INSERT … ON CONFLICT DO UPDATE", lambda: count_of(con.sql(
+        "INSERT INTO o SELECT o_orderkey, o_custkey, o_totalprice + 1, o_orderdate FROM "
+        f"orders WHERE o_orderkey <= {kth} ON CONFLICT DO UPDATE SET "
+        "o_totalprice = excluded.o_totalprice")))
+    low = okey <= kth
+    want = [(int(low.sum()), decimal.Decimal(int(oprice[low].sum()) + 100 * int(low.sum()))
+             .scaleb(-2)),
+            (int((~low).sum()), decimal.Decimal(int(oprice[~low].sum())).scaleb(-2))]
+    have = [tuple(con.sql(f"SELECT count(*), sum(o_totalprice) FROM o WHERE o_orderkey "
+                          f"{op} {kth}").rows()[0]) for op in ("<=", ">")]
+    # DuckDB's Count of an upsert is the rows appended plus the rows updated
+    if got != 1000 or int(low.sum()) != 1000 or have != want:
+        return f"the upsert counted {got} and left {have}, numpy {want}"
+    print(line + f"; Count {got} (1000 rows updated, none appended); the 1000 keys' sum and "
+          "count and the others' equal numpy's")
+    # 9. INSERT … SELECT … GROUP BY through the kernel
+    con.sql("CREATE TABLE agg (f VARCHAR, s VARCHAR, q DECIMAL(38,2))")
+    got, line = with_kernel("9 INSERT … SELECT … GROUP BY", "insert_agg_dml",
+                            lambda: count_of(con.sql(
+        "INSERT INTO agg SELECT l_returnflag, l_linestatus, sum(l_quantity) FROM li "
+        "GROUP BY l_returnflag, l_linestatus")))
+    want = sorted((r.decode(), s_.decode(),
+                   decimal.Decimal(int(li["l_quantity"][(li["l_returnflag"] == r)
+                                                        & (li["l_linestatus"] == s_)].sum()))
+                   .scaleb(-2))
+                  for r, s_ in set(zip(li["l_returnflag"].tolist(),
+                                       li["l_linestatus"].tolist())))
+    rows9 = con.sql("SELECT * FROM agg ORDER BY f, s").rows()
+    bad = rows_match(rows9, want)
+    if bad or got != len(want):
+        return f"agg differs from numpy: {bad or got}"
+    if launches_by_query["insert_agg_dml"] < 1:
+        return "INSERT … SELECT … GROUP BY did not launch the grouped sum"
+    print(line + f"; {got} rows equal numpy's; grouped_sum_i64 launches "
+          f"{launches_by_query['insert_agg_dml']}")
+    bad = kernel_check("insert_agg_dml")
+    if bad:
+        return bad
+    # 10. DROP: the pool lets the tables go, the card its memory
+    entries = [con.catalog.get_table(t) for t in ("li", "o", "agg")]
+    _, line = step("10 DROP", lambda: con.sql("DROP TABLE li; DROP TABLE o; DROP TABLE agg"))
+    if any(C.POOL.holds(e) for e in entries):
+        return "the pool still holds a column of a dropped table"
+    del entries
+    recorded.clear()  # the kernel inputs this phase kept to check and time
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem1 = torch.cuda.memory_allocated()
+    if mem1 - mem0 > 64 << 20:
+        return (f"after the drops the card holds {mem1 - mem0} bytes more than before step 1 "
+                "(over 64 MiB)")
+    print(line + f"; the pool holds no column of li, o or agg; memory_allocated "
+          f"{mem1 - mem0:+d} bytes against before step 1")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -1738,6 +2063,18 @@ def main() -> int:
     if bad:
         return fail(bad)
     print(f"phase 17 took {time.perf_counter() - phase17_t0:.1f} s")
+
+    # 18. DML at SF1: edits of a copy of lineitem held to numpy, transactions,
+    # constraints, and the grouped sum on the edited tables
+    phase18_t0 = time.perf_counter()
+    try:
+        bad = dml_phase(card, recording, recorded, launches_by_query, shapes, reps)
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    if bad:
+        return fail(bad)
+    worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
+    print(f"phase 18 took {time.perf_counter() - phase18_t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "grouped_sum_i64", "route": "cuda",

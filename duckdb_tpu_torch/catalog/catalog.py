@@ -16,45 +16,84 @@ fit runs in chunks (execution/chunked.py).
 
 from __future__ import annotations
 
+import itertools
 import weakref
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from duckdb_tpu_torch.blocks import Column, pad_bucket
 from duckdb_tpu_torch.types import LogicalType, TypeId
 
 
 class DeviceBufferPool:
-    """LRU accounting of the device bytes of promoted columns."""
+    """LRU accounting of the device bytes of promoted columns. Clones of
+    one table (transaction snapshots) share their Column objects, so bytes
+    are counted per Column, once however many tables hold it, and a
+    column leaves the device only when every table that holds it lets it
+    go."""
 
     def __init__(self, limit_bytes: int = 0):
         self.limit = limit_bytes  # 0: no limit
         self.used = 0
         self._clock = 0
-        # (id(entry), name) → [bytes, last touch, entry, name]
-        self._resident: Dict[tuple, list] = {}
+        # (id(entry), name) → id(column)
+        self._resident: Dict[tuple, int] = {}
+        # id(column) → [bytes, last touch, {(id(entry), name): (weakref(entry), name)}]
+        self._columns: Dict[int, list] = {}
+        # the ids of tables garbage-collected since the last call: the
+        # collector may run inside any method, so its callback only notes
+        # them, and the next call forgets them (`_reap`)
+        self._dead: List[int] = []
 
-    def touch(self, entry: "TableEntry", name: str, nbytes: int = 0):
-        """Mark a column used; a new one adds its bytes and may evict others."""
-        self._clock += 1
+    def _reap(self):
+        while self._dead:
+            self.forget(self._dead.pop())
+
+    def touch(self, entry: "TableEntry", name: str, nbytes: int = 0, use: bool = True):
+        """Mark a column used; a new one adds its bytes (once per Column
+        object) and may evict others. `use=False` registers one more
+        holder of a column (a table's clone) and leaves its last use as
+        it was."""
+        self._reap()
+        if use:
+            self._clock += 1
         key = (id(entry), name)
-        rec = self._resident.get(key)
-        if rec is not None:
-            rec[1] = self._clock
+        cid = id(entry._device.get(name))
+        if self._resident.get(key) not in (None, cid):
+            self._drop(key)
+        rec = self._columns.get(cid)
+        if key in self._resident:
+            if use:
+                rec[1] = self._clock
             return
         if not any(k[0] == key[0] for k in self._resident):
             # a table that is garbage-collected leaves the pool with it
-            weakref.finalize(entry, self.forget, key[0])
-        self._resident[key] = [nbytes, self._clock, weakref.ref(entry), name]
-        self.used += nbytes
+            weakref.finalize(entry, self._dead.append, key[0])
+        self._resident[key] = cid
+        if rec is None:
+            rec = self._columns[cid] = [nbytes, self._clock, {}]
+            self.used += nbytes
+        if use:
+            rec[1] = self._clock
+        rec[2][key] = (weakref.ref(entry), name)
         self._maybe_evict()
 
-    def release(self, entry: "TableEntry", name: str):
-        rec = self._resident.pop((id(entry), name), None)
-        if rec:
+    def _drop(self, key):
+        cid = self._resident.pop(key, None)
+        if cid is None:
+            return
+        rec = self._columns[cid]
+        del rec[2][key]
+        if not rec[2]:
+            del self._columns[cid]
             self.used -= rec[0]
+
+    def release(self, entry: "TableEntry", name: str):
+        self._reap()
+        self._drop((id(entry), name))
 
     def release_entry(self, entry: "TableEntry"):
         """Forget every column of a dropped or replaced table."""
@@ -62,26 +101,32 @@ class DeviceBufferPool:
 
     def forget(self, entry_id: int):
         for key in [k for k in self._resident if k[0] == entry_id]:
-            self.used -= self._resident.pop(key)[0]
+            self._drop(key)
 
-    def _maybe_evict(self):
-        if not self.limit:
-            return
-        while self.used > self.limit and len(self._resident) > 1:
-            key, (_, _, ref, name) = min(self._resident.items(), key=lambda kv: kv[1][1])
+    def holds(self, entry: "TableEntry") -> bool:
+        self._reap()
+        return any(k[0] == id(entry) for k in self._resident)
+
+    def _evict_column(self, cid: int):
+        """Every table holding the column drops its device copy."""
+        for key, (ref, name) in list(self._columns[cid][2].items()):
             entry = ref()
             if entry is not None:
                 entry.evict_device(name)
-            self.used -= self._resident.pop(key)[0]
+            self._drop(key)
+
+    def _maybe_evict(self):
+        self._reap()
+        if not self.limit:
+            return
+        while self.used > self.limit and len(self._columns) > 1:
+            self._evict_column(min(self._columns, key=lambda c: self._columns[c][1]))
 
     def evict_all(self):
         """Drop every pooled column's device copy (OOM recovery)."""
-        for _, _, ref, name in list(self._resident.values()):
-            entry = ref()
-            if entry is not None:
-                entry.evict_device(name)
-        self._resident.clear()
-        self.used = 0
+        self._reap()
+        for cid in list(self._columns):
+            self._evict_column(cid)
 
 
 POOL = DeviceBufferPool()
@@ -110,6 +155,12 @@ class ColumnDef:
     ltype: LogicalType
 
 
+# table versions are unique across the process: two transactions that each
+# write a clone of one table never reach the same version, so a cache keyed
+# by (table, rows, version) cannot hand one of them the other's data
+_VERSIONS = itertools.count(1)
+
+
 class TableEntry:
     def __init__(self, name: str, columns: List[ColumnDef]):
         self.name = name
@@ -117,41 +168,102 @@ class TableEntry:
         self.col_types: Dict[str, LogicalType] = {c.name: c.ltype for c in columns}
         self.nrows: int = 0
         self.device = "cpu"  # set by Catalog.create_table
-        # host tier: name -> (np values, np validity|None, dict_values|None)
+        # host tier: name -> (np values, np validity|None, dict_values|None);
+        # a plane is never changed in place (clones share it): every write
+        # builds new arrays and goes through set_host_column
         self._host: Dict[str, Tuple] = {}
         self._loaders: Dict[str, Callable[[], Tuple]] = {}
         # device tier
         self._device: Dict[str, Column] = {}
         self.stats: Dict[str, ColumnStats] = {}
-        # mutation counter: caches of join build state key on it
-        self.version: int = 0
+        # mutation counter, unique in the process: caches of join build
+        # state and the unique-key index key on it
+        self.version: int = next(_VERSIONS)
+        # ("not_null", col) / ("primary_key"|"unique", [cols]) / ("check",
+        # sql_text) / ("foreign_key", [cols], table, [ref cols]): enforced
+        # on append and update (api/dml.py)
+        self.constraints: List[tuple] = []
+        # column DEFAULT expressions as SQL text, parsed on use
+        self.defaults: Dict[str, str] = {}
+        # key columns → (version, set of live keys): the unique-key index
+        # (DuckDB's ART) and a foreign key's parent keys, good while the
+        # version is the table's; clones share it (`key_set`)
+        self._key_sets: Dict[tuple, tuple] = {}
+
+    def clone(self) -> "TableEntry":
+        """A transaction's copy of the table (copy-on-write): the host
+        planes and statistics are shared, since no plane is changed in
+        place; the device dict is its own, sharing the Column objects, so
+        a write on either side drops only its own device copy; the version
+        is carried, because the data is the same. The key sets are shared
+        by reference and checked against the version, so only the lineage
+        that writes next can advance them."""
+        new = TableEntry(self.name, [ColumnDef(c.name, c.ltype) for c in self.columns])
+        new.nrows = self.nrows
+        new.device = self.device
+        new._host = dict(self._host)
+        new._loaders = dict(self._loaders)
+        new.stats = dict(self.stats)
+        new.constraints = list(self.constraints)
+        new.defaults = dict(self.defaults)
+        new._device = dict(self._device)
+        for name, col in new._device.items():
+            new._pool(name, col, use=False)  # one more holder of the shared column
+        new.version = self.version
+        new._key_sets = self._key_sets
+        return new
+
+    def mark_written(self):
+        """A new version: what caches keyed by the old one hold is stale."""
+        self.version = next(_VERSIONS)
+
+    def key_set(self, cols) -> Optional[set]:
+        """The live keys over `cols` as this version left them, or None
+        where no set is kept for this version."""
+        hit = self._key_sets.get(tuple(cols))
+        return hit[1] if hit is not None and hit[0] == self.version else None
+
+    def store_key_set(self, cols, keys: set):
+        """Keep the live keys over `cols` for this version (never changed
+        in place: a later version stores a new set)."""
+        self._key_sets[tuple(cols)] = (self.version, keys)
 
     # -- population -----------------------------------------------------------
-    def set_host_column(self, name, values, validity=None, dict_values=None):
+    def set_host_column(self, name, values, validity=None, dict_values=None,
+                        exact_dict: bool = True):
+        """Replace a column's host plane. `exact_dict=False` says a VARCHAR
+        dictionary may hold values no row holds (a DELETE keeps the old
+        one), so its length is no distinct count."""
         self._host[name] = (values, validity, dict_values)
+        self._loaders.pop(name, None)
         self._device.pop(name, None)
         POOL.release(self, name)
         self._compute_stats(name)
-        self.version += 1
+        if not exact_dict:
+            self.stats[name].n_unique = None
+        self.mark_written()
 
     def set_device_column(self, name, col: Column):
-        """A column computed on the device (a materialized CTE), already
-        padded to the table's length: it stays there as the device tier,
-        and the host tier gets one copy of its nrows values for the
-        statistics (wide values recombined exactly as Python ints). A
-        VARCHAR column keeps its source's whole dictionary, so its
-        distinct count is that of the codes it holds, not the dictionary's
-        length (which would let a join trust a duplicated key as unique)."""
+        """A column computed on the device (a materialized CTE, CREATE
+        TABLE … AS SELECT), already padded to the table's length: it stays
+        there as the device tier, and the host tier gets one copy of its
+        nrows values for the statistics (wide values recombined exactly as
+        Python ints). A VARCHAR column keeps its source's whole dictionary,
+        so its distinct count is that of the codes it holds, counted on the
+        device, not the dictionary's length (which would let a join trust a
+        duplicated key as unique)."""
         values, validity = col.host_values(self.nrows)
         self._host[name] = (values, validity, col.dict_values)
         self._compute_stats(name)
         st = self.stats[name]
         if st.n_unique is not None:
-            live = values if validity is None else values[validity]
-            st.n_unique = int(len(np.unique(live)))
+            codes = col.data[:self.nrows].to(torch.int64)
+            if col.validity is not None:
+                codes = codes[col.validity[:self.nrows]]
+            st.n_unique = int((torch.bincount(codes, minlength=1) > 0).sum()) if len(codes) else 0
         self._device[name] = col
         self._pool(name, col)
-        self.version += 1
+        self.mark_written()
 
     def set_generated_column(self, name, col: Column, stats: ColumnStats):
         """A column made on the device (a table function's, such as
@@ -162,11 +274,20 @@ class TableEntry:
         self.stats[name] = stats
         self._loaders[name] = lambda: (*col.host_values(self.nrows), col.dict_values)
         self._pool(name, col)
-        self.version += 1
+        self.mark_written()
 
     def set_lazy_column(self, name, loader: Callable[[], Tuple]):
-        """loader() -> (values, validity, dict_values)"""
-        self._loaders[name] = loader
+        """loader() -> (values, validity, dict_values). It runs once: clones
+        of the table share its result, so a snapshot's read does not load
+        the column a second time."""
+        memo = []
+
+        def once():
+            if not memo:
+                memo.append(loader())
+            return memo[0]
+
+        self._loaders[name] = once
 
     def host_column(self, name):
         if name not in self._host and name in self._loaders:
@@ -211,16 +332,16 @@ class TableEntry:
             self._device[name] = col
             self._pool(name, col)
         else:
-            POOL.touch(self, name)
+            self._pool(name, self._device[name])
         return self._device[name]
 
-    def _pool(self, name, col: Column):
+    def _pool(self, name, col: Column, use: bool = True):
         """Count a device column in the pool (a wide one stays pinned)."""
         if col.data_hi is None:
             nbytes = col.data.numel() * col.data.element_size()
             if col.validity is not None:
                 nbytes += col.validity.numel()
-            POOL.touch(self, name, nbytes)
+            POOL.touch(self, name, nbytes, use)
 
     def evict_device(self, name):
         """Drop a column's device copy, keeping (or first making) its host
@@ -286,22 +407,70 @@ def qualify(name: str) -> str:
 
 
 class Catalog:
+    """The objects of one database: tables, views, macros, schemas,
+    sequences, user types, indexes and comments (a transaction's snapshot
+    is a Catalog of its own, api/connection._Txn)."""
+
     def __init__(self, device="cpu"):
         self.device = device
         self.tables: Dict[str, TableEntry] = {}
         # the connection's main/settings.SettingsManager (None: defaults,
         # one device)
         self.settings = None
+        self.views: Dict[str, object] = {}  # name → parsed SELECT statement
+        # CREATE MACRO: name → planner.macros.MacroDef (the default macros
+        # are planner/macros.default_macros(), beside these)
+        self.macros: Dict[str, object] = {}
+        self.table_macros: Dict[str, object] = {}
+        self.schemas = {"main"}
+        # name → {"value": next value, "increment": n, "last": last given}
+        self.sequences: Dict[str, dict] = {}
+        # CREATE TYPE: name → {"kind": "enum", "values": [...]} |
+        # {"kind": "alias", "base": str, "mods": [...]}
+        self.user_types: Dict[str, dict] = {}
+        # CREATE INDEX: name → {"table", "exprs", "unique"}
+        self.indexes: Dict[str, dict] = {}
+        # COMMENT ON: ("table", name) / ("column", table, col) / (kind, name)
+        # → text or None
+        self.comments: Dict[tuple, object] = {}
+        # the names of tables this catalog holds by reference from the one it
+        # was copied from (a transaction's snapshot): `writable_table` clones
+        # such an entry the first time a statement writes it
+        self._shared: set = set()
 
     def create_table(self, entry: TableEntry, or_replace: bool = False):
+        raw = entry.name.lower()
+        if "." in raw.replace("\x02", ""):  # structural qualification only
+            schema = raw.split(".", 1)[0].replace("\x02", ".")
+            if schema != "main" and schema not in self.schemas:
+                raise ValueError(f"Catalog Error: Schema with name {schema} does not exist!")
         key = qualify(entry.name)
         entry.name = key
         entry.device = self.device
         if key in self.tables and not or_replace:
             raise ValueError(f'table "{entry.name}" already exists')
         if key in self.tables:
-            POOL.release_entry(self.tables[key])
+            self._let_go(key)
         self.tables[key] = entry
+
+    def _let_go(self, key: str):
+        """A table leaves this catalog: its pooled bytes go too, unless the
+        entry is still the published one, held by reference."""
+        if key in self._shared:
+            self._shared.discard(key)
+        else:
+            POOL.release_entry(self.tables[key])
+
+    def writable_table(self, name: str) -> TableEntry:
+        """The table a statement is about to write: an entry held by
+        reference from the catalog this one was copied from is cloned
+        first (copy-on-write), so the original stays as it was."""
+        key = qualify(name)
+        entry = self.get_table(name)
+        if key in self._shared:
+            entry = self.tables[key] = entry.clone()
+            self._shared.discard(key)
+        return entry
 
     def get_table(self, name: str) -> TableEntry:
         key = qualify(name)
@@ -312,5 +481,10 @@ class Catalog:
     def has_table(self, name: str) -> bool:
         return qualify(name) in self.tables
 
-    def drop_table(self, name: str):
-        POOL.release_entry(self.tables.pop(qualify(name)))
+    def drop_table(self, name: str, if_exists: bool = False):
+        key = qualify(name)
+        if key in self.tables:
+            self._let_go(key)
+            del self.tables[key]
+        elif not if_exists:
+            raise ValueError(f'table "{name}" does not exist')

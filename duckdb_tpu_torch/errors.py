@@ -13,6 +13,17 @@ value-error family and is the stable import surface:
 from __future__ import annotations
 
 
+class ConnectionException(Exception):
+    """A statement the connection refuses: a catalog object that exists
+    or does not, a violated constraint (the JAX package's
+    duckdb_tpu/api/connection.py raises this class for all of them)."""
+
+
+class TransactionException(ConnectionException):
+    """BEGIN / COMMIT / ROLLBACK out of turn, or a commit that lost a
+    write-write conflict."""
+
+
 class Error(Exception):
     """Base of all engine errors (reference: duckdb::Exception)."""
 
@@ -41,7 +52,11 @@ class InvalidInputException(Error):
     prefix = "Invalid Input Error: "
 
 
-class ConstraintException(Error):
+class ConstraintException(Error, ConnectionException):
+    """A violated NOT NULL, PRIMARY KEY, UNIQUE, CHECK or FOREIGN KEY
+    constraint: DuckDB's class, and a ConnectionException, the JAX
+    package's."""
+
     prefix = "Constraint Error: "
 
 

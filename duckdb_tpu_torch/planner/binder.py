@@ -308,7 +308,23 @@ def resolve_type_name(name: str, mods: Tuple[int, ...]) -> LogicalType:
         return decimal(w, s)
     if n in _TYPE_NAMES:
         return _TYPE_NAMES[n]
-    raise not_ported(f"the type {name} (user types and ENUM: ROADMAP item 34)")
+    ut = user_types().get(n)
+    if ut is not None:
+        if ut.get("kind") == "enum":
+            # an ENUM rides the dictionary-coded string plane (DuckDB's enum
+            # is a dictionary too: its physical values are the codes)
+            return VARCHAR
+        return resolve_type_name(ut["base"], tuple(ut.get("mods") or ()))
+    raise BindError(f"unknown type name {name}")
+
+
+def user_types() -> dict:
+    """CREATE TYPE's types of the statement's catalog (the session's: two
+    connections to two databases never see each other's types)."""
+    from duckdb_tpu_torch.planner import session
+
+    cat = getattr(session.current(), "catalog", None)
+    return getattr(cat, "user_types", None) or {}
 
 
 def bind_literal(lit: N.Literal) -> B.BoundExpr:
@@ -618,11 +634,26 @@ class ExprBinder:
         c = self.bind(e.child)
         t = resolve_type_name(e.type_name, e.type_mods)
         node = B.BoundCast(c, t, e.try_cast)
+        ut = user_types().get(e.type_name.lower())
+        enum_name = e.type_name.lower() if ut and ut.get("kind") == "enum" else None
         if c.is_const():
             try:
-                return B.BoundLiteral(node.const_value(), t)
+                folded = (node.const_value(),)
             except (ValueError, BindError, KeyError):
-                pass
+                folded = None
+            if folded is not None:
+                v = folded[0]
+                if enum_name is not None and v is not None and v not in ut["values"]:
+                    if not e.try_cast:
+                        raise BindError(f"Conversion Error: Could not convert string '{v}' "
+                                        f"to enum {e.type_name}")
+                    v = None
+                lit = B.BoundLiteral(v, t)
+                if enum_name is not None:
+                    object.__setattr__(lit, "enum_type", enum_name)
+                return lit
+        if enum_name is not None:
+            object.__setattr__(node, "enum_type", enum_name)
         return node
 
     def _bind_ExtractExpr(self, e: N.ExtractExpr):
@@ -635,7 +666,7 @@ class ExprBinder:
 
     def _bind_FunctionCall(self, e: N.FunctionCall):
         name = e.name.lower()
-        mac = M.default_macros().get(name)
+        mac = M.active_macros().get(name)
         if mac is not None and not mac.is_table:
             pos, named = M.split_args(e.args)
             try:

@@ -23,7 +23,8 @@ when the query runs, so a cached plan does not freeze them;
 REPLAY_TIME_MICROS pins them (tests use it). random() and the uuid family
 draw from the connection's torch.Generator on the column's device
 (planner/session.py), which setseed() seeds, and else REPLAY_RNG when
-set. nextval/currval wait for CREATE SEQUENCE (ROADMAP item 34), and
+set. nextval/currval read the sequences of the statement's catalog
+(CREATE SEQUENCE; currval before any nextval raises, as in DuckDB), and
 concat_ws over columns, which the reference refuses too, says it is not
 ported. format_bytes is planner/functions_more.py's.
 """
@@ -1008,7 +1009,47 @@ def _bind_uuid_extract_timestamp(arg_exprs):
     return TIMESTAMP, impl, arg_exprs
 
 
+def sequence(name: str) -> dict:
+    """The state of CREATE SEQUENCE's `name` in the statement's catalog (a
+    transaction's snapshot inside BEGIN … COMMIT): {"value": the next
+    value, "increment", "last": the last value given}."""
+    cat = getattr(session.active(), "catalog", None)
+    seq = None if cat is None else cat.sequences.get(name)
+    if seq is None:
+        raise ValueError(f'Catalog Error: Sequence with name "{name}" does not exist!')
+    return seq
+
+
 @register("nextval")
+def _bind_nextval(arg_exprs):
+    """One value per live row, in row order (DuckDB's nextval.cpp)."""
+    name = str(arg_exprs[0].const_value()).lower()
+
+    def impl(env, cols, node):
+        seq = sequence(name)
+        inc, start = seq["increment"], seq["value"]
+        live = env.live.to(torch.int64)
+        offs = torch.cumsum(live, 0) - live  # the live rows before each row
+        n = int(live.sum())
+        seq["value"] = start + inc * n
+        if n:
+            seq["last"] = start + inc * (n - 1)
+        return Column(data=start + inc * offs, ltype=BIGINT)
+
+    return BIGINT, impl, []
+
+
 @register("currval")
-def _bind_sequence(arg_exprs):
-    raise not_ported("nextval() and currval(), which need CREATE SEQUENCE (ROADMAP item 34)")
+def _bind_currval(arg_exprs):
+    """The last value nextval gave. Before any, DuckDB raises; the JAX
+    package gives the start less the increment."""
+    name = str(arg_exprs[0].const_value()).lower()
+
+    def impl(env, cols, node):
+        seq = sequence(name)
+        if "last" not in seq:
+            raise ValueError(f'Sequence Error: currval: sequence "{name}" is not yet '
+                             "defined in this session")
+        return Column(data=_full(env, seq["last"], torch.int64), ltype=BIGINT)
+
+    return BIGINT, impl, []

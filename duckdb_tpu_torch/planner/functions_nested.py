@@ -17,7 +17,7 @@ evaluation per element position over the lists still that long.
 
 `len`/`length` over a LIST, ARRAY or MAP give its length (functions.py
 dispatches here), and `contains` over a LIST is list_contains. The ENUM
-functions wait for CREATE TYPE (ROADMAP item 34) and say so.
+functions read CREATE TYPE's ENUM of their argument.
 
 Where DuckDB and the JAX package differ, the port follows DuckDB: a DECIMAL
 or DATE element is a decimal.Decimal or datetime.date (the reference's
@@ -909,12 +909,59 @@ def bind_bitstring_typed(arg_exprs):
     return BIT, _scalar_per_distinct(pad, BIT), arg_exprs[:1]
 
 
-# -- ENUM metadata functions: they read an ENUM type, which CREATE TYPE makes
-def _enum_refused(name):
-    def binder(arg_exprs):
-        raise not_ported(f"{name}(), which needs CREATE TYPE (ROADMAP item 34)")
-    return binder
+# -- ENUM metadata functions (DuckDB's core_functions/scalar/enum/): they
+# read the ENUM type of their argument, CREATE TYPE's in the statement's
+# catalog, at bind time, so all but enum_code fold to constants
+
+def _enum_values_of(b):
+    from duckdb_tpu_torch.planner.binder import user_types
+
+    name = getattr(b, "enum_type", None)
+    ut = user_types().get(name) if name else None
+    if ut is None or ut.get("kind") != "enum":
+        raise BindError("this function expects an ENUM-typed argument "
+                        "(e.g. enum_range(NULL::mood))")
+    return list(ut["values"])
 
 
-for _name in ("enum_range", "enum_first", "enum_last", "enum_code", "enum_range_boundary"):
-    REGISTRY[_name] = _enum_refused(_name)
+@register("enum_range")
+def _bind_enum_range(arg_exprs):
+    lt = list_of(VARCHAR)
+    return lt, _const_column(tuple(_enum_values_of(arg_exprs[0])), lt), []
+
+
+@register("enum_first")
+def _bind_enum_first(arg_exprs):
+    return VARCHAR, _const_column(_enum_values_of(arg_exprs[0])[0], VARCHAR), []
+
+
+@register("enum_last")
+def _bind_enum_last(arg_exprs):
+    return VARCHAR, _const_column(_enum_values_of(arg_exprs[0])[-1], VARCHAR), []
+
+
+@register("enum_code")
+def _bind_enum_code(arg_exprs):
+    code = {v: i for i, v in enumerate(_enum_values_of(arg_exprs[0]))}
+
+    def impl(env, cols, node):
+        c = cols[0]
+        lut = torch.tensor([code.get(s, -1) for s in c.dict_values] or [-1],
+                           dtype=torch.int64, device=c.data.device)
+        d = lut[c.data.to(torch.int64).clamp(0, len(lut) - 1)]
+        return Column(data=d, ltype=BIGINT, validity=c.validity)
+    return BIGINT, impl, arg_exprs
+
+
+@register("enum_range_boundary")
+def _bind_enum_range_boundary(arg_exprs):
+    vals = _enum_values_of(next((a for a in arg_exprs if getattr(a, "enum_type", None)),
+                                arg_exprs[0]))
+    if len(arg_exprs) != 2:
+        raise BindError("enum_range_boundary() takes two ENUM values")
+    lo = arg_exprs[0].const_value() if arg_exprs[0].is_const() else None
+    hi = arg_exprs[1].const_value() if arg_exprs[1].is_const() else None
+    i = vals.index(lo) if lo is not None else 0
+    j = vals.index(hi) if hi is not None else len(vals) - 1
+    lt = list_of(VARCHAR)
+    return lt, _const_column(tuple(vals[i:j + 1]), lt), []

@@ -26,9 +26,9 @@ entries and so raises over entries no row holds (ROADMAP Queue 3, (j)
 and (k)). map_from_entries with a repeated key raises as DuckDB does
 (fault (l): the reference keeps the last value). `>>` of a negative
 number shifts its sign in, as DuckDB's BitwiseShiftRightOperator (the
-reference shifts in zeros). setval waits for sequences and getvariable
-for SET VARIABLE (ROADMAP item 34): getvariable gives NULL, as the
-reference does with no variable set.
+reference shifts in zeros). setval sets a sequence of the statement's
+catalog. getvariable waits for SET VARIABLE (ROADMAP item 34b): it gives
+NULL, as the reference does with no variable set.
 """
 
 from __future__ import annotations
@@ -858,7 +858,20 @@ def _bind_create_sort_key(arg_exprs):
 
 @register("setval")
 def _bind_setval(arg_exprs):
-    raise not_ported("setval(), which needs CREATE SEQUENCE (ROADMAP item 34)")
+    """setval('seq', v): the next nextval gives v plus the increment
+    (DuckDB's nextval.cpp family)."""
+    from duckdb_tpu_torch.planner.functions_ext import sequence
+
+    name = str(arg_exprs[0].const_value()).lower()
+    val = int(arg_exprs[1].const_value())
+
+    def impl(env, cols, node):
+        seq = sequence(name)
+        seq["value"] = val + seq["increment"]
+        seq["last"] = val
+        return Column(data=_full(env, val, torch.int64), ltype=BIGINT)
+
+    return BIGINT, impl, []
 
 
 @register("is_histogram_other_bin")

@@ -14,7 +14,8 @@ The macros are the reference's default table
 (duckdb/src/catalog/default/default_functions.cpp) as the JAX package
 carries it, with the nested shims (list_*, array_*, map_contains_value),
 json_group_array (to_json is storage/json_io.py's) and current_catalog.
-CREATE MACRO comes with the connection's DDL (ROADMAP item 34).
+CREATE MACRO keeps a user's macros in the catalog (`Catalog.macros`,
+`Catalog.table_macros`); `active_macros` adds the statement's to these.
 """
 
 from __future__ import annotations
@@ -194,6 +195,15 @@ def default_macros() -> dict:
                                  dict(st.defaults), st.body, st.is_table)
         _DEFAULT_MACROS = out
     return _DEFAULT_MACROS
+
+
+def active_macros() -> dict:
+    """The default macros and the CREATE MACRO ones of the statement's
+    catalog (the session's)."""
+    from duckdb_tpu_torch.planner import session
+
+    user = getattr(getattr(session.current(), "catalog", None), "macros", None)
+    return {**default_macros(), **user} if user else default_macros()
 
 
 @contextlib.contextmanager

@@ -46,6 +46,7 @@ so.
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import itertools
 from dataclasses import dataclass, field
@@ -57,7 +58,9 @@ import torch
 from duckdb_tpu_torch.blocks import Column, pad_bucket
 from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
 from duckdb_tpu_torch.sql import nodes as N
+from duckdb_tpu_torch.catalog.catalog import qualify
 from duckdb_tpu_torch.planner import bound as B
+from duckdb_tpu_torch.planner import macros as M
 from duckdb_tpu_torch.planner import plan as P
 from duckdb_tpu_torch.planner.binder import (
     AGGREGATE_NAMES,
@@ -359,8 +362,12 @@ class Atom:
 
 
 class Planner:
-    def __init__(self, catalog, routes=None):
+    def __init__(self, catalog, routes=None, temp_views=None, default_schema: str = "main"):
         self.catalog = catalog
+        # the connection's TEMPORARY views (name → SELECT statement) and its
+        # USE schema, searched first for an unqualified name
+        self.temp_views = temp_views or {}
+        self.default_schema = default_schema
         # the Counter that plan-time executions (scalar subqueries,
         # materialized CTEs) report routes to: the connection's
         self.routes = collections.Counter() if routes is None else routes
@@ -540,10 +547,29 @@ class Planner:
             return self._subquery_atom(plan, output, alias,
                                        list(cte.column_aliases) or None) + (None,)
         qname = (f"{ref.schema}.{ref.name}" if ref.schema else ref.name).lower()
-        if not self.catalog.has_table(qname):
-            raise BindError(f"Catalog Error: Table with name {ref.name} does not exist!")
-        plan, scope_adds, nrows = self._scan_of(qname, alias)
-        return plan, scope_adds, nrows, plan.table
+        if ref.schema is None and self.default_schema != "main":
+            q = f"{self.default_schema}.{name}"
+            if self.catalog.has_table(q) or qualify(q) in self.catalog.views:
+                qname = q
+        if self.catalog.has_table(qname):
+            plan, scope_adds, nrows = self._scan_of(qname, alias)
+            return plan, scope_adds, nrows, plan.table
+        view = self.temp_views.get(qname) if ref.schema is None else None
+        if view is None:
+            view = self.catalog.views.get(qualify(qname))
+        if view is not None:
+            # a view is planned anew at every use, from a copy of its
+            # statement (planning marks CTE nodes), with the macros expanded;
+            # its body does not see the caller's CTEs
+            body = M.expand_macros(copy.deepcopy(view), self.macros())
+            plan, output = self.plan_select(body, None, {})
+            return self._subquery_atom(plan, output, alias, None) + (None,)
+        raise BindError(f"Catalog Error: Table with name {ref.name} does not exist!")
+
+    def macros(self) -> dict:
+        """The default macros and the catalog's CREATE MACRO ones."""
+        user = getattr(self.catalog, "macros", None)
+        return {**M.default_macros(), **user} if user else M.default_macros()
 
     def _scan_of(self, tname: str, alias: str):
         entry = self.catalog.get_table(tname)
@@ -735,6 +761,21 @@ class Planner:
         if isinstance(ref, N.JoinRef):
             raise not_ported(f"{ref.join_type.upper()} JOIN")
         if isinstance(ref, N.TableFunctionRef):
+            mac = getattr(self.catalog, "table_macros", {}).get(ref.name.lower())
+            if mac is not None:
+                # a table macro: its arguments go into a copy of its SELECT,
+                # planned as a derived table (DuckDB's
+                # src/function/table_macro_function.cpp)
+                pos, named = M.split_args(ref.args)
+                try:
+                    body = M.expand_macros(M.expand_call(mac, pos, named), self.macros())
+                except M.MacroError as err:
+                    raise BindError(str(err)) from None
+                sref = N.SubqueryRef(body, alias=ref.alias or ref.name,
+                                     column_aliases=ref.column_aliases)
+                with M.expansion_guard(ref.name):
+                    self.collect_atoms(sref, ctes, scope, atoms, pred_asts)
+                return
             plan, scope_adds, nrows = self._plan_table_function(ref)
             self._add_atom(plan, scope_adds, nrows, scope, atoms, plan.table)
             return
@@ -745,8 +786,7 @@ class Planner:
         **dict.fromkeys(("read_csv", "read_csv_auto", "read_parquet", "parquet_scan",
                          "read_json", "read_json_auto", "read_ndjson", "read_json_objects",
                          "read_text", "read_blob", "__file_scan"), "33 (the file readers)"),
-        **dict.fromkeys(("duckdb_settings", "duckdb_logs"), "36 (settings and logging)"),
-        **dict.fromkeys(("duckdb_views", "duckdb_indexes"), "34 (views and indexes)")}
+        **dict.fromkeys(("duckdb_settings", "duckdb_logs"), "36 (settings and logging)")}
 
     def _plan_table_function(self, ref: N.TableFunctionRef):
         """range, generate_series and repeat (DuckDB's src/function/table/
@@ -845,7 +885,7 @@ class Planner:
         return plan, scope_adds, nrows
 
     _CATALOG_FUNCTIONS = ("duckdb_tables", "duckdb_columns", "duckdb_types",
-                          "pragma_table_info")
+                          "pragma_table_info", "duckdb_views", "duckdb_indexes")
 
     def _catalog_table_function(self, tname: str, name: str, args):
         """duckdb_tables(), duckdb_columns(), duckdb_types() and
@@ -859,20 +899,32 @@ class Planner:
         self.uncacheable = True
         user_tables = [(n, e) for n, e in sorted(self.catalog.tables.items())
                        if not n.startswith("__")]
-        if name == "duckdb_tables":
+        comments = getattr(self.catalog, "comments", {})
+        if name in ("duckdb_views", "duckdb_indexes") and args:
+            raise BindError(f"Binder Error: {name}() takes no arguments")
+        if name == "duckdb_views":
+            cols = [("view_name", VARCHAR), ("schema_name", VARCHAR), ("comment", VARCHAR)]
+            rows = [(n, "main", comments.get(("view", n))) for n in sorted(self.catalog.views)]
+        elif name == "duckdb_indexes":
+            cols = [("index_name", VARCHAR), ("table_name", VARCHAR), ("is_unique", BOOLEAN),
+                    ("expressions", VARCHAR), ("comment", VARCHAR)]
+            rows = [(n, info["table"], bool(info.get("unique")), ", ".join(info["exprs"]),
+                     comments.get(("index", n)))
+                    for n, info in sorted(self.catalog.indexes.items())]
+        elif name == "duckdb_tables":
             if args:
                 raise BindError("Binder Error: duckdb_tables() takes no arguments")
             cols = [("name", VARCHAR), ("schema_name", VARCHAR), ("estimated_size", BIGINT),
                     ("column_count", BIGINT), ("comment", VARCHAR)]
             rows = [(n.split(".")[-1], n.split(".")[0] if "." in n else "main", e.nrows,
-                     len(e.columns), None) for n, e in user_tables]
+                     len(e.columns), comments.get(("table", n))) for n, e in user_tables]
         elif name == "duckdb_columns":
             if args:
                 raise BindError("Binder Error: duckdb_columns() takes no arguments")
             cols = [("table_name", VARCHAR), ("column_name", VARCHAR),
                     ("column_index", BIGINT), ("data_type", VARCHAR), ("comment", VARCHAR)]
-            rows = [(n, cd.name, i, str(cd.ltype), None) for n, e in user_tables
-                    for i, cd in enumerate(e.columns)]
+            rows = [(n, cd.name, i, str(cd.ltype), comments.get(("column", n, cd.name.lower())))
+                    for n, e in user_tables for i, cd in enumerate(e.columns)]
         elif name == "duckdb_types":
             if args:
                 raise BindError("Binder Error: duckdb_types() takes no arguments")

@@ -4,7 +4,8 @@ Each Connection owns one Session: the names current_database() and
 current_schema() report, the text of the statement running
 (current_query()), the transaction counter of txid_current(), and the
 torch.Generator per device that random(), the uuid family and setseed()
-share. `Connection.sql` makes its Session the active one for the
+share, and the catalog the statement reads (its macros, user types and
+sequences). `Connection.sql` makes its Session the active one for the
 statement (`activate`); a function's impl reads it with `active()` when it
 runs, so a cached plan reads the state of the call that runs it.
 """
@@ -33,6 +34,13 @@ class Session:
         self._txids = itertools.count(1001)
         self._generators: dict = {}  # str(device) → torch.Generator
         self._seed = None  # set by setseed(): every generator starts from it
+        # () → the catalog the statement reads (a transaction's snapshot
+        # inside BEGIN … COMMIT): its macros, user types and sequences
+        self.catalog_of = None
+
+    @property
+    def catalog(self):
+        return None if self.catalog_of is None else self.catalog_of()
 
     def next_txid(self) -> int:
         return next(self._txids)

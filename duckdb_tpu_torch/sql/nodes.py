@@ -423,6 +423,7 @@ class UpdateStatement:
     assignments: List[Tuple[str, Expr]] = field(default_factory=list)
     where: Optional[Expr] = None
     returning: Optional[list] = None
+    from_refs: Optional[list] = None  # UPDATE … FROM <table refs>
 
 
 @dataclass

@@ -2029,12 +2029,19 @@ class Parser:
             assigns.append((col, self.parse_expr()))
             if not self.accept_op(","):
                 break
+        from_refs = None
+        if self.accept_kw("from"):
+            # UPDATE t SET … FROM <table refs>: a row of t takes its new
+            # values from a match in the joined refs under WHERE
+            from_refs = [self.parse_join_operand()]
+            while self.accept_op(","):
+                from_refs.append(self.parse_join_operand())
         where = None
         if self.accept_kw("where"):
             where = self.parse_expr()
         returning = self._parse_returning()
         return N.UpdateStatement(table, alias, assigns, where,
-                                 returning=returning)
+                                 returning=returning, from_refs=from_refs)
 
     def parse_merge(self):
         self.expect_kw("merge")

@@ -92,7 +92,13 @@ def test_catalog_plans_are_not_cached(data_dir):
 @pytest.mark.parametrize("name,item", [("duckdb_settings", 36), ("duckdb_logs", 36),
                                        ("duckdb_views", 34), ("duckdb_indexes", 34)])
 def test_later_catalog_functions_name_their_item(cons, name, item):
-    _, tcon = cons
+    """Settings and logs wait for item 36; the views and indexes of item 34
+    are ported and give the JAX package's rows."""
+    jcon, tcon = cons
+    if item == 34:
+        assert tcon.sql(f"SELECT * FROM {name}()").rows() == \
+            jcon.sql(f"SELECT * FROM {name}()").rows()
+        return
     with pytest.raises(ValueError, match=f"ROADMAP item {item}.*not yet ported"):
         tcon.sql(f"SELECT * FROM {name}()")
 

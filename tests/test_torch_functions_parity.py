@@ -308,11 +308,11 @@ def test_struct_named_arguments_are_required(cons):
 
 
 def test_sequences_and_variables_wait(cons):
-    """setval needs CREATE SEQUENCE and SET VARIABLE (ROADMAP item 34);
-    getvariable gives NULL meanwhile, as the reference does with no
-    variable set."""
+    """setval needs its CREATE SEQUENCE (tests/test_torch_sequences_types.py)
+    and getvariable SET VARIABLE (ROADMAP item 34b); getvariable gives NULL
+    meanwhile, as the reference does with no variable set."""
     jcon, tcon = cons
-    with pytest.raises(ValueError, match="ROADMAP item 34.*not yet ported"):
+    with pytest.raises(ValueError, match='Sequence with name "s" does not exist'):
         tcon.sql("SELECT setval('s', 3)")
     assert tcon.sql("SELECT getvariable('x')").rows() == jcon.sql(
         "SELECT getvariable('x')").rows() == [(None,)]

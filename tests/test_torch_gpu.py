@@ -943,3 +943,85 @@ def test_sharded_queries_across_two_cards(monkeypatch, tmp_path):
         assert con.routes["sharded"] >= 1, (sql, dict(con.routes))
         _close_rows(got, cpu.sql(sql).rows(), sql)
     assert shard.COPIED["bytes"] > 0
+
+
+# -- DDL, DML and transactions (api/ddl.py, api/dml.py) ----------------------------------
+@pytest.mark.gpu
+def test_dml_widens_an_int64_column_on_cuda():
+    """An UPDATE past 2^31 of a BIGINT column narrowed to int32 on the card
+    promotes it again at int64; the answers equal the CPU run's."""
+    _need_cuda()
+    import duckdb_tpu_torch
+
+    script = ["CREATE TABLE t (k INT, v BIGINT)",
+              "INSERT INTO t SELECT range, range * 3 FROM range(100000)",
+              "SELECT sum(v), max(v) FROM t",
+              "UPDATE t SET v = v + 3000000000 WHERE k % 1000 = 7",
+              "SELECT sum(v), max(v), min(v) FROM t",
+              "INSERT INTO t VALUES (-1, -5000000000)",
+              "SELECT k % 4, sum(v) FROM t GROUP BY 1 ORDER BY 1"]
+    con, cpu = duckdb_tpu_torch.connect(), duckdb_tpu_torch.connect(device="cpu")
+    for sql in script:
+        got, want = con.sql(sql), cpu.sql(sql)
+        assert (got.rows() if got is not None else None) == \
+            (want.rows() if want is not None else None), sql
+        if sql.startswith("SELECT sum(v), max(v) FROM"):
+            assert con.catalog.get_table("t").device_column("v").data.dtype == torch.int32
+    col = con.catalog.get_table("t").device_column("v")
+    assert col.data.device.type == "cuda" and col.data.dtype == torch.int64
+
+
+@pytest.mark.gpu
+def test_dml_varchar_insert_feeds_like_on_cuda(monkeypatch):
+    """A VARCHAR INSERT builds a new dictionary; the LIKE after it runs on
+    the card over the new dictionary (the matcher forced onto the device)
+    and equals the CPU run."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.ops import strings as TS
+
+    monkeypatch.setattr(TS, "DEVICE_LIKE_MIN_DICT", 1)
+    con, cpu = duckdb_tpu_torch.connect(), duckdb_tpu_torch.connect(device="cpu")
+    script = ["CREATE TABLE w (k INT, s VARCHAR)",
+              "INSERT INTO w SELECT range, 'item ' || range FROM range(5000)",
+              "SELECT count(*) FROM w WHERE s LIKE '%7%'",
+              "INSERT INTO w VALUES (9001, 'seven 7 new'), (9002, 'plain')",
+              "SELECT count(*) FROM w WHERE s LIKE '%7%'",
+              "SELECT k FROM w WHERE s LIKE 'seven%' OR s = 'plain' ORDER BY k"]
+    for sql in script:
+        TS.device_like_events.clear()
+        got, want = con.sql(sql), cpu.sql(sql)
+        assert (got.rows() if got is not None else None) == \
+            (want.rows() if want is not None else None), sql
+        if "LIKE" in sql:
+            assert TS.device_like_events, sql  # the matcher ran on the card
+    assert con.sql("SELECT count(*) FROM w WHERE s LIKE '%7%'").rows() == [(
+        sum("7" in f"item {i}" for i in range(5000)) + 1,)]
+
+
+@pytest.mark.gpu
+def test_dml_rolled_back_delete_then_q1_on_cuda(tmp_path):
+    """A DELETE rolled back leaves Q1 over the table as it was: Q1 runs
+    through the grouped-sum kernel on the card and equals the CPU run."""
+    _need_cuda()
+    import chip_smoke
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    q1 = chip_smoke.Q1.replace("FROM lineitem", "FROM li")
+    answers = []
+    for con in (duckdb_tpu_torch.connect(), duckdb_tpu_torch.connect(device="cpu")):
+        con.load_tpch(str(tmp_path))
+        con.sql("CREATE TABLE li AS SELECT * FROM lineitem")
+        before = con.sql(q1).rows()
+        con.sql("BEGIN")
+        n = con.sql("DELETE FROM li WHERE l_linestatus = 'F'").rows()
+        inside = con.sql(q1).rows()
+        con.sql("ROLLBACK")
+        GS.grouped_sum_i64.launches = 0
+        after = con.sql(q1).rows()
+        assert after == before and inside != before
+        answers.append((before, n, inside, GS.grouped_sum_i64.launches))
+    (gb, gn, gi, launches), (cb, cn, ci, _) = answers
+    assert (gb, gn, gi) == (cb, cn, ci) and launches >= 1

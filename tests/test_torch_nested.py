@@ -198,12 +198,15 @@ def _reference_names():
 
 @pytest.mark.parametrize("name", _reference_names())
 def test_every_reference_registration_is_ported_or_names_its_item(cons, name):
-    """Registered in the port, or (the ENUM functions) refused naming
-    ROADMAP item 34."""
-    _, tcon = cons
+    """Registered in the port. The ENUM functions read CREATE TYPE's ENUM
+    of their argument (tests/test_torch_sequences_types.py), so over a
+    VARCHAR they raise, as the JAX package's do."""
+    jcon, tcon = cons
     assert name in TF.REGISTRY, name
     if name.startswith("enum_"):
-        with pytest.raises(ValueError, match="ROADMAP item 34.*not yet ported"):
+        with pytest.raises(ValueError):
+            jcon.sql(f"SELECT {name}('x')")
+        with pytest.raises(ValueError, match="expects an ENUM-typed argument"):
             tcon.sql(f"SELECT {name}('x')")
 
 
@@ -219,8 +222,8 @@ def test_bit_accessors(cons):
 
 
 def test_type_names(cons):
-    """T[], T[N], STRUCT(…) with nested fields, UNION(…), BIT, BITSTRING;
-    user types wait for CREATE TYPE."""
+    """T[], T[N], STRUCT(…) with nested fields, UNION(…), BIT, BITSTRING; a
+    user type needs its CREATE TYPE."""
     _, tcon = cons
     got = tcon.sql("SELECT typeof(CAST('[1]' AS BIGINT[])), typeof([1, 2]::INTEGER[2]), "
                    "typeof(CAST('{a: [1]}' AS STRUCT(a INTEGER[], b STRUCT(c VARCHAR)))), "
@@ -228,7 +231,7 @@ def test_type_names(cons):
                    "typeof(CAST('1' AS BITSTRING))").rows()
     assert got == [("BIGINT[]", "INTEGER[2]", "STRUCT(a INTEGER[], b STRUCT(c VARCHAR))",
                      "UNION(k INTEGER, s VARCHAR)", "BIT")]
-    with pytest.raises(ValueError, match="ROADMAP item 34.*not yet ported"):
+    with pytest.raises(ValueError, match="unknown type name mood"):
         tcon.sql("SELECT CAST('x' AS mood)")
 
 
