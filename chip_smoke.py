@@ -218,6 +218,23 @@ Phases (any failure exits non-zero before the result lines):
    between host and card (TransferCounter), beside the card's name and
    power limit.
 
+19. a file database at SF1 (storage/persist.py) in the git-ignored
+   build/phase19_db: lineitem (6,001,215 rows, 16 columns) registered and
+   CHECKPOINTed, with its bytes on disk against the columns' raw bytes and
+   the scheme of each column; close (the pool keeps none of its columns)
+   and reopen, then Q1 (first run: the columns load and reach the card;
+   warm median) equal to numpy, its grouped sum held to the plain version
+   and timed; a child process that opens the database, commits phase 18's
+   DELETE, UPDATE and INSERT … SELECT on lineitem in one transaction and
+   dies by os._exit right after COMMIT, its Counts held to numpy; the
+   reopen replays the WAL (recovery wall ms) and Q1 equals numpy of the
+   edited table; one more committed DELETE, the WAL then cut inside its
+   unit: the reopen drops that unit, cuts it off the WAL, and Q1 equals
+   the step before; a fresh in-memory connection ATTACHes the directory
+   READ_ONLY, Q1 over ext.lineitem equals it too and a write raises. Each step prints its wall
+   ms, host syncs and host<->device bytes beside the card's name and power
+   limit; the directory is removed at the end.
+
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
 """
@@ -1341,12 +1358,88 @@ class TransferCounter:
         return False
 
 
+class Steps:
+    """What phases 18 and 19 share: a step run with its wall time, host syncs
+    (CUDA sync debug mode) and host<->device bytes (TransferCounter); a step
+    whose grouped-sum launches are counted and whose kernel inputs are
+    recorded; and the kernel held to its plain version and timed at each
+    shape a step recorded."""
+
+    def __init__(self, phase, card, recording, recorded, launches_by_query, shapes, reps):
+        self.phase, self.card, self.reps = phase, card, reps
+        self.recording, self.recorded = recording, recorded
+        self.launches_by_query, self.shapes = launches_by_query, shapes
+
+    def step(self, label, fn):
+        """→ (fn's value, the line to print)."""
+        import warnings
+
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught, TransferCounter() as moved:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                value = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        return value, (f"phase {self.phase} step {label} on {self.card}: {wall * 1e3:.3f} ms "
+                       f"wall, {syncs} host syncs, {moved.bytes} host<->device bytes")
+
+    def with_kernel(self, label, name, fn):
+        from duckdb_tpu_torch.ops import grouped as grouped_mod
+        from duckdb_tpu_torch.ops import grouped_sum as GS
+
+        self.recorded.clear()
+        grouped_mod.grouped_sum_i64 = self.recording
+        GS.grouped_sum_i64.launches = 0
+        try:
+            value, line = self.step(label, fn)
+        finally:
+            grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+        self.launches_by_query[name] = GS.grouped_sum_i64.launches
+        return value, line
+
+    def kernel_check(self, name) -> str:
+        """'' when the kernel equals its plain version on every recorded
+        input, each shape timed once; else a failure message."""
+        import torch
+
+        from duckdb_tpu_torch.ops import grouped_sum as GS
+
+        timed = set()
+        for dense, vecs, nseg in self.recorded:
+            err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
+                              GS.grouped_sum_i64_plain(dense, vecs, nseg))
+            torch.cuda.synchronize()
+            if err:
+                return f"grouped_sum_i64 disagrees with its plain version on {name}"
+            n_q, k_q = dense.shape[0], len(vecs)
+            if (n_q, k_q, nseg) in timed:
+                continue
+            timed.add((n_q, k_q, nseg))
+            k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, self.reps)
+            b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
+            print(f"grouped_sum_i64 at {name}'s shape N={n_q} K={k_q} nseg={nseg} on "
+                  f"{self.card}: max abs err 0, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"index_add_ {l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, "
+                  f"{b_adds} adds)")
+            self.shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg,
+                                "max_abs_err": 0, "kernel_ms": k_ms, "plain_ms": p_ms,
+                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+        return ""
+
+
 def dml_phase(card, recording, recorded, launches_by_query, shapes, reps) -> str:
     """Phase 18 (see the module docstring). '' or a failure message."""
     import datetime
     import decimal
     import gc
-    import warnings
 
     import numpy as np
     import torch
@@ -1355,8 +1448,6 @@ def dml_phase(card, recording, recorded, launches_by_query, shapes, reps) -> str
     from duckdb_tpu_torch.api.connection import TransactionException
     from duckdb_tpu_torch.catalog import catalog as C
     from duckdb_tpu_torch.errors import ConstraintException
-    from duckdb_tpu_torch.ops import grouped as grouped_mod
-    from duckdb_tpu_torch.ops import grouped_sum as GS
 
     con = duckdb_tpu_torch.connect()
     con.load_tpch(DATA)
@@ -1371,60 +1462,11 @@ def dml_phase(card, recording, recorded, launches_by_query, shapes, reps) -> str
     def day(s):
         return (datetime.date.fromisoformat(s) - datetime.date(1970, 1, 1)).days
 
-    def step(label, fn):
-        """Run one step with its host syncs and host↔device bytes counted:
-        → (its value, the line to print)."""
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught, TransferCounter() as moved:
-                warnings.simplefilter("always")
-                t0 = time.perf_counter()
-                value = fn()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        syncs = sum("synchroniz" in str(w.message) for w in caught)
-        return value, (f"phase 18 step {label} on {card}: {wall * 1e3:.3f} ms wall, {syncs} "
-                       f"host syncs, {moved.bytes} host<->device bytes")
+    kit = Steps(18, card, recording, recorded, launches_by_query, shapes, reps)
+    step, kernel_check, with_kernel = kit.step, kit.kernel_check, kit.with_kernel
 
     def count_of(res):
         return res.rows()[0][0]
-
-    def kernel_check(name):
-        timed = set()
-        for dense, vecs, nseg in recorded:
-            err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
-                              GS.grouped_sum_i64_plain(dense, vecs, nseg))
-            torch.cuda.synchronize()
-            if err:
-                return f"grouped_sum_i64 disagrees with its plain version on {name}"
-            n_q, k_q = dense.shape[0], len(vecs)
-            if (n_q, k_q, nseg) in timed:
-                continue
-            timed.add((n_q, k_q, nseg))
-            k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
-            b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
-            print(f"grouped_sum_i64 at {name}'s shape N={n_q} K={k_q} nseg={nseg} on {card}: "
-                  f"max abs err 0, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ "
-                  f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, {b_adds} "
-                  "adds)")
-            shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg, "max_abs_err": 0,
-                           "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "library_ms": l_ms})
-        return ""
-
-    def with_kernel(label, name, fn):
-        recorded.clear()
-        grouped_mod.grouped_sum_i64 = recording
-        GS.grouped_sum_i64.launches = 0
-        try:
-            value, line = step(label, fn)
-        finally:
-            grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
-        launches_by_query[name] = GS.grouped_sum_i64.launches
-        return value, line
 
     q1_li = Q1.replace("FROM lineitem", "FROM li")
     torch.cuda.synchronize()
@@ -1588,6 +1630,189 @@ def dml_phase(card, recording, recorded, launches_by_query, shapes, reps) -> str
                 "(over 64 MiB)")
     print(line + f"; the pool holds no column of li, o or agg; memory_allocated "
           f"{mem1 - mem0:+d} bytes against before step 1")
+    return ""
+
+FILE_DB = os.path.join(ROOT, "build", "phase19_db")
+# phase 19 step 4's committed DELETE, which the cut WAL tears
+TORN_DELETE = "DELETE FROM lineitem WHERE l_quantity > 45"
+# phase 19 step 3's transaction: phase 18's edits, on lineitem itself
+FILE_EDITS = ("DELETE FROM lineitem WHERE l_shipdate < DATE '1993-01-01'",
+              "UPDATE lineitem SET l_discount = l_discount + 0.01 WHERE l_returnflag = 'R' "
+              "AND l_discount < 0.10",
+              "INSERT INTO lineitem SELECT * FROM lineitem WHERE l_orderkey % 7 = 0")
+FILE_CHILD = """
+import os, sys
+sys.path.insert(0, {root!r})
+import duckdb_tpu_torch
+con = duckdb_tpu_torch.connect({db!r})
+con.sql("BEGIN")
+counts = [con.sql(q).rows()[0][0] for q in {edits!r}]
+con.sql("COMMIT")
+print(counts, flush=True)
+os._exit(0)  # killed right after COMMIT returned: no close(), no checkpoint
+"""
+
+
+def file_db_phase(card, recording, recorded, launches_by_query, shapes, reps) -> str:
+    """Phase 19 (see the module docstring). '' or a failure message."""
+    import datetime
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.api import connection as AC
+    from duckdb_tpu_torch.catalog import catalog as C
+    from duckdb_tpu_torch.storage import persist
+
+    kit = Steps(19, card, recording, recorded, launches_by_query, shapes, reps)
+    shutil.rmtree(FILE_DB, ignore_errors=True)
+    li = lineitem_numpy(DATA)
+
+    def disk_bytes(path):
+        return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+    def q1_step(label, name, con, want):
+        rows, line = kit.with_kernel(label, name, lambda: con.sql(Q1).rows())
+        bad = rows_match(rows, want)
+        if bad:
+            return f"{label}: Q1 differs from numpy: {bad}"
+        if launches_by_query[name] < 1:
+            return f"{label}: Q1 did not launch the grouped sum"
+        print(line + f"; {len(rows)} rows equal numpy's; grouped_sum_i64 launches "
+              f"{launches_by_query[name]}")
+        return kit.kernel_check(name)
+
+    # 1. lineitem at SF1 in a file database, then CHECKPOINT
+    con = duckdb_tpu_torch.connect(FILE_DB)
+    con.load_tpch(DATA, tables=["lineitem"])
+    entry = con.catalog.get_table("lineitem")
+    _, line = kit.step("1 load lineitem's columns from the generated files",
+                       lambda: [entry.host_column(cd.name) for cd in entry.columns])
+    print(line)
+    _, line = kit.step("1 CHECKPOINT of lineitem", lambda: con.sql("CHECKPOINT"))
+    raw = 0
+    for cd in entry.columns:
+        values, validity, dvals = entry.host_column(cd.name)
+        raw += values.nbytes + (0 if validity is None else validity.nbytes)
+        raw += 0 if dvals is None else sum(len(str(v).encode()) for v in dvals)
+    gen_dir = persist._data_gen_dir(FILE_DB, persist._current_gen(FILE_DB))
+    with open(os.path.join(gen_dir, "lineitem", "meta.json")) as f:
+        cols = json.load(f)["columns"]
+    schemes = {c["name"]: c["enc"]["s"] if c["kind"] == "z" else c["kind"] for c in cols}
+    disk = disk_bytes(FILE_DB)
+    print(line + f"; {entry.nrows} rows, {len(cols)} columns, {disk} bytes on disk against "
+          f"{raw} raw bytes ({disk / raw:.3f}); codec {persist.C.CODEC}; schemes {schemes}")
+    if entry.nrows != len(li["l_orderkey"]) or len(cols) != 16:
+        return f"the file database holds {entry.nrows} rows of {len(cols)} columns"
+    del entry
+
+    # 2. close, reopen: Q1's first run reads the columns and sends them to
+    # the card, then its warm median
+    con.close()
+    if any(C.POOL.holds(e) for e in con._db.catalog.tables.values()):
+        return "the pool still holds a column of the closed database"
+    con, line = kit.step("2 reopen", lambda: duckdb_tpu_torch.connect(FILE_DB))
+    print(line + "; columns load lazily")
+    want = numpy_q1_of(li)
+    bad = q1_step("2 Q1 over the reopened lineitem (first run)", "q01_file_reopen", con, want)
+    if bad:
+        return bad
+    med, times = warm_median(con, Q1, want)
+    if med is None:
+        return f"Q1 over the reopened lineitem: {times}"
+    print(f"phase 19 Q1 over the reopened lineitem on {card}: median of 5 warm runs "
+          f"{med * 1e3:.3f} ms (runs {', '.join(f'{t * 1e3:.3f}' for t in times)} ms)")
+    con.close()
+
+    # 3. a child process commits phase 18's edits in one transaction and is
+    # killed right after COMMIT; the reopen replays the WAL
+    def day(text):
+        return (datetime.date.fromisoformat(text) - datetime.date(1970, 1, 1)).days
+
+    gone = li["l_shipdate"] < day("1993-01-01")
+    li = {k: v[~gone] for k, v in li.items()}
+    upd = (li["l_returnflag"] == b"R") & (li["l_discount"] < 10)
+    li["l_discount"] = np.where(upd, li["l_discount"] + 1, li["l_discount"])
+    add = li["l_orderkey"] % 7 == 0
+    want_counts = [int(gone.sum()), int(upd.sum()), int(add.sum())]
+    li = {k: np.concatenate([v, v[add]]) for k, v in li.items()}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", FILE_CHILD.format(
+        root=ROOT, db=FILE_DB, edits=FILE_EDITS)], capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=ROOT))
+    child_s = time.perf_counter() - t0
+    if out.returncode != 0 or out.stdout.strip() != str(want_counts):
+        return (f"the child's transaction gave {out.stdout.strip()!r} (rc {out.returncode}), "
+                f"numpy {want_counts}: {out.stderr[-2000:]}")
+    wal_size = persist.wal_size(FILE_DB)
+    print(f"phase 19 step 3 on {card}: a child process committed the DELETE, UPDATE and "
+          f"INSERT … SELECT in one transaction (Counts {want_counts} equal numpy's) and was "
+          f"killed after COMMIT; {child_s * 1e3:.3f} ms with its start; WAL {wal_size} bytes")
+    con, line = kit.step("3 recovery (open and WAL replay)",
+                         lambda: duckdb_tpu_torch.connect(FILE_DB))
+    print(line)
+    want3 = numpy_q1_of(li)
+    bad = q1_step("3 Q1 over the recovered lineitem", "q01_file_recovered", con, want3)
+    if bad:
+        return bad
+
+    # 4. one more committed DELETE, then the WAL cut inside that unit: the
+    # reopen drops the torn unit
+    n_before = con.sql("SELECT count(*) FROM lineitem").rows()[0][0]
+    con.sql(TORN_DELETE)
+    del con
+    AC._OPEN_DBS.clear()  # the process died as the unit was written
+    wal = os.path.join(FILE_DB, persist.WAL_NAME)
+    size = os.path.getsize(wal)
+    with open(wal, "r+b") as f:
+        f.truncate(size - (size - wal_size) // 2)
+    gc.collect()
+    con, line = kit.step("4 reopen over the torn WAL", lambda: duckdb_tpu_torch.connect(FILE_DB))
+    n_after = con.sql("SELECT count(*) FROM lineitem").rows()[0][0]
+    if n_after != n_before:
+        return f"the torn unit was applied: {n_after} rows, {n_before} before it"
+    if persist.wal_size(FILE_DB) != wal_size:
+        return (f"the reopen left {persist.wal_size(FILE_DB)} WAL bytes, not the "
+                f"{wal_size} of the last complete unit")
+    print(line + f"; {n_after} rows: the torn DELETE's unit was dropped and cut off the WAL "
+          f"({wal_size} bytes left)")
+    bad = q1_step("4 Q1 after the torn unit", "q01_file_torn", con, want3)
+    if bad:
+        return bad
+    _, line = kit.step("4 close (checkpoint)", con.close)
+    print(line + f"; {disk_bytes(FILE_DB)} bytes on disk")
+
+    # 5. ATTACH READ_ONLY from a fresh in-memory connection
+    mem = duckdb_tpu_torch.connect()
+    _, line = kit.step("5 ATTACH READ_ONLY", lambda: mem.sql(
+        f"ATTACH '{FILE_DB}' AS ext (READ_ONLY)"))
+    print(line)
+    rows, line = kit.with_kernel("5 Q1 over ext.lineitem", "q01_file_attached",
+                                 lambda: mem.sql(Q1.replace("FROM lineitem",
+                                                            "FROM ext.lineitem")).rows())
+    bad = rows_match(rows, want3)
+    if bad or launches_by_query["q01_file_attached"] < 1:
+        return f"Q1 over ext.lineitem: {bad or 'no grouped-sum launch'}"
+    print(line + f"; {len(rows)} rows equal step 4's; grouped_sum_i64 launches "
+          f"{launches_by_query['q01_file_attached']}")
+    bad = kit.kernel_check("q01_file_attached")
+    if bad:
+        return bad
+    try:
+        mem.sql("DELETE FROM ext.lineitem WHERE l_orderkey = 1")
+        return "a write into the READ_ONLY attached database did not raise"
+    except Exception as err:  # noqa: BLE001 — the message is what is checked
+        if "read-only" not in str(err):
+            return f"the READ_ONLY write raised {err!r}"
+        print(f"phase 19 step 5: a write into ext raised ({err})")
+    mem.close()
+    recorded.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(FILE_DB, ignore_errors=True)
     return ""
 
 
@@ -2075,6 +2300,18 @@ def main() -> int:
         return fail(bad)
     worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
     print(f"phase 18 took {time.perf_counter() - phase18_t0:.1f} s")
+
+    # 19. a file database at SF1: checkpoint, reopen, recovery of a killed
+    # child's commit, a torn WAL unit dropped, ATTACH READ_ONLY
+    phase19_t0 = time.perf_counter()
+    try:
+        bad = file_db_phase(card, recording, recorded, launches_by_query, shapes, reps)
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    if bad:
+        return fail(bad)
+    worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
+    print(f"phase 19 took {time.perf_counter() - phase19_t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "grouped_sum_i64", "route": "cuda",

@@ -6,9 +6,15 @@ whose columns and intermediates all live on `device` (default "cuda").
 package's Connection does (duckdb_tpu/api/connection.py): SELECT, the DDL
 and DML of api/ddl.py and api/dml.py, BEGIN / COMMIT / ROLLBACK, SET /
 RESET of the settings the port honours (main/settings.py), PREPARE /
-EXECUTE / DEALLOCATE, EXPLAIN and PRAGMA. Persistence, ATTACH, COPY and
-EXPORT / IMPORT wait for the storage (ROADMAP item 33); MERGE, PIVOT,
-UNPIVOT and ALTER for item 34b; each says so.
+EXECUTE / DEALLOCATE, EXPLAIN and PRAGMA, CHECKPOINT, and ATTACH / DETACH.
+COPY and EXPORT / IMPORT wait for the file readers (ROADMAP item 33b);
+MERGE, PIVOT, UNPIVOT and ALTER for item 34b; each says so.
+
+`connect(path)` opens a file database (storage/persist.py): one
+`Database` per directory in a process, shared by every connection to it
+and kept until the last one closes, which checkpoints it. A commit writes
+its statements and a commit record to the write-ahead log and fsyncs it
+before it returns; recovery replays whole committed units only.
 
 Transactions are snapshot isolation at table granularity (`_Txn`), as in
 the JAX package: BEGIN takes a copy-on-write snapshot of the catalog (a
@@ -24,6 +30,8 @@ once cold, every cache emptied (execution/cache_registry.py).
 from __future__ import annotations
 
 import collections
+import os
+import random
 import threading
 from typing import Optional
 
@@ -32,18 +40,20 @@ import torch
 
 from duckdb_tpu_torch.api.ddl import DDLMixin, MacroBindError
 from duckdb_tpu_torch.api.dml import DMLMixin
-from duckdb_tpu_torch.catalog.catalog import POOL, Catalog
+from duckdb_tpu_torch.catalog.catalog import POOL, Catalog, qualify
 from duckdb_tpu_torch.errors import (  # noqa: F401 — the surface of the module
     ConnectionException, OutOfMemoryException, TransactionException)
 from duckdb_tpu_torch.execution.cache_registry import PressureTrim, clear_all, is_oom
 from duckdb_tpu_torch.execution.executor import Executor, Result
-from duckdb_tpu_torch.main.settings import SettingsManager
+from duckdb_tpu_torch.main.settings import SettingsManager, parse_bytes
+from duckdb_tpu_torch.planner import functions_ext as FX
 from duckdb_tpu_torch.planner import macros as M
 from duckdb_tpu_torch.planner.bound import BindError, not_ported
 from duckdb_tpu_torch.planner.planner import Planner
 from duckdb_tpu_torch.planner.session import Session, activate
 from duckdb_tpu_torch.sql import nodes as N
 from duckdb_tpu_torch.sql.parser import Parser
+from duckdb_tpu_torch.storage import persist
 from duckdb_tpu_torch.types import BIGINT, VARCHAR
 
 
@@ -61,12 +71,67 @@ class Database:
     the commit lock (DuckDB's DatabaseInstance and transaction manager) and
     the count of commits that published something, which tells each
     connection when its cached plans may hold what another one changed.
-    In memory only: file databases wait for ROADMAP item 33."""
+    A file database also has its directory (`path`), the number of the
+    last WAL unit written or checkpointed (`wal_seq`), and the count of its
+    open connections."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, path: Optional[str] = None):
         self.catalog = Catalog(device=device)
         self.lock = threading.RLock()
         self.commits = 0
+        self.path = path
+        self.wal_seq = 0
+        self.connections = 0
+        # whether the catalog holds what the directory's header does not
+        # (the last close checkpoints only then)
+        self.dirty = False
+        # whether it holds what neither the header nor the WAL does (tables
+        # load_tpch registered): the next commit checkpoints, not logs
+        self.unlogged = False
+        # the database that ATTACHed this one: a file database attached
+        # stays in _OPEN_DBS under its path, so that no second writer opens
+        # the directory
+        self.attached_by: Optional["Database"] = None
+
+
+# one Database per directory in a process (DuckDB's DatabaseManager): a
+# second connect() of a path joins the open one; a path ATTACHed by another
+# database refuses both connect() and a second ATTACH
+_OPEN_DBS: dict = {}
+
+
+def _same_device(a, b) -> bool:
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
+
+
+def _open_database(database: str, device) -> tuple:
+    """The Database of `database` → (it, whether this call made it)."""
+    if database in (":memory:", ""):
+        return Database(_resolve_device(device)), False
+    path = os.path.abspath(database)
+    db = _OPEN_DBS.get(path)
+    if db is not None and os.path.isdir(path):
+        if db.attached_by is not None:
+            raise ConnectionException(
+                f'Connection Error: database "{database}" is attached to another database '
+                "in this process; DETACH it first")
+        if device is not None and not _same_device(device, db.catalog.device):
+            raise ConnectionException(
+                f'Connection Error: database "{database}" is open on {db.catalog.device} in '
+                f"this process; it cannot be opened on {torch.device(device)}")
+        return db, False
+    return Database(_resolve_device(device), path), True
+
+
+def _counters(cat: Catalog) -> dict:
+    """The sequences' counters as they are now."""
+    return {k: dict(v) for k, v in cat.sequences.items()}
+
+
+def _advanced(before: dict, after: dict) -> dict:
+    """The names of the sequences whose counter moved → `after`'s state."""
+    return {k: v for k, v in after.items() if k in before and before[k] != v}
 
 
 # the catalog's objects besides tables and schemas: a transaction copies
@@ -75,7 +140,7 @@ class Database:
 # not transactional: neither ROLLBACK nor a failed statement gives a value
 # back)
 _OBJECTS = ("views", "macros", "table_macros", "sequences", "user_types", "indexes",
-            "comments")
+            "comments", "attached")
 
 
 def _snapshot(shared: Catalog) -> Catalog:
@@ -103,7 +168,7 @@ class _Txn:
     table, as in the JAX package."""
 
     __slots__ = ("catalog", "base_refs", "base_versions", "begin", "begin_schemas",
-                 "begin_commits", "implicit")
+                 "begin_commits", "implicit", "wal", "counters", "checkpoint")
 
     def __init__(self, db: Database, implicit: bool = False):
         with db.lock:
@@ -113,8 +178,13 @@ class _Txn:
             self.begin = {name: dict(getattr(shared, name)) for name in _OBJECTS}
             self.begin_schemas = set(shared.schemas)
             self.begin_commits = db.commits
+            self.counters = _counters(shared)
         self.base_versions = {k: e.version for k, e in self.base_refs.items()}
         self.implicit = implicit
+        # a file database's WAL unit: [(statement text, meta)]; or, where a
+        # statement cannot be replayed from its text, a checkpoint at COMMIT
+        self.wal = []
+        self.checkpoint = False
 
     def written_tables(self):
         """(tables written or created, tables dropped), the plan-owned
@@ -127,12 +197,37 @@ class _Txn:
         return w, dropped
 
 
+class _TempViews(dict):
+    """A connection's TEMPORARY views, counting the plans that read one: a
+    statement that did cannot be replayed from its text by another
+    connection."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = 0
+
+    def get(self, key, default=None):
+        view = super().get(key)
+        if view is None:
+            return default
+        self.reads += 1
+        return view
+
+
 class Connection(DDLMixin, DMLMixin):
-    def __init__(self, database: str = ":memory:", device=None, _db: Optional[Database] = None):
-        if database not in (":memory:", ""):
-            raise not_ported("persistent databases (ROADMAP item 33)")
+    def __init__(self, database: str = ":memory:", device=None, _db: Optional[Database] = None,
+                 _read_only: bool = False):
         self.database = database
-        self._db = _db if _db is not None else Database(_resolve_device(device))
+        new = False
+        if _db is None:
+            _db, new = _open_database(database, device)
+        self._db = _db
+        _db.connections += 1
+        self._closed = False
+        self._replaying = False
+        # (statement text, pinned entropy, sequence counters before) of the
+        # statement running, for the WAL (file databases only)
+        self._wal_pending = None
         self.device = self._db.catalog.device
         # SET / RESET values, shared by the connections of one database;
         # the executor reads the sharding settings through the catalog
@@ -151,15 +246,22 @@ class Connection(DDLMixin, DMLMixin):
         # what current_database(), current_query(), random() and setseed()
         # read and change while a statement runs, and the catalog whose
         # macros, types and sequences it reads (planner/session.py)
-        self.session = Session()
+        self.session = Session(database=_database_name(database))
         self.session.catalog_of = lambda: self.catalog
         # empties the device caches before a new statement when the card
         # is nearly full (execution/cache_registry.py)
         self._pressure_trim = PressureTrim()
-        self._temp_views = {}  # TEMPORARY views: this connection's own
+        self._temp_views = _TempViews()  # TEMPORARY views: this connection's own
         self._default_schema = "main"  # USE: searched first for bare names
         self._prepared = {}  # PREPARE name → statement text
         self._txn: Optional[_Txn] = None
+        if new:
+            _OPEN_DBS[_db.path] = _db
+            try:
+                persist.load_database(self, _db.path, read_only=_read_only)
+            except BaseException:
+                del _OPEN_DBS[_db.path]
+                raise
 
     @property
     def catalog(self) -> Catalog:
@@ -175,7 +277,7 @@ class Connection(DDLMixin, DMLMixin):
     duplicate = cursor
 
     # statements that write the catalog: outside BEGIN each runs in a
-    # transaction of its own
+    # transaction of its own, and a file database logs them
     _MUTATING = (N.CreateTable, N.CreateView, N.DropStatement, N.InsertStatement,
                  N.DeleteStatement, N.UpdateStatement, N.CreateSequence, N.CreateSchema,
                  N.CreateMacro, N.CreateType, N.CreateIndex, N.CommentStatement)
@@ -186,16 +288,126 @@ class Connection(DDLMixin, DMLMixin):
         Result: rows for a query, the one-row Count of a DML statement, an
         empty Result for SET / RESET, None for the others."""
         stmts = Parser(query).parse_statements()
-        if len(stmts) == 1 and isinstance(stmts[0], N.SelectStatement):
-            stmts[0]._sql_text = query  # the plan cache's key
+        if len(stmts) == 1:
+            if isinstance(stmts[0], N.SelectStatement):
+                stmts[0]._sql_text = query  # the plan cache's key
+            texts = [query]
+        else:
+            # each statement's own text: what the WAL logs, and what a file
+            # database keeps of a view or macro (None where the split fails)
+            texts = persist.statement_texts(query, len(stmts)) or [None] * len(stmts)
         res = None
-        for s in stmts:
+        for s, text in zip(stmts, texts):
             if not isinstance(s, N.SelectStatement):
                 # DDL and DML change what a cached plan read
                 self._clear_plan_cache()
+                s._create_text = text or query
             with activate(self.session, query):
-                res = self._execute_statement(s)
+                if self._db.path is not None and not self._replaying:
+                    res = self._logged_statement(s, text)
+                else:
+                    res = self._execute_statement(s)
         return res
+
+    # -- the write-ahead log ------------------------------------------------------
+    def _logged_statement(self, s, text):
+        """A statement of a file database. One that writes has its entropy
+        pinned (the time now() reads, the seed random(), the uuids and
+        samples draw from on the host), so that replay gives what it
+        stored; its WAL entry joins its transaction's unit when it succeeds
+        (`_note_wal`). A statement that writes nothing but advances a
+        sequence outside BEGIN logs the counters (DuckDB logs sequence
+        values at commit)."""
+        mutating = isinstance(s, self._MUTATING)
+        before = _counters(self.catalog)
+        pin = None
+        if mutating:
+            pin = {"t": FX._now_micros(), "seed": self._statement_seed()}
+            self.session.pin = (pin["t"], random.Random(pin["seed"]))
+            # a TEMPORARY view's CREATE or DROP is the connection's own
+            local = isinstance(s, (N.CreateView, N.DropStatement)) and (
+                getattr(s, "temporary", False)
+                or (getattr(s, "kind", None) == "view" and s.name.lower() in self._temp_views))
+            self._wal_pending = (s, text, pin, before, local, self._temp_views.reads)
+        try:
+            res = self._execute_statement(s)
+        finally:
+            self.session.pin = None
+            self._wal_pending = None
+        if not mutating and self._txn is None:
+            moved = _advanced(before, _counters(self._db.catalog))
+            if moved:
+                with self._db.lock:
+                    self._write_unit([], moved)
+        return res
+
+    def _statement_seed(self) -> int:
+        """A logged statement's seed: drawn from the connection's generator
+        once setseed() has seeded it, else at random."""
+        if self.session._seed is None:
+            return random.getrandbits(62)
+        g = self.session.generator(self.device)
+        return int(torch.randint(0, 1 << 62, (1,), generator=g, device=self.device))
+
+    def _note_wal(self):
+        """The statement that just succeeded joins its transaction's WAL
+        unit. A TEMPORARY view's CREATE or DROP is not logged; nor is a
+        statement that writes an attached database, which that database's
+        checkpoint at COMMIT makes durable. One whose text is unknown, or
+        that read an attached database or a TEMPORARY view, cannot be
+        replayed from its text (nor can one run after USE of an attached
+        database), so its COMMIT checkpoints instead."""
+        pending, txn = self._wal_pending, self._txn
+        if pending is None or txn is None:
+            return
+        s, text, pin, before, local, temp_reads = pending
+        attached = self.catalog.attached
+        target = getattr(s, "table", None) or getattr(s, "name", None)
+        if local or (attached and isinstance(target, str)
+                     and qualify(target).split(".", 1)[0] in attached):
+            return
+        if text is None or self._temp_views.reads != temp_reads or (attached and (
+                self._default_schema in attached or _reads_attached(s, attached))):
+            txn.checkpoint = True
+            return
+        meta = dict(pin)
+        if self._default_schema != "main":
+            meta["use"] = self._default_schema  # what unqualified names resolve in
+        moved = _advanced(before, _counters(self.catalog))
+        if moved:
+            meta["seqs"] = {k: before[k] for k in moved}
+        txn.wal.append((text, meta))
+
+    def _write_unit(self, entries, counters):
+        """Append one unit to the WAL (under the commit lock)."""
+        self._db.wal_seq += 1
+        self._db.dirty = True
+        persist.wal_append_unit(self._db.path, self._db.wal_seq, entries, counters)
+
+    def _replay(self, text: str, meta: dict):
+        """Run one logged statement again, with its entropy and the sequence
+        counters it started from, without logging it."""
+        if meta.get("seqs"):
+            persist.set_sequences(self._db.catalog, meta["seqs"])
+        seed = meta.get("seed")
+        self.session.pin = (meta.get("t"), None if seed is None else random.Random(seed))
+        self._replaying = True
+        self._default_schema = self.session.schema = meta.get("use", "main")
+        try:
+            self.sql(text)
+        finally:
+            self._replaying = False
+            self._default_schema = self.session.schema = "main"
+            self.session.pin = None
+
+    def _abort_mode(self) -> str:
+        return str(self.settings.get("debug_checkpoint_abort", "none"))
+
+    def checkpoint(self):
+        """Write a file database's published state to its directory (no-op
+        in memory)."""
+        if self._db.path is not None:
+            persist.checkpoint(self._db, self._abort_mode())
 
     execute = sql
     query = sql
@@ -231,6 +443,7 @@ class Connection(DDLMixin, DMLMixin):
             self._txn = _Txn(self._db, implicit=True)
             try:
                 res = self._execute_statement_inner(s)
+                self._note_wal()
             except BaseException:
                 self._txn = None
                 raise
@@ -245,6 +458,7 @@ class Connection(DDLMixin, DMLMixin):
             raise
         # what the statement did not clone is still what the transaction held
         stmt_cat._shared &= saved._shared
+        self._note_wal()
         return res
 
     def _execute_statement_inner(self, s):
@@ -284,6 +498,10 @@ class Connection(DDLMixin, DMLMixin):
         ddl = self._DDL.get(type(s))
         if ddl is not None:
             return getattr(self, ddl)(s)
+        if isinstance(s, N.AttachStatement):
+            return self._attach(s)
+        if isinstance(s, N.DetachStatement):
+            return self._detach(s)
         later = self._LATER.get(type(s))
         if later is not None:
             raise not_ported(later)
@@ -295,11 +513,9 @@ class Connection(DDLMixin, DMLMixin):
         N.AlterStatement: "ALTER TABLE (ROADMAP item 34b)",
         N.PivotStatement: "PIVOT (ROADMAP item 34b)",
         N.UnpivotStatement: "UNPIVOT (ROADMAP item 34b)",
-        N.AttachStatement: "ATTACH (ROADMAP item 33)",
-        N.DetachStatement: "DETACH (ROADMAP item 33)",
-        N.CopyStatement: "COPY (ROADMAP item 33)",
-        N.ExportStatement: "EXPORT DATABASE (ROADMAP item 33)",
-        N.ImportStatement: "IMPORT DATABASE (ROADMAP item 33)",
+        N.CopyStatement: "COPY (ROADMAP item 33b)",
+        N.ExportStatement: "EXPORT DATABASE (ROADMAP item 33b)",
+        N.ImportStatement: "IMPORT DATABASE (ROADMAP item 33b)",
     }
 
     # -- queries ----------------------------------------------------------------
@@ -343,11 +559,15 @@ class Connection(DDLMixin, DMLMixin):
         plan, output = cached
         return Executor(self.catalog, self.routes).run(plan, output)
 
-    def load_tpch(self, data_dir: str):
-        """Register the TPC-H tables of a dbgen_tbl directory (lazy columns)."""
+    def load_tpch(self, data_dir: str, tables=None):
+        """Register the TPC-H tables of a dbgen_tbl directory (lazy columns;
+        `tables`: only these). A file database holds them from its next
+        CHECKPOINT on: they are not logged, so the next commit checkpoints
+        instead of logging its statements."""
         from duckdb_tpu_torch.catalog.tpch import register_tpch
 
-        register_tpch(self.catalog, data_dir)
+        register_tpch(self.catalog, data_dir, tables)
+        self._db.dirty = self._db.unlogged = True
         self._clear_plan_cache()
 
     def _clear_plan_cache(self):
@@ -364,8 +584,8 @@ class Connection(DDLMixin, DMLMixin):
     def _transaction(self, s: N.TransactionStatement):
         """BEGIN snapshots the published catalog, ROLLBACK drops the
         snapshot, COMMIT publishes what the transaction wrote (DuckDB's
-        duck_transaction_manager.cpp, at table granularity). CHECKPOINT has
-        nothing to write in memory."""
+        duck_transaction_manager.cpp, at table granularity). CHECKPOINT writes
+        a file database's published state to its directory."""
         a = s.action
         if a == "begin":
             if self._txn is not None:
@@ -382,6 +602,8 @@ class Connection(DDLMixin, DMLMixin):
                 raise TransactionException("TransactionContext Error: cannot commit - no "
                                            "transaction is active")
             self._commit_txn()
+        elif a == "checkpoint":
+            self.checkpoint()
         return None
 
     def _commit_txn(self):
@@ -390,10 +612,21 @@ class Connection(DDLMixin, DMLMixin):
         wrote, dropped or created, the commit raises TransactionException
         and the transaction is rolled back. The other objects merge key by
         key against what the transaction saw at BEGIN, so what other
-        connections committed meanwhile stays."""
+        connections committed meanwhile stays.
+
+        In a file database the commit is durable before this returns: its
+        WAL unit is written and fsynced under the lock, before publication
+        (`_log_commit`); an attached file database it wrote is checkpointed;
+        and the database checkpoints once the WAL passes
+        checkpoint_threshold, after the whole unit."""
         txn, self._txn = self._txn, None
-        shared = self._db.catalog
-        with self._db.lock:
+        if self.settings.get("debug_force_commit_failure", False):
+            # the transaction rolls back: nothing published, nothing logged
+            raise TransactionException("TransactionContext Error: Failed to commit: forced "
+                                       "commit failure (debug_force_commit_failure)")
+        db = self._db
+        shared = db.catalog
+        with db.lock:
             written, dropped = txn.written_tables()
             for k in sorted(written | dropped):
                 if shared.tables.get(k) is not txn.base_refs.get(k):
@@ -401,6 +634,11 @@ class Connection(DDLMixin, DMLMixin):
                         "TransactionContext Error: Failed to commit: write-write conflict "
                         f'on table "{k}": another transaction committed a conflicting '
                         "change")
+            checkpoint = self._log_commit(txn)
+            views, before = txn.catalog.views, txn.begin["views"]
+            attached = {k.split(".", 1)[0] for k in written | dropped | {
+                k for k in views.keys() | before.keys() if views.get(k) is not before.get(k)}}
+            attached &= set(shared.attached)
             for k in written:
                 old = shared.tables.get(k)
                 shared.tables[k] = txn.catalog.tables[k]
@@ -413,7 +651,9 @@ class Connection(DDLMixin, DMLMixin):
                 mine, before, published = (getattr(txn.catalog, name), txn.begin[name],
                                            getattr(shared, name))
                 for k in before.keys() - mine.keys():
-                    published.pop(k, None)
+                    left = published.pop(k, None)
+                    if name == "attached" and left is not None:  # DETACHed
+                        _release_attached(db, left["path"])
                     changed = True
                 for k, v in mine.items():
                     if before.get(k) is not v:
@@ -424,13 +664,134 @@ class Connection(DDLMixin, DMLMixin):
             shared.schemas -= gone
             shared.schemas |= new
             if changed or gone or new:
-                self._db.commits += 1
+                db.commits += 1
+                db.dirty = True
+            for alias in sorted(attached):
+                info = shared.attached.get(alias)  # None: DETACHed by this transaction
+                if info and not info.get("read_only") and info["path"] != ":memory:":
+                    persist.checkpoint_attached(shared, alias, info["path"])
+            if checkpoint or (db.path is not None and not self._replaying and persist.wal_size(
+                    db.path) > parse_bytes(self.settings.get("checkpoint_threshold"))):
+                persist.checkpoint(db, self._abort_mode())
         return None
 
+    def _log_commit(self, txn: _Txn) -> bool:
+        """Write a file database's commit to the WAL: the unit of its
+        statements and the counters of the sequences it advanced → True
+        where a checkpoint must make it durable instead: a statement that
+        cannot be replayed from its text, or a transaction that began before
+        another connection's commit (replaying its statements after that
+        commit could give what it did not store), or a database that holds
+        what was never logged."""
+        db = self._db
+        if db.path is None or self._replaying:
+            return False
+        if txn.checkpoint or db.unlogged or (txn.wal and txn.begin_commits != db.commits):
+            return True
+        moved = _advanced(txn.counters, _counters(db.catalog))
+        if txn.wal or moved:
+            self._write_unit(txn.wal, moved)
+        return False
+
     def close(self):
-        if self._txn is not None:
-            self._txn = None  # an open transaction is rolled back
+        """Close the connection (an open transaction rolls back). The last
+        connection of a database checkpoints a file database, leaves the
+        registry, and lets go of the database's device memory."""
+        if self._closed:
+            return
+        self._closed = True
+        self._txn = None
         self._clear_plan_cache()
+        db = self._db
+        db.connections -= 1
+        if db.connections > 0:
+            return
+        try:
+            if db.path is not None and _OPEN_DBS.get(db.path) is db:
+                try:
+                    if db.dirty or persist.wal_size(db.path):
+                        persist.checkpoint(db, self._abort_mode())
+                finally:
+                    del _OPEN_DBS[db.path]
+        finally:
+            for path in [p for p, d in _OPEN_DBS.items() if d.attached_by is db]:
+                _release_attached(db, path)
+            _release_device(db)
+
+    # -- ATTACH / DETACH ------------------------------------------------------------
+    def _attach(self, s: N.AttachStatement):
+        """ATTACH a database under an alias: its tables and views are this
+        catalog's `alias.name` (DuckDB's attached_database.cpp). A file
+        database is opened through the normal path (its WAL replayed, then
+        folded by a checkpoint unless READ_ONLY) and its entries adopted as
+        clones, so that the database's own entries stay as they were. A
+        commit that writes it checkpoints it before it returns."""
+        cat = self.catalog
+        memory = s.path in (":memory:", "")
+        alias = (s.alias or _database_name(s.path)).lower()
+        if not alias:
+            raise ConnectionException(f"ATTACH: cannot derive an alias from {s.path!r}; use "
+                                      "ATTACH ... AS name")
+        if alias in cat.attached or alias in cat.schemas or alias == self.session.database:
+            if s.if_not_exists:
+                return None
+            raise ConnectionException(f'Catalog Error: database or schema "{alias}" already '
+                                      "exists!")
+        if memory:
+            cat.schemas.add(alias)
+            cat.attached[alias] = {"path": ":memory:", "read_only": s.read_only}
+            return None
+        apath = os.path.abspath(s.path)
+        if apath == self._db.path:
+            raise ConnectionException("ATTACH: cannot attach the active database")
+        if any(info["path"] == apath for info in cat.attached.values()):
+            raise ConnectionException(f'database "{s.path}" is already attached')
+        held = _OPEN_DBS.get(apath)
+        if held is not None and held.attached_by is self._db:
+            del _OPEN_DBS[apath]  # what a rolled-back ATTACH of this database left
+        elif held is not None and os.path.isdir(apath):
+            raise ConnectionException(f'database "{s.path}" is already open in this process')
+        sub = Connection(apath, device=self.device, _read_only=s.read_only)
+        try:
+            if persist.wal_size(apath) and not s.read_only:
+                sub.checkpoint()
+            sub_cat = sub._db.catalog
+            cat.schemas.add(alias)
+            cat.attached[alias] = {"path": apath, "read_only": s.read_only}
+            for k, e in sub_cat.tables.items():
+                if not k.startswith("__"):
+                    adopted = e.clone()
+                    adopted.name = f"{alias}.{k}"
+                    cat.tables[adopted.name] = adopted
+            for k, v in sub_cat.views.items():
+                cat.views[f"{alias}.{k}"] = v
+        except BaseException:
+            _OPEN_DBS.pop(apath, None)
+            raise
+        # the sub-database stays in the registry, without a checkpoint of
+        # its own at close, until DETACH or the last close of this database
+        sub._db.attached_by = self._db
+        return None
+
+    def _detach(self, s: N.DetachStatement):
+        cat = self.catalog
+        alias = s.name.lower()
+        info = cat.attached.get(alias)
+        if info is None:
+            if s.if_exists:
+                return None
+            raise ConnectionException(f'Catalog Error: database "{s.name}" does not exist!')
+        if info["path"] != ":memory:" and not info.get("read_only"):
+            persist.checkpoint_attached(cat, alias, info["path"])
+        if self._txn is None:  # inside BEGIN: at COMMIT
+            _release_attached(self._db, info["path"])
+        for k in [k for k in cat.tables if k.startswith(alias + ".")]:
+            cat.drop_table(k)
+        for k in [k for k in cat.views if k.startswith(alias + ".")]:
+            del cat.views[k]
+        cat.schemas.discard(alias)
+        del cat.attached[alias]
+        return None
 
     # -- the other statements -----------------------------------------------------
     def _use(self, s: N.UseStatement):
@@ -521,5 +882,52 @@ class Connection(DDLMixin, DMLMixin):
         return None  # VACUUM, ANALYZE and the rest: nothing to do in memory
 
 
+def _database_name(database: str) -> str:
+    """What current_database() gives: "memory", or the file's stem."""
+    import re
+
+    if database in (":memory:", ""):
+        return "memory"
+    return re.sub(r"\W", "_", os.path.splitext(os.path.basename(
+        database.rstrip("/")))[0]).lower()
+
+
+def _reads_attached(node, attached) -> bool:
+    """Whether a statement's tree names a table of an attached database."""
+    if isinstance(node, N.BaseTableRef):
+        return (node.schema or "").lower() in attached
+    if isinstance(node, (list, tuple)):
+        return any(_reads_attached(v, attached) for v in node)
+    if hasattr(node, "__dataclass_fields__"):
+        return any(_reads_attached(getattr(node, f), attached)
+                   for f in node.__dataclass_fields__)
+    return False
+
+
+def _release_attached(owner: Database, path: str):
+    """The directory `owner` attached leaves the registry (DETACH, or the
+    owner's last close): another connect() or ATTACH may open it again."""
+    held = _OPEN_DBS.get(path)
+    if held is not None and held.attached_by is owner:
+        del _OPEN_DBS[path]
+
+
+def _release_device(db: Database):
+    """A closed database's columns leave the device: the pool forgets its
+    tables, and the caches of execution/cache_registry drop what they keep
+    for its dictionaries."""
+    from duckdb_tpu_torch.execution.cache_registry import forget
+
+    dicts = []
+    for entry in db.catalog.tables.values():
+        POOL.release_entry(entry)
+        entry._device.clear()
+        dicts += [h[2] for h in entry._host.values() if h[2] is not None]
+    forget(dicts)
+
+
 def connect(database: str = ":memory:", device=None) -> Connection:
+    """A connection to an in-memory database, or to the file database in
+    the directory `database` (made if missing). `device` defaults to "cuda"
+    (or, for a database already open in this process, its device)."""
     return Connection(database, device=device)

@@ -63,6 +63,14 @@ class DDLMixin:
             return q
         return name
 
+    def _check_writable(self, name: str):
+        """A write into a database attached READ_ONLY raises."""
+        head = qualify(name).split(".", 1)[0]
+        info = self.catalog.attached.get(head)
+        if info is not None and info.get("read_only"):
+            raise ConnectionException(f'Cannot execute statement of type "write" on database '
+                                      f'"{head}" which is attached in read-only mode!')
+
     @staticmethod
     def _colname(entry: TableEntry, name: str) -> str:
         for c in entry.columns:
@@ -73,6 +81,7 @@ class DDLMixin:
     # -- tables -----------------------------------------------------------------
     def _create_table(self, s: N.CreateTable):
         s.name = self._resolve_default(s.name, creating=True)
+        self._check_writable(s.name)
         if s.if_not_exists and self.catalog.has_table(s.name):
             return None
         if s.as_select is not None:
@@ -129,8 +138,11 @@ class DDLMixin:
             self._temp_views[key] = s.query
             return None
         key = qualify(self._resolve_default(s.name, creating=True))
+        self._check_writable(key)
         if key in self.catalog.views and not s.or_replace:
             raise ConnectionException(f'view "{s.name}" already exists')
+        # the text a file database keeps for the view
+        s.query._create_text = getattr(s, "_create_text", None)
         self.catalog.views[key] = s.query
         return None
 
@@ -157,7 +169,7 @@ class DDLMixin:
                 raise MacroBindError(f"Binder Error: Default value for parameter '{dname}' "
                                      "cannot contain column names")
         reg[key] = M.MacroDef(key, tuple(p.lower() for p in s.params), dict(s.defaults),
-                              s.body, s.is_table)
+                              s.body, s.is_table, getattr(s, "_create_text", ""))
         return None
 
     def _create_sequence(self, s: N.CreateSequence):
@@ -279,7 +291,17 @@ class DDLMixin:
                     entry.constraints.remove(want)
                     entry.mark_written()
         elif s.kind == "table":
-            cat.drop_table(self._resolve_default(s.name), if_exists=s.if_exists)
+            key = qualify(self._resolve_default(s.name))
+            self._check_writable(key)
+            if key in cat.tables:
+                # a table another table's FOREIGN KEY names stays (DuckDB's
+                # Catalog Error): F6
+                for child, _, _ in self._fk_children_of(key):
+                    if child.name != key:
+                        raise ConnectionException(
+                            "Catalog Error: Could not drop the table because this table is "
+                            f'main key table of the table "{child.name}"')
+            cat.drop_table(key, if_exists=s.if_exists)
         else:
             raise not_ported(f"DROP {s.kind.upper()}")
         return None

@@ -31,7 +31,7 @@ import torch
 
 from duckdb_tpu_torch.blocks import Column, pad_bucket
 from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS, encode_objects
-from duckdb_tpu_torch.catalog.catalog import ColumnDef, ColumnStats, TableEntry
+from duckdb_tpu_torch.catalog.catalog import ColumnDef, ColumnStats, TableEntry, qualify
 from duckdb_tpu_torch.errors import (ConnectionException, ConstraintException,
                                      OutOfRangeException)
 from duckdb_tpu_torch.execution.executor import Executor
@@ -180,6 +180,7 @@ class DMLMixin:
     # -- INSERT -----------------------------------------------------------------
     def _insert(self, s: N.InsertStatement):
         s.table = self._resolve_default(s.table)
+        self._check_writable(s.table)
         entry = self.catalog.writable_table(s.table)
         names = ([self._colname(entry, c) for c in s.columns] if s.columns
                  else [c.name for c in entry.columns])
@@ -378,7 +379,7 @@ class DMLMixin:
         for child in self.catalog.tables.values():
             for con in child.constraints:
                 if con[0] == "foreign_key" and \
-                        self._resolve_default(con[2]).lower() == table_key:
+                        qualify(self._resolve_default(con[2])) == table_key:
                     out.append((child, con[1], self._fk_parent(con)[1]))
         return out
 
@@ -586,6 +587,7 @@ class DMLMixin:
     # -- DELETE -----------------------------------------------------------------------
     def _delete(self, s: N.DeleteStatement):
         s.table = self._resolve_default(s.table)
+        self._check_writable(s.table)
         entry = self.catalog.writable_table(s.table)
         mask = np.zeros(entry.nrows, bool)
         if s.where is None and not s.using:
@@ -625,6 +627,7 @@ class DMLMixin:
     # -- UPDATE -----------------------------------------------------------------------
     def _update(self, s: N.UpdateStatement):
         s.table = self._resolve_default(s.table)
+        self._check_writable(s.table)
         entry = self.catalog.writable_table(s.table)
         assigns = [(self._colname(entry, c), e) for c, e in s.assignments]
         if len({c for c, _ in assigns}) != len(assigns):
@@ -633,7 +636,7 @@ class DMLMixin:
                                            [entry.col_types[c] for c, _ in assigns],
                                            extra_from=getattr(s, "from_refs", None))
         staged = {c: self._scatter(entry, c, rids, *v) for (c, _), v in zip(assigns, values)}
-        if entry.constraints and len(rids):
+        if len(rids):
             self._verify_update_constraints(entry, staged, rids)
         for c, (vals, valid, dvals, exact) in staged.items():
             entry.set_host_column(c, vals, valid, dvals, exact_dict=exact)
@@ -648,6 +651,23 @@ class DMLMixin:
             return staged[name][:3] if name in staged else entry.host_column(name)
 
         n = entry.nrows
+        # a parent key the UPDATE changes must not stay referenced (SQL's
+        # default NO ACTION; DuckDB's VerifyUpdateConstraints): F5
+        for child, ccols, rcols in self._fk_children_of(entry.name):
+            if child is entry or not any(c in staged for c in rcols):
+                continue
+            old, old_valid = self._table_keys(entry, rcols)
+            new, new_valid = self._keys([self._key_part(*post(c), entry.col_types[c], n)
+                                         for c in rcols])
+            gone = set(old[rids][old_valid[rids]].tolist()) - set(new[new_valid].tolist())
+            if not gone:
+                continue
+            ckey, cvalid = self._table_keys(child, ccols)
+            for k in ckey[cvalid].tolist():
+                if k in gone:
+                    raise ConstraintException(
+                        f'Violates foreign key constraint because key "{k}" is still '
+                        f'referenced by a foreign key in table "{child.name}"')
         for con in entry.constraints:
             kind = con[0]
             if kind == "not_null" and con[1] in staged:

@@ -433,6 +433,10 @@ class Catalog:
         # COMMENT ON: ("table", name) / ("column", table, col) / (kind, name)
         # → text or None
         self.comments: Dict[tuple, object] = {}
+        # ATTACH: alias → {"path": absolute directory or ":memory:",
+        # "read_only": bool}; the database's tables and views are here under
+        # "alias.name" (api/connection.py)
+        self.attached: Dict[str, dict] = {}
         # the names of tables this catalog holds by reference from the one it
         # was copied from (a transaction's snapshot): `writable_table` clones
         # such an entry the first time a statement writes it

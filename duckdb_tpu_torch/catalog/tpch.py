@@ -112,11 +112,12 @@ def _load_col(table_dir: str, name: str, kind: str):
     return binary_dir.read_numeric_column(table_dir, name, kind), None, None
 
 
-def register_tpch(catalog: Catalog, data_dir: str):
-    """Register all TPC-H tables found under data_dir (dbgen_tbl output)."""
+def register_tpch(catalog: Catalog, data_dir: str, tables=None):
+    """Register the TPC-H tables found under data_dir (dbgen_tbl output):
+    all of them, or those named in `tables`."""
     for tname, cols in TPCH_SCHEMA.items():
         tdir = os.path.join(data_dir, tname)
-        if not os.path.isdir(tdir):
+        if not os.path.isdir(tdir) or (tables is not None and tname not in tables):
             continue
         meta = binary_dir.read_meta(tdir)
         kinds = {c["name"]: c["kind"] for c in meta["columns"]}

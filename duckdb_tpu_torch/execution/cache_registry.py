@@ -59,6 +59,21 @@ def clear_all() -> int:
     return n
 
 
+def forget(objects) -> int:
+    """Drop every cached entry that holds one of `objects` first (the string
+    caches key a LUT or plane by a dictionary's id and keep the dictionary
+    beside it) → the number dropped. A closed database's dictionaries go
+    this way, so that its device tensors go with them."""
+    ids = {id(o) for o in objects}
+    n = 0
+    for store in list(_STORES):
+        for k, v in list(store.items()):
+            if isinstance(v, tuple) and v and id(v[0]) in ids:
+                del store[k]
+                n += 1
+    return n
+
+
 class PressureTrim:
     """Proactive eviction per connection: before a statement other than
     the last one runs, when the card's allocated bytes pass PRESSURE_SHARE

@@ -1257,6 +1257,7 @@ class Executor:
         replacement. The draws come from a torch.Generator on the
         device, seeded by REPEATABLE / the method's seed, else the
         session's (setseed())."""
+        from duckdb_tpu_torch.planner.functions_ext import pinned_generator
         from duckdb_tpu_torch.planner.session import current
 
         b = self.execute(node.child)
@@ -1266,8 +1267,10 @@ class Executor:
             g.manual_seed(int(node.seed))
         else:
             session = current()
-            g = session.generator(device) if session is not None else None
-        r = torch.rand(b.plen, generator=g, device=device, dtype=torch.float64)
+            g = pinned_generator() or (session.generator(device) if session is not None
+                                       else None)
+        r = torch.rand(b.plen, generator=g, device=device if g is None else g.device,
+                       dtype=torch.float64).to(device)
         if node.percent is not None:
             keep = b.live & (r < node.percent / 100.0)
         else:

@@ -5,8 +5,12 @@ drives SET and RESET; DuckDB generates its settings surface the same way
 from one file (src/common/settings.json). The port honours the settings
 whose effect it has: `num_shards`, `auto_shard_rows` and
 `exchange_join_threshold`, which the sharded routes read
-(parallel/shard.py), and `memory_limit`, which sets the device buffer
-pool's limit (catalog.set_memory_limit). Every other setting of the JAX
+(parallel/shard.py), `memory_limit`, which sets the device buffer pool's
+limit (catalog.set_memory_limit), and the file database's
+`checkpoint_threshold` (the WAL size past which a commit checkpoints; its
+alias is wal_autocheckpoint), `debug_checkpoint_abort` and
+`debug_force_commit_failure` (api/connection.py, storage/persist.py).
+Every other setting of the JAX
 package's registry, its own and DuckDB's, is refused as not yet ported,
 naming ROADMAP item 36: a SET that changed nothing would look as if it
 had. current_setting() and duckdb_settings() wait for the same item, which
@@ -29,7 +33,7 @@ from typing import Dict
 class Setting:
     name: str
     default: object
-    typ: str  # BIGINT / VARCHAR
+    typ: str  # BIGINT / BOOLEAN / VARCHAR
     description: str
 
 
@@ -49,6 +53,16 @@ SETTINGS = [
             "Dense-table size above which multi-shard joins repartition "
             "both sides by key hash instead of copying the build to every "
             "shard (0 = always exchange when sharded)"),
+    Setting("checkpoint_threshold", "16MB", "VARCHAR",
+            "WAL size that triggers automatic checkpoint"),
+    # fault-injection hooks (DuckDB's debug_* settings; crash-consistency
+    # testing)
+    Setting("debug_checkpoint_abort", "none", "VARCHAR",
+            "Abort CHECKPOINT at a stage: none | before_data | "
+            "before_header | before_truncate (crash-recovery testing)"),
+    Setting("debug_force_commit_failure", False, "BOOLEAN",
+            "Force every COMMIT to fail after validation "
+            "(rollback-path testing)"),
 ]
 BY_NAME: Dict[str, Setting] = {s.name: s for s in SETTINGS}
 
@@ -58,8 +72,7 @@ NOT_PORTED = frozenset("""
 threads enable_progress_bar enable_profiling explain_output
 default_null_order default_order temp_directory disabled_optimizers
 join_order max_expression_depth timezone preserve_insertion_order
-checkpoint_threshold enable_object_cache pallas_grouped_sum
-experimental_join_fusion debug_checkpoint_abort debug_force_commit_failure
+enable_object_cache pallas_grouped_sum experimental_join_fusion
 storage_compatibility_version enable_macro_dependencies
 __delta_only_variant_encoding_enabled access_mode
 allocator_background_threads allocator_bulk_deallocation_flush_threshold
@@ -181,7 +194,18 @@ class SettingsManager:
 
     def set(self, name: str, value):
         name = self._wired(name)
-        if BY_NAME[name].typ == "BIGINT":
+        if BY_NAME[name].typ == "BOOLEAN" and not isinstance(value, bool):
+            value = str(value).lower() in ("true", "on", "1")
+        elif name == "checkpoint_threshold":
+            parse_bytes(value)  # a size, or it raises
+        elif name == "debug_checkpoint_abort":
+            from duckdb_tpu_torch.storage.persist import ABORT_POINTS
+
+            value = str(value).lower()
+            if value not in ("none",) + ABORT_POINTS:
+                raise ValueError(f"debug_checkpoint_abort takes none, {', '.join(ABORT_POINTS)}"
+                                 f', got "{value}"')
+        elif BY_NAME[name].typ == "BIGINT":
             try:
                 value = int(value)
             except (TypeError, ValueError):

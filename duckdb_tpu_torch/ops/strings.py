@@ -503,7 +503,7 @@ def _decode_plane(plane2: torch.Tensor, lens2: torch.Tensor) -> Tuple[np.ndarray
     a = np.ascontiguousarray(plane2.cpu().numpy())
     n, L = a.shape
     uniq_b, inv = np.unique(a.view(f"S{L}").reshape(n), return_inverse=True)
-    uniq = np.char.decode(uniq_b, "ascii").astype(object)
+    uniq = uniq_b.astype(str).astype(object)  # ASCII: a non-ASCII byte raises
     return inv.reshape(n).astype(np.int32), uniq
 
 

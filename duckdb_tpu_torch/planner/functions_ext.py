@@ -20,10 +20,12 @@ characters from the left, to_hex is hex() (the reference returns its
 input), time_bucket counts day buckets from 2000-01-03 and takes months,
 and uuid()/random() give a value per row. now() and current_date are read
 when the query runs, so a cached plan does not freeze them;
-REPLAY_TIME_MICROS pins them (tests use it). random() and the uuid family
+REPLAY_TIME_MICROS pins them (tests use it), and so does a file
+database's logged statement (`Session.pin`). random() and the uuid family
 draw from the connection's torch.Generator on the column's device
-(planner/session.py), which setseed() seeds, and else REPLAY_RNG when
-set. nextval/currval read the sequences of the statement's catalog
+(planner/session.py), which setseed() seeds; while a logged statement or
+its replay runs they draw on the host from generators its pinned seed
+seeds. nextval/currval read the sequences of the statement's catalog
 (CREATE SEQUENCE; currval before any nextval raises, as in DuckDB), and
 concat_ws over columns, which the reference refuses too, says it is not
 ported. format_bytes is planner/functions_more.py's.
@@ -36,6 +38,7 @@ import math
 import re
 import time
 import uuid as _uuid
+from typing import Optional
 
 import numpy as np
 import torch
@@ -86,14 +89,36 @@ _US_DAY = 86_400_000_000
 
 # pins now()/current_date (micros since the epoch) when set
 REPLAY_TIME_MICROS = None
-# seeds random() and the uuid family when set (a random.Random)
-REPLAY_RNG = None
+
+
+def _pin():
+    s = session.current()
+    return None if s is None else s.pin
+
+
+def _pinned_time() -> Optional[int]:
+    if REPLAY_TIME_MICROS is not None:
+        return int(REPLAY_TIME_MICROS)
+    pin = _pin()
+    return None if pin is None or pin[0] is None else int(pin[0])
+
+
+def pinned_generator() -> Optional[torch.Generator]:
+    """Under a pinned statement (`Session.pin`), a host generator seeded
+    from its Random (one per draw); else None."""
+    pin = _pin()
+    if pin is None or pin[1] is None:
+        return None
+    g = torch.Generator()
+    g.manual_seed(pin[1].getrandbits(63))
+    return g
 
 
 def _generator(device) -> torch.Generator:
-    """The running connection's generator for `device` (planner/session.py:
-    setseed() seeds it)."""
-    return session.active().generator(device, REPLAY_RNG)
+    """The generator a draw for `device` uses: the pinned host one, else
+    the running connection's (planner/session.py: setseed() seeds it).
+    Draw on its device (`g.device`) and move the values to `device`."""
+    return pinned_generator() or session.active().generator(device)
 
 
 def _valid_of(cols):
@@ -784,8 +809,9 @@ def _bind_monthname(arg_exprs):
 
 
 def _now_micros() -> int:
-    if REPLAY_TIME_MICROS is not None:
-        return int(REPLAY_TIME_MICROS)
+    pinned = _pinned_time()
+    if pinned is not None:
+        return pinned
     return int((datetime.datetime.now() - datetime.datetime(1970, 1, 1)).total_seconds() * 1e6)
 
 
@@ -951,16 +977,17 @@ def _bind_hash(arg_exprs):
 def _bind_random(arg_exprs):
     def impl(env, cols, node):
         dev = env.live.device
-        return Column(data=torch.rand(env.plen, generator=_generator(dev), dtype=torch.float64,
-                                      device=dev), ltype=DOUBLE)
+        g = _generator(dev)
+        return Column(data=torch.rand(env.plen, generator=g, dtype=torch.float64,
+                                      device=g.device).to(dev), ltype=DOUBLE)
     return DOUBLE, impl, []
 
 
 def _random_bits(env, k: int) -> np.ndarray:
     """(plen, k) random 62-bit words per row, drawn on the env's device."""
-    dev = env.live.device
-    return torch.randint(0, 1 << 62, (env.plen, k), generator=_generator(dev),
-                         dtype=torch.int64, device=dev).cpu().numpy()
+    g = _generator(env.live.device)
+    return torch.randint(0, 1 << 62, (env.plen, k), generator=g, dtype=torch.int64,
+                         device=g.device).cpu().numpy()
 
 
 def _uuid_column(env, make) -> Column:
@@ -985,7 +1012,8 @@ def _bind_uuidv7(arg_exprs):
     """Time-ordered UUID v7 (duckdb/src/common/types/uuid.cpp UUIDv7): the
     millisecond time in the top 48 bits, then 74 random bits."""
     def impl(env, cols, node):
-        ms = _now_micros() // 1000 if REPLAY_TIME_MICROS is not None else int(time.time() * 1000)
+        pinned = _pinned_time()
+        ms = pinned // 1000 if pinned is not None else int(time.time() * 1000)
 
         def make(r):
             rand = ((r[0] << 12) | (r[1] & 0xFFF)) & ((1 << 74) - 1)

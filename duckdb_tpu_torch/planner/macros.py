@@ -38,6 +38,7 @@ class MacroDef:
     defaults: dict         # name -> Expr AST (used when not supplied)
     body: object           # Expr AST (scalar) or SelectStatement (table)
     is_table: bool
+    sql_text: str = ""     # the CREATE MACRO text a file database keeps
 
 
 _MAX_DEPTH = 64

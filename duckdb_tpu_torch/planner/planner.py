@@ -361,6 +361,28 @@ class Atom:
             self.base_rows = self.rows
 
 
+
+def _requalify(node, alias: str, catalog):
+    """An attached view's body with each unqualified table name that the
+    attached database holds qualified by its alias (the view binds in its
+    own database's catalog)."""
+    if isinstance(node, N.BaseTableRef) and not node.schema:
+        q = f"{alias}.{node.name.lower()}"
+        if q in catalog.tables or q in catalog.views:
+            return dataclasses.replace(node, schema=alias)
+        return node
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        kw = {f.name: _requalify(getattr(node, f.name), alias, catalog)
+              for f in dataclasses.fields(node)}
+        if all(kw[f.name] is getattr(node, f.name) for f in dataclasses.fields(node)):
+            return node
+        return dataclasses.replace(node, **kw)
+    if isinstance(node, list):
+        return [_requalify(v, alias, catalog) for v in node]
+    if isinstance(node, tuple):
+        return tuple(_requalify(v, alias, catalog) for v in node)
+    return node
+
 class Planner:
     def __init__(self, catalog, routes=None, temp_views=None, default_schema: str = "main"):
         self.catalog = catalog
@@ -561,7 +583,13 @@ class Planner:
             # a view is planned anew at every use, from a copy of its
             # statement (planning marks CTE nodes), with the macros expanded;
             # its body does not see the caller's CTEs
-            body = M.expand_macros(copy.deepcopy(view), self.macros())
+            body = copy.deepcopy(view)
+            head = (ref.schema or "").lower()
+            if head in getattr(self.catalog, "attached", {}):
+                # an attached database's view names the tables of its own
+                # database: qualify them with the alias
+                body = _requalify(body, head, self.catalog)
+            body = M.expand_macros(body, self.macros())
             plan, output = self.plan_select(body, None, {})
             return self._subquery_atom(plan, output, alias, None) + (None,)
         raise BindError(f"Catalog Error: Table with name {ref.name} does not exist!")
@@ -785,7 +813,7 @@ class Planner:
     _LATER_TABLE_FUNCTIONS = {
         **dict.fromkeys(("read_csv", "read_csv_auto", "read_parquet", "parquet_scan",
                          "read_json", "read_json_auto", "read_ndjson", "read_json_objects",
-                         "read_text", "read_blob", "__file_scan"), "33 (the file readers)"),
+                         "read_text", "read_blob", "__file_scan"), "33b (the file readers)"),
         **dict.fromkeys(("duckdb_settings", "duckdb_logs"), "36 (settings and logging)")}
 
     def _plan_table_function(self, ref: N.TableFunctionRef):

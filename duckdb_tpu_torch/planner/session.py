@@ -37,6 +37,12 @@ class Session:
         # () → the catalog the statement reads (a transaction's snapshot
         # inside BEGIN … COMMIT): its macros, user types and sequences
         self.catalog_of = None
+        # (time micros, random.Random) pinned while a file database's logged
+        # statement, or its replay, runs: now() reads the time, and random(),
+        # the uuids and samples draw on the host from the Random's seeds
+        # (planner/functions_ext.py), so that a replay on any device stores
+        # the same values
+        self.pin = None
 
     @property
     def catalog(self):
@@ -45,9 +51,9 @@ class Session:
     def next_txid(self) -> int:
         return next(self._txids)
 
-    def generator(self, device, replay_rng=None) -> torch.Generator:
-        """The generator of `device`: seeded from setseed()'s seed, else
-        from `replay_rng` (a random.Random) when given, else at random."""
+    def generator(self, device) -> torch.Generator:
+        """The generator of `device`: seeded from setseed()'s seed, else at
+        random."""
         key = str(device)
         g = self._generators.get(key)
         if g is None:
@@ -55,7 +61,7 @@ class Session:
             if self._seed is not None:
                 g.manual_seed(self._seed)
             else:
-                g.manual_seed((replay_rng or _random).getrandbits(63))
+                g.manual_seed(_random.getrandbits(63))
             self._generators[key] = g
         return g
 

@@ -2,7 +2,7 @@
 
 The JAX package's duckdb_tpu/storage/json_io.py (DuckDB's json extension,
 extension/json/json_functions/) less its file reader: read_json and the
-JSON file scans wait for the storage readers (ROADMAP item 33). A JSON
+JSON file scans wait for the file readers (ROADMAP item 33b). A JSON
 value is VARCHAR text in a dictionary, so a function of one JSON column
 runs once per distinct document on the host and reaches the rows as one
 gather of codes on the column's device, its lookup table cached per

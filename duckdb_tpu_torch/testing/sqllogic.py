@@ -11,9 +11,9 @@ load-bearing directives so the same corpus format drives the port:
   ----  (expected rows; empty block = no rows; or "N values hashing to MD5")
   loop/endloop, foreach/endloop substitution
   concurrentloop (threaded connections sharing the database)
-  load <path> [readonly]   (a persistent database: raises until the
-                            port has file databases, ROADMAP item 33)
-  restart                  (close + reopen: the same)
+  load <path> [readonly]   (a file database, deleted first unless
+                            readonly)
+  restart                  (close, which checkpoints, then reopen)
   require <ext>            (skipped unless builtin)
   require-env NAME [value]
   sleep N (msec|sec)
@@ -34,6 +34,7 @@ import decimal as pydec
 import hashlib
 import math
 import os
+import shutil
 import re
 import tempfile
 import threading
@@ -170,9 +171,10 @@ class SqlLogicRunner:
     SYSTEM_NAME = "duckdb"  # we answer to skipif/onlyif duckdb
 
     def __init__(self, connect=None):
-        """`connect()` opens the connection a script runs on (default
-        duckdb_tpu_torch.connect, on the CUDA device; tests pass one on
-        the CPU)."""
+        """`connect(path=":memory:")` opens the connection a script runs on
+        (default duckdb_tpu_torch.connect, on the CUDA device; tests pass
+        one on the CPU); `load` and `restart` call it with the database's
+        path."""
         if connect is None:
             import duckdb_tpu_torch
 
@@ -246,14 +248,27 @@ class SqlLogicRunner:
                              "microsecond": 1e-6}.get(unit, 1.0)
                     time.sleep(min(n * scale, 5.0))
                 continue
-            if head in ("load", "restart"):
-                # a database file and its round trip need the storage
+            if head == "load":
+                # open a file database (DuckDB: load <dbpath> [readonly]);
+                # an existing one is deleted first unless read-only
                 if skipping:
                     continue
-                from duckdb_tpu_torch.planner.bound import not_ported
-
-                raise not_ported(f"the sqllogictest directive {head!r}, which needs "
-                                 "file databases (ROADMAP item 33)")
+                path = tok[1] if len(tok) > 1 else ":memory:"
+                readonly = len(tok) > 2 and tok[2] == "readonly"
+                ctx.con.close()
+                if not readonly and path not in (":memory:", "") and os.path.exists(path):
+                    (shutil.rmtree if os.path.isdir(path) else os.remove)(path)
+                ctx.db_path = path
+                ctx.con = ctx.connect(path)
+                continue
+            if head == "restart":
+                # the round trip: close (the last connection checkpoints),
+                # then open the database again
+                if skipping or ctx.db_path in (":memory:", ""):
+                    continue
+                ctx.con.close()
+                ctx.con = ctx.connect(ctx.db_path)
+                continue
             if head == "hash-threshold":
                 continue  # we hash only when the expected block demands it
             if head == "endloop":

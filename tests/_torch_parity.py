@@ -6,6 +6,7 @@ name, or a subclass of it)."""
 
 from __future__ import annotations
 
+import importlib
 import math
 import re
 
@@ -15,6 +16,7 @@ from duckdb_tpu_torch import errors as T_ERRORS
 from duckdb_tpu_torch.planner import binder as T_BINDER
 from duckdb_tpu_torch.planner import bound as T_BOUND
 from duckdb_tpu_torch.sql import parser as T_PARSER
+from duckdb_tpu_torch.storage import persist as T_PERSIST
 
 
 def connect_both():
@@ -22,7 +24,7 @@ def connect_both():
 
 
 def _port_class(cls):
-    for mod in (T_ERRORS, T_BOUND, T_BINDER, T_PARSER):
+    for mod in (T_ERRORS, T_BOUND, T_BINDER, T_PARSER, T_PERSIST):
         c = getattr(mod, cls.__name__, None)
         if isinstance(c, type):
             return c
@@ -76,12 +78,59 @@ def run_both(script, cons=None, duckdb=None):
     """Run each statement of `script` (a list of SQL texts) on both
     packages, comparing as it goes → the two connections. `duckdb` maps a
     statement to the rows DuckDB gives where the JAX package's differ (a
-    fault of ROADMAP Queue 3): the port is held to those."""
+    fault of ROADMAP Queue 3), or to the exception class DuckDB raises
+    where the JAX package runs the statement: the port is held to those."""
     jcon, tcon = cons or connect_both()
     for sql in script:
         j, t = outcome(jcon, sql), outcome(tcon, sql)
         if duckdb and sql in duckdb:
-            assert j[0] == "rows" and j[1] != duckdb[sql], (sql, j)  # still the fault
-            j = ("rows", duckdb[sql])
+            want = duckdb[sql]
+            if isinstance(want, type):
+                assert j[0] != "error", (sql, j)  # still the fault
+                assert t[0] == "error" and isinstance(t[1], want), (sql, t)
+                continue
+            assert j != ("rows", want), (sql, j)  # still the fault
+            j = ("rows", want)
         same(sql, j, t)
     return jcon, tcon
+
+
+class FilePackage:
+    """One package's side of a file-database scenario: `connect(name)`
+    opens (or makes) the database `name` under this package's own folder,
+    `crash()` forgets the package's open databases as a process that died
+    would (the next connect replays the directory), `sql(con, text)` is the
+    statement's outcome."""
+
+    def __init__(self, which: str, root):
+        self.which = which
+        self.root = root / which
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.pkg = duckdb_tpu if which == "jax" else duckdb_tpu_torch
+
+    def path(self, name: str) -> str:
+        return str(self.root / name)
+
+    def connect(self, name: str = ":memory:"):
+        path = name if name == ":memory:" else self.path(name)
+        if self.which == "jax":
+            return duckdb_tpu.connect(path)
+        return duckdb_tpu_torch.connect(path, device="cpu")
+
+    def crash(self):
+        importlib.import_module(self.pkg.__name__ + ".api.connection")._OPEN_DBS.clear()
+
+    @staticmethod
+    def sql(con, text):
+        return outcome(con, text)
+
+
+def run_both_files(tmp_path, scenario):
+    """Run `scenario(side)` (→ a list of (sql, outcome)) for each package in
+    a folder of its own and compare the outcomes in turn."""
+    j = scenario(FilePackage("jax", tmp_path))
+    t = scenario(FilePackage("torch", tmp_path))
+    assert len(j) == len(t), (j, t)
+    for (sql, a), (_, b) in zip(j, t):
+        same(sql, a, b)
+    return j, t

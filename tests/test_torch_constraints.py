@@ -8,8 +8,10 @@ CONFLICT DO NOTHING / DO UPDATE, INSERT OR REPLACE / OR IGNORE, and the
 unique-key index advanced by each append and rebuilt after a ROLLBACK.
 Rows, Counts and exception classes must agree (tests/_torch_parity.py);
 a violation is DuckDB's ConstraintException in the port, which is also
-the JAX package's ConnectionException. The case that reopens a database
-file waits for ROADMAP item 33.
+the JAX package's ConnectionException. F5 (an UPDATE of a referenced
+parent key) and F6 (DROP TABLE of a referenced parent) are held to DuckDB,
+and the JAX package still differs. The cases that reopen a database file
+are in tests/test_torch_storage.py.
 """
 
 import os
@@ -192,3 +194,59 @@ def test_on_conflict_counts_appended_rows():
         jcon.sql("SELECT count(*), sum(v) FROM t").rows() == [(1010, 20)]
     assert con.sql("INSERT INTO t SELECT range, 2 FROM range(1005, 1015) "
                    "ON CONFLICT DO NOTHING").rows() == [(5,)]
+
+
+FK_PAIR = ["CREATE TABLE par (id INTEGER PRIMARY KEY)",
+           "CREATE TABLE chi (pid INTEGER REFERENCES par (id))",
+           "INSERT INTO par VALUES (1), (2)", "INSERT INTO chi VALUES (1)"]
+
+# F5 and F6 (ROADMAP Queue 3): DuckDB raises where the JAX package runs the
+# statement, and then the tables are as they were
+DUCKDB_FK = {
+    "f5_update_of_referenced_key": (FK_PAIR + [
+        "UPDATE par SET id = 3 WHERE id = 1", "SELECT * FROM par ORDER BY id",
+        "SELECT c.pid, p.id FROM chi c LEFT JOIN par p ON c.pid = p.id",
+        "UPDATE par SET id = 4 WHERE id = 2", "UPDATE par SET id = id WHERE id = 1",
+        "SELECT id FROM par ORDER BY id"], {
+        "UPDATE par SET id = 3 WHERE id = 1": ConstraintException,
+        "SELECT * FROM par ORDER BY id": [(1,), (2,)],
+        "UPDATE par SET id = id WHERE id = 1": [(1,)],
+        "SELECT id FROM par ORDER BY id": [(1,), (4,)],
+        "SELECT c.pid, p.id FROM chi c LEFT JOIN par p ON c.pid = p.id": [(1, 1)]}),
+    "f6_drop_of_referenced_table": (FK_PAIR + [
+        "DROP TABLE par", "SELECT * FROM par ORDER BY id", "SELECT * FROM chi",
+        "DROP TABLE chi", "DROP TABLE par", "SELECT count(*) FROM duckdb_tables()"], {
+        "DROP TABLE par": ConnectionException,
+        "SELECT * FROM par ORDER BY id": [(1,), (2,)]}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DUCKDB_FK))
+def test_fk_parent_held_to_duckdb(name):
+    """F5: an UPDATE that changes a parent key a child row still references
+    raises ConstraintException, and one that leaves it (or changes an
+    unreferenced key) succeeds; F6: DROP TABLE of the parent raises
+    DuckDB's Catalog Error until the child is dropped. The JAX package runs
+    both statements (asserted by run_both)."""
+    script, duckdb = DUCKDB_FK[name]
+    if name.startswith("f6"):
+        # after the refused DROP the tables differ: DuckDB's second DROP
+        # TABLE par (after chi's) succeeds in both
+        jcon, tcon = run_both(script[:7], duckdb=duckdb)
+        for sql in script[7:]:
+            tcon.sql(sql)
+        assert tcon.sql("SELECT count(*) FROM duckdb_tables()").rows() == [(0,)]
+        return
+    run_both(script, duckdb=duckdb)
+
+
+def test_f5_message_and_rows():
+    con = duckdb_tpu_torch.connect(device="cpu")
+    for sql in FK_PAIR:
+        con.sql(sql)
+    with pytest.raises(ConstraintException, match='key "1" is still referenced'):
+        con.sql("UPDATE par SET id = 3 WHERE id = 1")
+    assert con.sql("SELECT * FROM par ORDER BY id").rows() == [(1,), (2,)]
+    assert con.sql("SELECT * FROM chi").rows() == [(1,)]
+    with pytest.raises(ConnectionException, match='main key table of the table "chi"'):
+        con.sql("DROP TABLE par")

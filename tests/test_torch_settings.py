@@ -64,13 +64,17 @@ def test_registry_matches_the_jax_package():
     from duckdb_tpu.main import settings_compat as JC
 
     wired = {s.name for s in TSET.SETTINGS}
-    assert wired == {"num_shards", "auto_shard_rows", "exchange_join_threshold", "memory_limit"}
+    assert wired == {"num_shards", "auto_shard_rows", "exchange_join_threshold", "memory_limit",
+                     "checkpoint_threshold", "debug_checkpoint_abort",
+                     "debug_force_commit_failure"}
     assert not wired & TSET.NOT_PORTED
     assert wired | TSET.NOT_PORTED == {s.name for s in JSET.SETTINGS}
-    assert len(TSET.NOT_PORTED) > 180
+    assert len(TSET.NOT_PORTED) == 180  # 183 less the three file-database settings
     assert TSET.SETTING_ALIASES == JC.SETTING_ALIASES
-    for name in ("auto_shard_rows", "exchange_join_threshold"):
+    for name in ("auto_shard_rows", "exchange_join_threshold", "checkpoint_threshold",
+                 "debug_checkpoint_abort", "debug_force_commit_failure"):
         assert TSET.BY_NAME[name].default == JSET.BY_NAME[name].default
+        assert TSET.BY_NAME[name].typ == JSET.BY_NAME[name].typ
     # the port runs on one device unless asked; the JAX package's AUTO
     assert TSET.BY_NAME["num_shards"].default == 1 and JSET.BY_NAME["num_shards"].default == 0
 

@@ -4,8 +4,8 @@ The counterparts of tests/test_sqllogic.py: the vendored scripts
 (tests/sqllogic/*.test: basic aggregates, NULL joins, WITH RECURSIVE,
 each starting with CREATE TABLE and INSERT) pass on the port at
 device="cpu", and so they do on the JAX package's runner; a hashed result
-block; statement error matching; loops. `load` and `restart` need a
-database file and raise, naming ROADMAP item 33.
+block; statement error matching; loops; `load` and `restart` over a file
+database (the script below), on both runners.
 """
 
 import glob
@@ -25,7 +25,7 @@ SCRIPTS = sorted(glob.glob(os.path.join(HERE, "sqllogic", "*.test")))
 
 
 def _runner():
-    return SqlLogicRunner(lambda *args: duckdb_tpu_torch.connect(device="cpu"))
+    return SqlLogicRunner(lambda path=":memory:": duckdb_tpu_torch.connect(path, device="cpu"))
 
 
 @pytest.mark.parametrize("path", SCRIPTS, ids=[os.path.basename(p) for p in SCRIPTS])
@@ -86,12 +86,68 @@ SELECT count(b) FROM t
     assert res.passed == 8
 
 
-def test_sqllogic_load_and_restart_name_item_33():
-    for directive in ("load __TEST_DIR__/roundtrip_db", "restart"):
-        with pytest.raises(ValueError, match="ROADMAP item 33"):
-            _runner().run_text(f"""
-statement ok
-CREATE TABLE t (a INTEGER)
+# the port's load/restart script: a file database, a restart after a
+# commit and a rolled-back transaction, and a second load that starts over
+ROUNDTRIP = """
+load __TEST_DIR__/roundtrip_db
 
-{directive}
-""")
+statement ok
+CREATE TABLE t (a INTEGER, s VARCHAR)
+
+statement ok
+INSERT INTO t VALUES (1, 'one'), (2, NULL)
+
+statement ok
+CREATE VIEW v AS SELECT a * 10 AS b FROM t
+
+statement ok
+BEGIN
+
+statement ok
+INSERT INTO t VALUES (3, 'three')
+
+statement ok
+ROLLBACK
+
+restart
+
+query IT
+SELECT a, s FROM t ORDER BY a
+----
+1	one
+2	NULL
+
+query I
+SELECT b FROM v ORDER BY b
+----
+10
+20
+
+statement ok
+DELETE FROM t WHERE a = 1
+
+restart
+
+query I
+SELECT count(*) FROM t
+----
+1
+
+load __TEST_DIR__/roundtrip_db
+
+statement error
+SELECT * FROM t
+----
+does not exist
+"""
+
+
+def test_sqllogic_load_and_restart_name_item_33():
+    """`load` and `restart` (item 33): the script passes on the port's
+    runner, and on the JAX package's."""
+    from duckdb_tpu.testing.sqllogic import SqlLogicRunner as JaxRunner
+
+    res = _runner().run_text(ROUNDTRIP)
+    assert res.failed == 0 and res.passed == 11, res.errors
+    jres = JaxRunner().run_text(ROUNDTRIP)
+    assert jres.failed == 0 and jres.passed == 11, jres.errors
