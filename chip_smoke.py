@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero before the result lines):
 1. the card's name and power limit, torch/CUDA versions; build every
-   kernel from csrc/ and print nvcc's -Xptxas -v report;
+   kernel from csrc/ and print nvcc's -Xptxas -v report, and, side by
+   side, the file readers' host libraries (csrc/csv2col.cpp,
+   csrc/parquet_codec.cpp) with the host C++ compiler;
 2. generate all eight TPC-H tables at SF1 from a fixed seed (data/,
    ignored by git) and load them with duckdb_tpu_torch.connect().load_tpch();
 3. the main path: TPC-H Q1 (bench.py's text) once through the port's
@@ -234,6 +236,26 @@ Phases (any failure exits non-zero before the result lines):
    READ_ONLY, Q1 over ext.lineitem equals it too and a write raises. Each step prints its wall
    ms, host syncs and host<->device bytes beside the card's name and power
    limit; the directory is removed at the end.
+20. the file readers at SF1 (storage/csv.py, parquet.py, multi_file.py,
+   api/files.py) in the git-ignored build/phase20: numpy writes all of
+   lineitem (6,001,215 rows, 16 columns) as dbgen's '|'-delimited text,
+   then CREATE TABLE with the TPC-H schema and COPY FROM it (wall ms,
+   MB/s, csv2col's own ms), Q1 over it (first run, warm median) equal to
+   numpy; COPY TO li.csv (HEADER), the types read_csv_auto sniffs (DECIMAL
+   as DOUBLE, as the JAX package sniffs), Q1 over it within 1e-9 relative;
+   COPY TO li.parquet (bytes on disk against the raw planes), Q1 over
+   read_parquet decoding only Q1's 7 of 16 columns, equal to numpy; three
+   COPY (SELECT the other 15 columns … WHERE l_returnflag = X) TO
+   hive/l_returnflag=X/part.parquet, Q1 over read_parquet(…,
+   hive_partitioning=true) equal to numpy; the committed fixtures
+   (tests/data/torch_io/, written by pyarrow) through read_parquet and
+   read_json equal to their expected rows; the eight tables and a small
+   one (a key, a DEFAULT, '', a sequence, a macro) through EXPORT DATABASE
+   (FORMAT PARQUET) and IMPORT into a fresh connection: Q1 and Q3 equal to
+   numpy, a duplicate key raising, the DEFAULT, '' and nextval and the
+   macro as before. Each Q1's grouped sum is held to the plain version and
+   timed at its shape; each step prints its wall ms, host syncs and
+   host<->device bytes beside the card's name and power limit.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -1816,6 +1838,391 @@ def file_db_phase(card, recording, recorded, launches_by_query, shapes, reps) ->
     return ""
 
 
+
+# phase 20: the file readers at SF1, in the git-ignored build/phase20
+FILES_DIR = os.path.join(ROOT, "build", "phase20")
+# the committed fixtures pyarrow wrote (the card has no pyarrow), with
+# their expected rows beside them (tools/make_torch_io_fixtures.py)
+FIXTURES = os.path.join(ROOT, "tests", "data", "torch_io")
+
+
+def _digits(v, pad: int = 0):
+    """Non-negative integers → (their decimal digits, lengths), each at
+    least `pad` digits (zero-padded), with integer arithmetic alone."""
+    import numpy as np
+
+    v = np.asarray(v, dtype=np.int64)
+    width = max(len(str(int(v.max()))) if len(v) else 1, pad, 1)
+    digits = (v[:, None] // 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)) % 10
+    lens = np.maximum(np.floor(np.log10(np.maximum(v, 1))).astype(np.int64) + 1, pad)
+    keep = np.arange(width) >= (width - lens)[:, None]
+    return (digits[keep] + ord("0")).astype(np.uint8), lens
+
+
+def _civil(days):
+    """Days since 1970-01-01 → (year, month, day) arrays (the civil calendar)."""
+    import numpy as np
+
+    z = np.asarray(days, dtype=np.int64) + 719468
+    era = np.floor_divide(z, 146097)
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = np.where(mp < 10, mp + 3, mp - 9)
+    return yoe + era * 400 + (m <= 2), m, d
+
+
+def _text_rows(columns, lo: int, hi: int) -> bytes:
+    """Rows [lo, hi) of lineitem_text's columns as text."""
+    import numpy as np
+
+    pieces = []  # per row, in order: (bytes, lengths) or a constant byte string
+    for i, (kind, data) in enumerate(columns):
+        if kind == "str":
+            blob, offs = data
+            pieces.append((blob[offs[lo]:offs[hi]], np.diff(offs[lo:hi + 1])))
+        elif kind == "date":
+            y, m, d = _civil(data[lo:hi])
+            pieces += [_digits(y, 4), b"-", _digits(m, 2), b"-", _digits(d, 2)]
+        elif kind == "money":  # DECIMAL(15,2) from cents (all >= 0 in lineitem)
+            v = data[lo:hi]
+            pieces += [_digits(v // 100), b".", _digits(v % 100, 2)]
+        else:
+            pieces.append(_digits(data[lo:hi]))
+        pieces.append(b"|" if i < len(columns) - 1 else b"\n")
+    n = hi - lo
+    row = np.zeros(n, dtype=np.int64)
+    for p in pieces:
+        row += len(p) if isinstance(p, bytes) else p[1]
+    pos = np.zeros(n, dtype=np.int64)
+    np.cumsum(row[:-1], out=pos[1:])
+    out = np.empty(int(row.sum()), dtype=np.uint8)
+    for p in pieces:
+        if isinstance(p, bytes):
+            for k, b in enumerate(p):
+                out[pos + k] = b
+            pos += len(p)
+            continue
+        blob, lens = p
+        first = np.zeros(n, dtype=np.int64)
+        np.cumsum(lens[:-1], out=first[1:])
+        out[np.repeat(pos - first, lens) + np.arange(len(blob))] = blob
+        pos += lens
+    return out.tobytes()
+
+
+def lineitem_text(data_dir: str) -> bytes:
+    """All 16 lineitem columns of the generated files as '|'-delimited text
+    with no header (dbgen's layout without its trailing '|'), with numpy
+    alone: each row's fields placed by their lengths, the rows in as many
+    ranges as the host has cores, each on a thread (numpy lets go of the
+    interpreter lock)."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from duckdb_tpu_torch.testing.tpch_gen import LINEITEM_COLUMNS
+
+    t = os.path.join(data_dir, "lineitem")
+    money = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+    columns = []
+    for name, kind in LINEITEM_COLUMNS:
+        base = os.path.join(t, name)
+        if kind == "str":
+            lens = np.fromfile(base + ".len", dtype=np.uint32).astype(np.int64)
+            offs = np.zeros(len(lens) + 1, dtype=np.int64)
+            np.cumsum(lens, out=offs[1:])
+            columns.append(("str", (np.fromfile(base + ".bytes", dtype=np.uint8), offs)))
+        elif kind == "date":
+            columns.append(("date", np.fromfile(base + ".i32", dtype=np.int32)))
+        else:
+            v = np.fromfile(base + (".i64" if kind == "i64" else ".i32"),
+                            dtype=np.int64 if kind == "i64" else np.int32).astype(np.int64)
+            columns.append(("money" if name in money else "int", v))
+    n = len(columns[0][1])
+    cuts = np.linspace(0, n, (os.cpu_count() or 1) + 1).astype(np.int64)
+    with concurrent.futures.ThreadPoolExecutor(len(cuts) - 1) as pool:
+        parts = list(pool.map(lambda r: _text_rows(columns, int(r[0]), int(r[1])),
+                              zip(cuts[:-1], cuts[1:])))
+    return b"".join(parts)
+
+
+def fixture_value(v):
+    """An expected value of a fixture's JSON: {"decimal": text},
+    {"date": iso}, {"timestamp": iso} or a plain JSON value."""
+    import datetime
+    import decimal
+
+    if isinstance(v, dict):
+        (kind, text), = v.items()
+        if kind == "decimal":
+            return decimal.Decimal(text)
+        if kind == "date":
+            return datetime.date.fromisoformat(text)
+        return datetime.datetime.fromisoformat(text)
+    return v
+
+
+def fixture_cases():
+    """[(file, SQL over it, expected rows)] of the committed fixtures."""
+    cases = []
+    for name in sorted(os.listdir(FIXTURES)):
+        if name.endswith(".expected.json"):
+            with open(os.path.join(FIXTURES, name)) as f:
+                want = json.load(f)
+            path = os.path.join(FIXTURES, want["file"])
+            reader = "read_parquet" if path.endswith(".parquet") else "read_json"
+            cases.append((path, f"SELECT * FROM {reader}('{path}') ORDER BY {want['order_by']}",
+                          [tuple(fixture_value(v) for v in r) for r in want["rows"]]))
+    return cases
+
+
+# phase 20 step 6's small table: a key, a default, an empty string, a
+# sequence past its start and a macro, each asked for after IMPORT
+SMALL_SETUP = ("CREATE TABLE small (id INTEGER PRIMARY KEY, s VARCHAR DEFAULT 'dflt')",
+               "INSERT INTO small VALUES (1, ''), (2, 'two')",
+               "CREATE SEQUENCE seq START WITH 5", "SELECT nextval('seq')",
+               "CREATE MACRO plus1(x) AS x + 1")
+
+
+def file_readers_phase(card, recording, recorded, launches_by_query, shapes, reps) -> str:
+    """Phase 20 (see the module docstring). '' or a failure message."""
+    import gc
+    import shutil
+
+    import torch
+
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.catalog.tpch import TPCH_SCHEMA
+    from duckdb_tpu_torch.storage import csv as csvmod
+    from duckdb_tpu_torch.storage import parquet as pqmod
+    from duckdb_tpu_torch.testing import tpch_oracle
+
+    kit = Steps(20, card, recording, recorded, launches_by_query, shapes, reps)
+    shutil.rmtree(FILES_DIR, ignore_errors=True)
+    os.makedirs(FILES_DIR)
+    want = numpy_q1(DATA)
+    nrows = len(lineitem_numpy(DATA)["l_orderkey"])
+
+    def q1_step(label, name, con, source, want_rows, exact=True):
+        sql = Q1.replace("FROM lineitem", f"FROM {source}")
+        rows, line = kit.with_kernel(label, name, lambda: con.sql(sql).rows())
+        if exact:
+            bad = rows_match(rows, want_rows)
+        else:  # DECIMAL sniffed as DOUBLE: sums within 1e-9 relative, counts exact
+            bad = rows_match(rows, [tuple(float(v) if hasattr(v, "as_tuple") else v for v in r)
+                                    for r in want_rows])
+        if bad:
+            return f"{label}: Q1 differs: {bad}", line
+        return "", line + f"; {len(rows)} rows equal numpy's; grouped_sum_i64 launches " \
+                          f"{launches_by_query[name]}"
+
+    def disk(path):
+        if os.path.isfile(path):
+            return os.path.getsize(path)
+        return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+    # 1. numpy writes lineitem as dbgen's text; CREATE TABLE; COPY FROM
+    tbl = os.path.join(FILES_DIR, "lineitem.tbl")
+    t0 = time.perf_counter()
+    text = lineitem_text(DATA)
+    with open(tbl, "wb") as f:
+        f.write(text)
+    print(f"phase 20 step 1: numpy wrote lineitem.tbl ({len(text)} bytes, {nrows} rows) in "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    del text
+    con = duckdb_tpu_torch.connect()
+    cols = ", ".join(f"{n} {t!r}" for n, t in TPCH_SCHEMA["lineitem"])
+    con.sql(f"CREATE TABLE lineitem ({cols})")
+    tokenizer = []
+    real_load = csvmod.load_csv
+
+    def timed_load(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return real_load(*args, **kwargs)
+        finally:
+            tokenizer.append(time.perf_counter() - t)
+
+    csvmod.load_csv = timed_load
+    try:
+        got, line = kit.step("1 COPY lineitem FROM lineitem.tbl", lambda: con.sql(
+            f"COPY lineitem FROM '{tbl}' (DELIMITER '|', HEADER false)").rows())
+    finally:
+        csvmod.load_csv = real_load
+    wall = float(line.split(": ")[1].split(" ms")[0]) / 1e3
+    if got != [(nrows,)]:
+        return f"COPY FROM gave {got}, expected {nrows} rows"
+    mb = os.path.getsize(tbl) / 1e6
+    print(line + f"; Count {got[0][0]}; {mb / wall:.1f} MB/s; csv2col's read "
+          f"{tokenizer[0] * 1e3:.3f} ms ({mb / tokenizer[0]:.1f} MB/s)")
+    bad, line = q1_step("1 Q1 over the copied lineitem (first run)", "q01_copy_from", con,
+                        "lineitem", want)
+    if bad:
+        return bad
+    print(line)
+    bad = kit.kernel_check("q01_copy_from")
+    if bad or launches_by_query["q01_copy_from"] < 1:
+        return bad or "Q1 over the copied lineitem did not launch the grouped sum"
+    med, times = warm_median(con, Q1, want)
+    if med is None:
+        return f"Q1 over the copied lineitem: {times}"
+    print(f"phase 20 Q1 over the copied lineitem on {card}: median of 5 warm runs "
+          f"{med * 1e3:.3f} ms (runs {', '.join(f'{t * 1e3:.3f}' for t in times)} ms)")
+    os.remove(tbl)
+
+    # 2. COPY TO CSV with a header, then Q1 over read_csv_auto
+    li_csv = os.path.join(FILES_DIR, "li.csv")
+    _, line = kit.step("2 COPY lineitem TO li.csv (HEADER)",
+                       lambda: con.sql(f"COPY lineitem TO '{li_csv}' (HEADER)"))
+    print(line + f"; {os.path.getsize(li_csv)} bytes")
+    _, sniffed_types = csvmod.sniff_csv(li_csv)[1:]
+    expect = {"BIGINT": "INTEGER", "INTEGER": "INTEGER", "DATE": "DATE", "VARCHAR": "VARCHAR"}
+    table_types = [str(t) for _, t in TPCH_SCHEMA["lineitem"]]
+    want_sniffed = [expect.get(t, "DOUBLE" if t.startswith("DECIMAL") else t)
+                    for t in table_types]
+    if [str(t) for _, t in sniffed_types] != want_sniffed:
+        return f"read_csv_auto sniffed {sniffed_types}, expected {want_sniffed}"
+    print(f"phase 20 step 2: sniffed {[str(t) for _, t in sniffed_types]} for the table's "
+          f"{table_types} (keys under 2^31 as INTEGER, DECIMAL as DOUBLE, as the JAX "
+          "package sniffs)")
+    bad, line = q1_step("2 Q1 over read_csv_auto('li.csv')", "q01_read_csv_auto", con,
+                        f"read_csv_auto('{li_csv}')", want, exact=False)
+    if bad:
+        return bad
+    print(line)
+    bad = kit.kernel_check("q01_read_csv_auto")
+    if bad:
+        return bad
+    os.remove(li_csv)
+
+    # 3. COPY TO Parquet, then Q1 over read_parquet
+    li_pq = os.path.join(FILES_DIR, "li.parquet")
+    _, line = kit.step("3 COPY lineitem TO li.parquet (FORMAT PARQUET)",
+                       lambda: con.sql(f"COPY lineitem TO '{li_pq}' (FORMAT PARQUET)"))
+    entry = con.catalog.get_table("lineitem")
+    raw = 0
+    for cd in entry.columns:
+        values, validity, dvals = entry.host_column(cd.name)
+        raw += values.nbytes + (0 if validity is None else validity.nbytes)
+        raw += 0 if dvals is None else sum(len(str(v).encode()) for v in dvals)
+    print(line + f"; {disk(li_pq)} bytes on disk against {raw} raw bytes "
+          f"({disk(li_pq) / raw:.3f}); {len(pqmod.ParquetFile(li_pq).row_groups)} row groups")
+    decoded = []
+    real_column = pqmod.load_column
+
+    def counted(path, name, pf=None):
+        decoded.append(name)
+        return real_column(path, name, pf)
+
+    pqmod.load_column = counted
+    try:
+        bad, line = q1_step("3 Q1 over read_parquet('li.parquet')", "q01_parquet", con,
+                            f"read_parquet('{li_pq}')", want)
+    finally:
+        pqmod.load_column = real_column
+    if bad:
+        return bad
+    print(line + f"; decoded {len(decoded)} of 16 columns: {sorted(decoded)}")
+    if len(decoded) != 7:
+        return f"Q1 over read_parquet decoded {sorted(decoded)}, not Q1's 7 columns"
+    bad = kit.kernel_check("q01_parquet")
+    if bad or launches_by_query["q01_parquet"] < 1:
+        return bad or "Q1 over read_parquet did not launch the grouped sum"
+    os.remove(li_pq)
+
+    # 4. three hive partitions, the flag only in the path
+    others = ", ".join(n for n, _ in TPCH_SCHEMA["lineitem"] if n != "l_returnflag")
+    hive = os.path.join(FILES_DIR, "hive")
+
+    def write_hive():
+        for flag in ("A", "N", "R"):
+            os.makedirs(os.path.join(hive, f"l_returnflag={flag}"))
+            con.sql(f"COPY (SELECT {others} FROM lineitem WHERE l_returnflag = '{flag}') TO "
+                    f"'{hive}/l_returnflag={flag}/part.parquet'")
+
+    _, line = kit.step("4 three COPY (SELECT … WHERE l_returnflag = X) TO hive/…", write_hive)
+    print(line + f"; {disk(hive)} bytes on disk")
+    bad, line = q1_step("4 Q1 over the hive partitions", "q01_hive", con,
+                        f"read_parquet('{hive}/*/*.parquet', hive_partitioning=true)", want)
+    if bad:
+        return bad
+    print(line)
+    bad = kit.kernel_check("q01_hive")
+    if bad or launches_by_query["q01_hive"] < 1:
+        return bad or "Q1 over the hive partitions did not launch the grouped sum"
+    shutil.rmtree(hive)
+    con.close()
+    del con, entry
+    gc.collect()
+
+    # 5. the committed fixtures pyarrow wrote
+    fx = duckdb_tpu_torch.connect()
+    for path, sql, rows_want in fixture_cases():
+        got, line = kit.step(f"5 {os.path.basename(path)}", lambda: fx.sql(sql).rows())
+        bad = rows_match(got, rows_want)
+        if bad:
+            return f"fixture {path}: {bad}"
+        print(line + f"; {len(got)} rows equal the expected rows")
+    fx.close()
+
+    # 6. the eight tables and a small one, EXPORT … (FORMAT PARQUET), IMPORT
+    src = duckdb_tpu_torch.connect()
+    src.load_tpch(DATA)
+    for sql in SMALL_SETUP:
+        src.sql(sql)
+    exp = os.path.join(FILES_DIR, "exp")
+    _, line = kit.step("6 EXPORT DATABASE (FORMAT PARQUET) of the 8 tables and small",
+                       lambda: src.sql(f"EXPORT DATABASE '{exp}' (FORMAT PARQUET)"))
+    print(line + f"; {disk(exp)} bytes on disk")
+    src.close()
+    del src
+    gc.collect()
+    dst = duckdb_tpu_torch.connect()
+    _, line = kit.step("6 IMPORT DATABASE into a fresh connection",
+                       lambda: dst.sql(f"IMPORT DATABASE '{exp}'"))
+    print(line + f"; tables {sorted(n for n in dst.catalog.tables if not n.startswith('__'))}")
+    bad, line = q1_step("6 Q1 over the imported lineitem", "q01_imported", dst, "lineitem",
+                        want)
+    if bad:
+        return bad
+    print(line)
+    bad = kit.kernel_check("q01_imported")
+    if bad or launches_by_query["q01_imported"] < 1:
+        return bad or "Q1 over the imported lineitem did not launch the grouped sum"
+    q3 = tpch_oracle.QUERIES["q03"]
+    rows, line = kit.step("6 Q3 over the imported tables", lambda: dst.sql(q3).rows())
+    bad = rows_match(rows, tpch_oracle.answer("q03", DATA))
+    if bad:
+        return f"Q3 over the imported tables differs from the numpy oracle: {bad}"
+    print(line + f"; {len(rows)} rows equal the numpy oracle's")
+    checks = []
+    try:
+        dst.sql("INSERT INTO small VALUES (1, 'dup')")
+        return "a duplicate key in the imported small table did not raise"
+    except Exception as err:  # noqa: BLE001 — the class is what is checked
+        if type(err).__name__ != "ConstraintException":
+            return f"the duplicate key raised {err!r}"
+        checks.append("duplicate key raised ConstraintException")
+    dst.sql("INSERT INTO small (id) VALUES (3)")
+    got = dst.sql("SELECT id, s, s IS NULL FROM small ORDER BY id").rows()
+    if got != [(1, "", False), (2, "two", False), (3, "dflt", False)]:
+        return f"the imported small table holds {got}"
+    checks.append("the DEFAULT applied and '' is not NULL")
+    if dst.sql("SELECT nextval('seq'), plus1(41)").rows() != [(6, 42)]:
+        return "nextval('seq') or plus1() did not answer as before the export"
+    checks.append("nextval('seq') gave 6 and plus1(41) 42")
+    print(f"phase 20 step 6 on {card}: {'; '.join(checks)}")
+    dst.close()
+    del dst
+    recorded.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(FILES_DIR, ignore_errors=True)
+    return ""
+
 def main() -> int:
     try:
         import torch
@@ -1839,9 +2246,27 @@ def main() -> int:
     print(card)
     print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    # the kernel (nvcc) and the file readers' host libraries (the host C++
+    # compiler, storage/host_lib.py) build side by side
+    import concurrent.futures
+
+    from duckdb_tpu_torch.storage import host_lib
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        fn(*args)
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    GS.build(force=True)
-    print(f"built {GS.LIBRARY} in {time.perf_counter() - t0:.1f} s; nvcc -Xptxas -v:")
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        gs_s = pool.submit(timed, GS.build, True)
+        host_s = {name: pool.submit(timed, host_lib.load, name, True)
+                  for name in ("csv2col", "parquet_codec")}
+        gs_s = gs_s.result()
+        host_s = {name: f.result() for name, f in host_s.items()}
+    print(f"built {GS.LIBRARY} in {gs_s:.1f} s and the host libraries "
+          f"{', '.join(f'lib{n}.so {s:.1f} s' for n, s in host_s.items())} with "
+          f"{host_lib.compiler()}, {time.perf_counter() - t0:.1f} s in all; nvcc -Xptxas -v:")
     print(GS.build_log.strip())
 
     # 2. data
@@ -2312,6 +2737,18 @@ def main() -> int:
         return fail(bad)
     worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
     print(f"phase 19 took {time.perf_counter() - phase19_t0:.1f} s")
+
+    # 20. the file readers at SF1: COPY FROM text, CSV and Parquet written
+    # and read back, hive partitions, the fixtures, EXPORT / IMPORT
+    phase20_t0 = time.perf_counter()
+    try:
+        bad = file_readers_phase(card, recording, recorded, launches_by_query, shapes, reps)
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    if bad:
+        return fail(bad)
+    worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
+    print(f"phase 20 took {time.perf_counter() - phase20_t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "grouped_sum_i64", "route": "cuda",

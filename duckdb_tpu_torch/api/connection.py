@@ -6,9 +6,10 @@ whose columns and intermediates all live on `device` (default "cuda").
 package's Connection does (duckdb_tpu/api/connection.py): SELECT, the DDL
 and DML of api/ddl.py and api/dml.py, BEGIN / COMMIT / ROLLBACK, SET /
 RESET of the settings the port honours (main/settings.py), PREPARE /
-EXECUTE / DEALLOCATE, EXPLAIN and PRAGMA, CHECKPOINT, and ATTACH / DETACH.
-COPY and EXPORT / IMPORT wait for the file readers (ROADMAP item 33b);
-MERGE, PIVOT, UNPIVOT and ALTER for item 34b; each says so.
+EXECUTE / DEALLOCATE, EXPLAIN and PRAGMA, CHECKPOINT, ATTACH / DETACH,
+and COPY TO / FROM (CSV and Parquet) and EXPORT / IMPORT DATABASE
+(api/files.py). MERGE, PIVOT, UNPIVOT and ALTER wait for ROADMAP item 34b,
+and say so.
 
 `connect(path)` opens a file database (storage/persist.py): one
 `Database` per directory in a process, shared by every connection to it
@@ -40,6 +41,7 @@ import torch
 
 from duckdb_tpu_torch.api.ddl import DDLMixin, MacroBindError
 from duckdb_tpu_torch.api.dml import DMLMixin
+from duckdb_tpu_torch.api.files import FilesMixin, reads_files
 from duckdb_tpu_torch.catalog.catalog import POOL, Catalog, qualify
 from duckdb_tpu_torch.errors import (  # noqa: F401 — the surface of the module
     ConnectionException, OutOfMemoryException, TransactionException)
@@ -152,6 +154,7 @@ def _snapshot(shared: Catalog) -> Catalog:
     snap.settings = shared.settings
     snap.tables = dict(shared.tables)
     snap._shared = set(shared.tables)
+    snap._file_tables = shared._file_tables
     for name in _OBJECTS:
         setattr(snap, name, dict(getattr(shared, name)))
     snap.schemas = set(shared.schemas)
@@ -214,7 +217,7 @@ class _TempViews(dict):
         return view
 
 
-class Connection(DDLMixin, DMLMixin):
+class Connection(DDLMixin, DMLMixin, FilesMixin):
     def __init__(self, database: str = ":memory:", device=None, _db: Optional[Database] = None,
                  _read_only: bool = False):
         self.database = database
@@ -233,10 +236,12 @@ class Connection(DDLMixin, DMLMixin):
         # the executor reads the sharding settings through the catalog
         self.settings = self._db.catalog.settings or SettingsManager()
         self._db.catalog.settings = self.settings
-        # plan cache: SQL text → (plan, output), and SQL text → the hidden
-        # tables of its materialized CTEs, which live as long as its plan
+        # plan cache: SQL text → (plan, output), SQL text → the hidden
+        # tables of its materialized CTEs, which live as long as its plan,
+        # and SQL text → the file reads it made (Planner.file_reads)
         self._plan_cache = {}
         self._plan_tables = {}
+        self._plan_files = {}
         # the database's commit count the cached plans were made under
         self._plan_commits = 0
         # the routes this connection's queries took: grouping modes, fused
@@ -277,10 +282,16 @@ class Connection(DDLMixin, DMLMixin):
     duplicate = cursor
 
     # statements that write the catalog: outside BEGIN each runs in a
-    # transaction of its own, and a file database logs them
+    # transaction of its own, and a file database logs them (COPY … FROM
+    # too: `_mutating`)
     _MUTATING = (N.CreateTable, N.CreateView, N.DropStatement, N.InsertStatement,
                  N.DeleteStatement, N.UpdateStatement, N.CreateSequence, N.CreateSchema,
-                 N.CreateMacro, N.CreateType, N.CreateIndex, N.CommentStatement)
+                 N.CreateMacro, N.CreateType, N.CreateIndex, N.CommentStatement,
+                 N.ImportStatement)
+
+    def _mutating(self, s) -> bool:
+        return isinstance(s, self._MUTATING) or (
+            isinstance(s, N.CopyStatement) and s.direction == "from")
 
     # -- main entry -----------------------------------------------------------
     def sql(self, query: str) -> Optional[Result]:
@@ -318,9 +329,11 @@ class Connection(DDLMixin, DMLMixin):
         (`_note_wal`). A statement that writes nothing but advances a
         sequence outside BEGIN logs the counters (DuckDB logs sequence
         values at commit)."""
-        mutating = isinstance(s, self._MUTATING)
+        mutating = self._mutating(s)
         before = _counters(self.catalog)
         pin = None
+        # IMPORT DATABASE runs statements inside its own
+        outer, outer_pin = self._wal_pending, self.session.pin
         if mutating:
             pin = {"t": FX._now_micros(), "seed": self._statement_seed()}
             self.session.pin = (pin["t"], random.Random(pin["seed"]))
@@ -328,12 +341,13 @@ class Connection(DDLMixin, DMLMixin):
             local = isinstance(s, (N.CreateView, N.DropStatement)) and (
                 getattr(s, "temporary", False)
                 or (getattr(s, "kind", None) == "view" and s.name.lower() in self._temp_views))
-            self._wal_pending = (s, text, pin, before, local, self._temp_views.reads)
+            self._wal_pending = (s, text, pin, before, local, self._temp_views.reads,
+                                 self.catalog._file_tables.reads)
         try:
             res = self._execute_statement(s)
         finally:
-            self.session.pin = None
-            self._wal_pending = None
+            self.session.pin = outer_pin
+            self._wal_pending = outer
         if not mutating and self._txn is None:
             moved = _advanced(before, _counters(self._db.catalog))
             if moved:
@@ -356,11 +370,18 @@ class Connection(DDLMixin, DMLMixin):
         checkpoint at COMMIT makes durable. One whose text is unknown, or
         that read an attached database or a TEMPORARY view, cannot be
         replayed from its text (nor can one run after USE of an attached
-        database), so its COMMIT checkpoints instead."""
+        database), so its COMMIT checkpoints instead. So does one that read
+        a file (COPY … FROM, IMPORT DATABASE, a file reader anywhere in the
+        statement, a view's included): replaying it would read the file
+        again, which may have changed or gone since (ROADMAP F12)."""
         pending, txn = self._wal_pending, self._txn
         if pending is None or txn is None:
             return
-        s, text, pin, before, local, temp_reads = pending
+        s, text, pin, before, local, temp_reads, file_reads = pending
+        if isinstance(s, (N.CopyStatement, N.ImportStatement)) or reads_files(s) or \
+                self.catalog._file_tables.reads != file_reads:
+            txn.checkpoint = True
+            return
         attached = self.catalog.attached
         target = getattr(s, "table", None) or getattr(s, "name", None)
         if local or (attached and isinstance(target, str)
@@ -437,7 +458,7 @@ class Connection(DDLMixin, DMLMixin):
         """One attempt at a statement. One that writes runs in a transaction
         of its own outside BEGIN, and inside one on a copy of the
         transaction's catalog, so that a failure leaves nothing behind."""
-        if not isinstance(s, self._MUTATING):
+        if not self._mutating(s):
             return self._execute_statement_inner(s)
         if self._txn is None:
             self._txn = _Txn(self._db, implicit=True)
@@ -502,6 +523,12 @@ class Connection(DDLMixin, DMLMixin):
             return self._attach(s)
         if isinstance(s, N.DetachStatement):
             return self._detach(s)
+        if isinstance(s, N.CopyStatement):
+            return self._copy(s)
+        if isinstance(s, N.ExportStatement):
+            return self._export_database(s)
+        if isinstance(s, N.ImportStatement):
+            return self._import_database(s)
         later = self._LATER.get(type(s))
         if later is not None:
             raise not_ported(later)
@@ -513,9 +540,6 @@ class Connection(DDLMixin, DMLMixin):
         N.AlterStatement: "ALTER TABLE (ROADMAP item 34b)",
         N.PivotStatement: "PIVOT (ROADMAP item 34b)",
         N.UnpivotStatement: "UNPIVOT (ROADMAP item 34b)",
-        N.CopyStatement: "COPY (ROADMAP item 33b)",
-        N.ExportStatement: "EXPORT DATABASE (ROADMAP item 33b)",
-        N.ImportStatement: "IMPORT DATABASE (ROADMAP item 33b)",
     }
 
     # -- queries ----------------------------------------------------------------
@@ -530,12 +554,19 @@ class Connection(DDLMixin, DMLMixin):
         tables go with its run. A cached plan may hold what its tables held
         when it was made (an uncorrelated scalar subquery's value, a
         materialized CTE's rows), so the cache is dropped once another
-        connection has published a commit this one can see."""
+        connection has published a commit this one can see; and a plan that
+        reads files is made anew once one of them has changed (its path,
+        mtime or size: Catalog.file_key), as DuckDB reads them on every
+        query (ROADMAP I6)."""
         seen = self._txn.begin_commits if self._txn is not None else self._db.commits
         if seen != self._plan_commits:
             self._clear_plan_cache()
             self._plan_commits = seen
         cached = self._plan_cache.get(cache_key) if cache_key else None
+        if cached is not None and not self._files_unchanged(cache_key):
+            self._drop_tables(self._plan_tables.pop(cache_key))
+            del self._plan_cache[cache_key], self._plan_files[cache_key]
+            cached = None
         if cached is None:
             planner = self._planner()
             try:
@@ -556,6 +587,7 @@ class Connection(DDLMixin, DMLMixin):
                     self._drop_tables(planner.hidden_tables)
             self._plan_cache[cache_key] = cached
             self._plan_tables[cache_key] = planner.hidden_tables
+            self._plan_files[cache_key] = planner.file_reads
         plan, output = cached
         return Executor(self.catalog, self.routes).run(plan, output)
 
@@ -575,6 +607,21 @@ class Connection(DDLMixin, DMLMixin):
             self._drop_tables(names)
         self._plan_cache.clear()
         self._plan_tables.clear()
+        self._plan_files.clear()
+
+    def _files_unchanged(self, cache_key) -> bool:
+        """Whether every file read of a cached plan still sees what it saw,
+        from a table the catalog still has (a transaction's snapshot
+        registers a file's table that its COMMIT does not publish)."""
+        for args, key, table in self._plan_files.get(cache_key, ()):
+            if not self.catalog.has_table(table):
+                return False
+            try:
+                if self.catalog.file_key(*args) != key:
+                    return False
+            except ValueError:  # gone: planning again raises DuckDB's error
+                return False
+        return True
 
     def _drop_tables(self, names):
         for name in names:

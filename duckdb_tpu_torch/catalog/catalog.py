@@ -17,6 +17,7 @@ fit runs in chunks (execution/chunked.py).
 from __future__ import annotations
 
 import itertools
+import os
 import weakref
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -154,6 +155,16 @@ class ColumnDef:
     name: str
     ltype: LogicalType
 
+
+# the names of the tables read from files, unique in the process
+_FILE_IDS = itertools.count()
+
+
+class FileTables(dict):
+    """file_key → the TableEntry read then, and the count of the reads made
+    (a file database checkpoints a commit whose statements read a file)."""
+
+    reads = 0
 
 # table versions are unique across the process: two transactions that each
 # write a clone of one table never reach the same version, so a cache keyed
@@ -441,6 +452,62 @@ class Catalog:
         # was copied from (a transaction's snapshot): `writable_table` clones
         # such an entry the first time a statement writes it
         self._shared: set = set()
+        # the tables read from files (`ensure_file_table`), by file_key();
+        # a transaction's snapshot shares the dict with its catalog
+        self._file_tables = FileTables()
+
+    @staticmethod
+    def file_key(paths, union_by_name: bool = False, hive_partitioning=None,
+                 filename: bool = False) -> tuple:
+        """What a read of `paths` (a path, a glob, or a list of either) sees
+        now: the pattern, each file's path, mtime and size, and the
+        options."""
+        from duckdb_tpu_torch.storage import multi_file as mf
+
+        files = mf.expand_patterns(paths)
+        if not files:
+            raise ValueError(f'IO Error: No files found that match the pattern "{paths}"')
+        stamps = []
+        for f in files:
+            try:
+                st = os.stat(f)
+            except OSError as err:
+                raise ValueError(f'IO Error: No files found that match the pattern "{f}" '
+                                 f"({err.strerror})") from None
+            stamps.append((f, st.st_mtime_ns, st.st_size))
+        pattern = paths if isinstance(paths, str) else tuple(str(p) for p in paths)
+        hive = None if hive_partitioning is None else bool(hive_partitioning)
+        return pattern, tuple(stamps), bool(union_by_name), hive, bool(filename)
+
+    def ensure_file_table(self, paths, union_by_name: bool = False, hive_partitioning=None,
+                          filename: bool = False) -> Tuple[str, tuple]:
+        """Register the file(s) `paths` as a hidden table → (its name, its
+        file_key). A read whose files are unchanged since an earlier one
+        (same paths, mtimes and sizes) gives the table read then; otherwise
+        the files are read again and the table of the pattern's old contents
+        leaves the catalog and the pool, so that a VARCHAR column read again
+        gets a new dictionary array (the string caches key on the array).
+        CSV, Parquet (lazily, per column) and JSON files, merged by
+        storage/multi_file."""
+        from duckdb_tpu_torch.storage import multi_file as mf
+
+        key = self.file_key(paths, union_by_name, hive_partitioning, filename)
+        self._file_tables.reads += 1
+        entry = self._file_tables.get(key)
+        if entry is None:
+            for old in [k for k in self._file_tables if (k[0], k[2:]) == (key[0], key[2:])]:
+                del self._file_tables[old]
+            pattern, stamps, ubn, hive, fname = key
+            entry = mf.build_entry(f"__file_{next(_FILE_IDS)}", [s[0] for s in stamps], ubn,
+                                   hive, fname)
+            self._file_tables[key] = entry
+        live = set(map(id, self._file_tables.values()))
+        for name in [n for n, e in self.tables.items()
+                     if n.startswith("__file_") and id(e) not in live]:
+            self.drop_table(name)
+        if self.tables.get(entry.name) is not entry:
+            self.create_table(entry, or_replace=True)
+        return entry.name, key
 
     def create_table(self, entry: TableEntry, or_replace: bool = False):
         raw = entry.name.lower()

@@ -401,6 +401,10 @@ class Planner:
         # set when the plan snapshots the catalog (duckdb_tables() and
         # the like): the connection must not cache it
         self.uncacheable = False
+        # [(arguments, Catalog.file_key, table)] of each file read the plan
+        # makes: the connection runs a cached plan only while each key still
+        # holds and the catalog still has the table
+        self.file_reads: List[tuple] = []
 
     def fresh(self, name: str) -> str:
         return f"{name}#{next(self._key_counter)}"
@@ -810,11 +814,56 @@ class Planner:
         raise not_ported(f"FROM {type(ref).__name__}")
 
     # table functions the port does not run yet → the ROADMAP item they wait for
-    _LATER_TABLE_FUNCTIONS = {
-        **dict.fromkeys(("read_csv", "read_csv_auto", "read_parquet", "parquet_scan",
-                         "read_json", "read_json_auto", "read_ndjson", "read_json_objects",
-                         "read_text", "read_blob", "__file_scan"), "33b (the file readers)"),
-        **dict.fromkeys(("duckdb_settings", "duckdb_logs"), "36 (settings and logging)")}
+    _LATER_TABLE_FUNCTIONS = dict.fromkeys(("duckdb_settings", "duckdb_logs"),
+                                           "36 (settings and logging)")
+    # the file readers (storage/multi_file.py; __file_scan is FROM 'file')
+    # and the named parameters they take
+    FILE_FUNCTIONS = ("read_csv", "read_csv_auto", "read_parquet", "parquet_scan", "read_json",
+                      "read_json_auto", "read_ndjson", "__file_scan")
+    FILE_PARAMETERS = ("filename", "hive_partitioning", "union_by_name")
+
+    def _plan_file_function(self, ref: N.TableFunctionRef):
+        """A file reader: the files' hidden table, registered in the
+        catalog's file registry (Catalog.ensure_file_table), which owns it.
+        The plan records what each read saw (`file_reads`), so that a cached
+        plan is not run once a file has changed. → (Scan, scope additions,
+        rows)."""
+        name = ref.name.lower()
+        binder = ExprBinder(Scope())
+
+        def const(a):
+            if isinstance(a, N.FunctionCall) and a.name == "list_value":
+                return [const(x) for x in a.args]  # ['a.csv', 'b.csv']
+            b = binder.bind(a)
+            if not b.is_const():
+                raise BindError(f"Binder Error: the arguments of {name}() must be constants")
+            return b.const_value()
+
+        named, pos = {}, []
+        for a in ref.args:
+            if isinstance(a, N.BinaryOp) and a.op in (":=", "=>", "=", "==") \
+                    and isinstance(a.left, N.ColumnRef):
+                named[a.left.parts[-1].lower()] = const(a.right)
+            else:
+                pos.append(a)
+        for pname in named:
+            if pname not in self.FILE_PARAMETERS:
+                raise BindError(f'Binder Error: Invalid named parameter "{pname}" for function '
+                                f"{name}; accepted: {', '.join(self.FILE_PARAMETERS)}")
+        if len(pos) != 1:
+            raise BindError(f"Binder Error: {name}() takes one path, a glob or a list of them")
+        paths = const(pos[0])
+        if not isinstance(paths, (list, tuple)):
+            paths = str(paths)
+        args = (paths, bool(named.get("union_by_name", False)),
+                named.get("hive_partitioning"), bool(named.get("filename", False)))
+        tname, key = self.catalog.ensure_file_table(*args)
+        self.file_reads.append((args, key, tname))
+        plan, scope_adds, nrows = self._scan_of(tname, (ref.alias or name).lower())
+        if ref.column_aliases:
+            scope_adds = [(a, ref.column_aliases[i] if i < len(ref.column_aliases) else c, k, t)
+                          for i, (a, c, k, t) in enumerate(scope_adds)]
+        return plan, scope_adds, nrows
 
     def _plan_table_function(self, ref: N.TableFunctionRef):
         """range, generate_series and repeat (DuckDB's src/function/table/
@@ -824,6 +873,8 @@ class Planner:
         from duckdb_tpu_torch.catalog.catalog import ColumnDef, ColumnStats, TableEntry
 
         name = ref.name.lower()
+        if name in self.FILE_FUNCTIONS:
+            return self._plan_file_function(ref)
         if name in self._LATER_TABLE_FUNCTIONS:
             raise not_ported(f"the table function {name}() (ROADMAP item "
                              f"{self._LATER_TABLE_FUNCTIONS[name]})")

@@ -1,8 +1,11 @@
-"""The scalar JSON functions.
+"""JSON files and the scalar JSON functions.
 
 The JAX package's duckdb_tpu/storage/json_io.py (DuckDB's json extension,
-extension/json/json_functions/) less its file reader: read_json and the
-JSON file scans wait for the file readers (ROADMAP item 33b). A JSON
+extension/json/). `read_json_file` reads an array document or
+newline-delimited JSON with the JAX package's typing: a key whose values
+are all booleans is BOOLEAN, all integers BIGINT, all numbers DOUBLE, and
+anything else VARCHAR, a nested value as its JSON text (DuckDB gives
+STRUCT and LIST there; ROADMAP Facts). A JSON
 value is VARCHAR text in a dictionary, so a function of one JSON column
 runs once per distinct document on the host and reaches the rows as one
 gather of codes on the column's device, its lookup table cached per
@@ -33,7 +36,58 @@ from duckdb_tpu_torch.planner.functions import (
     dict_transform,
 )
 from duckdb_tpu_torch.planner.functions_parity import per_distinct_rows
-from duckdb_tpu_torch.types import BIGINT, BOOLEAN, VARCHAR, LogicalType, TypeId, list_of
+from duckdb_tpu_torch.types import (BIGINT, BOOLEAN, DOUBLE, VARCHAR, LogicalType, TypeId,
+                                    list_of)
+
+
+# -- JSON files -----------------------------------------------------------------
+def _infer_type(values) -> LogicalType:
+    vals = [v for v in values if v is not None]
+    if not vals:
+        return VARCHAR
+    if all(isinstance(v, bool) for v in vals):
+        return BOOLEAN
+    if all(isinstance(v, int) and not isinstance(v, bool) for v in vals):
+        return BIGINT
+    if all(isinstance(v, (int, float)) and not isinstance(v, bool) for v in vals):
+        return DOUBLE
+    return VARCHAR
+
+
+def read_json_file(path: str):
+    """→ (schema [(name, type)], {name: (values, validity|None, dictionary|None)},
+    rows) of an array document or of newline-delimited JSON."""
+    with open(path) as f:
+        text = f.read().strip()
+    if text.startswith("["):
+        docs = json.loads(text)
+    else:
+        docs = [json.loads(line) for line in text.splitlines() if line.strip()]
+    keys = {}
+    for d in docs:
+        for k in d:
+            keys.setdefault(k, None)
+    schema, cols = [], {}
+    for k in keys:
+        raw = [d.get(k) for d in docs]
+        t = _infer_type(raw)
+        validity = np.array([v is not None for v in raw], dtype=bool)
+        valid = None if validity.all() else validity
+        if t.id is TypeId.VARCHAR:
+            strs = np.array(["" if v is None else v if isinstance(v, str)
+                             else json.dumps(v, separators=(",", ":")) for v in raw], dtype=str)
+            uniq, codes = np.unique(strs, return_inverse=True)
+            cols[k] = (codes.reshape(-1).astype(np.int32), valid, uniq.astype(object))
+        elif t.id is TypeId.BOOLEAN:
+            cols[k] = (np.array([bool(v) for v in raw], dtype=bool), valid, None)
+        elif t.id is TypeId.BIGINT:
+            cols[k] = (np.array([0 if v is None else v for v in raw], dtype=np.int64), valid,
+                       None)
+        else:
+            cols[k] = (np.array([0.0 if v is None else float(v) for v in raw],
+                                dtype=np.float64), valid, None)
+        schema.append((k, t))
+    return schema, cols, len(docs)
 
 
 # -- path evaluation ----------------------------------------------------------

@@ -407,21 +407,45 @@ def test_update_from_against_sql():
     ("COPY t TO 'x.csv'", "33b"),
     ("EXPORT DATABASE 'x'", "33b"),
 ])
-def test_later_statements_name_their_item(sql, item):
+def test_later_statements_name_their_item(sql, item, tmp_path, monkeypatch):
+    """MERGE, ALTER and PIVOT name item 34b; COPY, EXPORT and IMPORT, which
+    named item 33b, now run (api/files.py): COPY TO and EXPORT write their
+    files, IMPORT of a directory that is not there raises as the JAX
+    package does."""
+    monkeypatch.chdir(tmp_path)
     tcon = duckdb_tpu_torch.connect(device="cpu")
-    tcon.sql("CREATE TABLE t (a INT); CREATE TABLE s (a INT)")
-    with pytest.raises(ValueError, match=f"ROADMAP item {item}\\).*not yet ported"):
-        tcon.sql(sql)
+    tcon.sql("CREATE TABLE t (a INT); CREATE TABLE s (a INT); INSERT INTO t VALUES (4)")
+    if item == "34b":
+        with pytest.raises(ValueError, match=f"ROADMAP item {item}\\).*not yet ported"):
+            tcon.sql(sql)
+    elif sql.startswith("IMPORT"):
+        with pytest.raises(duckdb_tpu_torch.errors.ConnectionException, match="not found"):
+            tcon.sql(sql)
+        with pytest.raises(Exception, match="not found"):
+            duckdb_tpu.connect().sql(sql)
+    else:
+        assert tcon.sql(sql) is None
+        if sql.startswith("COPY"):
+            assert (tmp_path / "x.csv").read_text().split() == ["a", "4"]
+        else:
+            assert sorted(os.listdir(tmp_path / "x")) == ["load.sql", "s.csv", "schema.sql",
+                                                          "t.csv"]
 
 
 def test_file_database_names_item_33(tmp_path):
-    """File databases came with item 33 (tests/test_torch_storage.py); the
-    file readers wait for item 33b."""
+    """File databases came with item 33 (tests/test_torch_storage.py), the
+    file readers with 33b: COPY FROM into a file database is durable by a
+    checkpoint, so the rows survive the file."""
+    src = tmp_path / "x.csv"
+    src.write_text("a\n1\n2\n")
     con = duckdb_tpu_torch.connect(str(tmp_path / "db"), device="cpu")
     con.sql("CREATE TABLE t (a INT)")
     assert os.path.isdir(str(tmp_path / "db"))
-    with pytest.raises(ValueError, match="ROADMAP item 33b"):
-        con.sql("COPY t FROM 'x.csv'")
+    assert con.sql(f"COPY t FROM '{src}'").rows() == [(2,)]
+    con.close()
+    os.remove(src)
+    con = duckdb_tpu_torch.connect(str(tmp_path / "db"), device="cpu")
+    assert con.sql("SELECT sum(a) FROM t").rows() == [(3,)]
     con.close()
 
 

@@ -1075,3 +1075,42 @@ def test_file_database_q1_on_cuda_after_reopen_and_recovery(tmp_path):
         cpu.close()
         answers.append(got)
     assert answers[0] != answers[1]
+
+
+@pytest.mark.gpu
+def test_q1_on_cuda_over_csv_and_parquet_files(tmp_path):
+    """Q1 on the card over lineitem loaded by COPY FROM a CSV file, and over
+    read_parquet of the file the port wrote, runs through the grouped-sum
+    kernel and equals the CPU run over the same files; the committed
+    pyarrow fixtures read on the card as on the CPU."""
+    _need_cuda()
+    import chip_smoke
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.catalog.tpch import TPCH_SCHEMA
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    data = str(tmp_path / "tpch")
+    write_tables(data, 0.01, seed=7)
+    src = duckdb_tpu_torch.connect(device="cpu")
+    src.load_tpch(data, tables=["lineitem"])
+    src.sql(f"COPY lineitem TO '{tmp_path}/li.csv' (HEADER)")
+    src.sql(f"COPY lineitem TO '{tmp_path}/li.parquet' (FORMAT PARQUET)")
+    cols = ", ".join(f"{n} {t!r}" for n, t in TPCH_SCHEMA["lineitem"])
+    sources = {"copy": "lineitem", "parquet": f"read_parquet('{tmp_path}/li.parquet')"}
+    answers = {}
+    for device in ("cpu", "cuda"):
+        con = duckdb_tpu_torch.connect(device=device)
+        con.sql(f"CREATE TABLE lineitem ({cols})")
+        con.sql(f"COPY lineitem FROM '{tmp_path}/li.csv' (HEADER)")
+        for name, source in sources.items():
+            GS.grouped_sum_i64.launches = 0
+            got = con.sql(chip_smoke.Q1.replace("FROM lineitem", f"FROM {source}")).rows()
+            if device == "cuda":
+                assert GS.grouped_sum_i64.launches >= 1, name
+                assert got == answers[name], name
+            else:
+                assert got == chip_smoke.numpy_q1(data)
+                answers[name] = got
+        for path, sql, want in chip_smoke.fixture_cases():
+            assert con.sql(sql).rows() == want, path
+        con.close()

@@ -1,7 +1,9 @@
-"""The port stands alone: no jax, no duckdb_tpu, and the card unless asked.
+"""The port stands alone: no jax, no duckdb_tpu, no pyarrow, and the card
+unless asked.
 
-The machine with the GPU has no JAX, so duckdb_tpu_torch and chip_smoke.py
-must import neither jax nor anything of the JAX package.
+The machine with the GPU has no JAX and no pyarrow, so duckdb_tpu_torch and
+chip_smoke.py must import neither jax, nor anything of the JAX package, nor
+pyarrow (the port reads and writes Parquet with its own codec).
 """
 
 import os
@@ -19,7 +21,7 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "duckdb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|duckdb_tpu)\b", re.MULTILINE)
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|duckdb_tpu|pyarrow)\b", re.MULTILINE)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -36,10 +38,12 @@ def test_imports_with_jax_blocked():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['duckdb_tpu'] = None\n"
+            "sys.modules['pyarrow'] = None\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
             "import chip_smoke\n"
-            "assert not any(k == 'jax' or k.startswith(('jax.', 'duckdb_tpu.'))\n"
+            "assert not any(k in ('jax', 'pyarrow')\n"
+            "               or k.startswith(('jax.', 'duckdb_tpu.', 'pyarrow.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -60,5 +64,6 @@ def test_connect_defaults_to_cuda():
 
 def test_not_yet_ported_sql_says_so():
     con = duckdb_tpu_torch.connect(device="cpu")
+    con.sql("CREATE TABLE t (a INT)")
     with pytest.raises(ValueError, match="not yet ported"):
-        con.sql("SELECT * FROM read_csv('x.csv')")  # the file readers: ROADMAP item 33
+        con.sql("ALTER TABLE t ADD COLUMN b INT")  # ROADMAP item 34b

@@ -205,3 +205,58 @@ def test_registry_covers_the_reference(cons):
                  re.findall(r'"(\w+)"', re.findall(r'for _n in \(([^)]*)\)', src)[0]))
     assert len(names) >= 22
     assert names - set(TREG) == set()
+
+
+# -- JSON files: tests/test_json.py's file cases through both packages ------------------------
+
+@pytest.fixture()
+def ndjson(tmp_path):
+    p = tmp_path / "data.ndjson"
+    p.write_text('{"id": 1, "name": "alice", "tags": ["a","b"], "score": 9.5}\n'
+                 '{"id": 2, "name": "bob", "score": 7}\n'
+                 '{"id": 3, "name": "carol", "tags": ["x"], "meta": {"city": "NYC"}}\n')
+    return str(p)
+
+
+def _run_both(script):
+    from _torch_parity import run_both
+
+    return run_both(script)
+
+
+def test_read_ndjson(ndjson):
+    _, tcon = _run_both([f"SELECT id, name, score FROM '{ndjson}' ORDER BY id",
+                         f"SELECT id FROM read_ndjson('{ndjson}') ORDER BY id",
+                         f"SELECT count(*) FROM read_json_auto('{ndjson}')"])
+    assert tcon.sql(f"SELECT id, name, score FROM '{ndjson}' ORDER BY id").rows() == [
+        (1, "alice", 9.5), (2, "bob", 7.0), (3, "carol", None)]
+
+
+def test_json_array_length_over_a_file(ndjson):
+    _run_both([f"SELECT name, json_array_length(tags) FROM read_json('{ndjson}') "
+               "WHERE tags IS NOT NULL ORDER BY id"])
+
+
+def test_json_extract_over_a_file(ndjson):
+    _run_both([f"SELECT json_extract_string(meta, '$.city') FROM '{ndjson}' "
+               "WHERE meta IS NOT NULL"])
+
+
+def test_json_type_and_valid_over_a_file(ndjson):
+    _, tcon = _run_both([f"SELECT json_type(tags), json_valid(name) FROM '{ndjson}' "
+                         "WHERE id = 1"])
+    assert tcon.sql(f"SELECT json_type(tags), json_valid(name) FROM '{ndjson}' "
+                    "WHERE id = 1").rows() == [("ARRAY", False)]
+
+
+def test_json_array_file(tmp_path):
+    """An array document; a nested value is VARCHAR JSON text, as in the
+    JAX package (DuckDB gives STRUCT and LIST: ROADMAP Facts)."""
+    p = tmp_path / "arr.json"
+    p.write_text('[{"a": 1, "o": {"k": [1, 2]}, "f": true}, {"a": 2, "f": false}, '
+                 '{"a": null, "o": "s"}]')
+    _, tcon = _run_both([f"SELECT sum(a), count(*) FROM '{p}'",
+                         f"SELECT o, f FROM '{p}' ORDER BY a NULLS LAST"])
+    assert tcon.sql(f"SELECT o FROM '{p}' WHERE a = 1").rows() == [('{"k":[1,2]}',)]
+    res = tcon.sql(f"SELECT * FROM '{p}'")
+    assert [str(t) for t in res.types] == ["BIGINT", "VARCHAR", "BOOLEAN"]
