@@ -257,6 +257,29 @@ Phases (any failure exits non-zero before the result lines):
    timed at its shape; each step prints its wall ms, host syncs and
    host<->device bytes beside the card's name and power limit.
 
+21. MERGE, ALTER and PIVOT at SF1 (api/merge.py, alter.py, pivot.py,
+   appender.py) on a connection of its own: CREATE TABLE li AS SELECT of
+   all of lineitem (6,001,215 rows, 16 columns) and stg of its orders
+   divisible by 50, about half of stg's keys moved past lineitem's by an
+   UPDATE; MERGE_LI (delete the matched rows shipped from MERGE_SHIP_CUT
+   on, update the other matched rows' l_quantity and l_discount, insert
+   the unmatched stg rows) with its Count held to merge_numpy and Q1 over
+   li equal to numpy exactly; the same MERGE with a source key twice
+   raising InvalidInputException and Q1 unchanged; ALTERS (ADD COLUMN
+   l_batch DEFAULT 7, RENAME COLUMN l_quantity TO l_qty, l_linenumber to
+   BIGINT, DROP COLUMN l_comment, the pool's bytes before and after the
+   drop) and Q1_ALTERED equal to numpy; BEGIN, DROP COLUMN l_tax, a MERGE,
+   ROLLBACK, and Q1 equal to the step before with l_tax back; PIVOT li ON
+   l_returnflag USING sum(l_qty) GROUP BY l_linestatus and UNPIVOT of the
+   same table made by CTAS equal to numpy, with whether the FILTERed sums
+   reached the kernel and at which shapes; 200,000 Python tuples through
+   the appender into a table with a PRIMARY KEY (rows/s, held to Python),
+   then a duplicate key raising ConstraintException with the table
+   unchanged. Every Q1 and the PIVOT's sums hold the grouped sum to its
+   plain version (max abs err 0) and time it at each shape; each step
+   prints its wall ms, host syncs and host<->device bytes beside the
+   card's name and power limit. The script's whole time is printed last.
+
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
 """
@@ -370,6 +393,49 @@ def numpy_q1_of(cols: dict):
                          float(sq) / (cnt * 100.0), float(sp) / (cnt * 100.0),
                          float(int(disc[m].sum())) / (cnt * 100.0), cnt))
     return rows
+
+
+# phase 21 step 4's ALTERs of li, and Q1 over li written with the new name
+ALTERS = ("ALTER TABLE li ADD COLUMN l_batch INTEGER DEFAULT 7",
+          "ALTER TABLE li RENAME COLUMN l_quantity TO l_qty",
+          "ALTER TABLE li ALTER COLUMN l_linenumber TYPE BIGINT",
+          "ALTER TABLE li DROP COLUMN l_comment")
+Q1_ALTERED = Q1.replace("FROM lineitem", "FROM li").replace("l_quantity", "l_qty")
+MERGE_SHIP_CUT = "1998-08-01"  # phase 21's MERGE deletes the matched rows shipped from here
+MERGE_LI = ("MERGE INTO li USING stg ON li.l_orderkey = stg.l_orderkey AND "
+            "li.l_linenumber = stg.l_linenumber "
+            f"WHEN MATCHED AND stg.l_shipdate >= DATE '{MERGE_SHIP_CUT}' THEN DELETE "
+            "WHEN MATCHED THEN UPDATE SET l_quantity = stg.l_quantity + 1, "
+            "l_discount = stg.l_discount "
+            "WHEN NOT MATCHED THEN INSERT *")
+
+
+def merge_numpy(li: dict, stg: dict) -> dict:
+    """Phase 21's MERGE of stg into li over lineitem_numpy columns: a li row
+    whose (l_orderkey, l_linenumber) stg holds is deleted when stg's row
+    shipped on or after MERGE_SHIP_CUT, else takes stg's l_quantity + 1
+    and l_discount; stg's other rows are appended. → {"cols": li after,
+    "count", "deleted", "updated", "inserted"}."""
+    import datetime
+
+    import numpy as np
+
+    lk = li["l_orderkey"] * 8 + li["l_linenumber"]
+    sk = stg["l_orderkey"] * 8 + stg["l_linenumber"]
+    order = np.argsort(sk, kind="stable")
+    pos = np.searchsorted(sk[order], lk).clip(0, max(len(sk) - 1, 0))
+    src = order[pos] if len(sk) else np.zeros(len(lk), np.int64)
+    hit = (sk[src] == lk) if len(sk) else np.zeros(len(lk), bool)
+    cut = (datetime.date.fromisoformat(MERGE_SHIP_CUT) - datetime.date(1970, 1, 1)).days
+    late = stg["l_shipdate"][src] >= cut if len(sk) else hit
+    dele, upd = hit & late, hit & ~late
+    cols = {k: v.copy() for k, v in li.items()}
+    cols["l_quantity"][upd] = stg["l_quantity"][src[upd]] + 100  # DECIMAL(15,2) cents
+    cols["l_discount"][upd] = stg["l_discount"][src[upd]]
+    ins = ~np.isin(sk, lk)
+    cols = {k: np.concatenate([v[~dele], stg[k][ins]]) for k, v in cols.items()}
+    return {"cols": cols, "count": int(dele.sum() + upd.sum() + ins.sum()),
+            "deleted": int(dele.sum()), "updated": int(upd.sum()), "inserted": int(ins.sum())}
 
 
 def rows_match(got, want) -> str:
@@ -2223,6 +2289,198 @@ def file_readers_phase(card, recording, recorded, launches_by_query, shapes, rep
     shutil.rmtree(FILES_DIR, ignore_errors=True)
     return ""
 
+def merge_alter_phase(card, recording, recorded, launches_by_query, shapes, reps) -> str:
+    """Phase 21 (see the module docstring). '' or a failure message."""
+    import datetime
+    import decimal
+    import gc
+
+    import numpy as np
+    import torch
+
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.catalog import catalog as C
+    from duckdb_tpu_torch.errors import ConstraintException, InvalidInputException
+
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(DATA, tables=["lineitem"])
+    con.sql("SET num_shards = 1")
+    base = lineitem_numpy(DATA)
+    kit = Steps(21, card, recording, recorded, launches_by_query, shapes, reps)
+    step, kernel_check, with_kernel = kit.step, kit.kernel_check, kit.with_kernel
+    q1_li = Q1.replace("FROM lineitem", "FROM li")
+
+    def count_of(res):
+        return res.rows()[0][0]
+
+    def q1_step(label, name, sql, want):
+        rows, line = with_kernel(label, name, lambda: con.sql(sql).rows())
+        bad = rows_match(rows, want)
+        if bad:
+            return None, f"{label}: Q1 differs from numpy: {bad}"
+        if launches_by_query[name] < 1:
+            return None, f"{label}: Q1 did not launch the grouped sum"
+        print(line + f"; {len(rows)} rows equal numpy's exactly; grouped_sum_i64 launches "
+              f"{launches_by_query[name]}")
+        return rows, kernel_check(name)
+
+    # 1. the target and the staging table
+    _, line = step("1 CREATE TABLE li, stg AS SELECT", lambda: con.sql(
+        "CREATE TABLE li AS SELECT * FROM lineitem; "
+        "CREATE TABLE stg AS SELECT * FROM lineitem WHERE l_orderkey % 50 = 0"))
+    stg = {k: v[base["l_orderkey"] % 50 == 0] for k, v in base.items()}
+    moved, line2 = step("1 UPDATE stg", lambda: count_of(con.sql(
+        "UPDATE stg SET l_orderkey = l_orderkey + 6000000 WHERE l_orderkey % 100 = 50")))
+    away = stg["l_orderkey"] % 100 == 50
+    stg["l_orderkey"] = np.where(away, stg["l_orderkey"] + 6000000, stg["l_orderkey"])
+    n_li, n_stg = (con.catalog.get_table(t).nrows for t in ("li", "stg"))
+    if (n_li, n_stg, moved) != (len(base["l_orderkey"]), len(stg["l_orderkey"]),
+                                int(away.sum())):
+        return f"li {n_li}, stg {n_stg} rows and {moved} moved keys differ from numpy"
+    print(line + f"; li {n_li} rows, stg {n_stg} rows, equal numpy's")
+    print(line2 + f"; Count {moved} equals numpy's")
+    # 2. MERGE, then Q1 through the kernel
+    got, line = step("2 MERGE", lambda: count_of(con.sql(MERGE_LI)))
+    merged = merge_numpy(base, stg)
+    li = merged["cols"]
+    if got != merged["count"] or con.catalog.get_table("li").nrows != len(li["l_orderkey"]):
+        return f"MERGE counted {got}, numpy {merged['count']}"
+    print(line + f"; Count {got} equals numpy's ({merged['deleted']} deleted, "
+          f"{merged['updated']} updated, {merged['inserted']} inserted)")
+    rows2, bad = q1_step("2 Q1 over li after MERGE", "q01_merge", q1_li, numpy_q1_of(li))
+    if bad:
+        return bad
+    # 3. a source row twice: the MERGE raises and changes nothing (M1)
+    con.sql("BEGIN")
+    con.sql("INSERT INTO stg SELECT * FROM stg LIMIT 1")
+
+    def refused():
+        try:
+            con.sql(MERGE_LI)
+        except InvalidInputException as err:
+            return err
+        return None
+
+    err, line = step("3 MERGE with a source key twice", refused)
+    con.sql("ROLLBACK")
+    if err is None:
+        return "a MERGE whose source holds a key twice did not raise"
+    if con.sql(q1_li).rows() != rows2:
+        return "Q1 over li changed after the refused MERGE"
+    print(line + f"; raised InvalidInputException ({err}); Q1 over li unchanged")
+    # 4. ALTER: add, rename, retype, drop; the pool lets l_comment's bytes go
+    con.catalog.get_table("li").device_column("l_comment")
+    for sql in ALTERS:
+        used = C.POOL.used
+        _, line = step(f"4 {sql}", lambda: con.sql(sql))
+        dropped = "DROP COLUMN" in sql
+        print(line + (f"; pool {used} bytes before, {C.POOL.used} after" if dropped else ""))
+        if dropped and C.POOL.used >= used:
+            return f"the pool kept l_comment's bytes after the DROP ({used} -> {C.POOL.used})"
+    entry = con.catalog.get_table("li")
+    if repr(entry.col_types["l_linenumber"]) != "BIGINT" or "l_comment" in entry.col_types \
+            or not np.array_equal(entry.host_column("l_linenumber")[0], li["l_linenumber"]):
+        return "the ALTERs did not leave li as numpy says"
+    if count_of(con.sql("SELECT count(*) FROM li WHERE l_batch = 7")) != entry.nrows:
+        return "ADD COLUMN … DEFAULT 7 did not fill every row"
+    rows4, bad = q1_step("4 Q1 (l_qty) after the ALTERs", "q01_alter", Q1_ALTERED,
+                         numpy_q1_of(li))
+    if bad:
+        return bad
+    # 5. a rolled-back DROP COLUMN and MERGE
+    con.sql("BEGIN")
+    _, line = step("5 DROP COLUMN l_tax in a transaction",
+                   lambda: con.sql("ALTER TABLE li DROP COLUMN l_tax"))
+    print(line)
+    got, line = step("5 MERGE in the transaction", lambda: count_of(con.sql(
+        "MERGE INTO li USING stg ON li.l_orderkey = stg.l_orderkey AND "
+        "li.l_linenumber = stg.l_linenumber WHEN MATCHED THEN UPDATE SET l_qty = l_qty + 1")))
+    con.sql("ROLLBACK")
+    # stg matches the rows step 2 updated and those it inserted
+    matched = merged["updated"] + merged["inserted"]
+    if got != matched:
+        return f"the MERGE in the transaction counted {got}, numpy {matched}"
+    print(line + f"; Count {got} equals numpy's")
+    rows5, bad = q1_step("5 Q1 after ROLLBACK", "q01_rollback", Q1_ALTERED, numpy_q1_of(li))
+    if bad:
+        return bad
+    if rows5 != rows4 or "l_tax" not in con.catalog.get_table("li").col_types:
+        return "the ROLLBACK did not bring li back"
+    print("phase 21 step 5: Q1 equals step 4's; l_tax is back")
+    # 6. PIVOT, then UNPIVOT of the same table made by CTAS
+    flags = sorted(set(li["l_returnflag"].tolist()))
+    stati = sorted(set(li["l_linestatus"].tolist()))
+
+    def qty(r, s):
+        m = (li["l_returnflag"] == r) & (li["l_linestatus"] == s)
+        return decimal.Decimal(int(li["l_quantity"][m].sum())).scaleb(-2) if m.any() else None
+
+    want6 = [(s.decode(),) + tuple(qty(r, s) for r in flags) for s in stati]
+    res6, line = with_kernel("6 PIVOT li ON l_returnflag", "pivot_li", lambda: con.sql(
+        "PIVOT li ON l_returnflag USING sum(l_qty) GROUP BY l_linestatus"))
+    if res6.names != ["l_linestatus"] + [r.decode() for r in flags] or res6.rows() != want6:
+        return f"PIVOT gave {res6.names} {res6.rows()}, numpy {want6}"
+    shapes6 = sorted({(d.shape[0], len(v), n) for d, v, n in recorded})
+    print(line + f"; {len(want6)} rows equal numpy's; the FILTERed sums "
+          + (f"reached grouped_sum_i64 ({launches_by_query['pivot_li']} launches at "
+             f"N, K, nseg {shapes6})" if launches_by_query["pivot_li"]
+             else "did not reach grouped_sum_i64"))
+    if launches_by_query["pivot_li"]:
+        bad = kernel_check("pivot_li")
+        if bad:
+            return bad
+    cols6 = ", ".join(f"sum(l_qty) FILTER (WHERE l_returnflag = '{r.decode()}') AS "
+                      f"\"{r.decode()}\"" for r in flags)
+    con.sql(f"CREATE TABLE pv AS SELECT l_linestatus, {cols6} FROM li GROUP BY l_linestatus")
+    if sorted(con.sql("SELECT * FROM pv").rows()) != want6:
+        return "the PIVOT's table made by CTAS differs from the PIVOT"
+    on = ", ".join(f'"{r.decode()}"' for r in flags)
+    res, line = step("6 UNPIVOT pv", lambda: con.sql(
+        f"UNPIVOT pv ON {on} INTO NAME rf VALUE qty"))
+    want = sorted((s.decode(), r.decode(), qty(r, s)) for s in stati for r in flags
+                  if qty(r, s) is not None)
+    if sorted(res.rows()) != want:
+        return f"UNPIVOT gave {sorted(res.rows())}, numpy {want}"
+    print(line + f"; {len(want)} rows equal numpy's")
+    # 7. the appender: 200,000 Python tuples into a table with a key
+    con.sql("CREATE TABLE ap (k BIGINT PRIMARY KEY, v VARCHAR, d DATE, x DECIMAL(12,2))")
+    day0 = datetime.date(1992, 1, 1)
+    tuples = [(i, f"v{i % 1000}", day0 + datetime.timedelta(days=i % 2500),
+               decimal.Decimal(i % 100000).scaleb(-2)) for i in range(200_000)]
+
+    def append():
+        with con.appender("ap") as app:
+            app.append_rows(tuples)
+
+    t0 = time.perf_counter()
+    _, line = step("7 appender of 200,000 rows", append)
+    secs = time.perf_counter() - t0
+    have = con.sql("SELECT count(*), sum(k), count(DISTINCT v), min(d), max(d), sum(x) "
+                   "FROM ap").rows()[0]
+    want7 = (200_000, sum(range(200_000)), 1000, day0, day0 + datetime.timedelta(days=2499),
+             sum(t[3] for t in tuples))
+    if have != want7:
+        return f"the appended table holds {have}, Python {want7}"
+    print(line + f"; {200_000 / secs:.0f} rows/s; count, sums, distinct and range equal "
+          "Python's")
+    try:
+        with con.appender("ap") as app:
+            app.append_row(7, "dup", day0, decimal.Decimal(1))
+        return "an appended duplicate key did not raise"
+    except ConstraintException as err:
+        print(f"phase 21 step 7: an appended duplicate key raised ConstraintException ({err})")
+    if con.sql("SELECT count(*) FROM ap").rows() != [(200_000,)]:
+        return "the refused append changed ap"
+    print("phase 21 step 7: ap keeps its 200,000 rows")
+    con.close()
+    del con, entry
+    recorded.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -2240,6 +2498,7 @@ def main() -> int:
     except ImportError as err:
         return fail(f"the port is not beside this script ({err})")
     device = torch.device("cuda")
+    script_t0 = time.perf_counter()
 
     # 1. card, versions, build
     card = card_line()
@@ -2749,6 +3008,19 @@ def main() -> int:
         return fail(bad)
     worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
     print(f"phase 20 took {time.perf_counter() - phase20_t0:.1f} s")
+
+    # 21. MERGE, ALTER and PIVOT at SF1: each edit of lineitem held to numpy,
+    # Q1 through the kernel after each, PIVOT / UNPIVOT, the appender
+    phase21_t0 = time.perf_counter()
+    try:
+        bad = merge_alter_phase(card, recording, recorded, launches_by_query, shapes, reps)
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    if bad:
+        return fail(bad)
+    worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
+    print(f"phase 21 took {time.perf_counter() - phase21_t0:.1f} s")
+    print(f"chip_smoke.py took {time.perf_counter() - script_t0:.1f} s in all on {card}")
 
     print(json.dumps({"kernels": [{
         "name": "grouped_sum_i64", "route": "cuda",

@@ -7,9 +7,12 @@ package's Connection does (duckdb_tpu/api/connection.py): SELECT, the DDL
 and DML of api/ddl.py and api/dml.py, BEGIN / COMMIT / ROLLBACK, SET /
 RESET of the settings the port honours (main/settings.py), PREPARE /
 EXECUTE / DEALLOCATE, EXPLAIN and PRAGMA, CHECKPOINT, ATTACH / DETACH,
-and COPY TO / FROM (CSV and Parquet) and EXPORT / IMPORT DATABASE
-(api/files.py). MERGE, PIVOT, UNPIVOT and ALTER wait for ROADMAP item 34b,
-and say so.
+COPY TO / FROM (CSV and Parquet) and EXPORT / IMPORT DATABASE
+(api/files.py), ALTER TABLE (api/alter.py), MERGE INTO (api/merge.py), and
+PIVOT and UNPIVOT (api/pivot.py). Beside SQL it gives the appender
+(api/appender.py), the relation API and prepared statements
+(api/relation.py); what needs pandas or pyarrow (`from_df`, `from_arrow`,
+`Result.df`, `Result.arrow`) waits for ROADMAP item 35b and says so.
 
 `connect(path)` opens a file database (storage/persist.py): one
 `Database` per directory in a process, shared by every connection to it
@@ -39,9 +42,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from duckdb_tpu_torch.api.alter import AlterMixin
+from duckdb_tpu_torch.api.appender import Appender, to_columns
 from duckdb_tpu_torch.api.ddl import DDLMixin, MacroBindError
 from duckdb_tpu_torch.api.dml import DMLMixin
 from duckdb_tpu_torch.api.files import FilesMixin, reads_files
+from duckdb_tpu_torch.api.merge import MergeMixin
+from duckdb_tpu_torch.api.pivot import PivotMixin
+from duckdb_tpu_torch.api.relation import (PreparedStatement, Relation, bind_params, literal,
+                                           param_count)
 from duckdb_tpu_torch.catalog.catalog import POOL, Catalog, qualify
 from duckdb_tpu_torch.errors import (  # noqa: F401 — the surface of the module
     ConnectionException, OutOfMemoryException, TransactionException)
@@ -217,7 +226,16 @@ class _TempViews(dict):
         return view
 
 
-class Connection(DDLMixin, DMLMixin, FilesMixin):
+class _AppendRows:
+    """An appender's flush, run as a statement that writes
+    (`Connection._appender_flush`)."""
+
+    def __init__(self, table: str, rows: list):
+        self.table = table
+        self.rows = rows
+
+
+class Connection(DDLMixin, DMLMixin, FilesMixin, AlterMixin, MergeMixin, PivotMixin):
     def __init__(self, database: str = ":memory:", device=None, _db: Optional[Database] = None,
                  _read_only: bool = False):
         self.database = database
@@ -283,11 +301,12 @@ class Connection(DDLMixin, DMLMixin, FilesMixin):
 
     # statements that write the catalog: outside BEGIN each runs in a
     # transaction of its own, and a file database logs them (COPY … FROM
-    # too: `_mutating`)
+    # too: `_mutating`; an appender's flush has no text, so the commit that
+    # holds it checkpoints instead)
     _MUTATING = (N.CreateTable, N.CreateView, N.DropStatement, N.InsertStatement,
                  N.DeleteStatement, N.UpdateStatement, N.CreateSequence, N.CreateSchema,
                  N.CreateMacro, N.CreateType, N.CreateIndex, N.CommentStatement,
-                 N.ImportStatement)
+                 N.ImportStatement, N.MergeStatement, N.AlterStatement, _AppendRows)
 
     def _mutating(self, s) -> bool:
         return isinstance(s, self._MUTATING) or (
@@ -529,18 +548,19 @@ class Connection(DDLMixin, DMLMixin, FilesMixin):
             return self._export_database(s)
         if isinstance(s, N.ImportStatement):
             return self._import_database(s)
-        later = self._LATER.get(type(s))
-        if later is not None:
-            raise not_ported(later)
+        if isinstance(s, N.MergeStatement):
+            return self._merge(s)
+        if isinstance(s, N.AlterStatement):
+            return self._alter(s)
+        if isinstance(s, N.PivotStatement):
+            return self._pivot(s)
+        if isinstance(s, N.UnpivotStatement):
+            return self._unpivot(s)
+        if isinstance(s, _AppendRows):
+            entry = self.catalog.writable_table(s.table)
+            self._append_rows(entry, to_columns(entry, s.rows), len(s.rows))
+            return None
         raise ConnectionException(f"statement {type(s).__name__} not supported yet")
-
-    # statements of the JAX package the port does not run yet → what it says
-    _LATER = {
-        N.MergeStatement: "MERGE INTO (ROADMAP item 34b)",
-        N.AlterStatement: "ALTER TABLE (ROADMAP item 34b)",
-        N.PivotStatement: "PIVOT (ROADMAP item 34b)",
-        N.UnpivotStatement: "UNPIVOT (ROADMAP item 34b)",
-    }
 
     # -- queries ----------------------------------------------------------------
     def _planner(self) -> Planner:
@@ -858,41 +878,61 @@ class Connection(DDLMixin, DMLMixin, FilesMixin):
         """EXECUTE name(args): the prepared text with each placeholder
         token (?, $n) replaced by the argument's SQL literal, then run."""
         from duckdb_tpu_torch.planner.binder import ExprBinder, Scope
-        from duckdb_tpu_torch.sql.lexer import tokenize
 
         sql = self._prepared.get(s.name.lower())
         if sql is None:
             raise ConnectionException(f'Catalog Error: Prepared statement "{s.name}" does not '
                                       "exist")
         vals = [ExprBinder(Scope()).bind(a).const_value() for a in s.args]
-
-        def render(v):
-            if v is None:
-                return "NULL"
-            if isinstance(v, bool):
-                return "true" if v else "false"
-            if isinstance(v, str):
-                return "'" + v.replace("'", "''") + "'"
-            return str(v)
-
-        params = [t for t in tokenize(sql) if t.type == "OP" and (
-            t.value == "?" or (t.value.startswith("$") and t.value[1:].isdigit()))]
-        need = sum(1 for t in params if t.value == "?") or max(
-            (int(t.value[1:]) for t in params if t.value != "?"), default=0)
+        need = param_count(sql)
         if need != len(vals):
             raise BindError(f"Prepared statement needs {need} parameters, {len(vals)} given")
-        pieces, last, i = [], 0, 0
-        for t in params:
-            if t.value == "?":
-                v = vals[i]
-                i += 1
+        return self.sql(bind_params(sql, vals))
+
+    # -- the appender, relations and prepared statements ---------------------------
+    def appender(self, table: str) -> Appender:
+        """An Appender of rows into `table` (api/appender.py)."""
+        table = self._resolve_default(table)
+        self.catalog.get_table(table)  # raises where there is none
+        return Appender(self, table)
+
+    def _appender_flush(self, table: str, rows: list):
+        """Append an appender's rows as a statement of its own: constraints
+        checked, committed on its own outside BEGIN, part of the transaction
+        inside one, and in a file database made durable by a checkpoint at
+        that commit (it has no text for the WAL to log)."""
+        s = _AppendRows(table, rows)
+        self._clear_plan_cache()
+        with activate(self.session, ""):
+            if self._db.path is not None and not self._replaying:
+                self._logged_statement(s, None)
             else:
-                v = vals[int(t.value[1:]) - 1]
-            pieces.append(sql[last:t.pos])
-            pieces.append(render(v))
-            last = t.pos + len(t.value)
-        pieces.append(sql[last:])
-        return self.sql("".join(pieces))
+                self._execute_statement(s)
+
+    def table(self, name: str) -> Relation:
+        self.catalog.get_table(self._resolve_default(name))  # raises where there is none
+        return Relation(self, f"SELECT * FROM {name}", alias=name.split(".")[-1])
+
+    def view(self, name: str) -> Relation:
+        return Relation(self, f"SELECT * FROM {name}", alias=name.split(".")[-1])
+
+    def from_query(self, sql: str) -> Relation:
+        return Relation(self, sql)
+
+    def read_csv(self, path: str) -> Relation:
+        return Relation(self, f"SELECT * FROM read_csv({literal(path)})", alias="csv")
+
+    def read_parquet(self, path: str) -> Relation:
+        return Relation(self, f"SELECT * FROM read_parquet({literal(path)})", alias="parquet")
+
+    def prepare(self, sql: str) -> PreparedStatement:
+        return PreparedStatement(self, sql)
+
+    def from_df(self, df, table_name: str = None):
+        raise not_ported("from_df (pandas; ROADMAP item 35b)")
+
+    def from_arrow(self, tbl, table_name: str = None):
+        raise not_ported("from_arrow (pyarrow; ROADMAP item 35b)")
 
     @staticmethod
     def _count_result(n: int) -> Result:

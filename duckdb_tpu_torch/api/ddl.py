@@ -14,8 +14,6 @@ raises (ROADMAP Queue 3).
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 
 from duckdb_tpu_torch.catalog.catalog import ColumnDef, TableEntry, qualify
@@ -25,22 +23,13 @@ from duckdb_tpu_torch.planner import macros as M
 from duckdb_tpu_torch.planner.binder import resolve_type_name
 from duckdb_tpu_torch.planner.bound import BindError, not_ported
 from duckdb_tpu_torch.sql import nodes as N
+from duckdb_tpu_torch.sql.walk import column_refs
 
 
 class MacroBindError(BindError, ConnectionException):
     """A macro that does not define or expand (a default naming a column,
     an unknown named argument, a macro calling itself): a Binder Error, and
     the JAX package's ConnectionException."""
-
-
-def _has_column_ref(e) -> bool:
-    if isinstance(e, N.ColumnRef):
-        return True
-    if isinstance(e, (list, tuple)):
-        return any(_has_column_ref(x) for x in e)
-    if dataclasses.is_dataclass(e) and not isinstance(e, type):
-        return any(_has_column_ref(getattr(e, f.name)) for f in dataclasses.fields(e))
-    return False
 
 
 class DDLMixin:
@@ -165,7 +154,7 @@ class DDLMixin:
             raise ConnectionException(f'Catalog Error: Macro with name "{s.name}" already '
                                       "exists!")
         for dname, dexpr in s.defaults.items():
-            if _has_column_ref(dexpr):
+            if next(column_refs(dexpr), None) is not None:
                 raise MacroBindError(f"Binder Error: Default value for parameter '{dname}' "
                                      "cannot contain column names")
         reg[key] = M.MacroDef(key, tuple(p.lower() for p in s.params), dict(s.defaults),

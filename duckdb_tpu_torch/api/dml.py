@@ -494,12 +494,12 @@ class DMLMixin:
         return out, len(idx), n_updated
 
     # -- the rows a statement touches -------------------------------------------------
-    def _scatter(self, entry: TableEntry, cname: str, rows, vals, valid, dvals):
-        """Column `cname` with `rows` set to the given values → new planes
-        (values, validity|None, dictionary, dictionary exact?); the old
-        planes are not changed."""
+    def _scatter(self, entry: TableEntry, cname: str, rows, vals, valid, dvals, base=None):
+        """Column `cname` (or the planes `base` staged for it) with `rows` set
+        to the given values → new planes (values, validity|None, dictionary,
+        dictionary exact?); the old planes are not changed."""
         t = entry.col_types[cname]
-        old_vals, old_valid, old_dict = entry.host_column(cname)
+        old_vals, old_valid, old_dict = base or entry.host_column(cname)
         n = entry.nrows
         if t.id in _SORTED_DICT:
             codes, d = _merge_dicts([(old_vals, old_dict), (vals, dvals)])
@@ -597,11 +597,21 @@ class DMLMixin:
             mask[rids] = True
         returning = (self._eval_returning(entry, s.returning, np.flatnonzero(mask))
                      if s.returning else None)
+        self._delete_rows(entry, mask)
+        if returning is not None:
+            return returning
+        return self._count_result(int(mask.sum()))
+
+    def _delete_rows(self, entry: TableEntry, mask):
+        """Remove the rows of `mask` (bool over the table's rows), once no
+        FOREIGN KEY of another table references a key that goes."""
+        if not mask.any():
+            return
         keep = ~mask
         # a parent key that goes must not stay referenced (DuckDB's
         # VerifyDeleteForeignKeyConstraint)
         for child, ccols, rcols in self._fk_children_of(entry.name):
-            if child is entry or not mask.any():
+            if child is entry:
                 continue
             key, valid = self._table_keys(entry, rcols)
             gone = set(key[mask & valid].tolist()) - set(key[keep & valid].tolist())
@@ -613,16 +623,12 @@ class DMLMixin:
                     raise ConstraintException(
                         f'Violates foreign key constraint because key "{k}" is still '
                         f'referenced by a foreign key in table "{child.name}"')
-        if mask.any():
-            for cd in entry.columns:
-                vals, valid, dvals = entry.host_column(cd.name)
-                entry.set_host_column(cd.name, vals[keep],
-                                      None if valid is None else valid[keep], dvals,
-                                      exact_dict=False)
-            entry.nrows = int(keep.sum())
-        if returning is not None:
-            return returning
-        return self._count_result(int(mask.sum()))
+        for cd in entry.columns:
+            vals, valid, dvals = entry.host_column(cd.name)
+            entry.set_host_column(cd.name, vals[keep],
+                                  None if valid is None else valid[keep], dvals,
+                                  exact_dict=False)
+        entry.nrows = int(keep.sum())
 
     # -- UPDATE -----------------------------------------------------------------------
     def _update(self, s: N.UpdateStatement):

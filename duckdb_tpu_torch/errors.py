@@ -60,6 +60,15 @@ class ConstraintException(Error, ConnectionException):
     prefix = "Constraint Error: "
 
 
+class CatalogException(Error, ConnectionException):
+    """A catalog entry that is missing, exists already, or has entries
+    that depend on it (a column an ALTER TABLE would drop from under a
+    key, an index or a CHECK): DuckDB's class, and a ConnectionException,
+    the JAX package's."""
+
+    prefix = "Catalog Error: "
+
+
 class NotImplementedException(Error):
     prefix = "Not implemented Error: "
 

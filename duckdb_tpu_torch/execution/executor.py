@@ -277,6 +277,43 @@ class Result:
     def fetchall(self):
         return self.rows()
 
+    def fetchnumpy(self) -> Dict[str, np.ndarray]:
+        """{name: host numpy array}, with no pandas: a number or BOOLEAN
+        column as an array of its type (DATE as datetime64[D], TIMESTAMP as
+        datetime64[us]), masked where NULL; another column as an object
+        array of its Python values, None for NULL."""
+        out, rows, n = {}, None, self.nrows
+        for i, (name, t, (vals, valid, _)) in enumerate(zip(self.names, self.types,
+                                                            self.columns)):
+            vals = np.asarray(vals)[:n]
+            if vals.dtype != object and (t.is_float or t.id is TypeId.BOOLEAN or (
+                    t.is_integer and t.id is not TypeId.HUGEINT)):
+                arr = vals.astype(t.np_dtype, copy=False)
+            elif t.id is TypeId.DATE:
+                arr = vals.astype("datetime64[D]")
+            elif t.id is TypeId.TIMESTAMP:
+                arr = vals.astype("datetime64[us]")
+            else:
+                rows = self.rows() if rows is None else rows
+                arr = np.empty(n, dtype=object)
+                for j, r in enumerate(rows):
+                    arr[j] = r[i]
+                out[name] = arr
+                continue
+            if valid is not None and not np.asarray(valid)[:n].all():
+                arr = np.ma.masked_array(arr, mask=~np.asarray(valid)[:n])
+            out[name] = arr
+        return out
+
+    def df(self):
+        raise not_ported("Result.df (pandas; ROADMAP item 35b)")
+
+    def arrow(self):
+        raise not_ported("Result.arrow (pyarrow; ROADMAP item 35b)")
+
+    def fetch_record_batch(self, rows_per_batch: int = 1_000_000):
+        raise not_ported("Result.fetch_record_batch (pyarrow; ROADMAP item 35b)")
+
     def rows(self) -> List[tuple]:
         """Python-value rows (DECIMAL → decimal.Decimal, DATE → datetime.date)."""
         pycols = []

@@ -1025,7 +1025,10 @@ def try_fused_aggregate(executor, node: P.Aggregate):
         t, dvals = fa.out_types[k]
         c = cols[k]
         v = c.validity[slot_idx] & out_live if c.validity is not None else None
-        out[k] = Column(data=c.data[slot_idx], ltype=t, validity=v, dict_values=dvals,
+        # a computed VARCHAR key's dictionary is known only once it is
+        # evaluated (the sort-group mode carries it on its key column)
+        out[k] = Column(data=c.data[slot_idx], ltype=t, validity=v,
+                        dict_values=c.dict_values if dvals is None else dvals,
                         data_hi=c.data_hi[slot_idx] if c.data_hi is not None else None)
     return Batch(src=DictCols(out), plen=out_plen, live=out_live)
 

@@ -27,8 +27,9 @@ and (k)). map_from_entries with a repeated key raises as DuckDB does
 (fault (l): the reference keeps the last value). `>>` of a negative
 number shifts its sign in, as DuckDB's BitwiseShiftRightOperator (the
 reference shifts in zeros). setval sets a sequence of the statement's
-catalog. getvariable waits for SET VARIABLE (ROADMAP item 34b): it gives
-NULL, as the reference does with no variable set.
+catalog. getvariable gives NULL, as the reference does with no variable
+set: neither package has SET VARIABLE (the JAX package's parser refuses
+it; ROADMAP, "Still refused in both packages").
 """
 
 from __future__ import annotations
@@ -815,7 +816,7 @@ def _bind_path_join(arg_exprs):
 
 @register("getvariable")
 def _bind_getvariable(arg_exprs):
-    """NULL: no variable can be set before SET VARIABLE (ROADMAP item 34)."""
+    """NULL: no variable can be set, in either package (no SET VARIABLE)."""
     def impl(env, cols, node):
         return Column(data=_full(env, 0, torch.int32), ltype=VARCHAR,
                       validity=_full(env, False, torch.bool),

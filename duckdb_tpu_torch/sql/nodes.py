@@ -461,6 +461,8 @@ class AlterStatement:
     default: Optional[Expr] = None  # ADD COLUMN ... DEFAULT / SET DEFAULT
     default_text: Optional[str] = None
     using: Optional[Expr] = None    # ALTER TYPE ... USING expr
+    # ADD COLUMN IF NOT EXISTS / DROP COLUMN IF EXISTS
+    col_if: bool = False
 
 
 @dataclass

@@ -1127,7 +1127,9 @@ class Parser:
                 # only allow ident chaining on ColumnRef
                 if isinstance(e, N.ColumnRef) and self.peek(1).type == TokType.IDENT:
                     self.next()
+                    pos = self.peek().pos
                     e = N.ColumnRef(e.parts + (self.expect_ident(),))
+                    e._pos = pos  # where its last part starts (api/alter.py)
                 elif self.peek(1).type == TokType.IDENT:
                     # non-column expression: {'a':1}.a is struct field
                     # access; ('x').upper() is dot function chaining
@@ -1436,7 +1438,9 @@ class Parser:
                 return self.parse_function_call()
             # column ref (possibly qualified — qualification chained in postfix)
             self.next()
-            return N.ColumnRef((t.value,))
+            ref = N.ColumnRef((t.value,))
+            ref._pos = t.pos  # where its name starts (api/alter.py)
+            return ref
         raise ParserError(f"unexpected token {t.value!r} (pos {t.pos})")
 
     def parse_case(self) -> N.Expr:
@@ -1827,7 +1831,7 @@ class Parser:
         table = self.parse_qualified_ident()
         if self.accept_kw("add"):
             self.accept_kw("column")
-            self.accept_kw("if", "not", "exists")
+            col_if = bool(self.accept_kw("if", "not", "exists"))
             name = self.expect_ident()
             tname, mods = self.parse_type_name()
             default = None
@@ -1846,13 +1850,13 @@ class Parser:
             return N.AlterStatement(table, "add_column", name=name,
                                     col_type=tname, col_mods=mods,
                                     if_exists=if_exists, default=default,
-                                    default_text=default_text)
+                                    default_text=default_text, col_if=col_if)
         if self.accept_kw("drop"):
             self.accept_kw("column")
-            self.accept_kw("if", "exists")
+            col_if = bool(self.accept_kw("if", "exists"))
             name = self.expect_ident()
             return N.AlterStatement(table, "drop_column", name=name,
-                                    if_exists=if_exists)
+                                    if_exists=if_exists, col_if=col_if)
         if self.accept_kw("rename"):
             if self.accept_kw("to"):
                 return N.AlterStatement(table, "rename_table",

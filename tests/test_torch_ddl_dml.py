@@ -408,16 +408,26 @@ def test_update_from_against_sql():
     ("EXPORT DATABASE 'x'", "33b"),
 ])
 def test_later_statements_name_their_item(sql, item, tmp_path, monkeypatch):
-    """MERGE, ALTER and PIVOT name item 34b; COPY, EXPORT and IMPORT, which
-    named item 33b, now run (api/files.py): COPY TO and EXPORT write their
-    files, IMPORT of a directory that is not there raises as the JAX
-    package does."""
+    """The statements that named items 33b and 34b now run: MERGE
+    (api/merge.py) returns its Count and deletes the matched row, ALTER
+    (api/alter.py) adds the column, PIVOT (api/pivot.py) gives one column
+    per value (tests/test_torch_merge.py, test_torch_alter.py and
+    test_torch_pivot.py hold them to the JAX package); COPY TO and EXPORT
+    (api/files.py) write their files, IMPORT of a directory that is not
+    there raises as the JAX package does."""
     monkeypatch.chdir(tmp_path)
     tcon = duckdb_tpu_torch.connect(device="cpu")
-    tcon.sql("CREATE TABLE t (a INT); CREATE TABLE s (a INT); INSERT INTO t VALUES (4)")
-    if item == "34b":
-        with pytest.raises(ValueError, match=f"ROADMAP item {item}\\).*not yet ported"):
-            tcon.sql(sql)
+    tcon.sql("CREATE TABLE t (a INT); CREATE TABLE s (a INT); INSERT INTO t VALUES (4); "
+             "INSERT INTO s VALUES (4)")
+    if sql.startswith("MERGE"):
+        assert tcon.sql(sql).rows() == [(1,)]
+        assert tcon.sql("SELECT count(*) FROM t").rows() == [(0,)]
+    elif sql.startswith("ALTER"):
+        assert tcon.sql(sql) is None
+        assert tcon.sql("SELECT * FROM t").rows() == [(4, None)]
+    elif sql.startswith("PIVOT"):
+        res = tcon.sql(sql)
+        assert res.names == ["4"] and res.rows() == [(4,)]
     elif sql.startswith("IMPORT"):
         with pytest.raises(duckdb_tpu_torch.errors.ConnectionException, match="not found"):
             tcon.sql(sql)

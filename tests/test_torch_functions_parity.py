@@ -308,9 +308,10 @@ def test_struct_named_arguments_are_required(cons):
 
 
 def test_sequences_and_variables_wait(cons):
-    """setval needs its CREATE SEQUENCE (tests/test_torch_sequences_types.py)
-    and getvariable SET VARIABLE (ROADMAP item 34b); getvariable gives NULL
-    meanwhile, as the reference does with no variable set."""
+    """setval needs its CREATE SEQUENCE (tests/test_torch_sequences_types.py);
+    getvariable gives NULL, as the reference does with no variable set
+    (neither package has SET VARIABLE: ROADMAP, "Still refused in both
+    packages")."""
     jcon, tcon = cons
     with pytest.raises(ValueError, match='Sequence with name "s" does not exist'):
         tcon.sql("SELECT setval('s', 3)")

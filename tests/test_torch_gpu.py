@@ -1114,3 +1114,37 @@ def test_q1_on_cuda_over_csv_and_parquet_files(tmp_path):
         for path, sql, want in chip_smoke.fixture_cases():
             assert con.sql(sql).rows() == want, path
         con.close()
+
+
+@pytest.mark.gpu
+def test_merge_and_alter_rename_then_q1_on_cuda(tmp_path):
+    """A MERGE with all three clauses (phase 21's), an ALTER … RENAME COLUMN
+    and Q1 written with the new name on the card: the Count and Q1 equal
+    the CPU run's, Q1 through the grouped-sum kernel, and a second MERGE
+    with a duplicate source row raises on the card as on the CPU."""
+    _need_cuda()
+    import chip_smoke
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.errors import InvalidInputException
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    q1 = chip_smoke.Q1_ALTERED
+    answers = []
+    for con in (duckdb_tpu_torch.connect(), duckdb_tpu_torch.connect(device="cpu")):
+        con.load_tpch(str(tmp_path))
+        con.sql("CREATE TABLE li AS SELECT * FROM lineitem")
+        con.sql("CREATE TABLE stg AS SELECT * FROM lineitem WHERE l_orderkey % 50 = 0")
+        con.sql("UPDATE stg SET l_orderkey = l_orderkey + 6000000 WHERE l_orderkey % 100 = 50")
+        count = con.sql(chip_smoke.MERGE_LI).rows()
+        con.sql("ALTER TABLE li RENAME COLUMN l_quantity TO l_qty")
+        GS.grouped_sum_i64.launches = 0
+        rows = con.sql(q1).rows()
+        launches = GS.grouped_sum_i64.launches
+        con.sql("INSERT INTO stg SELECT * FROM stg LIMIT 1")
+        with pytest.raises(InvalidInputException):
+            con.sql(chip_smoke.MERGE_LI.replace("l_quantity = stg", "l_qty = stg"))
+        assert con.sql(q1).rows() == rows
+        answers.append((count, rows, launches))
+    (gc, gr, launches), (cc, cr, _) = answers
+    assert (gc, gr) == (cc, cr) and launches >= 1

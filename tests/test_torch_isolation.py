@@ -66,4 +66,6 @@ def test_not_yet_ported_sql_says_so():
     con = duckdb_tpu_torch.connect(device="cpu")
     con.sql("CREATE TABLE t (a INT)")
     with pytest.raises(ValueError, match="not yet ported"):
-        con.sql("ALTER TABLE t ADD COLUMN b INT")  # ROADMAP item 34b
+        con.sql("SELECT * FROM t").df()  # pandas: ROADMAP item 35b
+    with pytest.raises(ValueError, match="not yet ported"):
+        con.sql("SET threads = 2")  # a setting of ROADMAP item 36

@@ -6,8 +6,9 @@ hidden tables its plans own), a text of several statements is never
 cached, and a join's build state cached on a warm plan is keyed by the
 versions of the tables under it, so DML on either side is seen. The
 answers are held to the JAX package's. `SET threads` is a setting of
-ROADMAP item 36 in the port, so the SET case uses num_shards; ALTER waits
-for item 34b, so the DDL case uses CREATE OR REPLACE TABLE. The JAX
+ROADMAP item 36 in the port, so the SET case uses num_shards; the DDL
+case uses CREATE OR REPLACE TABLE (tests/test_torch_alter.py holds the
+ALTER case of tests/test_plan_cache.py). The JAX
 package leaves a plan with random() uncached; the port evaluates random()
 when the plan runs (ROADMAP Queue 3, "Behaviours to know"), so a cached
 plan gives new values on each run.
