@@ -278,7 +278,29 @@ Phases (any failure exits non-zero before the result lines):
    unchanged. Every Q1 and the PIVOT's sums hold the grouped sum to its
    plain version (max abs err 0) and time it at each shape; each step
    prints its wall ms, host syncs and host<->device bytes beside the
-   card's name and power limit. The script's whole time is printed last.
+   card's name and power limit.
+22. the settings, the log, the profiler and the clients (main/,
+   cli/, capi/) on phase 3's connection: SET of temp_directory, join_order
+   and default_null_order read back by current_setting() and RESET, and
+   duckdb_settings()' 187 rows; EXPLAIN ANALYZE of Q1 through the kernel
+   (its rows in last_profile equal numpy's, the profile's total beside
+   the step's wall, every operator's rows and ms); Q1's QueryLog line in
+   duckdb_logs(), then OOC_SELECT under OOC_LIMIT with temp_directory set
+   to build/phase22_tmp, in chunks, equal to phase 16's numpy rows, its
+   spill directory made there and its out_of_core lines logged; Q1 under
+   SET pallas_grouped_sum = 'off' with no launch and numpy's rows, then
+   after RESET through the kernel again; lineitem at SF1 into the file
+   database build/phase22_db, `python -m duckdb_tpu_torch.cli
+   build/phase22_db -csv -c Q1` in a subprocess on the card with its CSV
+   rows equal to numpy's, then the C API (capi.cpp, built with the host
+   compiler in phase 1 beside the kernel) loaded in this process:
+   duckdb_open of the same database, duckdb_query of Q1 and its values
+   (duckdb_value_double, else duckdb_value_varchar) equal to numpy's,
+   through the kernel. Each Q1's
+   grouped sum is held to the plain version (max abs err 0) and timed;
+   each step prints its wall ms, host syncs and host<->device bytes
+   beside the card's name and power limit. The script's whole time is
+   printed last.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -2480,6 +2502,242 @@ def merge_alter_phase(card, recording, recorded, launches_by_query, shapes, reps
     torch.cuda.empty_cache()
     return ""
 
+# phase 22: the settings step's SET values (read back by current_setting,
+# then RESET), the temp directory of its out-of-core select, and the file
+# database the CLI and the C API read
+PHASE22_TMP = os.path.join(ROOT, "build", "phase22_tmp")
+PHASE22_DB = os.path.join(ROOT, "build", "phase22_db")
+PHASE22_SETS = (("temp_directory", PHASE22_TMP), ("join_order", "greedy"),
+                ("default_null_order", "nulls_first"))
+PHASE22_DEFAULTS = {"temp_directory": "", "join_order": "dp", "default_null_order": "nulls_last"}
+
+
+def text_rows_match(got, want) -> str:
+    """rows_match for rows of text (the CLI's CSV, the C API's
+    duckdb_value_varchar), each cell read as the type of want's cell."""
+    import decimal
+
+    def typed(text, w):
+        if isinstance(w, float):
+            return float(text)
+        if isinstance(w, decimal.Decimal):
+            return decimal.Decimal(text)
+        if isinstance(w, int):
+            return int(text)
+        return text
+
+    if len(got) != len(want):
+        return f"{len(got)} rows, expected {len(want)}"
+    return rows_match([tuple(typed(t, w) for t, w in zip(g, wr)) for g, wr in zip(got, want)],
+                      want)
+
+
+def main_clients_phase(con, card, recording, recorded, launches_by_query, shapes, reps) -> str:
+    """Phase 22 (see the module docstring). '' or a failure message."""
+    import ctypes
+    import csv
+    import decimal
+    import shutil
+
+    import duckdb_tpu_torch
+    import duckdb_tpu_torch.capi
+
+    kit = Steps(22, card, recording, recorded, launches_by_query, shapes, reps)
+    want_q1 = numpy_q1(DATA)
+
+    # 1. SET, current_setting and RESET of three settings; duckdb_settings()
+    def settings_step():
+        got = {}
+        for name, value in PHASE22_SETS:
+            con.sql(f"SET {name} = '{value}'")
+            got[name] = con.sql(f"SELECT current_setting('{name}')").rows()[0][0]
+        n = con.sql("SELECT count(*) FROM duckdb_settings()").rows()[0][0]
+        for name, _ in PHASE22_SETS:
+            con.sql(f"RESET {name}")
+        back = {name: con.sql(f"SELECT current_setting('{name}')").rows()[0][0]
+                for name, _ in PHASE22_SETS}
+        return got, n, back
+
+    (got, n, back), line = kit.step("1 SET, current_setting, RESET", settings_step)
+    if got != dict(PHASE22_SETS) or back != PHASE22_DEFAULTS:
+        return f"current_setting read {got} after SET and {back} after RESET"
+    if n != 187:
+        return f"duckdb_settings() has {n} rows, not 187"
+    print(line + f"; read back {got}, after RESET {back}; duckdb_settings() has {n} rows")
+
+    # 2. EXPLAIN ANALYZE of Q1: the profile, and Q1's rows through the kernel
+    res, line = kit.with_kernel("2 EXPLAIN ANALYZE Q1", "explain_analyze_q1",
+                                lambda: con.sql("EXPLAIN ANALYZE " + Q1))
+    prof = con.last_profile
+    bad = rows_match(prof.result.rows(), want_q1)
+    if bad:
+        return f"EXPLAIN ANALYZE's Q1 differs from numpy: {bad}"
+    if launches_by_query["explain_analyze_q1"] < 1:
+        return "EXPLAIN ANALYZE of Q1 did not launch the grouped sum"
+    if res.names != ["explain_value"] or res.rows() != [(prof.render(),)]:
+        return "EXPLAIN ANALYZE did not return the profile's text"
+    ops = ", ".join(f"{op.name} {op.cardinality} rows {op.time_s * 1e3:.3f} ms"
+                    for op in prof.root.walk())
+    print(line + f"; the profile's total {prof.total_s * 1e3:.3f} ms (planning "
+          f"{prof.phases['planning'] * 1e3:.3f} ms, execution "
+          f"{prof.phases['execution'] * 1e3:.3f} ms); operators: {ops}; "
+          f"{len(prof.result.rows())} rows equal numpy's; grouped_sum_i64 launches "
+          f"{launches_by_query['explain_analyze_q1']}")
+    bad = kit.kernel_check("explain_analyze_q1")
+    if bad:
+        return bad
+
+    # 3. duckdb_logs(): Q1's QueryLog line; phase 16's select under OOC_LIMIT
+    # with temp_directory set logs its out_of_core lines
+    _, line = kit.step("3 Q1", lambda: con.sql(Q1).rows())
+    n_query = con.sql("SELECT count(*) FROM duckdb_logs() WHERE type = 'QueryLog' "
+                      "AND message LIKE 'query returned 4 rows%'").rows()[0][0]
+    if n_query < 1:
+        return "duckdb_logs() holds no QueryLog line of Q1's 4 rows"
+    print(line + f"; duckdb_logs() holds {n_query} QueryLog lines of 4 rows")
+    ooc_sql = "SELECT count(*) FROM duckdb_logs() WHERE type = 'out_of_core'"
+    before = con.sql(ooc_sql).rows()[0][0]
+    shutil.rmtree(PHASE22_TMP, ignore_errors=True)
+    con.sql(f"SET temp_directory = '{PHASE22_TMP}'")
+    con.sql(f"SET memory_limit = '{OOC_LIMIT}'")
+    con.routes.clear()
+    try:
+        rows, line = kit.step("3 OOC_SELECT under OOC_LIMIT",
+                              lambda: con.sql(OOC_SELECT).rows())
+    finally:
+        con.sql("RESET memory_limit")
+        con.sql("RESET temp_directory")
+    ok, ln, price = numpy_ooc_select(DATA, limit=100)
+    bad = rows_match(rows, [(int(a), int(b), decimal.Decimal(int(c)).scaleb(-2))
+                            for a, b, c in zip(ok, ln, price)])
+    if bad:
+        return f"OOC_SELECT under OOC_LIMIT differs from phase 16's numpy rows: {bad}"
+    chunks = con.routes["out_of_core_chunks"]
+    logged = con.sql(ooc_sql).rows()[0][0] - before
+    if chunks < 4 or logged < 1:
+        return f"OOC_SELECT ran in {chunks} chunks and logged {logged} out_of_core lines"
+    if not os.path.isdir(PHASE22_TMP):
+        return "the chunked select made no spill directory under temp_directory"
+    lines = con.sql("SELECT message FROM duckdb_logs() WHERE type = 'out_of_core'").rows()
+    print(line + f"; {len(rows)} rows equal phase 16's numpy rows; {chunks} chunks; spill "
+          f"directory under {PHASE22_TMP}; {logged} out_of_core lines, the last: "
+          f"{lines[-1][0]!r}")
+    shutil.rmtree(PHASE22_TMP, ignore_errors=True)
+
+    # 4. pallas_grouped_sum: 'off' keeps Q1's sums off the kernel; RESET
+    con.sql("SET pallas_grouped_sum = 'off'")
+    try:
+        rows, line = kit.with_kernel("4 Q1 under pallas_grouped_sum = 'off'",
+                                     "q1_grouped_sum_off", lambda: con.sql(Q1).rows())
+    finally:
+        con.sql("RESET pallas_grouped_sum")
+    bad = rows_match(rows, want_q1)
+    if bad or launches_by_query["q1_grouped_sum_off"]:
+        return (f"Q1 under pallas_grouped_sum = 'off': {bad or 'rows equal'}, grouped_sum_i64 "
+                f"launches {launches_by_query['q1_grouped_sum_off']}")
+    print(line + "; rows equal numpy's; grouped_sum_i64 launches 0")
+    rows, line = kit.with_kernel("4 Q1 after RESET pallas_grouped_sum", "q1_grouped_sum_reset",
+                                 lambda: con.sql(Q1).rows())
+    bad = rows_match(rows, want_q1)
+    if bad or launches_by_query["q1_grouped_sum_reset"] < 1:
+        return (f"Q1 after RESET pallas_grouped_sum: {bad or 'rows equal'}, grouped_sum_i64 "
+                f"launches {launches_by_query['q1_grouped_sum_reset']}")
+    print(line + f"; rows equal numpy's; grouped_sum_i64 launches "
+          f"{launches_by_query['q1_grouped_sum_reset']}")
+    bad = kit.kernel_check("q1_grouped_sum_reset")
+    if bad:
+        return bad
+
+    # 5. the CLI in a subprocess on the card, over lineitem in a file database
+    shutil.rmtree(PHASE22_DB, ignore_errors=True)
+
+    def write_db():
+        w = duckdb_tpu_torch.connect(PHASE22_DB)
+        w.load_tpch(DATA, tables=["lineitem"])
+        w.sql("CHECKPOINT")
+        w.close()
+
+    _, line = kit.step("5 lineitem at SF1 into a file database", write_db)
+    print(line)
+    cmd = [sys.executable, "-m", "duckdb_tpu_torch.cli", PHASE22_DB, "-csv", "-c",
+           " ".join(Q1.split()) + ";"]
+    out, line = kit.step("5 the CLI's Q1 in a subprocess", lambda: subprocess.run(
+        cmd, capture_output=True, text=True, cwd=ROOT, timeout=600,
+        env={**os.environ, "PYTHONPATH": ROOT}))
+    if out.returncode != 0:
+        return f"the CLI exited {out.returncode}: {out.stderr[-2000:]}"
+    table = list(csv.reader(out.stdout.splitlines()))
+    bad = text_rows_match(table[1:], want_q1)
+    if bad or table[0][:2] != ["l_returnflag", "l_linestatus"]:
+        return f"the CLI's Q1 differs from numpy: {bad or table[0]}"
+    print(line + f"; {len(table) - 1} CSV rows equal numpy's")
+
+    # 6. the C API in this process: duckdb_open of the same database, Q1
+    lib = duckdb_tpu_torch.capi.library()
+    V, U = ctypes.c_void_p, ctypes.c_uint64
+
+    class CResult(ctypes.Structure):
+        _fields_ = [("internal_data", V)]
+
+    lib.duckdb_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(V)]
+    lib.duckdb_connect.argtypes = [V, ctypes.POINTER(V)]
+    lib.duckdb_query.argtypes = [V, ctypes.c_char_p, V]
+    lib.duckdb_result_error.argtypes = [V]
+    lib.duckdb_result_error.restype = ctypes.c_char_p
+    for f in ("duckdb_column_count", "duckdb_row_count"):
+        getattr(lib, f).argtypes, getattr(lib, f).restype = [V], U
+    lib.duckdb_value_varchar.argtypes, lib.duckdb_value_varchar.restype = [V, U, U], V
+    lib.duckdb_value_double.argtypes = [V, U, U]
+    lib.duckdb_value_double.restype = ctypes.c_double
+    lib.duckdb_column_type.argtypes, lib.duckdb_column_type.restype = [V, U], ctypes.c_int
+    lib.duckdb_free.argtypes = [V]
+    lib.duckdb_disconnect.argtypes = lib.duckdb_close.argtypes = [ctypes.POINTER(V)]
+    lib.duckdb_library_version.restype = ctypes.c_char_p
+    db, c = V(), V()
+    if lib.duckdb_open(PHASE22_DB.encode(), ctypes.byref(db)) or \
+            lib.duckdb_connect(db, ctypes.byref(c)):
+        return "duckdb_open or duckdb_connect of the phase's database failed"
+
+    def capi_q1():
+        res = CResult()
+        if lib.duckdb_query(c, Q1.encode(), ctypes.byref(res)):
+            err = lib.duckdb_result_error(ctypes.byref(res))
+            lib.duckdb_destroy_result(ctypes.byref(res))
+            raise RuntimeError(f"duckdb_query of Q1 failed: {err}")
+        out = []
+        ncols = lib.duckdb_column_count(ctypes.byref(res))
+        double = [lib.duckdb_column_type(ctypes.byref(res), k) == 11 for k in range(ncols)]
+        for r in range(lib.duckdb_row_count(ctypes.byref(res))):
+            row = []
+            for k in range(ncols):
+                if double[k]:  # DUCKDB_TYPE_DOUBLE: read as a double
+                    row.append(repr(lib.duckdb_value_double(ctypes.byref(res), k, r)))
+                    continue
+                p = lib.duckdb_value_varchar(ctypes.byref(res), k, r)
+                row.append(ctypes.cast(p, ctypes.c_char_p).value.decode())
+                lib.duckdb_free(p)
+            out.append(row)
+        lib.duckdb_destroy_result(ctypes.byref(res))
+        return out
+
+    try:
+        rows, line = kit.with_kernel("6 the C API's Q1", "capi_q1", capi_q1)
+    finally:
+        lib.duckdb_disconnect(ctypes.byref(c))
+        lib.duckdb_close(ctypes.byref(db))
+    bad = text_rows_match(rows, want_q1)
+    if bad:
+        return f"the C API's Q1 differs from numpy: {bad}"
+    if launches_by_query["capi_q1"] < 1:
+        return "the C API's Q1 did not launch the grouped sum"
+    print(line + f"; {lib.duckdb_library_version().decode()}: {len(rows)} rows read with "
+          f"duckdb_value_double and duckdb_value_varchar equal numpy's; grouped_sum_i64 launches "
+          f"{launches_by_query['capi_q1']}")
+    bad = kit.kernel_check("capi_q1")
+    shutil.rmtree(PHASE22_DB, ignore_errors=True)
+    recorded.clear()
+    return bad
+
 
 def main() -> int:
     try:
@@ -2509,6 +2767,7 @@ def main() -> int:
     # compiler, storage/host_lib.py) build side by side
     import concurrent.futures
 
+    import duckdb_tpu_torch.capi
     from duckdb_tpu_torch.storage import host_lib
 
     def timed(fn, *args):
@@ -2517,10 +2776,11 @@ def main() -> int:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         gs_s = pool.submit(timed, GS.build, True)
         host_s = {name: pool.submit(timed, host_lib.load, name, True)
                   for name in ("csv2col", "parquet_codec")}
+        host_s["duckdb_tpu_torch_capi"] = pool.submit(timed, duckdb_tpu_torch.capi.library, True)
         gs_s = gs_s.result()
         host_s = {name: f.result() for name, f in host_s.items()}
     print(f"built {GS.LIBRARY} in {gs_s:.1f} s and the host libraries "
@@ -3020,6 +3280,18 @@ def main() -> int:
         return fail(bad)
     worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
     print(f"phase 21 took {time.perf_counter() - phase21_t0:.1f} s")
+
+    # 22. settings, the profile of Q1, duckdb_logs(), pallas_grouped_sum, and
+    # the clients: the CLI in a subprocess and the C API in this process
+    phase22_t0 = time.perf_counter()
+    try:
+        bad = main_clients_phase(con, card, recording, recorded, launches_by_query, shapes, reps)
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    if bad:
+        return fail(bad)
+    worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
+    print(f"phase 22 took {time.perf_counter() - phase22_t0:.1f} s")
     print(f"chip_smoke.py took {time.perf_counter() - script_t0:.1f} s in all on {card}")
 
     print(json.dumps({"kernels": [{

@@ -5,8 +5,9 @@ whose columns and intermediates all live on `device` (default "cuda").
 `Connection.sql` runs SQL text of any number of statements, as the JAX
 package's Connection does (duckdb_tpu/api/connection.py): SELECT, the DDL
 and DML of api/ddl.py and api/dml.py, BEGIN / COMMIT / ROLLBACK, SET /
-RESET of the settings the port honours (main/settings.py), PREPARE /
-EXECUTE / DEALLOCATE, EXPLAIN and PRAGMA, CHECKPOINT, ATTACH / DETACH,
+RESET of every setting (main/settings.py), PREPARE / EXECUTE /
+DEALLOCATE, EXPLAIN (ANALYZE: the profile of main/profiler.py) and PRAGMA,
+CHECKPOINT, ATTACH / DETACH,
 COPY TO / FROM (CSV and Parquet) and EXPORT / IMPORT DATABASE
 (api/files.py), ALTER TABLE (api/alter.py), MERGE INTO (api/merge.py), and
 PIVOT and UNPIVOT (api/pivot.py). Beside SQL it gives the appender
@@ -28,7 +29,8 @@ publishes the tables the transaction wrote, and the first committer wins.
 A statement that writes outside BEGIN runs in a transaction of its own,
 and inside one on a copy of the transaction's catalog, so a statement
 that fails leaves nothing behind. A device out-of-memory error is retried
-once cold, every cache emptied (execution/cache_registry.py).
+once cold, every cache emptied (execution/cache_registry.py). Each
+database keeps a log (main/logging.py) that duckdb_logs() reads.
 """
 
 from __future__ import annotations
@@ -36,7 +38,9 @@ from __future__ import annotations
 import collections
 import os
 import random
+import re
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -56,6 +60,7 @@ from duckdb_tpu_torch.errors import (  # noqa: F401 — the surface of the modul
     ConnectionException, OutOfMemoryException, TransactionException)
 from duckdb_tpu_torch.execution.cache_registry import PressureTrim, clear_all, is_oom
 from duckdb_tpu_torch.execution.executor import Executor, Result
+from duckdb_tpu_torch.main.logging import LogManager
 from duckdb_tpu_torch.main.settings import SettingsManager, parse_bytes
 from duckdb_tpu_torch.planner import functions_ext as FX
 from duckdb_tpu_torch.planner import macros as M
@@ -161,6 +166,7 @@ def _snapshot(shared: Catalog) -> Catalog:
     their values shared; the device and settings are the same."""
     snap = Catalog(device=shared.device)
     snap.settings = shared.settings
+    snap.log = shared.log
     snap.tables = dict(shared.tables)
     snap._shared = set(shared.tables)
     snap._file_tables = shared._file_tables
@@ -254,6 +260,10 @@ class Connection(DDLMixin, DMLMixin, FilesMixin, AlterMixin, MergeMixin, PivotMi
         # the executor reads the sharding settings through the catalog
         self.settings = self._db.catalog.settings or SettingsManager()
         self._db.catalog.settings = self.settings
+        # the database's log, which duckdb_logs() reads
+        self.log = self._db.catalog.log or LogManager()
+        self._db.catalog.log = self.log
+        self.last_profile = None  # the QueryProfile of the last EXPLAIN ANALYZE
         # plan cache: SQL text → (plan, output), SQL text → the hidden
         # tables of its materialized CTEs, which live as long as its plan,
         # and SQL text → the file reads it made (Planner.file_reads)
@@ -456,7 +466,9 @@ class Connection(DDLMixin, DMLMixin, FilesMixin, AlterMixin, MergeMixin, PivotMi
         """One statement, retried once cold if the card runs out of memory:
         every device cache and pooled column is dropped first; a second OOM
         raises OutOfMemoryException."""
-        self._pressure_trim(getattr(s, "_sql_text", None) or type(s).__name__, self.device)
+        if self._pressure_trim(getattr(s, "_sql_text", None) or type(s).__name__, self.device):
+            self.log.info("MemoryPressure", "proactive eviction: device residency above the "
+                          "pressure threshold; caches dropped")
         try:
             return self._run(s)
         except Exception as err:  # noqa: BLE001 — classified, else re-raised
@@ -464,7 +476,8 @@ class Connection(DDLMixin, DMLMixin, FilesMixin, AlterMixin, MergeMixin, PivotMi
                 raise
         # the retry runs outside the except block: the first attempt's
         # traceback pins its frames' tensors until the handler ends
-        clear_all()
+        n = clear_all()
+        self.log.info("MemoryPressure", f"device OOM: cleared {n} cache stores, retrying cold")
         try:
             return self._run(s)
         except Exception as err:  # noqa: BLE001 — classified, else re-raised
@@ -503,7 +516,14 @@ class Connection(DDLMixin, DMLMixin, FilesMixin, AlterMixin, MergeMixin, PivotMi
 
     def _execute_statement_inner(self, s):
         if isinstance(s, N.SelectStatement):
-            return self._select(s, getattr(s, "_sql_text", None))
+            key = getattr(s, "_sql_text", None)
+            cached = key is not None and key in self._plan_cache
+            t0 = time.perf_counter()
+            res = self._select(s, key)
+            self.log.info("QueryLog", f"query returned {res.nrows} rows in "
+                          f"{(time.perf_counter() - t0) * 1000:.1f} ms"
+                          + (" (cached plan)" if cached else ""))
+            return res
         if isinstance(s, N.SetStatement):
             if s.is_reset:
                 self.settings.reset(s.name)
@@ -671,6 +691,8 @@ class Connection(DDLMixin, DMLMixin, FilesMixin, AlterMixin, MergeMixin, PivotMi
             self._commit_txn()
         elif a == "checkpoint":
             self.checkpoint()
+            if self._db.path is not None:
+                self.log.info("Checkpoint", f"checkpoint written to {self.database}")
         return None
 
     def _commit_txn(self):
@@ -936,27 +958,45 @@ class Connection(DDLMixin, DMLMixin, FilesMixin, AlterMixin, MergeMixin, PivotMi
 
     @staticmethod
     def _count_result(n: int) -> Result:
-        """The one-row BIGINT Count column a DML statement returns."""
-        return Result(names=["Count"], types=[BIGINT],
-                      columns=[(np.array([n], dtype=np.int64), None, None)], nrows=1)
+        """The one-row BIGINT Count column a DML statement returns (the
+        shell prints none: `_dml_count`, as the JAX package marks it)."""
+        res = Result(names=["Count"], types=[BIGINT],
+                     columns=[(np.array([n], dtype=np.int64), None, None)], nrows=1)
+        res._dml_count = True
+        return res
 
     def _explain(self, s: N.ExplainStatement):
         """EXPLAIN: the plan tree as text (planner/explain.py). EXPLAIN
-        ANALYZE runs the query first; its profile waits for ROADMAP item 36."""
+        ANALYZE runs the query with every plan node timed
+        (main/profiler.py) and gives the profile's text; `last_profile`
+        keeps the QueryProfile, with the query's rows in `result`."""
+        from duckdb_tpu_torch.main.profiler import QueryProfile, profile_executor
         from duckdb_tpu_torch.planner.explain import render_plan
 
         if not isinstance(s.query, N.SelectStatement):
             raise not_ported("EXPLAIN of a statement other than a SELECT")
         planner = self._planner()
         try:
+            t0 = time.perf_counter()
             plan, output = planner.plan_select(M.expand_macros(s.query, planner.macros()))
             if s.analyze:
-                Executor(self.catalog, self.routes).run(plan, output)
+                sql = getattr(s, "_create_text", None) or self.session.query or ""
+                profile = QueryProfile(query=re.sub(r"(?is)^\s*explain\s+analyze\s+", "", sql))
+                profile.phases["planning"] = time.perf_counter() - t0
+                ex = profile_executor(Executor(self.catalog, self.routes), profile)
+                t1 = time.perf_counter()
+                profile.result = ex.run(plan, output)
+                profile.phases["execution"] = time.perf_counter() - t1
+                profile.total_s = time.perf_counter() - t0
+                self.last_profile = profile
+                text = profile.render()
+            else:
+                text = render_plan(plan)
         finally:
             self._drop_tables(planner.hidden_tables)
         return Result(names=["explain_value"], types=[VARCHAR],
-                      columns=[(np.zeros(1, np.int32), None,
-                                np.array([render_plan(plan)], dtype=object))], nrows=1)
+                      columns=[(np.zeros(1, np.int32), None, np.array([text], dtype=object))],
+                      nrows=1)
 
     def _pragma(self, s: N.PragmaStatement):
         name = s.name.lower()
@@ -965,7 +1005,7 @@ class Connection(DDLMixin, DMLMixin, FilesMixin, AlterMixin, MergeMixin, PivotMi
         if name == "table_info":
             return self.sql(f"SELECT * FROM pragma_table_info('{s.args[0].value}')")
         if name in ("enable_profiling", "disable_profiling"):
-            raise not_ported("profiling (ROADMAP item 36)")
+            self.settings.set("enable_profiling", name == "enable_profiling")
         return None  # VACUUM, ANALYZE and the rest: nothing to do in memory
 
 

@@ -466,9 +466,9 @@ class DMLMixin:
                 if spec[0] == "excluded":
                     vals, valid, dvals = new_cols.get(spec[1], (
                         np.zeros(n_new, t.np_dtype), np.zeros(n_new, bool), None))
-                    if entry.col_types[spec[1]] != t:
-                        raise not_ported("ON CONFLICT DO UPDATE between columns of two types")
                     part = (np.asarray(vals)[src], None if valid is None else valid[src], dvals)
+                    if entry.col_types[spec[1]] != t:  # cast as an INSERT casts
+                        part = self._cast_planes(part, entry.col_types[spec[1]], t)
                 else:
                     b = ExprBinder(Scope()).bind(spec[1])
                     if not b.is_const():
@@ -492,6 +492,21 @@ class DMLMixin:
         out = {c: (np.asarray(v)[idx], None if va is None else va[idx], d)
                for c, (v, va, d) in new_cols.items()}
         return out, len(idx), n_updated
+
+    def _cast_planes(self, part, src, dst):
+        """Host planes (values, validity|None, dictionary|None) of type src
+        → the same rows cast to dst on the connection's device, as an
+        INSERT's SELECT casts them (bound._coerce_to)."""
+        vals, valid, dvals = part
+        n = len(vals)
+        device = self.catalog.device
+        col = Column.from_numpy(np.asarray(vals), src, valid, dvals, device=device)
+        env = B.EvalEnv(cols={}, plen=n, live=torch.ones(n, dtype=torch.bool, device=device))
+        out = B._coerce_to(col, dst, env)
+        values, validity = out.host_values(n)
+        if dst.id not in _SORTED_DICT and dst.id not in UNSORTED_DICT_IDS:
+            values = _wide_to_int64(values)
+        return values, validity, out.dict_values
 
     # -- the rows a statement touches -------------------------------------------------
     def _scatter(self, entry: TableEntry, cname: str, rows, vals, valid, dvals, base=None):

@@ -76,7 +76,7 @@ class PivotMixin:
                 node=N.SelectNode(select_list=[(on(), "v"), (N.CastExpr(on(), "varchar"), "s")],
                                   distinct=True, from_table=table_ref(table),
                                   where=N.IsNull(on(), negated=True)),
-                order_by=[N.OrderItem(N.ColumnRef(("v",)))])
+                order_by=[N.OrderItem(N.ColumnRef(("v",)), direction_given=True)])
             res = self._select(stmt)
             on_type = res.types[0]
             values = [(N.Literal(text) if on_type == VARCHAR else _cast_to(N.Literal(text),
@@ -99,7 +99,7 @@ class PivotMixin:
         stmt = N.SelectStatement(
             node=N.SelectNode(select_list=[(r, None) for r in refs] + aggs,
                               from_table=table_ref(table), group_by=list(refs)),
-            order_by=[N.OrderItem(N.ColumnRef((g,))) for g in groups])
+            order_by=[N.OrderItem(N.ColumnRef((g,)), direction_given=True) for g in groups])
         return self._select(stmt)
 
     @staticmethod

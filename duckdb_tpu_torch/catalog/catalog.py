@@ -425,9 +425,10 @@ class Catalog:
     def __init__(self, device="cpu"):
         self.device = device
         self.tables: Dict[str, TableEntry] = {}
-        # the connection's main/settings.SettingsManager (None: defaults,
-        # one device)
+        # the database's main/settings.SettingsManager (None: defaults,
+        # one device) and main/logging.LogManager (None: nothing is logged)
         self.settings = None
+        self.log = None
         self.views: Dict[str, object] = {}  # name → parsed SELECT statement
         # CREATE MACRO: name → planner.macros.MacroDef (the default macros
         # are planner/macros.default_macros(), beside these)

@@ -30,8 +30,9 @@ own zone maps, so dense slot domains follow the chunk.
 The executor records "out_of_core" and "out_of_core_chunks" (the chunk
 count) in its routes, or "out_of_core_fallback" when a plan over the
 limit cannot chunk, or a chunk's partial passes 64 bits, and runs in
-memory (DuckDB would spill instead). The JAX package logs both to
-duckdb_logs(), which comes with ROADMAP item 36.
+memory (DuckDB would spill instead); it logs each as the JAX package
+does, type out_of_core in duckdb_logs(). Spill files go under the
+temp_directory setting (storage/spill.py).
 """
 
 from __future__ import annotations
@@ -101,6 +102,8 @@ def _used_keys(plan: P.PlanNode) -> set:
                 exprs.append(agg.filter)
         for w in getattr(n, "windows", ()) or ():
             exprs += list(w.args) + list(w.partition_by) + [e for e, _, _ in w.order_by]
+            if w.filter is not None:
+                exprs.append(w.filter)
         for e in exprs:
             used.update(nn.key for nn in B.walk(e)
                         if isinstance(nn, (B.BoundColumnRef, B.BoundAggregateRef)))
@@ -259,10 +262,18 @@ def try_chunked(executor, plan: P.PlanNode, output):
     ch = _plan_chunks(plan, scans, total, budget)
     if ch is None:
         executor.routes["out_of_core_fallback"] += 1
+        executor._log("WARN", "out_of_core", "plan not chunkable; running in-memory (may "
+                      "exceed memory_limit)")
         return None
+    executor._log("INFO", "out_of_core",
+                  f"scan working set ~{total * WORKING_SET_FACTOR / 1e6:.0f}MB exceeds "
+                  f"memory_limit ({budget / 1e6:.0f}MB): processing {ch.table} in {ch.k} "
+                  f"chunks of {math.ceil(executor.get_table(ch.table).nrows / ch.k)} rows")
     res = _run_chunks(executor, output, budget, ch)
     if res is None:
         executor.routes["out_of_core_fallback"] += 1
+        executor._log("WARN", "out_of_core", "a chunk's partial passes 64 bits; running "
+                      "in-memory (may exceed memory_limit)")
     return res
 
 
@@ -355,7 +366,7 @@ def _run_chunks(executor, output, budget, ch: _Chunking):
 
     entry = executor.get_table(ch.table)
     rows_per = math.ceil(entry.nrows / ch.k)
-    spill = SpillDir("ooc")
+    spill = SpillDir("ooc", executor.catalog)
     writer = SpillWriter(spill, [t for _, _, t in ch.chunk_out])
     try:
         for ci in range(ch.k):
@@ -449,6 +460,8 @@ def _range_partitioned_order(executor, tmp, chunk_out, order_items, limit_node, 
         else np.zeros(0, vals.dtype)
     pid = np.searchsorted(edges, vals, side="right")
     executor.routes["out_of_core_sort_partitions"] += len(edges) + 1
+    executor._log("INFO", "out_of_core", f"ORDER BY over {bytes_all / 1e6:.0f}MB temp exceeds "
+                  f"the device budget: {len(edges) + 1} range partitions")
     cap = None
     if limit_node is not None and limit_node.n is not None:
         cap = limit_node.n + limit_node.offset
@@ -458,7 +471,7 @@ def _range_partitioned_order(executor, tmp, chunk_out, order_items, limit_node, 
         order.reverse()
     blocks = ([None] if nf0 and len(null_idx) else []) + order \
         + ([None] if not nf0 and len(null_idx) else [])
-    sd = SpillDir("sort")
+    sd = SpillDir("sort", executor.catalog)
     writer = SpillWriter(sd, [t for _, _, t in output])
     try:
         for p in blocks:

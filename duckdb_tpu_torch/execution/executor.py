@@ -33,6 +33,7 @@ at every depth.
 from __future__ import annotations
 
 import collections
+import contextlib
 import datetime
 import decimal as pydec
 import itertools
@@ -362,6 +363,17 @@ class Result:
         return [tuple(c[i] for c in pycols) for i in range(self.nrows)]
 
 
+# the duckdb_logs() line of each sharded route: (type, message), the JAX
+# package's type and first words
+_SHARD_LOG = {
+    "exchange_join": ("exchange_join", "join repartitioned over {n} shards"),
+    "exchange_join_dup": ("exchange_join", "dup-key join repartitioned over {n} shards"),
+    "sharded_sort": ("sharded_sort", "ORDER BY range-partitioned over {n} shards"),
+    "sharded_topn": ("sharded_topn", "TopN over {n} shards: local top-k + candidate merge"),
+    "sharded_window": ("sharded_window", "window hash-partitioned over {n} shards"),
+}
+
+
 class Executor:
     def __init__(self, catalog: Catalog, routes: Optional[collections.Counter] = None):
         self.catalog = catalog
@@ -385,11 +397,21 @@ class Executor:
             return self.scan_overrides[name]
         return self.catalog.get_table(name)
 
-    # -- sharding ------------------------------------------------------------
-    def _setting(self, name: str, default: int) -> int:
+    # -- settings and the log ----------------------------------------------------
+    def _setting_value(self, name: str, default):
         settings = getattr(self.catalog, "settings", None)
-        return default if settings is None else int(settings.get(name, default))
+        return default if settings is None else settings.get(name, default)
 
+    def _setting(self, name: str, default: int) -> int:
+        return int(self._setting_value(name, default))
+
+    def _log(self, level: str, log_type: str, msg: str):
+        """An entry in the database's log (duckdb_logs())."""
+        log = getattr(self.catalog, "log", None)
+        if log is not None:
+            log.log(level, log_type, msg)
+
+    # -- sharding ------------------------------------------------------------
     def _join_shards(self, rows: Optional[int] = None) -> int:
         """Shard count for a distributed operator over `rows` padded rows.
 
@@ -423,29 +445,57 @@ class Executor:
         mesh = shard.mesh_for(n, self.catalog.device)
         self.routes[op] += 1
         self.routes["sharded_shared_card" if mesh.shared else "sharded"] += 1
+        if op in _SHARD_LOG:
+            log_type, msg = _SHARD_LOG[op]
+            self._log("INFO", log_type, msg.format(n=n))
         return mesh
+
+    def _single_chip(self, reason: str):
+        """A sharded operator that runs on one device: its route, and the
+        JAX package's WARN line of type sharding."""
+        self.routes[f"sharding_single:{reason}"] += 1
+        self._log("WARN", "sharding", f"{reason}: runs single-chip")
 
     # -- entry ---------------------------------------------------------------
     def run(self, plan: P.PlanNode, output: List[Tuple[str, str, LogicalType]]) -> Result:
         """Run a plan to host rows: in chunks when a memory limit is set
-        and its scans do not fit (execution/chunked.py), else at once."""
+        and its scans do not fit (execution/chunked.py), else at once. The
+        catalog's log and its pallas_grouped_sum setting hold while it runs
+        (ops/strings.ACTIVE_LOG, ops/grouped.KERNEL_MODE)."""
         from duckdb_tpu_torch.execution.chunked import try_chunked
 
-        if not self.scan_overrides:
-            res = try_chunked(self, plan, output)
-            if res is not None:
-                return res
-        n, cols = self.materialize(plan, output)
-        columns = [c.host_values(n) + (c.dict_values,) for c in cols]
-        return Result(names=[n_ for n_, _, _ in output],
-                      types=[t for _, _, t in output], columns=columns, nrows=n)
+        with self._context():
+            if not self.scan_overrides:
+                res = try_chunked(self, plan, output)
+                if res is not None:
+                    return res
+            n, cols = self.materialize(plan, output)
+            columns = [c.host_values(n) + (c.dict_values,) for c in cols]
+            return Result(names=[n_ for n_, _, _ in output],
+                          types=[t for _, _, t in output], columns=columns, nrows=n)
+
+    @contextlib.contextmanager
+    def _context(self):
+        """The catalog's log and pallas_grouped_sum setting, for the ops
+        below the executor while it runs."""
+        from duckdb_tpu_torch.ops import grouped, strings
+
+        log_tok = strings.ACTIVE_LOG.set(getattr(self.catalog, "log", None))
+        mode_tok = grouped.KERNEL_MODE.set(str(self._setting_value("pallas_grouped_sum",
+                                                                   "auto")))
+        try:
+            yield
+        finally:
+            grouped.KERNEL_MODE.reset(mode_tok)
+            strings.ACTIVE_LOG.reset(log_tok)
 
     def materialize(self, plan: P.PlanNode, output) -> Tuple[int, List[Column]]:
         """Run a plan and keep its rows on the device: → (row count, one
         Column per output item, live rows packed first and padded as a
         catalog table's columns are, the padding zero and invalid)."""
         self._batch_memo = {}
-        return self._packed(self.execute(plan), [key for _, key, _ in output])
+        with self._context():
+            return self._packed(self.execute(plan), [key for _, key, _ in output])
 
     def _packed(self, batch: Batch, keys) -> Tuple[int, List[Column]]:
         """A batch's live rows of `keys`, packed first → (count, Columns)."""
@@ -636,7 +686,7 @@ class Executor:
             out = exchange(node, probe_b, build_b, pk, bk, probe_live, build_live, n_shards)
             if out is not None:
                 return out
-            self.routes[f"sharding_single:{node.jtype} join"] += 1
+            self._single_chip(f"{node.jtype} join")
         # a full join's unmatched build rows come from the pair expansion
         if node.jtype != "full" and dense_size <= self.DENSE_JOIN_LIMIT:
             out = self._dense_join(node, probe_b, build_b, pk, bk, probe_live,
@@ -1202,10 +1252,14 @@ class Executor:
             raise BindError("Binder Error: the ASOF JOIN inequality must compare the two sides")
         pc, bc = e_probe.eval(probe_b.env()), e_build.eval(build_b.env())
         if TypeId.VARCHAR in (pc.ltype.id, bc.ltype.id):
-            raise not_ported("ASOF JOIN over a VARCHAR inequality")
-        pav, bav = B._common_numeric(
-            Column(data=bcast(pc.data, probe_b.plen), ltype=pc.ltype, data_hi=pc.data_hi),
-            Column(data=bcast(bc.data, build_b.plen), ltype=bc.ltype, data_hi=bc.data_hi))
+            # both sides' codes as ranks in one merged, sorted dictionary
+            pl, bl = B._varchar_rank_luts(pc, bc, probe_b.live.device)
+            pav = pl[bcast(pc.data, probe_b.plen).long()].to(torch.int64)
+            bav = bl[bcast(bc.data, build_b.plen).long()].to(torch.int64)
+        else:
+            pav, bav = B._common_numeric(
+                Column(data=bcast(pc.data, probe_b.plen), ltype=pc.ltype, data_hi=pc.data_hi),
+                Column(data=bcast(bc.data, build_b.plen), ltype=bc.ltype, data_hi=bc.data_hi))
         probe_live = probe_live & _full_valid(pc, probe_b.plen)
         build_live = build_live & _full_valid(bc, build_b.plen)
         if op in ("<=", "<"):  # the smallest build value at or above the probe's

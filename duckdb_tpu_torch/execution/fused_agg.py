@@ -1044,7 +1044,7 @@ def _num_shards(executor, fa: FusedAgg) -> int:
     reason = "sort_group aggregate" if not fa.dense else (
         "distinct aggregate" if fa.distinct else None)
     if reason is not None:
-        executor.routes[f"sharding_single:{reason}"] += 1
+        executor._single_chip(reason)
         return 1
     return n
 

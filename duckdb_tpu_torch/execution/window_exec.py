@@ -27,6 +27,12 @@ PRECEDING AND 3 FOLLOWING keeps 3 levels of n values, not log2(n).
 median, quantile_cont, stddev and var run over whole partitions only (the
 planner refuses them with an ORDER BY or a frame, ROADMAP item 44); the
 moments of a DECIMAL are taken of its values, not its scaled integers.
+
+Where the JAX package is wrong the port follows SQL: FILTER drops the rows
+it is not TRUE for (W8), DISTINCT counts each value of a partition once, at
+its first row in window order (W10), and median over VARCHAR is DuckDB's
+quantile_disc (W9). HUGEINT values keep both int64 halves through the sort,
+the gathers and the scans; a running sum carries between them.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from duckdb_tpu_torch.ops import sort as S
 from duckdb_tpu_torch.ops.scan import cummax, cummin
 from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner import plan as P
-from duckdb_tpu_torch.planner.bound import BindError, bcast, not_ported
+from duckdb_tpu_torch.planner.bound import BindError, bcast
 from duckdb_tpu_torch.types import TypeId
 
 _I64_MIN = torch.iinfo(torch.int64).min
@@ -164,14 +170,19 @@ def execute_window(executor, node: P.Window):
         if od is None:
             od = _sort(executor, b, w, env)
             orders.append((w, od))
-        res, valid, dvals = _compute(w, env, b.plen, od)
+        res, valid, dvals, *hi = _compute(w, env, b.plen, od)
         data = torch.empty_like(res)
         data[od.perm] = res
+        data_hi = None
+        if hi:  # the high halves of HUGEINT values
+            data_hi = torch.empty_like(hi[0])
+            data_hi[od.perm] = hi[0]
         validity = None
         if valid is not None:
             validity = torch.empty_like(valid)
             validity[od.perm] = valid
-        out[w.key] = Column(data=data, ltype=w.ltype, validity=validity, dict_values=dvals)
+        out[w.key] = Column(data=data, ltype=w.ltype, validity=validity, dict_values=dvals,
+                            data_hi=data_hi)
     executor.routes["window"] += 1
     return Batch(src=ChainCols([DictCols(out), b.src]), plen=b.plen, live=b.live)
 
@@ -216,7 +227,8 @@ def _sharded_arg(w: P.BoundWindow, env, b):
     from duckdb_tpu_torch.execution.executor import _full_valid
 
     if (not w.partition_by or w.frame is not None or w.func not in _SHARDED_WINDOW_FNS
-            or len(w.args) > 1 or (w.func in ("min", "max") and w.order_by)):
+            or len(w.args) > 1 or (w.func in ("min", "max") and w.order_by)
+            or w.distinct or w.filter is not None):
         return None
     if not w.args:
         return None, None, 1.0
@@ -274,7 +286,8 @@ def _const_int(e, what: str) -> int:
 
 
 def _compute(w: P.BoundWindow, env, plen: int, od: _Order):
-    """→ (values, validity | None, dictionary | None), in sorted order."""
+    """→ (values, validity | None, dictionary | None[, high halves]), in
+    sorted order; the high halves come with a HUGEINT result."""
     device = od.perm.device
     idx = torch.arange(plen, device=device)
     f = w.func
@@ -299,53 +312,69 @@ def _compute(w: P.BoundWindow, env, plen: int, od: _Order):
         return tile + 1, None, None
 
     # the functions of a value: the argument in sorted order
-    c = None
+    c = hi = None
     if w.args:
         c = w.args[0].eval(env)
-        if c.data_hi is not None:
-            raise not_ported(f"{f}() over a window of wide {c.ltype!r} values")
         vals = bcast(c.data, plen)[od.perm]
         valid = od.live if c.validity is None else bcast(c.validity, plen)[od.perm] & od.live
+        if c.data_hi is not None:  # HUGEINT: the high halves ride along
+            hi = bcast(c.data_hi, plen)[od.perm]
     else:
         vals = torch.zeros(plen, dtype=torch.int64, device=device)
         valid = od.live
+    if w.filter is not None:  # FILTER: the rows it is not TRUE for do not count (W8)
+        fc = w.filter.eval(env)
+        keep = bcast(fc.data.to(torch.bool), plen)
+        if fc.validity is not None:
+            keep = keep & bcast(fc.validity, plen)
+        valid = valid & keep[od.perm]
+    if w.distinct:  # each value counts once, at its first row in window order
+        valid = _first_marks(vals, hi, valid, od)
     dvals = c.dict_values if c is not None and w.ltype.id in (TypeId.VARCHAR, TypeId.BLOB) \
         else None
+
+    def pick(p):
+        """The argument at sorted positions p (clamped), both halves of a HUGEINT."""
+        return (vals[p],) if hi is None else (vals[p], hi[p])
+
+    def at(p, ok):
+        v = pick(p)
+        return (v[0], ok, dvals) + v[1:]
 
     if f == "fill":
         return _fill(vals, valid, od, idx) + (dvals,)
     if f in ("lag", "lead"):
-        return _lag_lead(w, env, c, vals, valid, od, idx, plen, dvals)
+        return _lag_lead(w, env, c, vals, hi, valid, od, idx, plen, dvals)
     framed = w.frame is not None
     span = _frame_bounds(w, env, od, idx, plen) if framed else None
     if framed:
-        lo, hi = span
+        lo = span[0]
     if f == "nth_value":
         n = _const_int(w.args[1], "nth_value's index")
         if framed:
-            p, limit = lo + n - 1, hi
+            p, limit = lo + n - 1, span[1]
         else:
             p, limit = od.start + n - 1, od.peer_e if od.has_order else od.end
         pc = p.clamp(0, plen - 1)
-        return vals[pc], (p <= limit) & (n >= 1) & valid[pc], dvals
+        return at(pc, (p <= limit) & (n >= 1) & valid[pc])
     if f == "first_value":
         p = lo if framed else od.start
         pc = p.clamp(0, plen - 1)
-        ok = valid[pc] if not framed else valid[pc] & (hi >= lo)
-        return vals[pc], ok, dvals
+        return at(pc, valid[pc] if not framed else valid[pc] & (span[1] >= lo))
     if f == "last_value":
-        p = hi if framed else (od.peer_e if od.has_order else od.end)
+        p = span[1] if framed else (od.peer_e if od.has_order else od.end)
         pc = p.clamp(0, plen - 1)
-        ok = valid[pc] if not framed else valid[pc] & (hi >= lo)
-        return vals[pc], ok, dvals
+        return at(pc, valid[pc] if not framed else valid[pc] & (span[1] >= lo))
     if f in ("stddev", "stddev_samp", "stddev_pop", "var_samp", "var_pop", "variance"):
         return _moments(f, c, vals, valid, od, plen) + (None,)
     if f in ("median", "quantile_cont"):
         q = 0.5 if f == "median" or len(w.args) < 2 else float(w.args[1].const_value())
-        return _quantile(q, c, vals, valid, od, plen) + (None,)
+        return _quantile(q, c, vals, valid, od, plen) + (dvals,)
 
     if f in ("count", "sum", "avg", "min", "max"):
         scale = 10.0 ** c.ltype.scale if c is not None and c.ltype.id is TypeId.DECIMAL else 1.0
+        if hi is not None and f != "count":
+            return _wide_agg_over(f, vals, hi, valid, od, span, plen, scale)
         res, ok = _agg_over(f, vals, valid, od, span, plen, scale)
         return res, ok, dvals if f in ("min", "max") else None
     raise BindError(f"Binder Error: window function {f} is not supported")
@@ -379,6 +408,49 @@ def _agg_over(f, vals, valid, od: _Order, span, plen: int, scale: float):
     else:
         run = _seg_scan(x, od, op)[od.peer_e if od.has_order else od.end]
     return run.to(vals.dtype), n_valid > 0
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _wide_agg_over(f, lo, hi, valid, od: _Order, span, plen: int, scale: float):
+    """sum, avg, min or max of HUGEINT values (lo, hi int64 halves) over the
+    frames of `_agg_over` → (low halves or DOUBLE, validity, None[, high
+    halves]). A sum adds the low halves as two 32-bit halves, exact in
+    int64 below 2^31 rows, and carries into the high halves, which wrap mod
+    2^64 (the sum wraps mod 2^128). min and max scan the values' ranks
+    among the distinct (hi, unsigned lo) pairs."""
+    n_valid = _over(valid.to(torch.int64), od, span, plen)
+    if f in ("min", "max"):
+        uniq, rank = torch.unique(torch.stack([hi, lo ^ _I64_MIN], 1), dim=0,
+                                  return_inverse=True)
+        r, ok = _agg_over(f, rank, valid, od, span, plen, 1.0)
+        top = uniq[r.clamp(0, uniq.shape[0] - 1)]
+        return top[:, 1] ^ _I64_MIN, ok, None, top[:, 0]
+    zero = torch.zeros((), dtype=torch.int64, device=lo.device)
+    a = _over(torch.where(valid, lo & _M32, zero), od, span, plen)
+    b = _over(torch.where(valid, (lo >> 32) & _M32, zero), od, span, plen)
+    h = _over(torch.where(valid, hi, zero), od, span, plen)
+    t = (a >> 32) + b
+    s_lo, s_hi = ((t & _M32) << 32) | (a & _M32), h + (t >> 32)
+    if f == "sum":
+        return s_lo, n_valid > 0, None, s_hi
+    total = s_hi.to(torch.float64) * 2.0 ** 64 + (s_lo ^ _I64_MIN).to(torch.float64) + 2.0 ** 63
+    return total / (n_valid.to(torch.float64) * scale), n_valid > 0, None
+
+
+def _first_marks(vals, hi, valid, od: _Order) -> torch.Tensor:
+    """DISTINCT over a window: True at the first valid row, in window order,
+    of each value of a partition. A stable sort by (partition, value) keeps
+    the window order among equal values."""
+    keys = [od.seg_id] + ([] if hi is None else [hi]) + [vals]
+    perm2 = S.sort_permutation(keys, valid)
+    n = valid.shape[0]
+    first = _boundaries([k[perm2] for k in keys], n,
+                        torch.arange(n, device=valid.device) == 0)
+    marks = torch.zeros_like(valid)
+    marks[perm2] = first & valid[perm2]
+    return marks
 
 
 def _rank_values(f, od: _Order, idx):
@@ -481,18 +553,20 @@ def _fill(vals, valid, od: _Order, idx):
     return out, valid | has_p | has_n
 
 
-def _lag_lead(w, env, c, vals, valid, od: _Order, idx, plen, dvals):
-    """lag / lead → (values, validity, dictionary). A VARCHAR default from
-    outside the argument's dictionary merges the two (sorted) dictionaries
-    and maps both sides' codes into it."""
+def _lag_lead(w, env, c, vals, hi, valid, od: _Order, idx, plen, dvals):
+    """lag / lead → (values, validity, dictionary[, high halves of a
+    HUGEINT]). A VARCHAR default from outside the argument's dictionary
+    merges the two (sorted) dictionaries and maps both sides' codes into
+    it."""
     off = _const_int(w.args[1], f"{w.func}'s offset") if len(w.args) > 1 else 1
     src = idx + (-off if w.func == "lag" else off)
     srcc = src.clamp(0, plen - 1)
     ok = (src >= 0) & (src < plen) & (od.start[srcc] == od.start)
     outv = ok & valid[srcc]
+    zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+    wide = () if hi is None else (torch.where(ok, hi[srcc], zero),)
     if len(w.args) < 3:
-        return torch.where(ok, vals[srcc], torch.zeros((), dtype=vals.dtype,
-                                                       device=vals.device)), outv, dvals
+        return (torch.where(ok, vals[srcc], zero), outv, dvals) + wide
     d = w.args[2].eval(env)
     if c.ltype.id is TypeId.VARCHAR:
         dd = np.asarray(d.dict_values if d.dict_values is not None else [], dtype=object)
@@ -510,8 +584,11 @@ def _lag_lead(w, env, c, vals, valid, od: _Order, idx, plen, dvals):
         if d.ltype != c.ltype:
             d = B._coerce_to(d, c.ltype, env)
         dv = bcast(d.data, plen)[od.perm].to(vals.dtype)
+        if hi is not None:
+            dv_hi = dv >> 63 if d.data_hi is None else bcast(d.data_hi, plen)[od.perm]
+            wide = (torch.where(ok, hi[srcc], dv_hi),)
     dvalid = torch.ones_like(ok) if d.validity is None else bcast(d.validity, plen)[od.perm]
-    return torch.where(ok, vals[srcc], dv), torch.where(ok, outv, dvalid), dvals
+    return (torch.where(ok, vals[srcc], dv), torch.where(ok, outv, dvalid), dvals) + wide
 
 
 # -- whole-partition holistics ----------------------------------------------------------
@@ -545,13 +622,17 @@ def _moments(f, c, vals, valid, od: _Order, plen):
 
 def _quantile(q, c, vals, valid, od: _Order, plen):
     """quantile_cont(q) of each partition: a second sort by (partition,
-    value), then the interpolated middle of its valid values."""
-    if c.ltype.id is TypeId.VARCHAR:
-        raise not_ported("median() over a window of VARCHAR values")
+    value), then the interpolated middle of its valid values. Over VARCHAR
+    it is DuckDB's quantile_disc: the value at max(1, ceil(n·q)) - 1, the
+    lower middle for the median (W9); the dictionary is sorted, so the
+    codes order the values."""
     perm2 = S.sort_permutation([od.seg_id, S.orderable_int64(vals, valid, False, False)],
                                torch.ones_like(valid))
-    x2 = _values(c, vals)[perm2]
     nval = _seg_total(valid.to(torch.int64), od)
+    if c.ltype.id is TypeId.VARCHAR:
+        k = torch.ceil(nval.to(torch.float64) * q).to(torch.int64).clamp(min=1) - 1
+        return vals[perm2][(od.start + k).clamp(0, plen - 1)], nval > 0
+    x2 = _values(c, vals)[perm2]
     pos = (nval.to(torch.float64) - 1.0) * q
     lo = torch.floor(pos).to(torch.int64)
     hi = torch.ceil(pos).to(torch.int64)

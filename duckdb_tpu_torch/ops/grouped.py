@@ -17,10 +17,16 @@ query on an H100 80GB HBM3 at 700 W). Wider domains take one native
 index_add_ / scatter_reduce_ over an overflow slot that absorbs dead
 rows. All sums are exact: int64 sums stay in int64 and wrap mod 2^64 as
 the reference's do; float sums are float64.
+
+`SET pallas_grouped_sum = 'off'` (main/settings.py; KERNEL_MODE while a
+statement runs) sends the int64 sums of up to MASKED_REDUCE_LIMIT slots to
+the index_add_ route wider domains take, as the JAX package's 'off' leaves
+its Pallas kernel; 'auto' and 'on' launch the kernel.
 """
 
 from __future__ import annotations
 
+import contextvars
 from typing import List, Sequence
 
 import torch
@@ -29,6 +35,10 @@ from duckdb_tpu_torch.ops.grouped_sum import grouped_sum_i64
 
 MASKED_REDUCE_LIMIT = 256
 MASKED_SLOTS_LIMIT = 16
+
+# the running statement's pallas_grouped_sum setting (Executor.run sets it)
+KERNEL_MODE: contextvars.ContextVar = contextvars.ContextVar("duckdb_tpu_torch_grouped_sum",
+                                                             default="auto")
 
 
 def _sentinel(kind: str, dtype: torch.dtype):
@@ -58,7 +68,9 @@ def grouped_reduce(dense: torch.Tensor, vectors: Sequence[torch.Tensor],
         i64_sum = [i for i in rest
                    if kinds[i] == "sum" and vectors[i].dtype == torch.int64]
         if i64_sum:
-            sums = grouped_sum_i64(dense, [vectors[i] for i in i64_sum], nseg)
+            picked = [vectors[i] for i in i64_sum]
+            sums = (_scatter(dense, picked, ["sum"] * len(picked), nseg)
+                    if KERNEL_MODE.get() == "off" else grouped_sum_i64(dense, picked, nseg))
             for i, s in zip(i64_sum, sums):
                 results[i] = s
             rest = [i for i in rest if i not in i64_sum]

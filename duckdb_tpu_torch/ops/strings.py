@@ -44,6 +44,7 @@ no host round trip.
 
 from __future__ import annotations
 
+import contextvars
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -77,11 +78,23 @@ _LUT_CACHE: dict = tracked_dict()
 _LUT_CACHE_MAX = 64
 
 
+# the running statement's main/logging.LogManager (Executor.run sets it
+# from its catalog), so a host loop's warning lands in the database that
+# ran it
+ACTIVE_LOG: contextvars.ContextVar = contextvars.ContextVar("duckdb_tpu_torch_active_log",
+                                                            default=None)
+
+
 def note_host_loop(fn_name: str, n_distinct: int, threshold: Optional[int] = None):
     """Record a per-distinct host loop (only noteworthy when large: at or
-    above `threshold`, DEVICE_LIKE_MIN_DICT by default)."""
+    above `threshold`, DEVICE_LIKE_MIN_DICT by default), and warn in
+    duckdb_logs() as the JAX package does."""
     if n_distinct >= (DEVICE_LIKE_MIN_DICT if threshold is None else threshold):
         host_loop_events.append((fn_name, n_distinct))
+        log = ACTIVE_LOG.get()
+        if log is not None:
+            log.warn("StringHostLoop", f"{fn_name} over {n_distinct} distinct values ran on "
+                     "host (device plane unavailable)")
 
 
 def _cache_put(cache, maxlen, key, value):

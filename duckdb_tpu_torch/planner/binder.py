@@ -14,6 +14,7 @@ from __future__ import annotations
 import datetime
 import re
 from dataclasses import dataclass
+from decimal import Decimal
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -231,15 +232,27 @@ _INTERVAL_MULT = {
 
 
 def bind_interval(val: str, unit: Optional[str]) -> Tuple[int, int, int]:
+    """An interval's text → (months, days, micros): '<n> <unit>' pairs, and a
+    time of day '[-]HH:MM[:SS[.ffffff]]' as DuckDB reads it ('2 months 3 days
+    04:05:06'); a unit of micros (hours and below) may take a fraction."""
     parts = {"months": 0, "days": 0, "micros": 0}
-    if unit is not None:
-        pairs = [(val, unit)]
-    else:
-        toks = val.split()
-        pairs = [(toks[i], toks[i + 1]) for i in range(0, len(toks) - 1, 2)]
-    for n, u in pairs:
+    toks = [val, unit] if unit is not None else val.split()
+    i = 0
+    while i < len(toks):
+        if ":" in toks[i]:
+            neg = toks[i].startswith("-")
+            h, m, *sec = toks[i].lstrip("+-").split(":")
+            us = (int(h) * 3600 + int(m) * 60) * 1_000_000 + (
+                round(Decimal(sec[0]) * 1_000_000) if sec else 0)
+            parts["micros"] += -us if neg else us
+            i += 1
+            continue
+        if i + 1 >= len(toks):
+            break
+        n, u = toks[i], toks[i + 1]
         field_, mult = _INTERVAL_MULT[u.lower()]
-        parts[field_] += int(n) * mult
+        parts[field_] += round(Decimal(n) * mult) if field_ == "micros" else int(n) * mult
+        i += 2
     return (parts["months"], parts["days"], parts["micros"])
 
 
@@ -476,10 +489,41 @@ class ExprBinder:
         return B.BoundColumnRef(e.key, e.ltype)
 
     # -- operators -----------------------------------------------------------
+    # COLLATE names → the function each applies (None: the binary order);
+    # the JAX package's table (duckdb_tpu/planner/binder.py)
+    _COLLATIONS = {"nocase": "lower", "noaccent": "strip_accents",
+                   "nfc": "nfc_normalize", "c": None, "binary": None,
+                   "posix": None}
+
+    def _apply_collation(self, b: B.BoundExpr, cname: str) -> B.BoundExpr:
+        for part in cname.lower().split("."):
+            if part not in self._COLLATIONS:
+                raise BindError(f"Catalog Error: Collation with name {part} does not exist!")
+            fn = self._COLLATIONS[part]
+            if fn is not None:
+                rt, impl, args = F.REGISTRY[fn]([b])
+                b = B.BoundFunction(fn, args, rt, impl)
+        return b
+
+    def _bind_CollateExpr(self, e: N.CollateExpr):
+        """expr COLLATE name: the collation's function over expr; a
+        comparison applies it to its other side too (NOCASE compares
+        lower-cased values)."""
+        child = self.bind(e.child)
+        b = self._apply_collation(child, e.collation)
+        if b is not child:  # C / BINARY / POSIX: the binary order, nothing to apply
+            object.__setattr__(b, "collation", e.collation)
+        return b
+
     def _bind_BinaryOp(self, e: N.BinaryOp):
         if e.op in B._CMP_OPS:
-            left, right = self._align_comparison(self.bind(e.left),
-                                                 self.bind(e.right))
+            left, right = self.bind(e.left), self.bind(e.right)
+            lc, rc = getattr(left, "collation", None), getattr(right, "collation", None)
+            if lc and not rc:
+                right = self._apply_collation(right, lc)
+            elif rc and not lc:
+                left = self._apply_collation(left, rc)
+            left, right = self._align_comparison(left, right)
             return B.BoundComparison(e.op, left, right)
         if e.op == "||":
             return self._bind_concat(e)

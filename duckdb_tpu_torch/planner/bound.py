@@ -831,7 +831,39 @@ def format_varchar(v, t: LogicalType) -> str:
         return repr(f)
     if t.is_integer:
         return str(int(v))
+    if t.id is TypeId.INTERVAL:
+        return interval_text(*_interval_parts(v))
     raise not_ported(f"the cast {t!r} → VARCHAR")
+
+
+def _interval_parts(v) -> tuple:
+    """(months, days, micros) of an interval: a constant's own parts, or a
+    column's microseconds as whole days and the rest. A column keeps no
+    months (its months were folded to 30 days), so it prints days."""
+    if isinstance(v, (tuple, list)):
+        return tuple(int(x) for x in v)
+    us = int(v)
+    days = abs(us) // 86_400_000_000 * (1 if us >= 0 else -1)
+    return 0, days, us - days * 86_400_000_000
+
+
+def interval_text(months: int, days: int, micros: int) -> str:
+    """DuckDB's text of an interval (IntervalToStringCast::Format): years,
+    months and days, each pluralized, then [-]HH:MM:SS[.ffffff], or
+    '00:00:00' when every part is 0."""
+    parts = []
+    years, months = int(months / 12), months - int(months / 12) * 12
+    for n, unit in ((years, "year"), (months, "month"), (days, "day")):
+        if n:
+            parts.append(f"{n} {unit}" + ("" if n in (1, -1) else "s"))
+    if micros:
+        sign, us = ("-", -micros) if micros < 0 else ("", micros)
+        t = (f"{sign}{us // 3_600_000_000:02d}:{us // 60_000_000 % 60:02d}:"
+             f"{us // 1_000_000 % 60:02d}")
+        if us % 1_000_000:
+            t += f".{us % 1_000_000:06d}".rstrip("0")
+        parts.append(t)
+    return " ".join(parts) or "00:00:00"
 
 
 def format_distinct(c: Column, env, fmt: Callable[[object], str],
@@ -878,8 +910,6 @@ def format_distinct(c: Column, env, fmt: Callable[[object], str],
 def _cast_to_varchar(c: Column, env) -> Column:
     """Non-VARCHAR → VARCHAR: each distinct value formatted once on the
     host (format_varchar), NULL rows as ''."""
-    if c.ltype.id is TypeId.INTERVAL:
-        raise not_ported(f"the cast {c.ltype!r} → VARCHAR (ROADMAP item 26)")
     return format_distinct(c, env, lambda v: format_varchar(v, c.ltype), null_text="")
 
 

@@ -133,6 +133,10 @@ def fold_cast(node) -> object:
     src, dst = node.child.ltype, node.ltype
     if src == dst:
         return v
+    if src.id is TypeId.INTERVAL and dst.id is TypeId.VARCHAR:
+        from duckdb_tpu_torch.planner.bound import format_varchar
+
+        return format_varchar(v, src)  # DuckDB's text, months and all
     if dst.id is TypeId.DECIMAL:
         if src.id is TypeId.DECIMAL:
             shift = dst.scale - src.scale

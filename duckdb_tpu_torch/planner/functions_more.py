@@ -17,8 +17,9 @@ Python per row.
 current_database(), current_schema(), current_query(), txid_current()
 and setseed() read and change the running connection's Session
 (planner/session.py), not a module global: current_query() gives the text
-of the statement running, a plan-cache hit too. current_setting() waits
-for the settings (ROADMAP item 36).
+of the statement running, a plan-cache hit too. current_setting(name)
+reads the database's setting when the statement runs, as duckdb_settings()
+shows it (the JAX package gives '' whatever was SET: ROADMAP S1).
 
 Where DuckDB and the JAX package differ, the port follows DuckDB (ROADMAP
 Queue 3, (h), (i), (m), (n)): epoch_ms(BIGINT) is the TIMESTAMP that many
@@ -1009,7 +1010,18 @@ def _bind_current_schemas(arg_exprs):
 
 @register("current_setting")
 def _bind_current_setting(arg_exprs):
-    raise not_ported("current_setting(), which needs the settings (ROADMAP item 36)")
+    from duckdb_tpu_torch.main.settings import SettingsManager, canonical
+
+    _arity("current_setting", arg_exprs, 1)
+    e = arg_exprs[0]
+    if not e.is_const() or e.ltype.id is not TypeId.VARCHAR or e.const_value() is None:
+        raise BindError("Binder Error: current_setting() takes a constant setting name")
+    name = canonical(str(e.const_value()))  # an unknown name raises here
+
+    def impl(env, cols, node):
+        settings = getattr(session.active().catalog, "settings", None) or SettingsManager()
+        return _const_varchar(env, settings.text(name))
+    return VARCHAR, impl, []
 
 
 def _session_int(name, read):

@@ -134,6 +134,8 @@ class BoundWindow:
     order_by: List[Tuple[BoundExpr, bool, Optional[bool]]]  # (expr, desc, nulls_first)
     frame: Optional[Tuple[str, tuple, tuple]]  # (mode, start, end) as the parser gives it
     ltype: LogicalType = None
+    distinct: bool = False  # count / sum / avg (DISTINCT x) OVER (…)
+    filter: Optional[BoundExpr] = None  # FILTER (WHERE …): the rows it is not TRUE for do not count
 
 
 @dataclass

@@ -106,6 +106,11 @@ _PORTED_AGGS = {
 # frame they wait for ROADMAP item 44
 _HOLISTIC_WINDOWS = ("median", "quantile_cont", "stddev", "stddev_samp", "stddev_pop",
                      "var_samp", "var_pop", "variance")
+# window functions that take DISTINCT and FILTER, and those over HUGEINT
+# values (a hi/lo pair; window_exec carries both halves)
+_FILTER_WINDOWS = ("count", "sum", "avg", "min", "max") + _HOLISTIC_WINDOWS
+_WIDE_WINDOWS = ("count", "sum", "avg", "min", "max", "lag", "lead", "first_value",
+                 "last_value", "nth_value")
 
 # the reference's aggregate aliases (duckdb_tpu/planner/planner.py)
 _AGG_ALIASES = {
@@ -813,9 +818,6 @@ class Planner:
             return
         raise not_ported(f"FROM {type(ref).__name__}")
 
-    # table functions the port does not run yet → the ROADMAP item they wait for
-    _LATER_TABLE_FUNCTIONS = dict.fromkeys(("duckdb_settings", "duckdb_logs"),
-                                           "36 (settings and logging)")
     # the file readers (storage/multi_file.py; __file_scan is FROM 'file')
     # and the named parameters they take
     FILE_FUNCTIONS = ("read_csv", "read_csv_auto", "read_parquet", "parquet_scan", "read_json",
@@ -875,9 +877,6 @@ class Planner:
         name = ref.name.lower()
         if name in self.FILE_FUNCTIONS:
             return self._plan_file_function(ref)
-        if name in self._LATER_TABLE_FUNCTIONS:
-            raise not_ported(f"the table function {name}() (ROADMAP item "
-                             f"{self._LATER_TABLE_FUNCTIONS[name]})")
         binder = ExprBinder(Scope())
         args = []
         for a in ref.args:
@@ -964,14 +963,16 @@ class Planner:
         return plan, scope_adds, nrows
 
     _CATALOG_FUNCTIONS = ("duckdb_tables", "duckdb_columns", "duckdb_types",
-                          "pragma_table_info", "duckdb_views", "duckdb_indexes")
+                          "pragma_table_info", "duckdb_views", "duckdb_indexes",
+                          "duckdb_settings", "duckdb_logs")
 
     def _catalog_table_function(self, tname: str, name: str, args):
-        """duckdb_tables(), duckdb_columns(), duckdb_types() and
-        pragma_table_info(t), with the JAX package's columns (DuckDB's
-        src/function/table/system/): a snapshot of the catalog taken now,
-        so the plan is `uncacheable`. Hidden tables (names starting "__")
-        are left out."""
+        """duckdb_tables(), duckdb_columns(), duckdb_types(),
+        duckdb_views(), duckdb_indexes(), duckdb_settings(), duckdb_logs()
+        and pragma_table_info(t), with the JAX package's columns (DuckDB's
+        src/function/table/system/): a snapshot of the catalog, the
+        database's settings or its log taken now, so the plan is
+        `uncacheable`. Hidden tables (names starting "__") are left out."""
         from duckdb_tpu_torch.catalog.catalog import ColumnDef, TableEntry
         from duckdb_tpu_torch.planner.binder import _TYPE_NAMES
 
@@ -979,9 +980,20 @@ class Planner:
         user_tables = [(n, e) for n, e in sorted(self.catalog.tables.items())
                        if not n.startswith("__")]
         comments = getattr(self.catalog, "comments", {})
-        if name in ("duckdb_views", "duckdb_indexes") and args:
+        if name in ("duckdb_views", "duckdb_indexes", "duckdb_settings", "duckdb_logs") and args:
             raise BindError(f"Binder Error: {name}() takes no arguments")
-        if name == "duckdb_views":
+        if name == "duckdb_settings":
+            from duckdb_tpu_torch.main.settings import SettingsManager
+
+            cols = [("name", VARCHAR), ("value", VARCHAR), ("description", VARCHAR),
+                    ("input_type", VARCHAR), ("scope", VARCHAR)]
+            rows = (getattr(self.catalog, "settings", None) or SettingsManager()).rows()
+        elif name == "duckdb_logs":
+            cols = [("timestamp", VARCHAR), ("log_level", VARCHAR), ("type", VARCHAR),
+                    ("message", VARCHAR)]
+            log = getattr(self.catalog, "log", None)
+            rows = log.rows() if log is not None else []
+        elif name == "duckdb_views":
             cols = [("view_name", VARCHAR), ("schema_name", VARCHAR), ("comment", VARCHAR)]
             rows = [(n, "main", comments.get(("view", n))) for n in sorted(self.catalog.views)]
         elif name == "duckdb_indexes":
@@ -1201,10 +1213,9 @@ class Planner:
                 multi.append(p)
 
         # DP join ordering over the query graph (reference:
-        # duckdb/src/optimizer/join_order/); the JAX package's default, which
-        # this port has no setting to turn off. Greedy below takes oversized
-        # and disconnected graphs.
-        if len(by_id) >= 3:
+        # duckdb/src/optimizer/join_order/), unless SET join_order = 'greedy'.
+        # Greedy below takes oversized and disconnected graphs too.
+        if len(by_id) >= 3 and self._setting("join_order", "dp") == "dp":
             dp_plan = dp_join_order(self, by_id, multi)
             if dp_plan is not None:
                 return dp_plan
@@ -1635,7 +1646,7 @@ class Planner:
         if not args and func != "count_star":
             raise BindError(f"Binder Error: {func} requires at least one argument")
         t = _agg_result_type(func, args)
-        order_by = [(binder.bind(it.expr), it.descending, it.nulls_first)
+        order_by = [(binder.bind(it.expr),) + self._direction(it)
                     for it in fc.order_by]
         distinct = fc.distinct and func not in ("min", "max")  # the same either way
         # dedup structurally identical aggregates
@@ -1966,16 +1977,22 @@ class Planner:
     # -- windows ---------------------------------------------------------------
     def _bind_window_call(self, wf: N.WindowFunction, binder, windows: List[P.BoundWindow]):
         """A window call → a reference to its output column, its BoundWindow
-        appended to `windows` (result types as the JAX package gives them)."""
+        appended to `windows` (result types as the JAX package gives them).
+        DISTINCT and FILTER follow SQL: the JAX package ignores both (W8,
+        W10); median over VARCHAR is DuckDB's quantile_disc (W9)."""
         fc, spec = wf.func, wf.spec
         name = fc.name.lower()
         name = {"rank_dense": "dense_rank", "mean": "avg"}.get(name, name)
-        if fc.distinct or fc.filter is not None or fc.order_by:
-            raise not_ported(f"{name}() with DISTINCT, FILTER or ORDER BY over a window")
+        if fc.order_by:
+            raise not_ported(f"{name}() with ORDER BY inside the call over a window")
         args = [binder.bind(a) for a in fc.args]
         part = [binder.bind(e) for e in spec.partition_by]
-        order = [(binder.bind(it.expr), it.descending, it.nulls_first)
+        order = [(binder.bind(it.expr),) + self._direction(it)
                  for it in spec.order_by]
+        if (fc.distinct or fc.filter is not None) and name not in _FILTER_WINDOWS:
+            raise BindError(f"Binder Error: DISTINCT and FILTER need an aggregate, not {name}()")
+        if fc.distinct and (spec.frame is not None or name in _HOLISTIC_WINDOWS):
+            raise not_ported(f"{name}(DISTINCT …) over a frame or of a holistic aggregate")
         if name in ("row_number", "rank", "dense_rank", "ntile", "count"):
             t = BIGINT
         elif name == "sum":
@@ -1991,16 +2008,24 @@ class Planner:
                 # partition (W3)
                 raise not_ported(f"{name}() over an ORDER BY or a frame (ROADMAP item 44)")
             t = DOUBLE
+            if args and args[0].ltype.id is TypeId.VARCHAR:
+                if name != "median":
+                    raise BindError(f"Binder Error: {name}() over a window takes a number, "
+                                    "not VARCHAR")
+                t = VARCHAR
         else:
             raise BindError(f"Binder Error: window function {name} is not supported")
         if name in ("sum", "avg", "min", "max", "lag", "lead", "first_value", "last_value",
                     "nth_value", "fill") + _HOLISTIC_WINDOWS and not args:
             raise BindError(f"Binder Error: {name}() over a window needs an argument")
-        if args and (args[0].ltype.id is TypeId.HUGEINT
-                     or args[0].ltype.id in UNSORTED_DICT_IDS):
+        if args and (args[0].ltype.id in UNSORTED_DICT_IDS
+                     or args[0].ltype.id is TypeId.HUGEINT and name not in _WIDE_WINDOWS):
             raise not_ported(f"{name}() over a window of {args[0].ltype!r} values")
+        filt = binder.bind(fc.filter) if fc.filter is not None else None
         key = self.fresh(f"win.{name}")
-        windows.append(P.BoundWindow(key, name, args, part, order, spec.frame, t))
+        windows.append(P.BoundWindow(key, name, args, part, order, spec.frame, t,
+                                     distinct=fc.distinct and name not in ("min", "max"),
+                                     filter=filt))
         return B.BoundAggregateRef(key, t)
 
     def _distinct_on_window(self, sel, order_by, select_aliases, binder, windows):
@@ -2019,12 +2044,29 @@ class Planner:
             return e
 
         part = [binder.bind(resolve(e)) for e in sel.distinct_on]
-        order = [(binder.bind(resolve(it.expr)), it.descending, it.nulls_first)
+        order = [(binder.bind(resolve(it.expr)),) + self._direction(it)
                  for it in order_by]
         key = self.fresh("win.row_number")
         windows.append(P.BoundWindow(key, "row_number", [], part, order, None, BIGINT))
         return B.BoundComparison("=", B.BoundAggregateRef(key, BIGINT),
                                  B.BoundLiteral(1, BIGINT))
+
+    def _setting(self, name: str, default):
+        settings = getattr(self.catalog, "settings", None)
+        return default if settings is None else settings.get(name, default)
+
+    def _direction(self, it: N.OrderItem) -> tuple:
+        """(descending, nulls_first) of an ORDER BY term: what it names,
+        else the default_order and default_null_order settings, as DuckDB
+        resolves ORDER_DEFAULT and ORDER_NULLS_DEFAULT (None: NULLS LAST)."""
+        desc = it.descending if it.direction_given \
+            else self._setting("default_order", "asc") == "desc"
+        nf = it.nulls_first
+        if nf is None:
+            nf = {"nulls_first": True, "nulls_first_on_asc_last_on_desc": not desc,
+                  "nulls_last_on_asc_first_on_desc": desc}.get(
+                self._setting("default_null_order", "nulls_last"))
+        return desc, nf
 
     def _plan_order(self, plan, order_items, output, scope_info):
         out_scope, post_binder = scope_info
@@ -2041,7 +2083,7 @@ class Planner:
                     be = B.BoundColumnRef(b.key, b.ltype)
             if be is None:
                 be = post_binder.bind(e)
-            items.append((be, it.descending, it.nulls_first))
+            items.append((be,) + self._direction(it))
         return P.Order(plan, items)
 
 

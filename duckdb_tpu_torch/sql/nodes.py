@@ -229,7 +229,8 @@ class JoinRef(TableRef):
 class OrderItem:
     expr: Expr
     descending: bool = False
-    nulls_first: Optional[bool] = None  # None = dialect default (NULLS LAST)
+    nulls_first: Optional[bool] = None  # None = the default_null_order setting
+    direction_given: bool = False  # ASC or DESC written (else: default_order)
 
 
 @dataclass

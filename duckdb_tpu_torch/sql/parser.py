@@ -298,7 +298,7 @@ class Parser:
                         (self._rewrite_grouping(_copy.deepcopy(oi.expr),
                                                 absent), al))
                 order_by[idx] = N.OrderItem(N.ColumnRef((al,)),
-                                            oi.descending, oi.nulls_first)
+                                            oi.descending, oi.nulls_first, oi.direction_given)
                 hidden.append(al)
             inner = N.SelectStatement(node, ctes=ctes)
             wrap = N.SelectNode(
@@ -347,7 +347,7 @@ class Parser:
                     al = f"__grp_ord_{idx}"
                     node.select_list.append((oi.expr, al))
                     order_by[idx] = N.OrderItem(
-                        N.ColumnRef((al,)), oi.descending, oi.nulls_first)
+                        N.ColumnRef((al,)), oi.descending, oi.nulls_first, oi.direction_given)
                     hidden.append(al)
             out = self._desugar_grouping_sets(node, grouping_sets)
             if hidden:
@@ -393,17 +393,17 @@ class Parser:
 
     def parse_order_item(self) -> N.OrderItem:
         e = self.parse_expr()
-        desc = False
+        desc = given = False
         if self.accept_kw("desc"):
-            desc = True
+            desc = given = True
         elif self.accept_kw("asc"):
-            pass
+            given = True
         nulls_first = None
         if self.accept_kw("nulls", "first"):
             nulls_first = True
         elif self.accept_kw("nulls", "last"):
             nulls_first = False
-        return N.OrderItem(e, descending=desc, nulls_first=nulls_first)
+        return N.OrderItem(e, descending=desc, nulls_first=nulls_first, direction_given=given)
 
     def parse_set_op_tree(self):
         left = self.parse_query_term()

@@ -7,7 +7,8 @@ host C++ compiler (`$CXX`, else g++ or c++) at first use into
 build/torch_kernels/, beside the grouped-sum kernel, and loaded with
 ctypes. As ops/grouped_sum.build does, the compiler writes a temporary
 name that is then renamed, so that concurrent processes never load a half
-written library. A failed build raises with the compiler's output.
+written library. A failed build raises with the compiler's output. `build`
+also compiles the C API (capi/capi.cpp).
 """
 
 from __future__ import annotations
@@ -45,23 +46,29 @@ def load(name: str, force: bool = False) -> ctypes.CDLL:
         if lib is not None and not force:
             return lib
         source = os.path.join(CSRC, f"{name}.cpp")
-        deps = [source, os.path.join(CSRC, "host_strings.h")]
         target = os.path.join(BUILD_DIR, f"lib{name}.so")
-        fresh = os.path.exists(target) and os.path.getmtime(target) >= max(
-            os.path.getmtime(d) for d in deps)
-        if force or not fresh:
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
-            cmd = [compiler(), "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-                   "-o", tmp, source]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"{cmd[0]} failed to build {source}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, target)
+        build(source, [os.path.join(CSRC, "host_strings.h")], target, force=force)
         lib = ctypes.CDLL(target)
         _libs[name] = lib
         return lib
+
+
+def build(source: str, deps, target: str, flags=(), force: bool = False):
+    """Compile `source` into the shared library `target` with the host
+    compiler, unless a build newer than it and `deps` exists (`force`:
+    build anyway). The compiler writes a temporary name that is renamed."""
+    fresh = os.path.exists(target) and os.path.getmtime(target) >= max(
+        os.path.getmtime(d) for d in [source, *deps])
+    if fresh and not force:
+        return
+    os.makedirs(os.path.dirname(target), exist_ok=True)
+    tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [compiler(), "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", *flags,
+           "-o", tmp, source]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cmd[0]} failed to build {source}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, target)
 
 
 def ptr(a: np.ndarray) -> ctypes.c_void_p:

@@ -10,8 +10,8 @@ the reads of the merge. Small results, such as an aggregate's partials,
 never touch the disk. A VARCHAR column keeps one append-only
 dictionary while chunks arrive (codes stay stable) and is re-sorted with
 one LUT rewrite at the end, so its dictionary is sorted as the catalog's
-are. The directory is the system temp directory (`TMPDIR`) until the
-settings (ROADMAP item 36) bring `temp_directory`.
+are. The directory is made under the database's `temp_directory` setting
+(main/settings.py; made if missing), else the system temp directory.
 """
 
 from __future__ import annotations
@@ -33,11 +33,23 @@ _REMAP_ROWS = 1 << 24
 HOST_BYTES = 64 << 20
 
 
-class SpillDir:
-    """One operation's temp directory; delete() reclaims its space."""
+def temp_root(catalog) -> Optional[str]:
+    """The temp_directory setting of the catalog's database (made if
+    missing); None (the system temp directory) when it is empty."""
+    settings = getattr(catalog, "settings", None)
+    d = str(settings.get("temp_directory", "")) if settings is not None else ""
+    if not d:
+        return None
+    os.makedirs(d, exist_ok=True)
+    return d
 
-    def __init__(self, tag: str):
-        self.path = tempfile.mkdtemp(prefix=f"duckdb_tpu_torch_{tag}_")
+
+class SpillDir:
+    """One operation's temp directory, under the catalog's temp_directory;
+    delete() reclaims its space."""
+
+    def __init__(self, tag: str, catalog=None):
+        self.path = tempfile.mkdtemp(prefix=f"duckdb_tpu_torch_{tag}_", dir=temp_root(catalog))
 
     def delete(self):
         shutil.rmtree(self.path, ignore_errors=True)

@@ -233,13 +233,15 @@ def test_random_and_uuids_per_row(cons):
 @pytest.mark.parametrize("sql,match", [
     ("SELECT nextval('s')", 'Sequence with name "s" does not exist'),
     ("SELECT currval('s')", 'Sequence with name "s" does not exist'),
-    ("SELECT current_setting('threads')", "current_setting.*not yet ported"),
+    ("SELECT current_setting('no_such_setting')",
+     'unrecognized configuration parameter "no_such_setting"'),
     ("SELECT concat_ws('-', n_name, n_comment) FROM nation", "concat_ws.*not yet ported"),
     ("SELECT hex(n_nationkey) FROM nation", "hex.*not yet ported"),
 ])
 def test_left_out_forms_say_not_ported(cons, sql, match):
     """The forms the port leaves out say so; nextval/currval are ported
-    (tests/test_torch_sequences_types.py) and name a missing sequence."""
+    (tests/test_torch_sequences_types.py) and name a missing sequence, and
+    current_setting (item 36) an unknown setting."""
     _, tcon = cons
     with pytest.raises(ValueError, match=match):
         tcon.sql(sql).rows()

@@ -269,10 +269,11 @@ def test_current_query_is_each_statements_text(data_dir):
 
 
 def test_current_setting_waits_for_settings(cons):
-    """(o) the settings are ROADMAP item 36."""
-    _, tcon = cons
-    with pytest.raises(ValueError, match="ROADMAP item 36.*not yet ported"):
-        tcon.sql("SELECT current_setting('threads')")
+    """(o) the settings came with ROADMAP item 36: current_setting() reads
+    the database's value; the JAX package gives '' (S1)."""
+    jcon, tcon = cons
+    assert tcon.sql("SELECT current_setting('threads')").rows() == [("0",)]
+    assert jcon.sql("SELECT current_setting('threads')").rows() == [("",)]
 
 
 def test_setseed_seeds_the_connection(data_dir):

@@ -1148,3 +1148,70 @@ def test_merge_and_alter_rename_then_q1_on_cuda(tmp_path):
         answers.append((count, rows, launches))
     (gc, gr, launches), (cc, cr, _) = answers
     assert (gc, gr) == (cc, cr) and launches >= 1
+
+
+@pytest.mark.gpu
+def test_explain_analyze_and_capi_q1_on_cuda(tmp_path):
+    """EXPLAIN ANALYZE of Q1 and Q1 through the C API (capi.cpp, loaded into
+    this process) on the card: both give the CPU run's rows, both launch the
+    grouped-sum kernel, and the kernel equals its plain version on each
+    input it was given."""
+    _need_cuda()
+    import ctypes
+
+    import chip_smoke
+    import duckdb_tpu_torch
+    import duckdb_tpu_torch.capi
+    from duckdb_tpu_torch.ops import grouped as grouped_mod
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path / "data"), 0.01, seed=7)
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path / "data"))
+    want = cpu.sql(chip_smoke.Q1).rows()
+    seen = []
+
+    def recording(dense, vectors, nseg):
+        seen.append((dense, list(vectors), nseg))
+        return GS.grouped_sum_i64(dense, vectors, nseg)
+
+    db_path = str(tmp_path / "db")
+    con = duckdb_tpu_torch.connect(db_path)
+    con.load_tpch(str(tmp_path / "data"), tables=["lineitem"])
+    grouped_mod.grouped_sum_i64 = recording
+    try:
+        GS.grouped_sum_i64.launches = 0
+        con.sql("EXPLAIN ANALYZE " + chip_smoke.Q1)
+        assert con.last_profile.result.rows() == want
+        assert GS.grouped_sum_i64.launches >= 1 and con.last_profile.root.cardinality == 4
+        con.sql("CHECKPOINT")
+        con.close()
+
+        lib = duckdb_tpu_torch.capi.library()
+        V, U = ctypes.c_void_p, ctypes.c_uint64
+
+        class CResult(ctypes.Structure):
+            _fields_ = [("internal_data", V)]
+
+        lib.duckdb_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(V)]
+        lib.duckdb_connect.argtypes = [V, ctypes.POINTER(V)]
+        lib.duckdb_query.argtypes = [V, ctypes.c_char_p, V]
+        lib.duckdb_value_int64.argtypes, lib.duckdb_value_int64.restype = [V, U, U], ctypes.c_int64
+        db, c, res = V(), V(), CResult()
+        assert lib.duckdb_open(db_path.encode(), ctypes.byref(db)) == 0
+        assert lib.duckdb_connect(db, ctypes.byref(c)) == 0
+        GS.grouped_sum_i64.launches = 0
+        assert lib.duckdb_query(c, chip_smoke.Q1.encode(), ctypes.byref(res)) == 0
+        assert GS.grouped_sum_i64.launches >= 1
+        assert [lib.duckdb_value_int64(ctypes.byref(res), 9, r) for r in range(4)] == \
+            [r[9] for r in want]
+        lib.duckdb_destroy_result(ctypes.byref(res))
+        lib.duckdb_disconnect(ctypes.byref(c))
+        lib.duckdb_close(ctypes.byref(db))
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    assert seen and all(d.device.type == "cuda" for d, _, _ in seen)
+    for dense, vecs, nseg in seen:
+        for g, w in zip(GS.grouped_sum_i64(dense, vecs, nseg),
+                        GS.grouped_sum_i64_plain(dense, vecs, nseg)):
+            assert torch.equal(g, w)

@@ -3,7 +3,9 @@ unless asked.
 
 The machine with the GPU has no JAX and no pyarrow, so duckdb_tpu_torch and
 chip_smoke.py must import neither jax, nor anything of the JAX package, nor
-pyarrow (the port reads and writes Parquet with its own codec).
+pyarrow (the port reads and writes Parquet with its own codec). The port's
+C++ sources (csrc/, capi/) name no module of the JAX package either: the C
+API imports the port's own bridge.
 """
 
 import os
@@ -27,6 +29,31 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|duckdb_tpu|pyarrow)\b", re.MUL
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     assert not FORBIDDEN.findall(path.read_text()), path
+
+
+# the port's C++ and CUDA sources (the kernels, the file readers' host
+# libraries, the C API): a string naming a module of the JAX package
+# ("duckdb_tpu.…", say the C API importing its bridge) or an include of
+# its headers
+CXX_FILES = sorted(p for d in ("csrc", "capi") for p in (ROOT / "duckdb_tpu_torch" / d).iterdir()
+                   if p.suffix in (".cpp", ".cu", ".h", ".cuh"))
+CXX_FORBIDDEN = re.compile(r'"duckdb_tpu\.|#\s*include\s*[<"](jax|duckdb_tpu/|duckdb_tpu\.h)')
+
+
+@pytest.mark.parametrize("path", CXX_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_cxx_sources_name_no_jax_module(path):
+    assert not CXX_FORBIDDEN.findall(path.read_text()), path
+
+
+def test_cxx_scan_finds_what_it_forbids():
+    assert {p.name for p in CXX_FILES} >= {"grouped_sum.cu", "csv2col.cpp", "capi.cpp",
+                                           "duckdb_tpu_torch.h"}
+    for bad in ('PyImport_ImportModule("duckdb_tpu.capi.bridge")', '#include "duckdb_tpu.h"',
+                "#include <duckdb_tpu/capi/capi.h>"):
+        assert CXX_FORBIDDEN.search(bad), bad
+    for good in ('PyImport_ImportModule("duckdb_tpu_torch.capi.bridge")',
+                 '#include "duckdb_tpu_torch.h"', "/* a copy of duckdb_tpu/capi/capi.cpp */"):
+        assert not CXX_FORBIDDEN.search(good), good
 
 
 def test_imports_with_jax_blocked():
@@ -68,4 +95,4 @@ def test_not_yet_ported_sql_says_so():
     with pytest.raises(ValueError, match="not yet ported"):
         con.sql("SELECT * FROM t").df()  # pandas: ROADMAP item 35b
     with pytest.raises(ValueError, match="not yet ported"):
-        con.sql("SET threads = 2")  # a setting of ROADMAP item 36
+        con.sql("SELECT hex(a) FROM t")  # refused by the JAX package too

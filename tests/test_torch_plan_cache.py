@@ -5,8 +5,8 @@ its plan, every statement but a SELECT empties the cache (with the
 hidden tables its plans own), a text of several statements is never
 cached, and a join's build state cached on a warm plan is keyed by the
 versions of the tables under it, so DML on either side is seen. The
-answers are held to the JAX package's. `SET threads` is a setting of
-ROADMAP item 36 in the port, so the SET case uses num_shards; the DDL
+answers are held to the JAX package's. The SET case uses num_shards, a
+setting the port honours; the DDL
 case uses CREATE OR REPLACE TABLE (tests/test_torch_alter.py holds the
 ALTER case of tests/test_plan_cache.py). The JAX
 package leaves a plan with random() uncached; the port evaluates random()

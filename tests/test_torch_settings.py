@@ -1,15 +1,25 @@
-"""SET and RESET in duckdb_tpu_torch (main/settings.py), on the CPU.
+"""SET, RESET, current_setting() and duckdb_settings() in
+duckdb_tpu_torch (main/settings.py), on the CPU, against the JAX package.
 
-The four settings the port honours take effect: num_shards,
+The registry is the JAX package's: its 24 own settings and DuckDB's other
+163, with the same names, types, scopes, defaults and aliases, but for the
+port's two deliberate defaults (num_shards 1, not AUTO; memory_limit '0',
+not "80% of HBM"). The settings the port honours take effect: num_shards,
 auto_shard_rows and exchange_join_threshold route operators over the mesh
-(held through `con.routes`), memory_limit sets the device buffer pool's
-limit, so that `SET memory_limit = '1MB'` sends a query down the
-out-of-core route with the rows of the in-memory run. An unknown name
-raises the JAX package's message; every other name of its registry, its
-own and DuckDB's, raises "not yet ported", naming ROADMAP item 36, instead
-of being ignored. num_shards defaults to 1 (the JAX package's default is
-0, AUTO).
+(held through `con.routes`), memory_limit sends a query down the
+out-of-core route, temp_directory holds its spill files, join_order picks
+the join-order search, pallas_grouped_sum 'off' keeps int64 sums off the
+grouped-sum kernel, default_order and default_null_order order ORDER BY
+terms that name no direction, and a time zone other than UTC raises. The
+rest is accepted and stored. An unknown name raises the JAX package's
+message.
+
+The JAX package's faults held to DuckDB: S1, current_setting() gives ''
+whatever was SET; S3, default_order and default_null_order change nothing.
 """
+
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -21,7 +31,6 @@ from duckdb_tpu.main import settings as JSET
 from duckdb_tpu_torch.catalog import catalog as C
 from duckdb_tpu_torch.main import settings as TSET
 from duckdb_tpu_torch.parallel import shard as TS
-from duckdb_tpu_torch.planner.bound import BindError
 from duckdb_tpu_torch.types import BIGINT
 
 torch.set_num_threads(1)
@@ -57,24 +66,25 @@ def run(con, sql):
     return con.sql(sql).rows(), dict(con.routes)
 
 
+# the port's deliberate defaults (main/settings.py's docstring says why)
+DELIBERATE = {"num_shards": (1, 0), "memory_limit": ("0", "80% of HBM")}
+
+
 def test_registry_matches_the_jax_package():
     """Every setting of the JAX package's registry (its own and DuckDB's),
-    either wired or refused as not yet ported, and DuckDB's aliases; the
-    wired ones keep the JAX package's defaults but for num_shards."""
+    in its order, with its names, types, scopes and defaults (but the two
+    deliberate ones), and DuckDB's aliases."""
     from duckdb_tpu.main import settings_compat as JC
 
-    wired = {s.name for s in TSET.SETTINGS}
-    assert wired == {"num_shards", "auto_shard_rows", "exchange_join_threshold", "memory_limit",
-                     "checkpoint_threshold", "debug_checkpoint_abort",
-                     "debug_force_commit_failure"}
-    assert not wired & TSET.NOT_PORTED
-    assert wired | TSET.NOT_PORTED == {s.name for s in JSET.SETTINGS}
-    assert len(TSET.NOT_PORTED) == 180  # 183 less the three file-database settings
+    assert [s.name for s in TSET.SETTINGS] == [s.name for s in JSET.SETTINGS]
+    assert len(TSET.SETTINGS) == 187
+    for t, j in zip(TSET.SETTINGS, JSET.SETTINGS):
+        assert (t.typ, t.scope) == (j.typ, j.scope), t.name
+        if t.name in DELIBERATE:
+            assert (t.default, j.default) == DELIBERATE[t.name]
+        else:
+            assert t.default == j.default and type(t.default) is type(j.default), t.name
     assert TSET.SETTING_ALIASES == JC.SETTING_ALIASES
-    for name in ("auto_shard_rows", "exchange_join_threshold", "checkpoint_threshold",
-                 "debug_checkpoint_abort", "debug_force_commit_failure"):
-        assert TSET.BY_NAME[name].default == JSET.BY_NAME[name].default
-        assert TSET.BY_NAME[name].typ == JSET.BY_NAME[name].typ
     # the port runs on one device unless asked; the JAX package's AUTO
     assert TSET.BY_NAME["num_shards"].default == 1 and JSET.BY_NAME["num_shards"].default == 0
 
@@ -162,12 +172,17 @@ def test_unknown_setting_says_so_as_the_jax_package(con):
     ("allocator_flush_threshold", "'1MB'"), ("worker_threads", "2"),
     ("preserve_insertion_order", "false"), ("TimeZone", "'UTC'")])
 def test_unwired_settings_raise_naming_item_36(con, name, value):
-    """A SET that changed nothing would seem to have worked."""
-    with pytest.raises(BindError, match="not yet ported.*") as err:
-        con.sql(f"SET {name} = {value}")
-    assert "item 36" in str(err.value)
-    with pytest.raises(BindError, match="item 36"):
-        con.sql(f"RESET {name}")
+    """The settings item 36 brought: SET stores the value (current_setting()
+    reads it back as duckdb_settings() shows it), RESET restores the
+    default, through an alias too (worker_threads is threads)."""
+    canon = TSET.canonical(name)
+    con.sql(f"SET {name} = {value}")
+    shown = str(con.settings.get(canon))
+    assert con.sql(f"SELECT current_setting('{name}')").rows() == [(shown,)]
+    assert con.sql(f"SELECT value FROM duckdb_settings() WHERE name = '{canon}'").rows() \
+        == [(shown,)]
+    con.sql(f"RESET {name}")
+    assert con.settings.get(canon) == TSET.BY_NAME[canon].default
 
 
 def test_bad_values(con):
@@ -183,5 +198,155 @@ def test_bad_values(con):
 @pytest.mark.parametrize("sql", ["SELECT current_setting('num_shards')",
                                  "SELECT * FROM duckdb_settings()"])
 def test_reading_settings_waits_for_item_36(con, sql):
-    with pytest.raises(BindError, match="36"):
-        con.sql(sql).rows()
+    """Item 36 brought both: they read the database's settings."""
+    rows = con.sql(sql).rows()
+    if "current_setting" in sql:
+        assert rows == [("1",)]
+    else:
+        assert rows == con.settings.rows() and len(rows) == 187
+
+
+# -- item 36: the whole registry, and what the new settings change ----------------------
+def test_duckdb_settings_rows_match_the_jax_package(con):
+    """duckdb_settings()' name, value, input_type and scope columns against
+    the JAX package's, in its order; values differ only in the deliberate
+    defaults."""
+    sql = "SELECT name, value, input_type, scope FROM duckdb_settings()"
+    mine, theirs = con.sql(sql).rows(), duckdb_tpu.connect().sql(sql).rows()
+    assert len(mine) == len(theirs) == 187
+    for m, t in zip(mine, theirs):
+        if m[0] in DELIBERATE:
+            assert (m[1], t[1]) == tuple(str(v) for v in DELIBERATE[m[0]])
+            m, t = (m[0],) + m[2:], (t[0],) + t[2:]
+        assert m == t
+    described = dict(con.sql("SELECT name, description FROM duckdb_settings()").rows())
+    assert described["access_mode"].endswith("(accepted for reference compatibility; no "
+                                             "engine effect)")
+    assert described["threads"].endswith("(accepted and stored; no effect in the port)")
+
+
+def test_s1_current_setting_reads_what_was_set(con):
+    """The JAX package's current_setting() gives '' whatever was SET (S1)."""
+    jcon = duckdb_tpu.connect()
+    sql = "SELECT current_setting('memory_limit'), current_setting('max_memory')"
+    for c in (con, jcon):
+        c.sql("SET memory_limit = '1GB'")
+    assert con.sql(sql).rows() == [("1GB", "1GB")]
+    assert jcon.sql(sql).rows() != [("1GB", "1GB")]
+    for c in (con, jcon):
+        c.sql("RESET memory_limit")
+    assert con.sql(sql).rows() == [("0", "0")]
+    assert con.sql("SELECT current_setting('enable_profiling')").rows() == [("False",)]
+    con.sql("PRAGMA enable_profiling")
+    assert con.sql("SELECT current_setting('enable_profiling')").rows() == [("True",)]
+    con.sql("PRAGMA disable_profiling")
+    with pytest.raises(ValueError, match='unrecognized configuration parameter "nope"'):
+        con.sql("SELECT current_setting('nope')")
+
+
+NULLS = "(VALUES (2), (NULL), (1), (3)) t(x)"
+
+
+@pytest.mark.parametrize("setting,value,sql,want", [
+    ("default_order", "desc", f"SELECT x FROM {NULLS} ORDER BY x", [3, 2, 1, None]),
+    ("default_order", "descending", f"SELECT x FROM {NULLS} ORDER BY x ASC", [1, 2, 3, None]),
+    ("default_null_order", "nulls_first", f"SELECT x FROM {NULLS} ORDER BY x",
+     [None, 1, 2, 3]),
+    ("default_null_order", "nulls_first", f"SELECT x FROM {NULLS} ORDER BY x NULLS LAST",
+     [1, 2, 3, None]),
+    ("default_null_order", "nulls_first_on_asc_last_on_desc",
+     f"SELECT x FROM {NULLS} ORDER BY x", [None, 1, 2, 3]),
+    ("default_null_order", "nulls_last_on_asc_first_on_desc",
+     f"SELECT x FROM {NULLS} ORDER BY x DESC", [None, 3, 2, 1]),
+    ("default_order", "desc",
+     f"SELECT x, row_number() OVER (ORDER BY x) FROM {NULLS} WHERE x IS NOT NULL ORDER BY x ASC",
+     [(1, 3), (2, 2), (3, 1)]),
+])
+def test_s3_default_orders_follow_duckdb(con, setting, value, sql, want):
+    """An ORDER BY term that names no direction or NULLS placement takes
+    default_order / default_null_order, as in DuckDB; the JAX package
+    accepts both and changes nothing (S3)."""
+    jcon = duckdb_tpu.connect()
+    for c in (con, jcon):
+        c.sql(f"SET {setting} = '{value}'")
+    rows = con.sql(sql).rows()
+    assert (rows if isinstance(want[0], tuple) else [r[0] for r in rows]) == want
+    if "ASC" not in sql and "NULLS LAST" not in sql:
+        jrows = jcon.sql(sql).rows()
+        assert (jrows if isinstance(want[0], tuple) else [r[0] for r in jrows]) != want
+    con.sql(f"RESET {setting}")
+    assert [r[0] for r in con.sql(f"SELECT x FROM {NULLS} ORDER BY x").rows()] \
+        == [1, 2, 3, None]
+
+
+def test_join_order_greedy_and_dp_give_the_same_rows(con, monkeypatch):
+    from duckdb_tpu_torch.planner import join_order as TJO
+
+    calls = []
+    real = TJO.dp_join_order
+    monkeypatch.setattr(TJO, "dp_join_order", lambda *a: calls.append(1) or real(*a))
+    con.sql("CREATE TABLE e (k BIGINT, z BIGINT)")
+    con.sql("INSERT INTO e SELECT range, range * 3 FROM range(7)")
+    sql = ("SELECT t.g, count(*), sum(d.w), sum(e.z) FROM t JOIN d ON t.g = d.k "
+           "JOIN e ON d.k = e.k WHERE t.i < 5000 GROUP BY t.g ORDER BY t.g")
+    dp = con.sql(sql).rows()
+    assert calls and con.settings.get("join_order") == "dp"
+    calls.clear()
+    con.sql("SET join_order = 'greedy'")
+    assert con.sql(sql).rows() == dp and not calls
+    con.sql("RESET join_order")
+    assert con.sql(sql).rows() == dp and calls
+    with pytest.raises(ValueError, match="join_order must be one of"):
+        con.sql("SET join_order = 'random'")
+
+
+def test_pallas_grouped_sum_off_keeps_sums_off_the_kernel(con, monkeypatch):
+    """'off' sends the int64 sums of up to 256 slots to index_add_ (the
+    route of wider domains), with the same rows; RESET brings the kernel
+    back. The value is checked as the JAX package checks it."""
+    from duckdb_tpu_torch.ops import grouped as TG
+
+    calls = []
+    real = TG.grouped_sum_i64
+    monkeypatch.setattr(TG, "grouped_sum_i64", lambda *a: calls.append(1) or real(*a))
+    on = con.sql(AGG).rows()
+    assert on == WANT and calls
+    calls.clear()
+    con.sql("SET pallas_grouped_sum = 'off'")
+    assert con.sql(AGG).rows() == WANT and not calls
+    con.sql("RESET pallas_grouped_sum")
+    assert con.sql(AGG).rows() == WANT and calls
+    with pytest.raises(ValueError, match="pallas_grouped_sum must be one of"):
+        con.sql("SET pallas_grouped_sum = 'sometimes'")
+    with pytest.raises(ValueError, match="must be 'auto', 'on', or 'off'"):
+        duckdb_tpu.connect().sql("SET pallas_grouped_sum = 'sometimes'")
+
+
+def test_temp_directory_holds_the_spill_files(con, monkeypatch, tmp_path):
+    """Out-of-core spill directories are made under temp_directory (made if
+    missing), as the JAX package's are; empty is the system temp."""
+    from duckdb_tpu_torch.storage import spill as TSP
+
+    made = []
+    monkeypatch.setattr(TSP, "HOST_BYTES", 1 << 10)  # every chunk goes to files
+    monkeypatch.setattr(TSP.SpillDir, "delete", lambda self: made.append(self.path))
+    where = tmp_path / "spill_here"
+    con.sql(f"SET temp_directory = '{where}'")
+    con.sql("SET memory_limit = '1MB'")
+    con.routes.clear()
+    rows = con.sql("SELECT i, g FROM t WHERE g = 3 ORDER BY i").rows()
+    assert [r[0] for r in rows] == list(range(3, 100_000, 7))
+    assert con.routes["out_of_core"] == 1
+    assert made and all(os.path.dirname(p) == str(where) for p in made)
+    assert any(os.listdir(p) for p in made)  # the chunks' columns, in files
+    con.sql("RESET temp_directory")
+    made.clear()
+    con.sql("SELECT i, g FROM t WHERE g = 2 ORDER BY i").rows()
+    assert made and all(os.path.dirname(p) == tempfile.gettempdir() for p in made)
+
+
+def test_timezone_is_utc_only(con):
+    con.sql("SET timezone = 'UTC'")
+    with pytest.raises(ValueError, match="UTC only"):
+        con.sql("SET TimeZone = 'America/New_York'")
+    assert con.sql("SELECT current_setting('timezone')").rows() == [("UTC",)]
