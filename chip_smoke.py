@@ -299,8 +299,32 @@ Phases (any failure exits non-zero before the result lines):
    through the kernel. Each Q1's
    grouped sum is held to the plain version (max abs err 0) and timed;
    each step prints its wall ms, host syncs and host<->device bytes
-   beside the card's name and power limit. The script's whole time is
-   printed last.
+   beside the card's name and power limit.
+23. the grammar fuzzer (testing/fuzz.py) on a card connection against a
+   CPU connection of the port: SETUP's tables and seeds 1, 7 and 11 × 400
+   queries, then t1 and t2 by SETUP's formulas over range(1,000,000) and
+   range(400,000) and seed 1 × 200 queries. No non-typed error on the card;
+   where both answer, the same rows (DOUBLE within 1e-9 relative; in order
+   under a top-level ORDER BY without LIMIT, the first column in order with
+   one, the row count only under a LIMIT without ORDER BY, else as
+   multisets); where one refuses, the other with the same class. Every
+   grouped-sum launch of the card queries is held to the plain version
+   (max abs err 0) right after the query's wall and each shape timed once;
+   each step prints its counts, its median query wall and its seconds.
+24. two processes started by spawn over one ProcessMesh
+   (parallel/shard.py) on the card: gloo, both ranks on cuda:0 with two
+   shards each, the collectives staged through the host. Each rank reads
+   its half of lineitem and orders with numpy and runs Q1's partial
+   through the kernel then an all_reduce (each rank's launches held to
+   the plain version and reported through the group), the exchange join
+   of l_orderkey into orders (each rank checks that its shards received
+   exactly the rows their hash owns, each with its order's row), lineitem
+   against itself on l_orderkey (the pair count against numpy's Σ count²),
+   the sharded sort on l_extendedprice and a TopN of 100 by it descending,
+   all held to numpy. Each step prints its wall, the bytes sent between
+   ranks and staged through the host, and the backend.
+   `tools/chip_phase24.py --backend nccl --world 4` runs it with one card
+   per rank. The script's whole time is printed last.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -2739,6 +2763,372 @@ def main_clients_phase(con, card, recording, recorded, launches_by_query, shapes
     return bad
 
 
+# phase 23: the fuzzer's seeds and sizes, card against CPU
+FUZZ_SMALL = ((1, 400), (7, 400), (11, 400))  # (seed, queries) over SETUP's tables
+FUZZ_BIG = ((1, 200),)  # over t1 of FUZZ_T1_ROWS and t2 of FUZZ_T2_ROWS rows
+FUZZ_T1_ROWS, FUZZ_T2_ROWS = 1_000_000, 400_000
+
+
+def fuzz_phase(card, launches_by_query, shapes, reps) -> str:
+    """Phase 23: the grammar fuzzer (duckdb_tpu_torch/testing/fuzz.py) on a
+    card connection against a CPU connection of the port. Step 1: SETUP's
+    tables, FUZZ_SMALL's seeds; step 2: t1 and t2 by SETUP's formulas at
+    FUZZ_T1_ROWS / FUZZ_T2_ROWS rows, FUZZ_BIG's seeds. No non-typed error
+    on the card; where both answer, the same rows (fuzz.rows_differ); where
+    one refuses, the other refuses with the same class. Every grouped-sum
+    launch a card query makes is held to the plain version on its inputs
+    right after the query's wall is taken (the launches made by that check
+    and by timing are not counted), and each new shape is timed once. → ''
+    or the failure."""
+    import torch
+
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.ops import grouped as grouped_mod
+    from duckdb_tpu_torch.ops import grouped_sum as GS
+    from duckdb_tpu_torch.testing import fuzz as FZ
+
+    phase_t0 = time.perf_counter()
+    recorded, timed = [], set()
+    worst = [0]
+
+    def recording(dense, vectors, nseg):
+        if dense.is_cuda:
+            recorded.append((dense, list(vectors), nseg))
+        return GS.grouped_sum_i64(dense, vectors, nseg)
+
+    def check_launches(step):
+        def after_card(i, sql):
+            counted = GS.grouped_sum_i64.launches
+            try:
+                for dense, vecs, nseg in recorded:
+                    err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
+                                      GS.grouped_sum_i64_plain(dense, vecs, nseg))
+                    worst[0] = max(worst[0], err)
+                    if err:
+                        return f"grouped_sum_i64 disagrees with its plain version (err {err})"
+                    shape = (dense.shape[0], len(vecs), nseg)
+                    if shape in timed:
+                        continue
+                    timed.add(shape)
+                    k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+                    b_ms, b_by, _, _ = bound_of(dense, vecs, nseg)
+                    shapes.append({"query": f"fuzz_{step}", "n": shape[0], "k": shape[1],
+                                   "nseg": nseg, "max_abs_err": 0, "kernel_ms": k_ms,
+                                   "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                   "library_ms": l_ms})
+                return ""
+            finally:
+                recorded.clear()
+                GS.grouped_sum_i64.launches = counted
+        return after_card
+
+    def run_step(step, setup, seeds):
+        t0 = time.perf_counter()
+        card_con = duckdb_tpu_torch.connect()
+        cpu_con = duckdb_tpu_torch.connect(device="cpu")
+        for stmt in setup:
+            card_con.sql(stmt)
+            cpu_con.sql(stmt)
+        setup_s = time.perf_counter() - t0
+        grouped_mod.grouped_sum_i64 = recording
+        GS.grouped_sum_i64.launches = 0
+        try:
+            answered = refused = 0
+            walls, problems = [], []
+            for seed, n in seeds:
+                a, r, p, w = FZ.card_against_cpu(n, seed, card_con, cpu_con,
+                                                 after_card=check_launches(step))
+                answered, refused = answered + a, refused + r
+                walls += w
+                problems += [(seed,) + x for x in p]
+        finally:
+            grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+        launches = launches_by_query[f"fuzz_{step}"] = GS.grouped_sum_i64.launches
+        print(f"phase 23 step {step} on {card}: seeds {seeds}, {answered} answered and {refused} "
+              f"refused by both, median query wall {statistics.median(walls) * 1e3:.3f} ms on the "
+              f"card (max {max(walls) * 1e3:.3f} ms), {launches} grouped_sum_i64 launches, "
+              f"tables made in {setup_s:.1f} s, step {time.perf_counter() - t0:.1f} s")
+        if problems:
+            seed, i, sql, what = problems[0]
+            return (f"phase 23 step {step}: {len(problems)} problem(s); first: seed {seed} "
+                    f"query {i}: {what}\n  {sql}")
+        return ""
+
+    bad = run_step("small", FZ.SETUP, FUZZ_SMALL)
+    if bad:
+        return bad
+    bad = run_step("big", FZ.sized_setup(FUZZ_T1_ROWS, FUZZ_T2_ROWS), FUZZ_BIG)
+    if bad:
+        return bad
+    total = launches_by_query["fuzz_small"] + launches_by_query["fuzz_big"]
+    if total < 1:
+        return "phase 23: the fuzz queries on the card never launched grouped_sum_i64"
+    torch.cuda.synchronize()
+    print(f"phase 23 on {card}: every grouped_sum_i64 launch ({total}) equals its plain version "
+          f"(max abs err {worst[0]}); {len(timed)} shapes timed; phase "
+          f"{time.perf_counter() - phase_t0:.1f} s")
+    return ""
+
+
+# phase 24: two processes on the card (gloo), or one card per rank (NCCL)
+PHASE24_LOCAL = 2  # shards per rank
+PHASE24_TOPN = 100
+PHASE24_DIR = os.path.join(ROOT, "build", "phase24")
+Q1_CUT_DAYS = 10471  # DATE '1998-09-02' as days since 1970-01-01
+
+
+def _table_col(data_dir: str, table: str, name: str):
+    import numpy as np
+
+    t = os.path.join(data_dir, table)
+    for ext, dt in ((".i64", np.int64), (".i32", np.int32)):
+        if os.path.exists(os.path.join(t, name + ext)):
+            return np.fromfile(os.path.join(t, name + ext), dtype=dt).astype(np.int64)
+    raise FileNotFoundError(f"{table}.{name}")
+
+
+def q1_inputs_numpy(cols: dict):
+    """Q1's grouped-sum inputs from lineitem_numpy's columns: the six
+    (returnflag, linestatus) pairs as slots 0-5 of 8, and the rows the
+    shipdate cut keeps."""
+    import numpy as np
+
+    rf = np.searchsorted(np.array([b"A", b"N", b"R"]), cols["l_returnflag"])
+    ls = np.searchsorted(np.array([b"F", b"O"]), cols["l_linestatus"])
+    gid = (rf * 2 + ls).astype(np.int32)
+    live = cols["l_shipdate"] <= Q1_CUT_DAYS
+    return (cols["l_quantity"], cols["l_extendedprice"], cols["l_discount"], cols["l_tax"],
+            gid, live)
+
+
+def numpy_q1_sums(cols: dict):
+    """The six per-slot sums of q1_local_partial over all of lineitem."""
+    import numpy as np
+
+    qty, price, disc, tax, gid, live = q1_inputs_numpy(cols)
+    omd = price * (100 - disc)
+    vals = (qty, price, omd, omd * (100 + tax), disc, np.ones_like(qty))
+    return np.array([[int(v[live & (gid == g)].sum()) for g in range(8)] for v in vals],
+                    dtype=np.int64)
+
+
+def phase24_rank(rank, world, backend, local, port, data_dir, out_dir, device_type="cuda"):
+    """One rank of phase 24 (a torch.multiprocessing.spawn target): joins the
+    process group, reads its half of lineitem and of orders with numpy, and
+    runs Q1's partial through the kernel, the exchange join, the
+    duplicate-key join, the sharded sort and a TopN over the ProcessMesh,
+    checking what it can on its own. Writes out_dir/rank<r>.json (and the
+    sort's and the TopN's row ids as .npy) for the parent to check."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from duckdb_tpu_torch.ops import grouped_sum as GS
+    from duckdb_tpu_torch.ops import sort as S
+    from duckdb_tpu_torch.parallel import shard as TS
+
+    torch.set_num_threads(1)
+    if device_type == "cuda":
+        device = torch.device("cuda", rank if backend == "nccl" else 0)
+    else:
+        device = torch.device("cpu")
+    mesh = TS.init_process_mesh(backend, local, init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank, device=device)
+    if device.type == "cuda":
+        GS.build()
+    li = lineitem_numpy(data_dir)
+    o_key = _table_col(data_dir, "orders", "o_orderkey")
+    n, n_o = len(li["l_orderkey"]), len(o_key)
+    lo, hi = rank * n // world, (rank + 1) * n // world
+    o_lo, o_hi = rank * n_o // world, (rank + 1) * n_o // world
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    steps = {}
+
+    def step(name, fn):
+        sync()
+        before = dict(TS.COPIED)
+        t0 = time.perf_counter()
+        value = fn()
+        sync()
+        steps[name] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                       "sent_bytes": TS.COPIED["sent"] - before["sent"],
+                       "staged_bytes": TS.COPIED["staged"] - before["staged"]}
+        return value
+
+    out = {"rank": rank, "world": world, "backend": backend, "device": str(device),
+           "mesh": repr(mesh), "rows": hi - lo}
+    # 1. Q1's partial through the kernel on each of this rank's shards, then all_reduce
+    q1_in = [on(x[lo:hi]) for x in q1_inputs_numpy(li)]
+    partial, recorded = TS.q1_local_partial, []
+
+    def recording(*args):
+        out = partial(*args)
+        recorded.append((args, out))
+        return out
+
+    TS.q1_local_partial = recording
+    GS.grouped_sum_i64.launches = 0
+    try:
+        sums = step("q1_partial", lambda: TS.make_sharded_q1(mesh, 8)(*q1_in))
+    finally:
+        TS.q1_local_partial = partial
+    launches = GS.grouped_sum_i64.launches
+    # each launch's result held to the plain version on the same inputs
+    err = max((max_abs_err(out, GS.grouped_sum_i64_plain(*TS.q1_partial_inputs(*args), args[-1]))
+               for args, out in recorded), default=0)
+    if device.type == "cuda" and recorded:  # the first shard's shape, timed once
+        dense, vecs = TS.q1_partial_inputs(*recorded[0][0])
+        k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, 8, 20)
+        b_ms, b_by, _, _ = bound_of(dense, vecs, 8)
+        out["kernel_shape"] = {"n": dense.shape[0], "k": len(vecs), "nseg": 8, "kernel_ms": k_ms,
+                               "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                               "bound_by": b_by}
+    sync()
+    out["q1_sums"] = torch.stack(sums).cpu().tolist()
+    # every rank's launches and error, read on each rank in one all_gather
+    out["kernel_by_rank"] = TS.all_host_ints(mesh, [torch.tensor([launches, err], device=device)])
+    if device.type == "cuda" and launches < 1:
+        raise RuntimeError(f"rank {rank}: Q1's partial never launched grouped_sum_i64")
+    # 2. the exchange join: lineitem's orderkey probes orders' (unique keys)
+    rows, o_rows = torch.arange(lo, hi, device=device), torch.arange(o_lo, o_hi, device=device)
+    ones = torch.ones(hi - lo, dtype=torch.bool, device=device)
+    o_ones = torch.ones(o_hi - o_lo, dtype=torch.bool, device=device)
+    pk = on(li["l_orderkey"][lo:hi])
+    j = step("exchange_join", lambda: TS.make_exchange_join(mesh)(
+        pk, ones, rows, on(o_key[o_lo:o_hi]), o_ones, o_rows))
+    # held here: every probe row this rank's shards own (by the key's hash)
+    # arrives once, with its order's row
+    all_keys = on(li["l_orderkey"])
+    owner = TS._hash_dest(all_keys, mesh.n)
+    o_sorted, o_perm = torch.sort(on(o_key))
+    pairs = 0
+    for jl, (rp, br) in enumerate(zip(j.rp, j.br)):
+        want_rp = torch.nonzero(owner == mesh.first + jl).reshape(-1)
+        got_rp, order = torch.sort(rp)
+        if not torch.equal(got_rp, want_rp):
+            raise RuntimeError(f"rank {rank} shard {jl}: the exchange routed other probe rows")
+        want_br = o_perm[torch.searchsorted(o_sorted, all_keys[got_rp])]
+        if not torch.equal(br[order], want_br):
+            raise RuntimeError(f"rank {rank} shard {jl}: a probe row met the wrong order")
+        pairs += rp.numel()
+    out["join_pairs"] = pairs
+    # 3. lineitem against itself on l_orderkey (duplicate build keys)
+    dj = step("dup_join", lambda: TS.make_exchange_join_dup(mesh)(pk, ones, rows, pk, ones, rows))
+    out["dup_pairs"] = sum(x.numel() for x in dj.pr)
+    for pr, br in zip(dj.pr, dj.br):
+        if not torch.equal(all_keys[pr], all_keys[br]):
+            raise RuntimeError(f"rank {rank}: a duplicate-key pair joins two orderkeys")
+    del dj
+    # 4. ORDER BY l_extendedprice, row id; 5. its TopN, DESC
+    price = on(li["l_extendedprice"][lo:hi])
+    keys = S.orderable_int64(price, None, False, False)[None]
+    got = step("sort", lambda: TS.make_sharded_sort(mesh, 1)(keys, ones, rows))
+    np.save(os.path.join(out_dir, f"sort_rank{rank}.npy"), torch.cat(got).cpu().numpy())
+    dkeys = S.orderable_int64(price, None, True, False)[None]
+
+    def topn():
+        cand = TS.make_sharded_topn(mesh, PHASE24_TOPN, 1)(dkeys, ones, rows)
+        return cand.rows[S.sort_permutation(list(cand.keys), cand.live)][:PHASE24_TOPN]
+
+    np.save(os.path.join(out_dir, f"topn_rank{rank}.npy"), step("topn", topn).cpu().numpy())
+    out["steps"] = steps
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def process_mesh_phase(card, launches_by_query, backend="gloo", world=2,
+                       device_type="cuda", shapes=None) -> str:
+    """Phase 24: `world` ranks started by spawn (CUDA is already initialized
+    here), each with PHASE24_LOCAL shards: under gloo all on cuda:0, their
+    collectives staged through the host; under NCCL one card each. Checks
+    each rank's results (phase24_rank) against numpy: Q1's psum, the
+    exchange join's pairs, the duplicate-key join's pair count, the sort's
+    order and the TopN; every rank's grouped-sum launches held to the plain
+    version (max abs err 0). → '' or the failure."""
+    import shutil
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PHASE24_DIR, ignore_errors=True)
+    os.makedirs(PHASE24_DIR)
+    mp.spawn(phase24_rank, nprocs=world, join=True,
+             args=(world, backend, PHASE24_LOCAL, _free_port(), DATA, PHASE24_DIR, device_type))
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(PHASE24_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    li = lineitem_numpy(DATA)
+    want_q1 = numpy_q1_sums(li)
+    if not all(np.array_equal(np.array(x["q1_sums"]), want_q1) for x in ranks):
+        return "phase 24: Q1's all_reduced partial sums differ from numpy"
+    by_rank = ranks[0]["kernel_by_rank"]
+    for r, (launches, err) in enumerate(by_rank):
+        launches_by_query[f"q1_partial_phase24_rank{r}"] = launches
+        if err:
+            return f"phase 24: rank {r}'s grouped_sum_i64 disagrees with its plain version"
+        if device_type == "cuda" and launches < 1:
+            return f"phase 24: rank {r} never launched grouped_sum_i64"
+    n = len(li["l_orderkey"])
+    if sum(x["join_pairs"] for x in ranks) != n:
+        return "phase 24: the exchange join's pairs do not cover lineitem"
+    _, counts = np.unique(li["l_orderkey"], return_counts=True)
+    if sum(x["dup_pairs"] for x in ranks) != int((counts.astype(np.int64) ** 2).sum()):
+        return "phase 24: the duplicate-key join's pair count differs from numpy's"
+    price = li["l_extendedprice"]
+    got = np.concatenate([np.load(os.path.join(PHASE24_DIR, f"sort_rank{r}.npy"))
+                          for r in range(world)])
+    if not np.array_equal(got, np.argsort(price, kind="stable")):
+        return "phase 24: the sharded sort's order differs from numpy's stable argsort"
+    want_top = np.lexsort((np.arange(n), -price))[:PHASE24_TOPN]
+    for r in range(world):
+        if not np.array_equal(np.load(os.path.join(PHASE24_DIR, f"topn_rank{r}.npy")), want_top):
+            return f"phase 24: rank {r}'s TopN differs from numpy's"
+    for x in ranks:
+        if "kernel_shape" in x:
+            r = x["kernel_shape"]
+            if shapes is not None:
+                shapes.append({"query": f"q1_partial_phase24_rank{x['rank']}", "max_abs_err": 0,
+                               **r})
+            print(f"grouped_sum_i64 at rank {x['rank']}'s Q1 shard shape N={r['n']} K={r['k']} "
+                  f"nseg={r['nseg']} on {card}: max abs err 0, kernel {r['kernel_ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+    for name in ranks[0]["steps"]:
+        walls = [x["steps"][name]["wall_ms"] for x in ranks]
+        sent = sum(x["steps"][name]["sent_bytes"] for x in ranks)
+        staged = sum(x["steps"][name]["staged_bytes"] for x in ranks)
+        print(f"phase 24 step {name} ({backend}, {world} ranks x {PHASE24_LOCAL} shards) on "
+              f"{card}: wall {max(walls):.3f} ms (slowest rank), {sent} bytes sent between "
+              f"ranks, {staged} bytes staged through the host")
+    print(f"phase 24 on {card}: backend {backend}, {[x['mesh'] for x in ranks]}; grouped_sum_i64 "
+          f"launches by rank {[a for a, _ in by_rank]}, max abs err "
+          f"{max(e for _, e in by_rank)}; Q1, the join pairs ({n}), the duplicate-key pairs, "
+          f"the sort and the TopN of {PHASE24_TOPN} equal numpy's; ranks ran in {spawn_s:.1f} s, "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -3292,6 +3682,27 @@ def main() -> int:
         return fail(bad)
     worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
     print(f"phase 22 took {time.perf_counter() - phase22_t0:.1f} s")
+
+    # 23. the grammar fuzzer on a card connection against a CPU connection:
+    # SETUP's tables and t1/t2 at 1,000,000 / 400,000 rows, every launch
+    # held to the plain version
+    phase23_t0 = time.perf_counter()
+    try:
+        bad = fuzz_phase(card, launches_by_query, shapes, reps)
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    if bad:
+        return fail(bad)
+    print(f"phase 23 took {time.perf_counter() - phase23_t0:.1f} s")
+
+    # 24. two processes (spawned, gloo) sharing the card over one
+    # ProcessMesh: Q1's partial through the kernel on each rank, the
+    # exchange joins, the sort and a TopN, held to numpy
+    phase24_t0 = time.perf_counter()
+    bad = process_mesh_phase(card, launches_by_query, shapes=shapes)
+    if bad:
+        return fail(bad)
+    print(f"phase 24 took {time.perf_counter() - phase24_t0:.1f} s")
     print(f"chip_smoke.py took {time.perf_counter() - script_t0:.1f} s in all on {card}")
 
     print(json.dumps({"kernels": [{

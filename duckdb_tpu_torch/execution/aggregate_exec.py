@@ -59,6 +59,8 @@ import torch
 
 from duckdb_tpu_torch.blocks import Column, pad_bucket
 from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
+from duckdb_tpu_torch.errors import OutOfRangeException
+from duckdb_tpu_torch.ops import int128 as I128
 from duckdb_tpu_torch.ops import sort as S
 from duckdb_tpu_torch.ops.compact import packed_indices
 from duckdb_tpu_torch.ops.grouped import grouped_reduce
@@ -356,15 +358,18 @@ def _compute_agg(agg, inp, grp: Groups, extra=(), order_cols=(), rows=None) -> C
                           or (c.ltype.id is TypeId.DECIMAL and agg.ltype.width > 18)):
             # exact beyond int64 through 32-bit halves (fused_agg's form);
             # value = hi64·2^64 + uint64(low64)
-            mask32 = (1 << 32) - 1
-            hi32, lo = grp.reduce([x >> 32, x & mask32], ["sum", "sum"])
-            mid = hi32 + (lo >> 32)
-            low64 = ((mid & mask32) << 32) | (lo & mask32)
-            return Column(data=low64, ltype=agg.ltype, validity=nonempty, data_hi=mid >> 32)
+            hi, lo = _wide_sum(c, x, mask, grp, nonempty)
+            return Column(data=lo, ltype=agg.ltype, validity=nonempty, data_hi=hi)
         return Column(data=grp.reduce([x], ["sum"])[0], ltype=agg.ltype, validity=nonempty)
 
     if f in ("avg", "mean"):
-        if c.data_hi is not None or c.ltype.is_float:
+        if c.data_hi is not None:
+            # the exact sum, then one rounding to DOUBLE
+            w = _wide_sum(c, torch.where(mask, data.to(torch.int64), 0), mask, grp, nonempty)
+            scale = 10.0 ** c.ltype.scale if c.ltype.id is TypeId.DECIMAL else 1.0
+            d = I128.to_float(w) / (cnt.to(torch.float64) * scale)
+            return Column(data=d, ltype=DOUBLE, validity=nonempty)
+        if c.ltype.is_float:
             s = grp.reduce([torch.where(mask, _float_of(c, data), 0.0)], ["sum"])[0]
             return Column(data=s / cnt.to(torch.float64), ltype=DOUBLE, validity=nonempty)
         s = grp.reduce([torch.where(mask, data.to(torch.int64), 0)], ["sum"])[0]
@@ -377,6 +382,8 @@ def _compute_agg(agg, inp, grp: Groups, extra=(), order_cols=(), rows=None) -> C
         # VARCHAR codes index a sorted dictionary: their order is the strings'
         if c.ltype.id in UNSORTED_DICT_IDS:
             return _nested_min_max(agg, c, data, mask, grp, nonempty)
+        if c.data_hi is not None:
+            return _wide_min_max(f, agg, c, data, mask, grp, nonempty)
         if c.ltype.is_float:
             sent = float("inf") if f == "min" else float("-inf")
             x = torch.where(mask, data.to(torch.float64), sent)
@@ -416,13 +423,19 @@ def _compute_agg(agg, inp, grp: Groups, extra=(), order_cols=(), rows=None) -> C
         return Column(data=d, ltype=agg.ltype, validity=nonempty, dict_values=c.dict_values)
 
     if f in VARIANCE_AGGS:
-        x = torch.where(mask, _float_of(c, data), 0.0)
-        s1, s2 = grp.reduce([x, x * x], ["sum", "sum"])
+        # two passes, as DuckDB's Welford update gives: each group's mean,
+        # taken as its smallest value plus the mean offset from it (so
+        # that equal values have exactly their value as the mean), then
+        # the sum of squared deviations from that mean
+        x = _float_of(c, data)
         n = cnt.to(torch.float64)
+        pivot = grp.reduce([torch.where(mask, x, float("inf"))], ["min"])[0]
+        off = grp.reduce([torch.where(mask, x - grp.at_rows(pivot), 0.0)], ["sum"])[0]
+        mean = pivot + off / n.clamp(min=1)
+        dev = torch.where(mask, x - grp.at_rows(mean), 0.0)
+        m2 = grp.reduce([dev * dev], ["sum"])[0]
         pop = f.endswith("_pop")
-        # the reference's formula: (Σx² − (Σx)²/n) / (n − 1 | n)
-        var = (s2 - s1 * s1 / n.clamp(min=1)) / (n - (0 if pop else 1)).clamp(min=1)
-        var = var.clamp(min=0.0)
+        var = m2 / (n - (0 if pop else 1)).clamp(min=1)
         d = torch.sqrt(var) if f.startswith("stddev") else var
         return Column(data=d, ltype=DOUBLE, validity=cnt > (0 if pop else 1))
 
@@ -434,6 +447,32 @@ def _compute_agg(agg, inp, grp: Groups, extra=(), order_cols=(), rows=None) -> C
         return _approx_count_distinct(agg, c, data, mask, grp)
 
     raise not_ported(f"the aggregate {f}()")
+
+
+def _wide_sum(c: Column, x, mask, grp: Groups, nonempty):
+    """The exact per-group sum of c's values (x: the low planes, masked)
+    → (hi, lo); a sum that leaves int128 raises DuckDB's
+    OutOfRangeException."""
+    hi = None
+    if c.data_hi is not None:
+        hi = torch.where(mask, B.bcast(c.data_hi, x.shape[0]).to(torch.int64), 0)
+    vecs = I128.sum_vectors(x, hi)
+    w, ovf = I128.sum_finalize(grp.reduce(vecs, ["sum"] * len(vecs)))
+    if bool((ovf & nonempty).any()):
+        raise OutOfRangeException("Overflow in HUGEINT addition: the sum leaves int128")
+    return w
+
+
+def _wide_min_max(f, agg, c: Column, data, mask, grp: Groups, nonempty) -> Column:
+    """min/max of wide values: the (hi, lo) pair compared lexicographically,
+    hi signed and lo unsigned, in two passes: each group's extreme high
+    half, then the extreme low half among its rows that hold it."""
+    hi, lo = I128.limbs(data, c.data_hi, grp.plen)
+    sent = _I64_MAX if f == "min" else _I64_MIN
+    best_hi = grp.reduce([torch.where(mask, hi, sent)], [f])[0]
+    on_best = mask & (hi == grp.at_rows(best_hi))
+    ulo = grp.reduce([torch.where(on_best, lo ^ _I64_MIN, sent)], [f])[0]
+    return Column(data=ulo ^ _I64_MIN, ltype=agg.ltype, validity=nonempty, data_hi=best_hi)
 
 
 HLL_MAX_GROUPS = 2048  # above this many groups, the exact count

@@ -68,6 +68,7 @@ import torch
 from duckdb_tpu_torch.blocks import Column, pad_bucket
 from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
 from duckdb_tpu_torch.execution.tracing import TraceEnv
+from duckdb_tpu_torch.ops import int128 as I128
 from duckdb_tpu_torch.ops import sort as S
 from duckdb_tpu_torch.ops.compact import packed_indices
 from duckdb_tpu_torch.ops.grouped import grouped_reduce
@@ -554,6 +555,8 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
             return None
         if agg.ltype.id is TypeId.VARCHAR or agg.ltype.id in UNSORTED_DICT_IDS:
             return None  # min/max over strings or nested values: the general path
+        if agg.func in ("min", "max") and agg.ltype.id is TypeId.HUGEINT:
+            return None  # a (hi, lo) pair compares in two passes: the general path
 
     # 1. peel the Filter/Project/Join chain. Each inner, semi or anti join
     #    whose build can be prepared becomes a probe step (outermost first);
@@ -870,7 +873,7 @@ def build_fused_agg(executor, node: P.Aggregate) -> Optional[FusedAgg]:
         i = 0
         for agg, at in zip(node.aggs, arg_types):
             n_parts = 1 if agg.func in ("count", "count_star") else (
-                3 if agg._wide else 2)
+                _wide_parts(agg) or 1) + 1
             data, valid = _slot_agg_finalize(agg, flat[i:i + n_parts], at)
             i += n_parts
             if isinstance(data, tuple):  # wide sum: (low64, hi64)
@@ -1141,11 +1144,12 @@ def _slot_agg_partial_vectors(agg, env, live, plen, gids=None):
             return [(torch.where(mask, data.to(torch.float64), 0.0), "sum"),
                     (cnt_vec, "sum")]
         x = torch.where(mask, data.to(torch.int64), 0)
-        if (agg.func == "sum" and getattr(agg, "_wide", False)
-                and (c.ltype.is_integer
-                     or c.ltype.id is TypeId.HUGEINT
-                     or (c.ltype.id is TypeId.DECIMAL and agg.ltype.width > 18))):
-            return [(x >> 32, "sum"), (x & ((1 << 32) - 1), "sum"), (cnt_vec, "sum")]
+        wide = _wide_parts(agg)
+        if wide:
+            hi = None
+            if wide == 4:  # HUGEINT: the high planes (sign-extended lows if none)
+                hi = torch.where(mask, I128.limbs(c.data, c.data_hi, plen)[0], 0)
+            return [(v, "sum") for v in I128.sum_vectors(x, hi)] + [(cnt_vec, "sum")]
         return [(x, "sum"), (cnt_vec, "sum")]
     if agg.func in ("min", "max"):
         if c.ltype.is_float:
@@ -1159,17 +1163,35 @@ def _slot_agg_partial_vectors(agg, env, live, plen, gids=None):
     raise AssertionError(agg.func)
 
 
+def _wide_parts(agg) -> int:
+    """The exact-sum vectors (ops/int128.sum_vectors) of a sum or avg:
+    4 over HUGEINT values, 2 for a sum that may leave int64, else 0."""
+    if agg.func not in ("sum", "avg", "mean") or not agg.args:
+        return 0
+    t = agg.args[0].ltype
+    if t.id is TypeId.HUGEINT:
+        return 4
+    if (agg.func == "sum" and getattr(agg, "_wide", False)
+            and (t.is_integer or (t.id is TypeId.DECIMAL and agg.ltype.width > 18))):
+        return 2
+    return 0
+
+
 def _slot_agg_finalize(agg, parts, arg_type):
     """Combined partials → (data, validity|None)."""
     if agg.func in ("count_star", "count"):
         return (parts[0], None)
-    if agg.func == "sum" and len(parts) == 3:
-        hi32, lo, cnt = parts
-        # value = hi32·2^32 + lo exactly; split into (hi64, low64) planes
-        mask32 = (1 << 32) - 1
-        mid = hi32 + (lo >> 32)
-        low64 = ((mid & mask32) << 32) | (lo & mask32)
-        return ((low64, mid >> 32), cnt > 0)
+    if len(parts) > 2:  # an exact wide sum: value = hi64·2^64 + uint64(low64)
+        cnt = parts[-1]
+        (hi, lo), ovf = I128.sum_finalize(parts[:-1])
+        if bool((ovf & (cnt > 0)).any()):
+            from duckdb_tpu_torch.errors import OutOfRangeException
+
+            raise OutOfRangeException("Overflow in HUGEINT addition: the sum leaves int128")
+        if agg.func == "sum":
+            return ((lo, hi), cnt > 0)
+        scale = 10.0 ** arg_type.scale if arg_type.id is TypeId.DECIMAL else 1.0
+        return (I128.to_float((hi, lo)) / (cnt.to(torch.float64) * scale), cnt > 0)
     cnt = parts[1]
     nonempty = cnt > 0
     if agg.func == "sum":

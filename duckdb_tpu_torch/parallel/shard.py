@@ -32,21 +32,40 @@ Build-side state that the JAX package replicates (a join's LUT or sorted
 keys, its build columns) is copied once to each device; callers that keep
 such state cache the copies per device. `COPIED` counts the bytes moved
 between two devices.
+
+A `ProcessMesh` spans the processes of one torch.distributed group, the
+counterpart of the JAX package's mesh over several jax.distributed
+processes (tests/test_multihost.py): each rank holds `local` shards on its
+own device (one card per rank under NCCL; the caller's device under gloo),
+n = world × local, and rank r's shards are r·local … r·local + local − 1.
+The same programs run over it: a rank passes its own rows (with global
+row ids) and gets its own part back; what crosses ranks goes through the
+group. psum/pmin/pmax become an all_reduce, the sizes an exchange needs
+one all_gather of every shard's counts (one host read per step, as
+`host_ints` on one process), the exchange an all_to_all_single with
+exactly those sizes, and `gather` an all_gather of each rank's rows (the
+counterpart of multihost_utils.process_allgather). Under gloo a CUDA
+tensor is copied to the host and back around each collective, explicitly;
+COPIED["staged"] counts those bytes and COPIED["sent"] the bytes this
+rank sent to other ranks. The backend is always the caller's choice.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from duckdb_tpu_torch.ops import sort as S
 from duckdb_tpu_torch.ops.hash import hash64, lsr
 
 _I64_MAX = torch.iinfo(torch.int64).max
 
-# bytes copied from one device to another since the last reset
-COPIED = {"bytes": 0}
+# bytes copied from one device to another since the last reset; on a
+# process mesh, the bytes this rank sent to other ranks and the bytes it
+# staged through the host for a gloo collective
+COPIED = {"bytes": 0, "sent": 0, "staged": 0}
 
 
 def _norm(device) -> torch.device:
@@ -84,9 +103,115 @@ class Mesh:
             self.devices = [self.home] * n
         # more shards than devices: some share one
         self.shared = len(set(self.devices)) < n
+        # one process holds every shard
+        self.world, self.rank, self.local, self.first = 1, 0, n, 0
 
     def __repr__(self):
         return f"Mesh({', '.join(f'{i}->{d}' for i, d in enumerate(self.devices))})"
+
+
+class ProcessMesh:
+    """n = world × local shards over the ranks of a torch.distributed
+    group; this rank holds shards first … first + local − 1, all on
+    `home`. `staged`: collectives copy CUDA tensors through the host (a
+    gloo group on a card)."""
+
+    def __init__(self, local: int, device, group=None):
+        if not dist.is_initialized():
+            raise RuntimeError("ProcessMesh needs torch.distributed's process group: "
+                               "call init_process_mesh(backend, ...) first")
+        self.group = group if group is not None else dist.group.WORLD
+        self.backend = dist.get_backend(self.group)
+        self.world = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        self.local = local
+        self.n = self.world * local
+        self.first = self.rank * local
+        self.home = _norm(device)
+        if self.backend == "nccl" and self.home.type != "cuda":
+            raise ValueError("an NCCL process mesh needs a CUDA device per rank")
+        self.devices = [self.home] * local
+        self.shared = local > 1
+        self.staged = self.backend == "gloo" and self.home.type == "cuda"
+
+    def __repr__(self):
+        return (f"ProcessMesh({self.backend}, rank {self.rank}/{self.world}, shards "
+                f"{self.first}..{self.first + self.local - 1} on {self.home})")
+
+
+def init_process_mesh(backend: str, local: int = 1, *, init_method: Optional[str] = None,
+                      world_size: Optional[int] = None, rank: Optional[int] = None,
+                      device=None) -> ProcessMesh:
+    """Join (or start) the default process group with the caller's backend
+    and make this rank's ProcessMesh. NCCL gives each rank its own card,
+    cuda:rank, and two ranks on one card are refused here (NCCL itself
+    refuses them at the first collective). Gloo runs on `device`, by
+    default a card: cuda:(rank mod the visible cards), so ranks beyond the
+    cards share them; without CUDA the caller must name `device="cpu"`."""
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend must be 'gloo' or 'nccl', not {backend!r}")
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise ValueError(f"the process group's backend is {dist.get_backend()}, "
+                             f"not {backend}")
+        world_size, rank = dist.get_world_size(), dist.get_rank()
+    if backend == "nccl":
+        cards = torch.cuda.device_count()
+        if world_size is None or rank is None:
+            raise ValueError("an NCCL process mesh needs world_size and rank")
+        if world_size > cards:
+            raise ValueError(f"NCCL needs one card per rank: {world_size} ranks, {cards} "
+                             f"visible card(s); use gloo to share a card")
+        device = torch.device("cuda", rank) if device is None else device
+        torch.cuda.set_device(device)
+    elif device is None and not torch.cuda.is_available():
+        raise RuntimeError("init_process_mesh runs on a CUDA device by default and none "
+                           "is visible; pass device='cpu' to run on the host")
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method=init_method, world_size=world_size,
+                                rank=rank)
+    if device is None:
+        device = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+    return ProcessMesh(local, device)
+
+
+# -- the wire of a process mesh ------------------------------------------------------
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
+
+
+def _wire(mesh: ProcessMesh, t: torch.Tensor) -> torch.Tensor:
+    """t as the group's collective takes it: contiguous, bool as uint8, on
+    the host under a staged (gloo on a card) mesh."""
+    t = t.contiguous()
+    if t.dtype == torch.bool:
+        t = t.to(torch.uint8)
+    if mesh.staged and t.is_cuda:
+        COPIED["staged"] += t.numel() * t.element_size()
+        t = t.cpu()
+    return t
+
+
+def _unwire(mesh: ProcessMesh, t: torch.Tensor, dtype) -> torch.Tensor:
+    if t.device != mesh.home:
+        COPIED["staged"] += t.numel() * t.element_size()
+        t = t.to(mesh.home)
+    return t.to(dtype) if t.dtype != dtype else t
+
+
+def _all_reduce(mesh: ProcessMesh, t: torch.Tensor, op: str) -> torch.Tensor:
+    w = _wire(mesh, t).clone()
+    COPIED["sent"] += w.numel() * w.element_size()
+    dist.all_reduce(w, op=_OPS[op], group=mesh.group)
+    return _unwire(mesh, w, t.dtype)
+
+
+def _all_gather_equal(mesh: ProcessMesh, t: torch.Tensor) -> List[torch.Tensor]:
+    """Every rank's t (all of one shape), in rank order, on home."""
+    w = _wire(mesh, t)
+    out = [torch.empty_like(w) for _ in range(mesh.world)]
+    COPIED["sent"] += w.numel() * w.element_size() * (mesh.world - 1)
+    dist.all_gather(out, w, group=mesh.group)
+    return [_unwire(mesh, o, t.dtype) for o in out]
 
 
 _MESHES = {}
@@ -101,8 +226,9 @@ def mesh_for(n: int, home) -> Mesh:
 
 # -- placement and collectives ---------------------------------------------------
 def split_rows(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
-    """x's rows cut into n contiguous shards, each on its shard's device."""
-    return [to(p, d) for p, d in zip(torch.tensor_split(x, mesh.n), mesh.devices)]
+    """x's rows (on a process mesh, this rank's) cut into this process's
+    shards, contiguous, each on its shard's device."""
+    return [to(p, d) for p, d in zip(torch.tensor_split(x, mesh.local), mesh.devices)]
 
 
 def replicate(mesh: Mesh, t: torch.Tensor) -> List[torch.Tensor]:
@@ -111,33 +237,45 @@ def replicate(mesh: Mesh, t: torch.Tensor) -> List[torch.Tensor]:
     return [copies.setdefault(d, to(t, d)) for d in mesh.devices]
 
 
-def gather(mesh: Mesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The shards' tensors concatenated in shard order on the home device."""
+def gather_local(mesh: Mesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """This process's shards' tensors concatenated in shard order on the
+    home device (on one process: every shard's)."""
     return torch.cat([to(p, mesh.home) for p in parts])
 
 
-def _reduce(mesh: Mesh, parts, op) -> torch.Tensor:
-    return op(torch.stack([to(p, mesh.home) for p in parts]), 0)
+def gather(mesh: Mesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Every shard's tensors concatenated in shard order on the home
+    device (rows on dim 0); across ranks an all_gather, its sizes read in
+    one host read."""
+    mine = gather_local(mesh, parts)
+    if mesh.world == 1:
+        return mine
+    sizes = [r[0] for r in all_host_ints(mesh, [torch.tensor([mine.shape[0]])])]
+    pad = max(sizes)
+    if mine.shape[0] < pad:
+        mine = torch.cat([mine, mine.new_zeros((pad - mine.shape[0],) + mine.shape[1:])])
+    got = _all_gather_equal(mesh, mine)
+    return torch.cat([g[:k] for g, k in zip(got, sizes)])
+
+
+def _reduce(mesh: Mesh, parts, op, name: str) -> torch.Tensor:
+    out = op(torch.stack([to(p, mesh.home) for p in parts]), 0)
+    return out if mesh.world == 1 else _all_reduce(mesh, out, name)
 
 
 def psum(mesh: Mesh, parts) -> torch.Tensor:
-    return _reduce(mesh, parts, torch.sum)
+    return _reduce(mesh, parts, torch.sum, "sum")
 
 
 def pmin(mesh: Mesh, parts) -> torch.Tensor:
-    return _reduce(mesh, parts, torch.amin)
+    return _reduce(mesh, parts, torch.amin, "min")
 
 
 def pmax(mesh: Mesh, parts) -> torch.Tensor:
-    return _reduce(mesh, parts, torch.amax)
+    return _reduce(mesh, parts, torch.amax, "max")
 
 
-def host_ints(mesh: Mesh, parts: Sequence[torch.Tensor]) -> List[list]:
-    """Small integer tensors of every shard read to the host in one
-    transfer (one sync for all shards) → a list per part."""
-    if not parts:
-        return []
-    flat = torch.cat([to(p.reshape(-1).to(torch.int64), mesh.home) for p in parts]).tolist()
+def _split_flat(flat: list, parts) -> List[list]:
     out, at = [], 0
     for p in parts:
         out.append(flat[at:at + p.numel()])
@@ -145,11 +283,57 @@ def host_ints(mesh: Mesh, parts: Sequence[torch.Tensor]) -> List[list]:
     return out
 
 
-def all_to_all(mesh: Mesh, send: Sequence[Sequence[torch.Tensor]]) -> List[torch.Tensor]:
-    """send[i][j]: what shard i sends shard j → for each shard j, what it
-    received, sources in shard order."""
-    return [torch.cat([to(send[i][j], d) for i in range(mesh.n)])
-            for j, d in enumerate(mesh.devices)]
+def host_ints(mesh: Mesh, parts: Sequence[torch.Tensor]) -> List[list]:
+    """Small integer tensors of this process's shards read to the host in
+    one transfer (one sync for all shards) → a list per part."""
+    if not parts:
+        return []
+    flat = torch.cat([to(p.reshape(-1).to(torch.int64), mesh.home) for p in parts])
+    return _split_flat(flat.tolist(), parts)
+
+
+def all_host_ints(mesh: Mesh, parts: Sequence[torch.Tensor]) -> List[list]:
+    """host_ints of every rank's parts, in rank order (each rank passes
+    parts of the same shapes): one all_gather, then one host read. On one
+    process, host_ints."""
+    if mesh.world == 1 or not parts:
+        return host_ints(mesh, parts)
+    flat = torch.cat([to(p.reshape(-1).to(torch.int64), mesh.home) for p in parts])
+    got = torch.cat(_all_gather_equal(mesh, flat)).tolist()
+    return _split_flat(got, list(parts) * mesh.world)
+
+
+def all_to_all(mesh: Mesh, send: Sequence[Sequence[torch.Tensor]],
+               sizes: Optional[List[list]] = None) -> List[torch.Tensor]:
+    """send[i][j]: what this process's shard i sends global shard j → for
+    each of this process's shards, what it received, sources in global
+    shard order. On a process mesh `sizes[s][j]`, the rows global shard s
+    sends global shard j, sizes the receive buffers exactly."""
+    if mesh.world == 1:
+        return [torch.cat([to(send[i][j], d) for i in range(mesh.local)])
+                for j, d in enumerate(mesh.devices)]
+    k, w = mesh.local, mesh.world
+    ref = send[0][0]
+    # to rank r: for each of its shards, what each of this rank's shards sends it
+    pieces = [send[i][r * k + jl] for r in range(w) for jl in range(k) for i in range(k)]
+    inp = torch.cat([to(p, mesh.home) for p in pieces])
+    in_splits = [sum(send[i][r * k + jl].shape[0] for jl in range(k) for i in range(k))
+                 for r in range(w)]
+    # from rank s: for each of this rank's shards, what each of s's shards sent it
+    recv_sizes = [[sizes[s * k + i][mesh.first + jl] for i in range(k)] for s in range(w)
+                  for jl in range(k)]
+    out_splits = [sum(sum(recv_sizes[s * k + jl]) for jl in range(k)) for s in range(w)]
+    wire_in = _wire(mesh, inp)
+    wire_out = torch.empty((sum(out_splits),) + tuple(ref.shape[1:]), dtype=wire_in.dtype,
+                           device=wire_in.device)
+    COPIED["sent"] += (sum(in_splits) - in_splits[mesh.rank]) * max(1, inp[:1].numel()) \
+        * wire_in.element_size()
+    dist.all_to_all_single(wire_out, wire_in, out_splits, in_splits, group=mesh.group)
+    got = _unwire(mesh, wire_out, ref.dtype)
+    flat = torch.split(got, [x for row in recv_sizes for x in row])
+    # flat is ordered (source rank, this rank's shard, source shard)
+    return [torch.cat([flat[(s * k + jl) * k + i] for s in range(w) for i in range(k)])
+            for jl in range(k)]
 
 
 def exchange(mesh: Mesh, sides):
@@ -162,14 +346,18 @@ def exchange(mesh: Mesh, sides):
     reach the host in one transfer; each shard's rows are ordered by a
     stable sort on the destination and split by those counts. → per side,
     for each shard j, the list of payloads it received: each source's rows
-    in row order, sources in shard order."""
-    n = mesh.n
+    in row order, sources in shard order. On a process mesh the shards
+    are this rank's, the destinations global, and the counts of every
+    rank's shards reach every rank in one all_gather (all_host_ints)."""
+    n, k = mesh.n, mesh.local
     counts, orders = [], []
     for dests, _ in sides:
         for d in dests:
             counts.append(torch.bincount(d, minlength=n + 1)[:n])
             orders.append(torch.sort(d, stable=True).indices)
-    sizes = host_ints(mesh, counts)
+    every = all_host_ints(mesh, counts)  # rank-major: each rank's counts, side-major
+    per_rank = len(counts)
+    sizes = every[mesh.rank * per_rank:(mesh.rank + 1) * per_rank]
     out, at = [], 0
     for dests, payloads in sides:
         send = []  # send[i][payload] = pieces by destination
@@ -177,27 +365,36 @@ def exchange(mesh: Mesh, sides):
             sz = sizes[at + i]
             order = orders[at + i][:sum(sz)]
             send.append([torch.split(x[order], sz) for x in pays])
+        # sent[s][j]: the rows global shard s sends global shard j on this side
+        sent = [every[r * per_rank + at + i] for r in range(mesh.world) for i in range(k)]
         at += len(dests)
         n_pay = len(payloads[0]) if payloads else 0
-        recv = [all_to_all(mesh, [[send[i][p][j] for j in range(n)] for i in range(n)])
+        recv = [all_to_all(mesh, [[send[i][p][j] for j in range(n)] for i in range(k)], sent)
                 for p in range(n_pay)]
-        out.append([[recv[p][j] for p in range(n_pay)] for j in range(n)])
+        out.append([[recv[p][j] for p in range(n_pay)] for j in range(k)])
     return out
 
 
 # -- Q1's partial aggregate -----------------------------------------------------------
-def q1_local_partial(qty, price, disc, tax, gid, live, num_groups: int):
-    """One shard's Q1 partial aggregate: the six per-group int64 sums of the
-    JAX package's q1_local_partial, in one grouped-sum call (K = 6, nseg =
-    num_groups; on the card the hand-written kernel on this shard's
-    device). Dead rows take the id num_groups, outside the slots."""
-    from duckdb_tpu_torch.ops.grouped_sum import grouped_sum_i64
-
+def q1_partial_inputs(qty, price, disc, tax, gid, live, num_groups: int):
+    """The grouped sum's inputs of one shard's Q1 partial → (slot ids, the
+    six vectors). Dead rows take the id num_groups, outside the slots."""
     g = torch.where(live, gid.to(torch.int64), num_groups)
     one_minus_disc = price * (100 - disc)  # scaled-int decimal arithmetic
     charge = one_minus_disc * (100 + tax)
     vecs = [torch.where(live, v, 0) for v in (qty, price, one_minus_disc, charge, disc)]
-    return tuple(grouped_sum_i64(g, vecs + [live.to(torch.int64)], num_groups))
+    return g, vecs + [live.to(torch.int64)]
+
+
+def q1_local_partial(qty, price, disc, tax, gid, live, num_groups: int):
+    """One shard's Q1 partial aggregate: the six per-group int64 sums of the
+    JAX package's q1_local_partial, in one grouped-sum call (K = 6, nseg =
+    num_groups; on the card the hand-written kernel on this shard's
+    device)."""
+    from duckdb_tpu_torch.ops.grouped_sum import grouped_sum_i64
+
+    g, vecs = q1_partial_inputs(qty, price, disc, tax, gid, live, num_groups)
+    return tuple(grouped_sum_i64(g, vecs, num_groups))
 
 
 def make_sharded_q1(mesh: Mesh, num_groups: int):
@@ -206,7 +403,8 @@ def make_sharded_q1(mesh: Mesh, num_groups: int):
 
     def step(qty, price, disc, tax, gid, live):
         parts = [split_rows(mesh, x) for x in (qty, price, disc, tax, gid, live)]
-        partials = [q1_local_partial(*(p[i] for p in parts), num_groups) for i in range(mesh.n)]
+        partials = [q1_local_partial(*(p[i] for p in parts), num_groups)
+                    for i in range(mesh.local)]
         return tuple(psum(mesh, [p[j] for p in partials]) for j in range(6))
 
     return step
@@ -216,7 +414,8 @@ def make_sharded_q1(mesh: Mesh, num_groups: int):
 def make_sharded_join_probe(mesh: Mesh):
     """Replicated-build, sharded-probe equi-join counts: each shard
     binary-searches its probe rows in its copy of the sorted build keys.
-    → (counts int32, lo int32) in probe row order on the home device."""
+    → (counts int32, lo int32) in probe row order on the home device (on a
+    process mesh, for this rank's probe rows)."""
 
     def probe(sorted_build_keys, probe_keys, probe_live):
         builds = replicate(mesh, sorted_build_keys)
@@ -227,7 +426,7 @@ def make_sharded_join_probe(mesh: Mesh):
             hi = torch.searchsorted(sk, k, right=True)
             counts.append(torch.where(live, hi - lo, 0).to(torch.int32))
             los.append(lo.to(torch.int32))
-        return gather(mesh, counts), gather(mesh, los)
+        return gather_local(mesh, counts), gather_local(mesh, los)
 
     return probe
 
@@ -279,8 +478,9 @@ def make_exchange_join(mesh: Mesh):
     shard's partition locally (unique build keys: one sorted lookup per
     probe row). DuckDB's radix-partitioned hash join
     (src/execution/radix_partitioned_hashtable.cpp) with shards for
-    partitions. Inputs are global: packed keys, live masks and row ids of
-    both sides."""
+    partitions. Inputs are global (on a process mesh, this rank's rows
+    with global row ids): packed keys, live masks and row ids of both
+    sides."""
 
     def step(pk, p_live, p_rows, bk, b_live, b_rows) -> ExchangeJoin:
         recv_p, recv_b = _exchange_sides(mesh, pk, p_live, p_rows, bk, b_live, b_rows)
@@ -341,6 +541,9 @@ def make_sharded_sort(mesh: Mesh, nkeys: int):
     global row id. DuckDB merges per-thread sorted runs instead
     (src/common/sort/sorted_run_merger.cpp). → per shard, row ids in
     global order (shard-major): the single-device stable sort, exactly.
+    On a process mesh the samples are gathered from every rank, so every
+    rank cuts at the same splitters, and a rank gets its own shards' row
+    ids.
 
     keys: (nkeys, rows) normalized int64 (ops/sort.orderable_int64)."""
     n = mesh.n
@@ -365,7 +568,7 @@ def make_sharded_sort(mesh: Mesh, nkeys: int):
             0, n * SAMPLES - 1)]
         dests = [torch.where(lv, torch.searchsorted(s, k, right=True), n)
                  for s, k, lv in zip(replicate(mesh, spl), primary, lives)]
-        payloads = [[kp[i] for kp in key_parts] + [row_parts[i]] for i in range(n)]
+        payloads = [[kp[i] for kp in key_parts] + [row_parts[i]] for i in range(mesh.local)]
         (recv,) = exchange(mesh, [(dests, payloads)])
         out = []
         for parts in recv:
@@ -389,7 +592,8 @@ class TopNCandidates(NamedTuple):
 def make_sharded_topn(mesh: Mesh, k: int, nkeys: int):
     """Per-shard top k, gathered to the home device, where the caller makes
     the final small sort (DuckDB's per-thread heaps merged at the sink,
-    physical_top_n.cpp). Dead rows sort last and are flagged dead."""
+    physical_top_n.cpp). Dead rows sort last and are flagged dead. On a
+    process mesh every rank gets every rank's candidates."""
 
     def step(keys, live, rows) -> TopNCandidates:
         key_parts = [split_rows(mesh, keys[i]) for i in range(nkeys)]
@@ -401,8 +605,8 @@ def make_sharded_topn(mesh: Mesh, k: int, nkeys: int):
             ck.append(torch.stack([x[perm] for x in ks]))
             cr.append(r[perm])
             cl.append(lv[perm])
-        return TopNCandidates(torch.cat([to(c, mesh.home) for c in ck], dim=1),
-                              gather(mesh, cr), gather(mesh, cl))
+        keys_t = gather(mesh, [c.t() for c in ck]).t()  # every rank's candidates
+        return TopNCandidates(keys_t, gather(mesh, cr), gather(mesh, cl))
 
     return step
 
@@ -410,7 +614,8 @@ def make_sharded_topn(mesh: Mesh, k: int, nkeys: int):
 # -- windows -------------------------------------------------------------------------
 class WindowOut(NamedTuple):
     """On the home device: the live rows' global ids and, per row, the
-    window's value and its validity."""
+    window's value and its validity (on a process mesh, the rows this
+    rank's shards received)."""
 
     rows: torch.Tensor
     values: torch.Tensor
@@ -447,7 +652,8 @@ def make_sharded_window(mesh: Mesh, n_pkeys: int, orders: Sequence[int], windows
         sent = [rows, *pkeys, *(k for ks in okeys for k in ks),
                 *(x for a, v, _ in args for x in (a, v) if x is not None)]
         parts = [split_rows(mesh, x) for x in sent]
-        (recv,) = exchange(mesh, [(dests, [[p[i] for p in parts] for i in range(n)])])
+        (recv,) = exchange(mesh, [(dests, [[p[i] for p in parts]
+                                           for i in range(mesh.local)])])
         out_rows = [[] for _ in orders]
         outs = [([], []) for _ in windows]
         for got in recv:
@@ -466,8 +672,9 @@ def make_sharded_window(mesh: Mesh, n_pkeys: int, orders: Sequence[int], windows
                 vals, valid = WX.keyed_window_values(kind, od, a[od.perm], v[od.perm], scale)
                 o_vals.append(vals)
                 o_valid.append(ones if valid is None else valid)
-        rows_by_order = [gather(mesh, r) for r in out_rows]
-        return [WindowOut(rows_by_order[o], gather(mesh, vals), gather(mesh, valid))
+        rows_by_order = [gather_local(mesh, r) for r in out_rows]
+        return [WindowOut(rows_by_order[o], gather_local(mesh, vals),
+                          gather_local(mesh, valid))
                 for (_, o), (vals, valid) in zip(windows, outs)]
 
     return step

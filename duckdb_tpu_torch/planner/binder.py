@@ -76,6 +76,20 @@ AGGREGATE_NAMES = {
 }
 
 
+_NESTED_IDS = (TypeId.LIST, TypeId.STRUCT, TypeId.MAP, TypeId.ARRAY, TypeId.UNION)
+
+
+def _check_nested_comparison(left, right) -> None:
+    """DuckDB compares a nested value only with a nested value: a LIST
+    against an INTEGER needs an explicit cast (its Binder Error)."""
+    lt, rt = left.ltype.id, right.ltype.id
+    if SQLNULL.id in (lt, rt):
+        return
+    if (lt in _NESTED_IDS) != (rt in _NESTED_IDS):
+        raise BindError(f"Binder Error: Cannot compare values of type {left.ltype!r} and "
+                        f"type {right.ltype!r} - an explicit cast is required")
+
+
 class BindError(B.BindError):
     pass
 
@@ -615,11 +629,13 @@ class ExprBinder:
                     and b.ltype.id in (TypeId.DATE, TypeId.TIMESTAMP)):
                 v = a.const_value()
                 lit = B.BoundLiteral(
-                    _parse_date(v) if b.ltype.id is TypeId.DATE else _parse_timestamp(v),
+                    None if v is None
+                    else _parse_date(v) if b.ltype.id is TypeId.DATE else _parse_timestamp(v),
                     b.ltype)
                 return (b, lit) if swap else (lit, b)
         if (left.ltype.id is TypeId.VARCHAR) != (right.ltype.id is TypeId.VARCHAR):
             raise BindError(f"cannot compare {left.ltype} and {right.ltype}")
+        _check_nested_comparison(left, right)
         return left, right
 
     def _bind_UnaryOp(self, e: N.UnaryOp):
@@ -658,8 +674,12 @@ class ExprBinder:
         return B.BoundLike(child, pat.const_value(), e.negated, e.case_insensitive)
 
     def _bind_InList(self, e: N.InList):
-        return B.BoundInList(self.bind(e.expr), [self.bind(i) for i in e.items],
-                             e.negated)
+        x, items = self.bind(e.expr), [self.bind(i) for i in e.items]
+        for i in items:
+            _check_nested_comparison(x, i)
+            if x.ltype.id is TypeId.VARCHAR and i.ltype.is_numeric:
+                raise BindError(f"cannot compare {x.ltype} and {i.ltype}")
+        return B.BoundInList(x, items, e.negated)
 
     def _bind_CaseExpr(self, e: N.CaseExpr):
         whens = []
@@ -746,6 +766,10 @@ class ExprBinder:
                     args.append(b)
                 else:
                     args.append(self.bind(a))
+            F.check_arity(name, args)
+            if name in F.NUMERIC_ARG_FNS:
+                args = [B.BoundCast(a, DOUBLE) if a.ltype.id is TypeId.VARCHAR else a
+                        for a in args]
             try:
                 rt, impl, args2 = F.REGISTRY[name](args)
             except (IndexError, KeyError) as err:

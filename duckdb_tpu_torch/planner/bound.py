@@ -33,9 +33,12 @@ import torch
 
 from duckdb_tpu_torch.blocks import Column
 from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS, merged_rank_luts
+from duckdb_tpu_torch.errors import ConversionException
+from duckdb_tpu_torch.ops import int128 as I128
 from duckdb_tpu_torch.types import (
     BOOLEAN,
     DOUBLE,
+    HUGEINT,
     SQLNULL,
     VARCHAR,
     LogicalType,
@@ -45,6 +48,11 @@ from duckdb_tpu_torch.types import (
 
 class BindError(ValueError):
     pass
+
+
+class CastConversionError(BindError, ConversionException):
+    """A value a cast cannot convert: DuckDB's ConversionException, and a
+    BindError, the JAX package's class for it."""
 
 
 def not_ported(what: str) -> BindError:
@@ -154,8 +162,10 @@ class BoundLiteral(BoundExpr):
 
     def eval(self, env: EvalEnv) -> Column:
         if self.value is None:
-            return Column(data=_const(env, 0, torch.int32), ltype=self.ltype,
-                          validity=_const(env, False, torch.bool))
+            # a typed NULL: a dictionary type still carries a (one-entry)
+            # dictionary, as _coerce_to's NULL of that type does
+            return _coerce_to(Column(data=_const(env, 0, torch.int32), ltype=SQLNULL,
+                                     validity=_const(env, False, torch.bool)), self.ltype, env)
         if self.ltype.id is TypeId.VARCHAR:
             # constant string → single-entry dictionary, code 0
             return Column(data=_const(env, 0, torch.int32), ltype=VARCHAR,
@@ -180,8 +190,17 @@ class BoundLiteral(BoundExpr):
             d = np.empty(1, dtype=object)
             d[0] = self.value if self.ltype.id is TypeId.BIT else tuple(self.value)
             return Column(data=_const(env, 0, torch.int32), ltype=self.ltype, dict_values=d)
-        return Column(data=_const(env, self.value, self.ltype.torch_dtype),
-                      ltype=self.ltype)
+        dtype = self.ltype.torch_dtype
+        if isinstance(self.value, (int, float, np.integer, np.floating)) \
+                and not isinstance(self.value, bool) and math.isfinite(self.value) \
+                and not dtype.is_floating_point and dtype is not torch.bool:
+            info = torch.iinfo(dtype)  # a folded value past its carrier
+            if not info.min <= int(self.value) <= info.max:
+                from duckdb_tpu_torch.errors import OutOfRangeException
+
+                raise OutOfRangeException(f"the value {self.value} is out of range for "
+                                          f"{self.ltype!r}")
+        return Column(data=_const(env, self.value, dtype), ltype=self.ltype)
 
     def is_const(self):
         return True
@@ -452,6 +471,9 @@ class BoundArithmetic(BoundExpr):
         rc = self.right.eval(env)
         v = _and_validity(lc.validity, rc.validity)
         t = self.ltype
+        if TypeId.SQLNULL in (lc.ltype.id, rc.ltype.id):  # NULL of the result's type
+            return _coerce_to(Column(data=_const(env, 0, torch.int32), ltype=SQLNULL,
+                                     validity=_const(env, False, torch.bool)), t, env)
         if t.is_float:
             x, y = _to_double(lc), _to_double(rc)
             if self.op == "+":
@@ -481,6 +503,8 @@ class BoundArithmetic(BoundExpr):
             return Column(data=d, ltype=t, validity=v)
         if t.id is TypeId.INTERVAL or not t.is_integer and t.id is not TypeId.DATE:
             raise not_ported(f"{self.op} over {lc.ltype!r} and {rc.ltype!r}")
+        if t.id is TypeId.HUGEINT:
+            return _wide_arithmetic(self.op, lc, rc, v, env)
         # integer arithmetic (DATE ± integer days stays int32 days)
         dt = t.torch_dtype
         x = lc.data.to(dt)
@@ -517,6 +541,37 @@ def _trunc_divmod(x: torch.Tensor, y: torch.Tensor, v, op: str):
     return d, (~zero if v is None else v & ~zero)
 
 
+def raise_on_overflow(ovf: torch.Tensor, validity, env: EvalEnv, what: str) -> None:
+    """DuckDB's OutOfRangeException where a live, valid row overflowed
+    (one host read)."""
+    hit = ovf & env.live if validity is None else ovf & env.live & bcast(validity, env.plen)
+    if bool(hit.any()):
+        from duckdb_tpu_torch.errors import OutOfRangeException
+
+        raise OutOfRangeException(f"Overflow in {what}!")
+
+
+_WIDE_OP_NAMES = {"+": "addition", "-": "subtraction", "*": "multiplication",
+                  "%": "modulo", "//": "division"}
+
+
+def _wide_arithmetic(op: str, lc: Column, rc: Column, v, env: EvalEnv) -> Column:
+    """HUGEINT + - * // % exactly over (hi, lo) planes (ops/int128)."""
+    a = I128.limbs(lc.data, lc.data_hi, env.plen)
+    b = I128.limbs(rc.data, rc.data_hi, env.plen)
+    if op in ("+", "-", "*"):
+        (hi, lo), ovf = {"+": I128.add, "-": I128.sub, "*": I128.mul}[op](a, b)
+    elif op in ("%", "//"):
+        q, r, zero, ovf = I128.divmod_trunc(a, b)
+        hi, lo = q if op == "//" else r
+        ovf = ovf & ~zero if op == "//" else torch.zeros_like(zero)
+        v = ~zero if v is None else v & ~zero
+    else:
+        raise BindError("integer / binds to DOUBLE")
+    raise_on_overflow(ovf, v, env, f"HUGEINT {_WIDE_OP_NAMES[op]}")
+    return Column(data=lo, ltype=HUGEINT, validity=v, data_hi=hi)
+
+
 @dataclass
 class BoundNegate(BoundExpr):
     child: BoundExpr
@@ -527,6 +582,10 @@ class BoundNegate(BoundExpr):
 
     def eval(self, env):
         c = self.child.eval(env)
+        if self.ltype.id is TypeId.HUGEINT:
+            (hi, lo), ovf = I128.neg(I128.limbs(c.data, c.data_hi, env.plen))
+            raise_on_overflow(ovf, c.validity, env, "HUGEINT negation")
+            return Column(data=lo, ltype=self.ltype, validity=c.validity, data_hi=hi)
         return Column(data=-c.data, ltype=self.ltype, validity=c.validity)
 
     def is_const(self):
@@ -563,6 +622,8 @@ class BoundCase(BoundExpr):
         acc_data = bcast(acc.data, env.plen)
         acc_dict = acc.dict_values
         acc_valid = _valid_or_ones(acc, env.plen, device)
+        wide = self.ltype.id is TypeId.HUGEINT
+        acc_hi = I128.limbs(acc.data, acc.data_hi, env.plen)[0] if wide else None
         for cond, res in reversed(self.whens):
             cc = cond.eval(env)
             take = bcast(cc.data.to(torch.bool), env.plen)
@@ -575,9 +636,11 @@ class BoundCase(BoundExpr):
                 acc_data, acc_dict = varchar_where(take, rc, acc_col, env.plen)
             else:
                 acc_data = torch.where(take, bcast(rc.data, env.plen), acc_data)
+            if wide:
+                acc_hi = torch.where(take, I128.limbs(rc.data, rc.data_hi, env.plen)[0], acc_hi)
             acc_valid = torch.where(take, rv, acc_valid)
         return Column(data=acc_data, ltype=self.ltype, validity=acc_valid,
-                      dict_values=acc_dict)
+                      dict_values=acc_dict, data_hi=acc_hi)
 
 
 def _round_div(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -635,6 +698,8 @@ def _coerce_to(c: Column, t: LogicalType, env: EvalEnv,
         else:  # float → decimal: round
             d = torch.round(c.data.to(torch.float64) * (10**t.scale)).to(torch.int64)
         return Column(data=d, ltype=t, validity=c.validity)
+    if t.is_integer and c.data_hi is not None and t.id is not TypeId.HUGEINT:
+        c = _narrow_wide(c, t, env, try_cast)
     if t.is_integer:
         if c.ltype.id is TypeId.DECIMAL:
             # duckdb decimal→int casts round half away from zero
@@ -662,6 +727,26 @@ def _coerce_to(c: Column, t: LogicalType, env: EvalEnv,
         return Column(data=_to_double(c).to(t.torch_dtype), ltype=t,
                       validity=c.validity)
     raise not_ported(f"the cast {c.ltype!r} → {t!r}")
+
+
+def _narrow_wide(c: Column, t: LogicalType, env, try_cast: bool) -> Column:
+    """A wide column's values as int64 for a cast to a narrower integer: a
+    value past 64 bits is NULL under TRY_CAST and DuckDB's
+    ConversionException otherwise."""
+    plen = env.plen if env is not None else c.data.shape[0]
+    hi, lo = I128.limbs(c.data, c.data_hi, plen)
+    fits = hi == (lo >> 63)
+    valid = fits if c.validity is None else bcast(c.validity, plen) & fits
+    if not try_cast:
+        live = env.live if env is not None else torch.ones_like(fits)
+        if bool((live & ~fits & _valid_or_ones(c, plen, fits.device)).any()):
+            from duckdb_tpu_torch.errors import ConversionException
+
+            raise ConversionException(f"Type HUGEINT with a value past 64 bits can't be cast "
+                                      f"because the value is out of range for the destination "
+                                      f"type {t.id.name}")
+        valid = c.validity
+    return Column(data=lo, ltype=c.ltype, validity=valid)
 
 
 def raise_if_read(c: Column, errs: dict, env: Optional[EvalEnv]) -> None:
@@ -988,9 +1073,9 @@ def _cast_from_varchar(c: Column, t: LogicalType, env: Optional[EvalEnv],
     for i, s_ in enumerate(dv):
         try:
             vals[i] = parse(s_)
-        except (ValueError, OverflowError):
+        except (ValueError, ArithmeticError):  # decimal's InvalidOperation too
             ok[i] = False
-            errs[i] = BindError(
+            errs[i] = CastConversionError(
                 f"Conversion Error: Could not convert string '{s_}' to {t.id.name}")
     if not try_cast:
         raise_if_read(c, errs, env)
@@ -1118,7 +1203,12 @@ class BoundInList(BoundExpr):
             return Column(data=d, ltype=BOOLEAN, validity=c.validity)
         d = _const(env, False, torch.bool)
         for it in self.items:
-            x, y = _common_numeric(c, it.eval(env))
+            ic = it.eval(env)
+            if (c.data_hi is not None or ic.data_hi is not None) \
+                    and not (c.ltype.is_float or ic.ltype.is_float):
+                d = d | _wide_compare("=", c, ic, env.plen)
+                continue
+            x, y = _common_numeric(c, ic)
             d = d | (x == y)
         if self.negated:
             d = ~d

@@ -104,15 +104,25 @@ def fold_arithmetic(node) -> object:
 
         from duckdb_tpu_torch.errors import OutOfRangeException, int_type_name
 
-        info = np.iinfo(t.np_dtype)
-        if not (info.min <= out <= info.max):
+        lo, hi = _int_range(t)
+        if not (lo <= out <= hi):
             opname = {"+": "addition", "-": "subtraction",
                       "*": "multiplication", "%": "modulo",
                       "//": "division"}[node.op]
+            name = "HUGEINT" if t.id is TypeId.HUGEINT else int_type_name(t.np_dtype)
             raise OutOfRangeException(
-                f"Overflow in {opname} of {int_type_name(t.np_dtype)} "
-                f"({lv} {node.op} {rv})!")
+                f"Overflow in {opname} of {name} ({lv} {node.op} {rv})!")
     return out
+
+
+def _int_range(t) -> tuple:
+    """The values an integer type holds: HUGEINT's are int128's."""
+    if t.id is TypeId.HUGEINT:
+        return -(1 << 127), (1 << 127) - 1
+    import numpy as np
+
+    info = np.iinfo(t.np_dtype)
+    return int(info.min), int(info.max)
 
 
 def _trunc_divmod(x: int, y: int, op: str):
@@ -186,8 +196,8 @@ def fold_cast(node) -> object:
 
         from duckdb_tpu_torch.errors import ConversionException, int_type_name
 
-        info = np.iinfo(dst.np_dtype)
-        if not (info.min <= out <= info.max):
+        lo, hi = _int_range(dst)
+        if not (lo <= out <= hi):
             if node.try_cast:
                 return None
             src_name = "DOUBLE" if src.is_float else src.id.name

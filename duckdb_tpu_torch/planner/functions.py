@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from duckdb_tpu_torch.blocks import Column
+from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
+from duckdb_tpu_torch.ops import int128 as I128
 from duckdb_tpu_torch.ops import strings as dstr
 from duckdb_tpu_torch.planner.bound import (
     BindError,
@@ -33,6 +35,8 @@ from duckdb_tpu_torch.planner.bound import (
     bcast,
     civil_from_days,
     raise_if_read,
+    raise_on_overflow,
+    varchar_where,
 )
 from duckdb_tpu_torch.types import (
     BIGINT,
@@ -234,8 +238,90 @@ def _days_before_month(y, m):
 REGISTRY = {}
 
 
-def register(name):
+# DuckDB's argument counts of the registered functions that take a fixed
+# few: name → the counts it has an overload for. The binder checks a
+# call's count against this before it binds the function, so a call with
+# an arity DuckDB has no overload for raises its Binder Error and never
+# reaches the function's binder or its implementation. A function
+# declares its counts here, or where it registers (register(name, arity)),
+# never both.
+ARITY = {}
+
+
+def arity_counts(arity):
+    """n (exactly n), (lo, hi) (hi None: any number from lo) or a set of
+    counts → a container of the counts."""
+    if isinstance(arity, int):
+        return range(arity, arity + 1)
+    if isinstance(arity, tuple):
+        lo, hi = arity
+        return range(lo, (1 << 31) if hi is None else hi + 1)
+    return frozenset(arity)
+
+
+def _declare(name, arity):
+    if name in ARITY:
+        raise ValueError(f"{name}'s argument counts are declared twice")
+    ARITY[name] = arity_counts(arity)
+
+
+def _arities():
+    for names, lo, hi in [
+        ("abs acos ascii asin atan bit_count cardinality cbrt ceil ceiling century "
+         "char_length character_length cos cosh day dayname dayofweek dayofyear "
+         "decade degrees dow doy epoch even exp factorial floor "
+         "gamma hour initcap isfinite isinf isnan isodow json "
+         "json_pretty json_quote json_strip_nulls json_structure json_valid "
+         "last_day lcase len length lgamma ln log10 log2 lower "
+         "map_from_entries map_keys map_values md5 microsecond millisecond minute "
+         "month monthname nanosecond normalized_interval ord "
+         "quarter radians reverse row_to_json "
+         "array_to_json second sign sin sinh sqrt stats strlen tan "
+         "tanh to_json ucase unicode upper "
+         "uuid_extract_timestamp uuid_extract_version vector_type week weekofyear "
+         "year array_unique list_unique", 1, 1),
+        ("age array_length list_length json_array_length json_keys json_type "
+         "json_typeof log round trim ltrim rtrim trunc",
+         1, 2),
+        ("grade_up array_grade_up list_grade_up", 1, 3),
+        ("atan2 pow power nextafter ifnull nullif left right repeat instr "
+         "json_contains in_search_path array_has_all "
+         "array_has_any array_intersect array_where array_select "
+         "array_cross_product list_has_all list_has_any list_intersect list_where "
+         "list_select", 2, 2),
+        ("hash concat coalesce least greatest", 1, None),
+    ]:
+        for n in names.split():
+            _declare(n, (lo, hi))
+    _declare("make_date", {1, 3})
+
+
+_arities()
+
+# numeric functions: DuckDB casts a VARCHAR argument to DOUBLE, so a value
+# that does not read as a number raises its ConversionException
+NUMERIC_ARG_FNS = frozenset(
+    "abs acos acosh asin asinh atan atan2 atanh cbrt ceil ceiling cos cosh cot "
+    "degrees even exp floor gamma isfinite isinf isnan lgamma ln log log10 log2 "
+    "nextafter pow power radians round sign signbit sin sinh sqrt tan tanh "
+    "trunc".split())
+
+
+def check_arity(name: str, args) -> None:
+    """DuckDB's Binder Error for a call with an argument count that
+    ARITY says the function has no overload for."""
+    if name in ARITY and len(args) not in ARITY[name]:
+        types = ", ".join(repr(a.ltype) for a in args)
+        raise BindError(f"Binder Error: No function matches the given name and argument "
+                        f"types '{name}({types})'. You might need to add explicit type casts.")
+
+
+def register(name, arity=None):
+    """Register a binder under name; arity (as arity_counts takes it), if
+    given, is DuckDB's argument counts for it, checked by check_arity."""
     def deco(fn):
+        if arity is not None:
+            _declare(name, arity)
         REGISTRY[name] = fn
         return fn
 
@@ -268,6 +354,13 @@ def _bind_abs(arg_exprs):
 
     def impl(env, cols, node):
         c = cols[0]
+        if c.data_hi is not None:
+            w = I128.limbs(c.data, c.data_hi, env.plen)
+            (nh, nl), ovf = I128.neg(w)
+            raise_on_overflow(ovf & (w[0] < 0), c.validity, env, "HUGEINT abs")
+            neg = w[0] < 0
+            return Column(data=torch.where(neg, nl, w[1]), ltype=t, validity=c.validity,
+                          data_hi=torch.where(neg, nh, w[0]))
         return Column(data=torch.abs(c.data), ltype=t, validity=c.validity)
 
     return t, impl, arg_exprs
@@ -287,7 +380,14 @@ def _bind_round(arg_exprs):
                           validity=torch.zeros(c.data.shape, dtype=torch.bool,
                                                device=c.data.device))
         return DOUBLE, impl, arg_exprs[:1]
-    nd = int(ndv)
+    pt = arg_exprs[1].ltype if len(arg_exprs) > 1 else None
+    if pt is not None and pt.id is TypeId.DECIMAL:  # a scaled integer: its value, rounded
+        q, r = divmod(abs(int(ndv)), 10 ** pt.scale)
+        nd = (q + (2 * r >= 10 ** pt.scale)) * (1 if ndv >= 0 else -1)
+    else:
+        nd = int(round(ndv)) if isinstance(ndv, float) else int(ndv)
+    # past 400 digits either way a DOUBLE or DECIMAL rounds to itself or to 0
+    nd = max(-400, min(400, nd))
     if t.id is TypeId.DECIMAL:
         rt = decimal(t.width, min(t.scale, nd))
 
@@ -305,6 +405,9 @@ def _bind_round(arg_exprs):
 
     def impl(env, cols, node):
         c = cols[0]
+        if abs(nd) > 300:  # past DOUBLE's digits: the value itself, or 0
+            x = _to_double(c)
+            return Column(data=x if nd > 0 else x * 0.0, ltype=DOUBLE, validity=c.validity)
         scale = 10.0**nd
         x = _to_double(c) * scale
         # duckdb rounds half away from zero (not banker's rounding)
@@ -343,15 +446,25 @@ def _bind_coalesce(arg_exprs):
                 return torch.ones(env.plen, dtype=torch.bool, device=device)
             return bcast(c.validity, env.plen)
 
+        wide = t.id is TypeId.HUGEINT
+        coded = t.id is TypeId.VARCHAR or t.id in UNSORTED_DICT_IDS
         acc = _coerce_to(cols[-1], t, env)
         data = bcast(acc.data, env.plen)
+        dvals = acc.dict_values
+        hi = I128.limbs(acc.data, acc.data_hi, env.plen)[0] if wide else None
         vmask = valid(acc)
         for c in reversed(cols[:-1]):
             cc = _coerce_to(c, t, env)
             cv = valid(cc)
-            data = torch.where(cv, bcast(cc.data, env.plen), data)
+            if coded:  # codes of two dictionaries: merged first
+                data, dvals = varchar_where(cv, cc, Column(data=data, ltype=t,
+                                                           dict_values=dvals), env.plen)
+            else:
+                data = torch.where(cv, bcast(cc.data, env.plen), data)
+            if wide:
+                hi = torch.where(cv, I128.limbs(cc.data, cc.data_hi, env.plen)[0], hi)
             vmask = cv | vmask
-        return Column(data=data, ltype=t, validity=vmask)
+        return Column(data=data, ltype=t, validity=vmask, data_hi=hi, dict_values=dvals)
 
     return t, impl, arg_exprs
 

@@ -45,6 +45,7 @@ import torch
 
 from duckdb_tpu_torch.blocks import Column
 from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
+from duckdb_tpu_torch.ops import int128 as I128
 from duckdb_tpu_torch.ops import strings as dstr
 from duckdb_tpu_torch.ops.hash import hash64, lsr
 from duckdb_tpu_torch.planner.bound import (
@@ -210,6 +211,10 @@ def _bind_sign(arg_exprs):
 
     def impl(env, cols, node):
         c = cols[0]
+        if c.data_hi is not None:
+            hi, lo = I128.limbs(c.data, c.data_hi, env.plen)
+            d = torch.where(hi < 0, -1, ((hi != 0) | (lo != 0)).to(torch.int64))
+            return Column(data=d.to(torch.int32), ltype=INTEGER, validity=c.validity)
         d = torch.sign(c.data if t.is_float else c.data.to(torch.int64))
         return Column(data=d.to(torch.int32), ltype=INTEGER, validity=c.validity)
     return INTEGER, impl, arg_exprs
@@ -222,6 +227,8 @@ def _least_greatest(arg_exprs, op):
         if a.ltype.id is not TypeId.SQLNULL:
             t = a.ltype if t is None else max_logical_type(t, a.ltype)
     t = t or SQLNULL
+    if t.id in UNSORTED_DICT_IDS:
+        raise not_ported(f"least/greatest over {t!r}")
 
     def impl(env, cols, node):
         ccs = [_coerce_to(c, t, env) for c in cols]
@@ -231,7 +238,8 @@ def _least_greatest(arg_exprs, op):
             merged = ccs[0].dict_values
             for cc in ccs[1:]:
                 merged = np.union1d(merged, cc.dict_values).astype(object)
-        acc = any_valid = None
+        acc = any_valid = acc_hi = None
+        wide = t.id is TypeId.HUGEINT
         for cc in ccs:
             v = (torch.ones(env.plen, dtype=torch.bool, device=env.live.device)
                  if cc.validity is None else bcast(cc.validity, env.plen))
@@ -239,12 +247,19 @@ def _least_greatest(arg_exprs, op):
             if merged is not None:
                 rank = np.searchsorted(merged, cc.dict_values).astype(np.int32)
                 d = torch.from_numpy(rank).to(d.device)[d.long().clamp(0, len(rank) - 1)]
+            h = I128.limbs(cc.data, cc.data_hi, env.plen)[0] if wide else None
             if acc is None:
-                acc, any_valid = d, v
+                acc, any_valid, acc_hi = d, v, h
+            elif wide:  # (hi, lo) lexicographic: hi signed, lo unsigned
+                d_lt = (h < acc_hi) | ((h == acc_hi) & I128.ult(d, acc))
+                better = d_lt if op is torch.minimum else ~d_lt & ((h != acc_hi) | (d != acc))
+                take = torch.where(any_valid & v, better, v)
+                acc, acc_hi = torch.where(take, d, acc), torch.where(take, h, acc_hi)
+                any_valid = any_valid | v
             else:
                 acc = torch.where(any_valid & v, op(acc, d), torch.where(v, d, acc))
                 any_valid = any_valid | v
-        return Column(data=acc, ltype=t, validity=any_valid, dict_values=merged)
+        return Column(data=acc, ltype=t, validity=any_valid, dict_values=merged, data_hi=acc_hi)
     return t, impl, arg_exprs
 
 
@@ -344,12 +359,15 @@ def _bind_nullif(arg_exprs):
             eq = la[bcast(a.data, env.plen).long()] == lb[bcast(bb.data, env.plen).long()]
         else:
             eq = bcast(a.data, env.plen) == bcast(bb.data, env.plen)
+        if a.data_hi is not None or bb.data_hi is not None:
+            eq = eq & (I128.limbs(a.data, a.data_hi, env.plen)[0]
+                       == I128.limbs(bb.data, bb.data_hi, env.plen)[0])
         if bb.validity is not None:  # x = NULL is not true: x stays
             eq = eq & bcast(bb.validity, env.plen)
         base = (torch.ones(env.plen, dtype=torch.bool, device=env.live.device)
                 if a.validity is None else bcast(a.validity, env.plen))
         return Column(data=bcast(a.data, env.plen), ltype=t, validity=base & ~eq,
-                      dict_values=a.dict_values)
+                      dict_values=a.dict_values, data_hi=a.data_hi)
     return t, impl, arg_exprs
 
 

@@ -107,17 +107,9 @@ def dict_double(col: Column, fn, key: str, env=None) -> Column:
     return _dict_lut(col, fn, None, key, DOUBLE, np.float64, env)
 
 
-def _arity(name, arg_exprs, lo, hi=None):
-    hi = lo if hi is None else hi
-    if not lo <= len(arg_exprs) <= hi:
-        raise BindError(f"Binder Error: {name} takes {lo if lo == hi else f'{lo} to {hi}'} "
-                        f"arguments, {len(arg_exprs)} given")
-
-
 def _dict_str(name, pyfn, ret=VARCHAR, aliases=()):
     """A unary VARCHAR (or BLOB) function computed once per distinct value."""
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 1)
 
         def impl(env, cols, node):
             c = cols[0]
@@ -131,7 +123,7 @@ def _dict_str(name, pyfn, ret=VARCHAR, aliases=()):
         return ret, impl, arg_exprs
 
     for n in (name, *aliases):
-        REGISTRY[n] = binder
+        register(n, 1)(binder)
     return binder
 
 
@@ -149,7 +141,6 @@ def _dict_str2(name, pyfn, ret=VARCHAR):
     pair of columns would be work per row: DuckDB answers it, this port and
     the reference refuse it)."""
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 2)
         other = _const_arg(arg_exprs[1])
         key = f"{name}:{other!r}"
 
@@ -166,7 +157,7 @@ def _dict_str2(name, pyfn, ret=VARCHAR):
             return dict_int(c, fn, device_key=key, env=env)
         return ret, impl, arg_exprs[:1]
 
-    REGISTRY[name] = binder
+    register(name, 2)(binder)
     return binder
 
 
@@ -223,13 +214,12 @@ def _dict_list(col: Column, fn, key: str, lt: LogicalType) -> Column:
 # -- math --------------------------------------------------------------------
 def _double_fn(name, fn, ret=DOUBLE):
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 1)
 
         def impl(env, cols, node):
             return Column(data=fn(_to_double(cols[0])), ltype=ret, validity=cols[0].validity)
         return ret, impl, arg_exprs
 
-    REGISTRY[name] = binder
+    register(name, 1)(binder)
 
 
 _double_fn("acosh", torch.acosh)
@@ -239,10 +229,9 @@ _double_fn("cot", lambda x: 1.0 / torch.tan(x))
 _double_fn("signbit", torch.signbit, BOOLEAN)
 
 
-@register("binom")
+@register("binom", 2)
 def _bind_binom(arg_exprs):
     """binom(n, k): exp of lgamma differences, rounded; 0 outside 0 ≤ k ≤ n."""
-    _arity("binom", arg_exprs, 2)
 
     def impl(env, cols, node):
         n, k = _to_double(cols[0]), _to_double(cols[1])
@@ -255,13 +244,17 @@ def _bind_binom(arg_exprs):
 _DIGITS = "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"
 
 
-@register("to_base")
+@register("to_base", (2, 3))
 def _bind_to_base(arg_exprs):
     """to_base(n, radix[, min_length]) as DuckDB's to_base.cpp: a negative n
     raises (fault (m): the reference prints a minus sign)."""
-    _arity("to_base", arg_exprs, 2, 3)
-    radix = int(arg_exprs[1].const_value())
-    min_len = int(arg_exprs[2].const_value()) if len(arg_exprs) > 2 else 0
+    consts = [a.const_value() for a in arg_exprs[1:]]
+    if any(v is None for v in consts):  # a NULL radix or length: NULL
+        def null(env, cols, node):
+            return _null_column(cols[0], VARCHAR, np.array([""], dtype=object))
+        return VARCHAR, null, arg_exprs[:1]
+    radix = int(consts[0])
+    min_len = int(consts[1]) if len(consts) > 1 else 0
     if not 2 <= radix <= 36:
         raise BindError("Invalid Input Error: 'to_base' radix must be between 2 and 36")
 
@@ -294,7 +287,6 @@ def _as_bytes(s):
 def _length_with_bit(name, byte_fn, bit_fn):
     """A BIT argument counts its bits (DuckDB's bit.cpp), any other its bytes."""
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 1)
         fn = bit_fn if arg_exprs[0].ltype.id is TypeId.BIT else byte_fn
         key = f"{name}:{arg_exprs[0].ltype.id is TypeId.BIT}"
 
@@ -302,7 +294,7 @@ def _length_with_bit(name, byte_fn, bit_fn):
             return dict_int(cols[0], fn, device_key=key)
         return BIGINT, impl, arg_exprs
 
-    REGISTRY[name] = binder
+    register(name, 1)(binder)
 
 
 _length_with_bit("bit_length", lambda s: len(_as_bytes(s)) * 8, lambda b: len(str(b)))
@@ -333,13 +325,12 @@ _dict_str("parse_dirname", lambda s: next((p for p in _slashed(s).split("/") if 
 _dict_str("parse_dirpath", _parse_dirpath)
 
 
-@register("md5_number")
+@register("md5_number", 1)
 def _bind_md5_number(arg_exprs):
     """The MD5 digest as a 128-bit integer, its 16 bytes read little-endian
     (DuckDB's md5.cpp stores the digest as a uhugeint_t), in the port's
     HUGEINT planes: data the low 64 bits, data_hi the high 64, both int64,
     as in the reference."""
-    _arity("md5_number", arg_exprs, 1)
 
     def compute(dvals, dev):
         n = max(len(dvals), 1)
@@ -369,10 +360,9 @@ def _bin_of_int(v):
     return bin(v)[2:] if v >= 0 else bin((1 << 64) + v)[2:]
 
 
-@register("bin")
-@register("to_binary")
+@register("bin", 1)
+@register("to_binary", 1)
 def _bind_bin(arg_exprs):
-    _arity("bin", arg_exprs, 1)
     if arg_exprs[0].ltype.id is TypeId.VARCHAR:
         def impl(env, cols, node):
             return dict_transform(cols[0], lambda s: "".join(format(b, "08b")
@@ -388,14 +378,13 @@ def _bind_bin(arg_exprs):
 def _blob_fn(name, pyfn, aliases=()):
     """VARCHAR → BLOB once per distinct value."""
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 1)
 
         def impl(env, cols, node):
             return _dict_blob(cols[0], lambda s: pyfn(str(s)), name, env)
         return BLOB, impl, arg_exprs
 
     for n in (name, *aliases):
-        REGISTRY[n] = binder
+        register(n, 1)(binder)
 
 
 def _unbin_bytes(s):
@@ -426,7 +415,6 @@ def _like_to_re(pattern: str, escape: str):
 
 def _like_escape(name, negate, fold):
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 2, 3)
         pat = str(arg_exprs[1].const_value())
         esc = str(arg_exprs[2].const_value()) if len(arg_exprs) > 2 else ""
         rx = _like_to_re(pat.lower() if fold else pat, esc)
@@ -436,7 +424,7 @@ def _like_escape(name, negate, fold):
                                   != negate, device_key=f"{name}:{pat!r}:{esc!r}")
         return BOOLEAN, impl, arg_exprs[:1]
 
-    REGISTRY[name] = binder
+    register(name, (2, 3))(binder)
 
 
 _like_escape("like_escape", False, False)
@@ -463,9 +451,8 @@ _dict_str2("left_grapheme", lambda s, n: "".join(_graphemes(s)[:int(n)]))
 _dict_str2("right_grapheme", lambda s, n: "".join(_graphemes(s)[-int(n):]) if int(n) else "")
 
 
-@register("substring_grapheme")
+@register("substring_grapheme", (2, 3))
 def _bind_substring_grapheme(arg_exprs):
-    _arity("substring_grapheme", arg_exprs, 2, 3)
     s0 = int(arg_exprs[1].const_value()) - 1
     length = int(arg_exprs[2].const_value()) if len(arg_exprs) > 2 else None
 
@@ -550,10 +537,9 @@ _dict_str2("jaro_similarity", lambda s, o: _jaro(s, str(o)), ret=DOUBLE)
 _dict_str2("jaro_winkler_similarity", lambda s, o: _jaro_winkler(s, str(o)), ret=DOUBLE)
 
 
-@register("overlay")
+@register("overlay", (3, 4))
 def _bind_overlay(arg_exprs):
     """overlay(s PLACING r FROM pos [FOR len]), parsed as overlay(s, r, pos[, len])."""
-    _arity("overlay", arg_exprs, 3, 4)
     repl = str(arg_exprs[1].const_value())
     pos = int(arg_exprs[2].const_value())
     ln = int(arg_exprs[3].const_value()) if len(arg_exprs) > 3 else len(repl)
@@ -565,9 +551,8 @@ def _bind_overlay(arg_exprs):
 
 
 # -- regexp additions ---------------------------------------------------------------
-@register("regexp_full_match")
+@register("regexp_full_match", (2, 3))
 def _bind_regexp_full_match(arg_exprs):
-    _arity("regexp_full_match", arg_exprs, 2, 3)
     rx = re.compile(str(arg_exprs[1].const_value()))
 
     def impl(env, cols, node):
@@ -576,13 +561,12 @@ def _bind_regexp_full_match(arg_exprs):
     return BOOLEAN, impl, arg_exprs[:1]
 
 
-def _list_fn(name, make, nconst=1, maxconst=None):
+def _list_fn(name, make, nconst=1, maxconst=None, aliases=()):
     """A VARCHAR → VARCHAR[] function of constant arguments, once per
     distinct value (cached per dictionary)."""
     lt = list_of(VARCHAR)
 
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 1 + nconst, 1 + (maxconst or nconst))
         consts = [a.const_value() for a in arg_exprs[1:]]
         fn = make(*consts)
         key = f"{name}:{consts!r}"
@@ -591,7 +575,8 @@ def _list_fn(name, make, nconst=1, maxconst=None):
             return _dict_list(cols[0], lambda s: tuple(fn(str(s))), key, lt)
         return lt, impl, arg_exprs[:1]
 
-    return binder
+    for n in (name, *aliases):
+        register(n, (1 + nconst, 1 + (maxconst or nconst)))(binder)
 
 
 def _extract_all(pat, group=0):
@@ -610,10 +595,10 @@ def _path_parts(s):
     return (["/"] if p.startswith("/") else []) + parts
 
 
-REGISTRY["regexp_extract_all"] = _list_fn("regexp_extract_all", _extract_all, 1, 2)
-REGISTRY["regexp_split_to_array"] = REGISTRY["str_split_regex"] = \
-    REGISTRY["string_split_regex"] = _list_fn("string_split_regex", _split_regex)
-REGISTRY["parse_path"] = _list_fn("parse_path", lambda: _path_parts, 0)
+_list_fn("regexp_extract_all", _extract_all, 1, 2)
+_list_fn("string_split_regex", _split_regex,
+         aliases=("regexp_split_to_array", "str_split_regex"))
+_list_fn("parse_path", lambda: _path_parts, 0)
 
 
 # -- readable byte sizes -----------------------------------------------------------
@@ -651,13 +636,16 @@ def format_sizes(c: Column, env, binary: bool) -> Column:
 
 def _readable(name, binary):
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 1)
+        if arg_exprs[0].ltype.id is TypeId.HUGEINT:  # DuckDB's takes a BIGINT
+            raise BindError(f"Binder Error: No function matches the given name and argument "
+                            f"types '{name}(HUGEINT)'. You might need to add explicit type "
+                            f"casts.")
 
         def impl(env, cols, node):
             return format_sizes(cols[0], env, binary)
         return VARCHAR, impl, arg_exprs
 
-    REGISTRY[name] = binder
+    register(name, 1)(binder)
 
 
 # DuckDB's format_bytes is formatReadableSize; the JAX package registers
@@ -706,7 +694,6 @@ def _epoch(name, us_per_unit, from_int):
     integer argument is epoch_ms's only, milliseconds to a TIMESTAMP
     (fault (h))."""
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 1)
         t = arg_exprs[0].ltype
         if t.is_integer:
             if not from_int:
@@ -729,7 +716,7 @@ def _epoch(name, us_per_unit, from_int):
             return Column(data=out, ltype=BIGINT, validity=cols[0].validity)
         return BIGINT, impl, arg_exprs
 
-    REGISTRY[name] = binder
+    register(name, 1)(binder)
 
 
 _epoch("epoch_us", 1, False)
@@ -737,9 +724,8 @@ _epoch("epoch_ms", 1000, True)
 _epoch("epoch_ns", 1e-3, False)
 
 
-@register("to_timestamp")
+@register("to_timestamp", 1)
 def _bind_to_timestamp(arg_exprs):
-    _arity("to_timestamp", arg_exprs, 1)
 
     def impl(env, cols, node):
         us = (_to_double(cols[0]) * 1e6).to(torch.int64)
@@ -758,9 +744,8 @@ def _ints(cols, plen):
     return [bcast(c.data, plen).to(torch.int64) for c in cols]
 
 
-@register("make_time")
+@register("make_time", 3)
 def _bind_make_time(arg_exprs):
-    _arity("make_time", arg_exprs, 3)
 
     def impl(env, cols, node):
         h, mi = _ints(cols[:2], env.plen)
@@ -769,7 +754,7 @@ def _bind_make_time(arg_exprs):
     return TIME, impl, arg_exprs
 
 
-@register("make_timestamp")
+@register("make_timestamp", {1, 6})
 def _bind_make_timestamp(arg_exprs):
     """make_timestamp(micros) or make_timestamp(y, m, d, h, mi, s double)."""
     if len(arg_exprs) == 1:
@@ -777,7 +762,6 @@ def _bind_make_timestamp(arg_exprs):
             return Column(data=_ints(cols, env.plen)[0], ltype=TIMESTAMP,
                           validity=cols[0].validity)
         return TIMESTAMP, impl1, arg_exprs
-    _arity("make_timestamp", arg_exprs, 6)
 
     def impl(env, cols, node):
         y, m, d, h, mi = _ints(cols[:5], env.plen)
@@ -790,7 +774,6 @@ def _bind_make_timestamp(arg_exprs):
 
 def _make_ts_scaled(name, mult):
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 1)
 
         def impl(env, cols, node):
             x = _ints(cols, env.plen)[0]
@@ -798,7 +781,7 @@ def _make_ts_scaled(name, mult):
             return Column(data=us, ltype=TIMESTAMP, validity=cols[0].validity)
         return TIMESTAMP, impl, arg_exprs
 
-    REGISTRY[name] = binder
+    register(name, 1)(binder)
 
 
 _make_ts_scaled("make_timestamp_ms", 1000)
@@ -822,7 +805,6 @@ def _millennium(y: torch.Tensor) -> torch.Tensor:
 def _part(name, fn):
     """A date part of a DATE or TIMESTAMP, from (y, m, d, days)."""
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 1)
 
         def impl(env, cols, node):
             c = cols[0]
@@ -832,7 +814,7 @@ def _part(name, fn):
                           validity=c.validity)
         return BIGINT, impl, arg_exprs
 
-    REGISTRY[name] = binder
+    register(name, 1)(binder)
 
 
 _part("era", lambda y, m, d, days: (y > 0).to(torch.int64))
@@ -844,10 +826,9 @@ _part("yearweek", lambda y, m, d, days: (lambda yw: yw[0] * 100 + yw[1])(_iso_ye
 REGISTRY["datepart"] = REGISTRY["date_part"]
 
 
-@register("julian")
+@register("julian", 1)
 def _bind_julian(arg_exprs):
     """The Julian day as a DOUBLE, with a TIMESTAMP's fraction of a day."""
-    _arity("julian", arg_exprs, 1)
 
     def impl(env, cols, node):
         c = cols[0]
@@ -864,13 +845,12 @@ _SUB_US = {"second": 1_000_000, "seconds": 1_000_000, "minute": 60_000_000,
            "microsecond": 1, "microseconds": 1, "week": 7 * _US_DAY, "weeks": 7 * _US_DAY}
 
 
-@register("date_sub")
-@register("datesub")
+@register("date_sub", 3)
+@register("datesub", 3)
 def _bind_date_sub(arg_exprs):
     """date_sub(part, start, end): the whole parts from start to end
     (DuckDB's date_sub.cpp), truncated toward zero. Month-based parts
     need calendar arithmetic that neither package has here."""
-    _arity("date_sub", arg_exprs, 3)
     part = str(arg_exprs[0].const_value()).lower()
     us = _SUB_US.get(part)
     if us is None:
@@ -885,14 +865,13 @@ def _bind_date_sub(arg_exprs):
 
 def _to_interval(name, us_per):
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 1)
 
         def impl(env, cols, node):
             return Column(data=_ints(cols, env.plen)[0] * us_per, ltype=INTERVAL,
                           validity=cols[0].validity)
         return INTERVAL, impl, arg_exprs
 
-    REGISTRY[name] = binder
+    register(name, 1)(binder)
 
 
 for _n, _us in (("to_microseconds", 1), ("to_milliseconds", 1000), ("to_seconds", 1_000_000),
@@ -901,10 +880,9 @@ for _n, _us in (("to_microseconds", 1), ("to_milliseconds", 1000), ("to_seconds"
     _to_interval(_n, _us)
 
 
-@register("try_strptime")
+@register("try_strptime", 2)
 def _bind_try_strptime(arg_exprs):
     """VARCHAR → TIMESTAMP once per distinct value; NULL where it does not parse."""
-    _arity("try_strptime", arg_exprs, 2)
     fmt = str(arg_exprs[1].const_value())
     epoch = datetime.datetime(1970, 1, 1)
 
@@ -939,12 +917,11 @@ def _utc_zone(name, e):
         raise not_ported(f"{name}() in the time zone {zone!r} (the session is UTC)")
 
 
-@register("timezone")
+@register("timezone", (1, 2))
 def _bind_timezone(arg_exprs):
     """timezone(ts): the offset in seconds, 0 in the UTC session;
     timezone('UTC', TIMESTAMP) is the TIMESTAMPTZ of that UTC time and
     timezone('UTC', TIMESTAMPTZ) its UTC TIMESTAMP (DuckDB's ICU)."""
-    _arity("timezone", arg_exprs, 1, 2)
     if len(arg_exprs) == 1:
         def impl0(env, cols, node):
             return Column(data=_full(env, 0, torch.int64), ltype=BIGINT,
@@ -966,14 +943,13 @@ def _bind_timezone(arg_exprs):
 
 def _tz_part(name):
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 1)
 
         def impl(env, cols, node):
             return Column(data=_full(env, 0, torch.int64), ltype=BIGINT,
                           validity=cols[0].validity)
         return BIGINT, impl, arg_exprs
 
-    REGISTRY[name] = binder
+    register(name, 1)(binder)
 
 
 _tz_part("timezone_hour")
@@ -983,13 +959,12 @@ _tz_part("timezone_minute")
 # -- system and introspection -----------------------------------------------------------
 def _session_text(name, read):
     def binder(arg_exprs):
-        _arity(name, arg_exprs, 0)
 
         def impl(env, cols, node):
             return _const_varchar(env, read(session.active()))
         return VARCHAR, impl, []
 
-    REGISTRY[name] = binder
+    register(name, 0)(binder)
 
 
 _session_text("current_database", lambda s: s.database)
@@ -1008,11 +983,10 @@ def _bind_current_schemas(arg_exprs):
     return lt, impl, []
 
 
-@register("current_setting")
+@register("current_setting", 1)
 def _bind_current_setting(arg_exprs):
     from duckdb_tpu_torch.main.settings import SettingsManager, canonical
 
-    _arity("current_setting", arg_exprs, 1)
     e = arg_exprs[0]
     if not e.is_const() or e.ltype.id is not TypeId.VARCHAR or e.const_value() is None:
         raise BindError("Binder Error: current_setting() takes a constant setting name")
@@ -1038,9 +1012,8 @@ _session_int("current_transaction_id", lambda s: s.next_txid())
 _session_int("current_connection_id", lambda s: s.connection_id)
 
 
-@register("getenv")
+@register("getenv", 1)
 def _bind_getenv(arg_exprs):
-    _arity("getenv", arg_exprs, 1)
     name = str(arg_exprs[0].const_value())
 
     def impl(env, cols, node):
@@ -1048,11 +1021,10 @@ def _bind_getenv(arg_exprs):
     return VARCHAR, impl, []
 
 
-@register("setseed")
+@register("setseed", 1)
 def _bind_setseed(arg_exprs):
     """setseed(x): the connection's random() and uuid generators restart
     from x (planner/session.py); the value is NULL."""
-    _arity("setseed", arg_exprs, 1)
     seed = float(_const_py(arg_exprs[0])[0])
 
     def impl(env, cols, node):
@@ -1062,9 +1034,8 @@ def _bind_setseed(arg_exprs):
     return SQLNULL, impl, []
 
 
-@register("error")
+@register("error", 1)
 def _bind_error(arg_exprs):
-    _arity("error", arg_exprs, 1)
     msg = str(arg_exprs[0].const_value())
 
     def impl(env, cols, node):
@@ -1088,9 +1059,8 @@ def _bind_constant_or_null(arg_exprs):
     return t, impl, arg_exprs
 
 
-@register("can_cast_implicitly")
+@register("can_cast_implicitly", 2)
 def _bind_can_cast_implicitly(arg_exprs):
-    _arity("can_cast_implicitly", arg_exprs, 2)
     ok = implicit_cast_cost(arg_exprs[0].ltype, arg_exprs[1].ltype) is not None
 
     def impl(env, cols, node):
@@ -1098,10 +1068,9 @@ def _bind_can_cast_implicitly(arg_exprs):
     return BOOLEAN, impl, []
 
 
-@register("alias")
+@register("alias", 1)
 def _bind_alias(arg_exprs):
     """The name of the argument expression (a function's name, else 'expr')."""
-    _arity("alias", arg_exprs, 1)
     name = getattr(arg_exprs[0], "name", None) or "expr"
 
     def impl(env, cols, node):

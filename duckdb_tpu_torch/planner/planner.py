@@ -2244,6 +2244,10 @@ def _agg_result_type(func: str, args) -> LogicalType:
         return BIGINT
     if func == "avg":
         return DOUBLE
+    if func in ("bit_and", "bit_or", "bit_xor") and t.id is TypeId.VARCHAR:
+        # DuckDB's are over integers and BIT: no overload takes text
+        raise B.BindError(f"Binder Error: No function matches the given name and argument "
+                          f"types '{func}(VARCHAR)'. You might need to add explicit type casts.")
     if func in ("list", "array_agg", "approx_top_k"):
         return list_of(t)
     if func in ("histogram", "histogram_exact"):

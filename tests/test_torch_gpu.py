@@ -1215,3 +1215,131 @@ def test_explain_analyze_and_capi_q1_on_cuda(tmp_path):
         for g, w in zip(GS.grouped_sum_i64(dense, vecs, nseg),
                         GS.grouped_sum_i64_plain(dense, vecs, nseg)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_fuzz_card_against_cpu_with_the_kernel_held_to_plain():
+    """The grammar fuzzer's seed 1 × 100 on a card connection against a CPU
+    connection (testing/fuzz.card_against_cpu, as phase 23 of chip_smoke
+    runs it): no non-typed error, the same answers, and every grouped-sum
+    launch of the card queries equal to the plain version."""
+    _need_cuda()
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.ops import grouped as grouped_mod
+    from duckdb_tpu_torch.testing import fuzz as FZ
+
+    card = FZ.setup_connection(duckdb_tpu_torch.connect())
+    cpu = FZ.setup_connection(duckdb_tpu_torch.connect(device="cpu"))
+    recorded, kernel = [], GS.grouped_sum_i64
+
+    def recording(dense, vectors, nseg):
+        if dense.is_cuda:
+            recorded.append((dense, list(vectors), nseg))
+        return kernel(dense, vectors, nseg)
+
+    def hold(i, sql):
+        counted = kernel.launches
+        try:
+            for dense, vecs, nseg in recorded:
+                for g, w in zip(kernel(dense, vecs, nseg),
+                                GS.grouped_sum_i64_plain(dense, vecs, nseg)):
+                    if not torch.equal(g, w):
+                        return "grouped_sum_i64 differs from its plain version"
+            return ""
+        finally:
+            recorded.clear()
+            kernel.launches = counted
+
+    grouped_mod.grouped_sum_i64 = recording
+    kernel.launches = 0
+    try:
+        answered, refused, problems, _ = FZ.card_against_cpu(100, 1, card, cpu, after_card=hold)
+    finally:
+        grouped_mod.grouped_sum_i64 = kernel
+    assert not problems, problems[:3]
+    assert answered >= 20 and kernel.launches >= 1
+
+
+_GLOO_CARD_WORKER = r"""
+import sys
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from duckdb_tpu_torch.ops import grouped_sum as GS
+from duckdb_tpu_torch.parallel import shard as TS
+sys.path.insert(0, {root!r} + "/tests")
+import test_torch_multihost as M  # by its file: another "tests" package may be installed
+
+addr, rank = sys.argv[1], int(sys.argv[2])
+mesh = TS.init_process_mesh("gloo", local=2, init_method="tcp://" + addr, world_size=2,
+                            rank=rank)  # no device named: the card, shared by both ranks
+assert mesh.staged and mesh.n == 4 and mesh.home == torch.device("cuda", 0), mesh
+d = M.make_inputs()
+dev = mesh.home
+
+def h(x):
+    return torch.from_numpy(np.ascontiguousarray(M.half(x, rank))).to(dev)
+
+def r(x):
+    return torch.from_numpy(M.rows_of(x, rank)).to(dev)
+
+ins = [h(d[k]) for k in ("qty", "price", "disc", "tax", "gid", "q_live")]
+GS.grouped_sum_i64.launches = 0
+sums = TS.make_sharded_q1(mesh, 8)(*ins)
+assert GS.grouped_sum_i64.launches >= 2, GS.grouped_sum_i64.launches
+for i, shard in enumerate(zip(*(TS.split_rows(mesh, x) for x in ins))):
+    g, vecs = TS.q1_partial_inputs(*shard, 8)
+    for a, b in zip(GS.grouped_sum_i64(g, vecs, 8), GS.grouped_sum_i64_plain(g, vecs, 8)):
+        assert torch.equal(a, b)
+live = d["q_live"]
+omd = d["price"] * (100 - d["disc"])
+vals = [d["qty"], d["price"], omd, omd * (100 + d["tax"]), d["disc"], np.ones_like(d["qty"])]
+want = [[int(v[live & (d["gid"] == g)].sum()) for g in range(8)] for v in vals]
+assert torch.stack(sums).cpu().tolist() == want
+j = TS.make_exchange_join(mesh)(h(d["pk"]), h(d["p_live"]), r(d["pk"]), h(d["bk"]),
+                                h(d["b_live"]), r(d["bk"]))
+lut = {{int(k): i for i, (k, lv) in enumerate(zip(d["bk"], d["b_live"])) if lv}}
+for rp, br in zip(j.rp, j.br):
+    assert rp.is_cuda
+    for a, b in zip(rp.tolist(), br.tolist()):
+        assert b == lut.get(int(d["pk"][a]), -1)
+assert TS.COPIED["staged"] > 0
+print(f"rank {{rank}} OK", flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_two_gloo_processes_share_the_card(tmp_path):
+    """Two gloo ranks × 2 shards on cuda:0 (parallel/shard.ProcessMesh, the
+    collectives staged through the host): Q1's partial through the kernel
+    on each shard (equal to the plain version) then all_reduce'd to numpy's
+    sums, and the exchange join held to the host oracle."""
+    _need_cuda()
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    addr = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    script = tmp_path / "worker.py"
+    script.write_text(_GLOO_CARD_WORKER.format(root=root))
+    # one visible card: both ranks default to it
+    card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=card)
+    procs = [subprocess.Popen([sys.executable, str(script), addr, str(i)], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"rank {i} OK" in out, out[-3000:]

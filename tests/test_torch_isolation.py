@@ -22,7 +22,10 @@ import duckdb_tpu_torch
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "duckdb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port's package, chip_smoke.py, and the tools that drive the port
+PORT_TOOLS = ["torch_fuzz.py"] + sorted(p.name for p in (ROOT / "tools").glob("chip_phase*.py"))
+PORT_FILES = sorted((ROOT / "duckdb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+    [ROOT / "tools" / name for name in PORT_TOOLS]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|duckdb_tpu|pyarrow)\b", re.MULTILINE)
 
 
@@ -43,6 +46,13 @@ CXX_FORBIDDEN = re.compile(r'"duckdb_tpu\.|#\s*include\s*[<"](jax|duckdb_tpu/|du
 @pytest.mark.parametrize("path", CXX_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_cxx_sources_name_no_jax_module(path):
     assert not CXX_FORBIDDEN.findall(path.read_text()), path
+
+
+def test_scan_covers_the_new_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"duckdb_tpu_torch/testing/fuzz.py", "duckdb_tpu_torch/ops/int128.py",
+            "duckdb_tpu_torch/parallel/shard.py", "tools/torch_fuzz.py",
+            "tools/chip_phase23.py", "tools/chip_phase24.py"} <= names
 
 
 def test_cxx_scan_finds_what_it_forbids():
