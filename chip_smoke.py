@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero before the result lines):
 1. the card's name and power limit, torch/CUDA versions; build every
    kernel from csrc/ and print nvcc's -Xptxas -v report, and, side by
-   side, the file readers' host libraries (csrc/csv2col.cpp,
-   csrc/parquet_codec.cpp) with the host C++ compiler;
+   side, the host libraries (csrc/csv2col.cpp, csrc/parquet_codec.cpp,
+   csrc/arrow_c.cpp, capi/capi.cpp) with the host C++ compiler;
 2. generate all eight TPC-H tables at SF1 from a fixed seed (data/,
    ignored by git) and load them with duckdb_tpu_torch.connect().load_tpch();
 3. the main path: TPC-H Q1 (bench.py's text) once through the port's
@@ -324,7 +324,24 @@ Phases (any failure exits non-zero before the result lines):
    all held to numpy. Each step prints its wall, the bytes sent between
    ranks and staged through the host, and the backend.
    `tools/chip_phase24.py --backend nccl --world 4` runs it with one card
-   per rank. The script's whole time is printed last.
+   per rank.
+25. the faults F28-F31 and C1-C5, Arrow, nested Parquet and the
+   configuration matrix: F28-F31's forms on a card connection (repeat's
+   LIST overload, a string function over a LIST, date_part(1), a list
+   function over a scalar, string literals read as the parameter's type,
+   UINT64 and BLOB from Parquet) and C1-C5 through the C API library;
+   lineitem at SF1 from phase 3's connection through the port's own
+   Arrow export (api/arrow_interop.py over csrc/arrow_c.cpp, no pyarrow),
+   whole and in record batches of ARROW_BATCH_ROWS, imported back by
+   from_arrow (export and import wall ms and MB/s), Q1 over each import
+   through the kernel equal to numpy, every Arrow struct released; the
+   nested and TIME fixtures read to their expected rows, a deeper nesting
+   refused naming its column, INTEGER[], VARCHAR[] and TIME written by COPY
+   TO and read back; the fifteen configurations of MATRIX_CONFIGS × the
+   seven MATRIX_QUERIES at SF 0.01, each equal to the numpy oracle, every
+   grouped-sum launch held to the plain version (none under pallas_off).
+   `tools/chip_phase25.py` runs it alone. The script's whole time is
+   printed last.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -1539,14 +1556,15 @@ class Steps:
         self.launches_by_query[name] = GS.grouped_sum_i64.launches
         return value, line
 
-    def kernel_check(self, name) -> str:
+    def kernel_check(self, name, timed=None) -> str:
         """'' when the kernel equals its plain version on every recorded
-        input, each shape timed once; else a failure message."""
+        input, each shape timed once (once across the calls that share
+        `timed`); else a failure message."""
         import torch
 
         from duckdb_tpu_torch.ops import grouped_sum as GS
 
-        timed = set()
+        timed = set() if timed is None else timed
         for dense, vecs, nseg in self.recorded:
             err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
                               GS.grouped_sum_i64_plain(dense, vecs, nseg))
@@ -2063,16 +2081,26 @@ def lineitem_text(data_dir: str) -> bytes:
 
 def fixture_value(v):
     """An expected value of a fixture's JSON: {"decimal": text},
-    {"date": iso}, {"timestamp": iso} or a plain JSON value."""
+    {"date": iso}, {"timestamp": iso}, {"time": iso}, {"blob": hex},
+    {"struct": {field: value}}, a list of such values, or a plain JSON
+    value."""
     import datetime
     import decimal
 
+    if isinstance(v, list):
+        return [fixture_value(x) for x in v]
     if isinstance(v, dict):
         (kind, text), = v.items()
         if kind == "decimal":
             return decimal.Decimal(text)
         if kind == "date":
             return datetime.date.fromisoformat(text)
+        if kind == "time":
+            return datetime.time.fromisoformat(text)
+        if kind == "blob":
+            return bytes.fromhex(text)
+        if kind == "struct":
+            return {k: fixture_value(x) for k, x in text.items()}
         return datetime.datetime.fromisoformat(text)
     return v
 
@@ -3129,6 +3157,390 @@ def process_mesh_phase(card, launches_by_query, backend="gloo", world=2,
     return ""
 
 
+# phase 25: the faults' forms, Arrow through the C stream interface, the
+# nested and TIME Parquet columns, and the configuration matrix
+PHASE25_DIR = os.path.join(ROOT, "build", "phase25")
+ARROW_BATCH_ROWS = 1_000_000
+MATRIX_SF, MATRIX_SEED = 0.01, 7
+MATRIX_DATA = os.path.join(ROOT, "data", f"tpch_gen_sf{MATRIX_SF:g}_seed{MATRIX_SEED}")
+# tests/test_config_matrix.py's fifteen configurations, copied (the card's
+# machine has another tests package) and held equal by
+# tests/test_torch_config_matrix.py
+MATRIX_CONFIGS = {
+    "chunked": ["SET memory_limit = '64MB'"],
+    "sharded": ["SET num_shards = 8"],
+    "greedy_join": ["SET join_order = 'greedy'"],
+    "pallas_off": ["SET pallas_grouped_sum = 'off'"],
+    "shard_everything": ["SET num_shards = 8", "SET auto_shard_rows = 1"],
+    "exchange_join_forced": ["SET num_shards = 8", "SET exchange_join_threshold = 0"],
+    "spill_4mb": ["SET memory_limit = '4MB'"],
+    "spill_sharded": ["SET memory_limit = '32MB'", "SET num_shards = 8"],
+    "greedy_spill": ["SET join_order = 'greedy'", "SET memory_limit = '64MB'"],
+    "threads_1": ["SET threads = 1"],
+    "shard2_tiny": ["SET num_shards = 2", "SET auto_shard_rows = 1"],
+    "exchange_spill": ["SET num_shards = 8", "SET exchange_join_threshold = 0",
+                       "SET memory_limit = '64MB'"],
+    "pallas_off_sharded": ["SET pallas_grouped_sum = 'off'", "SET num_shards = 8"],
+    "spill_2mb": ["SET memory_limit = '2MB'"],
+    "greedy_sharded": ["SET join_order = 'greedy'", "SET num_shards = 8"],
+}
+MATRIX_QUERIES = ("q01", "q03", "q05", "q06", "q10", "q12", "q14")
+MATRIX_RESETS = ("memory_limit", "num_shards", "auto_shard_rows", "exchange_join_threshold",
+                 "pallas_grouped_sum", "threads", "join_order")
+
+
+def capi_faults(lib) -> str:
+    """C1-C5 through the C API library on this machine: '' or what failed."""
+    import ctypes
+
+    V, U = ctypes.c_void_p, ctypes.c_uint64
+
+    class CResult(ctypes.Structure):
+        _fields_ = [("internal_data", V)]
+
+    class Hugeint(ctypes.Structure):
+        _fields_ = [("lower", ctypes.c_uint64), ("upper", ctypes.c_int64)]
+
+    for name, args, res in (
+            ("duckdb_create_config", [ctypes.POINTER(V)], ctypes.c_int),
+            ("duckdb_set_config", [V, ctypes.c_char_p, ctypes.c_char_p], ctypes.c_int),
+            ("duckdb_destroy_config", [ctypes.POINTER(V)], None),
+            ("duckdb_open_ext", [ctypes.c_char_p, ctypes.POINTER(V), V,
+                                 ctypes.POINTER(ctypes.c_char_p)], ctypes.c_int),
+            ("duckdb_connect", [V, ctypes.POINTER(V)], ctypes.c_int),
+            ("duckdb_disconnect", [ctypes.POINTER(V)], None),
+            ("duckdb_close", [ctypes.POINTER(V)], None),
+            ("duckdb_query", [V, ctypes.c_char_p, V], ctypes.c_int),
+            ("duckdb_destroy_result", [V], None),
+            ("duckdb_value_int64", [V, U, U], ctypes.c_int64),
+            ("duckdb_create_uint64", [ctypes.c_uint64], V),
+            ("duckdb_create_hugeint", [Hugeint], V),
+            ("duckdb_destroy_value", [ctypes.POINTER(V)], None),
+            ("duckdb_get_varchar", [V], V),
+            ("duckdb_free", [V], None),
+            ("duckdb_appender_create", [V, ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(V)],
+             ctypes.c_int),
+            ("duckdb_append_value", [V, V], ctypes.c_int),
+            ("duckdb_appender_end_row", [V], ctypes.c_int),
+            ("duckdb_appender_destroy", [ctypes.POINTER(V)], ctypes.c_int),
+            ("duckdb_column_logical_type", [V, U], V),
+            ("duckdb_decimal_width", [V], ctypes.c_uint8),
+            ("duckdb_destroy_logical_type", [ctypes.POINTER(V)], None),
+            ("duckdb_result_get_chunk", [CResult, U], V),
+            ("duckdb_data_chunk_get_vector", [V, U], V),
+            ("duckdb_destroy_data_chunk", [ctypes.POINTER(V)], None),
+            ("duckdb_tpu_torch_live_vectors", [], ctypes.c_long)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
+
+    def open_with(pairs):
+        cfg, db, err = V(), V(), ctypes.c_char_p()
+        lib.duckdb_create_config(ctypes.byref(cfg))
+        for k, v in pairs:
+            lib.duckdb_set_config(cfg, k.encode(), v.encode())
+        rc = lib.duckdb_open_ext(b":memory:", ctypes.byref(db), cfg, ctypes.byref(err))
+        lib.duckdb_destroy_config(ctypes.byref(cfg))
+        return rc, db, err
+
+    # C5: a bad option fails the open and says why
+    rc, db, err = open_with([("join_order", "sideways")])
+    if rc == 0 or not err.value or b"join_order" not in err.value:
+        return f"C5: duckdb_open_ext took a bad option (rc {rc}, error {err.value!r})"
+    lib.duckdb_free(err)
+    rc, db, err = open_with([("join_order", "greedy")])
+    con = V()
+    if rc or lib.duckdb_connect(db, ctypes.byref(con)):
+        return f"C5: duckdb_open_ext of a good option failed ({err.value!r})"
+    res = CResult()
+    try:
+        def query(sql):
+            if lib.duckdb_query(con, sql.encode(), ctypes.byref(res)):
+                raise RuntimeError(f"duckdb_query failed: {sql}")
+
+        # C1: a UBIGINT value appends itself
+        query("CREATE TABLE u (x BIGINT)")
+        lib.duckdb_destroy_result(ctypes.byref(res))
+        app = V()
+        lib.duckdb_appender_create(con, None, b"u", ctypes.byref(app))
+        v = V(lib.duckdb_create_uint64(123_456_789_012))
+        lib.duckdb_append_value(app, v)
+        lib.duckdb_destroy_value(ctypes.byref(v))
+        lib.duckdb_appender_end_row(app)
+        lib.duckdb_appender_destroy(ctypes.byref(app))
+        query("SELECT x FROM u")
+        got = lib.duckdb_value_int64(ctypes.byref(res), 0, 0)
+        lib.duckdb_destroy_result(ctypes.byref(res))
+        if got != 123_456_789_012:
+            return f"C1: an appended UBIGINT value reads {got}"
+        # C3: a DECIMAL column's own width; C2: a chunk owns its vectors
+        query("SELECT CAST(12.5 AS DECIMAL(10,2)) AS d, range AS r FROM range(3000)")
+        t = V(lib.duckdb_column_logical_type(ctypes.byref(res), 0))
+        width = lib.duckdb_decimal_width(t)
+        lib.duckdb_destroy_logical_type(ctypes.byref(t))
+        base = lib.duckdb_tpu_torch_live_vectors()
+        chunk = lib.duckdb_result_get_chunk(res, 0)
+        first = lib.duckdb_data_chunk_get_vector(chunk, 1)
+        same = all(lib.duckdb_data_chunk_get_vector(chunk, 1) == first for _ in range(10_000))
+        alive = lib.duckdb_tpu_torch_live_vectors() - base
+        lib.duckdb_destroy_data_chunk(ctypes.byref(V(chunk)))
+        after = lib.duckdb_tpu_torch_live_vectors() - base
+        lib.duckdb_destroy_result(ctypes.byref(res))
+        if width != 10:
+            return f"C3: DECIMAL(10,2) reports width {width}"
+        if not same or alive != 1 or after != 0:
+            return f"C2: vectors of a chunk: same {same}, alive {alive}, after its destroy {after}"
+    finally:
+        lib.duckdb_disconnect(ctypes.byref(con))
+        lib.duckdb_close(ctypes.byref(db))
+    # C4: HUGEINT and UBIGINT text in full
+    for make, n in (("hugeint", -(1 << 100) - 7), ("uint64", (1 << 64) - 1)):
+        v = V(lib.duckdb_create_hugeint(Hugeint(lower=n & ((1 << 64) - 1), upper=n >> 64))
+              if make == "hugeint" else lib.duckdb_create_uint64(n))
+        p = lib.duckdb_get_varchar(v)
+        text = ctypes.cast(p, ctypes.c_char_p).value.decode()
+        lib.duckdb_free(p)
+        lib.duckdb_destroy_value(ctypes.byref(v))
+        if text != str(n):
+            return f"C4: duckdb_get_varchar of a {make} gives {text}, not {n}"
+    return ""
+
+
+def faults_step(card) -> str:
+    """Phase 25 step 1: the F28-F31 forms on the card, each as the tests
+    hold it. '' or what failed."""
+    import datetime
+
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch import errors
+    from duckdb_tpu_torch.planner.bound import BindError
+
+    con = duckdb_tpu_torch.connect()
+    con.sql("CREATE TABLE lists AS SELECT * FROM (VALUES ([1, 2]), (NULL), ([3])) t(x)")
+    answers = [
+        ("SELECT repeat([1, 2], 2)", [([1, 2, 1, 2],)]),  # F30
+        ("SELECT repeat(x, 2) FROM lists", [([1, 2, 1, 2],), (None,), ([3, 3],)]),
+        ("SELECT make_time('1', '2', '3')", [(datetime.time(1, 2, 3),)]),  # F29
+        ("SELECT factorial('2'), gcd('2', '2')", [(2, 2)]),
+        ("SELECT make_date('2020', '1', '2')", [(datetime.date(2020, 1, 2),)]),
+    ]
+    refusals = [
+        ("SELECT reverse([1, 2])", BindError), ("SELECT strlen(x) FROM lists", BindError),
+        ("SELECT date_part(1)", BindError), ("SELECT array_append(1, 1)", BindError),  # F28
+        ("SELECT split(1, 1)", BindError),
+        ("SELECT make_date('a', 'a', 'a')", errors.ConversionException),
+        ("SELECT day('2')", errors.ConversionException),
+        ("SELECT day(s) FROM (VALUES ('2')) t(s)", BindError),
+    ]
+    for sql, want in answers:
+        got = con.sql(sql).rows()
+        if got != want:
+            return f"{sql} gives {got}, not {want}"
+    for sql, cls in refusals:
+        try:
+            con.sql(sql).rows()
+        except cls:
+            continue
+        except Exception as err:  # noqa: BLE001 — a bare error is the fault
+            return f"{sql} raised {type(err).__name__}: {err}, not {cls.__name__}"
+        return f"{sql} answered where it must raise {cls.__name__}"
+    # F31: UINT64 as HUGEINT, BYTE_ARRAY as BLOB, summed on the card
+    path = os.path.join(FIXTURES, "unsigned_binary.parquet")
+    with open(path + ".expected.json") as f:
+        rows = json.load(f)["rows"]
+    want = [(sum(r[1] for r in rows if r[1] is not None),
+             sum(1 for r in rows if r[3] is not None))]
+    got = con.sql(f"SELECT sum(u64), count(bin) FROM read_parquet('{path}')").rows()
+    row1 = con.sql(f"SELECT u64, bin FROM read_parquet('{path}') WHERE k = 1").rows()
+    if got != want or row1 != [(2**63 + 5, fixture_value(rows[1][3]))]:
+        return f"F31: {got} / {row1}, not {want} / {(2**63 + 5, rows[1][3])}"
+    print(f"phase 25 step 1 on {card}: F28-F31's {len(answers) + len(refusals) + 1} forms "
+          "answer or raise as the tests hold them")
+    return ""
+
+
+def arrow_step(con, kit, want_q1) -> str:
+    """Phase 25 step 2: lineitem through the port's own Arrow export and
+    import, whole and in record batches, then Q1 over each import through
+    the kernel. '' or what failed."""
+    import gc
+
+    import numpy as np
+
+    from duckdb_tpu_torch.api import arrow_interop as AI
+
+    res, line = kit.step("2 SELECT * FROM lineitem to the host", lambda: con.sql(
+        "SELECT * FROM lineitem"))
+    print(line)
+    nbytes = sum(np.asarray(v).nbytes + (0 if ok is None else np.asarray(ok).nbytes)
+                 for v, ok, _ in res.columns)
+    for label, make, name in (("whole", lambda: res.arrow(), "li_arrow"),
+                              (f"in batches of {ARROW_BATCH_ROWS}",
+                               lambda: res.fetch_record_batch(ARROW_BATCH_ROWS), "li_batches")):
+        export = make()
+        t0 = time.perf_counter()
+        capsule = export.__arrow_c_stream__()
+        export_s = time.perf_counter() - t0
+
+        class Stream:  # the capsule, handed over as a consumer takes one
+            def __arrow_c_stream__(self, requested_schema=None):
+                return capsule
+
+        t0 = time.perf_counter()
+        con.from_arrow(Stream(), name)
+        import_s = time.perf_counter() - t0
+        del capsule
+        gc.collect()
+        print(f"phase 25 step 2 on {kit.card}: lineitem ({res.nrows} rows, {nbytes} bytes of "
+              f"host planes) exported {label} ({export.num_batches} batches) in "
+              f"{export_s * 1e3:.3f} ms ({nbytes / export_s / 1e6:.1f} MB/s), imported by "
+              f"from_arrow in {import_s * 1e3:.3f} ms ({nbytes / import_s / 1e6:.1f} MB/s)")
+        if name == "li_batches" and export.num_batches != -(-res.nrows // ARROW_BATCH_ROWS):
+            return f"fetch_record_batch gave {export.num_batches} batches"
+        q1 = Q1.replace("FROM lineitem", f"FROM {name}")
+        rows, line = kit.with_kernel(f"2 Q1 over {name}", f"arrow_q1_{name}",
+                                     lambda: con.sql(q1).rows())
+        bad = rows_match(rows, want_q1)
+        if bad:
+            return f"Q1 over {name} differs from numpy: {bad}"
+        if kit.launches_by_query[f"arrow_q1_{name}"] < 1:
+            return f"Q1 over {name} did not launch the grouped sum"
+        print(line + f"; rows equal numpy's; grouped_sum_i64 launches "
+              f"{kit.launches_by_query[f'arrow_q1_{name}']}")
+        bad = kit.kernel_check(f"arrow_q1_{name}")
+        if bad:
+            return bad
+        con.sql(f"DROP TABLE {name}")
+    del res
+    gc.collect()
+    if AI.live_structs():
+        return f"{AI.live_structs()} Arrow structs were never released"
+    return ""
+
+
+def parquet_step(card) -> str:
+    """Phase 25 step 3: the item 49 fixtures read to their expected rows,
+    and LIST and TIME columns written by COPY TO read back. '' or what
+    failed."""
+    import shutil
+
+    import duckdb_tpu_torch
+
+    con = duckdb_tpu_torch.connect()
+    cases = [c for c in fixture_cases()
+             if os.path.basename(c[0]) in ("nested_time.parquet", "unsigned_binary.parquet")]
+    for path, sql, want in cases:
+        got = con.sql(sql).rows()
+        if got != want:
+            return f"{os.path.basename(path)} differs from its expected rows"
+    try:
+        con.sql(f"SELECT * FROM read_parquet('{os.path.join(FIXTURES, 'nested_deep.parquet')}')")
+        return "nested_deep.parquet read where it must raise"
+    except ValueError as err:
+        if '"ll"' not in str(err):
+            return f"nested_deep.parquet raised without naming its column: {err}"
+    shutil.rmtree(PHASE25_DIR, ignore_errors=True)
+    os.makedirs(PHASE25_DIR)
+    src = os.path.join(FIXTURES, "nested_time.parquet")
+    out = os.path.join(PHASE25_DIR, "lists.parquet")
+    con.sql(f"COPY (SELECT k, l, ls, t32, t64 FROM read_parquet('{src}') ORDER BY k) TO "
+            f"'{out}' (FORMAT PARQUET)")
+    back = con.sql(f"SELECT * FROM read_parquet('{out}') ORDER BY k").rows()
+    want = con.sql(f"SELECT k, l, ls, t32, t64 FROM read_parquet('{src}') ORDER BY k").rows()
+    shutil.rmtree(PHASE25_DIR, ignore_errors=True)
+    if back != want:
+        return "the LIST and TIME columns written by COPY TO read back differently"
+    print(f"phase 25 step 3 on {card}: {len(cases)} item 49 / F31 fixtures equal their "
+          f"expected rows, nested_deep.parquet refused naming \"ll\", and {len(back)} rows of "
+          "INTEGER[], VARCHAR[] and TIME written by COPY TO read back equal")
+    return ""
+
+
+def matrix_step(kit) -> str:
+    """Phase 25 step 4: the fifteen configurations × MATRIX_QUERIES at SF
+    0.01 on the card, each equal to the numpy oracle, every launch held to
+    the plain version. '' or what failed."""
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.catalog import catalog as C
+    from duckdb_tpu_torch.testing import tpch_oracle
+    from duckdb_tpu_torch.testing.tpch_gen import TABLE_COLUMNS, write_tables
+
+    t0 = time.perf_counter()
+    if not all(os.path.exists(os.path.join(MATRIX_DATA, t, "meta.json")) for t in TABLE_COLUMNS):
+        write_tables(MATRIX_DATA, MATRIX_SF, MATRIX_SEED)
+    texts = {**tpch_oracle.QUERIES, **tpch_oracle.LIKE_QUERIES, **tpch_oracle.GENERAL_QUERIES,
+             "q01": Q1}
+    wants = {q: numpy_q1(MATRIX_DATA) if q == "q01" else tpch_oracle.answer(q, MATRIX_DATA)
+             for q in MATRIX_QUERIES}
+    print(f"phase 25 step 4: SF {MATRIX_SF} seed {MATRIX_SEED} data and the numpy answers in "
+          f"{time.perf_counter() - t0:.1f} s")
+    walls, timed = [], set()
+    for config, sets in MATRIX_CONFIGS.items():
+        con = duckdb_tpu_torch.connect()
+        con.load_tpch(MATRIX_DATA)
+
+        def run():
+            out = {}
+            for q in MATRIX_QUERIES:
+                for s in sets:
+                    con.sql(s)
+                try:
+                    t = time.perf_counter()
+                    out[q] = con.sql(texts[q]).rows()
+                    walls.append(time.perf_counter() - t)
+                finally:
+                    for s in MATRIX_RESETS:
+                        con.sql(f"RESET {s}")
+                    C.set_memory_limit(0)
+            return out
+
+        got, line = kit.with_kernel(f"4 {config}", f"matrix_{config}", run)
+        for q in MATRIX_QUERIES:
+            bad = rows_match(got[q], wants[q])
+            if bad:
+                return f"{q} under {config} differs from numpy: {bad}"
+        launches = kit.launches_by_query[f"matrix_{config}"]
+        if config.startswith("pallas_off") != (launches == 0):
+            return f"{config}: {launches} grouped_sum_i64 launches"
+        print(line + f"; {len(MATRIX_QUERIES)} queries equal numpy's; routes "
+              f"{sorted(k for k in con.routes if k.startswith(('sharded', 'out_of_core')))}; "
+              f"grouped_sum_i64 launches {launches}")
+        bad = kit.kernel_check(f"matrix_{config}", timed)
+        if bad:
+            return bad
+    print(f"phase 25 step 4 on {kit.card}: {len(MATRIX_CONFIGS)} configurations x "
+          f"{len(MATRIX_QUERIES)} queries, median query wall "
+          f"{statistics.median(walls) * 1e3:.3f} ms (max {max(walls) * 1e3:.3f} ms)")
+    return ""
+
+
+def faults_arrow_matrix_phase(con, card, recording, recorded, launches_by_query, shapes,
+                              reps) -> str:
+    """Phase 25 (see the module docstring). '' or a failure message."""
+    import duckdb_tpu_torch.capi
+
+    phase_t0 = time.perf_counter()
+    kit = Steps(25, card, recording, recorded, launches_by_query, shapes, reps)
+    bad = faults_step(card)
+    if bad:
+        return f"phase 25 step 1: {bad}"
+    bad, line = kit.step("1 C1-C5 through the C API", lambda: capi_faults(
+        duckdb_tpu_torch.capi.library()))
+    if bad:
+        return f"phase 25 step 1: {bad}"
+    print(line + "; C1-C5 hold")
+    bad = arrow_step(con, kit, numpy_q1(DATA))
+    if bad:
+        return f"phase 25 step 2: {bad}"
+    bad = parquet_step(card)
+    if bad:
+        return f"phase 25 step 3: {bad}"
+    bad = matrix_step(kit)
+    if bad:
+        return f"phase 25 step 4: {bad}"
+    print(f"phase 25 on {card}: {time.perf_counter() - phase_t0:.1f} s")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -3169,7 +3581,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
         gs_s = pool.submit(timed, GS.build, True)
         host_s = {name: pool.submit(timed, host_lib.load, name, True)
-                  for name in ("csv2col", "parquet_codec")}
+                  for name in ("csv2col", "parquet_codec", "arrow_c")}
         host_s["duckdb_tpu_torch_capi"] = pool.submit(timed, duckdb_tpu_torch.capi.library, True)
         gs_s = gs_s.result()
         host_s = {name: f.result() for name, f in host_s.items()}
@@ -3703,6 +4115,19 @@ def main() -> int:
     if bad:
         return fail(bad)
     print(f"phase 24 took {time.perf_counter() - phase24_t0:.1f} s")
+
+    # 25. the faults' forms and C1-C5, lineitem through Arrow and back, the
+    # nested and TIME Parquet columns, the configuration matrix at SF 0.01
+    phase25_t0 = time.perf_counter()
+    try:
+        bad = faults_arrow_matrix_phase(con, card, recording, recorded, launches_by_query,
+                                        shapes, reps)
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    if bad:
+        return fail(bad)
+    worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
+    print(f"phase 25 took {time.perf_counter() - phase25_t0:.1f} s")
     print(f"chip_smoke.py took {time.perf_counter() - script_t0:.1f} s in all on {card}")
 
     print(json.dumps({"kernels": [{

@@ -52,10 +52,11 @@ def read_parquet(path: str):
 
 
 def from_df(df, name=None):
-    """Needs pandas: waits for ROADMAP item 35b, as Connection.from_df does."""
-    from duckdb_tpu_torch.planner.bound import not_ported
+    return default_connection().from_df(df, name)
 
-    raise not_ported("from_df (pandas; ROADMAP item 35b)")
+
+def from_arrow(obj, name=None):
+    return default_connection().from_arrow(obj, name)
 
 
 __version__ = "0.1.0"

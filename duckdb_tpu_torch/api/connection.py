@@ -36,6 +36,7 @@ database keeps a log (main/logging.py) that duckdb_logs() reads.
 from __future__ import annotations
 
 import collections
+import itertools
 import os
 import random
 import re
@@ -240,6 +241,9 @@ class _AppendRows:
         self.table = table
         self.rows = rows
 
+
+# the names of tables from_df / from_arrow register without one
+_FROM_IDS = itertools.count(1)
 
 class Connection(DDLMixin, DMLMixin, FilesMixin, AlterMixin, MergeMixin, PivotMixin):
     def __init__(self, database: str = ":memory:", device=None, _db: Optional[Database] = None,
@@ -950,11 +954,39 @@ class Connection(DDLMixin, DMLMixin, FilesMixin, AlterMixin, MergeMixin, PivotMi
     def prepare(self, sql: str) -> PreparedStatement:
         return PreparedStatement(self, sql)
 
-    def from_df(self, df, table_name: str = None):
-        raise not_ported("from_df (pandas; ROADMAP item 35b)")
+    def from_df(self, df, table_name: str = None) -> Relation:
+        """Register a pandas DataFrame as a table (api/arrow_interop.df_columns)."""
+        from duckdb_tpu_torch.api.arrow_interop import df_columns
 
-    def from_arrow(self, tbl, table_name: str = None):
-        raise not_ported("from_arrow (pyarrow; ROADMAP item 35b)")
+        return self._register_columns(*df_columns(df), table_name, "df")
+
+    def from_arrow(self, tbl, table_name: str = None) -> Relation:
+        """Register an Arrow table, record batch or stream (any object with
+        __arrow_c_stream__ or __arrow_c_array__: a pyarrow object, or the
+        port's own Result.arrow()) as a table, every batch read through
+        Arrow's C interface (api/arrow_interop.arrow_columns)."""
+        from duckdb_tpu_torch.api.arrow_interop import arrow_columns
+
+        return self._register_columns(*arrow_columns(tbl), table_name, "arrow")
+
+    register_arrow = from_arrow
+
+    def _register_columns(self, cols, nrows: int, table_name, kind: str) -> Relation:
+        """Host planes → a table of the catalog (replaced if it exists), as
+        load_tpch registers its tables: promoted to the connection's device
+        by the next query that reads them. No name: a fresh one."""
+        from duckdb_tpu_torch.catalog.catalog import ColumnDef, TableEntry
+
+        if table_name is None:
+            table_name = f"{kind}_{next(_FROM_IDS)}"
+        entry = TableEntry(table_name.lower(), [ColumnDef(n, t) for n, t, _, _, _ in cols])
+        entry.nrows = nrows
+        for n, t, vals, valid, dvals in cols:
+            entry.set_host_column(n, vals, validity=valid, dict_values=dvals)
+        self.catalog.create_table(entry, or_replace=True)
+        self._db.dirty = self._db.unlogged = True
+        self._clear_plan_cache()
+        return self.table(table_name)
 
     @staticmethod
     def _count_result(n: int) -> Result:

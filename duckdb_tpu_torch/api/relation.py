@@ -119,7 +119,10 @@ class Relation:
         return rows[0] if rows else None
 
     def df(self):
-        raise not_ported("Relation.df (pandas; ROADMAP item 35b)")
+        """The rows as a pandas DataFrame (pandas imported here)."""
+        from duckdb_tpu_torch.api.arrow_interop import result_df
+
+        return result_df(self.execute(), "Relation.df()")
 
     def count(self) -> int:
         return self.aggregate("count(*) AS cnt").fetchone()[0]

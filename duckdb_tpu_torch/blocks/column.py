@@ -74,6 +74,20 @@ class Column:
         return values, validity
 
     @staticmethod
+    def from_wide(values: np.ndarray, ltype: LogicalType, validity: Optional[np.ndarray],
+                  pad_to: int, device="cpu") -> "Column":
+        """Exact Python ints (an object array) → a column of both 64-bit
+        planes: data the low word as int64, data_hi the high word."""
+        ints = [0 if v is None else int(v) for v in values]
+        lo = np.array([v & ((1 << 64) - 1) for v in ints], dtype=np.uint64).view(np.int64)
+        hi = np.array([v >> 64 for v in ints], dtype=np.int64)
+        col = Column.from_numpy(lo, ltype, validity=validity, pad_to=pad_to, device=device,
+                                dtype_override=np.int64)
+        col.data_hi = torch.zeros(pad_to, dtype=torch.int64, device=device)
+        col.data_hi[:len(hi)] = torch.from_numpy(hi).to(device)
+        return col
+
+    @staticmethod
     def from_numpy(
         values: np.ndarray,
         ltype: LogicalType,

@@ -49,7 +49,7 @@ def disconnect(con):
 
 def _flatten(res):
     if res is None:
-        return ([], [], [], [])
+        return ([], [], [], [], [])
     names = list(res.names)
     tids = [_TYPE_IDS.get(t.id.name, 17) for t in res.types]
     classes = ["i" if t in _INT_IDS else "f" if t in _FLOAT_IDS else "s"
@@ -66,12 +66,14 @@ def _flatten(res):
                 cols[i].append((False, float(v)))
             else:
                 cols[i].append((False, _render(v)))
-    return (names, tids, classes, cols)
+    decs = [(t.width, t.scale) if t.id.name == "DECIMAL" else (0, 0) for t in res.types]
+    return (names, tids, classes, cols, decs)
 
 
 def query(con, sql: str):
-    """→ (names, type_ids, classes, columns); columns[i] = [(is_null,
-    value)] with value already int/float/str per the storage class."""
+    """→ (names, type_ids, classes, columns, (width, scale) per column);
+    columns[i] = [(is_null, value)] with value already int/float/str per
+    the storage class; a DECIMAL column's width and scale are its type's."""
     return _flatten(con.sql(sql))
 
 
@@ -92,6 +94,26 @@ def prepare(con, sql: str):
 
 def nparams(stmt) -> int:
     return stmt.nparams
+
+
+def check_config(pairs):
+    """duckdb_open_ext's check of its config entries, as DuckDB resolves
+    them at open: an unknown option, a value the option does not take, or
+    a device torch cannot name raises (and the open fails with its text)."""
+    import torch
+
+    from duckdb_tpu_torch.main.settings import SettingsManager
+
+    mgr = SettingsManager()
+    for name, value in pairs:
+        if name.lower() == "device":
+            try:
+                torch.device(value)
+            except RuntimeError as err:
+                raise ValueError(f"Invalid Input Error: the device {value!r}: {err}") from None
+            continue
+        v = value.strip()
+        mgr.set(name, int(v) if v.lstrip("+-").isdigit() else v)
 
 
 def apply_settings(con, pairs):

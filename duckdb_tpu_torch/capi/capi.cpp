@@ -109,6 +109,7 @@ struct Col {
   std::vector<int64_t> ints;
   std::vector<double> dbls;
   std::vector<std::string> strs;
+  uint8_t width = 0, scale = 0;  // a DECIMAL's own
 };
 
 struct ChunkImpl;
@@ -203,6 +204,21 @@ void hugeint_mul10_add(duckdb_hugeint *h, int digit) {
   h->upper = (int64_t)nhi;
 }
 
+/* a hugeint in full, in decimal */
+std::string hugeint_to_string(duckdb_hugeint h) {
+  __int128 v = ((__int128)h.upper << 64) | (__int128)h.lower;
+  bool neg = v < 0;
+  unsigned __int128 u = neg ? (unsigned __int128)0 - (unsigned __int128)v
+                            : (unsigned __int128)v;
+  std::string digits;
+  do {
+    digits.push_back((char)('0' + (int)(u % 10)));
+    u /= 10;
+  } while (u);
+  if (neg) digits.push_back('-');
+  return std::string(digits.rbegin(), digits.rend());
+}
+
 void hugeint_negate(duckdb_hugeint *h) {
   h->lower = ~h->lower;
   h->upper = ~h->upper;
@@ -282,6 +298,11 @@ ResultImpl *materialize(PyObject *tuple) {
     col.name = PyUnicode_AsUTF8(PyList_GetItem(names, c));
     col.type = (duckdb_type)PyLong_AsLong(PyList_GetItem(tids, c));
     col.cls = PyUnicode_AsUTF8(PyList_GetItem(classes, c))[0];
+    if (PyTuple_Size(tuple) > 4) {  // (width, scale) of each column
+      PyObject *ws = PyList_GetItem(PyTuple_GetItem(tuple, 4), c);
+      col.width = (uint8_t)PyLong_AsLong(PyTuple_GetItem(ws, 0));
+      col.scale = (uint8_t)PyLong_AsLong(PyTuple_GetItem(ws, 1));
+    }
     PyObject *cells = PyList_GetItem(cols, c);
     Py_ssize_t nr = PyList_Size(cells);
     col.nulls.resize(nr);
@@ -409,11 +430,25 @@ struct VecBuf {
   bool built = false;
 };
 
+// vector handles alive (a test hook: duckdb_tpu_torch_live_vectors)
+static long live_vectors = 0;
+
 struct ChunkImpl {
   ResultImpl *r = nullptr;  // non-owning; chunk must not outlive result
   idx_t offset = 0, size = 0;
   std::vector<VecBuf> vecs;
   bool owned_by_result = false;
+  // one handle per column, made at its first get_vector and freed with
+  // the chunk, as DuckDB's chunk owns its vectors
+  std::vector<_duckdb_vector *> handles;
+  ~ChunkImpl() {
+    for (auto *h : handles) {
+      if (!h) continue;
+      delete (std::pair<ChunkImpl *, idx_t> *)h->internal;
+      delete h;
+      live_vectors--;
+    }
+  }
 };
 
 ResultImpl::~ResultImpl() {
@@ -423,7 +458,10 @@ ResultImpl::~ResultImpl() {
 LT col_logical_type(const Col &c, const ResultImpl *r, idx_t /*ci*/) {
   LT t;
   t.id = c.type;
-  if (c.type == DUCKDB_TYPE_DECIMAL) {
+  if (c.type == DUCKDB_TYPE_DECIMAL && c.width) {
+    t.width = c.width;  // the column's own type
+    t.scale = c.scale;
+  } else if (c.type == DUCKDB_TYPE_DECIMAL) {
     // derive width/scale from the rendered cells (bridge stringifies
     // decimals with the engine's canonical scale)
     uint8_t w = 18, sc = 0;
@@ -642,6 +680,25 @@ duckdb_state duckdb_open_ext(const char *path, duckdb_database *out_database,
   if (config && config->internal) {
     auto *db = (Database *)(*out_database)->internal;
     db->settings = ((ConfigImpl *)config->internal)->entries;
+    // the entries are checked here, as DuckDB resolves its config at open
+    // (a bad option fails the open), and SET on each connection
+    GIL g;
+    PyObject *b = bridge();
+    PyObject *pairs = PyList_New((Py_ssize_t)db->settings.size());
+    for (size_t i = 0; i < db->settings.size(); i++) {
+      PyList_SetItem(pairs, (Py_ssize_t)i,
+                     Py_BuildValue("(ss)", db->settings[i].first.c_str(),
+                                   db->settings[i].second.c_str()));
+    }
+    PyObject *r = b ? PyObject_CallMethod(b, "check_config", "O", pairs) : nullptr;
+    Py_DECREF(pairs);
+    if (!r) {
+      std::string msg = b ? py_err() : "the bridge module did not import";
+      if (out_error) *out_error = strdup(msg.c_str());
+      duckdb_close(out_database);
+      return DuckDBError;
+    }
+    Py_DECREF(r);
   }
   return DuckDBSuccess;
 }
@@ -1305,6 +1362,10 @@ char *duckdb_get_varchar(duckdb_value v) {
       char buf[32];
       snprintf(buf, sizeof buf, "%g", x->d);
       s = buf;
+    } else if (x->id == DUCKDB_TYPE_HUGEINT) {
+      s = hugeint_to_string(x->h);
+    } else if (x->id == DUCKDB_TYPE_UBIGINT) {
+      s = std::to_string(x->u);
     } else {
       s = std::to_string(x->i);
     }
@@ -1380,10 +1441,18 @@ duckdb_vector duckdb_data_chunk_get_vector(duckdb_data_chunk chunk,
   auto *ch = chunk ? (ChunkImpl *)chunk->internal : nullptr;
   if (!ch || col_idx >= ch->vecs.size()) return nullptr;
   build_vec(ch, col_idx);
-  // a vector handle IS (chunk, col): pack col into the pointer pair
-  auto *pair = new std::pair<ChunkImpl *, idx_t>(ch, col_idx);
-  return (duckdb_vector) new _duckdb_vector{pair};
+  // a vector handle IS (chunk, col): pack col into the pointer pair,
+  // once per column; the chunk frees it
+  if (ch->handles.size() < ch->vecs.size()) ch->handles.resize(ch->vecs.size(), nullptr);
+  if (!ch->handles[col_idx]) {
+    auto *pair = new std::pair<ChunkImpl *, idx_t>(ch, col_idx);
+    ch->handles[col_idx] = new _duckdb_vector{pair};
+    live_vectors++;
+  }
+  return (duckdb_vector)ch->handles[col_idx];
 }
+
+long duckdb_tpu_torch_live_vectors(void) { return live_vectors; }
 
 static VecBuf *vecbuf(duckdb_vector v) {
   if (!v) return nullptr;
@@ -1854,6 +1923,8 @@ duckdb_state duckdb_append_value(duckdb_appender a, duckdb_value v) {
       return duckdb_append_interval(a, x->iv);
     case DUCKDB_TYPE_HUGEINT:
       return duckdb_append_hugeint(a, x->h);
+    case DUCKDB_TYPE_UBIGINT:
+      return duckdb_append_uint64(a, x->u);
     default:
       return duckdb_append_int64(a, x->i);
   }

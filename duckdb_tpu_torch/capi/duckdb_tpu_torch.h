@@ -390,6 +390,10 @@ duckdb_state duckdb_appender_close(duckdb_appender appender);
 duckdb_state duckdb_appender_destroy(duckdb_appender *appender);
 idx_t duckdb_appender_column_count(duckdb_appender appender);
 
+/* not DuckDB's: the vector handles alive (each chunk owns its own, made
+ * at a column's first duckdb_data_chunk_get_vector), a test hook */
+long duckdb_tpu_torch_live_vectors(void);
+
 #ifdef __cplusplus
 }
 #endif

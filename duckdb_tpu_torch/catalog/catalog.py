@@ -334,6 +334,13 @@ class TableEntry:
         if name not in self._device:
             values, validity, dict_values = self.host_column(name)
             ltype = self.col_types[name]
+            if values.dtype == object and ltype.id is TypeId.HUGEINT:
+                # exact Python ints (a Parquet UINT64, an Arrow uint64): both
+                # 64-bit planes, pinned as a wide column made on the device is
+                col = Column.from_wide(values, ltype, validity, pad_bucket(self.nrows),
+                                       self.device)
+                self._device[name] = col
+                return col
             values = values.astype(self._device_dtype(name, values), copy=False)
             col = Column.from_numpy(
                 values, ltype, validity=validity, dict_values=dict_values,

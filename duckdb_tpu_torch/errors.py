@@ -97,6 +97,44 @@ class PermissionException(Error):
     prefix = "Permission Error: "
 
 
+class ValueInputError(InvalidInputException, ValueError):
+    """A value a function cannot take: DuckDB's InvalidInputException, and
+    a ValueError, the JAX package's class for it."""
+
+
+class ValueCatalogError(CatalogException, ValueError):
+    """A catalog entry (a sequence, a setting) that a function names and
+    that does not exist: DuckDB's CatalogException, and a ValueError, the
+    JAX package's class for it."""
+
+
+class ValueConversionError(ConversionException, ValueError):
+    """A value's Conversion Error, and a ValueError."""
+
+
+class ValueOutOfRangeError(OutOfRangeException, ValueError):
+    """A value's Out of Range Error, and a ValueError."""
+
+
+def typed_value_error(e: Exception) -> Exception:
+    """The typed error of a value's failure that a function recorded as a
+    bare ValueError: e itself where it is typed already, else by its
+    message's DuckDB prefix (an Invalid Input Error without one)."""
+    if isinstance(e, Error):
+        return e
+    msg = str(e)
+    cls = ValueInputError
+    if msg.startswith(CatalogException.prefix):
+        cls = ValueCatalogError
+    elif msg.startswith(ConversionException.prefix):
+        cls = ValueConversionError
+    elif msg.startswith(OutOfRangeException.prefix):
+        cls = ValueOutOfRangeError
+    out = cls(msg)
+    out.__cause__ = e
+    return out
+
+
 _INT_TYPE_NAMES = {1: "INT8", 2: "INT16", 4: "INT32", 8: "INT64"}
 
 

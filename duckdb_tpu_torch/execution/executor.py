@@ -307,13 +307,31 @@ class Result:
         return out
 
     def df(self):
-        raise not_ported("Result.df (pandas; ROADMAP item 35b)")
+        """A pandas DataFrame of the rows (pandas imported here)."""
+        from duckdb_tpu_torch.api.arrow_interop import result_df
+
+        return result_df(self)
 
     def arrow(self):
-        raise not_ported("Result.arrow (pyarrow; ROADMAP item 35b)")
+        """The result as an Arrow table through Arrow's C stream interface
+        (api/arrow_interop.ArrowTable: `pyarrow.table(res.arrow())`, or
+        `Connection.from_arrow`), built from the host planes with no row
+        loop and no Arrow library."""
+        from duckdb_tpu_torch.api.arrow_interop import ArrowTable
+
+        return ArrowTable(self)
+
+    fetch_arrow_table = arrow
 
     def fetch_record_batch(self, rows_per_batch: int = 1_000_000):
-        raise not_ported("Result.fetch_record_batch (pyarrow; ROADMAP item 35b)")
+        """The result as a stream of ceil(n / rows_per_batch) Arrow record
+        batches (api/arrow_interop.ArrowBatchReader)."""
+        from duckdb_tpu_torch.api.arrow_interop import ArrowBatchReader
+
+        return ArrowBatchReader(self, rows_per_batch)
+
+    record_batch = fetch_record_batch
+    fetch_arrow_reader = fetch_record_batch
 
     def rows(self) -> List[tuple]:
         """Python-value rows (DECIMAL → decimal.Decimal, DATE → datetime.date)."""

@@ -456,6 +456,17 @@ _KEYWORD_FUNCTIONS = {"current_date": "today", "current_time": "now", "localtime
                       "current_timestamp": "now"}
 
 
+def _fold_cast(lit: B.BoundLiteral, t: LogicalType) -> B.BoundLiteral:
+    """A string literal read as type t, as DuckDB reads a literal for a
+    parameter of that type: text that does not read is its Conversion
+    Error, raised here."""
+    try:
+        return B.BoundLiteral(B.BoundCast(lit, t).const_value(), t)
+    except (ValueError, KeyError, OverflowError) as err:
+        raise B.CastConversionError(f"Conversion Error: Could not convert string "
+                                    f"'{lit.value}' to {t!r}") from err
+
+
 class ExprBinder:
     """Binds AST expressions in a scope.
 
@@ -767,9 +778,7 @@ class ExprBinder:
                 else:
                     args.append(self.bind(a))
             F.check_arity(name, args)
-            if name in F.NUMERIC_ARG_FNS:
-                args = [B.BoundCast(a, DOUBLE) if a.ltype.id is TypeId.VARCHAR else a
-                        for a in args]
+            args = F.check_params(name, args, _fold_cast)
             try:
                 rt, impl, args2 = F.REGISTRY[name](args)
             except (IndexError, KeyError) as err:

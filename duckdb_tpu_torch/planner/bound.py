@@ -33,7 +33,7 @@ import torch
 
 from duckdb_tpu_torch.blocks import Column
 from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS, merged_rank_luts
-from duckdb_tpu_torch.errors import ConversionException
+from duckdb_tpu_torch.errors import ConversionException, typed_value_error
 from duckdb_tpu_torch.ops import int128 as I128
 from duckdb_tpu_torch.types import (
     BOOLEAN,
@@ -771,7 +771,7 @@ def raise_if_read(c: Column, errs: dict, env: Optional[EvalEnv]) -> None:
     hit = failed[codes] if keep is None else failed[codes] & keep
     first = int(torch.where(hit.any(), codes[hit.to(torch.int8).argmax()], -1))
     if first >= 0:
-        raise errs[first]
+        raise typed_value_error(errs[first])
 
 
 def _with_ok(c: Column, t: LogicalType, ok: np.ndarray, dvals) -> Column:

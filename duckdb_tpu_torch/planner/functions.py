@@ -24,11 +24,12 @@ import numpy as np
 import torch
 
 from duckdb_tpu_torch.blocks import Column
-from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
+from duckdb_tpu_torch.blocks.nested import NESTED_IDS, UNSORTED_DICT_IDS
 from duckdb_tpu_torch.ops import int128 as I128
 from duckdb_tpu_torch.ops import strings as dstr
 from duckdb_tpu_torch.planner.bound import (
     BindError,
+    BoundLiteral,
     EvalEnv,
     _coerce_to,
     _to_double,
@@ -41,7 +42,10 @@ from duckdb_tpu_torch.planner.bound import (
 from duckdb_tpu_torch.types import (
     BIGINT,
     BOOLEAN,
+    DATE,
     DOUBLE,
+    TIME,
+    TIMESTAMP,
     VARCHAR,
     TypeId,
     decimal,
@@ -87,10 +91,12 @@ def dict_transform(col: Column, fn: Callable[[str], str],
     without one, a host loop runs fn. `device_key` names the transform
     (and keys its cached LUT). A value fn raises ValueError on fails the
     statement only where a row of `env` reads it (raise_if_read)."""
+    if col.ltype.id in NESTED_IDS or (col.dict_values is None and col.ltype.id not in (
+            TypeId.VARCHAR, TypeId.SQLNULL)):
+        # a nested column's dictionary holds tuples, not text (F30)
+        raise BindError(f"Binder Error: string function over {col.ltype!r} "
+                        "argument (no implicit cast)")
     if col.dict_values is None:
-        if col.ltype.id not in (TypeId.VARCHAR, TypeId.SQLNULL):
-            raise BindError(f"Binder Error: string function over {col.ltype!r} "
-                            "argument (no implicit cast)")
         return _null_column(col, VARCHAR, np.array([""], dtype=object))  # fn(NULL)
     dvals = col.dict_values
     dev = col.data.device
@@ -294,26 +300,134 @@ def _arities():
         for n in names.split():
             _declare(n, (lo, hi))
     _declare("make_date", {1, 3})
+    for names, arity in [("mod gcd greatest_common_divisor lcm least_common_multiple get_bit "
+                          "date_part datepart", 2),
+                         ("set_bit", 3), ("range generate_series", (1, 3)),
+                         ("path_join", (1, None)), ("json_merge_patch", (2, None))]:
+        for n in names.split():
+            _declare(n, arity)
 
 
 _arities()
 
-# numeric functions: DuckDB casts a VARCHAR argument to DOUBLE, so a value
-# that does not read as a number raises its ConversionException
-NUMERIC_ARG_FNS = frozenset(
-    "abs acos acosh asin asinh atan atan2 atanh cbrt ceil ceiling cos cosh cot "
-    "degrees even exp floor gamma isfinite isinf isnan lgamma ln log log10 log2 "
-    "nextafter pow power radians round sign signbit sin sinh sqrt tan tanh "
-    "trunc".split())
+# DuckDB's parameter types of the functions whose implementation reads an
+# argument as one kind of value: name → one kind per position (a position
+# past the tuple is not checked). The binder applies them (check_params):
+# - a type kind ("int", "double", "date", "time", "timestamp") is the type
+#   a VARCHAR string literal is read as, as DuckDB reads a literal: text
+#   that does not read raises its Conversion Error. A VARCHAR column or
+#   expression has no overload there (DuckDB casts no VARCHAR implicitly):
+#   Binder Error. An argument of another type passes to the function;
+# - a shape kind ("list", "map", "nested", "str", "interval") is what the
+#   argument must be (or NULL): anything else is DuckDB's Binder Error;
+# - "any" is not checked.
+PARAMS = {}
+PARAM_TYPES = {"int": BIGINT, "double": DOUBLE, "date": DATE, "time": TIME,
+               "timestamp": TIMESTAMP}
+_SHAPES = {
+    "list": (TypeId.LIST, TypeId.ARRAY),
+    "map": (TypeId.MAP,),
+    "nested": (TypeId.LIST, TypeId.ARRAY, TypeId.MAP),
+    "str": (TypeId.VARCHAR,),
+    "interval": (TypeId.INTERVAL,),
+}
+
+
+def _params():
+    for names, kinds in [
+        # numbers (F17): a VARCHAR literal reads as DOUBLE
+        ("abs acos acosh asin asinh atan atanh cbrt ceil ceiling cos cosh cot degrees even "
+         "exp floor gamma isfinite isinf isnan lgamma ln log10 log2 radians sign signbit sin "
+         "sinh sqrt tan tanh setseed to_timestamp to_seconds to_milliseconds",
+         ("double",)),
+        ("atan2 log nextafter pow power", ("double", "double")),
+        ("round trunc", ("double", "int")),
+        ("bar", ("double", "double", "double", "int")),
+        ("equi_width_bins", ("double", "double", "int")),
+        ("factorial chr format_bytes formatReadableSize formatreadablesize "
+         "formatReadableDecimalSize formatreadabledecimalsize to_days to_hours to_minutes "
+         "to_microseconds to_weeks make_timestamp_ms make_timestamp_ns",
+         ("int",)),
+        ("gcd greatest_common_divisor lcm least_common_multiple", ("int", "int")),
+        ("to_base range generate_series", ("int", "int", "int")),
+        ("make_date", ("int", "int", "int")),
+        ("make_time", ("int", "int", "double")),
+        ("make_timestamp", ("int", "int", "int", "int", "int", "double")),
+        # the calendar parts
+        ("year month day dayofmonth quarter decade century millennium era dayofweek "
+         "dayofyear doy dow isodow isoyear week weekofyear weekday yearweek dayname "
+         "monthname last_day julian", ("date",)),
+        ("hour minute second millisecond microsecond nanosecond", ("timestamp",)),
+        # the string functions (F30: a LIST is no string)
+        ("reverse strlen lower upper lcase ucase initcap", ("str",)),
+        ("translate replace", ("str", "str", "str")),
+        ("trim ltrim rtrim", ("str", "str")),
+        ("left right left_grapheme right_grapheme", ("str", "int")),
+        ("repeat get_bit setval bitstring", ("any", "int")),
+        ("set_bit", ("any", "int", "int")),
+        ("lpad rpad", ("str", "int", "str")),
+        ("substring substr substring_grapheme", ("str", "int", "int")),
+        ("split_part regexp_extract regexp_extract_all", ("str", "str", "int")),
+        ("split str_split string_split string_to_array", ("str", "str")),
+        # the list and map functions (F28)
+        ("array_append list_append list_contains array_contains list_has array_has "
+         "list_position list_indexof array_position array_indexof list_length array_length "
+         "list_unique array_unique list_grade_up array_grade_up grade_up",
+         ("list",)),
+        ("array_prepend list_prepend", ("any", "list")),
+        ("list_has_all list_has_any array_has_all array_has_any list_intersect "
+         "array_intersect list_where array_where list_select array_select "
+         "array_cross_product map", ("list", "list")),
+        ("list_slice array_slice", ("list", "int", "int", "int")),
+        ("list_resize array_resize", ("list", "int")),
+        ("map_keys map_values map_entries map_contains map_extract map_extract_value",
+         ("map",)),
+        ("cardinality element_at", ("nested",)),
+        ("time_bucket", ("interval",)),
+    ]:
+        for n in names.split():
+            if n in PARAMS:
+                raise ValueError(f"{n}'s parameters are declared twice")
+            PARAMS[n] = kinds
+
+
+_params()
+
+
+def no_match(name: str, args) -> BindError:
+    """DuckDB's Binder Error for a call that no overload of name takes."""
+    types = ", ".join(repr(a.ltype) for a in args)
+    return BindError(f"Binder Error: No function matches the given name and argument "
+                     f"types '{name}({types})'. You might need to add explicit type casts.")
+
+
+def check_params(name: str, args, cast):
+    """The arguments of a call to `name` under its PARAMS: a VARCHAR
+    string literal in a type kind's position → cast(literal, type); an
+    argument that no overload takes raises no_match."""
+    kinds = PARAMS.get(name)
+    if kinds is None:
+        return args
+    out = list(args)
+    for i, (a, kind) in enumerate(zip(args, kinds)):
+        tid = a.ltype.id
+        if kind == "any" or tid is TypeId.SQLNULL:
+            continue
+        if kind in _SHAPES:
+            if tid not in _SHAPES[kind]:
+                raise no_match(name, args)
+        elif tid is TypeId.VARCHAR:
+            if not isinstance(a, BoundLiteral):
+                raise no_match(name, args)
+            out[i] = cast(a, PARAM_TYPES[kind])
+    return out
 
 
 def check_arity(name: str, args) -> None:
     """DuckDB's Binder Error for a call with an argument count that
     ARITY says the function has no overload for."""
     if name in ARITY and len(args) not in ARITY[name]:
-        types = ", ".join(repr(a.ltype) for a in args)
-        raise BindError(f"Binder Error: No function matches the given name and argument "
-                        f"types '{name}({types})'. You might need to add explicit type casts.")
+        raise no_match(name, args)
 
 
 def register(name, arity=None):

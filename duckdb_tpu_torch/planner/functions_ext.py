@@ -43,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from duckdb_tpu_torch.errors import ValueInputError, ValueCatalogError
 from duckdb_tpu_torch.blocks import Column
 from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
 from duckdb_tpu_torch.ops import int128 as I128
@@ -65,6 +66,7 @@ from duckdb_tpu_torch.planner.bound import (
 )
 from duckdb_tpu_torch.planner import session
 from duckdb_tpu_torch.planner.functions import (
+    no_match,
     REGISTRY,
     _days_before_month,
     _null_column,
@@ -469,6 +471,30 @@ _str_transform("rpad", lambda n, p=" ": lambda s: _host_pad(s, int(n), str(p), F
                                                                     False))
 _str_transform("repeat", lambda n: lambda s: s * int(n), 1,
                dev_builder=lambda n: lambda p, le: dstr.op_repeat(p, le, int(n)))
+_bind_str_repeat = REGISTRY["repeat"]
+
+
+@register("repeat")
+def _bind_repeat(arg_exprs):
+    """repeat(s, n), and DuckDB's LIST overload: the list concatenated n
+    times ([] for n <= 0, NULL for a NULL list)."""
+    if arg_exprs[0].ltype.id not in (TypeId.LIST, TypeId.ARRAY):
+        return _bind_str_repeat(arg_exprs)
+    from duckdb_tpu_torch.planner.functions_nested import _per_distinct
+    from duckdb_tpu_torch.types import list_of
+
+    if not arg_exprs[1].is_const():
+        raise not_ported("repeat() of a list by a non-constant count")
+    n = arg_exprs[1].const_value()
+    t = list_of(arg_exprs[0].ltype.child)
+    if n is None:
+        def impl(env, cols, node):
+            return _null_column(cols[0], t, np.array([()], dtype=object))
+        return t, impl, arg_exprs[:1]
+    n = max(int(n), 0)
+    return t, _per_distinct(lambda v: tuple(v) * n, t), arg_exprs[:1]
+
+
 _str_transform("replace", lambda a, b: lambda s: s.replace(str(a), str(b)), 2)
 _str_transform("split_part", lambda sep, i: _split_part(str(sep), int(i)), 2)
 _str_transform("md5", lambda: lambda s: __import__("hashlib").md5(s.encode()).hexdigest())
@@ -577,6 +603,8 @@ def _bind_regexp_replace(arg_exprs):
 def _bind_regexp_extract(arg_exprs):
     pat = re.compile(str(arg_exprs[1].const_value()))
     grp = int(arg_exprs[2].const_value()) if len(arg_exprs) > 2 else 0
+    if not 0 <= grp <= pat.groups:
+        raise ValueInputError(f"Invalid Input Error: Pattern has fewer than {grp} groups")
 
     def f(s):
         m = pat.search(s)
@@ -670,7 +698,14 @@ def _format_like(pyfmt):
 
 
 REGISTRY["format"] = _format_like(lambda f, a: f.format(*a))
-REGISTRY["printf"] = _format_like(lambda f, a: f % tuple(a))
+def _printf(f, a):
+    try:
+        return f % tuple(a)
+    except (TypeError, ValueError) as err:
+        raise ValueInputError(f"Invalid Input Error: printf: {err}") from err
+
+
+REGISTRY["printf"] = _format_like(_printf)
 
 
 @register("concat")
@@ -763,6 +798,10 @@ def _bind_last_day(arg_exprs):
 
 @register("make_date")
 def _bind_make_date(arg_exprs):
+    if len(arg_exprs) == 1:
+        if arg_exprs[0].ltype.id is TypeId.STRUCT:
+            raise not_ported("make_date() of a STRUCT")
+        raise no_match("make_date", arg_exprs)
     def impl(env, cols, node):
         y, m, d = (bcast(c.data, env.plen).to(torch.int64) for c in cols)
         return Column(data=civil_to_days(y, m, d).to(torch.int32), ltype=DATE,
@@ -1062,7 +1101,7 @@ def sequence(name: str) -> dict:
     cat = getattr(session.active(), "catalog", None)
     seq = None if cat is None else cat.sequences.get(name)
     if seq is None:
-        raise ValueError(f'Catalog Error: Sequence with name "{name}" does not exist!')
+        raise ValueCatalogError(f'Catalog Error: Sequence with name "{name}" does not exist!')
     return seq
 
 

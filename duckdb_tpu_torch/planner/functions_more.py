@@ -48,6 +48,7 @@ import urllib.parse
 import numpy as np
 import torch
 
+from duckdb_tpu_torch.errors import ValueCatalogError, ValueInputError
 from duckdb_tpu_torch.blocks import Column
 from duckdb_tpu_torch.blocks.nested import obj_array
 from duckdb_tpu_torch.ops import strings as dstr
@@ -581,6 +582,8 @@ def _list_fn(name, make, nconst=1, maxconst=None, aliases=()):
 
 def _extract_all(pat, group=0):
     rx = re.compile(str(pat))
+    if not 0 <= int(group) <= rx.groups:
+        raise ValueInputError(f"Invalid Input Error: Pattern has fewer than {group} groups")
     return lambda s: [(m.group(int(group)) or "") for m in rx.finditer(s)]
 
 
@@ -990,7 +993,10 @@ def _bind_current_setting(arg_exprs):
     e = arg_exprs[0]
     if not e.is_const() or e.ltype.id is not TypeId.VARCHAR or e.const_value() is None:
         raise BindError("Binder Error: current_setting() takes a constant setting name")
-    name = canonical(str(e.const_value()))  # an unknown name raises here
+    try:
+        name = canonical(str(e.const_value()))
+    except ValueError as err:  # an unknown name: DuckDB's Catalog Error
+        raise ValueCatalogError(str(err)) from None
 
     def impl(env, cols, node):
         settings = getattr(session.active().catalog, "settings", None) or SettingsManager()
@@ -1039,7 +1045,7 @@ def _bind_error(arg_exprs):
     msg = str(arg_exprs[0].const_value())
 
     def impl(env, cols, node):
-        raise ValueError(f"Invalid Input Error: {msg}")
+        raise ValueInputError(f"Invalid Input Error: {msg}")
     return SQLNULL, impl, []
 
 

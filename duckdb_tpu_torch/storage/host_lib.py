@@ -2,7 +2,8 @@
 
 csrc/csv2col.cpp (the CSV tokenizer and writer) and csrc/parquet_codec.cpp
 (Snappy, the RLE / bit-packed hybrid, PLAIN byte arrays) run on the host,
-as the JAX package's CSV and Parquet code does. Each is compiled with the
+as the JAX package's CSV and Parquet code does; so does csrc/arrow_c.cpp
+(the Arrow C data and stream interface of api/arrow_interop.py). Each is compiled with the
 host C++ compiler (`$CXX`, else g++ or c++) at first use into
 build/torch_kernels/, beside the grouped-sum kernel, and loaded with
 ctypes. As ops/grouped_sum.build does, the compiler writes a temporary
@@ -25,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
-_locks = {name: threading.Lock() for name in ("csv2col", "parquet_codec")}
+_locks = {name: threading.Lock() for name in ("csv2col", "parquet_codec", "arrow_c")}
 _libs: dict = {}
 
 

@@ -25,6 +25,7 @@ import json
 
 import numpy as np
 
+from duckdb_tpu_torch.errors import ValueInputError
 from duckdb_tpu_torch.blocks import Column
 from duckdb_tpu_torch.blocks.nested import obj_array
 from duckdb_tpu_torch.ops import strings as dstr
@@ -381,12 +382,12 @@ def _rows_fn(name, fn, ret=VARCHAR):
 
 def _json_object(types, *kv):
     if len(kv) % 2:
-        raise ValueError("Invalid Input Error: json_object() requires an even number of "
+        raise ValueInputError("Invalid Input Error: json_object() requires an even number of "
                          "arguments")
     obj = {}
     for i in range(0, len(kv), 2):
         if kv[i] is None:
-            raise ValueError("Invalid Input Error: json_object() keys can not be NULL")
+            raise ValueInputError("Invalid Input Error: json_object() keys can not be NULL")
         obj[str(kv[i])] = py_to_jsonable(kv[i + 1], types[i + 1])
     return dumps(obj)
 

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from duckdb_tpu_torch.blocks.nested import NESTED_IDS, obj_array
 from duckdb_tpu_torch.types import BIGINT, VARCHAR, LogicalType, TypeId, max_logical_type
 
 
@@ -112,7 +113,7 @@ def concat_parts(parts: List[Optional[Tuple]], lens: List[int], ltype: LogicalTy
         vals, valid, dvals = _null_part(n, ltype) if p is None else p
         if ltype.id is TypeId.VARCHAR:
             vals, valid, dvals = _to_varchar_part(vals, valid, dvals)
-        elif dvals is not None:
+        elif dvals is not None and ltype.id is not TypeId.BLOB and ltype.id not in NESTED_IDS:
             raise ValueError("dictionary part under non-VARCHAR column")
         datas.append(np.asarray(vals))
         valids.append(np.ones(n, bool) if valid is None else valid)
@@ -126,7 +127,26 @@ def concat_parts(parts: List[Optional[Tuple]], lens: List[int], ltype: LogicalTy
         out = [np.searchsorted(union, d.astype(str)).astype(np.int32)[np.clip(v, 0, len(d) - 1)]
                for v, d in zip(datas, dicts)]
         return np.concatenate(out), valid, union.astype(object)
-    dt = ltype.np_dtype
+    if ltype.id is TypeId.BLOB or ltype.id in NESTED_IDS:
+        # a BLOB's dictionary sorted by bytes, a nested one in first-seen order
+        merged = [x for d in dicts if d is not None for x in d]
+        if ltype.id is TypeId.BLOB:
+            union = obj_array(sorted(set(merged)))
+        else:
+            union = obj_array(list(dict.fromkeys(merged)))
+        index = {v: i for i, v in enumerate(union)}
+
+        def remap(codes, d):
+            if d is None or not len(d):
+                return np.zeros(len(codes), np.int32)
+            lut = np.array([index[x] for x in d], dtype=np.int32)
+            return lut[np.clip(codes, 0, len(d) - 1)]
+
+        out = [remap(v, d) for v, d in zip(datas, dicts)]
+        if len(union) == 0:
+            union = obj_array([b"" if ltype.id is TypeId.BLOB else ()])
+        return np.concatenate(out) if out else np.zeros(0, np.int32), valid, union
+    dt = object if any(d.dtype == object for d in datas) else ltype.np_dtype
     data = np.concatenate([d.astype(dt) for d in datas]) if datas else np.zeros(0, dt)
     return data, valid, None
 

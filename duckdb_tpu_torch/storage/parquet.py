@@ -40,12 +40,13 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from duckdb_tpu_torch.blocks.nested import NESTED_IDS, encode_objects, host_pyvals, physical_column
 from duckdb_tpu_torch.errors import ConversionException, IOException
 from duckdb_tpu_torch.planner.bound import not_ported
 from duckdb_tpu_torch.storage import host_lib
 from duckdb_tpu_torch.types import (
-    BIGINT, BOOLEAN, DATE, DOUBLE, FLOAT, INTEGER, SMALLINT, TIMESTAMP, TINYINT, VARCHAR,
-    LogicalType, TypeId, decimal)
+    BIGINT, BLOB, BOOLEAN, DATE, DOUBLE, FLOAT, HUGEINT, INTEGER, SMALLINT, TIME, TIMESTAMP,
+    TINYINT, VARCHAR, LogicalType, TypeId, decimal, list_of, struct_of)
 
 try:
     import zstandard as _zstd
@@ -262,8 +263,10 @@ def _byte_arrays(buf, n: int) -> Tuple[np.ndarray, np.ndarray, int]:
     return blob[:offs[-1]], offs, used
 
 
-def strings_dictionary(blob: np.ndarray, offs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Values blob[offs[i]:offs[i + 1]] → (int32 codes, sorted dictionary)."""
+def strings_dictionary(blob: np.ndarray, offs: np.ndarray,
+                       raw: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """Values blob[offs[i]:offs[i + 1]] → (int32 codes, dictionary sorted by
+    bytes): of str, or of bytes where `raw` (a BLOB)."""
     lib = _lib()
     n = len(offs) - 1
     codes = np.empty(max(n, 1), dtype=np.int32)
@@ -274,6 +277,11 @@ def strings_dictionary(blob: np.ndarray, offs: np.ndarray) -> Tuple[np.ndarray, 
     doffs = np.empty(size + 1, dtype=np.int64)
     dblob = np.empty(max(nbytes.value, 1), dtype=np.uint8)
     lib.strings_dict(h, host_lib.ptr(doffs), host_lib.ptr(dblob))
+    if raw:
+        data = dblob[:nbytes.value].tobytes()
+        dvals = np.empty(size, dtype=object)
+        dvals[:] = [data[a:b] for a, b in zip(doffs[:-1].tolist(), doffs[1:].tolist())]
+        return codes[:n], dvals
     return codes[:n], host_lib.decode_strings(dblob[:nbytes.value].tobytes(), doffs)
 
 
@@ -308,9 +316,30 @@ def _compress(codec: int, data: bytes) -> bytes:
 
 # -- the footer and the schema ----------------------------------------------------------------
 
+def _tree(schema: list, i: int):
+    """The schema element at i and its subtree → ((element, [children]),
+    the index past it)."""
+    el, kids, j = schema[i], [], i + 1
+    for _ in range(el.get(5) or 0):
+        kid, j = _tree(schema, j)
+        kids.append(kid)
+    return (el, kids), j
+
+
+def _leaves(node) -> int:
+    el, kids = node
+    return sum(_leaves(k) for k in kids) if kids else 1
+
+
 class ParquetFile:
-    """A file's footer: its flat columns (name, LogicalType, schema element)
-    and row groups."""
+    """A file's footer: its columns (name, LogicalType, schema element) and
+    row groups. A column is a flat leaf, an optional LIST of flat elements
+    (the three-level encoding, or the two-level one of a repeated leaf), or
+    a STRUCT of flat fields; `leaves[name]` gives its leaves as (index among
+    the file's leaves, element, max definition level, max repetition
+    level), and `present[name]` the definition level from which its value
+    is not NULL (and, for a LIST, the level from which an element exists).
+    A deeper nesting raises, naming its column."""
 
     def __init__(self, path: str):
         self.path = path
@@ -330,16 +359,55 @@ class ParquetFile:
         self.row_groups = meta.get(4, [])
         schema = meta.get(2, [])
         self.columns: List[Tuple[str, LogicalType, dict]] = []
-        i = 1
-        while i < len(schema):
-            el = schema[i]
-            name = el[4].decode("utf-8", "replace")
-            if el.get(5) or el.get(3) == 2:  # a group, or a repeated field
-                raise not_ported(f'reading the nested Parquet column "{name}" (flat columns '
-                                 "are ported)")
-            self.columns.append((name, _logical(el, name), el))
-            i += 1
+        self.leaves, self.present = {}, {}
+        root, _ = _tree(schema, 0) if schema else (({}, []), 0)
+        leaf = 0
+        for node in root[1]:
+            name = node[0][4].decode("utf-8", "replace")
+            self.columns.append((name, self._column(node, name, leaf), node[0]))
+            leaf += _leaves(node)
         self.index = {name: k for k, (name, _, _) in enumerate(self.columns)}
+
+    def _column(self, node, name: str, leaf: int) -> LogicalType:
+        el, kids = node
+        opt = 1 if el.get(3, 1) == 1 else 0
+        deeper = not_ported(f'reading the Parquet column "{name}", nested deeper than a LIST '
+                            "or a STRUCT of flat values (ROADMAP item 49)")
+        if not kids:
+            if el.get(3) == 2:  # a bare repeated leaf: a LIST of it
+                self.leaves[name] = [(leaf, el, 1, 1)]
+                self.present[name] = (0, 1)
+                return list_of(_logical(el, name))
+            self.leaves[name] = [(leaf, el, opt, 0)]
+            self.present[name] = (opt,)
+            return _logical(el, name)
+        lt = el.get(10) or {}
+        if el.get(6) in (1, 2) or 2 in lt:
+            raise not_ported(f'reading the Parquet MAP column "{name}"')
+        if el.get(6) == 3 or 3 in lt:  # LIST
+            (rel, rkids), = kids
+            if rel.get(3) != 2:
+                raise deeper
+            if not rkids:  # two-level: the repeated leaf is the element
+                elem, max_def = rel, opt + 1
+            elif len(rkids) == 1 and not rkids[0][1] and rkids[0][0].get(3) != 2:
+                elem = rkids[0][0]
+                max_def = opt + 1 + (1 if elem.get(3, 1) == 1 else 0)
+            else:
+                raise deeper
+            self.leaves[name] = [(leaf, elem, max_def, 1)]
+            self.present[name] = (opt, opt + 1)
+            return list_of(_logical(elem, name))
+        fields, leaves = [], []
+        for i, (fel, fkids) in enumerate(kids):  # STRUCT
+            if fkids or fel.get(3) == 2:
+                raise deeper
+            fname = fel[4].decode("utf-8", "replace")
+            fields.append((fname, _logical(fel, f"{name}.{fname}")))
+            leaves.append((leaf + i, fel, opt + (1 if fel.get(3, 1) == 1 else 0), 0))
+        self.leaves[name] = leaves
+        self.present[name] = (opt,)
+        return struct_of(*fields)
 
     @property
     def schema(self) -> List[Tuple[str, LogicalType]]:
@@ -356,14 +424,18 @@ def _logical(el: dict, name: str) -> LogicalType:
         return DATE
     if 8 in lt or conv in (9, 10):
         return TIMESTAMP
-    if 7 in lt or conv in (7, 8, 21):
-        raise not_ported(f'reading the Parquet TIME or INTERVAL column "{name}"')
+    if 7 in lt or conv in (7, 8):
+        return TIME
+    if conv == 21:
+        raise not_ported(f'reading the Parquet INTERVAL column "{name}"')
     if phys == BOOL_T:
         return BOOLEAN
     if phys in (INT32_T, INT64_T):
         it = lt.get(10)
         if it is not None and not it.get(2, True) or conv in (11, 12, 13, 14):
-            return BIGINT  # unsigned
+            # unsigned: UINT64 as HUGEINT, which holds it exactly (the port
+            # has no UBIGINT), the narrower ones as BIGINT
+            return HUGEINT if (it or {}).get(1) == 64 or conv == 14 else BIGINT
         bits = it.get(1) if it is not None else {15: 8, 16: 16}.get(conv)
         if bits == 8:
             return TINYINT
@@ -375,7 +447,9 @@ def _logical(el: dict, name: str) -> LogicalType:
     if phys == DOUBLE_T:
         return DOUBLE
     if phys == BYTES_T and not (5 in lt or conv == 5):
-        return VARCHAR
+        # text (UTF8, ENUM, JSON), else bytes: a BYTE_ARRAY with no string
+        # annotation is a BLOB, as DuckDB reads it
+        return VARCHAR if (1 in lt or 4 in lt or 12 in lt or conv in (0, 4, 19)) else BLOB
     raise not_ported(f'reading the Parquet column "{name}" of physical type {phys} '
                      f"(logical type {lt or conv})")
 
@@ -418,9 +492,19 @@ def _concat(parts):
     return np.concatenate(parts)
 
 
-def _read_chunk(f, meta: dict, phys: int, type_length: int, optional: bool, column: str):
-    """One column chunk → (non-null values, validity|None). Values are a
-    numpy array, or (blob, offsets) for byte arrays."""
+def _levels(buf, at: int, max_level: int, n: int):
+    """A data page v1's levels at `at` (their 4-byte length first) → (levels,
+    the offset past them)."""
+    size = struct.unpack_from("<i", buf, at)[0]
+    return rle_hybrid(buf[at + 4:at + 4 + size], max_level.bit_length(), n), at + 4 + size
+
+
+def _read_chunk(f, meta: dict, phys: int, type_length: int, max_def: int, max_rep: int,
+                column: str):
+    """One column chunk → (values of the entries defined at max_def,
+    definition levels|None, repetition levels|None): one level of each kind
+    per entry, None where the column has no such level. Values are a numpy
+    array, or (blob, offsets) for byte arrays."""
     codec = meta.get(4, 0)
     total = int(meta.get(5, 0))
     start = meta.get(9)
@@ -430,7 +514,7 @@ def _read_chunk(f, meta: dict, phys: int, type_length: int, optional: bool, colu
     data = f.read(int(meta.get(7)))
     pos, seen = 0, 0
     dictionary = None
-    parts, valids = [], []
+    parts, def_parts, rep_parts = [], [], []
     while seen < total and pos < len(data):
         th = _Thrift(data, pos)
         header = th.struct()
@@ -443,15 +527,16 @@ def _read_chunk(f, meta: dict, phys: int, type_length: int, optional: bool, colu
             page = _decompress(codec, body, usize, column)
             dictionary = _plain(page, phys, dh[1], type_length)
             continue
+        defs = reps = None
         if ptype == DATA_PAGE:
             dh = header[5]
             nvals, enc = dh[1], dh[2]
             page = _decompress(codec, body, usize, column)
             at = 0
-            if optional:
-                n_def = struct.unpack_from("<i", page, 0)[0]
-                defs = rle_hybrid(page[4:4 + n_def], 1, nvals)
-                at = 4 + n_def
+            if max_rep:
+                reps, at = _levels(page, at, max_rep, nvals)
+            if max_def:
+                defs, at = _levels(page, at, max_def, nvals)
         elif ptype == DATA_PAGE_V2:
             dh = header[8]
             nvals, enc = dh[1], dh[4]
@@ -461,12 +546,13 @@ def _read_chunk(f, meta: dict, phys: int, type_length: int, optional: bool, colu
             if dh.get(7, True):
                 rest = _decompress(codec, rest, usize - dlen - rlen, column)
             page, at = rest, 0
-            if optional:
-                defs = rle_hybrid(levels[rlen:rlen + dlen], 1, nvals)
+            if max_rep:
+                reps = rle_hybrid(levels[:rlen], max_rep.bit_length(), nvals)
+            if max_def:
+                defs = rle_hybrid(levels[rlen:rlen + dlen], max_def.bit_length(), nvals)
         else:
             continue  # an index page
-        valid = defs.astype(bool) if optional else None
-        nn = int(valid.sum()) if optional else nvals
+        nn = int(np.count_nonzero(defs == max_def)) if max_def else nvals
         if enc in (PLAIN_DICT, RLE_DICT):
             if dictionary is None:
                 raise IOException(f'Parquet column "{column}": a dictionary page is missing')
@@ -481,14 +567,16 @@ def _read_chunk(f, meta: dict, phys: int, type_length: int, optional: bool, colu
         else:
             raise not_ported(f'reading Parquet column "{column}" with encoding {enc}')
         parts.append(vals)
-        valids.append(valid if valid is not None else np.ones(nvals, bool))
+        def_parts.append(defs)
+        rep_parts.append(reps)
         seen += nvals
     if not parts:
         empty = (np.zeros(0, np.uint8), np.zeros(1, np.int64)) if phys == BYTES_T else \
             np.zeros(0, np.int64)
-        return empty, None
-    validity = np.concatenate(valids)
-    return _concat(parts), (None if validity.all() else validity)
+        none = np.zeros(0, np.int32)
+        return empty, (none if max_def else None), (none if max_rep else None)
+    return (_concat(parts), np.concatenate(def_parts) if max_def else None,
+            np.concatenate(rep_parts) if max_rep else None)
 
 
 def _to_engine(values, ltype: LogicalType, el: dict, column: str):
@@ -496,19 +584,21 @@ def _to_engine(values, ltype: LogicalType, el: dict, column: str):
     (byte arrays stay (blob, offsets) for VARCHAR)."""
     phys = el.get(1)
     lt = el.get(10) or {}
-    if ltype.id is TypeId.VARCHAR:
+    if ltype.id in (TypeId.VARCHAR, TypeId.BLOB):
         return values
+    if ltype.id is TypeId.HUGEINT:  # UINT64: exact Python ints
+        return values.view(np.uint64).astype(object)
     if ltype.id is TypeId.DECIMAL:
         if phys == FIXED_T:
             return _be_decimal(values, ltype, column)
         return values.astype(np.int64)
-    if ltype.id is TypeId.TIMESTAMP:
-        unit = (lt.get(8) or {}).get(2) or {}
+    if ltype.id in (TypeId.TIMESTAMP, TypeId.TIME):
+        unit = (lt.get(8 if ltype.id is TypeId.TIMESTAMP else 7) or {}).get(2) or {}
         conv = el.get(6)
         v = values.astype(np.int64)
-        if 1 in unit or conv == 9:
+        if 1 in unit or conv in (7, 9):  # millis
             return v * 1000
-        if 3 in unit:
+        if 3 in unit:  # nanos
             return v // 1000
         return v
     if ltype.id is TypeId.BIGINT and phys == INT32_T:
@@ -539,36 +629,88 @@ def _be_decimal(raw: np.ndarray, ltype: LogicalType, column: str) -> np.ndarray:
     return low
 
 
+def _read_leaf(path: str, pf: ParquetFile, leaf, ltype: LogicalType, column: str):
+    """A leaf's chunks over every row group → ([engine values of the
+    defined entries per row group], definition levels|None, repetition
+    levels|None)."""
+    k, el, max_def, max_rep = leaf
+    phys, tlen = el.get(1), el.get(2, 0)
+    parts, defs, reps = [], [], []
+    with open(path, "rb") as f:
+        for rg in pf.row_groups:
+            vals, d, r = _read_chunk(f, rg[1][k][3], phys, tlen, max_def, max_rep, column)
+            parts.append(_to_engine(vals, ltype, el, column))
+            defs.append(d)
+            reps.append(r)
+    cat = (lambda xs: np.concatenate(xs) if xs else np.zeros(0, np.int32))  # noqa: E731
+    return parts, (cat(defs) if max_def else None), (cat(reps) if max_rep else None)
+
+
+def _leaf_values(parts, ltype: LogicalType, defined: np.ndarray, n: int):
+    """A leaf's engine values → (values, validity|None, dictionary|None) of
+    n entries, defined where `defined`."""
+    if ltype.id in (TypeId.VARCHAR, TypeId.BLOB):
+        blob, offs = _concat(parts) if parts else (np.zeros(0, np.uint8), np.zeros(1, np.int64))
+        live, dvals = strings_dictionary(blob, offs, raw=ltype.id is TypeId.BLOB)
+        codes = np.zeros(n, dtype=np.int32)
+        codes[defined] = live
+        return codes, (None if defined.all() else defined), dvals
+    dtype = object if ltype.id is TypeId.HUGEINT else ltype.np_dtype
+    live = np.concatenate(parts).astype(dtype) if parts else np.zeros(0, dtype)
+    if defined.all():
+        return live, None, None
+    values = np.zeros(n, dtype=dtype)
+    values[defined] = live
+    return values, defined, None
+
+
+def _nested_column(path: str, pf: ParquetFile, name: str, ltype: LogicalType):
+    """A LIST or STRUCT column → (codes, validity|None, dictionary of its
+    values as Python tuples)."""
+    if ltype.id is TypeId.LIST:
+        leaf = pf.leaves[name][0]
+        opt, elem_level = pf.present[name]
+        parts, defs, reps = _read_leaf(path, pf, leaf, ltype.child, name)
+        n_ent = len(reps)
+        if defs is None:
+            defs = np.full(n_ent, leaf[2], np.int32)
+        starts = np.flatnonzero(reps == 0)
+        row_valid = defs[starts] >= opt
+        is_elem = defs >= elem_level
+        vals, valid, dvals = _leaf_values(parts, ltype.child, defs == leaf[2], n_ent)
+        pyv = np.empty(n_ent, dtype=object)
+        pyv[:] = host_pyvals(vals, valid, dvals, ltype.child)
+        bounds = np.append(starts, n_ent).tolist()
+        entries = [tuple(pyv[a:b][is_elem[a:b]]) for a, b in zip(bounds[:-1], bounds[1:])]
+    else:
+        fields = []
+        opt, = pf.present[name]
+        row_valid = None
+        for leaf, (_, ft) in zip(pf.leaves[name], ltype.fields):
+            parts, defs, _ = _read_leaf(path, pf, leaf, ft, name)
+            n = sum(int(rg[3]) for rg in pf.row_groups)
+            if defs is None:
+                defs = np.full(n, leaf[2], np.int32)
+            vals, valid, dvals = _leaf_values(parts, ft, defs == leaf[2], n)
+            fields.append(host_pyvals(vals, valid, dvals, ft))
+            row_valid = defs >= opt if row_valid is None else row_valid
+        entries = list(zip(*fields)) if fields else []
+    entries = [e if ok else () for e, ok in zip(entries, row_valid)]
+    codes, dvals = encode_objects(entries)
+    return codes, (None if row_valid.all() else row_valid), dvals
+
+
 def load_column(path: str, name: str, pf: Optional[ParquetFile] = None):
     """One column of the file → (values, validity|None, dictionary|None)."""
     pf = pf or ParquetFile(path)
     k = pf.index[name]
-    _, ltype, el = pf.columns[k]
-    phys, tlen = el.get(1), el.get(2, 0)
-    optional = el.get(3, 1) != 0
-    parts, valids = [], []
-    with open(path, "rb") as f:
-        for rg in pf.row_groups:
-            chunk = rg[1][k]
-            vals, valid = _read_chunk(f, chunk[3], phys, tlen, optional, name)
-            parts.append(_to_engine(vals, ltype, el, name))
-            n = int(rg[3])
-            valids.append(np.ones(n, bool) if valid is None else valid)
-    validity = np.concatenate(valids) if valids else np.zeros(0, bool)
-    n = len(validity)
-    if ltype.id is TypeId.VARCHAR:
-        blob, offs = _concat(parts) if parts else (np.zeros(0, np.uint8), np.zeros(1, np.int64))
-        live, dvals = strings_dictionary(blob, offs)
-        codes = np.zeros(n, dtype=np.int32)
-        codes[validity] = live
-        return codes, (None if validity.all() else validity), dvals
-    dtype = ltype.np_dtype
-    live = np.concatenate(parts).astype(dtype) if parts else np.zeros(0, dtype)
-    if validity.all():
-        return live, None, None
-    values = np.zeros(n, dtype=dtype)
-    values[validity] = live
-    return values, validity, None
+    _, ltype, _ = pf.columns[k]
+    if ltype.id in (TypeId.LIST, TypeId.STRUCT):
+        return _nested_column(path, pf, name, ltype)
+    leaf = pf.leaves[name][0]
+    parts, defs, _ = _read_leaf(path, pf, leaf, ltype, name)
+    n = sum(int(rg[3]) for rg in pf.row_groups)
+    return _leaf_values(parts, ltype, np.ones(n, bool) if defs is None else defs == leaf[2], n)
 
 
 # -- the writer -------------------------------------------------------------------------------
@@ -587,6 +729,13 @@ def _bitpacked(values: np.ndarray, bw: int) -> bytes:
     return bytes(out) + np.packbits(bits.reshape(-1), bitorder="little").tobytes()
 
 
+def _level_bytes(levels: np.ndarray, max_level: int) -> bytes:
+    """Levels as a data page v1 holds them: their 4-byte length, then one
+    bit-packed run of the hybrid."""
+    body = _bitpacked(levels.astype(np.uint64), max_level.bit_length())
+    return struct.pack("<i", len(body)) + body
+
+
 def _def_levels(valid: Optional[np.ndarray], n: int) -> bytes:
     """Definition levels (bit width 1) with their v1 4-byte length."""
     if valid is None or valid.all():
@@ -597,6 +746,50 @@ def _def_levels(valid: Optional[np.ndarray], n: int) -> bytes:
     else:
         body = _bitpacked(valid.astype(np.uint64), 1)
     return struct.pack("<i", len(body)) + body
+
+
+def _elements(name: str, t: LogicalType):
+    """A column's SchemaElements (a LIST's three, as pyarrow and DuckDB
+    write one: an optional group, a repeated group "list", an optional leaf
+    "element") and its leaf's physical type."""
+    if t.id is not TypeId.LIST:
+        fields, phys = _element(name, t)
+        return [fields], phys
+    if t.child is None or t.child.id in NESTED_IDS:
+        raise not_ported(f'writing the {t!r} column "{name}" to Parquet (a LIST of flat '
+                         "values is ported)")
+    leaf, phys = _element("element", t.child)
+    return [[(3, _I32, 1), (4, _BINARY, name), (5, _I32, 1), (6, _I32, 3),
+             (10, _STRUCT, [(3, _STRUCT, [])])],
+            [(3, _I32, 2), (4, _BINARY, "list"), (5, _I32, 1)], leaf], phys
+
+
+
+def _list_entries(codes: np.ndarray, valid: Optional[np.ndarray], dvals, child: LogicalType):
+    """A LIST column's rows → (repetition levels, definition levels,
+    (physical values, validity, dictionary) of its elements): per row one
+    entry if it is NULL (definition 0) or empty (1), else one per element
+    (3 where the element is valid, 2 where it is NULL)."""
+    n = len(codes)
+    entries = dvals if dvals is not None and len(dvals) else np.array([()], dtype=object)
+    codes = np.clip(np.asarray(codes, dtype=np.int64), 0, len(entries) - 1)
+    ok = np.ones(n, bool) if valid is None else np.asarray(valid, dtype=bool)
+    dlens = np.fromiter((len(e) for e in entries), dtype=np.int64, count=len(entries))
+    lens = np.where(ok, dlens[codes], 0)
+    slots = np.maximum(lens, 1)  # a NULL or empty row still takes one entry
+    first = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(slots, out=first[1:])
+    reps = np.ones(int(first[-1]), dtype=np.int64)
+    reps[first[:-1]] = 0
+    defs = np.full(int(first[-1]), 3, dtype=np.int64)
+    defs[first[:-1][~ok]] = 0
+    defs[first[:-1][ok & (lens == 0)]] = 1
+    elems = [x for c, k in zip(codes.tolist(), lens.tolist()) if k for x in entries[c]]
+    data, evalid, edict = physical_column(elems, child)
+    is_elem = defs >= 2
+    elem_defs = np.where(evalid, 3, 2)
+    defs[is_elem] = elem_defs
+    return reps, defs, (data, evalid, edict)
 
 
 def _element(name: str, t: LogicalType):
@@ -627,11 +820,14 @@ def _element(name: str, t: LogicalType):
         phys = INT32_T if t.width <= 9 else INT64_T if t.width <= 18 else FIXED_T
         conv = 5
         lt = [(5, _STRUCT, [(1, _I32, t.scale), (2, _I32, t.width)])]
+    elif tid is TypeId.TIME:
+        phys, conv = INT64_T, 8
+        lt = [(7, _STRUCT, [(1, _TRUE, False), (2, _STRUCT, [(2, _STRUCT, [])])])]
     elif tid is TypeId.VARCHAR:
         phys, conv, lt = BYTES_T, 0, [(1, _STRUCT, [])]
     else:
-        raise not_ported(f'writing the {t!r} column "{name}" to Parquet (the flat types are '
-                         "ported)")
+        raise not_ported(f'writing the {t!r} column "{name}" to Parquet (the flat types and '
+                         "a LIST of them are ported)")
     dec = tid is TypeId.DECIMAL
     fields = [(1, _I32, phys), (2, _I32, 16 if phys == FIXED_T else None), (3, _I32, 1),
               (4, _BINARY, name), (6, _I32, conv), (7, _I32, t.scale if dec else None),
@@ -701,7 +897,7 @@ def write_parquet(path: str, names, types, columns, nrows: int,
     if codec is None:
         raise not_ported(f"COPY … (COMPRESSION {compression}) (uncompressed, snappy, gzip "
                          "and zstd are ported)")
-    elements = [_element(n, t) for n, t in zip(names, types)]
+    elements = [_elements(n, t) for n, t in zip(names, types)]
     out = bytearray(MAGIC)
     groups = []
     encoded = {}  # a VARCHAR column's dictionary as UTF-8, once per column
@@ -713,11 +909,17 @@ def write_parquet(path: str, names, types, columns, nrows: int,
             words = encoded.get(name)
             vals = np.asarray(vals)[lo:hi]
             v = None if valid is None else np.asarray(valid)[lo:hi]
+            n_ent, col_path = n, [name]
+            if t.id is TypeId.LIST:  # its elements, with both levels
+                reps, ldefs, (vals, v, edict) = _list_entries(vals, v, dvals, t.child)
+                n_ent, col_path = len(reps), [name, "list", "element"]
+                levels = _level_bytes(reps, 1) + _level_bytes(ldefs, 3)
+                t, dvals, words = t.child, edict, None
             live = vals if v is None or v.all() else vals[v]
             if live.dtype == object:
                 raise ConversionException(f'column "{name}" holds {t!r} values past int64, '
                                           "which the Parquet writer does not write")
-            defs = _def_levels(v, n)
+            defs = levels if len(col_path) > 1 else _def_levels(v, n)
             start = len(out)
             dict_off = None
             usize = csize = 0
@@ -739,11 +941,11 @@ def write_parquet(path: str, names, types, columns, nrows: int,
                 data, enc, encodings = _plain_bytes(live, phys), PLAIN, [PLAIN, RLE]
             data_off = len(out)
             u, c = _page(out, DATA_PAGE, defs + data, codec,
-                         (5, _STRUCT, [(1, _I32, n), (2, _I32, enc), (3, _I32, RLE),
+                         (5, _STRUCT, [(1, _I32, n_ent), (2, _I32, enc), (3, _I32, RLE),
                                        (4, _I32, RLE)]))
             usize, csize = usize + u, csize + c
             meta = [(1, _I32, phys), (2, _LIST, (_I32, encodings)),
-                    (3, _LIST, (_BINARY, [name])), (4, _I32, codec), (5, _I64, n),
+                    (3, _LIST, (_BINARY, col_path)), (4, _I32, codec), (5, _I64, n_ent),
                     (6, _I64, usize), (7, _I64, csize), (9, _I64, data_off),
                     (11, _I64, dict_off)]
             chunks.append([(2, _I64, start), (3, _STRUCT, meta)])
@@ -751,7 +953,7 @@ def write_parquet(path: str, names, types, columns, nrows: int,
         groups.append([(1, _LIST, (_STRUCT, chunks)), (2, _I64, group_bytes), (3, _I64, n),
                        (5, _I64, chunks[0][0][2] if chunks else len(out))])
     schema = [[(4, _BINARY, "duckdb_schema"), (5, _I32, len(names))]] + \
-        [fields for fields, _ in elements]
+        [fields for els, _ in elements for fields in els]
     footer = bytearray()
     _w_struct(footer, [(1, _I32, 1), (2, _LIST, (_STRUCT, schema)), (3, _I64, nrows),
                        (4, _LIST, (_STRUCT, groups)), (6, _BINARY, "duckdb_tpu_torch")])

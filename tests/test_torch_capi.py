@@ -483,3 +483,127 @@ def test_capi_file_database_reopens(lib, tmp_path):
     assert lib.duckdb_value_int64(C.byref(res), 0, 0) == 45
     lib.duckdb_destroy_result(C.byref(res))
     close(lib, db, con)
+
+
+# -- C1-C5: the C API faults copied from the JAX package's capi.cpp, held to
+# DuckDB's C API (ROADMAP Queue 3)
+def _c_faults_lib(lib):
+    V = C.c_void_p
+    lib.duckdb_create_uint64.argtypes = [C.c_uint64]
+    lib.duckdb_create_uint64.restype = V
+    lib.duckdb_create_hugeint.argtypes = [Hugeint]
+    lib.duckdb_create_hugeint.restype = V
+    lib.duckdb_append_value.argtypes = [V, V]
+    lib.duckdb_column_logical_type.argtypes = [V, C.c_uint64]
+    lib.duckdb_column_logical_type.restype = V
+    lib.duckdb_tpu_torch_live_vectors.restype = C.c_long
+    return lib
+
+
+def test_c1_append_value_takes_a_ubigint(lib2):
+    """duckdb_append_value of a duckdb_create_uint64 value appends it (it
+    appended 0: the value sets only its unsigned field)."""
+    lib = _c_faults_lib(lib2)
+    db, con = open_cpu(lib)
+    res = Result()
+    lib.duckdb_query(con, b"CREATE TABLE u (x BIGINT)", C.byref(res))
+    lib.duckdb_destroy_result(C.byref(res))
+    app = C.c_void_p()
+    lib.duckdb_appender_create(con, None, b"u", C.byref(app))
+    v = C.c_void_p(lib.duckdb_create_uint64(123_456_789_012))
+    assert lib.duckdb_append_value(app, v) == 0
+    lib.duckdb_destroy_value(C.byref(v))
+    assert lib.duckdb_appender_end_row(app) == 0
+    lib.duckdb_appender_destroy(C.byref(app))
+    lib.duckdb_query(con, b"SELECT x FROM u", C.byref(res))
+    assert lib.duckdb_value_int64(C.byref(res), 0, 0) == 123_456_789_012
+    lib.duckdb_destroy_result(C.byref(res))
+    close(lib, db, con)
+
+
+def test_c2_a_chunk_owns_its_vectors(lib2):
+    """duckdb_data_chunk_get_vector returns the chunk's own handle: a second
+    call allocates nothing, and the chunk frees its handles with it (each
+    call leaked a pair and a handle)."""
+    lib = _c_faults_lib(lib2)
+    db, con = open_cpu(lib)
+    res = Result()
+    lib.duckdb_query(con, b"SELECT range AS i, range * 2 AS j FROM range(3000)", C.byref(res))
+    base = lib.duckdb_tpu_torch_live_vectors()
+    ch = lib.duckdb_result_get_chunk(res, 0)
+    first = lib.duckdb_data_chunk_get_vector(ch, 0)
+    for _ in range(100_000):
+        assert lib.duckdb_data_chunk_get_vector(ch, 0) == first
+    second = lib.duckdb_data_chunk_get_vector(ch, 1)
+    assert second != first
+    assert lib.duckdb_tpu_torch_live_vectors() == base + 2
+    data = C.cast(lib.duckdb_vector_get_data(second), C.POINTER(C.c_int64))
+    assert data[5] == 10
+    lib.duckdb_destroy_data_chunk(C.byref(C.c_void_p(ch)))
+    assert lib.duckdb_tpu_torch_live_vectors() == base
+    lib.duckdb_destroy_result(C.byref(res))
+    close(lib, db, con)
+
+
+def test_c3_decimal_column_reports_its_own_width(lib2):
+    """A DECIMAL(10,2) column's logical type is DECIMAL(10,2), not
+    DECIMAL(18,2)."""
+    lib = _c_faults_lib(lib2)
+    db, con = open_cpu(lib)
+    res = Result()
+    lib.duckdb_query(con, b"SELECT CAST(12.5 AS DECIMAL(10,2)) AS a, "
+                          b"CAST(1 AS DECIMAL(4,1)) AS b, CAST(NULL AS DECIMAL(6,3)) AS c",
+                     C.byref(res))
+    got = []
+    for col in range(3):
+        t = C.c_void_p(lib.duckdb_column_logical_type(C.byref(res), col))
+        got.append((lib.duckdb_decimal_width(t), lib.duckdb_decimal_scale(t)))
+        lib.duckdb_destroy_logical_type(C.byref(t))
+    assert got == [(10, 2), (4, 1), (6, 3)]
+    lib.duckdb_destroy_result(C.byref(res))
+    close(lib, db, con)
+
+
+@pytest.mark.parametrize("make,text", [
+    ("hugeint", str(-(1 << 100) - 7)),
+    ("hugeint", str((1 << 127) - 1)),
+    ("uint64", str((1 << 64) - 1)),
+    ("uint64", "5"),
+])
+def test_c4_get_varchar_prints_wide_values_in_full(lib2, make, text):
+    """duckdb_get_varchar of a HUGEINT prints all 128 bits, and of a UBIGINT
+    the unsigned value (it printed the low 64 bits, and 0)."""
+    lib = _c_faults_lib(lib2)
+    n = int(text)
+    if make == "hugeint":
+        v = C.c_void_p(lib.duckdb_create_hugeint(
+            Hugeint(lower=n & ((1 << 64) - 1), upper=n >> 64)))
+    else:
+        v = C.c_void_p(lib.duckdb_create_uint64(n))
+    p = lib.duckdb_get_varchar(v)
+    assert C.cast(p, C.c_char_p).value.decode() == text
+    lib.duckdb_free(p)
+    lib.duckdb_destroy_value(C.byref(v))
+
+
+@pytest.mark.parametrize("name,value,match", [
+    ("no_such_option", "1", "unrecognized configuration parameter"),
+    ("join_order", "sideways", "join_order must be one of"),
+    ("threads", "many", "takes an integer"),
+    ("device", "nowhere", "the device"),
+])
+def test_c5_open_ext_refuses_a_bad_option(lib2, name, value, match):
+    """duckdb_open_ext checks its config at open: a bad option fails the
+    open and fills out_error (the open succeeded and the first connect
+    failed, with out_error never set)."""
+    lib = lib2
+    cfg, db = C.c_void_p(), C.c_void_p()
+    lib.duckdb_create_config(C.byref(cfg))
+    lib.duckdb_set_config(cfg, b"device", b"cpu")
+    lib.duckdb_set_config(cfg, name.encode(), value.encode())
+    err = C.c_char_p()
+    assert lib.duckdb_open_ext(b":memory:", C.byref(db), cfg, C.byref(err)) == 1
+    lib.duckdb_destroy_config(C.byref(cfg))
+    assert not db.value
+    assert err.value is not None and match in err.value.decode()
+    lib.duckdb_free(err)

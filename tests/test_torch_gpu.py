@@ -1343,3 +1343,74 @@ def test_two_gloo_processes_share_the_card(tmp_path):
                 p.kill()
     for i, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"rank {i} OK" in out, out[-3000:]
+
+
+@pytest.mark.gpu
+def test_arrow_round_trip_of_card_columns_through_the_ports_own_capsules(tmp_path):
+    """A result of columns on the card through the port's Arrow export
+    (api/arrow_interop.py over csrc/arrow_c.cpp, no pyarrow) and back by its
+    own from_arrow, whole and in batches: Q1 over each import gives the CPU
+    run's rows through the kernel, held to its plain version, and every
+    Arrow struct is released."""
+    _need_cuda()
+    import gc
+
+    import chip_smoke
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.api import arrow_interop as AI
+    from duckdb_tpu_torch.ops import grouped as grouped_mod
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    write_tables(str(tmp_path / "data"), 0.01, seed=7)
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path / "data"), tables=["lineitem"])
+    want = cpu.sql(chip_smoke.Q1).rows()
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path / "data"), tables=["lineitem"])
+    res = con.sql("SELECT * FROM lineitem")
+    assert con.catalog.get_table("lineitem").device_column("l_quantity").data.is_cuda
+    con.from_arrow(res.arrow(), "whole")
+    con.from_arrow(res.fetch_record_batch(7_000), "batched")
+    seen = []
+
+    def recording(dense, vectors, nseg):
+        seen.append((dense, list(vectors), nseg))
+        return GS.grouped_sum_i64(dense, vectors, nseg)
+
+    grouped_mod.grouped_sum_i64 = recording
+    try:
+        for name in ("whole", "batched"):
+            assert con.sql(chip_smoke.Q1.replace("FROM lineitem", f"FROM {name}")).rows() == want
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    assert len(seen) >= 2 and all(d.is_cuda for d, _, _ in seen)
+    for dense, vecs, nseg in seen:
+        for g, w in zip(GS.grouped_sum_i64(dense, vecs, nseg),
+                        GS.grouped_sum_i64_plain(dense, vecs, nseg)):
+            assert torch.equal(g, w)
+    del res
+    gc.collect()
+    assert AI.live_structs() == 0
+
+
+@pytest.mark.gpu
+def test_capi_faults_c1_to_c5_on_the_card_machine():
+    """C1-C5 through the C API library built on this machine, a database
+    opened on the card (chip_smoke.capi_faults)."""
+    _need_cuda()
+    import chip_smoke
+    import duckdb_tpu_torch.capi
+
+    assert chip_smoke.capi_faults(duckdb_tpu_torch.capi.library()) == ""
+
+
+@pytest.mark.gpu
+def test_item49_and_f31_fixtures_on_cuda():
+    """The nested, TIME, UINT64 and BLOB fixtures read on a card connection
+    to their expected rows, a deeper nesting refused naming its column, and
+    LIST and TIME columns written by COPY TO read back
+    (chip_smoke.parquet_step)."""
+    _need_cuda()
+    import chip_smoke
+
+    assert chip_smoke.parquet_step("the card") == ""

@@ -52,12 +52,13 @@ def test_scan_covers_the_new_modules():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"duckdb_tpu_torch/testing/fuzz.py", "duckdb_tpu_torch/ops/int128.py",
             "duckdb_tpu_torch/parallel/shard.py", "tools/torch_fuzz.py",
-            "tools/chip_phase23.py", "tools/chip_phase24.py"} <= names
+            "tools/chip_phase23.py", "tools/chip_phase24.py",
+            "duckdb_tpu_torch/api/arrow_interop.py", "tools/chip_phase25.py"} <= names
 
 
 def test_cxx_scan_finds_what_it_forbids():
     assert {p.name for p in CXX_FILES} >= {"grouped_sum.cu", "csv2col.cpp", "capi.cpp",
-                                           "duckdb_tpu_torch.h"}
+                                           "duckdb_tpu_torch.h", "arrow_c.cpp"}
     for bad in ('PyImport_ImportModule("duckdb_tpu.capi.bridge")', '#include "duckdb_tpu.h"',
                 "#include <duckdb_tpu/capi/capi.h>"):
         assert CXX_FORBIDDEN.search(bad), bad
@@ -103,6 +104,6 @@ def test_not_yet_ported_sql_says_so():
     con = duckdb_tpu_torch.connect(device="cpu")
     con.sql("CREATE TABLE t (a INT)")
     with pytest.raises(ValueError, match="not yet ported"):
-        con.sql("SELECT * FROM t").df()  # pandas: ROADMAP item 35b
+        con.sql("SELECT MAP {1: 2} AS m").arrow()  # a MAP has no Arrow export yet
     with pytest.raises(ValueError, match="not yet ported"):
         con.sql("SELECT hex(a) FROM t")  # refused by the JAX package too

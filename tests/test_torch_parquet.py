@@ -248,8 +248,10 @@ def test_a_file_of_no_rows(tmp_path):
 
 
 def test_a_nested_column_raises_naming_it(tmp_path):
+    """A LIST of flat values reads (item 49); a LIST of LISTs raises,
+    naming its column."""
     path = str(tmp_path / "nested.parquet")
-    pq.write_table(pa.table({"k": [1], "tags": pa.array([[1, 2]])}), path)
+    pq.write_table(pa.table({"k": [1], "tags": pa.array([[[1, 2]]])}), path)
     with pytest.raises(ValueError, match='"tags"'):
         duckdb_tpu_torch.connect(device="cpu").sql(f"SELECT k FROM '{path}'")
 
@@ -330,3 +332,108 @@ def test_committed_fixtures(case):
         key = table.column_names.index(json.load(open(path + ".expected.json"))["order_by"])
         cols = [_python_values(table, n) for n in table.column_names]
         assert sorted(zip(*cols), key=lambda r: r[key]) == want
+
+
+# -- F31: UINT64 and unannotated BYTE_ARRAY, held to DuckDB --------------------------------
+
+def test_f31_uint64_reads_as_hugeint_and_binary_as_blob(tmp_path):
+    """A Parquet UINT64 past 2^63 reads exactly, as HUGEINT (DuckDB's UBIGINT,
+    which neither package has), and a BYTE_ARRAY with no string annotation
+    as BLOB, as DuckDB reads them. The JAX package reads the first as a
+    negative BIGINT and the second as the text of its Python bytes."""
+    path = str(tmp_path / "f31.parquet")
+    pq.write_table(pa.table({
+        "k": pa.array([1, 2, 3, 4], pa.int64()),
+        "u": pa.array([2**63 + 5, None, 2**64 - 1, 7], pa.uint64()),
+        "b": pa.array([b"\x00c", b"", None, b"\xff"], pa.binary()),
+    }), path)
+    sql = f"SELECT k, u, b, typeof(u), typeof(b) FROM '{path}' ORDER BY k"
+    con = duckdb_tpu_torch.connect(device="cpu")
+    assert con.sql(sql).rows() == [
+        (1, 2**63 + 5, b"\x00c", "HUGEINT", "BLOB"), (2, None, b"", "HUGEINT", "BLOB"),
+        (3, 2**64 - 1, None, "HUGEINT", "BLOB"), (4, 7, b"\xff", "HUGEINT", "BLOB")]
+    assert con.sql(f"SELECT sum(u), max(u), count(b) FROM '{path}' WHERE u > 6").rows() == [
+        (2**63 + 5 + 2**64 - 1 + 7, 2**64 - 1, 2)]
+    jrows = duckdb_tpu.connect().sql(f"SELECT k, u, b FROM '{path}' ORDER BY k").rows()
+    assert jrows[0][1] == 2**63 + 5 - 2**64 and jrows[0][2] == "b'\\x00c'"
+
+
+# -- item 49: LIST, STRUCT and TIME columns, held to DuckDB --------------------------------
+
+@pytest.mark.parametrize("version", ["1.0", "2.0"])
+@pytest.mark.parametrize("dictionary", [True, False])
+def test_item49_list_struct_and_time_read_as_duckdb_reads_them(tmp_path, version, dictionary):
+    """An optional LIST of optional elements (pyarrow's three-level
+    encoding), an optional STRUCT of flat fields and TIME in ms and us read
+    as LIST, STRUCT and TIME, over several row groups and both page
+    versions. The JAX package reads their Python text as VARCHAR."""
+    rng = np.random.default_rng(5)
+    n = 300
+    ints = [None if i % 7 == 0 else [] if i % 11 == 0 else
+            [None if (i + j) % 5 == 0 else int(x) + j for j in range(i % 4 + 1)]
+            for i, x in enumerate(rng.integers(-50, 50, n))]
+    t = pa.table({
+        "k": pa.array(np.arange(n), pa.int64()),
+        "l": pa.array(ints, pa.list_(pa.int32())),
+        "ls": pa.array([None if i % 9 == 0 else [f"w{(i + j) % 4}" for j in range(i % 3)]
+                        for i in range(n)], pa.list_(pa.string())),
+        "s": pa.array([None if i % 10 == 0 else {"x": None if i % 4 == 0 else i, "y": f"y{i % 6}",
+                                                "d": decimal.Decimal(i).scaleb(-2)}
+                       for i in range(n)],
+                      pa.struct([("x", pa.int64()), ("y", pa.string()),
+                                 ("d", pa.decimal128(9, 2))])),
+        "t32": pa.array([None if i % 12 == 0 else i * 1000 for i in range(n)], pa.time32("ms")),
+        "t64": pa.array([i * 1_000_001 for i in range(n)], pa.time64("us")),
+    })
+    path = str(tmp_path / "n.parquet")
+    pq.write_table(t, path, data_page_version=version, use_dictionary=dictionary,
+                   row_group_size=64)
+    res = duckdb_tpu_torch.connect(device="cpu").sql(f"SELECT * FROM '{path}' ORDER BY k")
+    assert [repr(x) for x in res.types] == [
+        "BIGINT", "INTEGER[]", "VARCHAR[]", "STRUCT(x BIGINT, y VARCHAR, d DECIMAL(9,2))",
+        "TIME", "TIME"]
+    assert res.rows() == [tuple(r.values()) for r in t.to_pylist()]
+    jrow = duckdb_tpu.connect().sql(f"SELECT * FROM '{path}' ORDER BY k").rows()[1]
+    assert isinstance(jrow[1], str) and isinstance(jrow[3], str) and isinstance(jrow[4], str)
+
+
+def test_item49_deeper_nesting_raises_naming_the_column(tmp_path):
+    import os
+
+    deep = os.path.join(os.path.dirname(__file__), "data", "torch_io", "nested_deep.parquet")
+    with pytest.raises(ValueError, match='"ll", nested deeper'):
+        duckdb_tpu_torch.connect(device="cpu").sql(f"SELECT * FROM '{deep}'")
+    path = str(tmp_path / "sl.parquet")
+    pq.write_table(pq.read_table(deep).select(["k", "sl"]), path)
+    with pytest.raises(ValueError, match='"sl", nested deeper'):
+        duckdb_tpu_torch.connect(device="cpu").sql(f"SELECT k FROM '{path}'")
+
+
+def test_item49_copy_to_writes_list_and_time_columns(tmp_path):
+    """COPY TO Parquet writes an INTEGER[], a VARCHAR[] and a TIME column in
+    the three-level encoding and as TIME(us): pyarrow and the port read them
+    back. The JAX package writes an INTEGER[] as its code, 0."""
+    import datetime
+
+    con = duckdb_tpu_torch.connect(device="cpu")
+    con.sql("CREATE TABLE src (k INTEGER, l INTEGER[], s VARCHAR[], t TIME)")
+    con.sql("INSERT INTO src VALUES (1, [1, NULL, 3], ['a', NULL], TIME '01:02:03'), "
+            "(2, NULL, NULL, NULL), (3, [4], ['b', 'c', 'b'], TIME '23:59:59.5')")
+    con.sql("INSERT INTO src SELECT range + 10, [range::INTEGER], ['x' || range], "
+            "TIME '00:00:01' FROM range(130000)")
+    path = str(tmp_path / "out.parquet")
+    con.sql(f"COPY (SELECT * FROM src ORDER BY k) TO '{path}' (FORMAT PARQUET)")
+    back = pq.read_table(path)
+    assert back.schema.field("l").type.value_type == pa.int32()
+    assert back.schema.field("s").type.value_type == pa.string()
+    assert back.schema.field("t").type == pa.time64("us")
+    assert pq.ParquetFile(path).metadata.num_row_groups == 2
+    assert back.slice(0, 3).to_pylist() == [
+        {"k": 1, "l": [1, None, 3], "s": ["a", None], "t": datetime.time(1, 2, 3)},
+        {"k": 2, "l": None, "s": None, "t": None},
+        {"k": 3, "l": [4], "s": ["b", "c", "b"], "t": datetime.time(23, 59, 59, 500000)}]
+    assert con.sql(f"SELECT * FROM '{path}' ORDER BY k").rows() == \
+        con.sql("SELECT * FROM src ORDER BY k").rows()
+    jpath = str(tmp_path / "jax.parquet")
+    duckdb_tpu.connect().sql(f"COPY (SELECT [1, 2] AS l) TO '{jpath}' (FORMAT PARQUET)")
+    assert pq.read_table(jpath).to_pylist() == [{"l": 0}]

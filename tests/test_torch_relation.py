@@ -3,10 +3,11 @@ module-level API of duckdb_tpu_torch (device="cpu") against the JAX
 package.
 
 The cases of tests/test_relation.py run on both packages and must give
-the same rows, without their pandas and Arrow assertions: what needs
-pandas or pyarrow (`Relation.df`, `Result.df`, `Result.arrow`,
-`fetch_record_batch`, `from_df`, `from_arrow`) raises in the port and
-names ROADMAP item 35b. The module-level API runs over its lazily made
+the same rows, without their pandas and Arrow assertions: `Relation.df`,
+`Result.df`, `Result.arrow`, `fetch_record_batch`, `from_df` and
+`from_arrow` answer in the port through its own Arrow C interface
+(ROADMAP item 35b; tests/test_torch_arrow.py holds them to the JAX
+package's). The module-level API runs over its lazily made
 default connection (on the CPU here), and its `sql` function shadows the
 `duckdb_tpu_torch.sql` subpackage without breaking the port's imports of
 it, in this process and in a fresh one.
@@ -97,12 +98,26 @@ def test_relation_matches_jax(cons, name):
 
 
 def test_pandas_and_arrow_name_item_35b(cons):
+    """Item 35b's entry points answer (each raised, naming the item): the
+    relation's and the result's df(), arrow() and fetch_record_batch() with
+    the aliases, and from_df / from_arrow, which refuse what is neither a
+    DataFrame nor an Arrow object with a typed error."""
+    from duckdb_tpu_torch.errors import InvalidInputException
+
     _, tcon = cons
     res = tcon.sql("SELECT * FROM people")
-    for call in (tcon.table("people").df, res.df, res.arrow, res.fetch_record_batch,
-                 lambda: tcon.from_df(None, "x"),
-                 lambda: tcon.from_arrow(None, "x"), lambda: duckdb_tpu_torch.from_df(None)):
-        with pytest.raises(ValueError, match=r"item 35b\).*not yet ported"):
+    frame = tcon.table("people").df()
+    assert list(frame.columns) == res.names and len(frame) == res.nrows
+    assert frame.astype(str).equals(res.df().astype(str))
+    tcon.from_arrow(res.fetch_arrow_table(), "people_arrow")
+    assert tcon.sql("SELECT * FROM people_arrow").rows() == res.rows()
+    assert res.fetch_record_batch(1).num_batches == res.record_batch(2).num_rows == res.nrows
+    tcon.register_arrow(res.fetch_arrow_reader(2), "people_batches")
+    assert tcon.sql("SELECT * FROM people_batches").rows() == res.rows()
+    tcon.from_df(frame, "people_df")
+    assert tcon.sql("SELECT count(*) FROM people_df").rows() == [(res.nrows,)]
+    for call in (lambda: tcon.from_df(None, "x"), lambda: tcon.from_arrow(None, "x")):
+        with pytest.raises(InvalidInputException):
             call()
 
 

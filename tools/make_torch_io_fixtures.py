@@ -8,8 +8,11 @@ the only pyarrow-written input that chip_smoke.py's phase 20 and the card
 test read there; tests/test_torch_parquet.py holds the port's reader
 against pyarrow on the CPU. Each fixture has `<name>.expected.json` beside
 it: {"file", "order_by", "rows"}, the rows as the port's Result.rows()
-gives them, with DECIMAL, DATE and TIMESTAMP values tagged
-({"decimal": text}, {"date": iso}, {"timestamp": iso}). The expected rows
+gives them, with DECIMAL, DATE, TIMESTAMP, TIME, BLOB and STRUCT values
+tagged ({"decimal": text}, {"date": iso}, {"timestamp": iso}, {"time":
+iso}, {"blob": hex}, {"struct": {field: value}}) and a LIST a JSON list
+of its tagged elements. A file with no expected rows (nested_deep.parquet)
+is one the port refuses, naming its column. The expected rows
 come from pyarrow's and Python's json's own reading of what was written.
 Seeded: running it again writes the same values.
 """
@@ -28,6 +31,14 @@ N = 200
 
 
 def _tag(v):
+    if isinstance(v, list):
+        return [_tag(x) for x in v]
+    if isinstance(v, dict):
+        return {"struct": {k: _tag(x) for k, x in v.items()}}
+    if isinstance(v, bytes):
+        return {"blob": v.hex()}
+    if isinstance(v, datetime.time):
+        return {"time": v.isoformat()}
     if isinstance(v, decimal.Decimal):
         return {"decimal": str(v)}
     if isinstance(v, datetime.datetime):
@@ -126,6 +137,59 @@ def main():
              json.dumps(d[k], separators=(",", ":")) for k in keys] for d in docs]
     with open(os.path.join(out, "events.ndjson.expected.json"), "w") as f:
         json.dump({"file": "events.ndjson", "order_by": "k", "rows": rows}, f, indent=0)
+
+    # the files below draw from a generator of their own, so that the ones
+    # above stay as they were
+    rng = np.random.default_rng(21)
+
+    # UINT64 past 2^63 (read as HUGEINT), UINT32, and BYTE_ARRAY with no
+    # string annotation (read as BLOB)
+    u64 = [int(x) for x in rng.integers(0, 2**62, N)]
+    u64[1], u64[2], u64[3] = 2**63 + 5, 2**64 - 1, 2**63
+    t = pa.table({
+        "k": pa.array(np.arange(N), pa.int64()),
+        "u64": pa.array(nulls(u64, 8), pa.uint64()),
+        "u32": pa.array([int(x) for x in rng.integers(0, 2**32, N)], pa.uint32()),
+        "bin": pa.array(nulls([bytes([int(x) % 3, 99]) + bytes(int(x) % 4) for x in
+                               rng.integers(0, 256, N)], 6), pa.binary()),
+    })
+    pq.write_table(t, os.path.join(out, "unsigned_binary.parquet"), compression="snappy")
+    _expected(out, "unsigned_binary.parquet", t, "k")
+
+    # optional LISTs of optional elements (pyarrow's three-level encoding),
+    # an optional STRUCT of flat fields, and TIME in ms (INT32) and us (INT64)
+    def a_list(i, x):
+        if i % 7 == 0:
+            return None
+        if i % 11 == 0:
+            return []
+        return [None if (i + j) % 5 == 0 else int(x) + j for j in range(i % 4 + 1)]
+
+    xs = rng.integers(-1000, 1000, N)
+    t = pa.table({
+        "k": pa.array(np.arange(N), pa.int64()),
+        "l": pa.array([a_list(i, x) for i, x in enumerate(xs)], pa.list_(pa.int64())),
+        "ls": pa.array([None if i % 9 == 0 else [f"w{(i + j) % 13}" for j in range(i % 3)]
+                        for i in range(N)], pa.list_(pa.string())),
+        "s": pa.array([None if i % 10 == 0 else
+                       {"x": None if i % 4 == 0 else int(xs[i]), "y": f"y{i % 6}"}
+                       for i in range(N)], pa.struct([("x", pa.int64()), ("y", pa.string())])),
+        "t32": pa.array(nulls([int(x) for x in rng.integers(0, 86_400_000, N)], 12),
+                        pa.time32("ms")),
+        "t64": pa.array([int(x) for x in rng.integers(0, 86_400_000_000, N)], pa.time64("us")),
+    })
+    pq.write_table(t, os.path.join(out, "nested_time.parquet"), compression="snappy")
+    _expected(out, "nested_time.parquet", t, "k")
+
+    # deeper nesting, which the port refuses: a LIST of LISTs, a STRUCT
+    # holding a LIST
+    t = pa.table({
+        "k": pa.array(np.arange(4), pa.int64()),
+        "ll": pa.array([[[1, 2], [3]], None, [[]], [[4]]], pa.list_(pa.list_(pa.int64()))),
+        "sl": pa.array([{"a": [1]}, None, {"a": []}, {"a": [2, 3]}],
+                       pa.struct([("a", pa.list_(pa.int64()))])),
+    })
+    pq.write_table(t, os.path.join(out, "nested_deep.parquet"))
 
 
 if __name__ == "__main__":
