@@ -340,8 +340,22 @@ Phases (any failure exits non-zero before the result lines):
    TO and read back; the fifteen configurations of MATRIX_CONFIGS × the
    seven MATRIX_QUERIES at SF 0.01, each equal to the numpy oracle, every
    grouped-sum launch held to the plain version (none under pallas_off).
-   `tools/chip_phase25.py` runs it alone. The script's whole time is
-   printed last.
+   `tools/chip_phase25.py` runs it alone;
+26. the windows over frames (execution/window_exec.py over
+   ops/frame_stats.py, ROADMAP item 44) at SF1: first the forms of G1-G3
+   (an empty list into a list column by INSERT, UPDATE and CASE, || over
+   lists, SET's None) on a card connection; then the five PHASE26
+   windows (a moving median over 101 rows, a running quantile_cont, a
+   30-day stddev_samp, a running var_pop over orders, a count(DISTINCT)
+   over 101 rows), each wrapped in a grouped count/sum/min/max whose
+   count(*) goes through the grouped sum (its launches counted and held to
+   the plain version; the route named where none launched), its groups
+   and an exact read-back of the rows whose order key is a multiple of
+   PHASE26_MOD held to a numpy oracle written apart from the port (sorted
+   windows in chunks of rows, exact integer moments, bitmask distinct
+   counts), and its warm median, host syncs, the card's busy share and the
+   peak device memory the query took. `tools/chip_phase26.py` runs it
+   alone. The script's whole time is printed last.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -3541,6 +3555,340 @@ def faults_arrow_matrix_phase(con, card, recording, recorded, launches_by_query,
     return ""
 
 
+# phase 26: median, quantile_cont, stddev and var over frames, and DISTINCT
+# over a frame (ROADMAP item 44), at SF1
+PHASE26_MOD = 10007
+PHASE26_CHUNK = 250_000  # oracle rows per chunk: no [rows, frame] array of lineitem whole
+LI_KEYS = ("l_returnflag", "l_linestatus")
+PHASE26 = {  # name → (table, group keys, the window)
+    "win_median_rows": ("lineitem", LI_KEYS,
+                        "median(l_extendedprice) OVER (PARTITION BY l_suppkey ORDER BY "
+                        "l_shipdate ROWS BETWEEN 50 PRECEDING AND 50 FOLLOWING)"),
+    "win_quantile_running": ("lineitem", LI_KEYS,
+                             "quantile_cont(l_quantity, 0.9) OVER (PARTITION BY l_partkey "
+                             "ORDER BY l_shipdate)"),
+    "win_stddev_30d": ("lineitem", LI_KEYS,
+                       "stddev_samp(l_discount) OVER (PARTITION BY l_suppkey ORDER BY "
+                       "l_shipdate RANGE BETWEEN INTERVAL '30 days' PRECEDING AND CURRENT ROW)"),
+    "win_var_pop_orders": ("orders", ("o_orderstatus",),
+                           "var_pop(o_totalprice) OVER (PARTITION BY o_custkey ORDER BY "
+                           "o_orderdate)"),
+    "win_distinct_rows": ("lineitem", LI_KEYS,
+                          "count(DISTINCT l_quantity) OVER (PARTITION BY l_suppkey ORDER BY "
+                          "l_shipdate ROWS BETWEEN 100 PRECEDING AND CURRENT ROW)"),
+}
+PHASE26_COLS = {
+    "lineitem": ("l_orderkey", "l_linenumber", "l_suppkey", "l_partkey", "l_shipdate",
+                 "l_extendedprice", "l_quantity", "l_discount", "l_returnflag", "l_linestatus"),
+    "orders": ("o_orderkey", "o_custkey", "o_orderdate", "o_totalprice", "o_orderstatus")}
+
+
+def phase26_sql(name):
+    """(the grouped query, the read-back query) of one PHASE26 window."""
+    table, keys, window = PHASE26[name]
+    pk = "l_orderkey, l_linenumber" if table == "lineitem" else "o_orderkey"
+    by = ", ".join(str(i + 1) for i in range(len(keys)))
+    grouped = (f"SELECT {', '.join(keys)}, count(*), sum(m), min(m), max(m) FROM (SELECT "
+               f"{', '.join(keys)}, {window} AS m FROM {table}) GROUP BY {by} ORDER BY {by}")
+    readback = (f"SELECT {pk}, m FROM (SELECT {pk}, {window} AS m FROM {table}) WHERE "
+                f"{pk.split(',')[0]} % {PHASE26_MOD} = 0 ORDER BY {pk}")
+    return grouped, readback
+
+
+def phase26_columns(data_dir: str) -> dict:
+    """{table: {column: numpy array}} of PHASE26_COLS from the generated
+    files (integers, DECIMAL cents and date days as int64, flags as bytes)."""
+    import numpy as np
+
+    out = {}
+    for table, names in PHASE26_COLS.items():
+        cols = {}
+        for name in names:
+            path = os.path.join(data_dir, table, name)
+            if os.path.exists(path + ".i64") or os.path.exists(path + ".i32"):
+                cols[name] = _table_col(data_dir, table, name)
+            else:
+                cols[name] = np.fromfile(path + ".bytes", dtype="S1")
+        out[table] = cols
+    return out
+
+
+def _window_order(part, order):
+    """(sorted position → row, partition start, partition end and last peer
+    of each sorted position): a stable sort by (partition, order key), so
+    that ties keep the table's row order as the port's sort does. The order
+    key is a date in days (below 2^16)."""
+    import numpy as np
+
+    perm = np.argsort(part * (1 << 16) + order, kind="stable")
+    p, o = part[perm], order[perm]
+    n = len(perm)
+    new_part = np.ones(n, bool)
+    new_part[1:] = p[1:] != p[:-1]
+    new_peer = new_part.copy()
+    new_peer[1:] |= o[1:] != o[:-1]
+    idx = np.arange(n)
+    start = np.maximum.accumulate(np.where(new_part, idx, 0))
+    last = np.ones(n, bool)
+    last[:-1] = new_part[1:]
+    end = np.minimum.accumulate(np.where(last, idx, n)[::-1])[::-1]
+    last_peer = np.ones(n, bool)
+    last_peer[:-1] = new_peer[1:]
+    peer_e = np.minimum.accumulate(np.where(last_peer, idx, n)[::-1])[::-1]
+    return perm, start, end, peer_e
+
+
+def _sorted_frames(v, lo, hi, pick):
+    """For each frame [lo, hi] (positions of v), pick(its values sorted,
+    padding after them, its size): frames go in buckets of sizes (w/2, w]
+    for w = 1, 2, 4, …, each bucket PHASE26_CHUNK frames at a time, so no
+    [frames, longest frame] array is built whole."""
+    import numpy as np
+
+    c = hi - lo + 1
+    out = np.empty(len(lo), dtype=np.float64)
+    pad = np.iinfo(np.int64).max
+    w, top = 1, int(c.max()) if len(c) else 0
+    while w // 2 < top:
+        rows = np.lib.stride_tricks.sliding_window_view(
+            np.concatenate([v, np.full(w, pad)]), w)  # rows[i] = v[i:i + w], padded
+        sel = np.flatnonzero((c <= w) & (c > w // 2))
+        for a in range(0, len(sel), PHASE26_CHUNK):
+            s = sel[a:a + PHASE26_CHUNK]
+            vals = np.where(np.arange(w)[None, :] < c[s, None], rows[lo[s]], pad)
+            out[s] = pick(np.sort(vals, axis=1), c[s])
+        w *= 2
+    return out
+
+
+def _row_pick(vals, k):
+    import numpy as np
+
+    return vals[np.arange(vals.shape[0]), k]
+
+
+def _popcount64(x):
+    import numpy as np
+
+    if hasattr(np, "bitwise_count"):
+        return np.bitwise_count(x).astype(np.int64)
+    lut = np.array([bin(i).count("1") for i in range(256)], dtype=np.int64)
+    return lut[x.view(np.uint8).reshape(-1, 8)].sum(axis=1)
+
+
+def phase26_oracle(cols: dict, name: str):
+    """Each row's window value (table order) of one PHASE26 window, from
+    numpy alone: float64 with NaN for NULL, or int64 for the count."""
+    import numpy as np
+
+    if name == "win_var_pop_orders":
+        # two passes over each running frame's prices as DOUBLE (cents / 100,
+        # as DuckDB reads a DECIMAL), PHASE26_CHUNK frames at a time
+        o = cols["orders"]
+        perm, start, end, peer_e = _window_order(o["o_custkey"], o["o_orderdate"])
+        x = o["o_totalprice"][perm] / 100.0
+        width = int((end - start).max()) + 1
+        m = np.empty(len(perm))
+        for a in range(0, len(perm), PHASE26_CHUNK):
+            b = min(len(perm), a + PHASE26_CHUNK)
+            idx = start[a:b, None] + np.arange(width)[None, :]
+            inside = idx <= peer_e[a:b, None]
+            vals = np.where(inside, x[np.minimum(idx, len(x) - 1)], 0.0)
+            c = inside.sum(axis=1)
+            mean = vals.sum(axis=1) / c
+            m[a:b] = (np.where(inside, vals - mean[:, None], 0.0) ** 2).sum(axis=1) / c
+        out = np.empty(len(perm))
+        out[perm] = m
+        return out
+    li = cols["lineitem"]
+    part = li["l_partkey"] if name == "win_quantile_running" else li["l_suppkey"]
+    perm, start, end, peer_e = _window_order(part, li["l_shipdate"])
+    n = len(perm)
+    pos = np.arange(n)
+    if name == "win_median_rows":
+        lo, hi = np.maximum(pos - 50, start), np.minimum(pos + 50, end)
+        v = li["l_extendedprice"][perm]
+
+        def median(vals, c):
+            return (_row_pick(vals, (c - 1) // 2) + _row_pick(vals, c // 2)) / 200.0
+
+        # whole frames of 101 values: the 51st smallest by a partial sort
+        full = np.flatnonzero(hi - lo == 100)
+        rows = np.lib.stride_tricks.sliding_window_view(v, 101)  # rows[i] = v[i:i + 101]
+        m = np.empty(n)
+        for a in range(0, len(full), PHASE26_CHUNK):
+            s = full[a:a + PHASE26_CHUNK]
+            frames = rows[lo[s]]
+            frames.partition(50, axis=1)
+            m[s] = frames[:, 50] / 100.0
+        part_rows = np.flatnonzero(hi - lo != 100)
+        m[part_rows] = _sorted_frames(v, lo[part_rows], hi[part_rows], median)
+    elif name == "win_quantile_running":
+        def q90(vals, c):
+            p = (c - 1) * 0.9
+            k = np.floor(p).astype(np.int64)
+            f = p - k
+            a, b = _row_pick(vals, k) / 100.0, _row_pick(vals, np.ceil(p).astype(np.int64))
+            return a * (1.0 - f) + b / 100.0 * f
+
+        m = _sorted_frames(li["l_quantity"][perm], start, peer_e, q90)
+    elif name == "win_stddev_30d":
+        # exact integer moments of the discounts (cents) in each frame
+        key = part[perm] * (1 << 16) + li["l_shipdate"][perm]
+        lo = np.searchsorted(key, key - 30, "left")
+        hi = np.searchsorted(key, key, "right") - 1
+        d = li["l_discount"][perm]  # cents
+        p1 = np.concatenate([[0], np.cumsum(d)])
+        p2 = np.concatenate([[0], np.cumsum(d * d)])
+        c = hi - lo + 1
+        s1, s2 = p1[hi + 1] - p1[lo], p2[hi + 1] - p2[lo]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            var = (c * s2 - s1 * s1).astype(np.float64) / (c * (c - 1)).astype(np.float64)
+        m = np.where(c >= 2, np.sqrt(var) / 100.0, np.nan)
+    else:  # win_distinct_rows: OR of one bit per quantity over the frame
+        bits = np.left_shift(np.uint64(1), (li["l_quantity"][perm] // 100 - 1).astype(np.uint64))
+        lo = np.maximum(pos - 100, start)
+        length = pos - lo + 1
+        level = np.floor(np.log2(length)).astype(np.int64)
+        table = [bits]
+        while (1 << len(table)) <= 101:
+            prev, h = table[-1], 1 << (len(table) - 1)
+            nxt = prev.copy()
+            nxt[:n - h] |= prev[h:]
+            table.append(nxt)
+        m = np.zeros(n, dtype=np.int64)
+        for j, t in enumerate(table):
+            at = level == j
+            m[at] = _popcount64(t[lo[at]] | t[pos[at] - (1 << j) + 1])
+        out = np.empty(n, dtype=np.int64)
+        out[perm] = m
+        return out
+    out = np.empty(n)
+    out[perm] = m
+    return out
+
+
+def phase26_want(cols: dict, name: str, m):
+    """(the grouped query's rows, the read-back's rows) from the oracle's m."""
+    import numpy as np
+
+    table, keys, _ = PHASE26[name]
+    t = cols[table]
+    is_count = m.dtype.kind == "i"
+    codes = [t[k] for k in keys]
+    groups = sorted(set(zip(*[c.tolist() for c in codes])))
+    rows = []
+    for g in groups:
+        sel = np.ones(len(m), bool)
+        for c, v in zip(codes, g):
+            sel &= c == v
+        v = m[sel]
+        live = v if is_count else v[~np.isnan(v)]
+        if is_count:
+            agg = (int(live.sum()), int(live.min()), int(live.max()))
+        elif len(live):
+            agg = (float(live.sum()), float(live.min()), float(live.max()))
+        else:
+            agg = (None, None, None)
+        rows.append(tuple(x.decode() for x in g) + (int(sel.sum()),) + agg)
+    okey = t["l_orderkey" if table == "lineitem" else "o_orderkey"]
+    pick = np.flatnonzero(okey % PHASE26_MOD == 0)
+    if table == "lineitem":
+        pick = pick[np.lexsort((t["l_linenumber"][pick], okey[pick]))]
+        pk = [(int(okey[i]), int(t["l_linenumber"][i])) for i in pick]
+    else:
+        pick = pick[np.argsort(okey[pick], kind="stable")]
+        pk = [(int(okey[i]),) for i in pick]
+
+    def val(x):
+        return int(x) if is_count else (None if np.isnan(x) else float(x))
+
+    return rows, [k + (val(m[i]),) for k, i in zip(pk, pick)]
+
+
+def g_forms_step(card) -> str:
+    """Phase 26 step 1: G1-G3's forms on a card connection, as
+    tests/test_torch_shadow_faults.py holds them. '' or what failed."""
+    import duckdb_tpu_torch
+
+    con = duckdb_tpu_torch.connect()
+    con.sql("CREATE TABLE lt (id INTEGER, s VARCHAR[], l INTEGER[])")
+    checks = [
+        ("INSERT INTO lt VALUES (1, ['a','b'], [10,20,30]), (2, ['c'], []), (3, NULL, [5])",
+         [(3,)]),
+        ("INSERT INTO lt (id, l) VALUES (4, [])", [(1,)]),
+        ("UPDATE lt SET l = [] WHERE id = 1", [(1,)]),
+        ("SELECT id, s, l, CASE WHEN id = 3 THEN [] ELSE l END, coalesce(s, []), l || [7] "
+         "FROM lt ORDER BY id",
+         [(1, ["a", "b"], [], [], ["a", "b"], [7]), (2, ["c"], [], [], ["c"], [7]),
+          (3, None, [5], [], [], [5, 7]), (4, None, [], [], [], [7])]),
+        ("SELECT [1, 2] || [3], [] || [1], [1] || NULL", [([1, 2, 3], [1], None)]),
+    ]
+    for sql, want in checks:
+        got = con.sql(sql).rows()
+        if got != want:
+            return f"{sql} gives {got}, not {want}"
+    if con.sql("SET threads = 4") is not None:
+        return "SET returned a result (G3)"
+    print(f"phase 26 step 1 on {card}: G1-G3's {len(checks) + 1} forms answer as the tests "
+          "hold them")
+    return ""
+
+
+def frame_windows_phase(con, card, recording, recorded, launches_by_query, shapes,
+                        reps) -> str:
+    """Phase 26 (see the module docstring). '' or a failure message."""
+    import torch
+
+    phase_t0 = time.perf_counter()
+    bad = g_forms_step(card)
+    if bad:
+        return f"phase 26 step 1: {bad}"
+    t0 = time.perf_counter()
+    cols = phase26_columns(DATA)
+    print(f"phase 26 step 2: the oracle's columns read in {time.perf_counter() - t0:.1f} s")
+    kit = Steps(26, card, recording, recorded, launches_by_query, shapes, reps)
+    timed = set()
+    for name in PHASE26:
+        grouped, readback = phase26_sql(name)
+        t0 = time.perf_counter()
+        want, want_rows = phase26_want(cols, name, phase26_oracle(cols, name))
+        oracle_s = time.perf_counter() - t0
+        con.routes.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rows, line = kit.with_kernel(f"2 {name}", name, lambda: con.sql(grouped).rows())
+        peak = torch.cuda.max_memory_allocated() - base
+        bad = rows_match(rows, want)
+        if bad:
+            return f"phase 26 {name}: the groups differ from numpy: {bad}"
+        got_rows = con.sql(readback).rows()
+        bad = rows_match(got_rows, want_rows)
+        if bad:
+            return f"phase 26 {name}: the read-back rows differ from numpy: {bad}"
+        launches = launches_by_query[name]
+        route = ", ".join(f"{k} {v}" for k, v in sorted(con.routes.items()))
+        print(line + f"; groups and {len(got_rows)} read-back rows equal numpy's (oracle "
+              f"{oracle_s:.1f} s); routes {route}; grouped_sum_i64 launches {launches}"
+              + ("" if launches else " (the count(*) took no grouped-sum route)")
+              + f"; peak device memory {peak / 2 ** 20:.1f} MiB above the tables on {card}")
+        bad = kit.kernel_check(name, timed)
+        if bad:
+            return bad
+        med, times = warm_median(con, grouped, rows, runs=3, exact=False)
+        if med is None:
+            return f"phase 26 {name}: {times}"
+        syncs = count_syncs(lambda: con.sql(grouped).rows())
+        print(f"phase 26 {name} on {card}: warm median {med * 1e3:.3f} ms of 3 after 1 warm-up "
+              f"({', '.join(f'{t * 1e3:.3f}' for t in times)} ms), {syncs} host syncs")
+        bad = busy_share(con, grouped, card, runs=1)
+        if bad:
+            return bad
+    print(f"phase 26 on {card}: {time.perf_counter() - phase_t0:.1f} s")
+    return ""
+
+
 def main() -> int:
     try:
         import torch
@@ -4128,6 +4476,19 @@ def main() -> int:
         return fail(bad)
     worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
     print(f"phase 25 took {time.perf_counter() - phase25_t0:.1f} s")
+
+    # 26. the windows over frames: G1-G3's forms, then five windows at SF1
+    # held to numpy, their outer count(*) through the kernel
+    phase26_t0 = time.perf_counter()
+    try:
+        bad = frame_windows_phase(con, card, recording, recorded, launches_by_query, shapes,
+                                  reps)
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    if bad:
+        return fail(bad)
+    worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
+    print(f"phase 26 took {time.perf_counter() - phase26_t0:.1f} s")
     print(f"chip_smoke.py took {time.perf_counter() - script_t0:.1f} s in all on {card}")
 
     print(json.dumps({"kernels": [{

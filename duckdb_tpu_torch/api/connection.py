@@ -12,8 +12,9 @@ COPY TO / FROM (CSV and Parquet) and EXPORT / IMPORT DATABASE
 (api/files.py), ALTER TABLE (api/alter.py), MERGE INTO (api/merge.py), and
 PIVOT and UNPIVOT (api/pivot.py). Beside SQL it gives the appender
 (api/appender.py), the relation API and prepared statements
-(api/relation.py); what needs pandas or pyarrow (`from_df`, `from_arrow`,
-`Result.df`, `Result.arrow`) waits for ROADMAP item 35b and says so.
+(api/relation.py), and pandas and Arrow through the Arrow C data and
+stream interface with no pyarrow (api/arrow_interop.py): `from_df`,
+`from_arrow`, `Result.df`, `Result.arrow` and `fetch_record_batch`.
 
 `connect(path)` opens a file database (storage/persist.py): one
 `Database` per directory in a process, shared by every connection to it
@@ -533,7 +534,7 @@ class Connection(DDLMixin, DMLMixin, FilesMixin, AlterMixin, MergeMixin, PivotMi
                 self.settings.reset(s.name)
             else:
                 self.settings.set(s.name, s.value)
-            return Result(names=[], types=[], columns=[], nrows=0)
+            return None
         if isinstance(s, N.TransactionStatement):
             return self._transaction(s)
         if isinstance(s, N.ExplainStatement):

@@ -6,7 +6,8 @@ one more query, planned and run only when it is materialized
 (`execute`, `fetchall`, `fetchone`, `count`, `columns`, `create`, …).
 A PreparedStatement substitutes its parameters (`?` in order, or `$n`)
 as SQL literals, found by the lexer, so a `?` inside a string stays.
-`Relation.df` needs pandas and waits for ROADMAP item 35b.
+`Relation.df` gives a pandas DataFrame (api/arrow_interop.result_df;
+pandas is imported only there).
 """
 
 from __future__ import annotations

@@ -24,15 +24,19 @@ differences of the segmented prefix sums; span min/max read a sparse table
 built level by level only up to log2(longest span), so ROWS BETWEEN 3
 PRECEDING AND 3 FOLLOWING keeps 3 levels of n values, not log2(n).
 
-median, quantile_cont, stddev and var run over whole partitions only (the
-planner refuses them with an ORDER BY or a frame, ROADMAP item 44); the
-moments of a DECIMAL are taken of its values, not its scaled integers.
+median, quantile_cont, stddev and var run over the whole partition, or,
+with an ORDER BY or a frame, over each row's frame as DuckDB does (the JAX
+package answers over the whole partition, W3): a wavelet matrix over each
+row's rank in its partition gives any frame's k-th value, and a segment
+tree of pivoted sums its moments (ops/frame_stats.py). The moments of a
+DECIMAL are taken of its values, not its scaled integers.
 
 Where the JAX package is wrong the port follows SQL: FILTER drops the rows
 it is not TRUE for (W8), DISTINCT counts each value of a partition once, at
-its first row in window order (W10), and median over VARCHAR is DuckDB's
-quantile_disc (W9). HUGEINT values keep both int64 halves through the sort,
-the gathers and the scans; a running sum carries between them.
+its first row in window order, and of an explicit frame once per frame
+(W10), and median over VARCHAR is DuckDB's quantile_disc (W9). HUGEINT
+values keep both int64 halves through the sort, the gathers and the scans;
+a running sum carries between them.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch
 from duckdb_tpu_torch.blocks import Column
 from duckdb_tpu_torch.blocks.nested import UNSORTED_DICT_IDS
 from duckdb_tpu_torch.ops import sort as S
+from duckdb_tpu_torch.ops.frame_stats import MomentTree, WaveletMatrix
 from duckdb_tpu_torch.ops.scan import cummax, cummin
 from duckdb_tpu_torch.planner import bound as B
 from duckdb_tpu_torch.planner import plan as P
@@ -328,7 +333,7 @@ def _compute(w: P.BoundWindow, env, plen: int, od: _Order):
         if fc.validity is not None:
             keep = keep & bcast(fc.validity, plen)
         valid = valid & keep[od.perm]
-    if w.distinct:  # each value counts once, at its first row in window order
+    if w.distinct and w.frame is None:  # each value counts once, at its first row
         valid = _first_marks(vals, hi, valid, od)
     dvals = c.dict_values if c is not None and w.ltype.id in (TypeId.VARCHAR, TypeId.BLOB) \
         else None
@@ -365,14 +370,24 @@ def _compute(w: P.BoundWindow, env, plen: int, od: _Order):
         p = span[1] if framed else (od.peer_e if od.has_order else od.end)
         pc = p.clamp(0, plen - 1)
         return at(pc, valid[pc] if not framed else valid[pc] & (span[1] >= lo))
+    # median, quantile_cont, stddev and var over an ORDER BY or a frame read
+    # each row's frame; without either, the whole partition
     if f in ("stddev", "stddev_samp", "stddev_pop", "var_samp", "var_pop", "variance"):
+        if framed or od.has_order:
+            return _frame_moments(f, c, vals, valid, od, span) + (None,)
         return _moments(f, c, vals, valid, od, plen) + (None,)
     if f in ("median", "quantile_cont"):
-        q = 0.5 if f == "median" or len(w.args) < 2 else float(w.args[1].const_value())
+        # the fraction's value: a DECIMAL literal such as 0.25 (not its scaled
+        # integer, which the JAX package reads, W12)
+        q = 0.5 if f == "median" or len(w.args) < 2 else float(_frame_const(w.args[1]))
+        if framed or od.has_order:
+            return _frame_quantile(q, c, vals, valid, od, span, plen) + (dvals,)
         return _quantile(q, c, vals, valid, od, plen) + (dvals,)
 
     if f in ("count", "sum", "avg", "min", "max"):
         scale = 10.0 ** c.ltype.scale if c is not None and c.ltype.id is TypeId.DECIMAL else 1.0
+        if w.distinct and framed:  # (the planner drops DISTINCT from min and max)
+            return _distinct_over_frame(f, vals, hi, valid, od, span, plen, scale)
         if hi is not None and f != "count":
             return _wide_agg_over(f, vals, hi, valid, od, span, plen, scale)
         res, ok = _agg_over(f, vals, valid, od, span, plen, scale)
@@ -427,10 +442,19 @@ def _wide_agg_over(f, lo, hi, valid, od: _Order, span, plen: int, scale: float):
         r, ok = _agg_over(f, rank, valid, od, span, plen, 1.0)
         top = uniq[r.clamp(0, uniq.shape[0] - 1)]
         return top[:, 1] ^ _I64_MIN, ok, None, top[:, 0]
+    a, b, h = (_over(v, od, span, plen) for v in _wide_parts(lo, hi, valid))
+    return _wide_result(f, a, b, h, n_valid, scale)
+
+
+def _wide_parts(lo, hi, valid):
+    """A HUGEINT's three summands: the low half's two 32-bit halves and the
+    high half, 0 where not valid."""
     zero = torch.zeros((), dtype=torch.int64, device=lo.device)
-    a = _over(torch.where(valid, lo & _M32, zero), od, span, plen)
-    b = _over(torch.where(valid, (lo >> 32) & _M32, zero), od, span, plen)
-    h = _over(torch.where(valid, hi, zero), od, span, plen)
+    return [torch.where(valid, v, zero) for v in (lo & _M32, (lo >> 32) & _M32, hi)]
+
+
+def _wide_result(f, a, b, h, n_valid, scale: float):
+    """sum or avg from the sums of `_wide_parts` (see `_wide_agg_over`)."""
     t = (a >> 32) + b
     s_lo, s_hi = ((t & _M32) << 32) | (a & _M32), h + (t >> 32)
     if f == "sum":
@@ -451,6 +475,43 @@ def _first_marks(vals, hi, valid, od: _Order) -> torch.Tensor:
     marks = torch.zeros_like(valid)
     marks[perm2] = first & valid[perm2]
     return marks
+
+
+def _distinct_over_frame(f, vals, hi, valid, od: _Order, span, plen: int, scale: float):
+    """count, sum or avg (DISTINCT …) over an explicit frame: a row j counts
+    for row i when it lies in i's frame and no earlier row of the frame holds
+    its value, that is when the previous row of its partition with an equal
+    value (one stable sort by partition and value) lies before i's frame.
+    A wavelet matrix over those previous positions, local to the partition,
+    counts and sums the rows below each frame's start → as `_agg_over`
+    (HUGEINT sums as `_wide_agg_over`)."""
+    keys = [od.seg_id] + ([] if hi is None else [hi]) + [vals]
+    perm2 = S.sort_permutation(keys, valid)
+    idx = torch.arange(plen, device=valid.device)
+    first = _boundaries([k[perm2] for k in keys], plen, idx == 0)
+    prev = torch.empty_like(perm2)
+    prev[perm2] = torch.where(first, -1, perm2[(idx - 1).clamp(min=0)])
+    bits = (od.longest + 1).bit_length()
+    # 0: the value's first row in its partition; an invalid row never counts
+    key = torch.where(prev >= 0, prev - od.start + 1, 0)
+    key = torch.where(valid, key, (1 << bits) - 1)
+    if f == "count":
+        weights = []
+    elif hi is not None:
+        weights = _wide_parts(vals, hi, valid)
+    else:
+        dt = torch.float64 if vals.dtype.is_floating_point else torch.int64
+        weights = [torch.where(valid, vals.to(dt), torch.zeros((), dtype=dt,
+                                                                device=vals.device))]
+    lo, end = _frame_span(od, span)
+    n, sums = WaveletMatrix(key, bits, weights).count_below(lo, end, lo - od.start + 1)
+    if f == "count":
+        return n, None, None
+    if hi is not None:
+        return _wide_result(f, *sums, n, scale)
+    if f == "sum":
+        return sums[0], n > 0, None
+    return sums[0].to(torch.float64) / (n.to(torch.float64) * scale), n > 0, None
 
 
 def _rank_values(f, od: _Order, idx):
@@ -611,7 +672,11 @@ def _moments(f, c, vals, valid, od: _Order, plen):
     n_ = _seg_total(valid.to(torch.float64), od)
     mean = _seg_total(x, od) / n_.clamp(min=1.0)
     d = torch.where(valid, _values(c, vals) - mean, 0.0)
-    m2 = _seg_total(d * d, od)
+    return _variance(f, _seg_total(d * d, od), n_)
+
+
+def _variance(f, m2, n_):
+    """stddev or var from the sum of squared deviations m2 of n_ values."""
     if f in ("stddev_pop", "var_pop"):
         var, ok = m2 / n_.clamp(min=1.0), n_ >= 1
     else:
@@ -639,6 +704,53 @@ def _quantile(q, c, vals, valid, od: _Order, plen):
     frac = pos - lo.to(torch.float64)
     vlo = x2[(od.start + lo).clamp(0, plen - 1)]
     vhi = x2[(od.start + hi).clamp(0, plen - 1)]
+    return vlo * (1.0 - frac) + vhi * frac, nval > 0
+
+
+# -- holistics over frames ----------------------------------------------------------------
+def _frame_span(od: _Order, span):
+    """Each row's frame as a half-open [lo, hi): the explicit frame `span`,
+    else DuckDB's default with an ORDER BY (RANGE UNBOUNDED PRECEDING to the
+    current row's last peer)."""
+    lo, hi = span if span is not None else (od.start, od.peer_e)
+    return lo, torch.maximum(hi + 1, lo)
+
+
+def _frame_moments(f, c, vals, valid, od: _Order, span):
+    """stddev / var over each row's frame, from a segment tree of shifted
+    sums (ops/frame_stats.MomentTree); NULLs do not count, and an empty
+    frame (or one value for the sample forms) gives NULL."""
+    lo, hi = _frame_span(od, span)
+    n_, s, q = MomentTree(_values(c, vals), valid, od.longest.bit_length() + 1).query(lo, hi)
+    return _variance(f, q - s * s / n_.clamp(min=1.0), n_)
+
+
+def _frame_quantile(q, c, vals, valid, od: _Order, span, plen):
+    """quantile_cont(q) over each row's frame: a wavelet matrix over each
+    row's rank among its partition's values (valid ones first, one stable
+    sort) gives the k-th smallest valid value of any frame; the result
+    interpolates as `_quantile` does, and over VARCHAR is quantile_disc."""
+    lo, hi = _frame_span(od, span)
+    key = od.seg_id * 2 + (~valid).to(torch.int64)
+    perm2 = S.sort_permutation([key, S.orderable_int64(vals, None, False, False)],
+                               torch.ones_like(valid))
+    idx = torch.arange(plen, device=valid.device)
+    rank = torch.empty_like(idx)
+    rank[perm2] = idx - od.start
+    wm = WaveletMatrix(rank, (od.longest - 1).bit_length())
+    nval = _over(valid.to(torch.int64), od, span, plen)
+
+    def kth(k, x):
+        return x[(od.start + wm.kth(lo, hi, k.clamp(min=0))).clamp(0, plen - 1)]
+
+    if c.ltype.id is TypeId.VARCHAR:
+        k = torch.ceil(nval.to(torch.float64) * q).to(torch.int64).clamp(min=1) - 1
+        return kth(k, vals[perm2]), nval > 0
+    x2 = _values(c, vals)[perm2]
+    pos = (nval.to(torch.float64) - 1.0) * q
+    k_lo = torch.floor(pos).to(torch.int64)
+    frac = pos - k_lo.to(torch.float64)
+    vlo, vhi = kth(k_lo, x2), kth(torch.ceil(pos).to(torch.int64), x2)
     return vlo * (1.0 - frac) + vhi * frac, nval > 0
 
 

@@ -551,7 +551,7 @@ class ExprBinder:
             left, right = self._align_comparison(left, right)
             return B.BoundComparison(e.op, left, right)
         if e.op == "||":
-            return self._bind_concat(e)
+            return self._bind_concat(self.bind(e.left), self.bind(e.right))
         left = self.bind(e.left)
         right = self.bind(e.right)
         t = _arith_result_type(e.op, left.ltype, right.ltype)
@@ -565,15 +565,17 @@ class ExprBinder:
             return self._bind_interval_arith(e.op, left, right)
         return node
 
-    def _bind_concat(self, e: N.BinaryOp):
-        """VARCHAR || VARCHAR (NULL || x is NULL); DuckDB casts any other
-        operand to VARCHAR first."""
-        args = []
-        for side in (e.left, e.right):
-            a = self.bind(side)
-            if a.ltype.id is not TypeId.VARCHAR:
-                a = B.BoundCast(a, VARCHAR)
-            args.append(a)
+    def _bind_concat(self, left: B.BoundExpr, right: B.BoundExpr):
+        """A LIST || x is list_concat (NULL in, NULL out); else VARCHAR ||
+        VARCHAR (NULL || x is NULL), DuckDB casting any other operand to
+        VARCHAR first."""
+        if left.ltype.id is TypeId.LIST:
+            if right.ltype.id is TypeId.SQLNULL:
+                right = B.BoundCast(right, left.ltype)
+            rt, impl, args = F.REGISTRY["list_concat"]([left, right])
+            return B.BoundFunction("list_concat", args, rt, impl)
+        args = [a if a.ltype.id is TypeId.VARCHAR else B.BoundCast(a, VARCHAR)
+                for a in (left, right)]
 
         def impl(env, cols, node):
             return concat_pair(env, cols[0], cols[1])

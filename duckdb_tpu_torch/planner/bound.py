@@ -43,6 +43,7 @@ from duckdb_tpu_torch.types import (
     VARCHAR,
     LogicalType,
     TypeId,
+    null_list_fits,
 )
 
 
@@ -810,7 +811,9 @@ def _coerce_nested(c: Column, t: LogicalType, env, try_cast: bool) -> Optional[C
                 f"Cannot cast list of length {len(dv[i])} to {t!r}")
                 for i in np.flatnonzero(~ok).tolist()}, env)
         return _with_ok(c, t, ok, dv)
-    if src is TypeId.ARRAY and dst is TypeId.LIST:
+    if src is TypeId.ARRAY and dst is TypeId.LIST or null_list_fits(c.ltype, t):
+        # a list of NULLs (SQLNULL[], the empty list literal) holds values of
+        # every list type of its depth: a relabel
         return Column(data=c.data, ltype=t, validity=c.validity, dict_values=dv)
     if src is TypeId.UNION and dst is TypeId.UNION:
         src_names = [n for n, _ in (c.ltype.fields or ())]

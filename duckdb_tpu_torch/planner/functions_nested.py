@@ -73,6 +73,7 @@ from duckdb_tpu_torch.types import (
     list_of,
     map_of,
     max_logical_type,
+    null_list_fits,
     struct_of,
     union_of,
 )
@@ -491,7 +492,11 @@ def _bind_list_concat(arg_exprs):
     for a in arg_exprs:
         if a.ltype.id not in _LISTS and a.ltype.id is not TypeId.SQLNULL:
             raise BindError("list_concat expects LIST arguments")
+    # the first argument's type, unless it is NULL or a list of NULLs ([] || [1])
     out_t = arg_exprs[0].ltype
+    for a in arg_exprs[1:]:
+        if out_t.id is TypeId.SQLNULL or null_list_fits(out_t, a.ltype):
+            out_t = a.ltype
 
     def impl(env, cols, node):
         acc = cols[0]

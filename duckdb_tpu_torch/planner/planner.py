@@ -102,8 +102,8 @@ _PORTED_AGGS = {
     "bit_and", "bit_or", "bit_xor", "approx_count_distinct",
 } | STAT_AGGS | NESTED_RESULT_AGGS
 
-# window functions over the whole partition only: with an ORDER BY or a
-# frame they wait for ROADMAP item 44
+# the holistic window functions: over the whole partition, or over each
+# row's frame with an ORDER BY or a frame (execution/window_exec.py)
 _HOLISTIC_WINDOWS = ("median", "quantile_cont", "stddev", "stddev_samp", "stddev_pop",
                      "var_samp", "var_pop", "variance")
 # window functions that take DISTINCT and FILTER, and those over HUGEINT
@@ -1991,8 +1991,8 @@ class Planner:
                  for it in spec.order_by]
         if (fc.distinct or fc.filter is not None) and name not in _FILTER_WINDOWS:
             raise BindError(f"Binder Error: DISTINCT and FILTER need an aggregate, not {name}()")
-        if fc.distinct and (spec.frame is not None or name in _HOLISTIC_WINDOWS):
-            raise not_ported(f"{name}(DISTINCT …) over a frame or of a holistic aggregate")
+        if fc.distinct and name in _HOLISTIC_WINDOWS:
+            raise not_ported(f"{name}(DISTINCT …) over a window")
         if name in ("row_number", "rank", "dense_rank", "ntile", "count"):
             t = BIGINT
         elif name == "sum":
@@ -2003,10 +2003,8 @@ class Planner:
                       "nth_value", "fill"):
             t = args[0].ltype if args else SQLNULL
         elif name in _HOLISTIC_WINDOWS:
-            if order or spec.frame is not None:
-                # the JAX package ignores both and answers over the whole
-                # partition (W3)
-                raise not_ported(f"{name}() over an ORDER BY or a frame (ROADMAP item 44)")
+            # with an ORDER BY or a frame, over each row's frame as in DuckDB
+            # (the JAX package answers over the whole partition, W3)
             t = DOUBLE
             if args and args[0].ltype.id is TypeId.VARCHAR:
                 if name != "median":

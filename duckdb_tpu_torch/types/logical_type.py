@@ -221,6 +221,14 @@ def decimal(width: int, scale: int) -> LogicalType:
     return LogicalType(TypeId.DECIMAL, width=width, scale=scale)
 
 
+def null_list_fits(src: LogicalType, dst: LogicalType) -> bool:
+    """src is a LIST of NULLs (an empty list literal is SQLNULL[]) of dst's
+    depth, so its values are dst's too: DuckDB casts [] to any list type."""
+    return (src.id is TypeId.LIST and dst.id is TypeId.LIST and src.child is not None
+            and dst.child is not None
+            and (src.child.id is TypeId.SQLNULL or null_list_fits(src.child, dst.child)))
+
+
 # -- implicit cast lattice ----------------------------------------------------
 # Mirrors duckdb's implicit-cast cost rules (src/function/cast_rules.cpp):
 # smaller ints promote to bigger ints / decimal / double; decimal promotes to
@@ -228,7 +236,7 @@ def decimal(width: int, scale: int) -> LogicalType:
 def implicit_cast_cost(src: LogicalType, dst: LogicalType) -> Optional[int]:
     if src == dst:
         return 0
-    if src.id is TypeId.SQLNULL:
+    if src.id is TypeId.SQLNULL or null_list_fits(src, dst):
         return 1
     s, d = src.id, dst.id
     if src.is_integer and dst.is_integer:
@@ -284,9 +292,9 @@ def max_logical_type(a: LogicalType, b: LogicalType) -> LogicalType:
     """Common comparison/arithmetic supertype (duckdb LogicalType::MaxLogicalType)."""
     if a == b:
         return a
-    if a.id is TypeId.SQLNULL:
+    if a.id is TypeId.SQLNULL or null_list_fits(a, b):
         return b
-    if b.id is TypeId.SQLNULL:
+    if b.id is TypeId.SQLNULL or null_list_fits(b, a):
         return a
     if a.id is TypeId.UNION and b.id is TypeId.UNION:
         # merge members by name (reference MaxLogicalType union handling)

@@ -224,7 +224,8 @@ def test_ungrouped_over_no_rows(cons):
     # the nested-result aggregates (tests/test_torch_nested_aggs.py) and
     # json_group_array (tests/test_torch_json.py) are ported, and so are
     # aggregates over a window (item 29: tests/test_torch_window.py);
-    # an ordered median over a window waits for item 44
+    # an ordered median over a window (item 44) answers each row's running
+    # median
     ("SELECT sum(o_totalprice) OVER () FROM orders", "29"),
     ("SELECT o_orderstatus, count(*) OVER (PARTITION BY o_orderstatus) FROM orders", "29"),
     ("SELECT median(o_totalprice) OVER (ORDER BY o_orderkey) FROM orders", "44"),
@@ -240,6 +241,18 @@ def test_left_out_aggregates_name_their_roadmap_item(cons, sql, item):
             assert len(rows) == want[0] and all(n == per[st] for st, n in rows)
         else:
             assert len(rows) == want[0] and all(r == (want[1],) for r in rows)
+        return
+    if item == "44":
+        # ported: each row's median of the prices up to its order key (the
+        # running frame), as Python's statistics.median of the prefix gives it
+        import bisect
+        import statistics
+
+        got = tcon.sql(sql.replace(" FROM orders", ", o_orderkey, o_totalprice FROM orders"))
+        prefix = []
+        for med, _, price in sorted(got.rows(), key=lambda r: r[1]):
+            bisect.insort(prefix, float(price))
+            assert med == pytest.approx(statistics.median(prefix), rel=1e-12)
         return
     with pytest.raises(ValueError, match=f"ROADMAP item {item}.*not yet ported"):
         tcon.sql(sql)

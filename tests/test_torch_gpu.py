@@ -1414,3 +1414,62 @@ def test_item49_and_f31_fixtures_on_cuda():
     import chip_smoke
 
     assert chip_smoke.parquet_step("the card") == ""
+
+
+@pytest.mark.gpu
+def test_frame_windows_on_cuda_match_cpu(tmp_path):
+    """The wavelet matrix and the moment tree on CUDA tensors give the CPU's
+    answers (kth and counts exactly, sums and moments within 1e-9), and the
+    holistic windows over frames and DISTINCT over a frame on a card
+    connection give the CPU port's rows."""
+    _need_cuda()
+    import numpy as np
+
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.ops.frame_stats import MomentTree, WaveletMatrix
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    rng = np.random.default_rng(0)
+    n, bits = 100_003, 9
+    keys = torch.from_numpy(rng.integers(0, 2 ** bits, n))
+    wi, wf = torch.from_numpy(rng.integers(-1000, 1000, n)), torch.from_numpy(rng.normal(size=n))
+    lo = torch.from_numpy(rng.integers(0, n, n))
+    hi = torch.minimum(lo + torch.from_numpy(rng.integers(0, 700, n)), torch.tensor(n))
+    k = (torch.rand(n, dtype=torch.float64) * (hi - lo)).floor().to(torch.int64)
+    t = torch.from_numpy(rng.integers(0, 2 ** bits, n))
+    answers = []
+    for dev in ("cpu", "cuda"):
+        wm = WaveletMatrix(keys.to(dev), bits, [wi.to(dev), wf.to(dev)])
+        kth = wm.kth(lo.to(dev), hi.to(dev), k.to(dev))
+        cnt, sums = wm.count_below(lo.to(dev), hi.to(dev), t.to(dev))
+        tree = MomentTree(wf.to(dev) + 1e6, (wi > -800).to(dev), 11)
+        mom = tree.query(lo.to(dev), hi.to(dev))
+        answers.append([v.cpu() for v in (kth, cnt, *sums, *mom)])
+    (c_kth, c_cnt, c_si, c_sf, *c_mom), (g_kth, g_cnt, g_si, g_sf, *g_mom) = answers
+    assert torch.equal(c_kth, g_kth) and torch.equal(c_cnt, g_cnt) and torch.equal(c_si, g_si)
+    assert torch.allclose(c_sf, g_sf, rtol=0, atol=1e-9)
+    for a, b in zip(c_mom, g_mom):
+        assert torch.allclose(a, b, rtol=1e-9, atol=1e-6)
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path))
+    for sql in (
+            "SELECT l_orderkey, l_linenumber, median(l_extendedprice) OVER (PARTITION BY "
+            "l_suppkey ORDER BY l_shipdate, l_orderkey, l_linenumber ROWS BETWEEN 5 PRECEDING "
+            "AND 5 FOLLOWING), quantile_cont(l_quantity, 0.9) OVER (PARTITION BY l_partkey "
+            "ORDER BY l_shipdate) FROM lineitem",
+            "SELECT l_orderkey, l_linenumber, stddev_samp(l_discount) OVER (PARTITION BY "
+            "l_suppkey ORDER BY l_shipdate RANGE BETWEEN INTERVAL '30 days' PRECEDING AND "
+            "CURRENT ROW), var_pop(l_tax) OVER (PARTITION BY l_suppkey ORDER BY l_shipdate DESC) "
+            "FROM lineitem",
+            "SELECT l_orderkey, l_linenumber, count(DISTINCT l_quantity) OVER (PARTITION BY "
+            "l_suppkey ORDER BY l_shipdate, l_orderkey, l_linenumber ROWS BETWEEN 10 PRECEDING "
+            "AND CURRENT ROW), sum(DISTINCT l_quantity) OVER (PARTITION BY l_suppkey ORDER BY "
+            "l_shipdate, l_orderkey, l_linenumber ROWS BETWEEN 10 PRECEDING AND CURRENT ROW) "
+            "FROM lineitem",
+            "SELECT p_partkey, median(p_name) OVER (PARTITION BY p_size ORDER BY p_partkey ROWS "
+            "BETWEEN 2 PRECEDING AND 2 FOLLOWING) FROM part"):
+        _close_rows(sorted(con.sql(sql).rows()), sorted(cpu.sql(sql).rows()), sql)

@@ -93,7 +93,7 @@ def test_num_shards(con):
     assert con.settings.get("num_shards") == 1  # one device unless asked
     rows, routes = run(con, AGG)
     assert rows == WANT and "sharded_agg" not in routes
-    assert con.sql("SET num_shards = 8").rows() == []
+    assert con.sql("SET num_shards = 8") is None  # as the JAX package and DuckDB (G3)
     assert con.settings.get("num_shards") == 8
     rows, routes = run(con, AGG)
     assert rows == WANT and routes["sharded_agg"] == 1 and routes["sharded_shared_card"] == 1

@@ -14,7 +14,8 @@ The reference's faults that the port does not copy are held to DuckDB:
 - W1: DISTINCT ON is ignored (all 25 nations come back, not 5);
 - W2: QUALIFY cannot read a select alias ("column rn not found");
 - W3: median, quantile_cont, stddev and var with an ORDER BY or a frame
-  answer over the whole partition; the port refuses them (ROADMAP item 44);
+  answer over the whole partition; the port answers over each row's frame,
+  as DuckDB does (tests/test_torch_frame_windows.py holds them to numpy);
 - W4: stddev and var over a DECIMAL take its scaled integers (15.27… for
   1.0, 2.0, 4.0 where DuckDB gives 1.527…);
 - W5: over 16,384 rows or more on several devices (tests/conftest.py gives
@@ -199,9 +200,14 @@ def test_holistic_window_aggregates(cons):
     sql = "SELECT var_pop(v) OVER (PARTITION BY g) FROM (SELECT unnest([1, 1, 1]) AS g, " \
           "unnest([10, 20, 40]) AS v)"
     assert tcon.sql(sql).rows()[0][0] == pytest.approx(1400 / 9, rel=1e-12)
-    sql = f"SELECT g, quantile_cont(v, 0.25) OVER (PARTITION BY g), variance(v) OVER " \
-          f"(PARTITION BY g) FROM {src}"
+    sql = f"SELECT g, variance(v) OVER (PARTITION BY g) FROM {src}"
     assert_rows_match(tcon.sql(sql).rows(), jcon.sql(sql).rows())
+    # W12: the reference reads the DECIMAL fraction 0.25 as its scaled
+    # integer 25, so its quantiles gather past the partition; DuckDB gives
+    # 15.0 (between 10 and 20) and 5.0
+    sql = f"SELECT g, v, quantile_cont(v, 0.25) OVER (PARTITION BY g) FROM {src} ORDER BY g, v"
+    assert [r[2] for r in tcon.sql(sql).rows()] == [15.0, 15.0, 15.0, 5.0, 5.0]
+    assert [r[2] for r in jcon.sql(sql).rows()] != [15.0, 15.0, 15.0, 5.0, 5.0]
 
 
 EV = ("(VALUES (DATE '2024-01-15', 1), (DATE '2024-02-10', 2), (DATE '2024-03-05', 4), "
@@ -383,16 +389,42 @@ def test_w2_qualify_reads_a_select_alias(cons):
         jcon.sql(sql).rows()  # W2 in the reference
 
 
+# DuckDB's answers over (1, 5, 3) in x's order (1, 3, 5): the framed median
+# is 1, 2 and 4, the running one 1, 2 and 3; the JAX package answers over the
+# whole partition on every row (W3)
+_W3_ROWS = "ORDER BY x ROWS BETWEEN 1 PRECEDING AND CURRENT ROW"
+_W3 = {
+    ("median(x)", _W3_ROWS): [1.0, 2.0, 4.0],
+    ("median(x)", "ORDER BY x"): [1.0, 2.0, 3.0],
+    ("quantile_cont(x, 0.5)", _W3_ROWS): [1.0, 2.0, 4.0],
+    ("quantile_cont(x, 0.5)", "ORDER BY x"): [1.0, 2.0, 3.0],
+    ("stddev(x)", _W3_ROWS): [None, 2 ** 0.5, 2 ** 0.5],
+    ("stddev(x)", "ORDER BY x"): [None, 2 ** 0.5, 2.0],
+    ("var_pop(x)", _W3_ROWS): [0.0, 1.0, 1.0],
+    ("var_pop(x)", "ORDER BY x"): [0.0, 1.0, 8 / 3],
+}
+# (the reference's quantile_cont reads 0.5 as its scaled integer 5 and
+# gathers past the partition, W12)
+_W3_WHOLE = {"median(x)": 3.0, "quantile_cont(x, 0.5)": 0.0, "stddev(x)": 2.0,
+             "var_pop(x)": 8 / 3}
+
+
 @pytest.mark.parametrize("func", ["median(x)", "quantile_cont(x, 0.5)", "stddev(x)",
                                   "var_pop(x)"])
-@pytest.mark.parametrize("over", ["ORDER BY x ROWS BETWEEN 1 PRECEDING AND CURRENT ROW",
-                                  "ORDER BY x"])
+@pytest.mark.parametrize("over", [_W3_ROWS, "ORDER BY x"])
 def test_w3_ordered_holistic_windows_not_ported(cons, func, over):
-    """DuckDB gives 1, 2 and 4 for the framed median over (1, 5, 3); the
-    reference 3.0 on every row. The port refuses until ROADMAP item 44."""
-    _, tcon = cons
-    with pytest.raises(BindError, match="ROADMAP item 44.*not yet ported"):
-        tcon.sql(f"SELECT x, {func} OVER ({over}) FROM (VALUES (1), (5), (3)) t(x)")
+    """ROADMAP item 44, now ported: the holistic windows answer over each
+    row's frame as DuckDB does (the name is kept from when the port refused
+    them). The reference still answers over the whole partition (W3)."""
+    jcon, tcon = cons
+    sql = f"SELECT x, {func} OVER ({over}) FROM (VALUES (1), (5), (3)) t(x) ORDER BY x"
+    got = [v for _, v in tcon.sql(sql).rows()]
+    want = _W3[(func, over)]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g is None if w is None else g == pytest.approx(w, rel=1e-12)
+    assert [v for _, v in jcon.sql(sql).rows()] == pytest.approx([_W3_WHOLE[func]] * 3,
+                                                                  rel=1e-12)
 
 
 def test_w4_decimal_moments_unscale(cons):
