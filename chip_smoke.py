@@ -344,18 +344,40 @@ Phases (any failure exits non-zero before the result lines):
 26. the windows over frames (execution/window_exec.py over
    ops/frame_stats.py, ROADMAP item 44) at SF1: first the forms of G1-G3
    (an empty list into a list column by INSERT, UPDATE and CASE, || over
-   lists, SET's None) on a card connection; then the five PHASE26
+   lists, SET's None) on a card connection; then the seven PHASE26
    windows (a moving median over 101 rows, a running quantile_cont, a
    30-day stddev_samp, a running var_pop over orders, a count(DISTINCT)
-   over 101 rows), each wrapped in a grouped count/sum/min/max whose
+   over 101 rows, a moving median(DISTINCT) over 101 rows and a
+   stddev(DISTINCT) over 101 rows), each wrapped in a grouped count/sum/min/max whose
    count(*) goes through the grouped sum (its launches counted and held to
    the plain version; the route named where none launched), its groups
    and an exact read-back of the rows whose order key is a multiple of
    PHASE26_MOD held to a numpy oracle written apart from the port (sorted
    windows in chunks of rows, exact integer moments, bitmask distinct
-   counts), and its warm median, host syncs, the card's busy share and the
+   sets), and its warm median, host syncs, the card's busy share and the
    peak device memory the query took. `tools/chip_phase26.py` runs it
-   alone. The script's whole time is printed last.
+   alone;
+27. the JAX package's test statements on the card against the CPU
+   (duckdb_tpu_torch/testing/replay.py): first the forms of H1-H4
+   (Result.fetchone() from execute(), sql() and a cursor; median,
+   quantile_cont, stddev and var with DISTINCT over the whole partition,
+   a running and a moving frame, equal to their distinct values' numpy
+   answers; a STRUCT literal with a NULL field and a widening nested value
+   into nested columns) on a card connection; then the whole recorded
+   corpus (tests/data/torch_replay/corpus.jsonl.gz; all 287 sequences took
+   38.6 s on an H100 80GB HBM3 at 700 W, so none is sampled), each
+   sequence on a card connection and a CPU connection
+   of the port in directories of its own, every statement compared
+   (testing/replay.py: every column, DOUBLE within 1e-9 relative, the rest
+   exact, in order where a closing ORDER BY names result columns; a LIMIT
+   without ORDER BY by row count only, counted apart; a refusal by the
+   same class on both, no untyped error, nondeterministic statements run
+   but not compared), every grouped-sum launch held to the
+   plain version and each new shape timed once; the counts, the corpus's
+   left-out sequences by reason, the median statement wall on the card
+   and the phase's seconds are printed, and any problem outside
+   replay.KNOWN fails it. `tools/chip_phase27.py` runs it alone. The
+   script's whole time is printed last.
 
 The last two lines are the kernels JSON and {"ok": true, "device": ...}.
 Imports nothing of JAX or duckdb_tpu.
@@ -2806,6 +2828,48 @@ def main_clients_phase(con, card, recording, recorded, launches_by_query, shapes
 
 
 # phase 23: the fuzzer's seeds and sizes, card against CPU
+def card_recording(GS, recorded):
+    """A grouped-sum wrapper that keeps each launch's inputs on the card in
+    `recorded` for launch_checker."""
+    def recording(dense, vectors, nseg):
+        if dense.is_cuda:
+            recorded.append((dense, list(vectors), nseg))
+        return GS.grouped_sum_i64(dense, vectors, nseg)
+    return recording
+
+
+def launch_checker(GS, recorded, timed, shapes, worst, label, reps):
+    """What phases 23 and 27 run after each card statement: every
+    grouped-sum launch recorded since (card_recording) is held to the plain
+    version on its inputs, and each new shape is timed once under `label`;
+    the launches of the check and of timing are not counted. → a callback
+    giving '' or what failed; worst[0] keeps the largest error."""
+    def after(*_):
+        counted = GS.grouped_sum_i64.launches
+        try:
+            for dense, vecs, nseg in recorded:
+                err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
+                                  GS.grouped_sum_i64_plain(dense, vecs, nseg))
+                worst[0] = max(worst[0], err)
+                if err:
+                    return f"grouped_sum_i64 disagrees with its plain version (err {err})"
+                shape = (dense.shape[0], len(vecs), nseg)
+                if shape in timed:
+                    continue
+                timed.add(shape)
+                k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+                b_ms, b_by, _, _ = bound_of(dense, vecs, nseg)
+                shapes.append({"query": label, "n": shape[0], "k": shape[1],
+                               "nseg": nseg, "max_abs_err": 0, "kernel_ms": k_ms,
+                               "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                               "library_ms": l_ms})
+            return ""
+        finally:
+            recorded.clear()
+            GS.grouped_sum_i64.launches = counted
+    return after
+
+
 FUZZ_SMALL = ((1, 400), (7, 400), (11, 400))  # (seed, queries) over SETUP's tables
 FUZZ_BIG = ((1, 200),)  # over t1 of FUZZ_T1_ROWS and t2 of FUZZ_T2_ROWS rows
 FUZZ_T1_ROWS, FUZZ_T2_ROWS = 1_000_000, 400_000
@@ -2832,37 +2896,10 @@ def fuzz_phase(card, launches_by_query, shapes, reps) -> str:
     phase_t0 = time.perf_counter()
     recorded, timed = [], set()
     worst = [0]
-
-    def recording(dense, vectors, nseg):
-        if dense.is_cuda:
-            recorded.append((dense, list(vectors), nseg))
-        return GS.grouped_sum_i64(dense, vectors, nseg)
+    recording = card_recording(GS, recorded)
 
     def check_launches(step):
-        def after_card(i, sql):
-            counted = GS.grouped_sum_i64.launches
-            try:
-                for dense, vecs, nseg in recorded:
-                    err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
-                                      GS.grouped_sum_i64_plain(dense, vecs, nseg))
-                    worst[0] = max(worst[0], err)
-                    if err:
-                        return f"grouped_sum_i64 disagrees with its plain version (err {err})"
-                    shape = (dense.shape[0], len(vecs), nseg)
-                    if shape in timed:
-                        continue
-                    timed.add(shape)
-                    k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
-                    b_ms, b_by, _, _ = bound_of(dense, vecs, nseg)
-                    shapes.append({"query": f"fuzz_{step}", "n": shape[0], "k": shape[1],
-                                   "nseg": nseg, "max_abs_err": 0, "kernel_ms": k_ms,
-                                   "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                                   "library_ms": l_ms})
-                return ""
-            finally:
-                recorded.clear()
-                GS.grouped_sum_i64.launches = counted
-        return after_card
+        return launch_checker(GS, recorded, timed, shapes, worst, f"fuzz_{step}", reps)
 
     def run_step(step, setup, seeds):
         t0 = time.perf_counter()
@@ -3576,6 +3613,14 @@ PHASE26 = {  # name → (table, group keys, the window)
     "win_distinct_rows": ("lineitem", LI_KEYS,
                           "count(DISTINCT l_quantity) OVER (PARTITION BY l_suppkey ORDER BY "
                           "l_shipdate ROWS BETWEEN 100 PRECEDING AND CURRENT ROW)"),
+    "win_median_distinct_rows": ("lineitem", LI_KEYS,
+                                 "median(DISTINCT l_quantity) OVER (PARTITION BY l_suppkey "
+                                 "ORDER BY l_shipdate ROWS BETWEEN 50 PRECEDING AND 50 "
+                                 "FOLLOWING)"),
+    "win_stddev_distinct_rows": ("lineitem", LI_KEYS,
+                                 "stddev(DISTINCT l_discount) OVER (PARTITION BY l_suppkey "
+                                 "ORDER BY l_shipdate ROWS BETWEEN 100 PRECEDING AND CURRENT "
+                                 "ROW)"),
 }
 PHASE26_COLS = {
     "lineitem": ("l_orderkey", "l_linenumber", "l_suppkey", "l_partkey", "l_shipdate",
@@ -3676,6 +3721,35 @@ def _popcount64(x):
     return lut[x.view(np.uint8).reshape(-1, 8)].sum(axis=1)
 
 
+def _frame_or(bits, lo, hi):
+    """The OR of bits[lo..hi] for each frame (positions), from a sparse
+    table of ORs over aligned power-of-two runs."""
+    import numpy as np
+
+    n = len(bits)
+    length = hi - lo + 1
+    level = np.floor(np.log2(length)).astype(np.int64)
+    table = [bits]
+    while (1 << len(table)) <= int(length.max()):
+        prev, h = table[-1], 1 << (len(table) - 1)
+        nxt = prev.copy()
+        nxt[:n - h] |= prev[h:]
+        table.append(nxt)
+    out = np.zeros(n, dtype=np.uint64)
+    for j, t in enumerate(table):
+        at = level == j
+        out[at] = t[lo[at]] | t[hi[at] - (1 << j) + 1]
+    return out
+
+
+def _set_bits(masks, width):
+    """Per mask (uint64), its bits 0..width-1 as an int64 matrix of 0/1."""
+    import numpy as np
+
+    return ((masks[:, None] >> np.arange(width, dtype=np.uint64)[None, :])
+            & np.uint64(1)).astype(np.int64)
+
+
 def phase26_oracle(cols: dict, name: str):
     """Each row's window value (table order) of one PHASE26 window, from
     numpy alone: float64 with NaN for NULL, or int64 for the count."""
@@ -3745,21 +3819,33 @@ def phase26_oracle(cols: dict, name: str):
         with np.errstate(invalid="ignore", divide="ignore"):
             var = (c * s2 - s1 * s1).astype(np.float64) / (c * (c - 1)).astype(np.float64)
         m = np.where(c >= 2, np.sqrt(var) / 100.0, np.nan)
+    elif name == "win_median_distinct_rows":
+        # the set of quantities (whole units 1..50) in each frame as a
+        # bitmask; the median of its members, PHASE26_CHUNK rows at a time
+        bits = np.left_shift(np.uint64(1), (li["l_quantity"][perm] // 100 - 1).astype(np.uint64))
+        masks = _frame_or(bits, np.maximum(pos - 50, start), np.minimum(pos + 50, end))
+        m = np.empty(n)
+        for a in range(0, n, PHASE26_CHUNK):
+            cum = np.cumsum(_set_bits(masks[a:a + PHASE26_CHUNK], 50), axis=1)
+            c = cum[:, -1]
+            # the k-th member (from 0) is the bit where the running count passes k
+            lo_q = (cum <= ((c - 1) // 2)[:, None]).sum(axis=1) + 1
+            hi_q = (cum <= (c // 2)[:, None]).sum(axis=1) + 1
+            m[a:a + PHASE26_CHUNK] = (lo_q + hi_q) / 2.0
+    elif name == "win_stddev_distinct_rows":
+        # the set of discounts (cents 0..10) in each frame as a bitmask;
+        # exact integer moments of its members
+        bits = np.left_shift(np.uint64(1), li["l_discount"][perm].astype(np.uint64))
+        masks = _frame_or(bits, np.maximum(pos - 100, start), pos)
+        member = _set_bits(masks, 11)
+        d = np.arange(11, dtype=np.int64)
+        c, s1, s2 = member.sum(axis=1), member @ d, member @ (d * d)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            var = (c * s2 - s1 * s1).astype(np.float64) / (c * (c - 1)).astype(np.float64)
+        m = np.where(c >= 2, np.sqrt(var) / 100.0, np.nan)
     else:  # win_distinct_rows: OR of one bit per quantity over the frame
         bits = np.left_shift(np.uint64(1), (li["l_quantity"][perm] // 100 - 1).astype(np.uint64))
-        lo = np.maximum(pos - 100, start)
-        length = pos - lo + 1
-        level = np.floor(np.log2(length)).astype(np.int64)
-        table = [bits]
-        while (1 << len(table)) <= 101:
-            prev, h = table[-1], 1 << (len(table) - 1)
-            nxt = prev.copy()
-            nxt[:n - h] |= prev[h:]
-            table.append(nxt)
-        m = np.zeros(n, dtype=np.int64)
-        for j, t in enumerate(table):
-            at = level == j
-            m[at] = _popcount64(t[lo[at]] | t[pos[at] - (1 << j) + 1])
+        m = _popcount64(_frame_or(bits, np.maximum(pos - 100, start), pos))
         out = np.empty(n, dtype=np.int64)
         out[perm] = m
         return out
@@ -3886,6 +3972,117 @@ def frame_windows_phase(con, card, recording, recorded, launches_by_query, shape
         if bad:
             return bad
     print(f"phase 26 on {card}: {time.perf_counter() - phase_t0:.1f} s")
+    return ""
+
+
+# phase 27: H1-H4's forms, then the recorded corpus card against CPU
+REPLAY_DIR = os.path.join(ROOT, "build", "phase27")
+
+
+def h_forms_step(card) -> str:
+    """Phase 27 step 1: H1-H4's forms on a card connection, as
+    tests/test_torch_fetchone.py, test_torch_frame_windows.py and
+    test_torch_shadow_faults.py hold them. '' or what failed."""
+    import decimal
+
+    import numpy as np
+
+    import duckdb_tpu_torch
+
+    con = duckdb_tpu_torch.connect()
+    con.sql("CREATE TABLE t AS SELECT * FROM (VALUES (1, 2.5, 1), (1, 0.5, 2), (1, 0.5, 3), "
+            "(2, 3.0, 1), (2, 3.0, 2), (2, NULL, 3), (2, 5.0, 4)) v(a, c, o)")
+    first = "SELECT a, c FROM t ORDER BY a DESC, o"
+    for how, res in (("execute", con.execute(first)), ("sql", con.sql(first)),
+                     ("a cursor's sql", con.cursor().sql(first))):
+        if res.fetchone() != (2, decimal.Decimal("3.0")):
+            return f"H1: {how}(…).fetchone() gives {res.fetchone()}"
+    if con.sql("SELECT * FROM t WHERE a > 5").fetchone() is not None:
+        return "H1: fetchone() of an empty result is not None"
+    windows = {
+        "median(DISTINCT a) OVER ()": [1.5] * 7,
+        "stddev(DISTINCT c) OVER ()": [float(np.std([0.5, 2.5, 3.0, 5.0], ddof=1))] * 7,
+        "quantile_cont(DISTINCT c, 0.5) OVER (PARTITION BY a)": [1.5] * 3 + [4.0] * 4,
+        "var_pop(DISTINCT c) OVER (PARTITION BY a ORDER BY o)": [0.0, 1.0, 1.0, 0.0, 0.0,
+                                                                   0.0, 1.0],
+        "var_pop(DISTINCT c) OVER (PARTITION BY a ORDER BY o ROWS BETWEEN 1 PRECEDING AND "
+        "1 FOLLOWING)": [1.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+        "median(DISTINCT c) OVER (PARTITION BY a ORDER BY o ROWS BETWEEN 1 PRECEDING AND "
+        "1 FOLLOWING)": [1.5, 1.5, 0.5, 3.0, 3.0, 4.0, 5.0],
+    }
+    for expr, want in windows.items():
+        got = [r[0] for r in con.sql(f"SELECT {expr} FROM t ORDER BY a, o").rows()]
+        if any(abs(g - w) > 1e-12 * max(1.0, abs(w)) for g, w in zip(got, want)) \
+                or len(got) != len(want):
+            return f"H2: {expr} gives {got}, not {want}"
+    con.sql("CREATE TABLE v (i INTEGER, st STRUCT(a INTEGER, b VARCHAR), "
+            "sp STRUCT(x INTEGER, y DECIMAL(4, 1)), l DOUBLE[])")
+    con.sql("INSERT INTO v VALUES (1, {'a': 1, 'b': 'x'}, {'x': 1, 'y': 2.5}, [1, 2]), "
+            "(2, {'a': NULL, 'b': 'y'}, NULL, NULL)")
+    got = con.sql("SELECT * FROM v ORDER BY i").rows()
+    want = [(1, {"a": 1, "b": "x"}, {"x": 1, "y": decimal.Decimal("2.5")}, [1.0, 2.0]),
+            (2, {"a": None, "b": "y"}, None, None)]
+    if got != want:
+        return f"H3/H4: the nested inserts read back as {got}, not {want}"
+    print(f"phase 27 step 1 on {card}: H1-H4's {len(windows) + 6} forms answer as the tests "
+          "hold them")
+    return ""
+
+
+def replay_phase(card, launches_by_query, shapes, reps) -> str:
+    """Phase 27 (see the module docstring): step 1, then every sequence of
+    the corpus card against CPU. '' or a failure."""
+    import shutil
+
+    import torch
+
+    from duckdb_tpu_torch.ops import grouped as grouped_mod
+    from duckdb_tpu_torch.ops import grouped_sum as GS
+    from duckdb_tpu_torch.testing import replay as RP
+
+    phase_t0 = time.perf_counter()
+    bad = h_forms_step(card)
+    if bad:
+        return f"phase 27 step 1: {bad}"
+    header, sequences = RP.load()
+    recorded, timed, worst = [], set(), [0]
+    shutil.rmtree(REPLAY_DIR, ignore_errors=True)
+    grouped_mod.grouped_sum_i64 = card_recording(GS, recorded)
+    GS.grouped_sum_i64.launches = 0
+    t0 = time.perf_counter()
+    try:
+        report = RP.replay(sequences, ("cuda", "cpu"), REPLAY_DIR,
+                           after_first=launch_checker(GS, recorded, timed, shapes, worst,
+                                                      "replay", reps))
+    finally:
+        grouped_mod.grouped_sum_i64 = GS.grouped_sum_i64
+    launches = launches_by_query["replay"] = GS.grouped_sum_i64.launches
+    torch.cuda.synchronize()
+    counts = report.counts()
+    print(f"phase 27 step 2 on {card}: corpus of {header['sequences']} sequences and "
+          f"{header['statements']} statements ({header['recorded']} recorded; left out by "
+          f"reason {header['excluded']}; {header['duplicates_dropped']} duplicates dropped); "
+          "replayed all")
+    print(f"phase 27 step 2 on {card}: sequences {counts['sequences']}, statements "
+          f"{counts['statements']}, compared {counts['compared']}, held to their row counts "
+          f"(LIMIT without ORDER BY) {counts['count_only']}, answered "
+          f"{counts['answered']}, refused {counts['refused']}, nondeterministic "
+          f"{counts['nondeterministic']}, problems {counts['problems']}, known "
+          f"{counts['known']}; median statement wall {report.median_wall_ms():.3f} ms on the "
+          f"card (max {max(report.walls, default=0) * 1e3:.3f} ms); grouped_sum_i64 launches "
+          f"{launches}, each equal to its plain version (max abs err {worst[0]}), "
+          f"{len(timed)} shapes timed; step {time.perf_counter() - t0:.1f} s")
+    for fault, sid, sql, what in report.known:
+        print(f"phase 27 known fault {fault} (open in ROADMAP): {sid}: {what}\n  {sql}")
+    if report.problems:
+        shown = "\n".join(f"  {sid}: {what}\n    {sql[:300]}"
+                          for sid, sql, what in report.problems[:10])
+        return f"phase 27: {len(report.problems)} problem(s), the first:\n{shown}"
+    if worst[0]:
+        return f"phase 27: grouped_sum_i64 disagreed with its plain version (err {worst[0]})"
+    if launches < 1:
+        return "phase 27: the replayed statements never launched grouped_sum_i64 on the card"
+    print(f"phase 27 on {card}: {time.perf_counter() - phase_t0:.1f} s")
     return ""
 
 
@@ -4489,6 +4686,15 @@ def main() -> int:
         return fail(bad)
     worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
     print(f"phase 26 took {time.perf_counter() - phase26_t0:.1f} s")
+
+    # 27. H1-H4's forms, then the JAX package's recorded test statements on
+    # the card against the CPU, every launch held to the plain version
+    phase27_t0 = time.perf_counter()
+    bad = replay_phase(card, launches_by_query, shapes, reps)
+    if bad:
+        return fail(bad)
+    worst = max(worst, max((r["max_abs_err"] for r in shapes), default=0))
+    print(f"phase 27 took {time.perf_counter() - phase27_t0:.1f} s")
     print(f"chip_smoke.py took {time.perf_counter() - script_t0:.1f} s in all on {card}")
 
     print(json.dumps({"kernels": [{

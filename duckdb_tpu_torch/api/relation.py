@@ -116,8 +116,7 @@ class Relation:
         return self.execute().rows()
 
     def fetchone(self):
-        rows = self.execute().rows()
-        return rows[0] if rows else None
+        return self.execute().fetchone()
 
     def df(self):
         """The rows as a pandas DataFrame (pandas imported here)."""

@@ -278,6 +278,11 @@ class Result:
     def fetchall(self):
         return self.rows()
 
+    def fetchone(self):
+        """The first row, or None when there is none: row 0 of each host
+        plane, with no other row's Python values built."""
+        return self.rows(0, 1)[0] if self.nrows else None
+
     def fetchnumpy(self) -> Dict[str, np.ndarray]:
         """{name: host numpy array}, with no pandas: a number or BOOLEAN
         column as an array of its type (DATE as datetime64[D], TIMESTAMP as
@@ -333,12 +338,14 @@ class Result:
     record_batch = fetch_record_batch
     fetch_arrow_reader = fetch_record_batch
 
-    def rows(self) -> List[tuple]:
-        """Python-value rows (DECIMAL → decimal.Decimal, DATE → datetime.date)."""
+    def rows(self, start: int = 0, stop: Optional[int] = None) -> List[tuple]:
+        """Python-value rows (DECIMAL → decimal.Decimal, DATE → datetime.date),
+        of all rows or of [start, stop)."""
+        span = range(start, self.nrows if stop is None else min(stop, self.nrows))
         pycols = []
         for (vals, valid, dvals), t in zip(self.columns, self.types):
             out = []
-            for i in range(self.nrows):
+            for i in span:
                 if valid is not None and not valid[i]:
                     out.append(None)
                     continue
@@ -378,7 +385,7 @@ class Result:
                 else:
                     raise not_ported(f"materializing {t!r} values")
             pycols.append(out)
-        return [tuple(c[i] for c in pycols) for i in range(self.nrows)]
+        return [tuple(c[i] for c in pycols) for i in range(len(span))]
 
 
 # the duckdb_logs() line of each sharded route: (type, message), the JAX

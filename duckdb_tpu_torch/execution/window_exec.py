@@ -32,11 +32,12 @@ tree of pivoted sums its moments (ops/frame_stats.py). The moments of a
 DECIMAL are taken of its values, not its scaled integers.
 
 Where the JAX package is wrong the port follows SQL: FILTER drops the rows
-it is not TRUE for (W8), DISTINCT counts each value of a partition once, at
-its first row in window order, and of an explicit frame once per frame
-(W10), and median over VARCHAR is DuckDB's quantile_disc (W9). HUGEINT
-values keep both int64 halves through the sort, the gathers and the scans;
-a running sum carries between them.
+it is not TRUE for (W8), DISTINCT counts each value of a frame once (W10;
+every aggregate here, the holistic ones too: at the value's first row in
+window order where frames start at the partition's start, else through
+each row's previous equal value), and median over VARCHAR is DuckDB's
+quantile_disc (W9). HUGEINT values keep both int64 halves through the
+sort, the gathers and the scans; a running sum carries between them.
 """
 
 from __future__ import annotations
@@ -333,7 +334,14 @@ def _compute(w: P.BoundWindow, env, plen: int, od: _Order):
         if fc.validity is not None:
             keep = keep & bcast(fc.validity, plen)
         valid = valid & keep[od.perm]
-    if w.distinct and w.frame is None:  # each value counts once, at its first row
+    # DISTINCT: each value counts once. Where every frame starts at its
+    # partition's start (no frame, the default frame with an ORDER BY, or an
+    # explicit frame from UNBOUNDED PRECEDING), at the value's first row in
+    # window order: a frame holds the value when it holds that row. A frame
+    # whose start moves counts a row when its previous equal value lies
+    # before the frame (_prev_keys).
+    moving = w.distinct and w.frame is not None and w.frame[1][0] != "unbounded_preceding"
+    if w.distinct and not moving:
         valid = _first_marks(vals, hi, valid, od)
     dvals = c.dict_values if c is not None and w.ltype.id in (TypeId.VARCHAR, TypeId.BLOB) \
         else None
@@ -373,6 +381,8 @@ def _compute(w: P.BoundWindow, env, plen: int, od: _Order):
     # median, quantile_cont, stddev and var over an ORDER BY or a frame read
     # each row's frame; without either, the whole partition
     if f in ("stddev", "stddev_samp", "stddev_pop", "var_samp", "var_pop", "variance"):
+        if moving:
+            return _distinct_frame_moments(f, c, vals, hi, valid, od, span, plen) + (None,)
         if framed or od.has_order:
             return _frame_moments(f, c, vals, valid, od, span) + (None,)
         return _moments(f, c, vals, valid, od, plen) + (None,)
@@ -380,13 +390,15 @@ def _compute(w: P.BoundWindow, env, plen: int, od: _Order):
         # the fraction's value: a DECIMAL literal such as 0.25 (not its scaled
         # integer, which the JAX package reads, W12)
         q = 0.5 if f == "median" or len(w.args) < 2 else float(_frame_const(w.args[1]))
+        if moving:
+            return _distinct_frame_quantile(q, c, vals, hi, valid, od, span, plen) + (dvals,)
         if framed or od.has_order:
             return _frame_quantile(q, c, vals, valid, od, span, plen) + (dvals,)
         return _quantile(q, c, vals, valid, od, plen) + (dvals,)
 
     if f in ("count", "sum", "avg", "min", "max"):
         scale = 10.0 ** c.ltype.scale if c is not None and c.ltype.id is TypeId.DECIMAL else 1.0
-        if w.distinct and framed:  # (the planner drops DISTINCT from min and max)
+        if moving:  # (the planner drops DISTINCT from min and max)
             return _distinct_over_frame(f, vals, hi, valid, od, span, plen, scale)
         if hi is not None and f != "count":
             return _wide_agg_over(f, vals, hi, valid, od, span, plen, scale)
@@ -477,14 +489,15 @@ def _first_marks(vals, hi, valid, od: _Order) -> torch.Tensor:
     return marks
 
 
-def _distinct_over_frame(f, vals, hi, valid, od: _Order, span, plen: int, scale: float):
-    """count, sum or avg (DISTINCT …) over an explicit frame: a row j counts
-    for row i when it lies in i's frame and no earlier row of the frame holds
-    its value, that is when the previous row of its partition with an equal
-    value (one stable sort by partition and value) lies before i's frame.
-    A wavelet matrix over those previous positions, local to the partition,
-    counts and sums the rows below each frame's start → as `_agg_over`
-    (HUGEINT sums as `_wide_agg_over`)."""
+def _prev_keys(vals, hi, valid, od: _Order, plen: int):
+    """DISTINCT over a frame whose start moves: a row j counts for row i
+    when it lies in i's frame and no earlier row of the frame holds its
+    value, that is when the previous valid row of its partition with an
+    equal value (one stable sort by partition and value) lies before i's
+    frame. → (keys, bits): that previous position, from 1 and local to
+    the partition, 0 at the value's first row, 2^bits - 1 at an invalid row
+    (it never counts); row j counts for a frame from lo when its key is
+    below lo - start + 1."""
     keys = [od.seg_id] + ([] if hi is None else [hi]) + [vals]
     perm2 = S.sort_permutation(keys, valid)
     idx = torch.arange(plen, device=valid.device)
@@ -492,9 +505,15 @@ def _distinct_over_frame(f, vals, hi, valid, od: _Order, span, plen: int, scale:
     prev = torch.empty_like(perm2)
     prev[perm2] = torch.where(first, -1, perm2[(idx - 1).clamp(min=0)])
     bits = (od.longest + 1).bit_length()
-    # 0: the value's first row in its partition; an invalid row never counts
     key = torch.where(prev >= 0, prev - od.start + 1, 0)
-    key = torch.where(valid, key, (1 << bits) - 1)
+    return torch.where(valid, key, (1 << bits) - 1), bits
+
+
+def _distinct_over_frame(f, vals, hi, valid, od: _Order, span, plen: int, scale: float):
+    """count, sum or avg (DISTINCT …) over a frame whose start moves: a
+    wavelet matrix over `_prev_keys` counts and sums the rows below each
+    frame's start → as `_agg_over` (HUGEINT sums as `_wide_agg_over`)."""
+    key, bits = _prev_keys(vals, hi, valid, od, plen)
     if f == "count":
         weights = []
     elif hi is not None:
@@ -743,6 +762,13 @@ def _frame_quantile(q, c, vals, valid, od: _Order, span, plen):
     def kth(k, x):
         return x[(od.start + wm.kth(lo, hi, k.clamp(min=0))).clamp(0, plen - 1)]
 
+    return _interpolate(q, c, vals, perm2, nval, kth)
+
+
+def _interpolate(q, c, vals, perm2, nval, kth):
+    """quantile_cont(q) of nval values from kth(k, values in rank order):
+    the interpolated middle, and over VARCHAR quantile_disc → (values,
+    validity)."""
     if c.ltype.id is TypeId.VARCHAR:
         k = torch.ceil(nval.to(torch.float64) * q).to(torch.int64).clamp(min=1) - 1
         return kth(k, vals[perm2]), nval > 0
@@ -752,6 +778,44 @@ def _frame_quantile(q, c, vals, valid, od: _Order, span, plen):
     frac = pos - k_lo.to(torch.float64)
     vlo, vhi = kth(k_lo, x2), kth(torch.ceil(pos).to(torch.int64), x2)
     return vlo * (1.0 - frac) + vhi * frac, nval > 0
+
+
+def _distinct_frame_moments(f, c, vals, hi, valid, od: _Order, span, plen):
+    """stddev / var (DISTINCT …) over a frame whose start moves: the rows
+    that count (`_prev_keys`) give their moments from a wavelet matrix whose
+    levels keep segment trees of pivoted sums (WaveletMatrix `moments`), so
+    every pivot is a value of the frame, as in `_frame_moments`."""
+    key, bits = _prev_keys(vals, hi, valid, od, plen)
+    lo, end = _frame_span(od, span)
+    wm = WaveletMatrix(key, bits, moments=(_values(c, vals), valid,
+                                           od.longest.bit_length() + 1))
+    n_, s, q = wm.moments_below(lo, end, lo - od.start + 1)
+    return _variance(f, q - s * s / n_.clamp(min=1.0), n_)
+
+
+def _distinct_frame_quantile(q, c, vals, hi, valid, od: _Order, span, plen):
+    """median / quantile_cont (DISTINCT …) over a frame whose start moves:
+    the k-th smallest of the rows that count, a three-sided query (rank of
+    the value, position in the frame, previous equal value before the
+    frame) answered by a wavelet matrix over the ranks, as in
+    `_frame_quantile`, whose levels count only the rows whose `_prev_keys`
+    lie below the frame's start (WaveletMatrix `filter`)."""
+    lo, end = _frame_span(od, span)
+    key, bits = _prev_keys(vals, hi, valid, od, plen)
+    t = lo - od.start + 1
+    nval = WaveletMatrix(key, bits).count_below(lo, end, t)[0]
+    perm2 = S.sort_permutation([od.seg_id * 2 + (~valid).to(torch.int64),
+                                S.orderable_int64(vals, None, False, False)],
+                               torch.ones_like(valid))
+    idx = torch.arange(plen, device=valid.device)
+    rank = torch.empty_like(idx)
+    rank[perm2] = idx - od.start
+    wm = WaveletMatrix(rank, (od.longest - 1).bit_length(), filter=(key, bits))
+
+    def kth(k, x):
+        return x[(od.start + wm.kth(lo, end, k.clamp(min=0), t)).clamp(0, plen - 1)]
+
+    return _interpolate(q, c, vals, perm2, nval, kth)
 
 
 # -- frames -----------------------------------------------------------------------

@@ -12,7 +12,14 @@ partitions:
   equal value lies before the frame's start). One level per key bit; each
   level is a stable partition by that bit and an int32 prefix count of its
   zeros, built with one cumsum and one scatter. A query reads two prefix
-  values per level.
+  values per level. Two options serve DISTINCT over a frame whose start
+  moves: `moments` keeps a `MomentTree` of each level's zero-bit rows, so
+  the rows below a threshold give their (count, pivot, S, Q) with pivots
+  taken inside the span (no prefix sum across partitions or far from the
+  frame's values); `filter` keeps, per level, a second matrix over a
+  filter key of the level's zero-bit rows, so `kth` can pick the k-th key
+  among only the span's rows whose filter key is below a threshold (a
+  three-sided query: key rank, position, previous equal value).
 - `MomentTree`, a segment tree of (count, pivot, S, Q) nodes, where S and Q
   are the sums of (x - pivot) and (x - pivot)^2 over the node's valid
   values and the pivot is its first valid value. Two nodes merge by moving
@@ -30,7 +37,7 @@ their tables until the caller drops them.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,14 +55,24 @@ class WaveletMatrix:
     float64 sums are prefix differences, so their error is about 1e-16 of
     the weights' absolute sum before the span)."""
 
-    def __init__(self, keys: torch.Tensor, bits: int, weights: Sequence[torch.Tensor] = ()):
+    def __init__(self, keys: torch.Tensor, bits: int, weights: Sequence[torch.Tensor] = (),
+                 moments: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None,
+                 filter: Optional[Tuple[torch.Tensor, int]] = None):
+        """`moments`: (float64 values, validity, tree levels) for
+        `moments_below`; `filter`: (int64 filter keys, their bits) for
+        `kth` with a threshold t < 2^bits - 1 (a filter key of all ones
+        never counts: it marks a level's 1-bit rows)."""
         n = keys.shape[0]
         self.n, self.bits = n, max(1, bits)
         idx = torch.arange(n, device=keys.device)
         self.zeros: List[torch.Tensor] = []  # per level, n + 1 int32 prefix counts of 0 bits
         self.nzero: List[torch.Tensor] = []  # per level, the count of 0 bits (on the device)
         self.wsums: List[List[torch.Tensor]] = []  # per level, prefix sums of 0-bit weights
+        self.trees: List[MomentTree] = []  # per level, moments of the 0-bit rows
+        self.inner: List[WaveletMatrix] = []  # per level, a matrix of the 0-bit filter keys
         a, ws = keys, list(weights)
+        carried = ([] if moments is None else [moments[0], moments[1]]) + \
+            ([] if filter is None else [filter[0]])
         for lvl in range(self.bits - 1, -1, -1):
             bit = (a >> lvl) & 1
             zero = bit == 0
@@ -69,28 +86,45 @@ class WaveletMatrix:
             self.wsums.append([_prefix(torch.where(zero, w, torch.zeros((), dtype=w.dtype,
                                                                          device=w.device)),
                                        w.dtype) for w in ws])
+            if moments is not None:
+                self.trees.append(MomentTree(carried[0], carried[1] & zero, moments[2]))
+            if filter is not None:
+                fbits = filter[1]
+                self.inner.append(WaveletMatrix(torch.where(zero, carried[-1],
+                                                            (1 << fbits) - 1), fbits))
             if lvl:
-                nxt = torch.empty_like(a)
-                nxt[pos] = a
-                a = nxt
-                for i, w in enumerate(ws):
-                    nw = torch.empty_like(w)
-                    nw[pos] = w
-                    ws[i] = nw
+                a, ws[:], carried[:] = (_moved(v, pos) for v in (a, ws, carried))
 
-    def kth(self, lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-        """The k-th smallest key (k from 0) in each span [lo, hi); a span
-        with k outside [0, hi - lo) gives some key of the matrix."""
+    def kth(self, lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
+            t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The k-th smallest key (k from 0) in each span [lo, hi), or, with
+        a threshold t (a matrix built with `filter`), among the span's rows
+        whose filter key is below t; a k outside the rows counted gives
+        some key of the matrix."""
         out = torch.zeros_like(k)
         for i, pz in enumerate(self.zeros):
             zl, zr = pz[lo].to(torch.int64), pz[hi].to(torch.int64)
-            go0 = k < zr - zl
+            # the 0-bit rows of the span that count: all, or the filtered
+            c0 = zr - zl if t is None else self.inner[i].count_below(lo, hi, t)[0]
+            go0 = k < c0
             nz = self.nzero[i]
             lo = torch.where(go0, zl, nz + lo - zl)
             hi = torch.where(go0, zr, nz + hi - zr)
-            k = torch.where(go0, k, k - (zr - zl))
+            k = torch.where(go0, k, k - c0)
             out = out | ((~go0).to(torch.int64) << (self.bits - 1 - i))
         return out
+
+    def _descend(self, lo: torch.Tensor, hi: torch.Tensor, t: torch.Tensor):
+        """Per level, toward the keys below t: (level, where t has a 1 bit,
+        the span at this level, its 0-bit rows' prefix counts at lo and hi).
+        Where t has a 1, every key of the span with a 0 here is below t."""
+        for i, pz in enumerate(self.zeros):
+            one = ((t >> (self.bits - 1 - i)) & 1) == 1
+            zl, zr = pz[lo].to(torch.int64), pz[hi].to(torch.int64)
+            yield i, one, lo, hi, zl, zr
+            nz = self.nzero[i]
+            lo = torch.where(one, nz + lo - zl, zl)
+            hi = torch.where(one, nz + hi - zr, zr)
 
     def count_below(self, lo: torch.Tensor, hi: torch.Tensor, t: torch.Tensor
                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -99,19 +133,35 @@ class WaveletMatrix:
         cnt = torch.zeros_like(lo)
         sums = [torch.zeros(lo.shape[0], dtype=w[0].dtype, device=lo.device)
                 for w in self.wsums[0]] if self.wsums and self.wsums[0] else []
-        for i, pz in enumerate(self.zeros):
-            one = ((t >> (self.bits - 1 - i)) & 1) == 1
-            zl, zr = pz[lo].to(torch.int64), pz[hi].to(torch.int64)
-            # where t has a 1, every key of the span with a 0 here is below t
+        for i, one, lo_i, hi_i, zl, zr in self._descend(lo, hi, t):
             cnt = cnt + torch.where(one, zr - zl, 0)
             for j, ps in enumerate(self.wsums[i]):
-                sums[j] = sums[j] + torch.where(one, ps[hi] - ps[lo],
+                sums[j] = sums[j] + torch.where(one, ps[hi_i] - ps[lo_i],
                                                 torch.zeros((), dtype=ps.dtype,
                                                             device=ps.device))
-            nz = self.nzero[i]
-            lo = torch.where(one, nz + lo - zl, zl)
-            hi = torch.where(one, nz + hi - zr, zr)
         return cnt, sums
+
+    def moments_below(self, lo: torch.Tensor, hi: torch.Tensor, t: torch.Tensor):
+        """(count, S, Q) of the valid values of the keys < t in each span
+        [lo, hi) (a matrix built with `moments`), about a value of the
+        span: M2 = Q - S²/count. Each level adds its tree's node of the
+        span's 0-bit rows where t has a 1."""
+        z = torch.zeros(lo.shape[0], dtype=torch.float64, device=lo.device)
+        acc = (z, z, z, z)
+        for i, one, lo_i, hi_i, _, _ in self._descend(lo, hi, t):
+            n, c, s, q = self.trees[i].node(lo_i, hi_i)
+            acc = _merge(acc, (torch.where(one, n, 0.0), c, torch.where(one, s, 0.0),
+                               torch.where(one, q, 0.0)))
+        return acc[0], acc[2], acc[3]
+
+
+def _moved(v, pos):
+    """v (a tensor or a list of them) with element j moved to pos[j]."""
+    if isinstance(v, list):
+        return [_moved(x, pos) for x in v]
+    out = torch.empty_like(v)
+    out[pos] = v
+    return out
 
 
 def _merge(a, b):
@@ -146,6 +196,11 @@ class MomentTree:
     def query(self, lo: torch.Tensor, hi: torch.Tensor):
         """(count, S, Q) of each span [lo, hi), about its first valid
         value; M2 = Q - S²/count."""
+        acc = self.node(lo, hi)
+        return acc[0], acc[2], acc[3]
+
+    def node(self, lo: torch.Tensor, hi: torch.Tensor):
+        """The (count, pivot, S, Q) node of each span [lo, hi)."""
         z = torch.zeros(lo.shape[0], dtype=torch.float64, device=lo.device)
         acc = (z, z, z, z)
         for node in self.levels:
@@ -156,7 +211,7 @@ class MomentTree:
             hi = hi - take.to(hi.dtype)
             acc = _merge(acc, _node_at(node, hi, take))
             lo, hi = lo >> 1, hi >> 1
-        return acc[0], acc[2], acc[3]
+        return acc
 
 
 def _node_at(node, p, take):

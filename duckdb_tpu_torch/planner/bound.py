@@ -23,6 +23,7 @@ the max scale, mul adds scales, division binds to DOUBLE.
 from __future__ import annotations
 
 import datetime
+import decimal as pydec
 import math
 import re
 from dataclasses import dataclass, field
@@ -43,7 +44,8 @@ from duckdb_tpu_torch.types import (
     VARCHAR,
     LogicalType,
     TypeId,
-    null_list_fits,
+    nested_widens,
+    null_fits,
 )
 
 
@@ -811,9 +813,10 @@ def _coerce_nested(c: Column, t: LogicalType, env, try_cast: bool) -> Optional[C
                 f"Cannot cast list of length {len(dv[i])} to {t!r}")
                 for i in np.flatnonzero(~ok).tolist()}, env)
         return _with_ok(c, t, ok, dv)
-    if src is TypeId.ARRAY and dst is TypeId.LIST or null_list_fits(c.ltype, t):
-        # a list of NULLs (SQLNULL[], the empty list literal) holds values of
-        # every list type of its depth: a relabel
+    if src is TypeId.ARRAY and dst is TypeId.LIST or null_fits(c.ltype, t):
+        # a list of NULLs (SQLNULL[], the empty list literal) or a struct
+        # with NULL fields ({'a': NULL}) holds values of every type of its
+        # shape: a relabel
         return Column(data=c.data, ltype=t, validity=c.validity, dict_values=dv)
     if src is TypeId.UNION and dst is TypeId.UNION:
         src_names = [n for n, _ in (c.ltype.fields or ())]
@@ -884,7 +887,41 @@ def _coerce_nested(c: Column, t: LogicalType, env, try_cast: bool) -> Optional[C
         return _with_ok(out, t, ok, d) if not ok.all() else out
     if src is TypeId.BIT and dst is TypeId.BIT:
         return c
+    if nested_widens(c.ltype, t):
+        # each distinct value's leaves converted once (list_cast.cpp,
+        # struct_cast.cpp): INTEGER[] → DOUBLE[], a STRUCT field's DECIMAL
+        # to a wider one
+        codes, d = encode_objects([_widen_value(v, c.ltype, t) for v in dv])
+        lut = torch.from_numpy(codes if len(codes) else np.zeros(1, np.int32)).to(c.data.device)
+        return Column(data=lut[c.data.long().clamp(0, max(len(codes) - 1, 0))], ltype=t,
+                      validity=c.validity, dict_values=d)
     raise not_ported(f"the cast {c.ltype!r} → {t!r}")
+
+
+def _widen_value(v, s: LogicalType, d: LogicalType):
+    """One nested value of type s as type d (types.nested_widens); a LIST
+    and a STRUCT are tuples (of elements, of field values in order)."""
+    if v is None or s == d:
+        return v
+    if s.id is TypeId.LIST:
+        return tuple(_widen_value(x, s.child, d.child) for x in v)
+    if s.id is TypeId.STRUCT:
+        return tuple(_widen_value(x, st, dt)
+                     for x, (_, st), (_, dt) in zip(v, s.fields, d.fields))
+    if d.is_float:
+        return float(v)
+    if d.id is TypeId.DECIMAL:
+        return pydec.Decimal(v).quantize(pydec.Decimal(1).scaleb(-d.scale))
+    if d.is_integer:
+        return int(v)
+    if s.id is TypeId.DATE and d.id in (TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ):
+        v = datetime.datetime(v.year, v.month, v.day)
+        return v if d.id is TypeId.TIMESTAMP else v.replace(tzinfo=datetime.timezone.utc)
+    if d.id is TypeId.TIMESTAMPTZ:
+        return v.replace(tzinfo=datetime.timezone.utc)
+    if d.id is TypeId.TIMESTAMP:
+        return v.replace(tzinfo=None)
+    return v
 
 
 def format_varchar(v, t: LogicalType) -> str:

@@ -73,7 +73,7 @@ from duckdb_tpu_torch.types import (
     list_of,
     map_of,
     max_logical_type,
-    null_list_fits,
+    null_fits,
     struct_of,
     union_of,
 )
@@ -495,7 +495,7 @@ def _bind_list_concat(arg_exprs):
     # the first argument's type, unless it is NULL or a list of NULLs ([] || [1])
     out_t = arg_exprs[0].ltype
     for a in arg_exprs[1:]:
-        if out_t.id is TypeId.SQLNULL or null_list_fits(out_t, a.ltype):
+        if out_t.id is TypeId.SQLNULL or null_fits(out_t, a.ltype):
             out_t = a.ltype
 
     def impl(env, cols, node):

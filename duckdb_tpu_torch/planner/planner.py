@@ -1991,8 +1991,6 @@ class Planner:
                  for it in spec.order_by]
         if (fc.distinct or fc.filter is not None) and name not in _FILTER_WINDOWS:
             raise BindError(f"Binder Error: DISTINCT and FILTER need an aggregate, not {name}()")
-        if fc.distinct and name in _HOLISTIC_WINDOWS:
-            raise not_ported(f"{name}(DISTINCT …) over a window")
         if name in ("row_number", "rank", "dense_rank", "ntile", "count"):
             t = BIGINT
         elif name == "sum":

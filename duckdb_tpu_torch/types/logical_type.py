@@ -221,12 +221,43 @@ def decimal(width: int, scale: int) -> LogicalType:
     return LogicalType(TypeId.DECIMAL, width=width, scale=scale)
 
 
-def null_list_fits(src: LogicalType, dst: LogicalType) -> bool:
-    """src is a LIST of NULLs (an empty list literal is SQLNULL[]) of dst's
-    depth, so its values are dst's too: DuckDB casts [] to any list type."""
-    return (src.id is TypeId.LIST and dst.id is TypeId.LIST and src.child is not None
-            and dst.child is not None
-            and (src.child.id is TypeId.SQLNULL or null_list_fits(src.child, dst.child)))
+def _shape_fits(src: LogicalType, dst: LogicalType, leaf) -> bool:
+    """src is a LIST or STRUCT type other than dst, of dst's shape (the same
+    field names), whose every leaf equals dst's, is SQLNULL, or passes
+    leaf(src leaf, dst leaf)."""
+    def fits(s, d):
+        if s == d or s.id is TypeId.SQLNULL:
+            return True
+        if s.id is TypeId.LIST and d.id is TypeId.LIST:
+            return s.child is not None and d.child is not None and fits(s.child, d.child)
+        if s.id is TypeId.STRUCT and d.id is TypeId.STRUCT:
+            sf, df = s.fields or (), d.fields or ()
+            return len(sf) == len(df) and all(
+                a == b and fits(x, y) for (a, x), (b, y) in zip(sf, df))
+        return leaf(s, d)
+
+    return src != dst and src.id in (TypeId.LIST, TypeId.STRUCT) and fits(src, dst)
+
+
+def null_fits(src: LogicalType, dst: LogicalType) -> bool:
+    """src differs from dst only where it holds SQLNULL (the empty list
+    literal is SQLNULL[], {'a': NULL} is STRUCT(a SQLNULL)), so its values
+    are dst's too: DuckDB casts them to any type of that shape."""
+    return _shape_fits(src, dst, lambda s, d: False)
+
+
+_NOT_WIDENED = (TypeId.LIST, TypeId.STRUCT, TypeId.MAP, TypeId.UNION, TypeId.ARRAY,
+                TypeId.VARCHAR, TypeId.BLOB, TypeId.BIT)
+
+
+def nested_widens(src: LogicalType, dst: LogicalType) -> bool:
+    """src's every leaf casts implicitly to dst's (INTEGER[] → DOUBLE[],
+    STRUCT(y DECIMAL(2,1)) → STRUCT(y DECIMAL(4,1))): a widening that
+    converts each value, as DuckDB's list_cast.cpp / struct_cast.cpp do. A
+    VARCHAR leaf on either side does not widen (that is a parse or a
+    format)."""
+    return _shape_fits(src, dst, lambda s, d: s.id not in _NOT_WIDENED
+                       and d.id not in _NOT_WIDENED and implicit_cast_cost(s, d) is not None)
 
 
 # -- implicit cast lattice ----------------------------------------------------
@@ -236,7 +267,7 @@ def null_list_fits(src: LogicalType, dst: LogicalType) -> bool:
 def implicit_cast_cost(src: LogicalType, dst: LogicalType) -> Optional[int]:
     if src == dst:
         return 0
-    if src.id is TypeId.SQLNULL or null_list_fits(src, dst):
+    if src.id is TypeId.SQLNULL or null_fits(src, dst):
         return 1
     s, d = src.id, dst.id
     if src.is_integer and dst.is_integer:
@@ -292,9 +323,9 @@ def max_logical_type(a: LogicalType, b: LogicalType) -> LogicalType:
     """Common comparison/arithmetic supertype (duckdb LogicalType::MaxLogicalType)."""
     if a == b:
         return a
-    if a.id is TypeId.SQLNULL or null_list_fits(a, b):
+    if a.id is TypeId.SQLNULL or null_fits(a, b):
         return b
-    if b.id is TypeId.SQLNULL or null_list_fits(b, a):
+    if b.id is TypeId.SQLNULL or null_fits(b, a):
         return a
     if a.id is TypeId.UNION and b.id is TypeId.UNION:
         # merge members by name (reference MaxLogicalType union handling)

@@ -15,6 +15,12 @@ np.quantile does; median over VARCHAR is quantile_disc (W9). DOUBLE
 results must match within 1e-9 relative; VARCHAR, integer and DECIMAL
 results exactly.
 
+H2: the eight holistic functions with DISTINCT (median, quantile_cont,
+stddev, stddev_samp, stddev_pop, var_samp, var_pop, variance) over every
+frame above, the whole partition and frames from UNBOUNDED PRECEDING
+among them, against the same oracle over each frame's distinct non-NULL
+values, as DuckDB answers them; the JAX package ignores DISTINCT (W10).
+
 Also here: the structures behind them (ops/frame_stats.py) against brute
 force, and a cancellation case (1e9 + 0.1·k) where sums of x² fail 1e-9.
 """
@@ -92,6 +98,11 @@ FRAMES = {
     "interval": ("d", "RANGE BETWEEN INTERVAL '4 days' PRECEDING AND INTERVAL '1 day' "
                       "FOLLOWING", "range", (-4, 1)),
     "default": ("ot", "", "range", (-math.inf, 0)),
+    "rows_from_start": ("o", "ROWS BETWEEN UNBOUNDED PRECEDING AND 1 FOLLOWING", "rows",
+                        (-math.inf, 1)),
+    "range_from_start": ("ot", "RANGE BETWEEN UNBOUNDED PRECEDING AND 2 FOLLOWING", "range",
+                         (-math.inf, 2)),
+    "whole": (None, "", "whole", None),  # no ORDER BY: the whole partition
 }
 
 
@@ -102,7 +113,10 @@ def _key(r, col):
 
 def frame_of(r, frame, desc):
     """The rows of r's frame (a list, in window order)."""
-    col, _, kind, (a, b) = FRAMES[frame]
+    col, _, kind, offsets = FRAMES[frame]
+    if kind == "whole":
+        return [q for q in ROWS if q["g"] == r["g"]]
+    a, b = offsets
     part = sorted((q for q in ROWS if q["g"] == r["g"]), key=lambda q: _key(q, col),
                   reverse=desc)
     if kind == "rows":
@@ -118,6 +132,8 @@ def frame_of(r, frame, desc):
 
 def _clause(frame, desc):
     col, spec, _, _ = FRAMES[frame]
+    if col is None:
+        return ""
     return f"ORDER BY {col}{' DESC' if desc else ''} {spec}".strip()
 
 
@@ -289,6 +305,150 @@ def test_moments_survive_cancellation():
     assert worst_naive > 1e-9
 
 
+HOLISTIC_DISTINCT = {
+    "median(DISTINCT x)": lambda v: float(np.median(v)),
+    "median(DISTINCT z)": lambda v: float(np.median(v)),
+    "median(DISTINCT s)": lambda v: v[max(1, math.ceil(len(v) * 0.5)) - 1],
+    "quantile_cont(DISTINCT x, 0.25)": lambda v: float(np.quantile(v, 0.25)),
+    "quantile_cont(DISTINCT y, 0.9)": lambda v: float(np.quantile(v, 0.9)),
+    "stddev(DISTINCT x)": lambda v: float(np.std(v, ddof=1)) if len(v) > 1 else None,
+    "stddev_samp(DISTINCT y)": lambda v: float(np.std(v, ddof=1)) if len(v) > 1 else None,
+    "stddev_pop(DISTINCT z)": lambda v: float(np.std(v)),
+    "var_samp(DISTINCT x)": lambda v: float(np.var(v, ddof=1)) if len(v) > 1 else None,
+    "var_pop(DISTINCT y)": lambda v: float(np.var(v)),
+    "variance(DISTINCT z)": lambda v: float(np.var(v, ddof=1)) if len(v) > 1 else None,
+}
+
+
+def distinct_values(vals):
+    """A frame's distinct non-NULL values, sorted (floats as floats)."""
+    return sorted({_num(v) for v in vals if v is not None})
+
+
+@pytest.mark.parametrize("desc", [False, True], ids=["asc", "desc"])
+@pytest.mark.parametrize("frame", sorted(FRAMES))
+@pytest.mark.parametrize("expr", sorted(HOLISTIC_DISTINCT))
+def test_h2_holistic_distinct_over_frames_match_numpy(tcon, expr, frame, desc):
+    exprs = sorted(HOLISTIC_DISTINCT)
+    got = _answer(tcon, exprs, frame, desc)
+    col = _arg(expr)
+    j = exprs.index(expr)
+    bad = []
+    for r in ROWS:
+        vals = distinct_values(q[col] for q in frame_of(r, frame, desc))
+        want = HOLISTIC_DISTINCT[expr](vals) if vals else None
+        if not _same(got[r["i"]][j], want):
+            bad.append((r["i"], got[r["i"]][j], want))
+    assert not bad, bad[:5]
+
+
+def _repeats_table(n=400, seed=5):
+    """Runs of repeated values with NULLs among them, in five partitions:
+    (i, g, v) with v None where NULL."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 5, n)
+    v = np.repeat(rng.integers(0, 12, n // 4), 4).astype(float) * 0.5
+    v = np.where(rng.random(n) < 0.1, np.nan, v)
+    return [(i, int(g[i]), None if np.isnan(v[i]) else float(v[i])) for i in range(n)]
+
+
+REPEAT_FRAMES = {
+    "moving": ("ORDER BY i ROWS BETWEEN 6 PRECEDING AND 2 FOLLOWING", lambda p, i: (p - 6, p + 2)),
+    "moving_desc": ("ORDER BY i DESC ROWS BETWEEN 3 PRECEDING AND CURRENT ROW",
+                    lambda p, i: (p - 3, p)),
+    "from_start": ("ORDER BY i ROWS BETWEEN UNBOUNDED PRECEDING AND 1 FOLLOWING",
+                   lambda p, i: (0, p + 1)),
+    "running": ("ORDER BY i", lambda p, i: (0, p)),
+    "whole": ("", lambda p, i: (0, 10 ** 9)),
+}
+
+
+@pytest.mark.parametrize("frame", sorted(REPEAT_FRAMES))
+def test_h2_holistic_distinct_with_repeats_and_nulls_match_numpy(frame):
+    """Runs of four equal values and NULLs: each function over each frame's
+    np.unique of its non-NULL values (1e-9 relative)."""
+    rows = _repeats_table()
+    src = "(VALUES " + ", ".join(f"({i}, {g}, {'NULL' if v is None else v})"
+                                 for i, g, v in rows) + ") t(i, g, v)"
+    spec, span = REPEAT_FRAMES[frame]
+    fns = {"median": np.median, "quantile_cont(DISTINCT v, 0.3)": None,
+           "stddev_pop": np.std, "var_samp": None}
+    over = f"(PARTITION BY g {spec})"
+    sql = (f"SELECT i, median(DISTINCT v) OVER {over}, quantile_cont(DISTINCT v, 0.3) OVER "
+           f"{over}, stddev_pop(DISTINCT v) OVER {over}, var_samp(DISTINCT v) OVER {over} "
+           f"FROM {src} ORDER BY i")
+    got = duckdb_tpu_torch.connect(device="cpu").sql(sql).rows()
+    assert len(fns) == 4 and len(got) == len(rows)
+    v = np.array([np.nan if r[2] is None else r[2] for r in rows])
+    g = np.array([r[1] for r in rows])
+    desc = "DESC" in spec
+    for i, med, q3, sp, vs in got:
+        part = np.flatnonzero(g == g[i])[::-1] if desc else np.flatnonzero(g == g[i])
+        p = int(np.flatnonzero(part == i)[0])
+        a, b = span(p, i)
+        frame_v = v[part[max(a, 0):b + 1]]
+        u = np.unique(frame_v[~np.isnan(frame_v)])
+        want = (float(np.median(u)), float(np.quantile(u, 0.3)), float(np.std(u)),
+                float(np.var(u, ddof=1)) if len(u) > 1 else None) if len(u) else (None,) * 4
+        for x, w in zip((med, q3, sp, vs), want):
+            assert (x is None) if w is None else x == pytest.approx(w, rel=1e-9, abs=1e-12), \
+                (i, x, w)
+
+
+def test_h2_forms_where_distinct_changes_the_answer():
+    """DISTINCT changes these answers: the port's are over the distinct
+    values, the JAX package's over every row (W10)."""
+    setup = ("CREATE TABLE t AS SELECT * FROM (VALUES (1, 2.5, 1), (1, 0.5, 2), (1, 0.5, 3), "
+             "(2, 3.0, 1), (2, 3.0, 2), (2, NULL, 3), (2, 5.0, 4)) v(a, c, o)")
+    cons = [duckdb_tpu_torch.connect(device="cpu"), duckdb_tpu.connect()]
+    for c in cons:
+        c.sql(setup)
+    cases = {
+        "median(DISTINCT a) OVER ()": [1.5] * 7,
+        "stddev(DISTINCT c) OVER ()": [float(np.std([0.5, 2.5, 3.0, 5.0], ddof=1))] * 7,
+        "quantile_cont(DISTINCT c, 0.5) OVER (PARTITION BY a)": [1.5] * 3 + [4.0] * 4,
+        "var_pop(DISTINCT c) OVER (PARTITION BY a ORDER BY o ROWS BETWEEN 1 PRECEDING AND "
+        "1 FOLLOWING)": [1.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+        "median(DISTINCT c) OVER (PARTITION BY a ORDER BY o ROWS BETWEEN 1 PRECEDING AND "
+        "1 FOLLOWING)": [1.5, 1.5, 0.5, 3.0, 3.0, 4.0, 5.0],
+    }
+    for expr, want in cases.items():
+        sql = f"SELECT {expr} FROM t ORDER BY a, o"
+        got = [r[0] for r in cons[0].sql(sql).rows()]
+        assert got == pytest.approx(want, rel=1e-12), expr
+        assert [r[0] for r in cons[1].sql(sql).rows()] != pytest.approx(want, rel=1e-9), expr
+
+
+def test_h2_distinct_moments_survive_cancellation_and_drift():
+    """Values 1e9 + 0.1·(k // 2), each twice, 30,000 of them in one
+    partition: var_samp(DISTINCT x) over a moving frame and over the
+    default frame holds 1e-9 against numpy's two-pass variance of each
+    frame's distinct values. The frames drift far from the partition's
+    first value, so sums of (x - pivot) and (x - pivot)² about one pivot a
+    partition (shown below) miss 1e-9; the pivots inside each frame do not."""
+    con = duckdb_tpu_torch.connect(device="cpu")
+    con.sql("CREATE TABLE c AS SELECT range AS k, 1e9 + 0.1 * (range // 2) AS x "
+            "FROM range(30000)")
+    sql = ("SELECT k, x, var_samp(DISTINCT x) OVER (ORDER BY k ROWS BETWEEN 11 PRECEDING AND "
+           "CURRENT ROW), stddev_pop(DISTINCT x) OVER (ORDER BY k) FROM c ORDER BY k")
+    got = con.sql(sql).rows()
+    x = np.array([r[1] for r in got])
+    assert len(np.unique(x)) == 15000
+    worst_pivot = 0.0
+    for k, _, vs, sp in got:
+        u = np.unique(x[max(k - 11, 0):k + 1])
+        want = float(np.var(u, ddof=1)) if len(u) > 1 else None
+        assert (vs is None) if want is None else vs == pytest.approx(want, rel=1e-9)
+        if k % 97 == 0:  # the running frame's std, sampled
+            assert sp == pytest.approx(float(np.std(np.unique(x[:k + 1]))), rel=1e-9,
+                                       abs=1e-12)
+        if want is not None and k > 20000:
+            d = u - x[0]
+            m2 = float((d * d).sum() - d.sum() ** 2 / len(u))
+            worst_pivot = max(worst_pivot, abs(m2 / (len(u) - 1) - want) / want)
+    assert worst_pivot > 1e-9
+
+
 # -- ops/frame_stats.py against brute force ------------------------------------------
 @pytest.mark.parametrize("n,bits", [(1, 1), (2, 1), (37, 3), (500, 6), (1000, 10)])
 def test_wavelet_matrix_matches_brute_force(n, bits):
@@ -313,6 +473,39 @@ def test_wavelet_matrix_matches_brute_force(n, bits):
         with np.errstate(over="ignore"):
             assert int(si[j]) == int(wi[lo[j]:hi[j]][m].sum(dtype=np.int64))
         assert float(sf[j]) == pytest.approx(float(wf[lo[j]:hi[j]][m].sum()), abs=1e-12)
+
+
+@pytest.mark.parametrize("n,bits,fbits", [(1, 1, 1), (37, 3, 4), (500, 6, 5), (1000, 9, 8)])
+def test_wavelet_matrix_moments_and_filtered_kth_match_brute_force(n, bits, fbits):
+    """`moments_below` against two-pass moments of the keys below t, and
+    `kth` with a threshold against the k-th smallest key among the span's
+    rows whose filter key is below t."""
+    rng = np.random.default_rng(n + 1)
+    keys = rng.integers(0, 2 ** bits, n)
+    fkeys = rng.integers(0, 2 ** fbits, n)
+    x = rng.normal(size=n) * 5 + 1e6
+    valid = rng.random(n) < 0.85
+    wm = WaveletMatrix(torch.tensor(keys), bits, moments=(torch.tensor(x), torch.tensor(valid),
+                                                          n.bit_length() + 1),
+                       filter=(torch.tensor(fkeys), fbits))
+    q = 300
+    lo = rng.integers(0, n + 1, q)
+    hi = np.minimum(n, lo + rng.integers(0, 80, q))
+    t = rng.integers(0, 2 ** bits, q)
+    ft = rng.integers(0, 2 ** fbits - 1, q)  # a filter key of all ones never counts
+    cnt, s, qq = wm.moments_below(torch.tensor(lo), torch.tensor(hi), torch.tensor(t))
+    fcount = [int(((fkeys[a:b]) < c).sum()) for a, b, c in zip(lo, hi, ft)]
+    k = np.array([rng.integers(0, max(c, 1)) for c in fcount])
+    kth = wm.kth(torch.tensor(lo), torch.tensor(hi), torch.tensor(k), torch.tensor(ft)).numpy()
+    for j in range(q):
+        span = slice(lo[j], hi[j])
+        v = x[span][(keys[span] < t[j]) & valid[span]]
+        assert int(cnt[j]) == len(v)
+        if len(v):
+            m2 = float(qq[j] - s[j] ** 2 / cnt[j])
+            assert m2 == pytest.approx(float(((v - v.mean()) ** 2).sum()), rel=1e-9, abs=1e-9)
+        if fcount[j]:
+            assert kth[j] == np.sort(keys[span][fkeys[span] < ft[j]])[k[j]]
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 64, 65, 777])
@@ -345,11 +538,12 @@ def sf001(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", ["win_median_rows", "win_quantile_running", "win_stddev_30d",
-                                  "win_var_pop_orders", "win_distinct_rows"])
+                                  "win_var_pop_orders", "win_distinct_rows",
+                                  "win_median_distinct_rows", "win_stddev_distinct_rows"])
 def test_phase26_windows_match_the_chip_oracle(sf001, name):
-    """Phase 26's five windows at SF 0.01 on the CPU: the groups and the
+    """Phase 26's seven windows at SF 0.01 on the CPU: the groups and the
     read-back rows equal chip_smoke's numpy oracle (written apart from the
-    port: sorted frames, exact integer moments, bitmask distinct counts),
+    port: sorted frames, exact integer moments, bitmask distinct sets),
     and the outer count(*) takes the dense route."""
     import chip_smoke as CS
 

@@ -1473,3 +1473,65 @@ def test_frame_windows_on_cuda_match_cpu(tmp_path):
             "SELECT p_partkey, median(p_name) OVER (PARTITION BY p_size ORDER BY p_partkey ROWS "
             "BETWEEN 2 PRECEDING AND 2 FOLLOWING) FROM part"):
         _close_rows(sorted(con.sql(sql).rows()), sorted(cpu.sql(sql).rows()), sql)
+
+
+@pytest.mark.gpu
+def test_h1_fetchone_and_h2_distinct_holistic_windows_on_cuda(tmp_path):
+    """H1 and H2 on a card connection: fetchone() gives the CPU port's
+    first row (None for an empty result); the eight holistic windows with
+    DISTINCT over the whole partition, the default frame, frames from
+    UNBOUNDED PRECEDING and moving frames give the CPU port's rows over
+    lineitem at SF 0.01; and the wavelet matrix's `moments` and `filter`
+    options give the CPU's answers on CUDA tensors."""
+    _need_cuda()
+    import numpy as np
+
+    import duckdb_tpu_torch
+    from duckdb_tpu_torch.ops.frame_stats import WaveletMatrix
+    from duckdb_tpu_torch.testing.tpch_gen import write_tables
+
+    rng = np.random.default_rng(1)
+    n, bits, fbits = 50_001, 8, 7
+    keys = torch.from_numpy(rng.integers(0, 2 ** bits, n))
+    fkeys = torch.from_numpy(rng.integers(0, 2 ** fbits, n))
+    x = torch.from_numpy(rng.normal(size=n) * 3 + 1e6)
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    lo = torch.from_numpy(rng.integers(0, n, n))
+    hi = torch.minimum(lo + torch.from_numpy(rng.integers(0, 400, n)), torch.tensor(n))
+    t = torch.from_numpy(rng.integers(0, 2 ** bits, n))
+    ft = torch.from_numpy(rng.integers(0, 2 ** fbits - 1, n))
+    k = (torch.rand(n, dtype=torch.float64) * (hi - lo) * 0.3).floor().to(torch.int64)
+    answers = []
+    for dev in ("cpu", "cuda"):
+        wm = WaveletMatrix(keys.to(dev), bits, moments=(x.to(dev), valid.to(dev), 10),
+                           filter=(fkeys.to(dev), fbits))
+        mom = wm.moments_below(lo.to(dev), hi.to(dev), t.to(dev))
+        kth = wm.kth(lo.to(dev), hi.to(dev), k.to(dev), ft.to(dev))
+        answers.append([v.cpu() for v in (kth, *mom)])
+    (c_kth, *c_mom), (g_kth, *g_mom) = answers
+    assert torch.equal(c_kth, g_kth)
+    for a, b in zip(c_mom, g_mom):
+        assert torch.allclose(a, b, rtol=1e-9, atol=1e-6)
+
+    write_tables(str(tmp_path), 0.01, seed=7)
+    con = duckdb_tpu_torch.connect()
+    con.load_tpch(str(tmp_path))
+    cpu = duckdb_tpu_torch.connect(device="cpu")
+    cpu.load_tpch(str(tmp_path))
+    first = "SELECT l_orderkey, l_linenumber FROM lineitem ORDER BY l_orderkey DESC, 2"
+    assert con.sql(first).fetchone() == cpu.sql(first).fetchone() is not None
+    assert con.execute("SELECT 1 WHERE false").fetchone() is None
+    part = "PARTITION BY l_suppkey"
+    order = "ORDER BY l_shipdate, l_orderkey, l_linenumber"
+    for over in (part, f"{part} {order}",
+                 f"{part} {order} ROWS BETWEEN UNBOUNDED PRECEDING AND 3 FOLLOWING",
+                 f"{part} {order} ROWS BETWEEN 10 PRECEDING AND CURRENT ROW",
+                 f"{part} ORDER BY l_shipdate DESC RANGE BETWEEN INTERVAL '20 days' PRECEDING "
+                 "AND CURRENT ROW"):
+        sql = ("SELECT l_orderkey, l_linenumber, " + ", ".join(
+            f"{fn} OVER ({over})" for fn in (
+                "median(DISTINCT l_quantity)", "quantile_cont(DISTINCT l_discount, 0.25)",
+                "stddev(DISTINCT l_extendedprice)", "stddev_samp(DISTINCT l_tax)",
+                "stddev_pop(DISTINCT l_quantity)", "var_samp(DISTINCT l_discount)",
+                "var_pop(DISTINCT l_tax)", "variance(DISTINCT l_quantity)")) + " FROM lineitem")
+        _close_rows(sorted(con.sql(sql).rows()), sorted(cpu.sql(sql).rows()), sql)

@@ -54,7 +54,8 @@ def test_scan_covers_the_new_modules():
             "duckdb_tpu_torch/parallel/shard.py", "tools/torch_fuzz.py",
             "tools/chip_phase23.py", "tools/chip_phase24.py",
             "duckdb_tpu_torch/api/arrow_interop.py", "tools/chip_phase25.py",
-            "duckdb_tpu_torch/ops/frame_stats.py", "tools/chip_phase26.py"} <= names
+            "duckdb_tpu_torch/ops/frame_stats.py", "tools/chip_phase26.py",
+            "duckdb_tpu_torch/testing/replay.py", "tools/chip_phase27.py"} <= names
 
 
 def test_cxx_scan_finds_what_it_forbids():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Phase 26 of chip_smoke.py alone: G1-G3's forms, then median,
-quantile_cont, stddev_samp and var_pop over frames and count(DISTINCT) over
-a ROWS frame at SF1 on one card, each held to a numpy oracle, its outer
+quantile_cont, stddev_samp and var_pop over frames, and count(DISTINCT),
+median(DISTINCT) and stddev(DISTINCT) over ROWS frames at SF1 on one card, each held to a numpy oracle, its outer
 count(*) through the grouped-sum kernel.
 
     python3 tools/chip_phase26.py
