@@ -14,14 +14,24 @@ Phases (any failure exits non-zero before the result lines):
    entry points with every kernel launch count reset just before and read
    just after; its rows are checked against an independent numpy group-by
    of the generated files (DECIMAL exact, DOUBLE within 1e-9 relative),
-   and its grouped sum must have taken the small-domain regime;
+   and its grouped sum must have taken the lane-private (small) regime;
 4. each kernel against its plain PyTorch version on the card, exactly
    equal, on the inputs the main path gave it and on edge cases (one and
-   256 slots, both sides of the regime threshold, 1 to 40 vectors,
+   256 slots, both sides of the nseg threshold, 1 to 40 vectors,
    negatives, dead ids holding values, sums that wrap, every row in one
-   slot, 4 live slots of 20, a ragged tail);
+   slot, 4 live slots of 20, a ragged tail; then int64 ids dead on both
+   sides, views 1-3 rows off a larger tensor, 1.7% and 24% live rows over
+   junk, the single regime's row threshold and one row either side, a
+   spilled chunk's K 19 at 32,768 rows, K 25 in two launches, 0-129
+   rows, ids and vectors that no row puts on one 16-byte boundary), each
+   timed, with the ids' dtype, the live share, the regime, the load width
+   (8 bytes where the alignments are mixed) and the device launches of one
+   wrapper call (`call_launches`: the kernel's launches
+   and any aten op of the call that works on the card), which must be the
+   kernel's launches alone (no conversion, copy or fill);
 5. timings with CUDA events at the main path's shapes (kernel, plain
-   version, one library call, and the least time the card could take),
+   version, one library call, the least time the card could take, and
+   the call's ids, live share and device launches, as in 4),
    the grouped sum over a sweep of shapes at N = 6,291,456, and Q1's
    median of 5 warm runs after 1 warm-up, as rows/s;
 6. the join path: TPC-H Q3, Q5, Q10 and Q12, each once with the counts
@@ -584,16 +594,17 @@ def max_abs_err(got, want) -> int:
     return max(errs)
 
 
-def edge_cases(device, small_max_nseg: int):
+def edge_cases(device, GS):
     """(name, dense, vectors, nseg) inputs that stress the kernel's contract.
 
     Ids are uniform over [-1, nseg + 2) (dead ones included) or drawn from a
     few given ids; in the second kind dead rows keep their values, which the
-    kernel must ignore."""
+    kernel must ignore. Then junk_cases'."""
     import torch
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     big = 1 << 20
+    small_max_nseg = GS.SMALL_MAX_NSEG
     cases = []
     for n, nseg, k, ids in (
             (big, 1, 1, None), (big, 1, 24, None), (big, 256, 1, None),
@@ -618,27 +629,148 @@ def edge_cases(device, small_max_nseg: int):
             vecs.append((torch.where(dead, 0, v) if ids is None else v).to(device))
         name = f"n={n} nseg={nseg} K={k}" + ("" if ids is None else f" ids {ids}")
         cases.append((name, dense.to(device), vecs, nseg))
+    return cases + junk_cases(device, GS, gen)
+
+
+# (n, nseg, K, live share, id dtype, row offset): int64 ids, views off a
+# 16-byte boundary, sparse live rows, the single regime's threshold, a
+# spilled chunk's K 19 and K 25 in two launches (also in the single regime),
+# row counts around one tile; then mixed alignments, where the offset is
+# (the ids', the vectors', the last vector's): no row puts every pointer on
+# a 16-byte boundary, so the lane-private tables load 8 bytes at a time
+JUNK_CASES = (
+    (1 << 20, 20, 16, 0.9, "int64", 0), (7_168, 26, 1, 0.5, "int64", 0),
+    (100_000, 216, 5, 0.9, "int64", 0), ((1 << 20) + 5, 20, 16, 0.9, "int32", 1),
+    (32_768, 20, 19, 1.0, "int32", 1), (1_000_003, 7, 2, 0.9, "int64", 3),
+    (1_000_003, 20, 4, 0.9, "int32", 2), (6_291_456, 1, 3, 0.017, "int32", 0),
+    (6_291_456, 20, 5, 0.24, "int32", 0), (6_291_456, 12, 1, 0.98, "int64", 0),
+    (32_768, 20, 19, 0.02, "int32", 0), ("threshold-1", 20, 4, 0.9, "int32", 0),
+    ("threshold", 20, 4, 0.9, "int32", 0), ("threshold+1", 20, 4, 0.9, "int32", 0),
+    (32_768, 20, 25, 0.95, "int32", 0), (1_000, 20, 19, 0.95, "int32", 1),
+    (1_024, 20, 25, 0.95, "int32", 3), (0, 7, 3, 0.8, "int32", 0),
+    (1, 7, 3, 0.8, "int32", 0), (127, 7, 3, 0.8, "int32", 0), (128, 7, 3, 0.8, "int32", 0),
+    (129, 7, 3, 0.8, "int32", 0),
+    (1_000, 20, 4, 0.9, "int32", (0, 1, 1)), (1_000, 20, 4, 0.9, "int64", (0, 1, 1)),
+    (1_000, 20, 5, 0.9, "int32", (0, 0, 1)), (1_000, 7, 2, 0.9, "int64", (0, 0, 1)),
+    (100_000, 20, 5, 0.9, "int32", (0, 1, 1)), (100_000, 20, 4, 0.9, "int64", (0, 1, 1)),
+    (1_000_003, 20, 5, 0.9, "int32", (0, 0, 1)), (100_000, 7, 2, 0.9, "int64", (0, 0, 1)))
+
+
+def junk_cases(device, GS, gen):
+    """JUNK_CASES as (name, dense, vectors, nseg): ids live with the given
+    share, else dead (negative, or past nseg up to 2^40 for int64 ids), and
+    every row of every vector, dead ones too, full-range junk; with a row
+    offset every tensor is a view that starts that many rows into a larger
+    one (an offset triple sets the ids', the vectors' and the last
+    vector's apart: "mixed alignment" in the name)."""
+    import torch
+
+    cases = []
+    for n, nseg, k, live_share, dtype, offset in JUNK_CASES:
+        if isinstance(n, str):
+            n = GS.SINGLE_MAX_ROWS + {"threshold-1": -1, "threshold": 0, "threshold+1": 1}[n]
+        ids_at, vecs_at, last_at = offset if isinstance(offset, tuple) else (offset,) * 3
+        total = n + max(ids_at, vecs_at, last_at)
+        far = 2**40 if dtype == "int64" else 2**31 - 1
+        live = torch.rand(total, generator=gen) < live_share
+        dead = torch.where(torch.rand(total, generator=gen) < 0.5,
+                           torch.randint(-far, 0, (total,), generator=gen),
+                           torch.randint(nseg, far, (total,), generator=gen))
+        dense = torch.where(live, torch.randint(0, nseg, (total,), generator=gen), dead)
+        dense = dense.to(getattr(torch, dtype)).to(device)[ids_at:ids_at + n]
+        vecs = [torch.randint(-(2**63 - 1), 2**63 - 1, (total,), generator=gen,
+                              dtype=torch.int64).to(device)[at:at + n]
+                for at in [vecs_at] * (k - 1) + [last_at]]
+        where = (f"mixed alignment: ids at row {ids_at}, vectors at {vecs_at}, the last at "
+                 f"{last_at}" if isinstance(offset, tuple) else f"row offset {offset}")
+        cases.append((f"n={n} nseg={nseg} K={k} {dtype} ids, {live_share:.1%} live, junk in "
+                      f"dead rows, {where}", dense, vecs, nseg))
     return cases
 
 
 def bound_of(dense, vecs, nseg):
     """(least ms, what bounds it, bytes, adds) for grouped_sum_i64 on these
-    inputs: every slot id read, the K values of live rows only (dead rows
-    contribute nothing), the (nseg, K) output written once; one int64 add
-    per live value."""
+    inputs: every slot id read at its own width (4 or 8 bytes), the K values
+    of live rows only (dead rows contribute nothing), the (nseg, K) output
+    written once; one int64 add per live value."""
     n, k = dense.shape[0], len(vecs)
     n_live = int(((dense >= 0) & (dense < nseg)).sum())
-    bytes_moved = n * 4 + n_live * 8 * k + nseg * k * 8
+    bytes_moved = n * dense.element_size() + n_live * 8 * k + nseg * k * 8
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = n_live * k / CUDA_CORE_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), \
         bytes_moved, n_live * k
 
 
-def time_kernel(GS, dense, vecs, nseg, reps):
-    """(kernel ms, plain ms, index_add_ ms) on these inputs."""
+# aten ops that allocate or make views: they launch nothing on the card
+NO_DEVICE_WORK = frozenset((
+    "empty", "empty_strided", "unbind", "select", "slice", "view", "alias", "as_strided",
+    "_reshape_alias", "detach", "t", "transpose", "expand", "squeeze", "unsqueeze",
+    "lift_fresh"))
+
+
+def call_launches(GS, fn):
+    """(kernel launches, other device work) of one call of fn, counted on
+    the host: the wrapper's launch count, and the name of every aten op the
+    call dispatches that does work on the card (any but NO_DEVICE_WORK's
+    allocations and views: a conversion, copy, clone or fill)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = []
+
+    class Dispatched(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    before = GS.grouped_sum_i64.launches
+    with Dispatched():
+        fn()
+    work = [str(f) for f in ops if f._overloadpacket.__name__ not in NO_DEVICE_WORK]
+    return GS.grouped_sum_i64.launches - before, work
+
+
+def call_profile(GS, dense, vecs, nseg) -> dict:
+    """How one wrapper call runs on the card: the ids' dtype, the live share
+    of the rows, its device launches (`call_launches`), its regime and the
+    width of its loads (16 or 8 bytes for the lane-private tables, one row
+    a lane for the large regime). Raises where a call on int32 or int64 ids
+    and contiguous tensors runs anything but the kernel's launches, one per
+    launch plan."""
     import torch
 
+    narrow = GS.grouped_sum_i64.narrow_launches
+    kernels, work = call_launches(GS, lambda: GS.grouped_sum_i64(dense, vecs, nseg))
+    narrow = GS.grouped_sum_i64.narrow_launches - narrow
+    n = dense.shape[0]
+    plans, k = 0, len(vecs)
+    while k:
+        k -= GS.launch_plan(nseg, k, n).vectors
+        plans += 1
+    taken = dense.dtype in (torch.int32, torch.int64) and dense.is_contiguous() \
+        and all(v.is_contiguous() for v in vecs)
+    if taken and (work or kernels != plans):
+        raise RuntimeError(f"grouped_sum_i64 at N={n} K={len(vecs)} nseg={nseg} made "
+                           f"{kernels} kernel launches and {work} on the card, expected "
+                           f"{plans} kernel launches and nothing else")
+    live = int(((dense >= 0) & (dense < nseg)).sum())
+    regime = GS.launch_plan(nseg, len(vecs), n).regime
+    return {"ids": str(dense.dtype).replace("torch.", ""), "live_share": live / max(n, 1),
+            "device_launches": kernels + len(work), "regime": regime,
+            "loads": "row a lane" if regime == "large" else "8-byte" if narrow else "16-byte"}
+
+
+def call_text(call) -> str:
+    return (f"ids {call['ids']}, live {100 * call['live_share']:.2f}%, "
+            f"{call['device_launches']} device launches per call, regime {call['regime']}, "
+            f"{call['loads']} loads")
+
+
+def time_kernel(GS, dense, vecs, nseg, reps):
+    """(kernel ms, plain ms, index_add_ ms, call_profile) on these inputs."""
+    import torch
+
+    call = call_profile(GS, dense, vecs, nseg)
     d64 = dense.to(torch.int64)
     d64 = torch.where((d64 < 0) | (d64 >= nseg), nseg, d64)
     mat = torch.stack(vecs, dim=1)
@@ -646,7 +778,7 @@ def time_kernel(GS, dense, vecs, nseg, reps):
     kernel_ms = cuda_ms(lambda: GS.grouped_sum_i64(dense, vecs, nseg), reps)
     plain_ms = cuda_ms(lambda: GS.grouped_sum_i64_plain(dense, vecs, nseg), reps)
     library_ms = cuda_ms(lambda: acc.index_add_(0, d64, mat), reps)
-    return kernel_ms, plain_ms, library_ms
+    return kernel_ms, plain_ms, library_ms, call
 
 
 def count_syncs(fn) -> int:
@@ -1286,7 +1418,7 @@ def sharded_phase(con, card, recording, recorded, launches_by_query, shapes, rep
             recorded.clear()
             grouped_mod.grouped_sum_i64 = recording
             GS.grouped_sum_i64.launches = 0
-            GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
+            GS.grouped_sum_i64.regime_launches = {"single": 0, "small": 0, "large": 0}
             sharded.routes.clear()
             shard.COPIED["bytes"] = 0
             t0 = time.perf_counter()
@@ -1337,7 +1469,7 @@ def sharded_phase(con, card, recording, recorded, launches_by_query, shapes, rep
                     continue
                 timed.add((n_q, k_q, nseg, dense.device))
                 with torch.cuda.device(dense.device):  # cuda_ms's events on that card
-                    k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+                    k_ms, p_ms, l_ms, call = time_kernel(GS, dense, vecs, nseg, reps)
                 b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
                 if k_ms * BOUND_SLACK < b_ms:
                     return (f"grouped_sum_i64 on {dense.device} at {name}'s shard shape timed "
@@ -1346,10 +1478,11 @@ def sharded_phase(con, card, recording, recorded, launches_by_query, shapes, rep
                 print(f"grouped_sum_i64 at {name}_sharded's shard shape N={n_q} K={k_q} "
                       f"nseg={nseg} on {dense.device} of {card}: max abs err 0, kernel "
                       f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ {l_ms:.4f} ms, bound "
-                      f"{b_ms:.4f} ms by {b_by} ({b_bytes} bytes, {b_adds} adds)")
+                      f"{b_ms:.4f} ms by {b_by} ({b_bytes} bytes, {b_adds} adds); "
+                      f"{call_text(call)}")
                 shapes.append({"query": f"{name}_sharded", "n": n_q, "k": k_q, "nseg": nseg,
                                "max_abs_err": 0, "kernel_ms": k_ms, "plain_ms": p_ms,
-                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms, **call})
             times = []
             for _ in range(4):
                 t0 = time.perf_counter()
@@ -1430,7 +1563,7 @@ def out_of_core_phase(con, card, recording, recorded, launches_by_query, shapes,
         recorded.clear()
         grouped_mod.grouped_sum_i64 = recording
         GS.grouped_sum_i64.launches = 0
-        GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
+        GS.grouped_sum_i64.regime_launches = {"single": 0, "small": 0, "large": 0}
         con.routes.clear()
         t0 = time.perf_counter()
         got = con.sql(sql).rows()
@@ -1466,15 +1599,15 @@ def out_of_core_phase(con, card, recording, recorded, launches_by_query, shapes,
             if (n_q, k_q, nseg) in timed:
                 continue
             timed.add((n_q, k_q, nseg))
-            k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+            k_ms, p_ms, l_ms, call = time_kernel(GS, dense, vecs, nseg, reps)
             b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
             print(f"grouped_sum_i64 at {name}_ooc's shape N={n_q} K={k_q} nseg={nseg} on "
                   f"{card}: max abs err {err}, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                   f"index_add_ {l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, "
-                  f"{b_adds} adds)")
+                  f"{b_adds} adds); {call_text(call)}")
             shapes.append({"query": f"{name}_ooc", "n": n_q, "k": k_q, "nseg": nseg,
                            "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
-                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms, **call})
         med, times = warm_median(con, sql, in_memory)
         if med is None:
             return f"{name}: {times}"
@@ -1611,15 +1744,15 @@ class Steps:
             if (n_q, k_q, nseg) in timed:
                 continue
             timed.add((n_q, k_q, nseg))
-            k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, self.reps)
+            k_ms, p_ms, l_ms, call = time_kernel(GS, dense, vecs, nseg, self.reps)
             b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
             print(f"grouped_sum_i64 at {name}'s shape N={n_q} K={k_q} nseg={nseg} on "
                   f"{self.card}: max abs err 0, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                   f"index_add_ {l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, "
-                  f"{b_adds} adds)")
+                  f"{b_adds} adds); {call_text(call)}")
             self.shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg,
                                 "max_abs_err": 0, "kernel_ms": k_ms, "plain_ms": p_ms,
-                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms, **call})
         return ""
 
 
@@ -2857,12 +2990,12 @@ def launch_checker(GS, recorded, timed, shapes, worst, label, reps):
                 if shape in timed:
                     continue
                 timed.add(shape)
-                k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+                k_ms, p_ms, l_ms, call = time_kernel(GS, dense, vecs, nseg, reps)
                 b_ms, b_by, _, _ = bound_of(dense, vecs, nseg)
                 shapes.append({"query": label, "n": shape[0], "k": shape[1],
                                "nseg": nseg, "max_abs_err": 0, "kernel_ms": k_ms,
                                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                               "library_ms": l_ms})
+                               "library_ms": l_ms, **call})
             return ""
         finally:
             recorded.clear()
@@ -3064,11 +3197,11 @@ def phase24_rank(rank, world, backend, local, port, data_dir, out_dir, device_ty
                for args, out in recorded), default=0)
     if device.type == "cuda" and recorded:  # the first shard's shape, timed once
         dense, vecs = TS.q1_partial_inputs(*recorded[0][0])
-        k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, 8, 20)
+        k_ms, p_ms, l_ms, call = time_kernel(GS, dense, vecs, 8, 20)
         b_ms, b_by, _, _ = bound_of(dense, vecs, 8)
         out["kernel_shape"] = {"n": dense.shape[0], "k": len(vecs), "nseg": 8, "kernel_ms": k_ms,
                                "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-                               "bound_by": b_by}
+                               "bound_by": b_by, **call}
     sync()
     out["q1_sums"] = torch.stack(sums).cpu().tolist()
     # every rank's launches and error, read on each rank in one all_gather
@@ -4166,7 +4299,7 @@ def main() -> int:
 
     grouped_mod.grouped_sum_i64 = recording
     GS.grouped_sum_i64.launches = 0
-    GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
+    GS.grouped_sum_i64.regime_launches = {"single": 0, "small": 0, "large": 0}
     t0 = time.perf_counter()
     got = con.sql(Q1).rows()
     torch.cuda.synchronize()
@@ -4177,7 +4310,8 @@ def main() -> int:
     if launches < 1:
         return fail("Q1 did not launch the grouped_sum_i64 kernel")
     if regime_launches["small"] < 1:
-        return fail(f"Q1's grouped sum missed the small-domain regime: {regime_launches}")
+        return fail(f"Q1's grouped sum missed the lane-private (small) regime: "
+                    f"{regime_launches}")
     if any(d.device.type != "cuda" for d, _, _ in recorded):
         return fail("the grouped sum ran on a tensor off the card")
     want = numpy_q1(DATA)
@@ -4186,35 +4320,47 @@ def main() -> int:
         return fail(f"Q1 rows differ from the numpy reference: {bad}")
     dense_q1, vecs_q1, nseg_q1 = recorded[-1]
     n_q1, k_q1 = dense_q1.shape[0], len(vecs_q1)
-    plan_q1 = GS.launch_plan(nseg_q1, k_q1)
+    plan_q1 = GS.launch_plan(nseg_q1, k_q1, n_q1)
     print(f"Q1 (first run, columns load to the card): {first_s:.3f} s, {len(got)} rows "
           f"match numpy; grouped_sum_i64 launches {launches} by regime "
           f"{regime_launches}, shape N={n_q1} K={k_q1} nseg={nseg_q1}, plan {plan_q1}")
     for r in got:
         print("  ", r)
 
-    # 4. kernel against its plain version, exactly
+    # 4. kernel against its plain version, exactly; each edge case's call
+    # profiled (ids, live share, device launches) and timed
     worst = 0
+    edge_shapes = []
     for name, dense, vecs, nseg in [("Q1 inputs", dense_q1, vecs_q1, nseg_q1)] \
-            + edge_cases(device, GS.SMALL_MAX_NSEG):
+            + edge_cases(device, GS):
         err = max_abs_err(GS.grouped_sum_i64(dense, vecs, nseg),
                           GS.grouped_sum_i64_plain(dense, vecs, nseg))
         torch.cuda.synchronize()
-        print(f"kernel vs plain, {name}: max abs err {err}")
         if err:
             return fail(f"grouped_sum_i64 disagrees with its plain version on {name}")
         worst = max(worst, err)
+        k_ms, p_ms, l_ms, call = time_kernel(GS, dense, vecs, nseg, 20)
+        if "mixed alignment" in name and call["regime"] != "large" \
+                and call["loads"] != "8-byte":
+            return fail(f"grouped_sum_i64 took {call['loads']} loads on {name}")
+        b_ms, b_by, _, _ = bound_of(dense, vecs, nseg)
+        print(f"kernel vs plain, {name}: max abs err {err}; kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, index_add_ {l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+              f"{call_text(call)}")
+        edge_shapes.append({"case": name, "max_abs_err": err, "kernel_ms": k_ms,
+                            "plain_ms": p_ms, "bound_ms": b_ms, "library_ms": l_ms, **call})
 
     # 5. timings at the Q1 shape
     reps = 50
-    kernel_ms, plain_ms, library_ms = time_kernel(GS, dense_q1, vecs_q1, nseg_q1, reps)
+    kernel_ms, plain_ms, library_ms, call_q1 = time_kernel(GS, dense_q1, vecs_q1, nseg_q1, reps)
     kernel_ms2 = cuda_ms(lambda: GS.grouped_sum_i64(dense_q1, vecs_q1, nseg_q1), reps)
     bound_ms, bound_by, bytes_moved, adds = bound_of(dense_q1, vecs_q1, nseg_q1)
     print(f"grouped_sum_i64 at N={n_q1} K={k_q1} nseg={nseg_q1} on {card}: kernel "
           f"{kernel_ms:.4f} ms (again {kernel_ms2:.4f}), plain {plain_ms:.4f} ms, "
           f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
           f"({bytes_moved} bytes at 3.35 TB/s = {bytes_moved / HBM_BYTES_PER_S * 1e3:.4f} "
-          f"ms; {adds} int64 adds at 67 T/s = {adds / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms)")
+          f"ms; {adds} int64 adds at 67 T/s = {adds / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms); "
+          f"{call_text(call_q1)}")
 
     swept = sweep(GS, card)
 
@@ -4278,7 +4424,7 @@ def main() -> int:
         recorded.clear()
         grouped_mod.grouped_sum_i64 = recording
         GS.grouped_sum_i64.launches = 0
-        GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
+        GS.grouped_sum_i64.regime_launches = {"single": 0, "small": 0, "large": 0}
         con.routes.clear()
         t0 = time.perf_counter()
         got = con.sql(sql).rows()
@@ -4370,15 +4516,15 @@ def main() -> int:
                 if (n_q, k_q, nseg) in timed:
                     continue
                 timed.add((n_q, k_q, nseg))
-            k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+            k_ms, p_ms, l_ms, call = time_kernel(GS, dense, vecs, nseg, reps)
             b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
             print(f"grouped_sum_i64 at {name}'s shape N={n_q} K={k_q} nseg={nseg} on "
                   f"{card}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ "
                   f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, "
-                  f"{b_adds} adds), regime {GS.launch_plan(nseg, k_q).regime}")
+                  f"{b_adds} adds); {call_text(call)}")
             shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg,
                            "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
-                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms, **call})
         med, times = warm_median(con, sql, got,
                                  exact=name not in ("general_agg", "fn_math"))
         if med is None:
@@ -4425,7 +4571,7 @@ def main() -> int:
             recorded.clear()
             grouped_mod.grouped_sum_i64 = recording
             GS.grouped_sum_i64.launches = 0
-            GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
+            GS.grouped_sum_i64.regime_launches = {"single": 0, "small": 0, "large": 0}
             con.routes.clear()
             t0 = time.perf_counter()
             got = con.sql(sql).rows()
@@ -4470,15 +4616,15 @@ def main() -> int:
                 if (n_q, k_q, nseg) in timed:
                     continue
                 timed.add((n_q, k_q, nseg))
-                k_ms, p_ms, l_ms = time_kernel(GS, dense, vecs, nseg, reps)
+                k_ms, p_ms, l_ms, call = time_kernel(GS, dense, vecs, nseg, reps)
                 b_ms, b_by, b_bytes, b_adds = bound_of(dense, vecs, nseg)
                 print(f"grouped_sum_i64 at {name}'s shape N={n_q} K={k_q} nseg={nseg} on "
                       f"{card}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ "
                       f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_bytes} bytes, "
-                      f"{b_adds} adds), regime {GS.launch_plan(nseg, k_q).regime}")
+                      f"{b_adds} adds); {call_text(call)}")
                 shapes.append({"query": name, "n": n_q, "k": k_q, "nseg": nseg,
                                "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
-                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms, **call})
             runs = warm_runs.get(name, 5)
             med, times = warm_median(con, sql, got, runs=runs,
                                      exact=not any(isinstance(v, float) for r in got for v in r))
@@ -4706,7 +4852,8 @@ def main() -> int:
         "regime": plan_q1.regime, "regime_launches": regime_launches,
         "max_abs_err": worst, "ms": kernel_ms, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "query_shapes": shapes, "calls_by_site": calls_by_site,
+        "library_ms": library_ms, "query_shapes": shapes, "edge_cases": edge_shapes,
+        "calls_by_site": calls_by_site,
         "sweep": [{key: r[key] for key in ("k", "nseg", "live", "kernel_ms", "index_add_ms")}
                   for r in swept]}]}))
     print(json.dumps({"ok": True, "device": {

@@ -16,14 +16,64 @@ def _need_cuda():
         pytest.skip("needs a CUDA device")
 
 
-def _expected_launches(k, nseg):
+def _expected_launches(k, nseg, n):
     """Launches and launches by regime that the wrapper's plan makes for k vectors."""
-    by_regime = {"small": 0, "large": 0}
+    by_regime = {"single": 0, "small": 0, "large": 0}
     while k:
-        plan = GS.launch_plan(nseg, k)
+        plan = GS.launch_plan(nseg, k, n)
         by_regime[plan.regime] += 1
         k -= plan.vectors
     return sum(by_regime.values()), by_regime
+
+
+def _junk_case(n, k, nseg, live_share, id_dtype=torch.int32, offset=0, seed=0):
+    """Ids live with probability live_share, else dead: negative or past
+    nseg (int64 ids also past 2^32); every vector row, dead ones too, holds
+    a full-range value; with offset every tensor is a view that starts
+    offset rows into a larger one, and an offset triple sets the ids', the
+    vectors' and the last vector's apart. On the card."""
+    gen = torch.Generator().manual_seed(seed)
+    ids_at, vecs_at, last_at = offset if isinstance(offset, tuple) else (offset,) * 3
+    total = n + max(ids_at, vecs_at, last_at)
+    live = torch.rand(total, generator=gen) < live_share
+    far = 2**40 if id_dtype == torch.int64 else 2**31 - 1
+    dead = torch.where(torch.rand(total, generator=gen) < 0.5,
+                       torch.randint(-far, 0, (total,), generator=gen),
+                       torch.randint(nseg, far, (total,), generator=gen))
+    dense = torch.where(live, torch.randint(0, nseg, (total,), generator=gen), dead)
+    dense = dense.to(id_dtype).cuda()[ids_at:ids_at + n]
+    vecs = [torch.randint(-(2**63 - 1), 2**63 - 1, (total,), generator=gen,
+                          dtype=torch.int64).cuda()[at:at + n]
+            for at in [vecs_at] * (k - 1) + [last_at]]
+    return dense, vecs
+
+
+def _check_one_call(dense, vecs, nseg):
+    """The kernel equals the plain version bit for bit, and one wrapper call
+    runs only the kernel's launches on the card: no conversion, copy or
+    fill (chip_smoke.call_launches: the wrapper's launch count and every
+    aten op the call dispatches), exactly one launch for each plan (one in
+    all at up to MAX_K vectors), and the pointers stay as given (no clone).
+    Returns the launches by regime and those that loaded 8 bytes at a time."""
+    import chip_smoke
+
+    n, k = dense.shape[0], len(vecs)
+    launches, by_regime = _expected_launches(k, nseg, n)
+    ptrs = [dense.data_ptr()] + [v.data_ptr() for v in vecs]
+    GS.grouped_sum_i64.regime_launches = {"single": 0, "small": 0, "large": 0}
+    GS.grouped_sum_i64.narrow_launches = 0
+    got = []
+    kernels, work = chip_smoke.call_launches(
+        GS, lambda: got.append(GS.grouped_sum_i64(dense, vecs, nseg)))
+    assert kernels == launches and not work, (kernels, work)
+    assert GS.grouped_sum_i64.regime_launches == by_regime
+    assert [dense.data_ptr()] + [v.data_ptr() for v in vecs] == ptrs
+    want = GS.grouped_sum_i64_plain(dense, vecs, nseg)
+    torch.cuda.synchronize()
+    assert len(got[0]) == k
+    for g, w in zip(got[0], want):
+        assert torch.equal(g, w)
+    return by_regime, GS.grouped_sum_i64.narrow_launches
 
 
 @pytest.mark.gpu
@@ -56,9 +106,9 @@ def test_grouped_sum_kernel_matches_plain(n, k, nseg, ids):
         vecs.append((torch.where(dead, 0, v) if ids is None else v).cuda())
     dense = dense.cuda()
     GS.grouped_sum_i64.launches = 0
-    GS.grouped_sum_i64.regime_launches = {"small": 0, "large": 0}
+    GS.grouped_sum_i64.regime_launches = {"single": 0, "small": 0, "large": 0}
     got = GS.grouped_sum_i64(dense, vecs, nseg)
-    launches, by_regime = _expected_launches(k, nseg)
+    launches, by_regime = _expected_launches(k, nseg, n)
     assert GS.grouped_sum_i64.launches == launches
     assert GS.grouped_sum_i64.regime_launches == by_regime
     want = GS.grouped_sum_i64_plain(dense, vecs, nseg)
@@ -70,17 +120,122 @@ def test_grouped_sum_kernel_matches_plain(n, k, nseg, ids):
 
 @pytest.mark.gpu
 def test_grouped_sum_kernel_takes_unaligned_views():
-    """Vectors that start 8 bytes past a 16-byte boundary are copied, not refused."""
+    """Vectors that start 8 bytes past a 16-byte boundary, with the ids
+    likewise one row in, are read where they lie, with no copy, in the
+    single regime and the small one: the 16-byte loads start one row in."""
     _need_cuda()
-    n, nseg = 10_001, 20
-    gen = torch.Generator().manual_seed(1)
-    dense = torch.randint(0, nseg, (n + 1,), generator=gen, dtype=torch.int32).cuda()[1:]
-    base = torch.randint(-1000, 1000, (3, n + 1), generator=gen, dtype=torch.int64).cuda()
-    vecs = [base[j, 1:] for j in range(3)]
-    got = GS.grouped_sum_i64(dense, vecs, nseg)
-    want = GS.grouped_sum_i64_plain(dense, vecs, nseg)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    for n in (1_001, 1_000_001):
+        nseg = 20
+        gen = torch.Generator().manual_seed(1)
+        dense = torch.randint(0, nseg, (n + 1,), generator=gen, dtype=torch.int32).cuda()[1:]
+        base = torch.randint(-1000, 1000, (3, n + 1), generator=gen, dtype=torch.int64).cuda()
+        vecs = [base[j, 1:] for j in range(3)]
+        assert _check_one_call(dense, vecs, nseg)[1] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1_000, 100_000])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("offset", [(0, 1, 1), (0, 0, 1), (1, 0, 0)])
+def test_grouped_sum_kernel_mixed_alignments_load_8_bytes(n, id_dtype, offset):
+    """Ids and vectors that no row puts on one 16-byte boundary (ids at row
+    0 and vectors one row in; one vector a row off the others; the ids one
+    row in and the vectors at row 0), in the single regime and the
+    small one: the lane-private tables load 8 bytes at a time, in one
+    launch, bit-equal to the plain version."""
+    _need_cuda()
+    dense, vecs = _junk_case(n, 5, 20, 0.9, id_dtype, offset, seed=n + sum(offset))
+    by_regime, narrow = _check_one_call(dense, vecs, 20)
+    assert by_regime == {"single": int(n <= GS.SINGLE_MAX_ROWS),
+                         "small": int(n > GS.SINGLE_MAX_ROWS), "large": 0}
+    assert narrow == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,nseg", [(7_168, 1, 26), (100_000, 3, 20), (1_000_003, 2, 7),
+                                      (1_000_003, 5, 216)])
+@pytest.mark.parametrize("id_dtype,offset", [(torch.int32, 0), (torch.int64, 0),
+                                             (torch.int32, 1), (torch.int32, 3),
+                                             (torch.int64, 1), (torch.int64, 2)])
+def test_grouped_sum_kernel_int64_ids_and_views_in_one_launch(n, k, nseg, id_dtype, offset):
+    """int64 ids (dead ones negative and past 2^32) and views at row offsets
+    1-3 of larger tensors, in every regime: bit-equal to the plain version,
+    one launch, no conversion and no clone (the pointers stay as given)."""
+    _need_cuda()
+    dense, vecs = _junk_case(n, k, nseg, 0.7, id_dtype, offset, seed=n + k + offset)
+    _check_one_call(dense, vecs, nseg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,nseg,live_share", [
+    (6_291_456, 3, 1, 0.017),     # TPC-H Q6's live share
+    (6_291_456, 5, 20, 0.24),     # win_rank_lineitem's
+    (6_291_456, 1, 12, 0.0),      # no live row at all
+    (32_768, 19, 20, 0.02),       # sparse at a spilled chunk's shape
+    (1_000, 19, 20, 0.02),        # sparse in the single regime
+])
+def test_grouped_sum_kernel_skips_junk_of_sparse_live_rows(n, k, nseg, live_share):
+    """Sparse live rows whose dead rows hold full-range junk: the kernel
+    skips the values of dead rows and still equals the plain version."""
+    _need_cuda()
+    dense, vecs = _junk_case(n, k, nseg, live_share, seed=k + nseg)
+    _check_one_call(dense, vecs, nseg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+@pytest.mark.parametrize("k,nseg", [(4, 20), (2, 216)])
+def test_grouped_sum_kernel_at_the_single_threshold(delta, k, nseg):
+    """One row either side of SINGLE_MAX_ROWS: the single regime up to it
+    (one launch) over the small regime's slots, the persistent grid past it
+    and over 216 slots; equal to plain on all."""
+    _need_cuda()
+    n = GS.SINGLE_MAX_ROWS + delta
+    dense, vecs = _junk_case(n, k, nseg, 0.9, seed=7)
+    by_regime, _ = _check_one_call(dense, vecs, nseg)
+    assert by_regime["single"] == (1 if delta <= 0 and nseg <= GS.SMALL_MAX_NSEG else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,by_regime", [
+    (32_768, 19, {"small": 1}), (32_768, 24, {"small": 1}), (32_768, 25, {"small": 2}),
+    (1_000, 19, {"single": 1}), (1_000, 25, {"single": 2})])
+def test_grouped_sum_kernel_spill_chunk_shapes(n, k, by_regime):
+    """A spilled chunk's shape (32,768 rows, K 19, 20 slots, a view one row
+    into its column) is one launch, and so is K 19 in the single regime;
+    K 25 takes two launches (24 + 1)."""
+    _need_cuda()
+    dense, vecs = _junk_case(n, k, 20, 0.95, offset=1, seed=k)
+    assert _check_one_call(dense, vecs, 20)[0] == {"single": 0, "small": 0, "large": 0,
+                                                   **by_regime}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,nseg,id_dtype,offset", [
+    (1_000, 19, 20, torch.int32, 1), (1_000, 4, 20, torch.int64, (0, 1, 1)),
+    (32_768, 19, 20, torch.int32, 1), (7_168, 1, 26, torch.int64, 0),
+    (327_680, 4, 216, torch.int32, 0)])
+def test_grouped_sum_kernel_one_device_kernel_by_the_profiler(n, k, nseg, id_dtype, offset):
+    """torch.profiler's device events of warm wrapper calls (the same helper
+    as tools/grouped_sum_shapes.py) hold the kernel alone: no conversion,
+    copy or fill kernel, and one kernel a call."""
+    import importlib.util
+    import os
+
+    _need_cuda()
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "tools", "grouped_sum_shapes.py")
+    spec = importlib.util.spec_from_file_location("grouped_sum_shapes", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    dense, vecs = _junk_case(n, k, nseg, 0.9, id_dtype, offset, seed=n + k)
+    got = []
+    events = tool.device_ops(lambda: got.append(GS.grouped_sum_i64(dense, vecs, nseg)),
+                             calls=3, launched=lambda: GS.grouped_sum_i64.launches)
+    assert events is not None, "torch.profiler lost events in every trace"
+    names = [e.name for e in events]
+    assert len(names) == 3 and all("grouped_sum" in name for name in names), names
+    for g, w in zip(got[-1], GS.grouped_sum_i64_plain(dense, vecs, nseg)):
         assert torch.equal(g, w)
 
 

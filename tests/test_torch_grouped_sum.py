@@ -106,3 +106,115 @@ def test_rejects_mismatched_vectors():
         GS.grouped_sum_i64(dense, [torch.zeros(8, dtype=torch.int32)], 2)
     with pytest.raises(ValueError):
         GS.grouped_sum_i64(dense, [torch.zeros(9, dtype=torch.int64)], 2)
+
+
+def _pallas(dense, vecs, nseg):
+    return [np.asarray(w) for w in pallas_agg.grouped_sum_i64(
+        jnp.asarray(dense), [jnp.asarray(v) for v in vecs], nseg)]
+
+
+def _port(dense, vecs, nseg):
+    GS.grouped_sum_i64.launches = 0
+    got = GS.grouped_sum_i64(torch.from_numpy(dense), [torch.from_numpy(v) for v in vecs],
+                             nseg)
+    assert GS.grouped_sum_i64.launches == 0  # CPU tensors: plain version
+    assert all(g.dtype == torch.int64 and g.shape == (nseg,) for g in got)
+    return [g.numpy() for g in got]
+
+
+def _junk_inputs(n, k, nseg, seed, live_share, id_dtype=np.int32):
+    """Ids live with probability live_share, else dead: negative (down to
+    int32's least) or past nseg (up to int32's greatest); every row of every
+    vector, dead ones too, holds a full-range value."""
+    rng = np.random.default_rng(seed)
+    live = rng.random(n) < live_share
+    dead_ids = np.where(rng.random(n) < 0.5,
+                        rng.integers(-2**31, 0, n), rng.integers(nseg, 2**31, n))
+    dense = np.where(live, rng.integers(0, nseg, n), dead_ids).astype(id_dtype)
+    vecs = [rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64, endpoint=True)
+            for _ in range(k)]
+    return dense, vecs
+
+
+@pytest.mark.parametrize("n,k,nseg", [(1000, 1, 7), (5000, 3, 26), (20000, 16, 20),
+                                      (4096, 9, 256)])
+def test_int64_ids_match_pallas(n, k, nseg):
+    """int64 slot ids, dead ones of both signs and past nseg, held to the
+    JAX package's kernel: the port takes them as they are (the kernel
+    reads 8-byte ids with no conversion)."""
+    dense, vecs = _junk_inputs(n, k, nseg, seed=n + k, live_share=0.7, id_dtype=np.int64)
+    assert dense.dtype == np.int64 and (dense < 0).any() and (dense >= nseg).any()
+    for g, w in zip(_port(dense, vecs, nseg), _pallas(dense, vecs, nseg)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
+def test_views_at_row_offsets_match_pallas(offset, id_dtype):
+    """Ids and vectors that are views starting 1-3 rows into larger arrays,
+    as a chunk of a column is (on the card: off a 16-byte boundary)."""
+    n, k, nseg = 10_001, 5, 20
+    dense, vecs = _junk_inputs(n + offset, k, nseg, seed=offset, live_share=0.9,
+                               id_dtype=id_dtype)
+    dense, vecs = dense[offset:], [v[offset:] for v in vecs]
+    got = _port(dense, vecs, nseg)
+    want = _pallas(np.ascontiguousarray(dense), [np.ascontiguousarray(v) for v in vecs], nseg)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("live_share", [0.01, 0.02])
+@pytest.mark.parametrize("k,nseg", [(3, 1), (5, 20)])
+def test_sparse_live_rows_with_junk_match_pallas(live_share, k, nseg):
+    """1-2% live rows (TPC-H Q6's share) whose dead rows hold full-range
+    junk: neither version may add it."""
+    dense, vecs = _junk_inputs(60_000, k, nseg, seed=k + nseg, live_share=live_share)
+    for g, w in zip(_port(dense, vecs, nseg), _pallas(dense, vecs, nseg)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129])
+def test_edge_row_counts_match_pallas(n):
+    """Row counts around one warp tile (128 rows) and none at all."""
+    k, nseg = 3, 7
+    dense, vecs = _junk_inputs(n, k, nseg, seed=n, live_share=0.8)
+    got = _port(dense, vecs, nseg)
+    if n == 0:
+        want = [np.zeros(nseg, np.int64)] * k
+    else:
+        want = _pallas(dense, vecs, nseg)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("nseg,k", [(1, 1), (7, 2), (20, 19), (26, 1), (216, 9),
+                                    (GS.SMALL_MAX_NSEG, 24)])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_launch_plan_single_threshold(nseg, k, delta):
+    """Inputs of up to SINGLE_MAX_ROWS rows over the small regime's slots
+    take its lane-private tables in one block per group of vectors, with the
+    persistent grid's tables and groups; one row more the persistent grid.
+    Larger domains take the large regime on both sides."""
+    n = GS.SINGLE_MAX_ROWS + delta
+    plan = GS.launch_plan(nseg, k, n)
+    persistent = GS.launch_plan(nseg, k)
+    if delta <= 0 and nseg <= GS.SMALL_MAX_NSEG:
+        assert plan.regime == "single"
+        assert plan == persistent._replace(regime="single")
+        assert plan.vectors == min(k, GS.MAX_K)
+        assert plan.group in GS.GROUPS and plan.group <= plan.vectors
+        assert plan.smem == GS.WARPS * 32 * 8 * (nseg + 1) * plan.group
+        assert 2 * (plan.smem + GS.SMEM_BLOCK_RESERVED) <= GS.SMEM_SM
+    else:
+        assert plan == persistent
+        assert plan.regime == ("small" if nseg <= GS.SMALL_MAX_NSEG else "large")
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 1_024, 1_025])
+def test_launch_plan_single_follows_rows(n):
+    """The single regime up to the threshold whatever K is (K 19 over 20
+    slots: tables of 2 vectors, 86,016 bytes a block); past it the
+    persistent grid with the same tables."""
+    plan = GS.launch_plan(20, 19, n)
+    regime = "single" if n <= GS.SINGLE_MAX_ROWS else "small"
+    assert plan == GS.LaunchPlan(regime, 19, 2, 86_016)
